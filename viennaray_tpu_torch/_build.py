@@ -1,0 +1,116 @@
+"""Builds the CUDA kernels of ``csrc/`` into one shared library and loads it.
+
+``nvcc`` compiles every ``*.cu`` for ``sm_90a`` (one process per source, all
+started together), links the objects into one shared library with a plain C
+interface, and ``ctypes`` loads it. The build happens at first use, into
+``build/`` beside the package, and again whenever a hash of the sources
+changes. Nothing here runs when the module is imported.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import time
+from pathlib import Path
+
+CSRC = Path(__file__).resolve().parent / "csrc"
+BUILD_DIR = Path(__file__).resolve().parent.parent / "build" / "viennaray_tpu_torch"
+NVCC_FLAGS = (
+    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+    "-Xcompiler", "-fPIC",
+)
+
+_ptr = ctypes.c_void_p
+_SIGNATURES = {
+    # org dir prims chunk_bbs perm | n_rays npad pt t_near | t prim hit stream
+    "vr_disk_nearest_hit": [
+        _ptr, _ptr, _ptr, _ptr, _ptr, ctypes.c_int, ctypes.c_int,
+        ctypes.c_int, ctypes.c_float, _ptr, _ptr, _ptr, _ptr,
+    ],
+    # ids w | n_entries n_bins | out scratch stream
+    "vr_flux_histogram": [
+        _ptr, _ptr, ctypes.c_longlong, ctypes.c_int, _ptr, _ptr, _ptr,
+    ],
+}
+
+_library = None
+build_seconds = 0.0  # time the last build of this process spent in nvcc
+
+
+def _find_nvcc() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    for root in (os.environ.get("CUDA_HOME"), "/usr/local/cuda"):
+        if root and (Path(root) / "bin" / "nvcc").exists():
+            return str(Path(root) / "bin" / "nvcc")
+    raise RuntimeError(
+        "nvcc not found: the CUDA kernels of viennaray_tpu_torch cannot be "
+        "built on this machine"
+    )
+
+
+def _source_hash() -> str:
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for path in sorted(CSRC.iterdir()):
+        if path.suffix in (".cu", ".cuh"):
+            h.update(path.name.encode())
+            h.update(path.read_bytes())
+    return h.hexdigest()[:16]
+
+
+def _run_all(commands):
+    """Start every command at once; raise with the output of any that fails."""
+    procs = [
+        subprocess.Popen(
+            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True
+        )
+        for cmd in commands
+    ]
+    outputs = [p.communicate()[0] for p in procs]
+    for cmd, proc, out in zip(commands, procs, outputs):
+        if proc.returncode != 0:
+            raise RuntimeError(
+                f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n{out}"
+            )
+    return outputs
+
+
+def _build(target: Path) -> None:
+    global build_seconds
+    nvcc = _find_nvcc()
+    target.parent.mkdir(parents=True, exist_ok=True)
+    work = target.parent / (target.stem + ".tmp")
+    work.mkdir(exist_ok=True)
+    sources = sorted(CSRC.glob("*.cu"))
+    objects = [work / (src.stem + ".o") for src in sources]
+    t0 = time.perf_counter()
+    _run_all([
+        [nvcc, *NVCC_FLAGS, "-c", str(src), "-o", str(obj)]
+        for src, obj in zip(sources, objects)
+    ])
+    linked = work / target.name
+    _run_all([[nvcc, "-shared", "-o", str(linked), *map(str, objects)]])
+    os.replace(linked, target)
+    shutil.rmtree(work, ignore_errors=True)
+    build_seconds = time.perf_counter() - t0
+
+
+def library() -> ctypes.CDLL:
+    """The kernels' shared library, built first if its sources changed."""
+    global _library
+    if _library is None:
+        target = BUILD_DIR / f"libviennaray_kernels_{_source_hash()}.so"
+        if not target.exists():
+            _build(target)
+        lib = ctypes.CDLL(str(target))
+        for name, argtypes in _SIGNATURES.items():
+            fn = getattr(lib, name)
+            fn.argtypes = argtypes
+            fn.restype = ctypes.c_int
+        _library = lib
+    return _library

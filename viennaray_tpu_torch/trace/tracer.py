@@ -1,0 +1,415 @@
+"""User-facing tracer: ``TraceDisk``.
+
+Counterpart of ``viennaray_tpu/trace/tracer.py``. Mirrors the reference's
+``Trace`` API surface (rayTrace.hpp:15-180, rayTraceDisk.hpp) — setters for
+particle, geometry, boundary conditions, ray counts, seeds; ``apply()`` runs
+the trace; ``normalize_flux`` / ``smooth_flux`` post-process — over a loop of
+mega-batches of rays (the analog of the 2^29-ray GPU launch clamp,
+gpu/raygTrace.hpp:132-160).
+
+The tracer runs on a CUDA device unless the caller asks for the CPU. Triangle
+and line tracers are not ported yet: their classes exist and raise.
+"""
+
+from __future__ import annotations
+
+import os
+import time
+from typing import Sequence
+
+import numpy as np
+import torch
+
+from ..config import (
+    BoundaryCondition,
+    NormalizationType,
+    TraceConfig,
+    TraceDirection,
+    adjust_bounding_box,
+    get_trace_settings,
+)
+from ..data import DataLog, TraceInfo, TracingData
+from ..device import resolve_device
+from ..geometry.disk_geometry import DiskGeometry
+from ..geometry.mesh import DiskMesh
+from ..geometry.neighborhood import build_neighborhood
+from ..ops import vec
+from ..physics.source import RandomSource
+from ..rng import GeneratorRNG
+from . import postprocess
+from .kernel import check_supported, trace_batch
+
+
+class _TraceBase:
+    """Shared setter surface (ref: rayTrace.hpp:15-180)."""
+
+    def __init__(self, dim: int = 3, device=None, dtype=torch.float32):
+        if dtype != torch.float32:
+            raise NotImplementedError("f64 tracing is not ported yet")
+        self._dim = dim
+        self._device = resolve_device(device)
+        self._particle = None
+        self._custom_source = None
+        self._boundary_conditions = tuple(
+            BoundaryCondition.REFLECTIVE for _ in range(3)
+        )
+        self._source_direction = (
+            TraceDirection.POS_Z if dim == 3 else TraceDirection.POS_Y
+        )
+        self._num_rays_per_point = 1000
+        self._num_rays_fixed = 0
+        self._max_reflections = 2**30
+        self._max_boundary_hits = 1000
+        self._rng_seed = 0
+        self._use_random_seed = True
+        self._primary_direction = None
+        self._run_number = 1
+        # mega-batch width: larger batches amortize the per-batch fixed costs
+        # (source sampling and sort, the compaction ladder's narrow tail)
+        self._ray_batch_size = 2**20
+        self._use_wdist = False
+        self._flux_model = "neighbor"
+        self._print_progress = False
+        self._local_data = TracingData()
+        self._global_data = None
+        self._info = TraceInfo()
+        self._data_log = DataLog()
+        self._last_source = None
+        self.geometry = None
+
+    # -- setters (ref: rayTrace.hpp:34-121) -------------------------------
+    def set_particle_type(self, particle):
+        self._particle = particle
+
+    def set_boundary_conditions(self, conds: Sequence[BoundaryCondition]):
+        conds = tuple(BoundaryCondition(c) for c in conds)
+        if len(conds) < self._dim:
+            raise ValueError("One boundary condition per dimension required")
+        padded = conds + tuple(
+            BoundaryCondition.REFLECTIVE for _ in range(3 - len(conds))
+        )
+        self._boundary_conditions = padded[:3]
+
+    def set_source(self, source):
+        if not isinstance(source, RandomSource):
+            raise NotImplementedError(
+                f"source {type(source).__name__} is not ported yet "
+                "(GridSource and SurfaceSource wait for a later slice)"
+            )
+        self._custom_source = source
+
+    def reset_source(self):
+        self._custom_source = None
+
+    def set_number_of_rays_per_point(self, n: int):
+        self._num_rays_per_point = int(n)
+        self._num_rays_fixed = 0
+
+    def set_number_of_rays_fixed(self, n: int):
+        self._num_rays_fixed = int(n)
+        self._num_rays_per_point = 0
+
+    def set_max_reflections(self, n: int):
+        self._max_reflections = int(n)
+
+    def set_max_boundary_hits(self, n: int):
+        self._max_boundary_hits = int(n)
+
+    def set_source_direction(self, direction: TraceDirection):
+        self._source_direction = TraceDirection(direction)
+
+    def set_primary_direction(self, direction):
+        d = np.asarray(direction, np.float64)
+        d = d / np.linalg.norm(d)
+        self._primary_direction = tuple(float(x) for x in d)
+
+    def set_use_random_seeds(self, use: bool):
+        self._use_random_seed = bool(use)
+
+    def set_rng_seed(self, seed: int):
+        self._rng_seed = int(seed)
+        self._use_random_seed = False
+
+    def set_ray_batch_size(self, n: int):
+        self._ray_batch_size = int(n)
+
+    def set_use_wdist(self, use: bool):
+        if use:
+            raise NotImplementedError("use_wdist is not ported yet")
+        self._use_wdist = False
+
+    def set_flux_model(self, model: str):
+        """Disk flux deposit model: "neighbor" (CPU reference contract,
+        rayTraceKernel.hpp:255-300). "window" (the GPU candidate-window
+        contract) is not ported yet."""
+        if model not in ("neighbor", "window"):
+            raise ValueError(f"unknown flux model {model!r}")
+        if model == "window":
+            raise NotImplementedError("flux_model='window' is not ported yet")
+        self._flux_model = model
+
+    def enable_progress_bar(self):
+        """(ref: rayTrace.hpp:69) — prints one line per mega-batch."""
+        self._print_progress = True
+
+    def disable_progress_bar(self):
+        self._print_progress = False
+
+    def set_data_log_fn(self, fn):
+        if fn is not None:
+            raise NotImplementedError("the data-log hook is not ported yet")
+
+    def set_custom_functions(self, collision_fn=None, reflection_fn=None,
+                             aux_init_fn=None, init_dir_fn=None):
+        hooks = dict(collision_fn=collision_fn, reflection_fn=reflection_fn,
+                     aux_init_fn=aux_init_fn, init_dir_fn=init_dir_fn)
+        given = [name for name, fn in hooks.items() if fn is not None]
+        if given:
+            raise NotImplementedError(
+                f"custom hooks are not ported yet: {', '.join(given)}"
+            )
+
+    # -- data access (ref: rayTrace.hpp:135-145) ---------------------------
+    def get_local_data(self) -> TracingData:
+        return self._local_data
+
+    def set_global_data(self, data: TracingData):
+        self._global_data = data
+
+    def get_global_data(self):
+        return self._global_data
+
+    def get_ray_trace_info(self) -> TraceInfo:
+        return self._info
+
+    def get_data_log(self) -> DataLog:
+        return self._data_log
+
+    # -- shared internals ---------------------------------------------------
+    def _make_config(self) -> TraceConfig:
+        return TraceConfig(
+            dim=self._dim,
+            num_rays_per_point=self._num_rays_per_point,
+            num_rays_fixed=self._num_rays_fixed,
+            max_reflections=self._max_reflections,
+            max_boundary_hits=self._max_boundary_hits,
+            rng_seed=self._rng_seed,
+            use_random_seed=self._use_random_seed,
+            source_direction=self._source_direction,
+            boundary_conditions=self._boundary_conditions,
+            primary_direction=self._primary_direction,
+            ray_batch_size=self._ray_batch_size,
+            use_wdist=self._use_wdist,
+            flux_model=self._flux_model,
+        )
+
+    def _base_seed(self) -> int:
+        if self._use_random_seed:
+            return int.from_bytes(os.urandom(4), "little")
+        # (ref: rayTraceKernel.hpp:100 seed = runNumber + rngSeed)
+        return (self._rng_seed + self._run_number) & 0xFFFFFFFF
+
+    def _default_source(self, adjusted_bbox, num_points):
+        settings = get_trace_settings(self._source_direction)
+        ray_dir, first_dir, second_dir, min_max, pos_neg = settings
+        basis = None
+        if self._primary_direction is not None:
+            basis = vec.orthonormal_basis(
+                torch.tensor(self._primary_direction, dtype=torch.float32,
+                             device=self._device)
+            )
+        return RandomSource(
+            bbox=torch.tensor(adjusted_bbox, dtype=torch.float32,
+                              device=self._device),
+            cosine_power=float(self._particle.cosine_exponent),
+            basis=basis,
+            ray_dir=ray_dir,
+            first_dir=first_dir,
+            second_dir=second_dir,
+            min_max=min_max,
+            pos_neg=float(pos_neg),
+            dim=self._dim,
+            num_points=num_points,
+        )
+
+    def _run_trace(self, geometry):
+        config = self._make_config()
+        n_prims = geometry.num_primitives
+        total_rays = config.total_rays(n_prims)
+        adjusted = adjust_bounding_box(
+            geometry.bbox.cpu().numpy(), self._source_direction,
+            geometry.disk_radius, self._dim,
+        )
+
+        if self._custom_source is not None:
+            source = self._custom_source
+        else:
+            source = self._default_source(adjusted, n_prims)
+        check_supported(config, self._particle, source)
+        self._last_source = source
+
+        dev = self._device
+        rng = GeneratorRNG(self._base_seed(), dev)
+        bbox_dev = torch.tensor(adjusted, dtype=torch.float32, device=dev)
+
+        # clamp the batch to the next power of two >= the ray count (floor
+        # 512) so small runs don't trace a mostly-dead mega-batch
+        batch = min(
+            config.ray_batch_size,
+            max(512, 1 << (max(total_rays, 2) - 1).bit_length()),
+        )
+        num_batches = max(1, -(-total_rays // batch))
+        # Cross-batch flux accumulation in float64 (the reference GPU build
+        # defaults to double precision, normKernels.cu:5-9): an H100 adds
+        # float64 natively, so a plain float64 tensor does what the JAX
+        # package's compensated (Kahan) float32 pair stood in for on the TPU.
+        flux = torch.zeros(n_prims, dtype=torch.float64, device=dev)
+        totals = np.zeros(6, np.int64)
+
+        t0 = time.perf_counter()
+        for b in range(num_batches):
+            ray_indices = torch.arange(
+                b * batch, (b + 1) * batch, dtype=torch.int64, device=dev
+            )
+            valid = ray_indices < total_rays
+            rng.begin_batch(b)
+            batch_flux, counters = trace_batch(
+                geometry, source, self._particle, bbox_dev, rng, b,
+                ray_indices, valid, config,
+            )
+            flux += batch_flux.double()
+            totals += np.asarray(counters, np.int64)
+            if self._print_progress:
+                print(
+                    f"viennaray-tpu-torch: batch {b + 1}/{num_batches} "
+                    f"({min((b + 1) * batch, total_rays)}/{total_rays} rays)",
+                    flush=True,
+                )
+        out = flux.cpu().numpy()  # waits for the device
+        elapsed = time.perf_counter() - t0
+
+        self._info = TraceInfo(
+            num_rays=total_rays,
+            total_rays_traced=int(totals[0]),
+            non_geometry_hits=int(totals[1]),
+            geometry_hits=int(totals[2]),
+            particle_hits=int(totals[3]),
+            boundary_hits=int(totals[4]),
+            reflections=int(totals[5]),
+            time=elapsed,
+        )
+        self._run_number += 1  # (ref: rayTraceDisk.hpp:54)
+        return out
+
+    def _store_local_data(self, flux):
+        """Accumulate the flux into the particle's labelled channel; channels
+        are keyed by label so runs of different particles on one tracer keep
+        separate flux rows."""
+        label = self._particle.data_labels[0]
+        try:
+            idx = self._local_data.get_vector_data_index(label)
+        except KeyError:
+            idx = self._local_data.add_vector_data(len(flux), label)
+        self._local_data.accumulate_vector(idx, flux)
+
+
+class TraceDisk(_TraceBase):
+    """Oriented-disk tracer (ref: rayTraceDisk.hpp)."""
+
+    def set_geometry(self, points, normals=None, grid_delta=None,
+                     disk_radius=None):
+        if isinstance(points, DiskMesh):
+            self.geometry = DiskGeometry.from_mesh(
+                points, dim=self._dim, device=self._device
+            )
+        else:
+            self.geometry = DiskGeometry.build(
+                points, normals, grid_delta, dim=self._dim,
+                disk_radius=disk_radius, device=self._device,
+            )
+
+    def set_material_ids(self, material_ids):
+        self.geometry = self.geometry.replace(
+            material_ids=torch.from_numpy(
+                np.asarray(material_ids, np.int32)
+            ).to(self._device)
+        )
+
+    def apply(self):
+        """Run the trace (ref: rayTraceDisk.hpp:19-57); returns the raw flux
+        per disk as a float64 numpy array."""
+        self._check_settings()
+        settings = get_trace_settings(self._source_direction)
+        boundary_dirs = (settings[1], settings[2])
+        self.geometry = self.geometry.with_areas(
+            boundary_dirs, self._boundary_conditions
+        )
+        flux = self._run_trace(self.geometry)
+        self._store_local_data(flux)
+        return flux
+
+    def normalize_flux(self, flux, norm: NormalizationType = NormalizationType.SOURCE):
+        """(ref: rayTraceDisk.hpp:103-142)"""
+        flux = torch.as_tensor(
+            np.asarray(flux, np.float32), device=self._device
+        )
+        areas = self.geometry.areas
+        if NormalizationType(norm) == NormalizationType.MAX:
+            out = postprocess.normalize_flux_max_disk(
+                flux, areas, self.geometry.disk_radius
+            )
+        else:
+            config = self._make_config()
+            total = config.total_rays(self.geometry.num_primitives)
+            out = postprocess.normalize_flux_source(
+                flux, areas, self._last_source.source_area(), total
+            )
+        return out.cpu().numpy()
+
+    def smooth_flux(self, flux, num_neighbors: int = 1):
+        """(ref: rayTraceDisk.hpp:146-193)"""
+        if num_neighbors < 1:
+            return np.asarray(flux)
+        if num_neighbors == 1:
+            neighbors = self.geometry.neighbors
+        else:
+            nbrs, _ = build_neighborhood(
+                self.geometry.points.cpu().numpy(),
+                num_neighbors * 2.0 * self.geometry.disk_radius,
+                dim=3,  # (ref: rayTraceDisk.hpp:169 always inits 3D here)
+            )
+            neighbors = torch.from_numpy(nbrs).to(self._device)
+        out = postprocess.smooth_flux(
+            torch.as_tensor(np.asarray(flux, np.float32), device=self._device),
+            self.geometry.normals, neighbors,
+        )
+        return out.cpu().numpy()
+
+    def _check_settings(self):
+        if self._particle is None:
+            self._info.error = True
+            raise ValueError("No particle was specified in TraceDisk")
+        if self.geometry is None:
+            self._info.error = True
+            raise ValueError("No geometry was passed to TraceDisk")
+        if self.geometry.device != self._device:
+            raise ValueError(
+                f"geometry is on {self.geometry.device}, the tracer on "
+                f"{self._device}"
+            )
+        if self.geometry.disk_radius > self.geometry.grid_delta:
+            self._info.warning = True
+
+
+class TraceTriangle:
+    """Triangle-mesh tracer: not ported yet."""
+
+    def __init__(self, *args, **kwargs):
+        raise NotImplementedError("TraceTriangle (triangles) is not ported yet")
+
+
+class TraceLine:
+    """2D line-segment tracer: not ported yet."""
+
+    def __init__(self, *args, **kwargs):
+        raise NotImplementedError("TraceLine (lines) is not ported yet")
