@@ -11,15 +11,19 @@ It imports only ``viennaray_tpu_torch`` and, in order:
    versions, and asserts that TF32 matrix products are off;
 2. builds the CUDA kernels from ``viennaray_tpu_torch/csrc`` with ``nvcc``;
 3. holds each kernel against its plain PyTorch version on the card, at the
-   shapes the 3D-trench flagship gives it (and the histogram at 18,180 bins
-   too), and times kernel, plain version and, for the histogram, one
-   ``index_add_`` call;
-4. drives the flagship through ``TraceDisk``: 2,993 disks, 2,000 rays per
-   point, periodic walls, diffuse particle with sticking 0.1, seed 42,
-   mega-batches of 2^20 rays; checks the normalized flux against the two
-   golden files (rel-L2 < 0.05), that both kernels were launched, and that
-   two same-seed runs are bitwise equal;
-5. prints the peak device memory.
+   shapes the 3D-trench flagship gives it (and at the 18,180-disk trench, and
+   the bounce kernel on a 2D trench too), and times kernel, plain version
+   and, for the histogram, one ``index_add_`` call;
+4. drives the flagship through the default ``TraceDisk`` (the fused bounce
+   kernel): 2,993 disks, 2,000 rays per point, periodic walls, diffuse
+   particle with sticking 0.1, seed 42, mega-batches of 2^20 rays; checks the
+   normalized flux against the two golden files (rel-L2 < 0.05), that the
+   bounce and histogram kernels were launched, and that two same-seed runs
+   are bitwise equal;
+5. drives the same flagship through ``TraceDisk(fused=False)`` (the unfused
+   body around the closest-hit and histogram kernels) at 1,000 rays per
+   point, against the same goldens;
+6. prints the peak device memory.
 
 Every phase prints one JSON object on a line of its own. The line before the
 last lists the kernels; the last line is
@@ -94,6 +98,10 @@ def phase_build():
     emit({
         "phase": "build", "nvcc_seconds": round(_build.build_seconds, 3),
         "sources": sorted(p.name for p in _build.CSRC.iterdir()),
+        # registers, shared memory and spills of each kernel
+        "ptxas": [line for line in _build.build_log.splitlines()
+                  if "registers" in line or "spill" in line
+                  or "Compiling entry" in line],
     })
 
 
@@ -101,7 +109,7 @@ def make_rays(geometry, bbox, n, kind, seed):
     """Seeded rays at the flagship's geometry: ``source`` = what the trace's
     first bounce sees (source plane, cosine lobe), ``interior`` = origins
     anywhere in the box with directions all over the sphere, as after
-    diffuse bounces."""
+    diffuse bounces, ``flat`` = the same in the plane z = 0 of a 2D run."""
     from viennaray_tpu_torch.ops import sampling
 
     dev = geometry.device
@@ -116,6 +124,10 @@ def make_rays(geometry, bbox, n, kind, seed):
         dirn = torch.stack([lobe[:, 0], lobe[:, 1], -lobe[:, 2]], dim=1)
     else:
         dirn = sampling.unit_sphere(u[3], torch.rand(n, generator=gen, device=dev))
+    if kind == "flat":
+        org[:, 2] = 0.0
+        dirn[:, 2] = 0.0
+        dirn = dirn / torch.linalg.norm(dirn, dim=1, keepdim=True)
     return org.contiguous(), dirn.contiguous()
 
 
@@ -223,14 +235,193 @@ def check_histogram(geometry, n_rays, n_bins, reps):
     return res
 
 
-def make_tracer(pts, nrm):
+def bounce_settings(specular=False, walls="PERIODIC", dim=3):
+    """The flagship's settings of a bounce (diffuse, periodic walls, sticking
+    0.1), or a specular particle, or other walls; in 2D the source lies on
+    the +y face."""
+    import viennaray_tpu_torch as vrt
+    from viennaray_tpu_torch.ops.bounce import BounceSettings
+
+    bc = vrt.BoundaryCondition[walls]
+    particle = (vrt.SpecularParticle(0.1, 1.0) if specular
+                else vrt.DiffuseParticle(0.1))
+    direction = vrt.TraceDirection.POS_Z if dim == 3 else vrt.TraceDirection.POS_Y
+    return BounceSettings.from_config(
+        vrt.TraceConfig(dim=dim, boundary_conditions=(bc,) * 3,
+                        source_direction=direction),
+        particle,
+    )
+
+
+def adjusted_bbox(geometry, dim=3):
+    """The source-adjusted bounding box of a geometry, on its device; the
+    source lies on the +z face in 3D and on the +y face in 2D."""
+    from viennaray_tpu_torch.config import TraceDirection, adjust_bounding_box
+
+    direction = TraceDirection.POS_Z if dim == 3 else TraceDirection.POS_Y
+    return torch.tensor(
+        adjust_bounding_box(geometry.bbox.cpu().numpy(), direction,
+                            geometry.disk_radius, dim),
+        dtype=torch.float32, device=geometry.device,
+    )
+
+
+def trench_2d():
+    """A 2D trench of disks (a polyline in the plane z = 0: shelf, wall,
+    floor, wall, shelf at spacing 0.05, normals into the open side), and its
+    source-adjusted box: the kernel's 2D branches have no other caller on
+    the card yet."""
+    from viennaray_tpu_torch.geometry.disk_geometry import DiskGeometry
+
+    step = 0.05
+    xs = np.arange(-2.0, -1.0, step)
+    ys = np.arange(0.0, -2.0, -step)
+    floor = np.arange(-1.0, 1.0, step)
+    parts = [
+        (np.stack([xs, 0 * xs], 1), (0.0, 1.0)),
+        (np.stack([0 * ys - 1.0, ys], 1), (1.0, 0.0)),
+        (np.stack([floor, 0 * floor - 2.0], 1), (0.0, 1.0)),
+        (np.stack([0 * ys + 1.0, ys[::-1]], 1), (-1.0, 0.0)),
+        (np.stack([xs + 3.0 + step, 0 * xs], 1), (0.0, 1.0)),
+    ]
+    pts = np.concatenate([np.c_[p, np.zeros(len(p))] for p, _ in parts])
+    nrm = np.concatenate(
+        [np.tile((*n, 0.0), (len(p), 1)) for p, n in parts]
+    )
+    geometry = DiskGeometry.build(pts, nrm, step, dim=2)
+    return geometry, adjusted_bbox(geometry, dim=2)
+
+
+def make_state(geometry, bbox, n_rays, kind, n_sub, settings, seed):
+    """Seeded state and uniforms on the card: rays from ``make_rays``, a
+    twentieth of the lanes dead, a tenth that have passed a disk from behind,
+    weights from w0 down to the roulette threshold, boundary-hit counts up to
+    the cap."""
+    from viennaray_tpu_torch.ops.bounce import RayState
+
+    dev = geometry.device
+    org, dirn = make_rays(geometry, bbox, n_rays, kind, seed)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed + 1)
+    u = torch.rand((4, n_rays), generator=gen, device=dev)
+    w0 = torch.ones(n_rays, device=dev)
+    levels = torch.tensor([1.0, 0.6, 0.25, 0.12, 0.105], device=dev)
+    weight = levels[(u[0] * 5).long().clamp(max=4)]
+    n_bdry = (u[3] * (settings.max_boundary_hits + 1)).to(torch.int32)
+    state = RayState(
+        org, dirn, weight.contiguous(), w0, u[1] > 0.05, u[2] < 0.1,
+        torch.zeros(n_rays, dtype=torch.int32, device=dev),
+        n_bdry.clamp(max=settings.max_boundary_hits).contiguous(),
+    )
+    uniforms = torch.rand((n_rays, 3 * n_sub), generator=gen, device=dev)
+    return state, uniforms
+
+
+def check_bounce(geometry, bbox, n_rays, kind, n_sub, in_kernel, settings,
+                 reps):
+    from viennaray_tpu_torch.ops import bounce as B
+
+    walls = B.make_walls(bbox, geometry, settings)
+    state, uniforms = make_state(
+        geometry, bbox, n_rays, kind, n_sub, settings, seed=13
+    )
+    args = (state, uniforms, geometry, walls, settings)
+    kw = dict(n_sub=n_sub, deposit_in_kernel=in_kernel)
+    res = B.fused_bounce(*args, **kw)
+    again = B.fused_bounce(*args, **kw)
+    torch.cuda.synchronize()
+    ref = B.fused_bounce_ref(*args, **kw)
+
+    st, rs = res.state, ref.state
+    flags_same = (
+        (st.alive == rs.alive) & (st.hfb == rs.hfb)
+        & (st.n_refl == rs.n_refl) & (st.n_bdry == rs.n_bdry)
+    )
+    if not in_kernel:
+        flags_same &= (res.hit_prim == ref.hit_prim) & (res.wdep == ref.wdep)
+    lanes_equal = float(flags_same.float().mean())
+    # a dead lane's origin and direction are of no use to anyone; compare
+    # them on the lanes both versions leave alive
+    live = flags_same & rs.alive
+    err = {
+        "org": float((st.org - rs.org)[live].abs().max()),
+        "dirn": float((st.dirn - rs.dirn)[live].abs().max()),
+        "weight": float((st.weight - rs.weight)[flags_same].abs().max()),
+    }
+    counts, ref_counts = res.counts.tolist(), ref.counts.tolist()
+    bitwise = all(
+        torch.equal(a, b) for a, b in zip(res.state, again.state)
+    ) and torch.equal(res.counts, again.counts)
+    if in_kernel:
+        bitwise = bitwise and torch.equal(res.flux, again.flux)
+        flux_err = float((res.flux - ref.flux).abs().max())
+        flux_max = float(ref.flux.abs().max())
+    else:
+        bitwise = bitwise and torch.equal(res.hit_prim, again.hit_prim)
+        flux_err, flux_max = 0.0, 0.0
+
+    # Last bits: the kernel repeats the plain version's float32 operations
+    # one by one, and its sinf / cosf are the functions PyTorch's own kernels
+    # call, so nothing is left to differ, whatever n_sub.
+    tolerance = (
+        "flags, counters, hit prim and deposit weight equal on every lane; "
+        "origin, direction and weight bit for bit on the lanes left alive; "
+        "counts equal; flux within 2^-22 of the largest bin (the plain "
+        "version sums in float64; both round once to float32)"
+    )
+    ok = (
+        lanes_equal == 1.0 and max(err.values()) == 0.0
+        and counts == ref_counts and flux_err <= flux_max * 2.0 ** -22
+    )
+
+    ms = time_cuda(lambda: B.fused_bounce(*args, **kw), reps)
+    plain_ms = time_cuda(lambda: B.fused_bounce_ref(*args, **kw), 1)
+    n_real = geometry.num_primitives
+    npad = geometry.prims_soa.shape[1]
+    k_nbrs = geometry.neighbors.shape[1]
+    # operations: every search of this run (a lane alive at a sub-bounce)
+    # against every real disk; bytes: state and uniforms in, state and the
+    # flux or the (hit, weight) pair out, the geometry tables once
+    traces = ref_counts[3]
+    op_ms = traces * n_real * OPS_PER_PAIR / F32_FLOPS * 1e3
+    n_bytes = (
+        n_rays * (66 + 12 * n_sub + 62) + npad * 36
+        + geometry.soa_chunk_bbs.numel() * 4 + n_real * k_nbrs * 36
+        + (n_real * 4 if in_kernel else n_rays * 8)
+    )
+    byte_ms = n_bytes / HBM_BYTES_PER_S * 1e3
+    res_out = {
+        "phase": "kernel_check", "kernel": "fused_bounce",
+        "shape": f"R={n_rays} ({kind} rays), n_sub={n_sub}, deposits "
+                 f"{'in the kernel' if in_kernel else 'handed out'}, "
+                 f"{'specular' if settings.refl_kind else 'diffuse'}, "
+                 f"{('reflective', 'periodic', 'ignore')[settings.bc1]}, "
+                 f"dim={settings.dim}, "
+                 f"Npad={npad}, C={geometry.soa_chunk_bbs.shape[0]}, K={k_nbrs}",
+        "tolerance": tolerance, "lanes_equal": lanes_equal,
+        "max_abs_err_state": err, "counts": counts, "plain_counts": ref_counts,
+        "flux_max_abs_err": flux_err, "flux_max": flux_max,
+        "bitwise_repeatable": bool(bitwise),
+        "max_abs_err": max(max(err.values()), flux_err),
+        "ms": ms, "plain_ms": plain_ms, "bound_ms": max(op_ms, byte_ms),
+        "bound_by": "operations" if op_ms >= byte_ms else "bytes",
+        "library_ms": None,
+    }
+    emit(res_out)
+    if not (ok and bitwise):
+        raise RuntimeError(f"fused_bounce fails its check: {res_out}")
+    return res_out
+
+
+def make_tracer(pts, nrm, rays_per_point=RAYS_PER_POINT, fused=True):
     import viennaray_tpu_torch as vrt
 
-    tracer = vrt.TraceDisk(dim=3)  # device=None: the CUDA device, or raises
+    # device=None: the CUDA device, or raises
+    tracer = vrt.TraceDisk(dim=3, fused=fused)
     tracer.set_geometry(pts, nrm, FLAGSHIP["grid_delta"])
     tracer.set_boundary_conditions([vrt.BoundaryCondition.PERIODIC] * 3)
     tracer.set_particle_type(vrt.DiffuseParticle(0.1, "flux"))
-    tracer.set_number_of_rays_per_point(RAYS_PER_POINT)
+    tracer.set_number_of_rays_per_point(rays_per_point)
     tracer.set_rng_seed(SEED)
     return tracer
 
@@ -243,54 +434,95 @@ def rel_l2(a, golden_name):
     return float(np.linalg.norm(a - g) / max(np.linalg.norm(g), 1e-12))
 
 
-def phase_main_path(pts, nrm):
+def reset_launches():
+    from viennaray_tpu_torch.ops import bounce as B
     from viennaray_tpu_torch.ops import histogram as H
     from viennaray_tpu_torch.ops import nearest_hit as NH
 
-    tracer = make_tracer(pts, nrm)
-    first = tracer.apply()  # warm-up; also the first of the same-seed pair
-    torch.cuda.synchronize()
-
+    B.fused_bounce.launches = 0
+    B.fused_bounce.sub_bounces = 0
     NH.disk_nearest_hit.launches = 0
     H.flux_histogram.launches = 0
+
+
+def read_launches():
+    from viennaray_tpu_torch.ops import bounce as B
+    from viennaray_tpu_torch.ops import histogram as H
+    from viennaray_tpu_torch.ops import nearest_hit as NH
+
+    return {
+        "fused_bounce": B.fused_bounce.launches,
+        "disk_nearest_hit": NH.disk_nearest_hit.launches,
+        "flux_histogram": H.flux_histogram.launches,
+    }
+
+
+def timed_apply(tracer, pts):
+    """One apply with the launch counts set to 0 just before and read just
+    after; returns (result fields, normalized flux, launches)."""
+    from viennaray_tpu_torch.ops import bounce as B
+
+    reset_launches()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     flux = tracer.apply()
     torch.cuda.synchronize()
     seconds = time.perf_counter() - t0
-    launches = {
-        "disk_nearest_hit": NH.disk_nearest_hit.launches,
-        "flux_histogram": H.flux_histogram.launches,
-    }
+    launches = read_launches()
     info = tracer.get_ray_trace_info()
     norm = np.asarray(tracer.normalize_flux(flux), np.float64)
-    parity = rel_l2(norm, "bench_disk3d.npy")
-    parity_oracle = rel_l2(norm, "bench_disk3d_oracle.npy")
-
-    again = make_tracer(pts, nrm).apply()  # fresh tracer, same seed, first run
-    bitwise = bool(np.array_equal(first, again))
-
-    res = {
-        "phase": "main_path", "disks": int(len(pts)),
-        "num_rays": info.num_rays, "batch": tracer._ray_batch_size,
-        "seconds": seconds, "rays_per_s": info.num_rays / seconds,
+    fields = {
+        "disks": int(len(pts)), "num_rays": info.num_rays,
+        "batch": tracer._ray_batch_size, "seconds": seconds,
+        "rays_per_s": info.num_rays / seconds,
         "total_rays_traced": info.total_rays_traced,
         "geometry_hits": info.geometry_hits,
         "non_geometry_hits": info.non_geometry_hits,
         "boundary_hits": info.boundary_hits,
         "geometry_hits_per_ray": info.geometry_hits / info.num_rays,
-        "rel_l2_golden": parity, "rel_l2_oracle": parity_oracle,
-        "launches": launches, "same_seed_bitwise_equal": bitwise,
+        "rel_l2_golden": rel_l2(norm, "bench_disk3d.npy"),
+        "rel_l2_oracle": rel_l2(norm, "bench_disk3d_oracle.npy"),
+        "launches": launches,
+        "bounces": B.fused_bounce.sub_bounces or launches["disk_nearest_hit"],
     }
-    emit(res)
     ok = (
         np.isfinite(norm).all() and norm.shape == (len(pts),)
-        and norm.max() > 0 and parity < GOLDEN_TOL
-        and parity_oracle < GOLDEN_TOL and min(launches.values()) > 0
-        and bitwise
+        and norm.max() > 0 and fields["rel_l2_golden"] < GOLDEN_TOL
+        and fields["rel_l2_oracle"] < GOLDEN_TOL
     )
-    if not ok:
+    return fields, ok, launches
+
+
+def phase_main_path(pts, nrm):
+    """The default path: the flagship at full width through the default
+    tracer, whose body is the fused bounce kernel."""
+    tracer = make_tracer(pts, nrm)
+    first = tracer.apply()  # warm-up; also the first of the same-seed pair
+    fields, ok, launches = timed_apply(tracer, pts)
+    again = make_tracer(pts, nrm).apply()  # fresh tracer, same seed, first run
+    bitwise = bool(np.array_equal(first, again))
+    res = {"phase": "main_path", "body": "fused", **fields,
+           "same_seed_bitwise_equal": bitwise}
+    emit(res)
+    if not (ok and bitwise and launches["fused_bounce"] > 0
+            and launches["flux_histogram"] > 0):
         raise RuntimeError(f"main path failed its checks: {res}")
+    return launches
+
+
+def phase_unfused_path(pts, nrm):
+    """The unfused path at half the depth: the unfused body around
+    the closest-hit and histogram kernels, 1,000 rays per point. In one
+    process with the fused apply, so the two times can be compared."""
+    tracer = make_tracer(pts, nrm, rays_per_point=1000, fused=False)
+    tracer.apply()  # warm-up, so that the timed apply is the second as above
+    fields, ok, launches = timed_apply(tracer, pts)
+    res = {"phase": "main_path", "body": "unfused", **fields}
+    emit(res)
+    if not (ok and launches["disk_nearest_hit"] > 0
+            and launches["flux_histogram"] > 0
+            and launches["fused_bounce"] == 0):
+        raise RuntimeError(f"unfused path failed its checks: {res}")
     return launches
 
 
@@ -299,7 +531,6 @@ def main():
         print("chip_smoke.py needs a CUDA device and found none",
               file=sys.stderr)
         return 1
-    from viennaray_tpu_torch.config import adjust_bounding_box, TraceDirection
     from viennaray_tpu_torch.geometry.disk_geometry import DiskGeometry
     from viennaray_tpu_torch.io import fixtures
 
@@ -309,12 +540,7 @@ def main():
     pts, nrm = fixtures.create_trench_grid_3d(**FLAGSHIP)
     # no device named: the CUDA device, as a user's call would get it
     geometry = DiskGeometry.build(pts, nrm, FLAGSHIP["grid_delta"])
-    dev = geometry.device
-    bbox = torch.tensor(
-        adjust_bounding_box(geometry.bbox.cpu().numpy(), TraceDirection.POS_Z,
-                            geometry.disk_radius, 3),
-        dtype=torch.float32, device=dev,
-    )
+    bbox = adjusted_bbox(geometry)
 
     hit_wide = check_nearest_hit(geometry, bbox, 1 << 20, "source", reps=10)
     check_nearest_hit(geometry, bbox, 1 << 20, "interior", reps=10)
@@ -323,9 +549,38 @@ def main():
     hist_wide = check_histogram(geometry, 1 << 20, len(pts), reps=20)
     check_histogram(geometry, 512, len(pts), reps=200)
     check_histogram(geometry, 1 << 20, 18180, reps=20)
+    flagship = bounce_settings()
+    bounce_wide = check_bounce(
+        geometry, bbox, 1 << 20, "source", 1, False, flagship, reps=10)
+    check_bounce(geometry, bbox, 1 << 20, "interior", 1, False, flagship,
+                 reps=10)
+    check_bounce(geometry, bbox, 16384, "interior", 4, True, flagship,
+                 reps=50)
+    check_bounce(geometry, bbox, 512, "interior", 16, True, flagship,
+                 reps=100)
+    check_bounce(geometry, bbox, 1000, "interior", 16, True, flagship,
+                 reps=100)  # ragged R
+    check_bounce(geometry, bbox, 65536, "interior", 1, True,
+                 bounce_settings(specular=True, walls="REFLECTIVE"), reps=50)
+    # the 18,180-disk trench: chunks of 1,024 lanes, two staged tiles each
+    fine = dict(FLAGSHIP, grid_delta=0.1)
+    fine_geometry = DiskGeometry.build(
+        *fixtures.create_trench_grid_3d(**fine), fine["grid_delta"]
+    )
+    fine_bbox = adjusted_bbox(fine_geometry)
+    check_nearest_hit(fine_geometry, fine_bbox, 65536, "interior", reps=20)
+    check_bounce(fine_geometry, fine_bbox, 16384, "interior", 4, True,
+                 flagship, reps=20)
+    flat, flat_bbox = trench_2d()
+    check_bounce(flat, flat_bbox, 4096, "flat", 4, True,
+                 bounce_settings(walls="IGNORE", dim=2), reps=50)
+    check_bounce(flat, flat_bbox, 4096, "flat", 4, True,
+                 bounce_settings(specular=True, walls="REFLECTIVE", dim=2),
+                 reps=50)
 
     torch.cuda.reset_peak_memory_stats()
     launches = phase_main_path(pts, nrm)
+    unfused_launches = phase_unfused_path(pts, nrm)
     emit({"phase": "peak_memory",
           "max_memory_allocated_bytes": torch.cuda.max_memory_allocated()})
 
@@ -336,7 +591,9 @@ def main():
             "name": "disk_nearest_hit", "route": "cuda",
             "source": "viennaray_tpu_torch/csrc/nearest_hit.cu",
             "replaces": "viennaray_tpu/ops/pallas_intersect.py:166",
-            "launches": launches["disk_nearest_hit"],
+            # the default path is fused and never reaches it: its count is
+            # the unfused path's run
+            "launches": unfused_launches["disk_nearest_hit"],
             **{k: hit_wide[k] for k in keys},
         },
         {
@@ -345,6 +602,13 @@ def main():
             "replaces": "viennaray_tpu/ops/pallas_histogram.py:39",
             "launches": launches["flux_histogram"],
             **{k: hist_wide[k] for k in keys},
+        },
+        {
+            "name": "fused_bounce", "route": "cuda",
+            "source": "viennaray_tpu_torch/csrc/bounce.cu",
+            "replaces": "viennaray_tpu/ops/pallas_bounce.py:1056",
+            "launches": launches["fused_bounce"],
+            **{k: bounce_wide[k] for k in keys},
         },
     ]})
     emit({"ok": True, "device": {

@@ -1,7 +1,7 @@
 """The port's trace against the JAX package's, at small sizes on the CPU.
 
 (a) one mega-batch, lane-matched: both packages trace the same tables with
-    the same uniforms; (b) end to end through ``TraceDisk`` against the
+    the same uniforms, through the unfused and the fused body; (b) end to end through ``TraceDisk`` against the
     ``disk3d_trench`` golden; (c) determinism; (d) refusals.
 """
 
@@ -38,25 +38,19 @@ def _rel_l2(a, b):
     return np.linalg.norm(a - b) / max(np.linalg.norm(b), 1e-12)
 
 
-# ---- (a) lane-matched against the reference's unfused body ---------------
-def test_trace_batch_lane_matched_with_reference():
-    """R = 4,096 on a trench with 2 chunks: the source sort and the ladder's
-    caps 2048 / 1024 / 512 / 0 run, the per-bounce resort is off in the
-    reference (fewer than 8 chunks).
+# ---- (a) lane-matched against the reference's bodies ----------------------
+def _lane_matched(ref_knobs, max_bounces=3000, **port_kwargs):
+    """One mega-batch of R = 4,096 through both packages on the same tables
+    with the same uniforms; returns (flux, counters) of the port and of the
+    reference. The source sort and the ladder's caps 2048 / 1024 / 512 / 0
+    run, the per-bounce resort is off in the reference (fewer than 8 chunks).
 
-    Equal t: on the CPU the reference searches by brute force and gives a
-    tie to the lowest ORIGINAL index, where its TPU kernel and the port give
-    it to the lowest sorted lane. Ties are common (overlapping disks of one
-    flat face), and near an edge the two choices have different neighbor
-    lists, so whole deposits move. The cloud is therefore handed to both
-    packages in packed order, where the two rules pick the same disk.
-
-    Tolerances: counters within 0.2 %, flux rel-L2 < 1e-3 (measured: counters
-    equal, flux 7e-8). XLA:CPU fuses and contracts differently from eager
-    PyTorch, and the brute force expands the squared distance, so a last-bit
-    difference can flip a rare test on a disk's very rim. At this seed none
-    flips: besides the norm over all bins, at most two bins may differ by
-    more than 1e-5 of the largest flux.
+    Equal t: on the CPU the reference's unfused body searches by brute force
+    and gives a tie to the lowest ORIGINAL index, where its TPU kernels and
+    the port give it to the lowest sorted lane. Ties are common (overlapping
+    disks of one flat face), and near an edge the two choices have different
+    neighbor lists, so whole deposits move. The cloud is therefore handed to
+    both packages in packed order, where the two rules pick the same disk.
     """
     R, batch_index, seed = 4096, 2, 12346
     pts, nrm, grid_delta, first_build = reference_geometry("trench_0.5")
@@ -76,7 +70,7 @@ def test_trace_batch_lane_matched_with_reference():
     ).astype(np.float32)
     ref_config = vrt.TraceConfig(
         dim=3, boundary_conditions=tuple(conds), ray_batch_size=R,
-        rng_seed=seed, use_random_seed=False,
+        rng_seed=seed, use_random_seed=False, max_bounces=max_bounces,
     )
     ref_source = vrt.RandomSource(
         bbox=jnp.asarray(bbox), cosine_power=jnp.float32(1.0), ray_dir=2,
@@ -87,18 +81,18 @@ def test_trace_batch_lane_matched_with_reference():
     valid = ray_indices < (batch_index + 1) * R - 100  # the last lanes start dead
     ref_trace = jax.jit(functools.partial(
         ref_kernel.trace_batch, config=ref_config, geo_type="disk",
-        knobs=ref_kernel.EnvKnobs(fused=False),
+        knobs=ref_knobs,
     ))
     ref_flux, ref_cnt = ref_trace(
         ref_geo, ref_source, vrt.DiffuseParticle(0.1, "flux"),
         jnp.asarray(bbox), jax.random.fold_in(base_key, batch_index),
         jnp.asarray(ray_indices, jnp.int32), jnp.asarray(valid),
     )
-    ref_flux = np.asarray(ref_flux)
 
     config = vrtt.TraceConfig(
         dim=3, boundary_conditions=(vrtt.BoundaryCondition.PERIODIC,) * 3,
         ray_batch_size=R, rng_seed=seed, use_random_seed=False,
+        max_bounces=max_bounces,
     )
     source = RandomSource(
         bbox=torch.from_numpy(bbox), cosine_power=1.0, ray_dir=2,
@@ -110,26 +104,151 @@ def test_trace_batch_lane_matched_with_reference():
         geo, source, vrtt.DiffuseParticle(0.1, "flux"),
         torch.from_numpy(bbox), rng, batch_index,
         torch.from_numpy(ray_indices), torch.from_numpy(valid), config,
+        **port_kwargs,
     )
-    flux = flux.numpy()
+    return flux.numpy(), cnt, np.asarray(ref_flux), ref_cnt, int(valid.sum())
 
+
+def _assert_lane_matched(flux, cnt, ref_flux, ref_cnt, n_valid,
+                         counters=0.002, rel_l2=1e-3, bins_off=2):
     for name in ("total_traces", "geometry_hits", "boundary_hits",
                  "non_geometry_hits"):
         want = int(getattr(ref_cnt, name))
         got = getattr(cnt, name)
-        assert want > 1000, name
-        assert abs(got - want) <= 0.002 * want, (name, got, want)
-    assert cnt.non_geometry_hits <= int(valid.sum())
-    assert _rel_l2(flux, ref_flux) < 1e-3
-    off = np.abs(flux - ref_flux) > 1e-5 * np.abs(ref_flux).max()
-    assert off.sum() <= 2
+        assert want > 800, name
+        assert abs(got - want) <= counters * want, (name, got, want)
+    assert cnt.non_geometry_hits <= n_valid
+    assert _rel_l2(flux, ref_flux) < rel_l2
+    if bins_off is not None:
+        off = np.abs(flux - ref_flux) > 1e-5 * np.abs(ref_flux).max()
+        assert off.sum() <= bins_off
+
+
+def test_trace_batch_lane_matched_with_reference():
+    """The port's unfused body against the reference's.
+
+    Tolerances: counters within 0.2 %, flux rel-L2 < 1e-3 (measured: counters
+    equal, flux 7e-8). XLA:CPU fuses and contracts differently from eager
+    PyTorch, and the brute force expands the squared distance, so a last-bit
+    difference can flip a rare test on a disk's very rim. At this seed none
+    flips: besides the norm over all bins, at most two bins may differ by
+    more than 1e-5 of the largest flux.
+    """
+    _assert_lane_matched(*_lane_matched(
+        ref_kernel.EnvKnobs(fused=False), fused=False
+    ))
+
+
+def _fused_knobs(n_sub):
+    return ref_kernel.EnvKnobs(
+        fused=True, fused_interpret=True, nsub_wide=n_sub[0],
+        nsub_mid=n_sub[1], nsub_tail=n_sub[2],
+    )
+
+
+@pytest.mark.parametrize(
+    "n_sub,max_bounces", [((1, 1, 1), 3), ((1, 4, 4), 4)]
+)
+def test_trace_batch_fused_lane_matched_with_reference(n_sub, max_bounces):
+    """The port's fused body against the reference's megakernel in interpret
+    mode, up to the first compaction: three launches of one bounce (the
+    unfused key schedule), or one launch of four bounces at width 4,096 (one
+    block of uniforms). With 2 chunks both packages deposit in the kernel:
+    the port through the neighbor lists, the reference by its 2r-ball sweep.
+
+    Why only up to the first compaction: the reference's approximate
+    reciprocal moves a hit time by up to 1.4e-5 relative, which flips about
+    one ray in 4,000 between a wall and an escape or between two overlapping
+    disks. The compaction sorts the survivors, so one lane more or less moves
+    every later lane by one, and a lane's uniforms go by its position: from
+    there on the two runs are two samples (the next test).
+
+    Tolerances: counters within 0.2 % (measured: at most 2 apart). Flux
+    rel-L2 < 1e-2 and at most 10 bins off by more than 1e-5 of the largest
+    (measured 3.9e-3 with 3 bins, 5.2e-3 with 7): a ray whose hit goes to the
+    other of two overlapping disks moves a whole deposit, which 1e-3 and two
+    bins do not allow at 4,096 rays.
+    """
+    _assert_lane_matched(
+        *_lane_matched(_fused_knobs(n_sub), max_bounces=max_bounces,
+                       fused=True, n_sub=n_sub),
+        rel_l2=1e-2, bins_off=10,
+    )
+
+
+def test_trace_batch_fused_whole_run_agrees_with_reference_within_noise():
+    """The whole ladder against the reference's fused body: width 4,096 runs
+    4 bounces per launch, the stages from 2,048 down run 4 as well on both
+    sides (the reference's 16-fold unrolled kernel takes over a minute to
+    compile in interpret mode; the port's 16 is held to repeated single
+    bounces in ``test_torch_bounce.py`` and runs in the golden test below).
+    After the first compaction the runs are two samples of about 4,000 rays
+    (see the test above): counters within 3 % (measured 0.2 to 0.6 %), flux
+    rel-L2 < 0.15 (measured 0.053), the bound that
+    ``test_same_seed_is_bitwise_equal_and_batch_size_only_changes_bits`` puts
+    on two samples of 20,000 rays.
+    """
+    n_sub = (1, 4, 4)
+    _assert_lane_matched(
+        *_lane_matched(_fused_knobs(n_sub), fused=True, n_sub=n_sub),
+        counters=0.03, rel_l2=0.15, bins_off=None,
+    )
+
+
+def test_fused_equals_unfused_with_one_bounce_per_launch():
+    """With n_sub = (1, 1, 1) and ``GeneratorRNG`` both bodies draw the same
+    numbers in the same order and go through one step function and the exact
+    histogram: on the CPU the counters are equal and the flux is bitwise
+    equal, with deposits in the kernel (2 chunks) and handed out (a cloud
+    packed into 4 chunks)."""
+    from viennaray_tpu_torch.geometry.disk_geometry import DiskGeometry
+    from viennaray_tpu_torch.ops.nearest_hit import pack_disk_prims
+    from viennaray_tpu_torch.rng import GeneratorRNG
+
+    pts, nrm = fixtures.create_trench_grid_3d(grid_delta=0.5)
+    geo = DiskGeometry.build(pts, nrm, 0.5, device="cpu")
+    soa, perm, bbs = pack_disk_prims(
+        geo.points.numpy(), geo.normals.numpy(), geo.radii.numpy(), pad_to=256
+    )
+    inv = np.zeros(len(pts), np.int32)
+    inv[perm[: len(pts)]] = np.arange(len(pts), dtype=np.int32)
+    geo4 = geo.replace(
+        prims_soa=torch.from_numpy(soa), soa_perm=torch.from_numpy(perm),
+        soa_chunk_bbs=torch.from_numpy(bbs), soa_inv_perm=torch.from_numpy(inv),
+    )
+    assert geo.soa_chunk_bbs.shape[0] == 2 and geo4.soa_chunk_bbs.shape[0] >= 4
+    bbox = torch.from_numpy(adjust_bounding_box(
+        geo.bbox.numpy(), vrtt.TraceDirection.POS_Z, geo.disk_radius, 3,
+    ).astype(np.float32))
+    R = 4096
+    config = vrtt.TraceConfig(
+        dim=3, boundary_conditions=(vrtt.BoundaryCondition.PERIODIC,) * 3,
+        ray_batch_size=R,
+    )
+    source = RandomSource(
+        bbox=bbox, cosine_power=1.0, ray_dir=2, first_dir=0, second_dir=1,
+        min_max=1, pos_neg=-1.0, dim=3,
+    )
+    for geometry in (geo, geo4):
+        runs = []
+        for kwargs in (dict(fused=False), dict(fused=True, n_sub=(1, 1, 1))):
+            rng = GeneratorRNG(21, "cpu")
+            rng.begin_batch(0)
+            runs.append(trace_batch(
+                geometry, source, vrtt.DiffuseParticle(0.2, "flux"), bbox,
+                rng, 0, torch.arange(R), torch.ones(R, dtype=torch.bool),
+                config, **kwargs,
+            ))
+        (flux_u, cnt_u), (flux_f, cnt_f) = runs
+        assert cnt_u == cnt_f and cnt_u.geometry_hits > 1000
+        assert torch.equal(flux_u, flux_f)
 
 
 # ---- (b) end to end through TraceDisk against the golden ------------------
-def _golden_tracer(seed=12345, batch=16384, rays=200_000):
+def _golden_tracer(seed=12345, batch=16384, rays=200_000, fused=True):
     """The ``disk3d_trench`` configuration of benchmarks/make_goldens.py."""
     pts, nrm = fixtures.create_trench_grid_3d(grid_delta=0.5)
-    t = vrtt.TraceDisk(dim=3, device="cpu")
+    t = vrtt.TraceDisk(dim=3, device="cpu", fused=fused)
     t.set_geometry(pts, nrm, 0.5)
     t.set_boundary_conditions([vrtt.BoundaryCondition.PERIODIC] * 3)
     t.set_particle_type(vrtt.SpecularParticle(0.5, 2.0, "flux"))
@@ -140,6 +259,8 @@ def _golden_tracer(seed=12345, batch=16384, rays=200_000):
 
 
 def test_trace_disk_matches_disk3d_trench_golden():
+    """Through the default tracer: the fused body with its ladder of 1, 4 and
+    16 bounces per launch."""
     golden = np.load(os.path.join(GOLDEN_DIR, "disk3d_trench.npy"))
     with open(os.path.join(GOLDEN_DIR, "manifest.json")) as f:
         meta = json.load(f)["disk3d_trench"]
@@ -159,8 +280,23 @@ def test_trace_disk_matches_disk3d_trench_golden():
     )
 
 
+def test_unfused_trace_disk_matches_disk3d_trench_golden():
+    """``TraceDisk(fused=False)`` at a quarter of the golden's rays: the same
+    bounds (measured rel-L2 0.0393, twice the noise of the full count)."""
+    golden = np.load(os.path.join(GOLDEN_DIR, "disk3d_trench.npy"))
+    with open(os.path.join(GOLDEN_DIR, "manifest.json")) as f:
+        meta = json.load(f)["disk3d_trench"]
+    t = _golden_tracer(rays=meta["num_rays"] // 4, fused=False)
+    norm = t.smooth_flux(t.normalize_flux(t.apply()), 1)
+    assert _rel_l2(norm, golden) < 0.05
+    info = t.get_ray_trace_info()
+    want = meta["geometry_hits"] / meta["num_rays"]
+    assert abs(info.geometry_hits / info.num_rays - want) <= 0.02 * want
+
+
 # ---- (c) determinism ------------------------------------------------------
 def test_same_seed_is_bitwise_equal_and_batch_size_only_changes_bits():
+    """Through the default (fused) tracer."""
     runs = {}
     for name, batch in (("a", 4096), ("b", 4096), ("c", 8192)):
         t = _golden_tracer(seed=7, batch=batch, rays=20_000)

@@ -57,6 +57,8 @@ class JaxKeyedRNG(streams.RayRNG):
     fold_in(batch key, it + 1) split four ways into scatter, scatter
     direction, reflection and roulette keys (kernel.py:531-532), the
     reflection key split for the sphere point's two draws (sampling.py:31).
+    A fused launch of several bounces starting at ``it`` draws its whole
+    block from fold_in(batch key, it + 1) in one call (kernel.py:1118-1121).
     """
 
     def __init__(self, base_key, tilted=False):
@@ -90,4 +92,9 @@ class JaxKeyedRNG(streams.RayRNG):
 
     def uniform(self, stream, batch_index, bounce, n):
         u = jax.random.uniform(self._key(stream, bounce), (n,), dtype=np.float32)
+        return torch.from_numpy(np.array(u))
+
+    def uniform_block(self, batch_index, bounce, n, n_cols):
+        key_b = jax.random.fold_in(self.batch_key, bounce + 1)
+        u = jax.random.uniform(key_b, (n, n_cols), dtype=np.float32)
         return torch.from_numpy(np.array(u))

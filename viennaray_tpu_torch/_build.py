@@ -21,7 +21,7 @@ CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent.parent / "build" / "viennaray_tpu_torch"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-Xcompiler", "-fPIC",
+    "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 
 _ptr = ctypes.c_void_p
@@ -35,10 +35,20 @@ _SIGNATURES = {
     "vr_flux_histogram": [
         _ptr, _ptr, ctypes.c_longlong, ctypes.c_int, _ptr, _ptr, _ptr,
     ],
+    # org dir weight w0 alive hfb n_refl n_bdry uniforms | prims chunk_bbs
+    # perm neighbors neighbor_pack walls | n_rays npad pt n_prims k_nbrs
+    # n_sub dim first_dir second_dir ray_axis bc1 bc2 specular max_refl
+    # max_bdry roulette deposit | t_near sticking wthresh wrenew | org dir
+    # weight alive hfb n_refl n_bdry out | flux hit_prim wdep scratch stream
+    "vr_fused_bounce": (
+        [_ptr] * 15 + [ctypes.c_int] * 17 + [ctypes.c_float] * 4
+        + [_ptr] * 7 + [_ptr] * 5
+    ),
 }
 
 _library = None
 build_seconds = 0.0  # time the last build of this process spent in nvcc
+build_log = ""  # what nvcc printed then: ptxas' registers and spills per kernel
 
 
 def _find_nvcc() -> str:
@@ -81,7 +91,7 @@ def _run_all(commands):
 
 
 def _build(target: Path) -> None:
-    global build_seconds
+    global build_seconds, build_log
     nvcc = _find_nvcc()
     target.parent.mkdir(parents=True, exist_ok=True)
     work = target.parent / (target.stem + ".tmp")
@@ -89,10 +99,10 @@ def _build(target: Path) -> None:
     sources = sorted(CSRC.glob("*.cu"))
     objects = [work / (src.stem + ".o") for src in sources]
     t0 = time.perf_counter()
-    _run_all([
+    build_log = "\n".join(_run_all([
         [nvcc, *NVCC_FLAGS, "-c", str(src), "-o", str(obj)]
         for src, obj in zip(sources, objects)
-    ])
+    ]))
     linked = work / target.name
     _run_all([[nvcc, "-shared", "-o", str(linked), *map(str, objects)]])
     os.replace(linked, target)

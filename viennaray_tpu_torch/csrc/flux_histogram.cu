@@ -5,25 +5,12 @@
 // matrix products because the TPU has no fast scatter; an H100 has atomics,
 // so none of the one-hot machinery is carried over.
 //
-// Design: integer atomics on fixed-point weights. A float atomicAdd would
-// add in an order that changes from run to run, and float addition is not
-// associative, so the flux would differ in the last bits between two runs of
-// one seed. Integer addition is associative: each weight is scaled by a power
-// of two, rounded to a 64-bit integer and added with integer atomics, and the
-// sum is the same bit pattern in whatever order the atomics land. The other
-// deterministic design, a stable sort by bin followed by a segmented sum,
-// would spend most of its time in a library sort of all E entries; this one
-// reads each entry once.
-//
-// Range and accuracy: the scale 2^k is chosen per call from the largest |w|
-// (found by a first pass with an integer atomicMax, also order-free) and the
-// entry count E, so that E * max|w| * 2^k < 2^62: no bin can overflow even if
-// every entry lands in it. One entry is rounded by at most 2^-(k+1), which is
-// below 2 * max|w| * E * 2^-62, so a bin of m entries of typical size w' is
-// off by a relative 2^-61 * E * max|w| / w' at most: 2^-37 times the dynamic
-// range of the weights at E = 2^24, against float32's 2^-24. The float32
-// rounding of the result is the only error a caller can see.
-// No TF32, no tensor-core product. Weights must be finite.
+// Design: integer atomics on fixed-point weights (csrc/fixed_point.cuh, shared
+// with the bounce kernel): bitwise repeatable whatever order the atomics land
+// in, and float32-accurate. The scale comes from the largest |w| of the call
+// (a first pass) and the entry count E. The other deterministic design, a
+// stable sort by bin followed by a segmented sum, would spend most of its
+// time in a library sort of all E entries; this one reads each entry once.
 //
 // What bounds it on an H100: bytes, 8 per entry (ids and w read once); the
 // bins are a few KB. Entries with weight 0 (most neighbour slots) cost the
@@ -33,34 +20,12 @@
 // that size the entries go to the global bins directly.
 #include <cuda_runtime.h>
 
+#include "fixed_point.cuh"
+
 namespace {
 
 constexpr int kThreads = 512;
 constexpr size_t kMaxSharedBins = 200 * 1024;
-
-__global__ void absmax_kernel(const float* __restrict__ w, long long n_entries,
-                              unsigned int* __restrict__ wmax_bits) {
-  // non-negative floats order like their bit patterns
-  unsigned int m = 0;
-  const long long stride = (long long)gridDim.x * blockDim.x;
-  for (long long e = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-       e < n_entries; e += stride) {
-    m = max(m, __float_as_uint(fabsf(w[e])));
-  }
-  for (int o = 16; o > 0; o >>= 1) {
-    m = max(m, __shfl_xor_sync(0xffffffffu, m, o));
-  }
-  if ((threadIdx.x & 31) == 0 && m != 0) atomicMax(wmax_bits, m);
-}
-
-// k with n_entries * wmax * 2^k < 2^62
-__device__ __forceinline__ int scale_exponent(unsigned int wmax_bits,
-                                              long long n_entries) {
-  int e;
-  frexpf(__uint_as_float(wmax_bits), &e);       // wmax < 2^e
-  const int log_e = 64 - __clzll(n_entries);    // n_entries < 2^log_e
-  return 62 - e - log_e;
-}
 
 __global__ void __launch_bounds__(kThreads)
 accumulate_kernel(const int* __restrict__ ids, const float* __restrict__ w,
@@ -70,7 +35,7 @@ accumulate_kernel(const int* __restrict__ ids, const float* __restrict__ w,
   extern __shared__ unsigned long long s_bins[];
   const unsigned int bits = *wmax_bits;
   if (bits == 0) return;  // every weight is 0; uniform across the grid
-  const double scale = scalbn(1.0, scale_exponent(bits, n_entries));
+  const double scale = fixed_scale(bits, n_entries);
 
   if (use_shared) {
     for (int i = threadIdx.x; i < n_bins; i += kThreads) s_bins[i] = 0ull;
@@ -85,9 +50,7 @@ accumulate_kernel(const int* __restrict__ ids, const float* __restrict__ w,
     if (we == 0.0f) continue;
     const int id = ids[e];
     if ((unsigned int)id >= (unsigned int)n_bins) continue;
-    // float * 2^k is exact in double; two's complement carries the sign
-    const long long q = __double2ll_rn((double)we * scale);
-    atomicAdd(&bins[id], (unsigned long long)q);
+    atomicAdd(&bins[id], to_fixed(we, scale));
   }
 
   if (use_shared) {
@@ -97,21 +60,6 @@ accumulate_kernel(const int* __restrict__ ids, const float* __restrict__ w,
       if (v != 0ull) atomicAdd(&acc[i], v);
     }
   }
-}
-
-__global__ void finalize_kernel(const unsigned long long* __restrict__ acc,
-                                const unsigned int* __restrict__ wmax_bits,
-                                long long n_entries, int n_bins,
-                                float* __restrict__ out) {
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= n_bins) return;
-  const unsigned int bits = *wmax_bits;
-  if (bits == 0) {
-    out[i] = 0.0f;
-    return;
-  }
-  const double inv = scalbn(1.0, -scale_exponent(bits, n_entries));
-  out[i] = (float)((double)(long long)acc[i] * inv);
 }
 
 }  // namespace

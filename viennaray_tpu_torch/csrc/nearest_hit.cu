@@ -9,36 +9,22 @@
 // disk) stays in L2. At the 3D trench's 2^20 rays by 3,072 lanes that is
 // 1e11 operations against 35 MB.
 //
-// What the design does about it:
-//  - one thread per ray keeps the ray, the running minimum and its lane in
-//    registers; the ragged edge (R not a multiple of the block) is masked;
-//  - a block stages 512 lanes of the SoA into shared memory at a time, as two
-//    float4 per disk, and every thread walks them with broadcast loads, so a
-//    disk costs the block one global read instead of one per ray;
-//  - a warp skips a chunk when none of its rays can enter the chunk's
-//    bounding box nearer than its current best (slab test on a box widened
-//    by a margin far above rounding), and a block skips staging a chunk no
-//    warp needs. A skipped chunk holds no nearer hit, so the result does not
-//    depend on the skip;
-//  - selection is the lowest t, then the lowest sorted lane: lanes are walked
-//    in ascending order with a strict <, whatever chunks are skipped.
-// The hit test itself is csrc/disk_hit.cuh (no fused multiply-add, IEEE
-// division), which is why the result equals the plain version's exactly.
+// What the design does about it: one thread per ray keeps the ray, the
+// running minimum and its lane in registers; the ragged edge (R not a
+// multiple of the block) is masked; the search itself, with its staging of
+// the SoA through shared memory, its per-warp chunk skip and its tie rule, is
+// csrc/disk_search.cuh, shared with the bounce kernel. The hit test is
+// csrc/disk_hit.cuh (no fused multiply-add, IEEE division), which is why the
+// result equals the plain version's exactly.
 #include <cuda_runtime.h>
 
-#include "disk_hit.cuh"
+#include "disk_search.cuh"
 
 namespace {
 
-constexpr int kBlock = 256;
-constexpr int kTile = 512;
 constexpr float kBig = 3.4e38f;
 
-__device__ __forceinline__ float safe_inv(float d) {
-  return 1.0f / (d == 0.0f ? 1e-30f : d);
-}
-
-__global__ void __launch_bounds__(kBlock)
+__global__ void __launch_bounds__(kSearchBlock)
 disk_nearest_hit_kernel(const float* __restrict__ org,
                         const float* __restrict__ dir,
                         const float* __restrict__ prims,
@@ -47,9 +33,9 @@ disk_nearest_hit_kernel(const float* __restrict__ org,
                         int pt, float t_near, float* __restrict__ t_out,
                         int* __restrict__ prim_out,
                         unsigned char* __restrict__ hit_out) {
-  __shared__ float4 s_prim[2 * kTile];
+  __shared__ float4 s_prim[2 * kSearchTile];
 
-  const int r = blockIdx.x * kBlock + threadIdx.x;
+  const int r = blockIdx.x * kSearchBlock + threadIdx.x;
   const bool live = r < n_rays;
   float ox = 0.f, oy = 0.f, oz = 0.f, dx = 0.f, dy = 0.f, dz = 0.f;
   if (live) {
@@ -60,67 +46,14 @@ disk_nearest_hit_kernel(const float* __restrict__ org,
     dy = dir[3 * r + 1];
     dz = dir[3 * r + 2];
   }
-  const float ix = safe_inv(dx), iy = safe_inv(dy), iz = safe_inv(dz);
-
   float tmin = kBig;
-  int idx = 0;
-  const int n_chunks = npad / pt;
-  for (int c = 0; c < n_chunks; ++c) {
-    bool need = false;
-    if (live) {
-      const float* bb = chunk_bbs + 8 * c;
-      // widen the box: the margin (1e-4 relative and absolute) is orders
-      // above float32 rounding in the slab arithmetic
-      const float lx = bb[0] - 1e-4f * (1.0f + fabsf(bb[0]));
-      const float ly = bb[1] - 1e-4f * (1.0f + fabsf(bb[1]));
-      const float lz = bb[2] - 1e-4f * (1.0f + fabsf(bb[2]));
-      const float hx = bb[3] + 1e-4f * (1.0f + fabsf(bb[3]));
-      const float hy = bb[4] + 1e-4f * (1.0f + fabsf(bb[4]));
-      const float hz = bb[5] + 1e-4f * (1.0f + fabsf(bb[5]));
-      const float t0x = (lx - ox) * ix, t1x = (hx - ox) * ix;
-      const float t0y = (ly - oy) * iy, t1y = (hy - oy) * iy;
-      const float t0z = (lz - oz) * iz, t1z = (hz - oz) * iz;
-      const float tlo = fmaxf(fmaxf(fminf(t0x, t1x), fminf(t0y, t1y)),
-                              fminf(t0z, t1z));
-      const float thi = fminf(fminf(fmaxf(t0x, t1x), fmaxf(t0y, t1y)),
-                              fmaxf(t0z, t1z));
-      need = (thi >= tlo) && (thi > 0.0f) && (tlo < tmin);
-    }
-    const bool warp_need = __any_sync(0xffffffffu, need);
-    if (!__syncthreads_or(warp_need)) continue;  // uniform across the block
-
-    const int c_lo = c * pt;
-    const int c_hi = c_lo + pt;
-    for (int base = c_lo; base < c_hi; base += kTile) {
-      const int cnt = min(kTile, c_hi - base);
-      __syncthreads();  // the previous tile has been read by every warp
-      for (int i = threadIdx.x; i < cnt; i += kBlock) {
-        const int g = base + i;
-        s_prim[2 * i] = make_float4(prims[g], prims[npad + g],
-                                    prims[2 * npad + g], prims[3 * npad + g]);
-        s_prim[2 * i + 1] =
-            make_float4(prims[4 * npad + g], prims[5 * npad + g],
-                        prims[6 * npad + g], prims[7 * npad + g]);
-      }
-      __syncthreads();
-      if (!warp_need) continue;
-#pragma unroll 4
-      for (int j = 0; j < cnt; ++j) {
-        const float4 a = s_prim[2 * j];
-        const float4 b = s_prim[2 * j + 1];
-        const DiskPrim p{a.x, a.y, a.z, a.w, b.x, b.y, b.z, b.w};
-        float t;
-        if (disk_hit(ox, oy, oz, dx, dy, dz, p, t_near, t) && t < tmin) {
-          tmin = t;
-          idx = base + j;
-        }
-      }
-    }
-  }
+  int idx;
+  disk_search(s_prim, ox, oy, oz, dx, dy, dz, prims, chunk_bbs, npad, pt,
+              t_near, live, tmin, idx);
   if (live) {
     t_out[r] = tmin;
-    prim_out[r] = perm[idx];
-    hit_out[r] = tmin < kBig ? 1 : 0;
+    prim_out[r] = perm[idx < 0 ? 0 : idx];
+    hit_out[r] = idx < 0 ? 0 : 1;
   }
 }
 
@@ -138,8 +71,8 @@ extern "C" int vr_disk_nearest_hit(const float* org, const float* dir,
                                    int* prim_out, unsigned char* hit_out,
                                    void* stream) {
   if (n_rays > 0) {
-    const int grid = (n_rays + kBlock - 1) / kBlock;
-    disk_nearest_hit_kernel<<<grid, kBlock, 0,
+    const int grid = (n_rays + kSearchBlock - 1) / kSearchBlock;
+    disk_nearest_hit_kernel<<<grid, kSearchBlock, 0,
                               static_cast<cudaStream_t>(stream)>>>(
         org, dir, prims, chunk_bbs, perm, n_rays, npad, pt, t_near, t_out,
         prim_out, hit_out);

@@ -9,6 +9,8 @@ from __future__ import annotations
 
 import torch
 
+from . import vec
+
 
 def check_neighbors_packed(org, direction, rec):
     """Neighbor re-test over a pre-packed record gather.
@@ -37,15 +39,15 @@ def check_local_intersection(org, direction, centers, normals, radii):
     eps = 1e-6
     d = direction[:, None, :]
     o = org[:, None, :]
-    prod = torch.sum(normals * d, dim=-1)  # (R, K)
+    prod = vec.dot(normals, d)  # (R, K)
     front = prod <= 0.0
     not_parallel = torch.abs(prod) >= eps
-    ddneg = torch.sum(centers * normals, dim=-1)
-    t = (ddneg - torch.sum(normals * o, dim=-1)) / torch.where(
+    ddneg = vec.dot(centers, normals)
+    t = (ddneg - vec.dot(normals, o)) / torch.where(
         prod == 0, torch.full_like(prod, 1e-30), prod
     )
     hitp = o + t[..., None] * d
     diff = hitp - centers
-    dist = torch.sqrt(torch.sum(diff * diff, dim=-1))
+    dist = vec.norm(diff)
     valid = front & not_parallel & (t > 0.0) & (dist < radii)
     return valid, dist

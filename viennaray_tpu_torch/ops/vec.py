@@ -11,8 +11,12 @@ import torch
 
 
 def dot(a, b):
-    """Row-wise dot product of (..., 3) tensors -> (...)."""
-    return torch.sum(a * b, dim=-1)
+    """Row-wise dot product of (..., 3) tensors -> (...), summed in the fixed
+    order (x + y) + z: the CUDA kernels repeat it product by product, and a
+    library reduction's order is not specified."""
+    return (
+        a[..., 0] * b[..., 0] + a[..., 1] * b[..., 1] + a[..., 2] * b[..., 2]
+    )
 
 
 def cross(a, b):
@@ -20,7 +24,7 @@ def cross(a, b):
 
 
 def norm2(a):
-    return torch.sum(a * a, dim=-1)
+    return dot(a, a)
 
 
 def norm(a):

@@ -2,8 +2,8 @@
 
 Counterpart of ``viennaray_tpu/physics/particle.py``: the reference's CRTP
 particles (rayParticle.hpp:21-124) as one dataclass of parameters plus a
-reflection-model selector. ``DiffuseParticle`` and ``SpecularParticle`` are
-ported. The dataclass keeps the fields of the settings that are not ported yet
+reflection-model selector (``ops/bounce.py:bounce_step`` applies the model).
+``DiffuseParticle`` and ``SpecularParticle`` are ported. The dataclass keeps the fields of the settings that are not ported yet
 (per-material sticking, cone angle, mean free path, several data labels) so
 that the trace can refuse them by name instead of ignoring them.
 """
@@ -13,9 +13,7 @@ from __future__ import annotations
 import dataclasses
 from typing import Optional, Sequence, Tuple
 
-from .. import rng as rng_streams
 from ..config import ReflectionKind
-from . import reflection
 
 
 @dataclasses.dataclass(frozen=True)
@@ -48,19 +46,6 @@ class Particle:
     reflection_kind: int = int(ReflectionKind.DIFFUSE)
     data_labels: Tuple[str, ...] = ("flux",)
     name: str = "particle"
-
-    def reflect(self, rng, batch_index, bounce, ray_dir, normal, dim: int):
-        """New directions after a surface hit; draws the model's uniforms
-        (none for specular) from ``rng``."""
-        kind = ReflectionKind(self.reflection_kind)
-        if kind == ReflectionKind.DIFFUSE:
-            n = normal.shape[0]
-            u1 = rng.uniform(rng_streams.REFLECT_1, batch_index, bounce, n)
-            u2 = rng.uniform(rng_streams.REFLECT_2, batch_index, bounce, n)
-            return reflection.diffuse(u1, u2, normal, dim)
-        if kind == ReflectionKind.SPECULAR:
-            return reflection.specular(ray_dir, normal, dim)
-        raise NotImplementedError("coned-cosine reflection is not ported yet")
 
 
 def DiffuseParticle(

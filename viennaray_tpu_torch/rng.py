@@ -4,6 +4,8 @@ The trace never holds a generator of its own. It asks a ``RayRNG`` for
 uniforms in [0, 1) by purpose: ``uniform(stream, batch_index, bounce, n)``.
 The streams are the two draws of the source origin, the two of the source
 direction, the two of the reflection, and the roulette draw (``STREAMS``).
+A launch of several bounces asks for all its reflection and roulette
+uniforms at once: ``uniform_block(batch_index, bounce, n, n_cols)``.
 
 Why an interface: the JAX package keys its uniforms with threefry
 (``fold_in(base, batch) -> fold_in(batch, bounce) -> split``). The port holds
@@ -45,6 +47,9 @@ class RayRNG:
     roulette streams; for the source-direction streams it counts the rounds
     of the tilted source's accept-reject loop (0 for the plain lobe, -1 for
     the lobe that lanes fall back to when no round accepted).
+    ``uniform_block`` returns an (n, n_cols) block for the launch that starts
+    at iteration ``bounce`` and runs ``n_cols / 3`` bounces: per bounce the
+    columns [reflection 1, reflection 2, roulette].
     """
 
     def begin_batch(self, batch_index: int) -> None:
@@ -52,6 +57,10 @@ class RayRNG:
 
     def uniform(self, stream: str, batch_index: int, bounce: int,
                 n: int) -> torch.Tensor:
+        raise NotImplementedError
+
+    def uniform_block(self, batch_index: int, bounce: int, n: int,
+                      n_cols: int) -> torch.Tensor:
         raise NotImplementedError
 
 
@@ -76,15 +85,21 @@ class GeneratorRNG(RayRNG):
         )
         self._batch = int(batch_index)
 
-    def uniform(self, stream, batch_index, bounce, n):
-        if stream not in STREAMS:
-            raise ValueError(f"unknown stream {stream!r}")
+    def _rand(self, batch_index, shape):
         if batch_index != self._batch:
             raise RuntimeError(
                 f"draw for batch {batch_index} but batch {self._batch} is "
                 "open: call begin_batch first"
             )
         return torch.rand(
-            n, generator=self._generator, device=self._device,
+            shape, generator=self._generator, device=self._device,
             dtype=torch.float32,
         )
+
+    def uniform(self, stream, batch_index, bounce, n):
+        if stream not in STREAMS:
+            raise ValueError(f"unknown stream {stream!r}")
+        return self._rand(batch_index, n)
+
+    def uniform_block(self, batch_index, bounce, n, n_cols):
+        return self._rand(batch_index, (n, n_cols))

@@ -7,8 +7,10 @@ the trace; ``normalize_flux`` / ``smooth_flux`` post-process — over a loop of
 mega-batches of rays (the analog of the 2^29-ray GPU launch clamp,
 gpu/raygTrace.hpp:132-160).
 
-The tracer runs on a CUDA device unless the caller asks for the CPU. Triangle
-and line tracers are not ported yet: their classes exist and raise.
+The tracer runs on a CUDA device unless the caller asks for the CPU, and
+through the fused bounce kernel unless the caller asks for the unfused body
+(``fused=False``). Triangle and line tracers are not ported yet: their classes
+exist and raise.
 """
 
 from __future__ import annotations
@@ -43,10 +45,12 @@ from .kernel import check_supported, trace_batch
 class _TraceBase:
     """Shared setter surface (ref: rayTrace.hpp:15-180)."""
 
-    def __init__(self, dim: int = 3, device=None, dtype=torch.float32):
+    def __init__(self, dim: int = 3, device=None, dtype=torch.float32,
+                 fused: bool = True):
         if dtype != torch.float32:
             raise NotImplementedError("f64 tracing is not ported yet")
         self._dim = dim
+        self._fused = bool(fused)
         self._device = resolve_device(device)
         self._particle = None
         self._custom_source = None
@@ -275,7 +279,7 @@ class _TraceBase:
             rng.begin_batch(b)
             batch_flux, counters = trace_batch(
                 geometry, source, self._particle, bbox_dev, rng, b,
-                ray_indices, valid, config,
+                ray_indices, valid, config, fused=self._fused,
             )
             flux += batch_flux.double()
             totals += np.asarray(counters, np.int64)
