@@ -1,13 +1,15 @@
 #!/usr/bin/env python3
-"""Where the flagship's time goes on a GPU: the diagnostics behind PERF.md.
+"""Where a flagship's time goes on a GPU: the diagnostics behind PERF.md.
 
 Run from the repository root on a machine with one NVIDIA Hopper card:
 
-    python3 chip_diagnose.py [--profile FILE]
+    python3 chip_diagnose.py [--triangles] [--unfused] [--profile FILE]
 
-It builds the flagship tracer of ``chip_smoke.py`` (same geometry, particle,
-seed and batch; the default tracer, whose body is the fused bounce kernel),
-warms it up with one apply, and prints one JSON object per phase:
+It builds a flagship tracer of ``chip_smoke.py`` (same geometry, particle,
+seed and batch; the default tracer, whose body is the fused bounce kernel):
+the 2,993-disk trench through ``TraceDisk`` or, with ``--triangles``, the
+5,760-triangle trench through ``TraceTriangle``. It warms the tracer up with
+one apply and prints one JSON object per phase:
 
 - ``repeats``: five more applies of the one tracer (each a new run number, so
   a new seed): wall seconds, the process's CPU seconds, the bounce count and
@@ -16,10 +18,17 @@ warms it up with one apply, and prints one JSON object per phase:
 - ``kernel_spans``: one apply with CUDA events around every launch of the
   kernels: the seconds inside those spans (a span also holds any wait for the
   host between its two events, so this bounds the kernels' device time from
-  above), the share of wall time outside them, and the number of launches at
-  each (stage width, bounces per launch);
-- with ``--unfused``: both phases once more for ``TraceDisk(fused=False)``,
-  the unfused body, in the same process;
+  above), the share of wall time outside them, and the number of launches
+  and the seconds of the bounce or closest-hit kernel at each (stage width,
+  bounces per launch);
+- with ``--unfused``: both phases once more for the tracer with
+  ``fused=False``, the unfused body, in the same process;
+- with ``--triangles``, ``deposit_policy``: two fused tracers in turns, run
+  number by run number (so both trace the same rays; which goes first
+  alternates): one deposits in the bounce kernel at every width (the port's
+  rule for triangles), the other runs under the reference's rule, which
+  hands the deposits of a diffuse particle's one-bounce launches out to the
+  histogram kernel on 4 chunks or more;
 - with ``--profile FILE``: one apply of the default tracer under
   ``torch.profiler``, whose tables of kernels and host operators go to FILE.
 
@@ -38,7 +47,13 @@ import time
 
 import torch
 
-from chip_smoke import FLAGSHIP, make_tracer, read_launches, reset_launches
+from chip_smoke import (
+    FLAGSHIP,
+    make_tracer,
+    make_tri_tracer,
+    read_launches,
+    reset_launches,
+)
 from viennaray_tpu_torch.ops import bounce as B
 
 
@@ -55,7 +70,10 @@ def repeats(tracer, n, body):
         counts = read_launches()
         launches.append(counts)
         # the unfused body launches the closest-hit kernel once per bounce
-        bounces.append(B.fused_bounce.sub_bounces or counts["disk_nearest_hit"])
+        bounces.append(
+            B.fused_bounce.sub_bounces or counts["disk_nearest_hit"]
+            or counts["triangle_nearest_hit"]
+        )
     allocator = torch.cuda.memory_stats()
     return {
         "phase": "repeats", "body": body, "seconds": seconds,
@@ -68,32 +86,42 @@ def repeats(tracer, n, body):
 def kernel_spans(tracer, body):
     from viennaray_tpu_torch.trace import kernel as TK
 
-    names = ("fused_bounce", "disk_nearest_hit", "flux_histogram")
+    search = f"{tracer.geometry.kind}_nearest_hit"
+    names = ("fused_bounce", search, "flux_histogram")
     spans = {name: [] for name in names}
-    widths = {}
+    by_width = {}  # "width x bounces" -> that kernel's spans
 
     def timed(name, fn):
         def wrapper(*args, **kwargs):
+            key = None
             if name == "fused_bounce":  # (state, uniforms, ...), n_sub=
                 key = f"{args[0].org.shape[0]}x{kwargs['n_sub']}"
-                widths[key] = widths.get(key, 0) + 1
-            elif name == "disk_nearest_hit":  # one call per bounce, (R, 3) rays
+            elif name == search:  # one call per bounce, (R, 3) rays
                 key = f"{args[0].shape[0]}x1"
-                widths[key] = widths.get(key, 0) + 1
             a = torch.cuda.Event(enable_timing=True)
             b = torch.cuda.Event(enable_timing=True)
             a.record()
             out = fn(*args, **kwargs)
             b.record()
             spans[name].append((a, b))
+            if key is not None:
+                by_width.setdefault(key, []).append((a, b))
             return out
         return wrapper
 
-    # the trace module's own references: the wrappers themselves stay as
-    # they are, with their launch counts
-    real = {name: getattr(TK, name) for name in names}
-    for name in names:
-        setattr(TK, name, timed(name, real[name]))
+    # the trace module's own references (the closest-hit wrapper sits in its
+    # table by geometry kind): the wrappers themselves stay as they are, with
+    # their launch counts
+    kind = tracer.geometry.kind
+    real = {"fused_bounce": TK.fused_bounce, search: TK._SEARCH[kind],
+            "flux_histogram": TK.flux_histogram}
+
+    def install(fns):
+        TK.fused_bounce = fns["fused_bounce"]
+        TK.flux_histogram = fns["flux_histogram"]
+        TK._SEARCH[kind] = fns[search]
+
+    install({name: timed(name, fn) for name, fn in real.items()})
     try:
         torch.cuda.synchronize()
         t0 = time.perf_counter()
@@ -101,18 +129,64 @@ def kernel_spans(tracer, body):
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     finally:
-        for name in names:
-            setattr(TK, name, real[name])
-    in_kernels = {
-        name: sum(a.elapsed_time(b) for a, b in evs) / 1e3
-        for name, evs in spans.items()
-    }
+        install(real)
+    def seconds(evs):
+        return sum(a.elapsed_time(b) for a, b in evs) / 1e3
+
+    in_kernels = {name: seconds(evs) for name, evs in spans.items()}
     return {
         "phase": "kernel_spans", "body": body, "seconds": wall,
         "seconds_in_kernels": in_kernels,
         "share_outside_kernels": 1.0 - sum(in_kernels.values()) / wall,
-        "launches_by_width_x_bounces": widths,
+        "launches_by_width_x_bounces": {
+            key: len(evs) for key, evs in by_width.items()
+        },
+        "seconds_by_width_x_bounces": {
+            key: seconds(evs) for key, evs in by_width.items()
+        },
     }
+
+
+def reference_hand_out_rule(kind, n_chunks, refl_kind, n_sub):
+    """The JAX package's placement of deposits (its trace/kernel.py:1049-1065)
+    for every geometry kind."""
+    from viennaray_tpu_torch.config import ReflectionKind
+    from viennaray_tpu_torch.trace.kernel import HAND_OUT_MIN_CHUNKS
+
+    return (n_sub == 1 and refl_kind == ReflectionKind.DIFFUSE
+            and n_chunks >= HAND_OUT_MIN_CHUNKS)
+
+
+def deposit_policy(make, n):
+    """Applies of two fused tracers in turns: one under the port's placement
+    of deposits (``hand_out_for``: triangles deposit in the kernel), one
+    under the reference's rule, put in its place for that tracer's applies.
+    Both start at the same run number, so apply i of one traces the rays of
+    apply i of the other. Which of the two goes first alternates from round
+    to round."""
+    from viennaray_tpu_torch.trace import kernel as TK
+
+    rules = {"in_kernel": TK.hand_out_for,
+             "handed_out": reference_hand_out_rule}
+    tracers = {name: make() for name in rules}
+    seconds = {name: [] for name in rules}
+    launches = {name: [] for name in rules}
+    try:
+        for i in range(-1, n):  # round -1 warms both tracers up
+            for name in list(rules)[::-1] if i % 2 else list(rules):
+                TK.hand_out_for = rules[name]
+                reset_launches()
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                tracers[name].apply()
+                torch.cuda.synchronize()
+                if i >= 0:
+                    seconds[name].append(time.perf_counter() - t0)
+                    launches[name].append(read_launches())
+    finally:
+        TK.hand_out_for = rules["in_kernel"]
+    return {"phase": "deposit_policy", "seconds": seconds,
+            "launches": launches}
 
 
 def profile_apply(tracer, path):
@@ -134,8 +208,12 @@ def main(argv=None):
     parser.add_argument("--repeats", type=int, default=5)
     parser.add_argument(
         "--unfused", action="store_true",
-        help="also time the unfused body, TraceDisk(fused=False), beside "
-             "the fused one",
+        help="also time the unfused body (fused=False) beside the fused one",
+    )
+    parser.add_argument(
+        "--triangles", action="store_true",
+        help="the 5,760-triangle flagship through TraceTriangle instead of "
+             "the 2,993-disk one, and its two deposit placements in turns",
     )
     parser.add_argument(
         "--profile", metavar="FILE", default=None,
@@ -153,14 +231,21 @@ def main(argv=None):
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         check=True, capture_output=True, text=True, timeout=60,
     ).stdout.strip().splitlines()[0], flush=True)
-    pts, nrm = fixtures.create_trench_grid_3d(**FLAGSHIP)
-    tracers = {"fused": make_tracer(pts, nrm)}
+    if args.triangles:
+        mesh = fixtures.create_trench_mesh_3d(**FLAGSHIP)
+        make = lambda **kwargs: make_tri_tracer(*mesh, **kwargs)
+    else:
+        cloud = fixtures.create_trench_grid_3d(**FLAGSHIP)
+        make = lambda **kwargs: make_tracer(*cloud, **kwargs)
+    tracers = {"fused": make()}
     if args.unfused:
-        tracers["unfused"] = make_tracer(pts, nrm, fused=False)
+        tracers["unfused"] = make(fused=False)
     for body, tracer in tracers.items():
         tracer.apply()  # warm-up: builds the kernels, fills the allocator
         print(json.dumps(repeats(tracer, args.repeats, body)), flush=True)
         print(json.dumps(kernel_spans(tracer, body)), flush=True)
+    if args.triangles:
+        print(json.dumps(deposit_policy(make, args.repeats)), flush=True)
     if args.profile:
         profile_apply(tracers["fused"], args.profile)
     return 0

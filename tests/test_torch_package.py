@@ -24,6 +24,17 @@ t.set_particle_type(vrt.DiffuseParticle(0.5, "flux"))
 t.set_number_of_rays_fixed(600)
 t.set_rng_seed(3)
 assert t.apply().sum() > 0
+from viennaray_tpu_torch.geometry import triangle_geometry
+from viennaray_tpu_torch.io import make_tri_golden
+assert triangle_geometry.TriangleGeometry.kind == "triangle"
+assert make_tri_golden.NAME == "tri3d_trench_oracle"
+verts, tris = fixtures.create_trench_mesh_3d(grid_delta=1.0)
+t = vrt.TraceTriangle(dim=3, device="cpu")
+t.set_geometry(verts, tris, 1.0)
+t.set_particle_type(vrt.DiffuseParticle(0.5, "flux"))
+t.set_number_of_rays_fixed(600)
+t.set_rng_seed(3)
+assert t.apply().sum() > 0
 bad = [m for m in ("jax", "flax", "viennaray_tpu") if m in sys.modules]
 assert not bad, bad
 print("standalone-ok")
@@ -47,13 +58,17 @@ def test_sources_name_neither_jax_nor_the_jax_package_as_an_import():
         files += [os.path.join(folder, n) for n in names
                   if n.endswith((".py", ".cu", ".cuh"))]
     assert len(files) > 20
+    package = os.path.join(ROOT, "viennaray_tpu_torch")
+    for module in ("geometry/triangle_geometry.py", "io/make_tri_golden.py",
+                   "csrc/tri_hit.cuh", "csrc/prim_search.cuh"):
+        assert os.path.join(package, *module.split("/")) in files, module
     # ``viennaray_tpu`` not followed by ``_torch``, outside a path-like
     # mention in prose (docstrings name their counterpart as
     # ``viennaray_tpu/<module>``)
-    package = re.compile(r"viennaray_tpu(?!_torch)(?!/)")
+    jax_package = re.compile(r"viennaray_tpu(?!_torch)(?!/)")
     for path in files:
         with open(path) as f:
             text = f.read()
         for needle in ("import jax", "from jax", "import flax", "from flax"):
             assert needle not in text, (path, needle)
-        assert not package.search(text), path
+        assert not jax_package.search(text), path

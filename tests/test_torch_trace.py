@@ -354,7 +354,6 @@ REFUSALS = {
     "coned_cosine": lambda: _apply_with_particle(
         reflection_kind=int(vrtt.ReflectionKind.CONED_COSINE), cone_angle=0.3
     ),
-    "triangles": lambda: vrtt.TraceTriangle(dim=3),
     "lines": lambda: vrtt.TraceLine(),
     "other_sources": lambda: _small_tracer().set_source(object()),
     "f64_tracing": lambda: vrtt.TraceDisk(

@@ -3,9 +3,11 @@
 A Monte Carlo flux tracer with the capabilities of ViennaRay (semiconductor
 topography flux simulation), running on one NVIDIA Hopper GPU. Plain tensor
 code is PyTorch; the kernels (``csrc/``) are CUDA C++ for ``sm_90a``, built at
-first use. The port goes slice by slice: this package holds the 3D disk path
-through ``TraceDisk`` (random source, diffuse and specular reflection, all
-three wall conditions, the neighbor flux model, normalization and smoothing).
+first use. The port goes slice by slice: this package holds the disk path
+through ``TraceDisk`` and the triangle path through ``TraceTriangle`` (3D
+meshes, and 2D line meshes extruded to triangles): random source, diffuse and
+specular reflection, all three wall conditions, the neighbor flux model of
+disks and the single-hit deposit of triangles, normalization and smoothing.
 Every setting outside the ported slice raises ``NotImplementedError``.
 
 The package imports ``torch`` and ``numpy`` only.
@@ -21,7 +23,8 @@ from .config import (
 )
 from .data import DataLog, MergeType, TraceInfo, TracingData
 from .geometry.disk_geometry import DiskGeometry
-from .geometry.mesh import DiskMesh
+from .geometry.mesh import DiskMesh, LineMesh, TriangleMesh
+from .geometry.triangle_geometry import TriangleGeometry
 from .physics.particle import DiffuseParticle, Particle, SpecularParticle
 from .physics.source import RandomSource
 from .rng import GeneratorRNG, RayRNG
@@ -42,6 +45,9 @@ __all__ = [
     "TracingData",
     "DiskGeometry",
     "DiskMesh",
+    "LineMesh",
+    "TriangleMesh",
+    "TriangleGeometry",
     "Particle",
     "DiffuseParticle",
     "SpecularParticle",

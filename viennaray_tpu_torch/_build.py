@@ -25,23 +25,25 @@ NVCC_FLAGS = (
 )
 
 _ptr = ctypes.c_void_p
+# org dir prims chunk_bbs perm | n_rays npad pt t_near | t prim hit stream
+_NEAREST_HIT = [
+    _ptr, _ptr, _ptr, _ptr, _ptr, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+    ctypes.c_float, _ptr, _ptr, _ptr, _ptr,
+]
 _SIGNATURES = {
-    # org dir prims chunk_bbs perm | n_rays npad pt t_near | t prim hit stream
-    "vr_disk_nearest_hit": [
-        _ptr, _ptr, _ptr, _ptr, _ptr, ctypes.c_int, ctypes.c_int,
-        ctypes.c_int, ctypes.c_float, _ptr, _ptr, _ptr, _ptr,
-    ],
+    "vr_disk_nearest_hit": _NEAREST_HIT,
+    "vr_triangle_nearest_hit": _NEAREST_HIT,
     # ids w | n_entries n_bins | out scratch stream
     "vr_flux_histogram": [
         _ptr, _ptr, ctypes.c_longlong, ctypes.c_int, _ptr, _ptr, _ptr,
     ],
     # org dir weight w0 alive hfb n_refl n_bdry uniforms | prims chunk_bbs
     # perm neighbors neighbor_pack walls | n_rays npad pt n_prims k_nbrs
-    # n_sub dim first_dir second_dir ray_axis bc1 bc2 specular max_refl
+    # n_sub kind dim first_dir second_dir ray_axis bc1 bc2 specular max_refl
     # max_bdry roulette deposit | t_near sticking wthresh wrenew | org dir
     # weight alive hfb n_refl n_bdry out | flux hit_prim wdep scratch stream
     "vr_fused_bounce": (
-        [_ptr] * 15 + [ctypes.c_int] * 17 + [ctypes.c_float] * 4
+        [_ptr] * 15 + [ctypes.c_int] * 18 + [ctypes.c_float] * 4
         + [_ptr] * 7 + [_ptr] * 5
     ),
 }

@@ -1,26 +1,39 @@
 // Whole bounces of a ray batch: n_sub bounces of every ray per launch.
 //
 // Replaces the TPU kernel viennaray_tpu/ops/pallas_bounce.py:_bounce_kernel
-// with its _one_bounce (launched by fused_bounce / _fused_bounce), for disks.
-// Per ray and sub-bounce: search bound, closest disk hit below it, event
+// with its _one_bounce (launched by fused_bounce / _fused_bounce), for disks
+// (its _disk_chunk branch) and for triangles (its _tri_chunk branch); the
+// kernel is a template on the primitive kind, instantiated once for each.
+// Per ray and sub-bounce: search bound, closest hit below it, event
 // (geometry wins ties over the walls, wall 1 over wall 2), wall handling
 // (reflective / periodic / ignore, the boundary-hit cap), backface pass or
 // kill, the deposit of the pre-sticking weight, diffuse or specular
 // reflection, sticking, the reflection cap, roulette, the state update.
 //
+// What differs by kind, all of it compile-time (DiskKind in disk_hit.cuh,
+// TriKind in tri_hit.cuh): the hit test and the staged tile's width; where
+// the hit normal sits in the SoA (a triangle's is its STORED normal, rows
+// 9-11); the backface rule (a disk's first hit from behind passes through
+// and the second kills, a triangle's always kills, so hfb is dead state for
+// triangles); the deposit (a disk's neighbor list, a triangle's single
+// closest hit: one atomic on the hit triangle's bin). A further kind (2D
+// line segments) adds a struct with those members and one instantiation.
+//
 // What bounds it on an H100: operations, as the closest-hit kernel: a ray
-// tests every disk of every chunk it cannot rule out, about 30 float32
-// operations a pair, against some 100 bytes of state, uniforms and outputs
-// per ray; the geometry stays in L2. The narrow launches of the tail (512
-// rays, 2 blocks) are bound by the latency of n_sub dependent searches.
+// tests every primitive of every chunk it cannot rule out, about 30 float32
+// operations a (ray, disk) pair and about 50 a (ray, triangle) pair,
+// against some 100 bytes of state, uniforms and outputs per ray; the
+// geometry stays in L2. The narrow launches of the tail (512 rays, 2
+// blocks) are bound by the latency of n_sub dependent searches.
 //
 // What the design does about it:
 //  - one thread per ray, any R; the ray's whole state lives in registers
 //    across the n_sub sub-bounces, counters are int32 and flags bool;
-//  - the search is csrc/disk_search.cuh, shared with the closest-hit kernel:
+//  - the search is csrc/prim_search.cuh, shared with the closest-hit kernel:
 //    the SoA staged through shared memory, a per-warp chunk skip, lowest t
 //    then lowest sorted lane. It starts from the bound tmin0 (exit of the
-//    walls box inflated by the disks' reach, and the nearest wall crossing,
+//    walls box inflated by the disks' reach (triangles reach no further than
+//    their vertices: 0), and the nearest wall crossing,
 //    a hair above it so that geometry still wins a tie), so escaping and
 //    sideways rays stop waking chunks. Dead lanes wake nothing, and a block
 //    whose lanes are all dead leaves the sub-bounce loop at once;
@@ -43,7 +56,8 @@
 // csrc/fixed_point.cuh: integer atomics are associative, two launches on one
 // input give the same bits. The scale follows from the largest w0 (a weight
 // never exceeds its ray's w0: sticking lowers it, roulette renews it to a
-// fraction of w0) and the entry count R * n_sub * (K + 1).
+// fraction of w0) and the entry count R * n_sub * (K + 1). A triangle has
+// no neighbor list (K = 0): the hit triangle's bin takes the one atomic.
 //
 // Numbers: round-to-nearest intrinsics in the plain version's operation
 // order (ops/bounce.py:bounce_step), IEEE division and square root, no fused
@@ -52,13 +66,16 @@
 // functions PyTorch's own kernels call: on an H100 the directions agreed bit
 // for bit as well).
 //
-// Registers (nvcc 12.8 -Xptxas -v, sm_90a): 64 a thread, a 72-byte stack
-// frame, 92 bytes of spill stores and 68 of spill loads; 16 KB of shared
-// memory. chip_smoke.py prints the figures of every build.
+// Registers (nvcc 12.8 -Xptxas -v, sm_90a), disk instantiation: 64 a thread,
+// a 72-byte stack frame, 92 bytes of spill stores and 68 of spill loads; 16
+// KB of shared memory (24 KB for triangles). chip_smoke.py prints the figures
+// of every build, both instantiations.
 #include <cuda_runtime.h>
 
-#include "disk_search.cuh"
+#include "disk_hit.cuh"
 #include "fixed_point.cuh"
+#include "prim_search.cuh"
+#include "tri_hit.cuh"
 
 namespace {
 
@@ -67,6 +84,9 @@ constexpr float kTwoPi = 6.2831855f;  // float32 of 2 pi
 // boundary conditions, as config.BoundaryCondition
 constexpr int kReflective = 0;
 constexpr int kPeriodic = 1;
+// primitive kinds, as the `kind` argument of vr_fused_bounce
+constexpr int kDisks = 0;
+constexpr int kTriangles = 1;
 
 struct BounceArgs {
   // state in
@@ -185,9 +205,10 @@ __device__ __forceinline__ void count_add(unsigned long long* slot, int v) {
   }
 }
 
+template <class Kind>
 __global__ void __launch_bounds__(kSearchBlock)
 bounce_kernel(const BounceArgs a) {
-  __shared__ float4 s_prim[2 * kSearchTile];
+  __shared__ float4 s_prim[Kind::kVec * kSearchTile];
 
   const int r = blockIdx.x * kSearchBlock + threadIdx.x;
   const bool in_range = r < a.n_rays;
@@ -254,11 +275,11 @@ bounce_kernel(const BounceArgs a) {
           a.t_near);
     }
 
-    // ---- closest disk below the bound ----------------------------------
+    // ---- closest hit below the bound -----------------------------------
     float t_geo = tmin0;
     int lane;
-    disk_search(s_prim, ox, oy, oz, dx, dy, dz, a.prims, a.chunk_bbs, a.npad,
-                a.pt, a.t_near, alive, t_geo, lane);
+    prim_search<Kind>(s_prim, ox, oy, oz, dx, dy, dz, a.prims, a.chunk_bbs,
+                      a.npad, a.pt, a.t_near, alive, t_geo, lane);
     if (!alive) continue;
 
     ++c_traces;
@@ -302,13 +323,14 @@ bounce_kernel(const BounceArgs a) {
     float new_weight = weight;
     float rdx = 0.f, rdy = 0.f, rdz = 0.f;
     if (is_geo) {
-      const float nx = a.prims[3 * a.npad + lane];
-      const float ny = a.prims[4 * a.npad + lane];
-      const float nz = a.prims[5 * a.npad + lane];
+      const float nx = a.prims[(Kind::kNormalRow + 0) * a.npad + lane];
+      const float ny = a.prims[(Kind::kNormalRow + 1) * a.npad + lane];
+      const float nz = a.prims[(Kind::kNormalRow + 2) * a.npad + lane];
       const bool backface = dot3(dx, dy, dz, nx, ny, nz) > 0.0f;
       if (backface) {
-        // the first hit from behind passes through, the second kills
-        if (hfb) dead = true;
+        // a disk's first hit from behind passes through and its second
+        // kills; a triangle's hit from behind always kills
+        if (!Kind::kBackfacePasses || hfb) dead = true;
         else bf_pass = true;
       } else {
         collide = true;
@@ -319,14 +341,16 @@ bounce_kernel(const BounceArgs a) {
           if (weight != 0.0f) {
             const unsigned long long q = to_fixed(weight, scale);
             atomicAdd(&a.bins[prim], q);
-            const float4* rec = reinterpret_cast<const float4*>(
-                a.neighbor_pack + (size_t)prim * a.k_nbrs * 8);
-            const int* ids = a.neighbors + (size_t)prim * a.k_nbrs;
-            for (int j = 0; j < a.k_nbrs; ++j) {
-              if (neighbor_hit(ox, oy, oz, dx, dy, dz, rec[2 * j],
-                               rec[2 * j + 1])) {
-                const int id = min(max(ids[j], 0), a.n_prims - 1);
-                atomicAdd(&a.bins[id], q);
+            if constexpr (Kind::kNeighborDeposit) {
+              const float4* rec = reinterpret_cast<const float4*>(
+                  a.neighbor_pack + (size_t)prim * a.k_nbrs * 8);
+              const int* ids = a.neighbors + (size_t)prim * a.k_nbrs;
+              for (int j = 0; j < a.k_nbrs; ++j) {
+                if (neighbor_hit(ox, oy, oz, dx, dy, dz, rec[2 * j],
+                                 rec[2 * j + 1])) {
+                  const int id = min(max(ids[j], 0), a.n_prims - 1);
+                  atomicAdd(&a.bins[id], q);
+                }
               }
             }
           }
@@ -445,12 +469,14 @@ bounce_kernel(const BounceArgs a) {
 
 // State in: org, dir (n_rays, 3) float32; weight, w0 (n_rays,) float32;
 // alive, hfb (n_rays,) bytes 0/1; n_refl, n_bdry (n_rays,) int32; uniforms
-// (n_rays, 3 n_sub) float32. Geometry: prims (8, npad), chunk_bbs
-// (npad / pt, 8), perm (npad,) sorted lane -> original id, neighbors
-// (n_prims, k_nbrs) int32, neighbor_pack (n_prims, k_nbrs * 8), walls (9,).
+// (n_rays, 3 n_sub) float32. kind: 0 = disks, 1 = triangles. Geometry: prims
+// (8, npad) for disks or (12, npad) for triangles, chunk_bbs (npad / pt, 8),
+// perm (npad,) sorted lane -> original id, walls (9,); disks only: neighbors
+// (n_prims, k_nbrs) int32, neighbor_pack (n_prims, k_nbrs * 8); triangles
+// pass k_nbrs = 0 and null for both.
 // State out: fresh arrays of the same shapes (w0 does not change). With
 // deposit != 0 the flux (n_prims,) float32 in original numbering goes to
-// flux_out; else n_sub must be 1 and each ray's (hit disk or -1, deposit
+// flux_out; else n_sub must be 1 and each ray's (hit primitive or -1, deposit
 // weight) goes to hit_prim_out / wdep_out. scratch: n_prims + 6 64-bit words,
 // which this call clears itself: the bins, the largest w0, and the five
 // counts (collide, wall, exit, traces, survivors) that the caller reads at
@@ -462,9 +488,10 @@ extern "C" int vr_fused_bounce(
     const int* n_bdry, const float* uniforms, const float* prims,
     const float* chunk_bbs, const int* perm, const int* neighbors,
     const float* neighbor_pack, const float* walls, int n_rays, int npad,
-    int pt, int n_prims, int k_nbrs, int n_sub, int dim, int first_dir,
-    int second_dir, int ray_axis, int bc1, int bc2, int specular,
-    int max_refl, int max_bdry, int roulette, int deposit, float t_near,
+    int pt, int n_prims, int k_nbrs, int n_sub, int kind, int dim,
+    int first_dir, int second_dir, int ray_axis, int bc1, int bc2,
+    int specular, int max_refl, int max_bdry, int roulette, int deposit,
+    float t_near,
     float sticking, float wthresh, float wrenew, float* org_out,
     float* dir_out, float* weight_out, unsigned char* alive_out,
     unsigned char* hfb_out, int* n_refl_out, int* n_bdry_out, float* flux_out,
@@ -472,6 +499,12 @@ extern "C" int vr_fused_bounce(
     void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (!deposit && n_sub != 1) return static_cast<int>(cudaErrorInvalidValue);
+  if (kind != kDisks && kind != kTriangles) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  if (kind == kTriangles && k_nbrs != 0) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
   cudaError_t err = cudaMemsetAsync(
       scratch, 0, sizeof(unsigned long long) * ((size_t)n_prims + 6), s);
   if (err != cudaSuccess) return static_cast<int>(err);
@@ -504,7 +537,11 @@ extern "C" int vr_fused_bounce(
     a.hit_prim_out = hit_prim_out; a.wdep_out = wdep_out;
     a.bins = scratch; a.wmax_bits = wmax_bits; a.n_entries = n_entries;
     a.counts = scratch + n_prims + 1;
-    bounce_kernel<<<grid, kSearchBlock, 0, s>>>(a);
+    if (kind == kDisks) {
+      bounce_kernel<DiskKind><<<grid, kSearchBlock, 0, s>>>(a);
+    } else {
+      bounce_kernel<TriKind><<<grid, kSearchBlock, 0, s>>>(a);
+    }
   }
   if (deposit && n_prims > 0) {
     finalize_kernel<<<(n_prims + 255) / 256, 256, 0, s>>>(

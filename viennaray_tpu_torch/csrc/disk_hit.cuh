@@ -1,4 +1,5 @@
-// Ray/disk hit test, shared by every kernel that intersects disks.
+// Ray/disk hit test, shared by every kernel that intersects disks, and the
+// disk kind of the search (prim_search.cuh).
 //
 // One oriented disk is 8 floats: centre (cx cy cz), unit normal (nx ny nz),
 // squared radius r2 and the plane offset ndc = n.c, the row layout that
@@ -38,3 +39,32 @@ __device__ __forceinline__ bool disk_hit(float ox, float oy, float oz,
   t_out = t;
   return denom != 0.0f && t > t_near && dist2 < p.r2;
 }
+
+// The disk kind of prim_search.cuh: a staged disk is two float4
+// [cx cy cz nx] [ny nz r2 ndc]; the unit normal sits in SoA rows 3-5; a
+// disk's first hit from behind passes through (the bounce kernel's rule).
+struct DiskKind {
+  static constexpr int kVec = 2;
+  static constexpr int kNormalRow = 3;
+  static constexpr bool kBackfacePasses = true;
+  static constexpr bool kNeighborDeposit = true;
+
+  static __device__ __forceinline__ void stage(float4* s,
+                                               const float* __restrict__ prims,
+                                               int npad, int g) {
+    s[0] = make_float4(prims[g], prims[npad + g], prims[2 * npad + g],
+                       prims[3 * npad + g]);
+    s[1] = make_float4(prims[4 * npad + g], prims[5 * npad + g],
+                       prims[6 * npad + g], prims[7 * npad + g]);
+  }
+
+  static __device__ __forceinline__ bool hit(const float4* s, float ox,
+                                             float oy, float oz, float dx,
+                                             float dy, float dz, float t_near,
+                                             float& t_out) {
+    const float4 a = s[0];
+    const float4 b = s[1];
+    const DiskPrim p{a.x, a.y, a.z, a.w, b.x, b.y, b.z, b.w};
+    return disk_hit(ox, oy, oz, dx, dy, dz, p, t_near, t_out);
+  }
+};

@@ -1,35 +1,40 @@
-// Closest disk hit of one ray below a bound, shared by every kernel that
-// searches the packed disk cloud (nearest_hit.cu, bounce.cu).
+// Closest hit of one ray below a bound, on a packed geometry of one primitive
+// kind; shared by every kernel that searches (nearest_hit.cu, bounce.cu).
 //
-// One thread per ray; the whole block calls disk_search together (it holds
+// The primitive kind is a template parameter (DiskKind of disk_hit.cuh,
+// TriKind of tri_hit.cuh): it says how many float4 one staged primitive
+// takes (kVec: 2 for a disk's 8 rows, 3 for a triangle's 12), how to stage
+// one lane of the SoA into them, and the hit test on the staged values. A
+// further kind (2D line segments) needs only those three.
+//
+// One thread per ray; the whole block calls prim_search together (it holds
 // block-wide barriers), lanes without a ray pass live = false. A block
-// stages kTile lanes of the SoA into shared memory at a time, as two float4
-// per disk, and every thread walks them with broadcast loads, so a disk
-// costs the block one global read instead of one per ray. A warp skips a
-// chunk when none of its rays can enter the chunk's bounding box nearer than
-// its current best (slab test on a box widened by a margin far above
-// rounding), and a block skips staging a chunk no warp needs. A skipped
-// chunk holds no nearer hit, so the result does not depend on the skip.
+// stages kSearchTile lanes of the SoA into shared memory at a time, and
+// every thread walks them with broadcast loads, so a primitive costs the
+// block one global read instead of one per ray. A chunk wider than a tile
+// (1,024 or 2,048 lanes) is staged tile by tile. A warp skips a chunk when
+// none of its rays can enter the chunk's bounding box nearer than its
+// current best (slab test on a box widened by a margin far above rounding),
+// and a block skips staging a chunk no warp needs. A skipped chunk holds no
+// nearer hit, so the result does not depend on the skip.
 //
 // Selection is the lowest t, then the lowest sorted lane: lanes are walked
-// in ascending order with a strict <, whatever chunks are skipped. The hit
-// test itself is disk_hit.cuh.
+// in ascending order with a strict <, whatever chunks are skipped.
 #pragma once
 
-#include "disk_hit.cuh"
-
-constexpr int kSearchBlock = 256;  // threads of a block that calls disk_search
+constexpr int kSearchBlock = 256;  // threads of a block that calls prim_search
 constexpr int kSearchTile = 512;   // lanes staged at a time
 
 __device__ __forceinline__ float safe_inv(float d) {
   return 1.0f / (d == 0.0f ? 1e-30f : d);
 }
 
-// s_prim: 2 * kSearchTile float4 of shared memory. prims: (8, npad) SoA;
-// chunk_bbs: (npad / pt, 8). On entry tmin is the search bound; on return it
-// is the closest hit's t and idx its sorted lane, or tmin is unchanged and
-// idx is -1 when no disk is hit below the bound.
-__device__ __forceinline__ void disk_search(
+// s_prim: Kind::kVec * kSearchTile float4 of shared memory. prims:
+// (4 * Kind::kVec, npad) SoA; chunk_bbs: (npad / pt, 8). On entry tmin is the
+// search bound; on return it is the closest hit's t and idx its sorted lane,
+// or tmin is unchanged and idx is -1 when nothing is hit below the bound.
+template <class Kind>
+__device__ __forceinline__ void prim_search(
     float4* s_prim, float ox, float oy, float oz, float dx, float dy, float dz,
     const float* __restrict__ prims, const float* __restrict__ chunk_bbs,
     int npad, int pt, float t_near, bool live, float& tmin, int& idx) {
@@ -66,22 +71,16 @@ __device__ __forceinline__ void disk_search(
       const int cnt = min(kSearchTile, c_hi - base);
       __syncthreads();  // the previous tile has been read by every warp
       for (int i = threadIdx.x; i < cnt; i += kSearchBlock) {
-        const int g = base + i;
-        s_prim[2 * i] = make_float4(prims[g], prims[npad + g],
-                                    prims[2 * npad + g], prims[3 * npad + g]);
-        s_prim[2 * i + 1] =
-            make_float4(prims[4 * npad + g], prims[5 * npad + g],
-                        prims[6 * npad + g], prims[7 * npad + g]);
+        Kind::stage(s_prim + Kind::kVec * i, prims, npad, base + i);
       }
       __syncthreads();
       if (!warp_need) continue;
 #pragma unroll 4
       for (int j = 0; j < cnt; ++j) {
-        const float4 a = s_prim[2 * j];
-        const float4 b = s_prim[2 * j + 1];
-        const DiskPrim p{a.x, a.y, a.z, a.w, b.x, b.y, b.z, b.w};
         float t;
-        if (disk_hit(ox, oy, oz, dx, dy, dz, p, t_near, t) && t < tmin) {
+        if (Kind::hit(s_prim + Kind::kVec * j, ox, oy, oz, dx, dy, dz, t_near,
+                      t) &&
+            t < tmin) {
           tmin = t;
           idx = base + j;
         }

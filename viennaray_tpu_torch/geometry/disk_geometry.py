@@ -12,7 +12,7 @@ geometry is not ported yet.
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, Optional
+from typing import ClassVar, Dict, Optional
 
 import numpy as np
 import torch
@@ -48,6 +48,8 @@ class DiskGeometry:
     neighbor_pack: (N, K*8) per-prim neighbor records
       [center(3) normal(3) radius valid]*K: one contiguous gather per hit.
     """
+
+    kind: ClassVar[str] = "disk"  # the primitive kind the kernels search
 
     points: torch.Tensor
     normals: torch.Tensor

@@ -1,8 +1,8 @@
 """Test-geometry generators (ports of rayUtil.hpp fixtures).
 
 Counterpart of ``viennaray_tpu/io/fixtures.py`` (kept as a copy): the plane
-and 3D-trench point clouds. The 2D trench, the source grid and the triangle
-mesh wait for the slices that port their consumers.
+and 3D-trench point clouds and the 3D-trench triangle mesh. The 2D trench and
+the source grid wait for the slices that port their consumers.
 """
 
 from __future__ import annotations
@@ -68,3 +68,60 @@ def create_trench_grid_3d(grid_delta=0.5, extent=5.0, trench_width=4.0,
             pts.append([x, y, -trench_depth])
             nrm.append([0.0, 0.0, 1.0])
     return np.array(pts, np.float32), np.array(nrm, np.float32)
+
+
+def create_trench_mesh_3d(grid_delta=0.5, extent=5.0, trench_width=4.0,
+                          trench_depth=4.0):
+    """Synthetic 3D trench TRIANGLE mesh (trench along y, z vertical).
+
+    The triangle analog of ``create_trench_grid_3d``: top strips, vertical
+    walls, and a bottom strip, each triangulated at ``grid_delta``
+    resolution with windings chosen so normals = cross(v1-v0, v2-v0) point
+    toward the source side (+z for top/bottom, into the trench for walls) —
+    the mesh convention of rayGeometryTriangle.hpp:57-75.
+    Returns (vertices (V, 3) f32, triangles (N, 3) i32).
+    """
+    verts = []
+    tris = []
+    vid = {}
+
+    def vtx(p):
+        key = (round(p[0], 9), round(p[1], 9), round(p[2], 9))
+        if key not in vid:
+            vid[key] = len(verts)
+            verts.append(list(key))
+        return vid[key]
+
+    def patch(p00, du, dv, nu, nv):
+        """Triangulate the quad patch p00 + u*du + v*dv, u<=nu, v<=nv,
+        winding so normals follow cross(du, dv)."""
+        du = np.asarray(du, np.float64)
+        dv = np.asarray(dv, np.float64)
+        p00 = np.asarray(p00, np.float64)
+        for i in range(nu):
+            for j in range(nv):
+                a = vtx(p00 + i * du + j * dv)
+                b = vtx(p00 + (i + 1) * du + j * dv)
+                c = vtx(p00 + (i + 1) * du + (j + 1) * dv)
+                d = vtx(p00 + i * du + (j + 1) * dv)
+                tris.append([a, b, c])
+                tris.append([a, c, d])
+
+    half_w = trench_width / 2.0
+    gd = grid_delta
+    ny = max(1, int(round(2 * extent / gd)))
+    n_strip = max(1, int(round((extent - half_w) / gd)))
+    n_w = max(1, int(round(trench_width / gd)))
+    n_d = max(1, int(round(trench_depth / gd)))
+    # top strips (normal +z = cross(+x, +y))
+    patch([-extent, -extent, 0.0], [gd, 0, 0], [0, gd, 0], n_strip, ny)
+    patch([half_w, -extent, 0.0], [gd, 0, 0], [0, gd, 0], n_strip, ny)
+    # left wall at x=-half_w (normal +x = cross(-z, +y)), z in [-depth, 0]
+    patch([-half_w, -extent, 0.0], [0, 0, -gd], [0, gd, 0], n_d, ny)
+    # right wall at x=+half_w (normal -x = cross(+z, +y)), z in [-depth, 0]
+    patch([half_w, -extent, -trench_depth], [0, 0, gd], [0, gd, 0], n_d, ny)
+    # bottom at z=-depth (normal +z)
+    patch([-half_w, -extent, -trench_depth], [gd, 0, 0], [0, gd, 0],
+          n_w, ny)
+    return (np.asarray(verts, np.float32),
+            np.asarray(tris, np.int32))

@@ -1,9 +1,10 @@
 """Whole bounces of a ray batch: plain version and CUDA wrapper.
 
-Counterpart of ``viennaray_tpu/ops/pallas_bounce.py`` for disks.
+Counterpart of ``viennaray_tpu/ops/pallas_bounce.py`` for disks and triangles
+(the geometry's ``kind``).
 
 - ``bounce_step`` is one bounce of every ray on tensors: search bound,
-  closest disk hit, event (geometry / wall / escape), wall handling, backface
+  closest hit, event (geometry / wall / escape), wall handling, backface
   pass or kill, the deposit weight, reflection, sticking, roulette, state
   update. The unfused wavefront body of ``trace/kernel.py`` calls it once per
   iteration; ``fused_bounce_ref`` calls it ``n_sub`` times.
@@ -12,14 +13,19 @@ Counterpart of ``viennaray_tpu/ops/pallas_bounce.py`` for disks.
   it launches the kernel or raises, on CPU tensors it runs the plain version.
 
 Deposits have two placements. Handed out (``deposit_in_kernel=False``, one
-bounce per launch): the launch returns each ray's (hit disk or -1, deposit
-weight) and the caller lands them with ``deposit_entries`` and the histogram
-kernel. In the kernel (``deposit_in_kernel=True``, any ``n_sub``): the launch
-returns the flux of all its sub-bounces, in original disk numbering. Both
-follow the neighbor-list contract (rayTraceKernel.hpp:255-300): the hit disk
-takes the pre-sticking weight, and so does every disk of its neighbor list
-that passes ``intersect.check_local_intersection`` against the ray as it was
-before that bounce.
+bounce per launch): the launch returns each ray's (hit primitive or -1,
+deposit weight) and the caller lands them with ``deposit_entries`` and the
+histogram kernel. In the kernel (``deposit_in_kernel=True``, any ``n_sub``):
+the launch returns the flux of all its sub-bounces, in original numbering.
+For disks both follow the neighbor-list contract (rayTraceKernel.hpp:255-300):
+the hit disk takes the pre-sticking weight, and so does every disk of its
+neighbor list that passes ``intersect.check_local_intersection`` against the
+ray as it was before that bounce. For triangles the single closest hit takes
+it (rayTraceKernel.hpp:301-307).
+
+What else differs for triangles (rayTraceKernel.hpp:243-248): a hit from
+behind always kills (no pass-through, ``hfb`` is never set), and the hit
+normal is the STORED normal, which may oppose ``cross(e1, e2)``.
 
 Numbers: the plain version does one float32 operation per tensor op, in a
 fixed order (``vec.dot`` sums (x + y) + z), and the kernel repeats those
@@ -37,7 +43,20 @@ from .. import _build
 from ..config import BoundaryCondition, ReflectionKind, get_trace_settings
 from ..physics import reflection
 from . import intersect, vec
-from .nearest_hit import BIG, PRIM_ROWS, disk_nearest_hit_ref
+from .nearest_hit import (
+    BIG,
+    PRIM_ROWS,
+    TRI_ROWS,
+    disk_nearest_hit_ref,
+    triangle_nearest_hit_ref,
+)
+
+# per geometry kind: the kernel's `kind` argument, the SoA's rows, the plain
+# closest-hit search
+_KINDS = {
+    "disk": (0, PRIM_ROWS, disk_nearest_hit_ref),
+    "triangle": (1, TRI_ROWS, triangle_nearest_hit_ref),
+}
 
 # order of the counts a launch returns (int64): events summed over lanes and
 # sub-bounces, and the lanes still alive after the launch
@@ -53,6 +72,7 @@ class RayState(NamedTuple):
     w0: torch.Tensor  # (R,) float32, the weight the ray started with
     alive: torch.Tensor  # (R,) bool
     hfb: torch.Tensor  # (R,) bool, the ray has passed a disk from behind
+    #                    (never set on triangles)
     n_refl: torch.Tensor  # (R,) int32
     n_bdry: torch.Tensor  # (R,) int32
 
@@ -114,19 +134,23 @@ def make_walls(bbox, geometry, settings: BounceSettings):
     device: [lo1 hi1 lo2 hi2 lo_r hi_r tau nbr2 r_over] of the source-adjusted
     bounding box ``bbox`` (2, 3). tau (1.1 grid_delta, the window model's
     width) and nbr2 ((2 disk_radius)^2) keep the reference's layout; r_over is
-    how far a disk can reach beyond the box of the centres."""
+    how far a disk can reach beyond the box of the centres. All three are 0
+    for triangles, which lie inside the box of their vertices."""
     s = settings
     f32 = dict(dtype=torch.float32, device=geometry.device)
-    r_over = torch.maximum(
-        torch.tensor(geometry.disk_radius, **f32), geometry.radii.max()
-    )
+    if geometry.kind == "disk":
+        tau = torch.tensor(1.1 * geometry.grid_delta, **f32)
+        nbr2 = torch.tensor((2.0 * geometry.disk_radius) ** 2, **f32)
+        r_over = torch.maximum(
+            torch.tensor(geometry.disk_radius, **f32), geometry.radii.max()
+        )
+    else:
+        tau = nbr2 = r_over = torch.zeros((), **f32)
     return torch.stack([
         bbox[0, s.first_dir], bbox[1, s.first_dir],
         bbox[0, s.second_dir], bbox[1, s.second_dir],
         bbox[0, s.ray_axis], bbox[1, s.ray_axis],
-        torch.tensor(1.1 * geometry.grid_delta, **f32),
-        torch.tensor((2.0 * geometry.disk_radius) ** 2, **f32),
-        r_over,
+        tau, nbr2, r_over,
     ]).to(torch.float32)
 
 
@@ -151,7 +175,7 @@ def entry_bound(org, dirn, walls, *, dim, first_dir, second_dir, ray_axis,
     point lies outside the rectangle (below the geometry, above the source
     plane) is no wall hit, and its time is BIG.
 
-    ``tmin0`` bounds the search for the closest disk: every disk lies inside
+    ``tmin0`` bounds the search for the closest hit: every primitive lies inside
     the walls box inflated by ``r_over``, so no hit lies beyond the ray's exit
     of that box; and a hit beyond the nearest wall crossing never wins the
     event. Ties go to the geometry, so the bound sits a hair ABOVE the wall
@@ -200,9 +224,9 @@ def bounce_step(state: RayState, u, geometry, walls, settings, search):
     """One bounce of every lane.
 
     u: (R, 3) uniforms [reflection 1, reflection 2, roulette]. ``search`` is
-    the closest-hit function (``disk_nearest_hit`` or its plain version).
-    Returns (new state, hit_prim (R,) int32: the disk that takes a deposit or
-    -1, wdep (R,) float32: the pre-sticking weight it takes, counts (4,)
+    the closest-hit function of the geometry's kind (``disk_nearest_hit``,
+    ``triangle_nearest_hit`` or a plain version). Returns (new state,
+    hit_prim (R,) int32: the primitive that takes a deposit or -1, wdep (R,) float32: the pre-sticking weight it takes, counts (4,)
     int64: collide, wall, exit, traces). Dead lanes pass through unchanged.
     """
     s = settings
@@ -218,7 +242,7 @@ def bounce_step(state: RayState, u, geometry, walls, settings, search):
         second_dir=s.second_dir, ray_axis=s.ray_axis, t_near=s.t_near,
     )
 
-    # ---- 2. closest disk below the bound (ref: rayTraceKernel.hpp:163-167)
+    # ---- 2. closest hit below the bound (ref: rayTraceKernel.hpp:163-167)
     t_geo, prim, hit_geo = search(
         org.contiguous(), dirn.contiguous(), geometry.prims_soa,
         geometry.soa_perm, geometry.soa_chunk_bbs, t_near=s.t_near,
@@ -276,11 +300,17 @@ def bounce_step(state: RayState, u, geometry, walls, settings, search):
         )
 
     # ---- 5. surface interaction: a disk's first hit from behind passes
-    # through, the second kills (ref: rayTraceKernel.hpp:225-241)
+    # through, the second kills (ref: rayTraceKernel.hpp:225-241); a
+    # triangle's hit from behind always kills (:243-248). The normal is the
+    # stored one.
     n_hit = geometry.normals[prim.long()]
     backface = vec.dot(dirn, n_hit) > 0.0
-    bf_kill = is_geo_ev & backface & hfb
-    bf_pass = is_geo_ev & backface & ~hfb
+    if geometry.kind == "disk":
+        bf_kill = is_geo_ev & backface & hfb
+        bf_pass = is_geo_ev & backface & ~hfb
+    else:
+        bf_kill = is_geo_ev & backface
+        bf_pass = torch.zeros(Rb, dtype=torch.bool, device=dev)
     collide = is_geo_ev & ~backface
 
     # the deposit: the weight before sticking, where the ray collides
@@ -345,14 +375,19 @@ def bounce_step(state: RayState, u, geometry, walls, settings, search):
 
 
 def deposit_entries(org, dirn, hit_prim, wdep, geometry):
-    """The histogram entries of one bounce's deposits: (ids, w), both
-    (R * (K + 1),), for the hit disk and its K neighbor slots.
+    """The histogram entries of one bounce's deposits: (ids, w).
 
+    Disks: both (R * (K + 1),), for the hit disk and its K neighbor slots.
     org, dirn: the rays as they were BEFORE the bounce. Per ray the hit disk
     takes ``wdep``, and so does every disk of its neighbor list that passes
     the local re-test; every other slot carries weight 0.
+
+    Triangles: both (R,), the single closest hit (ref: kernel.py:1216-1217);
+    a ray without a deposit carries weight 0 into bin 0.
     """
     n_prims = geometry.num_primitives
+    if geometry.kind == "triangle":
+        return torch.clamp(hit_prim, min=0), wdep
     R = org.shape[0]
     K = geometry.neighbors.shape[1]
     collide = hit_prim >= 0
@@ -381,12 +416,19 @@ def _check_inputs(state, uniforms, geometry, walls, n_sub, deposit_in_kernel):
     if org.ndim != 2 or org.shape[1] != 3:
         raise ValueError("org must be (R, 3)")
     n_prims = geometry.num_primitives
-    K = geometry.neighbors.shape[1]
+    rows = _KINDS[geometry.kind][1]
     npad = geometry.prims_soa.shape[1]
     n_chunks = geometry.soa_chunk_bbs.shape[0]
     if n_chunks == 0 or npad % n_chunks:
         raise ValueError("Npad must be a whole number of chunks")
     f32, i32, b8 = torch.float32, torch.int32, torch.bool
+    neighbor_tables = ()
+    if geometry.kind == "disk":
+        K = geometry.neighbors.shape[1]
+        neighbor_tables = (
+            ("neighbors", geometry.neighbors, (n_prims, K), i32),
+            ("neighbor_pack", geometry.neighbor_pack, (n_prims, K * 8), f32),
+        )
     for name, x, shape, dt in (
         ("org", org, (R, 3), f32), ("dirn", state.dirn, (R, 3), f32),
         ("weight", state.weight, (R,), f32), ("w0", state.w0, (R,), f32),
@@ -394,13 +436,12 @@ def _check_inputs(state, uniforms, geometry, walls, n_sub, deposit_in_kernel):
         ("n_refl", state.n_refl, (R,), i32),
         ("n_bdry", state.n_bdry, (R,), i32),
         ("uniforms", uniforms, (R, 3 * n_sub), f32),
-        ("prims_soa", geometry.prims_soa, (PRIM_ROWS, npad), f32),
+        ("prims_soa", geometry.prims_soa, (rows, npad), f32),
         ("soa_perm", geometry.soa_perm, (npad,), i32),
         ("soa_chunk_bbs", geometry.soa_chunk_bbs, (n_chunks, 8), f32),
         ("normals", geometry.normals, (n_prims, 3), f32),
-        ("neighbors", geometry.neighbors, (n_prims, K), i32),
-        ("neighbor_pack", geometry.neighbor_pack, (n_prims, K * 8), f32),
         ("walls", walls, (9,), f32),
+        *neighbor_tables,
     ):
         if tuple(x.shape) != shape:
             raise ValueError(f"{name} must be {shape}, got {tuple(x.shape)}")
@@ -423,11 +464,12 @@ def fused_bounce_ref(state: RayState, uniforms, geometry, walls, settings,
         geometry.num_primitives, dtype=torch.float64, device=state.org.device
     )
     hit_prim = wdep = None
+    search = _KINDS[geometry.kind][2]
     for k in range(n_sub):
         org, dirn = state.org, state.dirn
         state, hit_prim, wdep, step_counts = bounce_step(
             state, uniforms[:, 3 * k: 3 * k + 3], geometry, walls, settings,
-            disk_nearest_hit_ref,
+            search,
         )
         counts[:4] += step_counts
         if deposit_in_kernel:
@@ -445,11 +487,12 @@ def fused_bounce(state: RayState, uniforms, geometry, walls, settings,
 
     state: ``RayState``; uniforms (R, 3 n_sub) float32 with the columns
     [reflection 1, reflection 2, roulette] per sub-bounce; geometry: a
-    ``DiskGeometry`` on the rays' device; walls: ``make_walls``; settings:
+    ``DiskGeometry`` or a ``TriangleGeometry`` on the rays' device (its
+    ``kind`` picks the kernel's instantiation); walls: ``make_walls``; settings:
     ``BounceSettings``. Returns a ``BounceResult`` with fresh tensors: the new
     state, the counts (``COUNT_NAMES``), and either the flux (n_prims,) in
     original numbering (``deposit_in_kernel``) or, with ``n_sub == 1``, each
-    ray's (hit disk or -1, deposit weight) for ``deposit_entries``. Weights
+    ray's (hit primitive or -1, deposit weight) for ``deposit_entries``. Weights
     must be finite and never exceed their ray's ``w0``.
 
     On CUDA tensors this launches the kernel of ``csrc/bounce.cu`` (or
@@ -473,8 +516,14 @@ def fused_bounce(state: RayState, uniforms, geometry, walls, settings,
         raise RuntimeError(f"fused_bounce: unsupported device {dev}")
     R = state.org.shape[0]
     n_prims = geometry.num_primitives
-    K = geometry.neighbors.shape[1]
     npad = geometry.prims_soa.shape[1]
+    if geometry.kind == "disk":
+        K = geometry.neighbors.shape[1]
+        neighbor_ptrs = (geometry.neighbors.data_ptr(),
+                         geometry.neighbor_pack.data_ptr())
+    else:  # the single closest hit: no neighbor tables
+        K = 0
+        neighbor_ptrs = (None, None)
     new = RayState(*(torch.empty_like(x) for x in state[:3]), state.w0,
                    *(torch.empty_like(x) for x in state[4:]))
     # n_prims fixed-point bins, the largest w0, the five counts; cleared by
@@ -498,10 +547,9 @@ def fused_bounce(state: RayState, uniforms, geometry, walls, settings,
             state.n_refl.data_ptr(), state.n_bdry.data_ptr(),
             uniforms.data_ptr(), geometry.prims_soa.data_ptr(),
             geometry.soa_chunk_bbs.data_ptr(), geometry.soa_perm.data_ptr(),
-            geometry.neighbors.data_ptr(), geometry.neighbor_pack.data_ptr(),
-            walls.data_ptr(),
+            *neighbor_ptrs, walls.data_ptr(),
             R, npad, npad // geometry.soa_chunk_bbs.shape[0], n_prims, K,
-            n_sub, s.dim, s.first_dir, s.second_dir, s.ray_axis, s.bc1,
+            n_sub, _KINDS[geometry.kind][0], s.dim, s.first_dir, s.second_dir, s.ray_axis, s.bc1,
             s.bc2, int(s.refl_kind == ReflectionKind.SPECULAR),
             s.max_reflections, s.max_boundary_hits, int(s.roulette),
             int(deposit_in_kernel),

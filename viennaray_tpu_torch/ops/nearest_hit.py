@@ -1,18 +1,24 @@
-"""Closest disk hit per ray: host packers, plain version, CUDA wrapper.
+"""Closest disk or triangle hit per ray: host packers, plain versions, CUDA
+wrappers.
 
-Counterpart of ``viennaray_tpu/ops/pallas_intersect.py`` (the disk part).
+Counterpart of ``viennaray_tpu/ops/pallas_intersect.py`` (disks, triangles).
 
-- ``pack_disk_prims`` and its helpers are the host-side (numpy) packing of a
-  disk cloud into Morton-compact chunks of a struct-of-arrays, kept as copies.
-- ``disk_nearest_hit_ref`` is the plain PyTorch version.
-- ``disk_nearest_hit`` is the wrapper around the CUDA kernel
-  ``csrc/nearest_hit.cu``: on a CUDA tensor it launches the kernel or raises,
-  on a CPU tensor it runs the plain version.
+- ``pack_disk_prims``, ``pack_triangle_prims`` and their helpers are the
+  host-side (numpy) packing of a geometry into Morton-compact chunks of a
+  struct-of-arrays, kept as copies.
+- ``disk_nearest_hit_ref`` / ``triangle_nearest_hit_ref`` are the plain
+  PyTorch versions.
+- ``disk_nearest_hit`` / ``triangle_nearest_hit`` are the wrappers around the
+  CUDA kernels of ``csrc/nearest_hit.cu``: on a CUDA tensor they launch the
+  kernel or raise, on a CPU tensor they run the plain version.
 
-Selection rule, both versions: a hit needs ``denom != 0``, ``t > t_near`` and
-``|o + t d - c|^2 < r^2``; the lowest t wins, then the lowest sorted lane.
-The two versions do the same float32 operations in the same order without
-fused multiply-adds (see ``csrc/disk_hit.cuh``), so they agree exactly.
+Selection rule, both versions of both kinds: the lowest t wins, then the
+lowest sorted lane. A disk hit needs ``denom != 0``, ``t > t_near`` and
+``|o + t d - c|^2 < r^2``; a triangle hit is the double-sided
+Moller-Trumbore test ``|det| >= 1e-9``, ``u >= 0``, ``v >= 0``,
+``u + v <= 1``, ``t > t_near``. The two versions do the same float32
+operations in the same order without fused multiply-adds (see
+``csrc/disk_hit.cuh``, ``csrc/tri_hit.cuh``), so they agree exactly.
 """
 
 from __future__ import annotations
@@ -136,12 +142,74 @@ def pack_disk_prims(points, normals, radii, pad_to=None, sort_axis=2):
     return out, perm, bbs
 
 
-def _check_inputs(org, dirn, prims, perm, chunk_bbs):
+# prims row layout of triangles (SoA): v0(3) e1(3) e2(3) n(3) -> (12, Npad)
+TRI_ROWS = 12
+
+
+def pack_triangle_prims(vertices, triangles, normals=None, pad_to=None,
+                        sort_axis=2):
+    """SoA triangle packing: rows [v0(3) e1(3) e2(3) n(3)] -> (12, Npad),
+    spatially sorted source-side-first like the disk packing. Rows 9-11 carry
+    the STORED unit normals (user orientation may differ from cross(e1,e2));
+    when ``normals`` is None they are computed from the edge cross product
+    (the geometry's default, rayGeometryTriangle.hpp:57-75).
+
+    Returns (prims (12, Npad), perm (Npad,) int32, chunk_bboxes (n_chunks, 8)).
+    """
+    vertices = np.asarray(vertices, np.float32)
+    triangles = np.asarray(triangles, np.int64)
+    n = len(triangles)
+    if pad_to is None:
+        pad_to = auto_pt(n)
+    v0 = vertices[triangles[:, 0]]
+    v1 = vertices[triangles[:, 1]]
+    v2 = vertices[triangles[:, 2]]
+    if normals is None:
+        cr = np.cross(v1 - v0, v2 - v0)
+        ln = np.linalg.norm(cr, axis=1, keepdims=True)
+        normals = cr / np.where(ln > 0, ln, 1.0)
+    else:
+        normals = np.asarray(normals, np.float32).reshape(-1, 3)
+
+    if n > 0:
+        centroid = (v0 + v1 + v2) / 3.0
+        scale = max(float(np.abs(v1 - v0).max()), 1e-6) * 4.0
+        order = _block_order(centroid, scale, pad_to, sort_axis)
+    else:
+        order = np.zeros((0,), np.int32)
+
+    v0s, v1s, v2s = v0[order], v1[order], v2[order]
+    npad = -(-max(n, 1) // pad_to) * pad_to
+    out = np.zeros((TRI_ROWS, npad), np.float32)
+    out[0:3, :n] = v0s.T
+    out[3:6, :n] = (v1s - v0s).T
+    out[6:9, :n] = (v2s - v0s).T
+    out[9:12, :n] = normals[order].T
+    out[0:3, n:] = 1e18  # far-away padding; zero edges -> det==0 -> invalid
+
+    perm = np.zeros((npad,), np.int32)
+    perm[:n] = order
+
+    n_chunks = npad // pad_to
+    bbs = np.full((n_chunks, 8), 1e18, np.float32)
+    for ci in range(n_chunks):
+        lo = ci * pad_to
+        hi = min(lo + pad_to, n)
+        if hi <= lo:
+            continue
+        allv = np.concatenate([v0s[lo:hi], v1s[lo:hi], v2s[lo:hi]])
+        bbs[ci, 0:3] = allv.min(axis=0)
+        bbs[ci, 3:6] = allv.max(axis=0)
+        bbs[ci, 6:8] = 0.0
+    return out, perm, bbs
+
+
+def _check_inputs(org, dirn, prims, perm, chunk_bbs, rows=PRIM_ROWS):
     """Shape, type, device and contiguity the kernel takes; raises otherwise."""
     if org.ndim != 2 or org.shape[1] != 3 or dirn.shape != org.shape:
         raise ValueError("org and dirn must both be (R, 3)")
-    if prims.ndim != 2 or prims.shape[0] != PRIM_ROWS:
-        raise ValueError(f"prims must be ({PRIM_ROWS}, Npad)")
+    if prims.ndim != 2 or prims.shape[0] != rows:
+        raise ValueError(f"prims must be ({rows}, Npad)")
     npad = prims.shape[1]
     if perm.shape != (npad,):
         raise ValueError("perm must be (Npad,)")
@@ -214,16 +282,103 @@ def disk_nearest_hit_ref(org, dirn, prims, perm, chunk_bbs=None, t_near=1e-4):
         torch.mul(t, dz, out=tmp).add_(oz).sub_(cz)
         dist2.add_(tmp.mul_(tmp))
         valid = nonzero & (t > tn) & (dist2 < r2)
-        tt = torch.where(valid, t, big)
-        tmin = tt.amin(dim=1)
-        # lowest sorted lane among the minima (written out: argmin's choice
-        # among equal values is not specified on every device)
-        first = torch.where(tt == tmin[:, None], lanes, npad).amin(dim=1)
-        t_out[lo:lo + step] = tmin
-        idx_out[lo:lo + step] = first
+        _pick_lowest(torch.where(valid, t, big), lanes, t_out, idx_out, lo)
+    return _finish(t_out, idx_out, perm, big)
+
+
+def _pick_lowest(tt, lanes, t_out, idx_out, lo):
+    """Write a block's lowest t per ray and, among the lanes that reach it,
+    the lowest sorted lane (written out: argmin's choice among equal values
+    is not specified on every device)."""
+    n = tt.shape[0]
+    tmin = tt.amin(dim=1)
+    t_out[lo:lo + n] = tmin
+    idx_out[lo:lo + n] = torch.where(
+        tt == tmin[:, None], lanes, tt.shape[1]
+    ).amin(dim=1)
+
+
+def _finish(t_out, idx_out, perm, big):
     hit = t_out < big
     idx_out = torch.where(hit, idx_out, torch.zeros_like(idx_out))
     return t_out, perm[idx_out.long()], hit
+
+
+def triangle_nearest_hit_ref(org, dirn, prims, perm, chunk_bbs=None,
+                             t_near=1e-4):
+    """Plain PyTorch version of the triangle kernel, on any device.
+
+    org/dirn (R, 3) f32; prims (12, Npad); perm (Npad,) sorted->original.
+    ``chunk_bbs`` is accepted for the kernel's signature and never read. Rays
+    go through in blocks of a fixed number of (ray, triangle) pairs. One
+    tensor op per float32 operation, in the order of csrc/tri_hit.cuh; three
+    products are summed as (a + b) + c.
+    Returns (t (R,) f32, prim (R,) int32 original numbering, hit (R,) bool).
+    """
+    R = org.shape[0]
+    npad = prims.shape[1]
+    dev = org.device
+    ax, ay, az, e1x, e1y, e1z, e2x, e2y, e2z = (
+        prims[i][None, :] for i in range(9)
+    )
+    lanes = torch.arange(npad, device=dev, dtype=torch.int32)[None, :]
+    big = torch.tensor(BIG, device=dev)
+    tiny = torch.tensor(1e-30, dtype=torch.float32, device=dev)
+    eps = torch.tensor(1e-9, dtype=torch.float32, device=dev)
+    tn = torch.tensor(t_near, dtype=torch.float32, device=dev)
+    t_out = torch.empty(R, dtype=torch.float32, device=dev)
+    idx_out = torch.empty(R, dtype=torch.int32, device=dev)
+    step = max(1, min(R, _REF_BLOCK_PAIRS[dev.type] // npad))
+    for lo in range(0, R, step):
+        o = org[lo:lo + step]
+        d = dirn[lo:lo + step]
+        ox, oy, oz = o[:, 0:1], o[:, 1:2], o[:, 2:3]
+        dx, dy, dz = d[:, 0:1], d[:, 1:2], d[:, 2:3]
+        # h = d x e2
+        hx = dy * e2z - dz * e2y
+        hy = dz * e2x - dx * e2z
+        hz = dx * e2y - dy * e2x
+        det = (hx * e1x + hy * e1y) + hz * e1z
+        ok = det.abs() >= eps
+        dsafe = torch.where(ok, det, tiny)
+        del det
+        sx, sy, sz = ox - ax, oy - ay, oz - az
+        u = ((sx * hx + sy * hy) + sz * hz) / dsafe
+        del hx, hy, hz
+        # q = s x e1
+        qx = sy * e1z - sz * e1y
+        qy = sz * e1x - sx * e1z
+        qz = sx * e1y - sy * e1x
+        del sx, sy, sz
+        v = ((qx * dx + qy * dy) + qz * dz) / dsafe
+        t = ((qx * e2x + qy * e2y) + qz * e2z) / dsafe
+        del qx, qy, qz, dsafe
+        valid = ok & (u >= 0.0) & (v >= 0.0) & (u + v <= 1.0) & (t > tn)
+        del u, v
+        _pick_lowest(torch.where(valid, t, big), lanes, t_out, idx_out, lo)
+    return _finish(t_out, idx_out, perm, big)
+
+
+def _launch(entry, org, dirn, prims, perm, chunk_bbs, t_near):
+    """Launch the closest-hit kernel ``entry`` of ``csrc/nearest_hit.cu`` on
+    checked CUDA tensors; returns (t, prim, hit)."""
+    R = org.shape[0]
+    npad = prims.shape[1]
+    t = torch.empty(R, dtype=torch.float32, device=org.device)
+    prim = torch.empty(R, dtype=torch.int32, device=org.device)
+    hit = torch.empty(R, dtype=torch.bool, device=org.device)
+    lib = _build.library()
+    with torch.cuda.device(org.device):
+        err = getattr(lib, entry)(
+            org.data_ptr(), dirn.data_ptr(), prims.data_ptr(),
+            chunk_bbs.data_ptr(), perm.data_ptr(), R, npad,
+            npad // chunk_bbs.shape[0], float(t_near), t.data_ptr(),
+            prim.data_ptr(), hit.data_ptr(),
+            torch.cuda.current_stream().cuda_stream,
+        )
+    if err != 0:
+        raise RuntimeError(f"{entry}: CUDA error {err}")
+    return t, prim, hit
 
 
 def disk_nearest_hit(org, dirn, prims, perm, chunk_bbs, t_near=1e-4):
@@ -239,24 +394,33 @@ def disk_nearest_hit(org, dirn, prims, perm, chunk_bbs, t_near=1e-4):
         return disk_nearest_hit_ref(org, dirn, prims, perm, chunk_bbs, t_near)
     if org.device.type != "cuda":
         raise RuntimeError(f"disk_nearest_hit: unsupported device {org.device}")
-    R = org.shape[0]
-    npad = prims.shape[1]
-    t = torch.empty(R, dtype=torch.float32, device=org.device)
-    prim = torch.empty(R, dtype=torch.int32, device=org.device)
-    hit = torch.empty(R, dtype=torch.bool, device=org.device)
-    lib = _build.library()
-    with torch.cuda.device(org.device):
-        err = lib.vr_disk_nearest_hit(
-            org.data_ptr(), dirn.data_ptr(), prims.data_ptr(),
-            chunk_bbs.data_ptr(), perm.data_ptr(), R, npad,
-            npad // chunk_bbs.shape[0], float(t_near), t.data_ptr(),
-            prim.data_ptr(), hit.data_ptr(),
-            torch.cuda.current_stream().cuda_stream,
-        )
-    if err != 0:
-        raise RuntimeError(f"vr_disk_nearest_hit: CUDA error {err}")
+    out = _launch("vr_disk_nearest_hit", org, dirn, prims, perm, chunk_bbs,
+                  t_near)
     disk_nearest_hit.launches += 1
-    return t, prim, hit
+    return out
 
 
 disk_nearest_hit.launches = 0
+
+
+def triangle_nearest_hit(org, dirn, prims, perm, chunk_bbs, t_near=1e-4):
+    """Closest triangle hit; any R; the contract of ``disk_nearest_hit`` with
+    prims (12, Npad) from ``pack_triangle_prims``. On CUDA tensors launches
+    the triangle kernel of ``csrc/nearest_hit.cu`` (or raises); on CPU
+    tensors runs the plain version."""
+    _check_inputs(org, dirn, prims, perm, chunk_bbs, rows=TRI_ROWS)
+    if org.device.type == "cpu":
+        return triangle_nearest_hit_ref(
+            org, dirn, prims, perm, chunk_bbs, t_near
+        )
+    if org.device.type != "cuda":
+        raise RuntimeError(
+            f"triangle_nearest_hit: unsupported device {org.device}"
+        )
+    out = _launch("vr_triangle_nearest_hit", org, dirn, prims, perm,
+                  chunk_bbs, t_near)
+    triangle_nearest_hit.launches += 1
+    return out
+
+
+triangle_nearest_hit.launches = 0

@@ -8,11 +8,13 @@ through one of two bodies:
 - the fused body (the default): one launch of the CUDA kernel behind
   ``ops.bounce.fused_bounce`` advances every ray through ``n_sub`` whole
   bounces. Wide stages run one bounce per launch and, for a diffuse particle
-  on a geometry of at least 4 chunks, hand their deposits out to the
-  histogram kernel; every other launch deposits in the kernel. Narrower
-  stages run 4, then 16 bounces per launch;
+  on a disk geometry of at least 4 chunks, hand their deposits out to the
+  histogram kernel; every other launch deposits in the kernel (``hand_out_for``
+  holds the rule and its measurements). Narrower stages run 4, then 16
+  bounces per launch;
 - the unfused body (``fused=False``): every iteration finds all active rays'
-  closest disk (the CUDA kernel behind ``ops.nearest_hit.disk_nearest_hit``),
+  closest hit (the CUDA kernels behind ``ops.nearest_hit.disk_nearest_hit``
+  and ``triangle_nearest_hit``, by the geometry's ``kind``),
   resolves the bounce with the tensor code of ``ops.bounce.bounce_step``
   (which is also the arithmetic of the fused kernel's plain version) and
   deposits through ``ops.histogram.flux_histogram``.
@@ -25,8 +27,10 @@ Event semantics mirrored 1:1 from rayTraceKernel.hpp:
 - boundary hits capped at max_boundary_hits, then reflective wall = specular
   flip / periodic wall = teleport to opposite wall / ignore = kill
   (:206-214, rayBoundary.hpp:29-127)
-- disk backface: first hit passes through, second kills (:225-241)
-- disk neighbor multi-hit via the packed neighbor records (:255-300)
+- disk backface: first hit passes through, second kills (:225-241);
+  triangle backface kills (:243-248)
+- disk neighbor multi-hit via the packed neighbor records (:255-300);
+  triangles deposit on the single closest hit (:301-307)
 - sticking update w -= w*s, max-reflections cap, Russian roulette
   (kill below 0.1 w0, renew to 0.3 w0, :309-335, :435-460)
 
@@ -60,7 +64,7 @@ from ..ops.bounce import (
     make_walls,
 )
 from ..ops.histogram import flux_histogram
-from ..ops.nearest_hit import disk_nearest_hit
+from ..ops.nearest_hit import disk_nearest_hit, triangle_nearest_hit
 from ..physics.source import RandomSource
 
 # ray-compaction ladder: halve the width per stage, floored at MIN_STAGE
@@ -69,9 +73,35 @@ STAGE_SHRINK = 2
 
 # the fused body's bounces per launch: (wide, mid, tail) stages
 N_SUB = (1, 4, 16)
-# a diffuse launch of one bounce hands its deposits out from this many
-# geometry chunks on (the reference's choice, kernel.py:1049-1065)
+# a diffuse launch of one bounce on disks hands its deposits out from this
+# many geometry chunks on (the reference's choice, kernel.py:1049-1065)
 HAND_OUT_MIN_CHUNKS = 4
+
+# the closest-hit kernel's wrapper of each geometry kind
+_SEARCH = {"disk": disk_nearest_hit, "triangle": triangle_nearest_hit}
+
+
+def hand_out_for(kind: str, n_chunks: int, refl_kind, n_sub: int) -> bool:
+    """Whether a fused launch hands its deposits out to the histogram kernel
+    (True) or deposits in the kernel (False).
+
+    Only a launch of one bounce can hand out. Disks: a diffuse launch on at
+    least ``HAND_OUT_MIN_CHUNKS`` chunks does (the reference's rule): its
+    deposit in the kernel is a gather of K neighbor records and up to K + 1
+    atomics per colliding ray. Triangles: never (the reference's rule hands
+    them out as disks). Their deposit in the kernel is one integer atomic per
+    colliding ray, which the kernel's time does not show, and handing out
+    adds a histogram launch per wide launch: on an H100 the 5,760-triangle
+    trench's apply was 1.5 % slower handed out (``chip_diagnose.py
+    --triangles``, ``PERF.md``). Both give the same flux up to the fixed
+    point's rounding.
+    """
+    return (
+        kind == "disk"
+        and n_sub == 1
+        and refl_kind == ReflectionKind.DIFFUSE
+        and n_chunks >= HAND_OUT_MIN_CHUNKS
+    )
 
 
 def n_sub_for(width: int, n_sub) -> int:
@@ -182,7 +212,8 @@ def trace_batch(
 ):
     """Trace one mega-batch of rays to extinction; returns (flux, counters).
 
-    geometry: DiskGeometry. bbox: (2, 3) float32 tensor, the source-adjusted
+    geometry: DiskGeometry or TriangleGeometry (its ``kind`` picks the
+    kernels). bbox: (2, 3) float32 tensor, the source-adjusted
     bounding box (ref: rayUtil.hpp:104-143). rng: a ``RayRNG`` whose
     ``begin_batch(batch_index)`` has been called. ray_indices: (R,) global
     ray indices. valid: (R,) bool — lanes beyond the total ray count start
@@ -228,7 +259,7 @@ def trace_batch(
         """Deposits handed out by a bounce (ref: DiffuseParticle::
         surfaceCollision adds the current rayWeight, rayParticle.hpp:148-156):
         the hit disk and every neighbor-list disk that passes the local
-        re-test take the weight."""
+        re-test take the weight; of triangles, the single closest hit."""
         ids, w = deposit_entries(org, dirn, hit_prim, wdep, geometry)
         return flux + _flux_add(ids, w, n_prims)
 
@@ -240,7 +271,7 @@ def trace_batch(
             rng, batch_index, it, state.org.shape[0], 1, settings, dev
         )
         new_state, hit_prim, wdep, step_counts = bounce_step(
-            state, u, geometry, walls, settings, disk_nearest_hit
+            state, u, geometry, walls, settings, _SEARCH[geometry.kind]
         )
         flux = land(flux, state.org, state.dirn, hit_prim, wdep)
         counts.add_(step_counts)
@@ -251,10 +282,9 @@ def trace_batch(
         stage; same returns."""
         width = state.org.shape[0]
         k = n_sub_for(width, n_sub)
-        hand_out = (
-            k == 1
-            and settings.refl_kind == ReflectionKind.DIFFUSE
-            and geometry.soa_chunk_bbs.shape[0] >= HAND_OUT_MIN_CHUNKS
+        hand_out = hand_out_for(
+            geometry.kind, geometry.soa_chunk_bbs.shape[0],
+            settings.refl_kind, k,
         )
         u = _bounce_uniforms(rng, batch_index, it, width, k, settings, dev)
         state = RayState(*(x.contiguous() for x in state))

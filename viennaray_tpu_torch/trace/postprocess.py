@@ -5,6 +5,8 @@ Counterpart of ``viennaray_tpu/trace/postprocess.py``:
   (ref: rayTraceDisk.hpp:120-137, gpu/kernels/normKernels.cu:58-74)
 - ``normalize_flux_max_disk``: flux[i] *= (fullDiskArea / area[i]) / max
   (ref: rayTraceDisk.hpp:110-118)
+- ``normalize_flux_max_triangle``: flux[i] /= max * area[i]
+  (ref: rayTraceTriangle.hpp:99-107)
 - ``smooth_flux``: normal-dot-weighted neighborhood average
   (ref: rayTraceDisk.hpp:146-193)
 """
@@ -27,6 +29,13 @@ def normalize_flux_max_disk(flux, areas, disk_radius):
     return (
         flux * (total_disk_area / torch.clamp(areas, min=1e-30))
         / torch.clamp(maxv, min=1e-30)
+    )
+
+
+def normalize_flux_max_triangle(flux, areas):
+    maxv = torch.max(flux)
+    return flux / (
+        torch.clamp(maxv, min=1e-30) * torch.clamp(areas, min=1e-30)
     )
 
 

@@ -1,16 +1,17 @@
-"""User-facing tracer: ``TraceDisk``.
+"""User-facing tracers: ``TraceDisk`` and ``TraceTriangle``.
 
 Counterpart of ``viennaray_tpu/trace/tracer.py``. Mirrors the reference's
-``Trace`` API surface (rayTrace.hpp:15-180, rayTraceDisk.hpp) — setters for
+``Trace`` API surface (rayTrace.hpp:15-180, rayTraceDisk.hpp,
+rayTraceTriangle.hpp) — setters for
 particle, geometry, boundary conditions, ray counts, seeds; ``apply()`` runs
 the trace; ``normalize_flux`` / ``smooth_flux`` post-process — over a loop of
 mega-batches of rays (the analog of the 2^29-ray GPU launch clamp,
 gpu/raygTrace.hpp:132-160).
 
-The tracer runs on a CUDA device unless the caller asks for the CPU, and
+A tracer runs on a CUDA device unless the caller asks for the CPU, and
 through the fused bounce kernel unless the caller asks for the unfused body
-(``fused=False``). Triangle and line tracers are not ported yet: their classes
-exist and raise.
+(``fused=False``). The line tracer is not ported yet: its class exists and
+raises.
 """
 
 from __future__ import annotations
@@ -33,8 +34,9 @@ from ..config import (
 from ..data import DataLog, TraceInfo, TracingData
 from ..device import resolve_device
 from ..geometry.disk_geometry import DiskGeometry
-from ..geometry.mesh import DiskMesh
+from ..geometry.mesh import DiskMesh, LineMesh, TriangleMesh
 from ..geometry.neighborhood import build_neighborhood
+from ..geometry.triangle_geometry import TriangleGeometry
 from ..ops import vec
 from ..physics.source import RandomSource
 from ..rng import GeneratorRNG
@@ -240,9 +242,15 @@ class _TraceBase:
         config = self._make_config()
         n_prims = geometry.num_primitives
         total_rays = config.total_rays(n_prims)
+        # (ref: rayTraceDisk.hpp:30 discRadius, rayTraceTriangle.hpp:31
+        # gridDelta)
+        bbox_margin = (
+            geometry.disk_radius if geometry.kind == "disk"
+            else geometry.grid_delta
+        )
         adjusted = adjust_bounding_box(
             geometry.bbox.cpu().numpy(), self._source_direction,
-            geometry.disk_radius, self._dim,
+            bbox_margin, self._dim,
         )
 
         if self._custom_source is not None:
@@ -405,11 +413,70 @@ class TraceDisk(_TraceBase):
             self._info.warning = True
 
 
-class TraceTriangle:
-    """Triangle-mesh tracer: not ported yet."""
+class TraceTriangle(_TraceBase):
+    """Triangle-mesh tracer (ref: rayTraceTriangle.hpp)."""
 
-    def __init__(self, *args, **kwargs):
-        raise NotImplementedError("TraceTriangle (triangles) is not ported yet")
+    def set_geometry(self, mesh_or_points, triangles=None, grid_delta=None):
+        if isinstance(mesh_or_points, TriangleMesh):
+            self.geometry = TriangleGeometry.from_mesh(
+                mesh_or_points, dim=self._dim, device=self._device
+            )
+        elif isinstance(mesh_or_points, LineMesh):
+            if self._dim != 2:
+                raise ValueError("Line geometry is only supported in 2D")
+            self.geometry = TriangleGeometry.from_line_mesh(
+                mesh_or_points, device=self._device
+            )
+        else:
+            self.geometry = TriangleGeometry.build(
+                mesh_or_points, triangles, grid_delta, dim=self._dim,
+                device=self._device,
+            )
+
+    def set_material_ids(self, material_ids):
+        self.geometry = self.geometry.replace(
+            material_ids=torch.from_numpy(
+                np.asarray(material_ids, np.int32)
+            ).to(self._device)
+        )
+
+    def apply(self):
+        """Run the trace (ref: rayTraceTriangle.hpp:19-61); returns the raw
+        flux per triangle as a float64 numpy array."""
+        if self._particle is None:
+            self._info.error = True
+            raise ValueError("No particle was specified in TraceTriangle")
+        if self.geometry is None:
+            self._info.error = True
+            raise ValueError("No geometry was passed to TraceTriangle")
+        if self.geometry.device != self._device:
+            raise ValueError(
+                f"geometry is on {self.geometry.device}, the tracer on "
+                f"{self._device}"
+            )
+        flux = self._run_trace(self.geometry)
+        self._store_local_data(flux)
+        return flux
+
+    def normalize_flux(self, flux, norm: NormalizationType = NormalizationType.SOURCE):
+        """(ref: rayTraceTriangle.hpp:92-130)"""
+        flux = torch.as_tensor(
+            np.asarray(flux, np.float32), device=self._device
+        )
+        areas = self.geometry.areas
+        if NormalizationType(norm) == NormalizationType.MAX:
+            out = postprocess.normalize_flux_max_triangle(flux, areas)
+        else:
+            config = self._make_config()
+            total = config.total_rays(self.geometry.num_primitives)
+            out = postprocess.normalize_flux_source(
+                flux, areas, self._last_source.source_area(), total
+            )
+        return out.cpu().numpy()
+
+    def smooth_flux(self, flux, num_neighbors: int = 1):
+        """No-op for element meshes (ref: rayTraceTriangle.hpp:134-136)."""
+        return np.asarray(flux)
 
 
 class TraceLine:
