@@ -1,14 +1,17 @@
 #!/usr/bin/env python3
-"""Where a flagship's time goes on a GPU: the diagnostics behind PERF.md.
+"""Where a configuration's time goes on a GPU: the diagnostics behind PERF.md.
 
 Run from the repository root on a machine with one NVIDIA Hopper card:
 
-    python3 chip_diagnose.py [--triangles] [--unfused] [--profile FILE]
+    python3 chip_diagnose.py [--triangles | --lines | --ion] [--unfused]
+                             [--profile FILE]
 
-It builds a flagship tracer of ``chip_smoke.py`` (same geometry, particle,
-seed and batch; the default tracer, whose body is the fused bounce kernel):
-the 2,993-disk trench through ``TraceDisk`` or, with ``--triangles``, the
-5,760-triangle trench through ``TraceTriangle``. It warms the tracer up with
+It builds a tracer of ``chip_smoke.py`` (same geometry, particle, seed and
+batch; the default tracer, whose body is the fused bounce kernel): the
+2,993-disk trench through ``TraceDisk``; with ``--triangles`` the
+5,760-triangle trench through ``TraceTriangle``; with ``--lines`` the
+782-segment 2D trench with two materials through ``TraceLine``; with ``--ion``
+the 2,993 disks under the coned-cosine particle. It warms the tracer up with
 one apply and prints one JSON object per phase:
 
 - ``repeats``: five more applies of the one tracer (each a new run number, so
@@ -32,6 +35,14 @@ one apply and prints one JSON object per phase:
 - with ``--profile FILE``: one apply of the default tracer under
   ``torch.profiler``, whose tables of kernels and host operators go to FILE.
 
+``python3 chip_diagnose.py --launch-times TREE [TREE ...]`` is another mode,
+for comparing two versions of the bounce kernel on one card: for each TREE
+in turn (a checkout of this repository, for instance the parent commit
+unpacked by ``git archive`` beside ``.``; name each twice, in the order
+parent, change, change, parent) a fresh process builds THAT tree's kernels
+and times its bounce kernel on both flagships at 2^20 rays x 1 bounce and at
+512 rays x 16, and prints ``ptxas``' lines of its bounce kernel.
+
 It checks nothing: ``chip_smoke.py`` holds the kernels and the flux to their
 references.
 """
@@ -49,6 +60,8 @@ import torch
 
 from chip_smoke import (
     FLAGSHIP,
+    ion_particle,
+    make_line_tracer,
     make_tracer,
     make_tri_tracer,
     read_launches,
@@ -72,7 +85,7 @@ def repeats(tracer, n, body):
         # the unfused body launches the closest-hit kernel once per bounce
         bounces.append(
             B.fused_bounce.sub_bounces or counts["disk_nearest_hit"]
-            or counts["triangle_nearest_hit"]
+            or counts["triangle_nearest_hit"] or counts["line_nearest_hit"]
         )
     allocator = torch.cuda.memory_stats()
     return {
@@ -203,17 +216,75 @@ def profile_apply(tracer, path):
         f.write(averages.table(sort_by="self_cpu_time_total", row_limit=25))
 
 
+# run as ``python3 -c LAUNCH_TIMES tree``: imports the tree's own modules
+LAUNCH_TIMES = """
+import contextlib, io, json, os, sys
+root = os.path.abspath(sys.argv[1])
+sys.path.insert(0, root)
+os.chdir(root)
+import chip_smoke as cs
+from viennaray_tpu_torch import _build
+from viennaray_tpu_torch.geometry.disk_geometry import DiskGeometry
+from viennaray_tpu_torch.geometry.triangle_geometry import TriangleGeometry
+from viennaray_tpu_torch.io import fixtures
+_build.library()
+lines = [l.strip() for l in _build.build_log.splitlines()]
+out = {"tree": sys.argv[1], "ptxas": [
+    l for i, l in enumerate(lines)
+    if "bounce_kernel" in l or any("bounce_kernel" in p for p in lines[max(i - 2, 0):i])
+]}
+gd = cs.FLAGSHIP["grid_delta"]
+geometries = {
+    "disks": DiskGeometry.build(*fixtures.create_trench_grid_3d(**cs.FLAGSHIP), gd),
+    "triangles": TriangleGeometry.build(
+        *fixtures.create_trench_mesh_3d(**cs.FLAGSHIP), gd),
+}
+flagship = cs.bounce_settings()
+with contextlib.redirect_stdout(io.StringIO()):
+    for name, geometry in geometries.items():
+        bbox = cs.adjusted_bbox(geometry)
+        out[name + "_1048576x1_ms"] = [
+            cs.check_bounce(geometry, bbox, 1 << 20, "source", 1, False,
+                            flagship, reps=20)["ms"] for _ in range(2)]
+        out[name + "_512x16_ms"] = cs.check_bounce(
+            geometry, bbox, 512, "interior", 16, True, flagship, reps=100)["ms"]
+print(json.dumps(out), flush=True)
+"""
+
+
+def launch_times(trees):
+    """One fresh process per tree, in the order given."""
+    for tree in trees:
+        subprocess.run([sys.executable, "-c", LAUNCH_TIMES, tree], check=True)
+
+
 def main(argv=None):
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    parser.add_argument(
+        "--launch-times", nargs="+", metavar="TREE", default=None,
+        help="only time the bounce kernel's flagship launches of each "
+             "checkout named, one process each, in the order given",
+    )
     parser.add_argument("--repeats", type=int, default=5)
     parser.add_argument(
         "--unfused", action="store_true",
         help="also time the unfused body (fused=False) beside the fused one",
     )
-    parser.add_argument(
+    which = parser.add_mutually_exclusive_group()
+    which.add_argument(
         "--triangles", action="store_true",
         help="the 5,760-triangle flagship through TraceTriangle instead of "
              "the 2,993-disk one, and its two deposit placements in turns",
+    )
+    which.add_argument(
+        "--lines", action="store_true",
+        help="the 782-segment 2D trench with per-material sticking through "
+             "TraceLine",
+    )
+    which.add_argument(
+        "--ion", action="store_true",
+        help="the 2,993 disks under the coned-cosine particle (sticking "
+             "0.5, cone angle pi/6, source power 100)",
     )
     parser.add_argument(
         "--profile", metavar="FILE", default=None,
@@ -231,9 +302,18 @@ def main(argv=None):
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         check=True, capture_output=True, text=True, timeout=60,
     ).stdout.strip().splitlines()[0], flush=True)
+    if args.launch_times:
+        launch_times(args.launch_times)
+        return 0
     if args.triangles:
         mesh = fixtures.create_trench_mesh_3d(**FLAGSHIP)
         make = lambda **kwargs: make_tri_tracer(*mesh, **kwargs)
+    elif args.lines:
+        make = make_line_tracer
+    elif args.ion:
+        cloud = fixtures.create_trench_grid_3d(**FLAGSHIP)
+        make = lambda **kwargs: make_tracer(
+            *cloud, particle=ion_particle(), **kwargs)
     else:
         cloud = fixtures.create_trench_grid_3d(**FLAGSHIP)
         make = lambda **kwargs: make_tracer(*cloud, **kwargs)

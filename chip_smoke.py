@@ -11,9 +11,11 @@ It imports only ``viennaray_tpu_torch`` and, in order:
    versions, and asserts that TF32 matrix products are off;
 2. builds the CUDA kernels from ``viennaray_tpu_torch/csrc`` with ``nvcc``;
 3. holds each kernel against its plain PyTorch version on the card, at the
-   shapes the 3D-trench flagships give it: 2,993 disks and 5,760 triangles
-   (and at the 18,180-disk and 9,000-triangle trenches, and the bounce kernel
-   on a 2D trench of disks and on an extruded 2D line mesh too), and times
+   shapes the configurations give it: 2,993 disks, 5,760 triangles and 782
+   line segments (and at the 18,180-disk and 9,000-triangle trenches, and
+   the bounce kernel on a 2D trench of disks and on an extruded 2D line mesh
+   too); the bounce kernel also with sticking per lane, with the
+   coned-cosine reflection and with gas scattering on every kind; and times
    kernel, plain version and, for the histogram, one ``index_add_`` call;
 4. drives the flagship through the default ``TraceDisk`` (the fused bounce
    kernel): 2,993 disks, 2,000 rays per point, periodic walls, diffuse
@@ -22,7 +24,7 @@ It imports only ``viennaray_tpu_torch`` and, in order:
    bounce and histogram kernels were launched, and that two same-seed runs
    are bitwise equal;
 5. drives the same flagship through ``TraceDisk(fused=False)`` (the unfused
-   body around the closest-hit and histogram kernels) at 1,000 rays per
+   body around the closest-hit and histogram kernels) at 500 rays per
    point, against the same goldens;
 6. drives the triangle flagship through the default ``TraceTriangle``:
    5,760 triangles, 2,000 rays per triangle, the same physics; checks the
@@ -31,8 +33,22 @@ It imports only ``viennaray_tpu_torch`` and, in order:
    geometry hits per ray against the oracle's (within 2 %), that the bounce
    kernel was launched, and that two same-seed runs are bitwise equal; then
    through ``TraceTriangle(fused=False)`` (the triangle closest-hit kernel
-   and the histogram kernel on every bounce) at 500 rays per triangle;
-7. prints the peak device memory.
+   and the histogram kernel on every bounce) at 250 rays per triangle;
+7. drives the line configuration through the default ``TraceLine``: the 2D
+   trench as 782 segments of two materials, diffuse particle with sticking
+   0.5 / 0.1 by material, 2,000 rays per segment, against
+   ``line2d_trench_oracle.npy`` with the same checks, the bounce kernel the
+   only kernel launched; then ``TraceLine(fused=False)`` at 500 rays per
+   segment (the line closest-hit and histogram kernels); then the same mesh
+   as triangle pairs through ``TraceTriangle(dim=2)``, whose flux per line
+   must agree with the line run's within the two runs' noise;
+8. drives the ion configuration through ``TraceDisk``: the flagship's disks
+   under a coned-cosine particle (sticking 0.5, cone angle pi/6, source
+   power 100), fused at 2,000 rays per point against
+   ``ion3d_trench_oracle.npy`` and unfused at 500; then a gas-scattering run
+   (mean free path of one trench depth) at 200 rays per point against
+   ``gas3d_trench_oracle.npy``, scatter events per ray included;
+9. prints the peak device memory.
 
 Every phase prints one JSON object on a line of its own. The line before the
 last lists the kernels; the last line is
@@ -43,6 +59,7 @@ it exits non-zero before printing any result.
 
 from __future__ import annotations
 
+import functools
 import json
 import os
 import subprocess
@@ -58,19 +75,26 @@ F32_FLOPS = 67e12  # H100 SXM data sheet, float32 outside the tensor cores
 # (csrc/disk_hit.cuh): two dot products (5 each), the plane time (2), the hit
 # offset (9) and its squared length (5). A triangle (csrc/tri_hit.cuh): two
 # cross products (9 each), three dot products (5 each), the offset from v0
-# (3), three quotients and u + v. Comparisons are not counted, and the bound
-# takes every ray against every real primitive (what the function computes),
-# not the pairs that are left after the kernel's chunk skip.
-OPS_PER_PAIR = {"disk": 26, "triangle": 45}
+# (3), three quotients and u + v. A line segment (csrc/line_hit.cuh): the
+# offset from p0 (2), three two-by-two determinants (3 each), two quotients.
+# Comparisons are not counted, and the bound takes every ray against every
+# real primitive (what the function computes), not the pairs that are left
+# after the kernel's chunk skip.
+OPS_PER_PAIR = {"disk": 26, "triangle": 45, "line": 13}
 FLAGSHIP = dict(grid_delta=0.25, extent=5.0, trench_width=4.0, trench_depth=4.0)
 RAYS_PER_POINT = 2000
 SEED = 42
 GOLDEN_TOL = 0.05
 ROOT = os.path.dirname(os.path.abspath(__file__))
 GOLDEN_DIR = os.path.join(ROOT, "benchmarks", "golden")
-TRI_GOLDEN = os.path.join(
-    ROOT, "viennaray_tpu_torch", "io", "golden", "tri3d_trench_oracle"
-)
+PORT_GOLDEN_DIR = os.path.join(ROOT, "viennaray_tpu_torch", "io", "golden")
+# the 2D line configuration (benchmarks/perf_sweep.py:168-207 on the trench
+# of io/fixtures.py:create_trench_line_mesh) and the ion configuration
+# (benchmarks/perf_sweep.py:113-124 on the flagship's disks)
+LINE_TRENCH = dict(FLAGSHIP, grid_delta=0.023)
+LINE_STICKING = [0.5, 0.1]
+ION = dict(sticking=0.5, cone_angle=float(np.pi / 6), source_power=100.0)
+GAS_MEAN_FREE_PATH = 4.0  # one trench depth
 
 
 def emit(obj):
@@ -124,7 +148,9 @@ def make_rays(geometry, bbox, n, kind, seed):
     """Seeded rays at the flagship's geometry: ``source`` = what the trace's
     first bounce sees (source plane, cosine lobe), ``interior`` = origins
     anywhere in the box with directions all over the sphere, as after
-    diffuse bounces, ``flat`` = the same in the plane z = 0 of a 2D run."""
+    diffuse bounces, ``flat`` = the same in the plane z = 0 of a 2D run,
+    ``flat_source`` = what a 2D trace's first bounce sees (+y face, the
+    cosine lobe flattened into the plane)."""
     from viennaray_tpu_torch.ops import sampling
 
     dev = geometry.device
@@ -133,13 +159,17 @@ def make_rays(geometry, bbox, n, kind, seed):
     u = torch.rand((4, n), generator=gen, device=dev)
     lo, hi = bbox[0], bbox[1]
     org = lo + (hi - lo) * torch.stack([u[0], u[1], u[2]], dim=1)
-    if kind == "source":
-        org[:, 2] = hi[2]
+    if kind in ("source", "flat_source"):
         lobe = sampling.power_cosine_direction(u[2], u[3], 1.0)
-        dirn = torch.stack([lobe[:, 0], lobe[:, 1], -lobe[:, 2]], dim=1)
+        if kind == "source":
+            org[:, 2] = hi[2]
+            dirn = torch.stack([lobe[:, 0], lobe[:, 1], -lobe[:, 2]], dim=1)
+        else:
+            org[:, 1] = hi[1]
+            dirn = torch.stack([lobe[:, 0], -lobe[:, 2], lobe[:, 1]], dim=1)
     else:
         dirn = sampling.unit_sphere(u[3], torch.rand(n, generator=gen, device=dev))
-    if kind == "flat":
+    if kind in ("flat", "flat_source"):
         org[:, 2] = 0.0
         dirn[:, 2] = 0.0
         dirn = dirn / torch.linalg.norm(dirn, dim=1, keepdim=True)
@@ -147,8 +177,8 @@ def make_rays(geometry, bbox, n, kind, seed):
 
 
 def check_nearest_hit(geometry, bbox, n_rays, kind, reps):
-    """The closest-hit kernel of the geometry's kind (disks or triangles)
-    against its plain version."""
+    """The closest-hit kernel of the geometry's kind (disks, triangles or
+    lines) against its plain version."""
     from viennaray_tpu_torch.ops import nearest_hit as NH
 
     name = f"{geometry.kind}_nearest_hit"
@@ -258,16 +288,35 @@ def check_histogram(geometry, n_rays, n_bins, reps):
     return res
 
 
-def bounce_settings(specular=False, walls="PERIODIC", dim=3):
+def ion_particle():
+    import viennaray_tpu_torch as vrt
+
+    return vrt.ConedCosineParticle(
+        ION["sticking"], ION["cone_angle"], ION["source_power"]
+    )
+
+
+def gas_particle():
+    import dataclasses
+
+    import viennaray_tpu_torch as vrt
+
+    return dataclasses.replace(
+        vrt.DiffuseParticle(0.1), mean_free_path=GAS_MEAN_FREE_PATH
+    )
+
+
+def bounce_settings(specular=False, walls="PERIODIC", dim=3, particle=None):
     """The flagship's settings of a bounce (diffuse, periodic walls, sticking
-    0.1), or a specular particle, or other walls; in 2D the source lies on
-    the +y face."""
+    0.1), or a specular particle, or another particle, or other walls; in 2D
+    the source lies on the +y face."""
     import viennaray_tpu_torch as vrt
     from viennaray_tpu_torch.ops.bounce import BounceSettings
 
     bc = vrt.BoundaryCondition[walls]
-    particle = (vrt.SpecularParticle(0.1, 1.0) if specular
-                else vrt.DiffuseParticle(0.1))
+    if particle is None:
+        particle = (vrt.SpecularParticle(0.1, 1.0) if specular
+                    else vrt.DiffuseParticle(0.1))
     direction = vrt.TraceDirection.POS_Z if dim == 3 else vrt.TraceDirection.POS_Y
     return BounceSettings.from_config(
         vrt.TraceConfig(dim=dim, boundary_conditions=(bc,) * 3,
@@ -298,21 +347,30 @@ def trench_2d_lines():
     source-adjusted box."""
     from viennaray_tpu_torch.geometry.mesh import LineMesh
     from viennaray_tpu_torch.geometry.triangle_geometry import TriangleGeometry
+    from viennaray_tpu_torch.io import fixtures
 
     step = 0.05
-    corners = [(-3.0, 0.0), (-1.0, 0.0), (-1.0, -2.0), (1.0, -2.0),
-               (1.0, 0.0), (3.0, 0.0)]
-    nodes = [corners[0]]
-    for (x0, y0), (x1, y1) in zip(corners[:-1], corners[1:]):
-        n = int(round(max(abs(x1 - x0), abs(y1 - y0)) / step))
-        nodes += [(x0 + (x1 - x0) * i / n, y0 + (y1 - y0) * i / n)
-                  for i in range(1, n + 1)]
-    nodes = np.c_[np.array(nodes, np.float32), np.zeros(len(nodes), np.float32)]
-    lines = np.stack([np.arange(len(nodes) - 1), np.arange(1, len(nodes))], 1)
+    nodes, lines = fixtures.create_trench_line_mesh(
+        grid_delta=step, extent=3.0, trench_width=2.0, trench_depth=2.0
+    )
     geometry = TriangleGeometry.from_line_mesh(
         LineMesh(nodes, lines, grid_delta=step)
     )
     return geometry, adjusted_bbox(geometry, dim=2)
+
+
+def line_trench():
+    """The line configuration's mesh and material ids: the 2D trench at
+    ``grid_delta`` 0.023 (782 segments in 2 chunks of 512 lanes), material 1
+    on the second half of the segments."""
+    from viennaray_tpu_torch.geometry.mesh import LineMesh
+    from viennaray_tpu_torch.io import fixtures
+
+    nodes, lines = fixtures.create_trench_line_mesh(**LINE_TRENCH)
+    mesh = LineMesh(nodes, lines, grid_delta=LINE_TRENCH["grid_delta"])
+    material_ids = np.zeros(len(mesh.lines), np.int32)
+    material_ids[len(material_ids) // 2:] = 1
+    return mesh, material_ids
 
 
 def trench_2d():
@@ -345,7 +403,10 @@ def make_state(geometry, bbox, n_rays, kind, n_sub, settings, seed):
     """Seeded state and uniforms on the card: rays from ``make_rays``, a
     twentieth of the lanes dead, a tenth that have passed a disk from behind,
     weights from w0 down to the roulette threshold, boundary-hit counts up to
-    the cap."""
+    the cap. A coned-cosine particle's column 0 of every sub-bounce carries a
+    sampled theta, as the trace hands it over."""
+    from viennaray_tpu_torch.config import ReflectionKind
+    from viennaray_tpu_torch.ops import sampling
     from viennaray_tpu_torch.ops.bounce import RayState
 
     dev = geometry.device
@@ -362,20 +423,34 @@ def make_state(geometry, bbox, n_rays, kind, n_sub, settings, seed):
         torch.zeros(n_rays, dtype=torch.int32, device=dev),
         n_bdry.clamp(max=settings.max_boundary_hits).contiguous(),
     )
-    uniforms = torch.rand((n_rays, 3 * n_sub), generator=gen, device=dev)
+    n_uni = settings.n_uni
+    uniforms = torch.rand((n_rays, n_uni * n_sub), generator=gen, device=dev)
+    if settings.refl_kind == ReflectionKind.CONED_COSINE:
+        shape = (n_rays, n_sub)
+        uniforms[:, 0::n_uni] = sampling.coned_cosine_theta(
+            lambda i: (torch.rand(shape, generator=gen, device=dev),
+                       torch.rand(shape, generator=gen, device=dev)),
+            shape, settings.cone_angle, dev,
+        )
     return state, uniforms
 
 
 def check_bounce(geometry, bbox, n_rays, kind, n_sub, in_kernel, settings,
-                 reps):
+                 reps, particle=None):
+    """The bounce kernel against its plain version on one seeded state.
+    ``particle``: the particle whose per-material table gives the launch its
+    per-lane sticking (none: the settings' one value)."""
     from viennaray_tpu_torch.ops import bounce as B
 
     walls = B.make_walls(bbox, geometry, settings)
     state, uniforms = make_state(
         geometry, bbox, n_rays, kind, n_sub, settings, seed=13
     )
+    stick_lanes = (None if particle is None
+                   else B.sticking_lanes(particle, geometry))
     args = (state, uniforms, geometry, walls, settings)
-    kw = dict(n_sub=n_sub, deposit_in_kernel=in_kernel)
+    kw = dict(n_sub=n_sub, deposit_in_kernel=in_kernel,
+              stick_lanes=stick_lanes)
     res = B.fused_bounce(*args, **kw)
     again = B.fused_bounce(*args, **kw)
     torch.cuda.synchronize()
@@ -414,8 +489,10 @@ def check_bounce(geometry, bbox, n_rays, kind, n_sub, in_kernel, settings,
         flux_err, flux_max = 0.0, 0.0
 
     # Last bits: the kernel repeats the plain version's float32 operations
-    # one by one, and its sinf / cosf are the functions PyTorch's own kernels
-    # call, so nothing is left to differ, whatever n_sub.
+    # one by one, and its sinf / cosf (diffuse and coned-cosine reflection,
+    # scattering direction) and expf (scattering probability) are the
+    # functions PyTorch's own kernels call, so nothing is left to differ,
+    # whatever n_sub: every branch is held to equality.
     tolerance = (
         "flags, counters, hit prim and deposit weight equal on every lane; "
         "origin, direction and weight bit for bit on the lanes left alive; "
@@ -438,7 +515,8 @@ def check_bounce(geometry, bbox, n_rays, kind, n_sub, in_kernel, settings,
     traces = ref_counts[3]
     op_ms = traces * n_real * OPS_PER_PAIR[geometry.kind] / F32_FLOPS * 1e3
     n_bytes = (
-        n_rays * (66 + 12 * n_sub + 62) + npad * (rows + 1) * 4
+        n_rays * (66 + 4 * settings.n_uni * n_sub + 62)
+        + npad * (rows + 1 + (stick_lanes is not None)) * 4
         + geometry.soa_chunk_bbs.numel() * 4 + n_real * k_nbrs * 36
         + (n_real * 4 if in_kernel else n_rays * 8)
     )
@@ -448,7 +526,9 @@ def check_bounce(geometry, bbox, n_rays, kind, n_sub, in_kernel, settings,
         "shape": f"{geometry.kind}s, R={n_rays} ({kind} rays), n_sub={n_sub}, "
                  f"deposits "
                  f"{'in the kernel' if in_kernel else 'handed out'}, "
-                 f"{'specular' if settings.refl_kind else 'diffuse'}, "
+                 f"{('diffuse', 'specular', 'coned-cosine')[settings.refl_kind]}, "
+                 f"{'sticking per lane, ' if stick_lanes is not None else ''}"
+                 f"{'gas scattering, ' if settings.n_uni == 6 else ''}"
                  f"{('reflective', 'periodic', 'ignore')[settings.bc1]}, "
                  f"dim={settings.dim}, "
                  f"Npad={npad}, C={geometry.soa_chunk_bbs.shape[0]}, K={k_nbrs}",
@@ -467,13 +547,45 @@ def check_bounce(geometry, bbox, n_rays, kind, n_sub, in_kernel, settings,
     return res_out
 
 
-def make_tracer(pts, nrm, rays_per_point=RAYS_PER_POINT, fused=True):
+def make_tracer(pts, nrm, rays_per_point=RAYS_PER_POINT, fused=True,
+                particle=None):
     import viennaray_tpu_torch as vrt
 
     # device=None: the CUDA device, or raises
     tracer = vrt.TraceDisk(dim=3, fused=fused)
     tracer.set_geometry(pts, nrm, FLAGSHIP["grid_delta"])
-    return configure(tracer, rays_per_point)
+    return configure(tracer, rays_per_point, particle)
+
+
+def line_particle():
+    import viennaray_tpu_torch as vrt
+
+    return vrt.DiffuseParticle(0.5, "flux", material_sticking=LINE_STICKING)
+
+
+def make_line_tracer(rays_per_point=RAYS_PER_POINT, fused=True):
+    """The line configuration through ``TraceLine`` on the default device:
+    per-material sticking, periodic walls, source on the +y face."""
+    import viennaray_tpu_torch as vrt
+
+    mesh, material_ids = line_trench()
+    tracer = vrt.TraceLine(fused=fused)
+    tracer.set_geometry(mesh, material_ids=material_ids)
+    return configure(tracer, rays_per_point, line_particle())
+
+
+def make_ribbon_tracer(num_rays):
+    """The same mesh, materials and physics through ``TraceTriangle(dim=2)``,
+    which extrudes every segment to a pair of triangles."""
+    import viennaray_tpu_torch as vrt
+
+    mesh, material_ids = line_trench()
+    tracer = vrt.TraceTriangle(dim=2)
+    tracer.set_geometry(mesh)
+    tracer.set_material_ids(np.repeat(material_ids, 2))
+    configure(tracer, 0, line_particle())
+    tracer.set_number_of_rays_fixed(num_rays)
+    return tracer
 
 
 def make_tri_tracer(verts, tris, rays_per_point=RAYS_PER_POINT, fused=True):
@@ -484,13 +596,13 @@ def make_tri_tracer(verts, tris, rays_per_point=RAYS_PER_POINT, fused=True):
     return configure(tracer, rays_per_point)
 
 
-def configure(tracer, rays_per_point):
+def configure(tracer, rays_per_point, particle=None):
     """The flagships' physics: periodic walls, diffuse particle with sticking
-    0.1, a fixed seed."""
+    0.1 (or ``particle``), a fixed seed."""
     import viennaray_tpu_torch as vrt
 
     tracer.set_boundary_conditions([vrt.BoundaryCondition.PERIODIC] * 3)
-    tracer.set_particle_type(vrt.DiffuseParticle(0.1, "flux"))
+    tracer.set_particle_type(particle or vrt.DiffuseParticle(0.1, "flux"))
     tracer.set_number_of_rays_per_point(rays_per_point)
     tracer.set_rng_seed(SEED)
     return tracer
@@ -510,12 +622,14 @@ def disk_goldens():
     }
 
 
-def tri_golden():
-    """The triangle oracle golden, its record, and the bound the flux is held
-    to: rel-L2 < 0.05, or 1.45 times the golden's own noise (the rel-L2
-    between its two seeds) where that noise is above 0.035."""
-    golden = np.load(TRI_GOLDEN + ".npy")
-    with open(TRI_GOLDEN + ".json") as f:
+def oracle_golden(name):
+    """An oracle golden of ``viennaray_tpu_torch/io/golden``, its record, and
+    the bound the flux is held to: rel-L2 < 0.05, or 1.45 times the golden's
+    own noise (the rel-L2 between its two seeds) where that noise is above
+    0.035."""
+    path = os.path.join(PORT_GOLDEN_DIR, name)
+    golden = np.load(path + ".npy")
+    with open(path + ".json") as f:
         record = json.load(f)
     noise = record["rel_l2_between_seeds"]
     tol = GOLDEN_TOL if noise <= 0.035 else 1.45 * noise
@@ -531,6 +645,7 @@ def _kernel_wrappers():
         "fused_bounce": B.fused_bounce,
         "disk_nearest_hit": NH.disk_nearest_hit,
         "triangle_nearest_hit": NH.triangle_nearest_hit,
+        "line_nearest_hit": NH.line_nearest_hit,
         "flux_histogram": H.flux_histogram,
     }
 
@@ -567,52 +682,26 @@ def timed_apply(tracer, goldens, tol=GOLDEN_TOL):
         "rays_per_s": info.num_rays / seconds,
         "total_rays_traced": info.total_rays_traced,
         "geometry_hits": info.geometry_hits,
+        "particle_hits": info.particle_hits,
         "non_geometry_hits": info.non_geometry_hits,
         "boundary_hits": info.boundary_hits,
         "geometry_hits_per_ray": info.geometry_hits / info.num_rays,
         **errors, "rel_l2_bound": tol,
         "launches": launches,
         "bounces": sub_bounces or launches["disk_nearest_hit"]
-        or launches["triangle_nearest_hit"],
+        or launches["triangle_nearest_hit"] or launches["line_nearest_hit"],
     }
     ok = (
         np.isfinite(norm).all() and norm.shape == (n_prims,)
         and norm.max() > 0 and all(e < tol for e in errors.values())
     )
-    return fields, ok, launches
+    return fields, ok, launches, norm
 
 
-def phase_main_path(pts, nrm):
-    """The default path: the flagship at full width through the default
-    tracer, whose body is the fused bounce kernel."""
-    tracer = make_tracer(pts, nrm)
-    first = tracer.apply()  # warm-up; also the first of the same-seed pair
-    fields, ok, launches = timed_apply(tracer, disk_goldens())
-    again = make_tracer(pts, nrm).apply()  # fresh tracer, same seed, first run
-    bitwise = bool(np.array_equal(first, again))
-    res = {"phase": "main_path", "body": "fused", **fields,
-           "same_seed_bitwise_equal": bitwise}
-    emit(res)
-    if not (ok and bitwise and launches["fused_bounce"] > 0
-            and launches["flux_histogram"] > 0):
-        raise RuntimeError(f"main path failed its checks: {res}")
-    return launches
-
-
-def phase_unfused_path(pts, nrm):
-    """The unfused path at half the depth: the unfused body around
-    the closest-hit and histogram kernels, 1,000 rays per point. In one
-    process with the fused apply, so the two times can be compared."""
-    tracer = make_tracer(pts, nrm, rays_per_point=1000, fused=False)
-    tracer.apply()  # warm-up, so that the timed apply is the second as above
-    fields, ok, launches = timed_apply(tracer, disk_goldens())
-    res = {"phase": "main_path", "body": "unfused", **fields}
-    emit(res)
-    if not (ok and launches["disk_nearest_hit"] > 0
-            and launches["flux_histogram"] > 0
-            and launches["fused_bounce"] == 0):
-        raise RuntimeError(f"unfused path failed its checks: {res}")
-    return launches
+def only_launched(launches, *names):
+    """Every kernel of ``names`` was launched and no other."""
+    return all((count > 0) == (name in names)
+               for name, count in launches.items())
 
 
 def hits_per_ray_ok(fields, record):
@@ -622,44 +711,169 @@ def hits_per_ray_ok(fields, record):
     return abs(fields["geometry_hits_per_ray"] - want) <= 0.02 * want
 
 
-def phase_triangle_main_path(verts, tris):
-    """The triangle flagship at full width through the default
-    ``TraceTriangle``, whose body is the fused bounce kernel's triangle
-    instantiation."""
-    golden, record, tol = tri_golden()
-    tracer = make_tri_tracer(verts, tris)
+def run_path(label, make, goldens, tol, kernels, record=None, same_seed=False,
+             extra=None):
+    """One path of a configuration: a warm-up apply of ``make()``'s tracer,
+    then the timed apply (its second, so its run number is 2), printed as one
+    ``main_path`` object with ``label``'s fields. Raises unless the flux is
+    within ``tol`` of ``goldens``, the hits per ray within 2 % of the oracle
+    ``record``'s (where one is given), exactly ``kernels`` were launched,
+    with ``same_seed`` a fresh tracer's first apply is bitwise equal to the
+    warm-up, and ``extra(fields, norm) -> (more fields, ok)`` holds. In one
+    process, so that the paths' times can be compared. Returns (fields,
+    launches, normalized flux)."""
+    tracer = make()
     first = tracer.apply()
-    fields, ok, launches = timed_apply(tracer, {"rel_l2_oracle": golden}, tol)
-    ok = ok and hits_per_ray_ok(fields, record)
-    again = make_tri_tracer(verts, tris).apply()
-    bitwise = bool(np.array_equal(first, again))
-    res = {"phase": "main_path", "geometry": "triangles", "body": "fused",
-           **fields, "same_seed_bitwise_equal": bitwise}
+    fields, ok, launches, norm = timed_apply(tracer, goldens, tol)
+    if record is not None:
+        ok = ok and hits_per_ray_ok(fields, record)
+    res = {"phase": "main_path", **label, **fields}
+    if same_seed:
+        bitwise = bool(np.array_equal(first, make().apply()))
+        res["same_seed_bitwise_equal"] = bitwise
+        ok = ok and bitwise
+    if extra is not None:
+        more, extra_ok = extra(fields, norm)
+        res.update(more)
+        ok = ok and extra_ok
     emit(res)
-    if not (ok and bitwise and launches["fused_bounce"] > 0):
-        raise RuntimeError(f"triangle main path failed its checks: {res}")
-    return launches
+    if not (ok and only_launched(launches, *kernels)):
+        raise RuntimeError(f"path failed its checks: {res}")
+    return fields, launches, norm
 
 
-def phase_triangle_unfused_path(verts, tris):
-    """The unfused triangle path at a quarter of the depth (500 rays per
-    triangle): the triangle closest-hit kernel and the histogram kernel on
-    every bounce. A quarter of the rays doubles the Monte Carlo noise, so
-    the flux bound doubles too."""
-    golden, record, tol = tri_golden()
-    tracer = make_tri_tracer(verts, tris, rays_per_point=500, fused=False)
-    tracer.apply()
-    fields, ok, launches = timed_apply(
-        tracer, {"rel_l2_oracle": golden}, 2.0 * tol
-    )
-    ok = ok and hits_per_ray_ok(fields, record)
-    res = {"phase": "main_path", "geometry": "triangles", "body": "unfused",
-           **fields}
-    emit(res)
-    if not (ok and launches["triangle_nearest_hit"] > 0
-            and launches["flux_histogram"] > 0
-            and launches["fused_bounce"] == 0):
-        raise RuntimeError(f"unfused triangle path failed its checks: {res}")
+def phase_disk_paths(pts, nrm):
+    """The flagship at full width through the default tracer, whose body is
+    the fused bounce kernel (its wide launches hand their deposits to the
+    histogram kernel); then the unfused body around the closest-hit and
+    histogram kernels at a quarter of the depth, 500 rays per point (twice
+    the noise, so twice the bound)."""
+    make = functools.partial(make_tracer, pts, nrm)
+    _, launches, _ = run_path(
+        {"body": "fused"}, make, disk_goldens(), GOLDEN_TOL,
+        ("fused_bounce", "flux_histogram"), same_seed=True)
+    _, unfused_launches, _ = run_path(
+        {"body": "unfused"},
+        functools.partial(make, rays_per_point=RAYS_PER_POINT // 4, fused=False),
+        disk_goldens(), 2.0 * GOLDEN_TOL, ("disk_nearest_hit", "flux_histogram"))
+    return launches, unfused_launches
+
+
+def phase_triangle_paths(verts, tris):
+    """The triangle flagship at full width through the default
+    ``TraceTriangle``: the fused bounce kernel's triangle instantiation and
+    no other kernel; then the unfused body (the triangle closest-hit kernel
+    and the histogram kernel on every bounce) at an eighth of the depth, 250
+    rays per triangle: 2.8 times the Monte Carlo noise, so three times the
+    bound."""
+    golden, record, tol = oracle_golden("tri3d_trench_oracle")
+    goldens = {"rel_l2_oracle": golden}
+    make = functools.partial(make_tri_tracer, verts, tris)
+    label = {"geometry": "triangles"}
+    _, launches, _ = run_path(
+        {**label, "body": "fused"}, make, goldens, tol, ("fused_bounce",),
+        record, same_seed=True)
+    _, unfused_launches, _ = run_path(
+        {**label, "body": "unfused"},
+        functools.partial(make, rays_per_point=RAYS_PER_POINT // 8, fused=False),
+        goldens, 3.0 * tol, ("triangle_nearest_hit", "flux_histogram"), record)
+    return launches, unfused_launches
+
+
+def phase_line_paths():
+    """The line configuration at full width through the default
+    ``TraceLine`` (782 segments, 2,000 rays per segment, per-material
+    sticking): the fused bounce kernel's line instantiation and no other
+    kernel; then ``TraceLine(fused=False)`` at a quarter of the rays (the
+    line closest-hit kernel and the histogram kernel on every bounce, twice
+    the noise, so twice the bound); then the same mesh through
+    ``TraceTriangle(dim=2)`` with as many rays as the line run, each line's
+    flux the mean of its pair's. The two are independent runs that are each
+    allowed the golden bound, so they are held to sqrt(2) times it, and
+    their hits per ray to 2 % of each other. They agree within noise and not
+    exactly: the line test clips 1e-5 of a segment at each end."""
+    golden, record, tol = oracle_golden("line2d_trench_oracle")
+    goldens = {"rel_l2_oracle": golden}
+    label = {"geometry": "lines"}
+    fields, launches, line_norm = run_path(
+        {**label, "body": "fused"}, make_line_tracer, goldens, tol,
+        ("fused_bounce",), record, same_seed=True)
+    _, unfused_launches, _ = run_path(
+        {**label, "body": "unfused"},
+        functools.partial(make_line_tracer,
+                          rays_per_point=RAYS_PER_POINT // 4, fused=False),
+        goldens, 2.0 * tol, ("line_nearest_hit", "flux_histogram"), record)
+
+    def against_line_run(pair_fields, pair_norm):
+        per_line = 0.5 * (pair_norm[0::2] + pair_norm[1::2])
+        apart = rel_l2(per_line, line_norm)
+        hits_apart = abs(pair_fields["geometry_hits_per_ray"]
+                         / fields["geometry_hits_per_ray"] - 1)
+        bound = float(np.sqrt(2.0)) * tol
+        return {
+            "rel_l2_per_line_against_oracle": rel_l2(per_line, golden),
+            "rel_l2_against_line_run": apart,
+            "rel_l2_against_line_run_bound": bound,
+            "hits_per_ray_apart": hits_apart,
+        }, apart < bound and hits_apart <= 0.02
+
+    # each triangle of a pair is held to its line's golden value, loosely:
+    # the check that counts is the per-line one of ``against_line_run``
+    run_path(
+        {"geometry": "lines as triangle pairs (2D)", "body": "fused"},
+        functools.partial(make_ribbon_tracer, fields["num_rays"]),
+        {"rel_l2_oracle": np.repeat(golden, 2)}, 1.0, ("fused_bounce",),
+        extra=against_line_run)
+    return launches, unfused_launches
+
+
+def phase_ion_paths(pts, nrm):
+    """The ion configuration at full width: the flagship's 2,993 disks under
+    a coned-cosine particle (sticking 0.5, cone angle pi/6, source power
+    100), 2,000 rays per point through the default ``TraceDisk``: the bounce
+    kernel's coned-cosine branch on every launch, deposits in the kernel (a
+    launch hands out only for a diffuse particle), no other kernel. Then
+    ``TraceDisk(fused=False)`` at 500 rays per point with twice the bound."""
+    golden, record, tol = oracle_golden("ion3d_trench_oracle")
+    goldens = {"rel_l2_oracle": golden}
+    make = functools.partial(make_tracer, pts, nrm, particle=ion_particle())
+    label = {"geometry": "disks", "particle": "ion"}
+    _, launches, _ = run_path(
+        {**label, "body": "fused"}, make, goldens, tol, ("fused_bounce",),
+        record, same_seed=True)
+    _, unfused_launches, _ = run_path(
+        {**label, "body": "unfused"},
+        functools.partial(make, rays_per_point=RAYS_PER_POINT // 4, fused=False),
+        goldens, 2.0 * tol, ("disk_nearest_hit", "flux_histogram"), record)
+    return launches, unfused_launches
+
+
+def phase_gas_path(pts, nrm):
+    """Gas scattering end to end at a tenth of the flagship's rays: the
+    flagship's disks and diffuse particle with a mean free path of one
+    trench depth, 200 rays per point. A tenth of the rays is 3.2 times the
+    noise of a full run (0.016 measured on the flagship), beside the
+    golden's own: the flux is held to twice the golden bound, the hits per
+    ray to 2 % of the oracle's, and the scatter events per ray to 2 % of
+    the oracle's."""
+    golden, record, tol = oracle_golden("gas3d_trench_oracle")
+    want = float(np.mean([c["scattered"] for c in record["counters"]])
+                 / record["rays_per_seed"])
+
+    def scatter_events(fields, _):
+        got = fields["particle_hits"] / fields["num_rays"]
+        return ({"particle_hits_per_ray": got,
+                 "oracle_particle_hits_per_ray": want},
+                fields["particle_hits"] > 0 and abs(got - want) <= 0.02 * want)
+
+    _, launches, _ = run_path(
+        {"geometry": "disks", "particle": "diffuse with gas scattering",
+         "body": "fused"},
+        functools.partial(make_tracer, pts, nrm,
+                          rays_per_point=RAYS_PER_POINT // 10,
+                          particle=gas_particle()),
+        {"rel_l2_oracle": golden}, 2.0 * tol,
+        ("fused_bounce", "flux_histogram"), record, extra=scatter_events)
     return launches
 
 
@@ -669,6 +883,7 @@ def main():
               file=sys.stderr)
         return 1
     from viennaray_tpu_torch.geometry.disk_geometry import DiskGeometry
+    from viennaray_tpu_torch.geometry.line_geometry import LineGeometry
     from viennaray_tpu_torch.geometry.triangle_geometry import TriangleGeometry
     from viennaray_tpu_torch.io import fixtures
 
@@ -706,14 +921,27 @@ def main():
         *fixtures.create_trench_grid_3d(**fine), fine["grid_delta"]
     )
     fine_bbox = adjusted_bbox(fine_geometry)
-    check_nearest_hit(fine_geometry, fine_bbox, 65536, "interior", reps=20)
+    check_nearest_hit(fine_geometry, fine_bbox, 65536, "interior", reps=5)
     check_bounce(fine_geometry, fine_bbox, 16384, "interior", 4, True,
-                 flagship, reps=20)
+                 flagship, reps=5)
     flat, flat_bbox = trench_2d()
     flat_ignore = bounce_settings(walls="IGNORE", dim=2)
     flat_mirror = bounce_settings(specular=True, walls="REFLECTIVE", dim=2)
     check_bounce(flat, flat_bbox, 4096, "flat", 4, True, flat_ignore, reps=50)
     check_bounce(flat, flat_bbox, 4096, "flat", 4, True, flat_mirror, reps=50)
+    # the ion's coned-cosine reflection and gas scattering on the flagship's
+    # disks, and sticking per lane (two materials)
+    ion = bounce_settings(particle=ion_particle())
+    gas = bounce_settings(particle=gas_particle())
+    ion_bounce_wide = check_bounce(
+        geometry, bbox, 1 << 20, "source", 1, True, ion, reps=10)
+    check_bounce(geometry, bbox, 512, "interior", 16, True, ion, reps=100)
+    check_bounce(geometry, bbox, 65536, "interior", 1, True, gas, reps=20)
+    check_bounce(geometry, bbox, 4096, "interior", 4, True, gas, reps=50)
+    two_materials = geometry.replace(material_ids=(
+        torch.arange(len(pts), device=geometry.device) % 2).to(torch.int32))
+    check_bounce(two_materials, bbox, 65536, "interior", 1, False, flagship,
+                 reps=20, particle=line_particle())
 
     # ---- triangles: 5,760 in 12 chunks of 512 lanes ------------------------
     verts, tris = fixtures.create_trench_mesh_3d(**FLAGSHIP)
@@ -744,19 +972,59 @@ def main():
         *fixtures.create_trench_mesh_3d(**mid), mid["grid_delta"]
     )
     check_nearest_hit(mid_mesh, adjusted_bbox(mid_mesh), 65536, "interior",
-                      reps=10)
+                      reps=5)
     # a 2D line mesh extruded to triangles, as TraceTriangle(dim=2) builds it
     ribbon, ribbon_bbox = trench_2d_lines()
     check_bounce(ribbon, ribbon_bbox, 4096, "flat", 4, True, flat_ignore,
                  reps=50)
     check_bounce(ribbon, ribbon_bbox, 4096, "flat", 4, True, flat_mirror,
                  reps=50)
+    check_bounce(mesh, mesh_bbox, 1 << 20, "source", 1, True, ion, reps=5)
+    check_bounce(mesh, mesh_bbox, 512, "interior", 16, True, ion, reps=50)
+    check_bounce(mesh, mesh_bbox, 65536, "interior", 1, True, gas, reps=10)
+    check_bounce(mesh, mesh_bbox, 4096, "interior", 4, True, gas, reps=20)
+
+    # ---- lines: 782 segments in 2 chunks of 512 lanes, two materials. Every
+    # ray of these checks starts exactly on z = 0 with dz = 0, against chunk
+    # boxes whose z interval is [-1, 1]: the search's z slab stays finite
+    line_mesh, line_materials = line_trench()
+    lines = LineGeometry.from_mesh(line_mesh, material_ids=line_materials)
+    lines_bbox = adjusted_bbox(lines, dim=2)
+    line_hit_wide = check_nearest_hit(lines, lines_bbox, 1 << 20,
+                                      "flat_source", reps=10)
+    check_nearest_hit(lines, lines_bbox, 1 << 20, "flat", reps=10)
+    check_nearest_hit(lines, lines_bbox, 1000, "flat", reps=100)  # ragged R
+    check_histogram(lines, 1 << 20, lines.num_primitives, reps=20)
+    table = line_particle()
+    line_diffuse = bounce_settings(dim=2, particle=table)
+    line_mirror = bounce_settings(specular=True, walls="REFLECTIVE", dim=2)
+    line_gas = bounce_settings(dim=2, particle=gas_particle())
+    line_bounce_wide = check_bounce(
+        lines, lines_bbox, 1 << 20, "flat_source", 1, True, line_diffuse,
+        reps=10, particle=table)
+    check_bounce(lines, lines_bbox, 1 << 20, "flat", 1, False, line_diffuse,
+                 reps=10, particle=table)
+    check_bounce(lines, lines_bbox, 16384, "flat", 4, True, line_diffuse,
+                 reps=50, particle=table)
+    check_bounce(lines, lines_bbox, 512, "flat", 16, True, line_diffuse,
+                 reps=100, particle=table)
+    check_bounce(lines, lines_bbox, 1000, "flat", 16, True, line_diffuse,
+                 reps=100, particle=table)  # ragged R
+    check_bounce(lines, lines_bbox, 1 << 20, "flat", 1, True, line_mirror,
+                 reps=10, particle=table)
+    check_bounce(lines, lines_bbox, 512, "flat", 16, True, line_mirror,
+                 reps=100, particle=table)
+    check_bounce(lines, lines_bbox, 65536, "flat", 1, True, line_gas, reps=20)
+    check_bounce(lines, lines_bbox, 4096, "flat", 4, True, line_gas, reps=50)
+    check_bounce(lines, lines_bbox, 4096, "flat", 4, True,
+                 bounce_settings(dim=2, particle=ion_particle()), reps=50)
 
     torch.cuda.reset_peak_memory_stats()
-    launches = phase_main_path(pts, nrm)
-    unfused_launches = phase_unfused_path(pts, nrm)
-    tri_launches = phase_triangle_main_path(verts, tris)
-    tri_unfused_launches = phase_triangle_unfused_path(verts, tris)
+    launches, unfused_launches = phase_disk_paths(pts, nrm)
+    tri_launches, tri_unfused_launches = phase_triangle_paths(verts, tris)
+    line_launches, line_unfused_launches = phase_line_paths()
+    ion_launches, ion_unfused_launches = phase_ion_paths(pts, nrm)
+    gas_launches = phase_gas_path(pts, nrm)
     emit({"phase": "peak_memory",
           "max_memory_allocated_bytes": torch.cuda.max_memory_allocated()})
 
@@ -768,8 +1036,13 @@ def main():
             "source": "viennaray_tpu_torch/csrc/nearest_hit.cu",
             "replaces": "viennaray_tpu/ops/pallas_intersect.py:166",
             # the default path is fused and never reaches it: its count is
-            # the unfused path's run
-            "launches": unfused_launches["disk_nearest_hit"],
+            # the unfused paths' runs
+            "launches": unfused_launches["disk_nearest_hit"]
+            + ion_unfused_launches["disk_nearest_hit"],
+            "launches_by_path": {
+                "disks_unfused": unfused_launches["disk_nearest_hit"],
+                "ion_unfused": ion_unfused_launches["disk_nearest_hit"],
+            },
             **{k: hit_wide[k] for k in keys},
         },
         {
@@ -782,6 +1055,10 @@ def main():
                 "disks_unfused": unfused_launches["flux_histogram"],
                 "triangles": tri_launches["flux_histogram"],
                 "triangles_unfused": tri_unfused_launches["flux_histogram"],
+                "lines": line_launches["flux_histogram"],
+                "lines_unfused": line_unfused_launches["flux_histogram"],
+                "ion": ion_launches["flux_histogram"],
+                "ion_unfused": ion_unfused_launches["flux_histogram"],
             },
             **{k: hist_wide[k] for k in keys},
         },
@@ -794,18 +1071,34 @@ def main():
             **{k: tri_hit_wide[k] for k in keys},
         },
         {
+            # the line instantiation of the same template; the JAX package
+            # runs this search in XLA, not in a TPU kernel
+            "name": "line_nearest_hit", "route": "cuda",
+            "source": "viennaray_tpu_torch/csrc/nearest_hit.cu",
+            "replaces": "viennaray_tpu/ops/intersect.py:172",
+            "launches": line_unfused_launches["line_nearest_hit"],
+            **{k: line_hit_wide[k] for k in keys},
+        },
+        {
             "name": "fused_bounce", "route": "cuda",
             "source": "viennaray_tpu_torch/csrc/bounce.cu",
             "replaces": "viennaray_tpu/ops/pallas_bounce.py:1056",
-            # both instantiations: the disk flagship's apply and the
-            # triangle flagship's
-            "launches": launches["fused_bounce"] + tri_launches["fused_bounce"],
+            # every instantiation: the applies of the disk, triangle, line
+            # and ion configurations and the gas run
+            "launches": launches["fused_bounce"] + tri_launches["fused_bounce"]
+            + line_launches["fused_bounce"] + ion_launches["fused_bounce"]
+            + gas_launches["fused_bounce"],
             "launches_by_path": {
                 "disks": launches["fused_bounce"],
                 "triangles": tri_launches["fused_bounce"],
+                "lines": line_launches["fused_bounce"],
+                "ion": ion_launches["fused_bounce"],
+                "gas": gas_launches["fused_bounce"],
             },
             **{k: bounce_wide[k] for k in keys},
             "triangles": {k: tri_bounce_wide[k] for k in keys},
+            "lines": {k: line_bounce_wide[k] for k in keys},
+            "ion": {k: ion_bounce_wide[k] for k in keys},
         },
     ]})
     emit({"ok": True, "device": {

@@ -144,7 +144,7 @@ def test_n_sub_equals_repeated_single_bounces(trench, k):
     for got, want in zip(whole.state, state):
         assert torch.equal(got, want)
     assert torch.equal(whole.counts[:4], counts)
-    assert whole.counts[4] == state.alive.sum()
+    assert whole.counts[bounce.N_EVENTS] == state.alive.sum()
     assert flux.sum() > 100
     np.testing.assert_allclose(
         whole.flux.numpy(), flux.numpy(), rtol=1e-6, atol=0
@@ -188,6 +188,10 @@ def test_wrapper_refuses_what_the_kernel_does_not_take(trench):
             state._replace(org=state.org.T.contiguous().T), uniforms, geo,
             walls, settings, n_sub=2,
         )
+    # the coned-cosine model is taken; a reflection kind that is none is not
     coned = settings._replace(refl_kind=int(ReflectionKind.CONED_COSINE))
-    with pytest.raises(NotImplementedError):
-        bounce.fused_bounce(state, uniforms, geo, walls, coned, n_sub=2)
+    res = bounce.fused_bounce(state, uniforms, geo, walls, coned, n_sub=2)
+    assert res.counts[3] > 0
+    with pytest.raises(ValueError):
+        bounce.fused_bounce(state, uniforms, geo, walls,
+                            settings._replace(refl_kind=3), n_sub=2)

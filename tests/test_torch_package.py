@@ -25,15 +25,29 @@ t.set_number_of_rays_fixed(600)
 t.set_rng_seed(3)
 assert t.apply().sum() > 0
 from viennaray_tpu_torch.geometry import triangle_geometry
-from viennaray_tpu_torch.io import make_tri_golden
+from viennaray_tpu_torch.io import make_oracle_goldens
 assert triangle_geometry.TriangleGeometry.kind == "triangle"
-assert make_tri_golden.NAME == "tri3d_trench_oracle"
+assert "tri3d_trench_oracle" in make_oracle_goldens.CONFIGS
 verts, tris = fixtures.create_trench_mesh_3d(grid_delta=1.0)
 t = vrt.TraceTriangle(dim=3, device="cpu")
 t.set_geometry(verts, tris, 1.0)
 t.set_particle_type(vrt.DiffuseParticle(0.5, "flux"))
 t.set_number_of_rays_fixed(600)
 t.set_rng_seed(3)
+assert t.apply().sum() > 0
+from viennaray_tpu_torch.utils import materials
+nodes, lines = fixtures.create_trench_line_mesh(0.5)
+t = vrt.TraceLine(device="cpu")
+t.set_geometry(vrt.LineMesh(nodes, lines, grid_delta=0.5),
+               material_ids=materials.remap_material_ids([9] * 18 + [4] * 18)[0])
+t.set_particle_type(vrt.DiffuseParticle(0.5, material_sticking=[0.5, 0.1]))
+t.set_number_of_rays_fixed(600)
+t.set_rng_seed(3)
+assert t.apply().sum() > 0
+t = vrt.TraceDisk(dim=3, device="cpu")
+t.set_geometry(pts, nrm, 1.0)
+t.set_particle_type(vrt.ConedCosineParticle(0.5, 0.5, 100.0))
+t.set_number_of_rays_fixed(600)
 assert t.apply().sum() > 0
 bad = [m for m in ("jax", "flax", "viennaray_tpu") if m in sys.modules]
 assert not bad, bad
@@ -59,8 +73,10 @@ def test_sources_name_neither_jax_nor_the_jax_package_as_an_import():
                   if n.endswith((".py", ".cu", ".cuh"))]
     assert len(files) > 20
     package = os.path.join(ROOT, "viennaray_tpu_torch")
-    for module in ("geometry/triangle_geometry.py", "io/make_tri_golden.py",
-                   "csrc/tri_hit.cuh", "csrc/prim_search.cuh"):
+    for module in ("geometry/triangle_geometry.py",
+                   "geometry/line_geometry.py", "io/make_oracle_goldens.py",
+                   "utils/materials.py", "csrc/tri_hit.cuh",
+                   "csrc/line_hit.cuh", "csrc/prim_search.cuh"):
         assert os.path.join(package, *module.split("/")) in files, module
     # ``viennaray_tpu`` not followed by ``_torch``, outside a path-like
     # mention in prose (docstrings name their counterpart as

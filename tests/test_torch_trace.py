@@ -334,7 +334,6 @@ def _apply_with_particle(**fields):
 
 
 REFUSALS = {
-    "gas_scattering": lambda: _apply_with_particle(mean_free_path=0.5),
     "use_wdist": lambda: _small_tracer().set_use_wdist(True),
     "window_flux_model": lambda: _small_tracer().set_flux_model("window"),
     "window_in_config": lambda: trace_batch(
@@ -348,13 +347,6 @@ REFUSALS = {
     "multi_channel_flux": lambda: _apply_with_particle(
         data_labels=("flux", "energy")
     ),
-    "per_material_sticking": lambda: _small_tracer().set_particle_type(
-        vrtt.DiffuseParticle(0.5, material_sticking=[0.1, 0.2])
-    ) or _apply_with_particle(material_sticking=(0.1, 0.2)),
-    "coned_cosine": lambda: _apply_with_particle(
-        reflection_kind=int(vrtt.ReflectionKind.CONED_COSINE), cone_angle=0.3
-    ),
-    "lines": lambda: vrtt.TraceLine(),
     "other_sources": lambda: _small_tracer().set_source(object()),
     "f64_tracing": lambda: vrtt.TraceDisk(
         dim=3, device="cpu", dtype=torch.float64
@@ -381,6 +373,12 @@ def test_supported_small_run_and_no_cuda_refusal():
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError):
             vrtt.TraceDisk(dim=3)
+    # what earlier slices refused now traces: gas scattering, per-material
+    # sticking and the coned-cosine reflection
+    _apply_with_particle(
+        mean_free_path=0.5, material_sticking=(0.1, 0.2),
+        reflection_kind=int(vrtt.ReflectionKind.CONED_COSINE), cone_angle=0.3,
+    )
     # a particle's fixed initial direction overrides the source's: straight
     # down onto the plane with sticking 1, every ray hits exactly once
     t = _small_tracer()

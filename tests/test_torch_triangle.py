@@ -781,6 +781,12 @@ def test_trace_triangle_setters_and_refusals():
             vrtt.TraceTriangle(dim=3)
         with pytest.raises(RuntimeError):
             TriangleGeometry.build(verts, tris, 1.0)
+    # gas scattering traces on triangles; two flux channels are refused
     t.set_particle_type(vrtt.Particle(sticking=0.5, mean_free_path=0.5))
+    assert t.apply().sum() > 0
+    assert t.get_ray_trace_info().particle_hits > 0
+    t.set_particle_type(
+        vrtt.Particle(sticking=0.5, data_labels=("flux", "energy"))
+    )
     with pytest.raises(NotImplementedError):
         t.apply()

@@ -12,8 +12,10 @@ from viennaray_tpu.config import BoundaryCondition as RefBC
 from viennaray_tpu.config import ReflectionKind as RefKind
 from viennaray_tpu.io import fixtures as ref_fixtures
 from viennaray_tpu.ops import pallas_bounce
+from viennaray_tpu.ops import sampling as ref_sampling
 from viennaray_tpu_torch import rng as streams
 from viennaray_tpu_torch.geometry.disk_geometry import DiskGeometry
+from viennaray_tpu_torch.geometry.line_geometry import LineGeometry
 from viennaray_tpu_torch.geometry.triangle_geometry import TriangleGeometry
 from viennaray_tpu_torch.ops import bounce
 
@@ -70,26 +72,54 @@ def port_triangle_geometry(ref_geo):
     )
 
 
+LINE_FIELDS = (
+    "p0", "p1", "normals", "areas", "material_ids", "bbox", "prims_soa",
+    "soa_perm", "soa_chunk_bbs", "soa_inv_perm",
+)
+
+
+def reference_line_arrays(ref_geo):
+    """The array fields of a JAX-package ``LineGeometry`` as numpy."""
+    return {f: np.asarray(getattr(ref_geo, f)) for f in LINE_FIELDS}
+
+
+def port_line_geometry(ref_geo):
+    """The port's line geometry on the very tables of the reference's."""
+    return LineGeometry.from_reference_arrays(
+        reference_line_arrays(ref_geo), grid_delta=ref_geo.grid_delta,
+        device="cpu",
+    )
+
+
 # ---- one launch of the bounce against the reference's megakernel ----------
 MAX_BDRY = 5
 MAX_REFL = 7
 
 
-def make_settings(kind, bc, dim=3):
+def make_settings(kind, bc, dim=3, mean_free_path=-1.0, cone_angle=0.5):
+    """3D: source on +z, walls on x and y; 2D: source on +y, walls on x (the
+    second wall axis is z and never met)."""
+    first_dir, second_dir, ray_axis = (0, 1, 2) if dim == 3 else (0, 2, 1)
     return bounce.BounceSettings(
-        dim=dim, first_dir=0, second_dir=1, ray_axis=2, bc1=int(bc),
+        dim=dim, first_dir=first_dir, second_dir=second_dir,
+        ray_axis=ray_axis, bc1=int(bc),
         bc2=int(bc), refl_kind=int(kind), sticking=0.3, t_near=1e-4,
         max_reflections=MAX_REFL, max_boundary_hits=MAX_BDRY, roulette=True,
         weight_threshold_frac=0.1, renew_weight_frac=0.3,
+        cone_angle=cone_angle, mean_free_path=mean_free_path,
     )
 
 
-def make_state(bbox, n, n_sub, seed):
+def make_state(bbox, n, n_sub, seed, n_uni=3, dim=3, theta_max=None):
     """Seeded state by numpy: the first half source rays (top plane, cosine
     lobe), the second half interior rays (anywhere in the box, any
     direction); some lanes dead, some that have passed a disk from behind,
     some with a counter at its cap, weights from full down to the roulette
-    threshold."""
+    threshold. ``n_uni`` uniforms per sub-bounce; with ``theta_max`` column 0
+    of each holds an angle in [0, theta_max) as a coned-cosine launch's does.
+    ``dim=2``: the same in the plane z = 0 with the source on the +y face."""
+    if dim == 2:
+        return _make_state_2d(bbox, n, n_sub, seed, n_uni, theta_max)
     rng = np.random.default_rng(seed)
     lo, hi = bbox[0], bbox[1]
     org = (lo + (hi - lo) * rng.random((n, 3))).astype(np.float32)
@@ -111,7 +141,39 @@ def make_state(bbox, n, n_sub, seed):
     hfb = rng.random(n) < 0.2
     n_refl = rng.integers(0, MAX_REFL + 1, n).astype(np.int32)
     n_bdry = rng.integers(0, MAX_BDRY + 1, n).astype(np.int32)
-    uniforms = rng.random((n, 3 * n_sub), dtype=np.float32)
+    uniforms = _uniforms(rng, n, n_sub, n_uni, theta_max)
+    return org, dirn, weight, w0, alive, hfb, n_refl, n_bdry, uniforms
+
+
+def _uniforms(rng, n, n_sub, n_uni, theta_max):
+    uniforms = rng.random((n, n_uni * n_sub), dtype=np.float32)
+    if theta_max is not None:
+        uniforms[:, 0::n_uni] *= np.float32(theta_max)
+    return uniforms
+
+
+def _make_state_2d(bbox, n, n_sub, seed, n_uni, theta_max):
+    rng = np.random.default_rng(seed)
+    lo, hi = bbox[0], bbox[1]
+    org = (lo + (hi - lo) * rng.random((n, 3))).astype(np.float32)
+    org[:, 2] = 0.0
+    ang = 2 * np.pi * rng.random(n)
+    dirn = np.stack([np.cos(ang), np.sin(ang), 0 * ang], axis=1).astype(np.float32)
+    half = n // 2
+    org[:half, 1] = hi[1]
+    tilt = np.arcsin(2 * rng.random(half) - 1)  # the flattened cosine lobe
+    dirn[:half] = np.stack(
+        [np.sin(tilt), -np.cos(tilt), 0 * tilt], axis=1
+    ).astype(np.float32)
+    w0 = np.ones(n, np.float32)
+    weight = rng.choice(
+        np.array([1.0, 0.7, 0.3, 0.14, 0.11], np.float32), size=n
+    )
+    alive = rng.random(n) > 0.1
+    hfb = rng.random(n) < 0.2
+    n_refl = rng.integers(0, MAX_REFL + 1, n).astype(np.int32)
+    n_bdry = rng.integers(0, MAX_BDRY + 1, n).astype(np.int32)
+    uniforms = _uniforms(rng, n, n_sub, n_uni, theta_max)
     return org, dirn, weight, w0, alive, hfb, n_refl, n_bdry, uniforms
 
 
@@ -120,9 +182,10 @@ def port_state(arrays):
 
 
 def reference_bounce(ref_geo, walls, arrays, settings, n_sub, hand_out,
-                     geo_kind="disk"):
+                     geo_kind="disk", stick_lanes=None):
     """The megakernel in interpret mode, as the JAX package's own tests run
-    it on the CPU; outputs as numpy in the port's layout."""
+    it on the CPU; outputs as numpy in the port's layout. ``stick_lanes``:
+    the per-lane sticking table (``per_mat``), else the settings' value."""
     org, dirn, weight, w0, alive, hfb, n_refl, n_bdry, uniforms = arrays
     flags = np.stack(
         [alive, hfb, n_refl, n_bdry], axis=1
@@ -133,9 +196,14 @@ def reference_bounce(ref_geo, walls, arrays, settings, n_sub, hand_out,
         jnp.asarray(w0[:, None]), jnp.asarray(flags), jnp.asarray(uniforms),
         ref_geo.prims_soa, ref_geo.soa_chunk_bbs,
         jnp.asarray(walls.numpy().reshape(1, 9)),
-        jnp.full((1, 1), settings.sticking, jnp.float32),
+        jnp.full((1, 1), settings.sticking, jnp.float32)
+        if stick_lanes is None
+        else jnp.asarray(np.asarray(stick_lanes, np.float32).reshape(1, -1)),
+        per_mat=stick_lanes is not None,
+        mfp=max(float(settings.mean_free_path), 0.0),
         pt=ref_geo.prims_soa.shape[1] // n_chunks, t_near=settings.t_near,
-        dim=settings.dim, first_dir=0, second_dir=1, ray_axis=2,
+        dim=settings.dim, first_dir=settings.first_dir,
+        second_dir=settings.second_dir, ray_axis=settings.ray_axis,
         bc1=RefBC(settings.bc1), bc2=RefBC(settings.bc2),
         refl_kind=RefKind(settings.refl_kind),
         max_bounces_cfg=settings.max_reflections,
@@ -150,7 +218,7 @@ def reference_bounce(ref_geo, walls, arrays, settings, n_sub, hand_out,
         org=org2, dirn=dir2, weight=w2[:, 0], alive=flags2[:, 0] > 0.5,
         hfb=flags2[:, 1] > 0.5, n_refl=flags2[:, 2].astype(np.int32),
         n_bdry=flags2[:, 3].astype(np.int32),
-        counts=stats[:, 0:4].sum(axis=0),
+        counts=stats[:, 0:5].sum(axis=0),
         flux=flux_sorted.reshape(-1)[np.asarray(ref_geo.soa_inv_perm)],
     )
     if hand_out:
@@ -202,10 +270,10 @@ def check_state_and_counts(res, ref, org_in, flight=None):
             res.wdep.numpy()[same], ref["wdep"][same], atol=1e-5, rtol=0
         )
     counts = res.counts.numpy()
-    for i, name in enumerate(bounce.COUNT_NAMES[:4]):
+    for i, name in enumerate(bounce.COUNT_NAMES[:bounce.N_EVENTS]):
         want = ref["counts"][i]
         assert abs(counts[i] - want) <= max(1, 0.002 * want), (name, counts, want)
-    assert counts[4] == int(st.alive.sum())
+    assert counts[bounce.N_EVENTS] == int(st.alive.sum())
 
 
 class JaxKeyedRNG(streams.RayRNG):
@@ -220,8 +288,15 @@ class JaxKeyedRNG(streams.RayRNG):
     fold_in(batch key, it + 1) split four ways into scatter, scatter
     direction, reflection and roulette keys (kernel.py:531-532), the
     reflection key split for the sphere point's two draws (sampling.py:31).
-    A fused launch of several bounces starting at ``it`` draws its whole
-    block from fold_in(batch key, it + 1) in one call (kernel.py:1118-1121).
+    Gas scattering draws its probability from the scatter key and its
+    direction from the scatter-direction key's two splits (kernel.py:680-684,
+    1106-1116). A coned-cosine bounce splits the reflection key three ways
+    into theta, phi and (unused here) diffuse keys (reflection.py:44,
+    kernel.py:1088-1097); theta is the reference's own accept-reject under
+    that key. A fused launch of several bounces starting at ``it`` draws its
+    whole block from fold_in(batch key, it + 1) in one call and a
+    coned-cosine launch its thetas from fold_in of 0x7E7A into that key
+    (kernel.py:1118-1128).
     """
 
     def __init__(self, base_key, tilted=False):
@@ -247,9 +322,16 @@ class JaxKeyedRNG(streams.RayRNG):
             pair = jax.random.split(k_d)
             return pair[0 if stream == streams.SOURCE_DIR_1 else 1]
         key_b = jax.random.fold_in(self.batch_key, bounce + 1)
-        _, _, k_refl, k_roul = jax.random.split(key_b, 4)
+        k_scat, k_scat_dir, k_refl, k_roul = jax.random.split(key_b, 4)
         if stream == streams.ROULETTE:
             return k_roul
+        if stream == streams.SCATTER:
+            return k_scat
+        if stream in (streams.SCATTER_Z, streams.SCATTER_PHI):
+            pair = jax.random.split(k_scat_dir)
+            return pair[0 if stream == streams.SCATTER_Z else 1]
+        if stream == streams.CONE_PHI:
+            return jax.random.split(k_refl, 3)[1]
         pair = jax.random.split(k_refl)
         return pair[0 if stream == streams.REFLECT_1 else 1]
 
@@ -261,3 +343,14 @@ class JaxKeyedRNG(streams.RayRNG):
         key_b = jax.random.fold_in(self.batch_key, bounce + 1)
         u = jax.random.uniform(key_b, (n, n_cols), dtype=np.float32)
         return torch.from_numpy(np.array(u))
+
+    def cone_theta(self, batch_index, bounce, shape, cone_angle):
+        key_b = jax.random.fold_in(self.batch_key, bounce + 1)
+        if len(shape) == 1:
+            key = jax.random.split(jax.random.split(key_b, 4)[2], 3)[0]
+        else:
+            key = jax.random.fold_in(key_b, 0x7E7A)
+        theta = ref_sampling.coned_cosine_theta(
+            key, tuple(shape), jnp.float32(cone_angle), dtype=jnp.float32
+        )
+        return torch.from_numpy(np.array(theta))

@@ -4,11 +4,13 @@ A Monte Carlo flux tracer with the capabilities of ViennaRay (semiconductor
 topography flux simulation), running on one NVIDIA Hopper GPU. Plain tensor
 code is PyTorch; the kernels (``csrc/``) are CUDA C++ for ``sm_90a``, built at
 first use. The port goes slice by slice: this package holds the disk path
-through ``TraceDisk`` and the triangle path through ``TraceTriangle`` (3D
-meshes, and 2D line meshes extruded to triangles): random source, diffuse and
-specular reflection, all three wall conditions, the neighbor flux model of
-disks and the single-hit deposit of triangles, normalization and smoothing.
-Every setting outside the ported slice raises ``NotImplementedError``.
+through ``TraceDisk``, the triangle path through ``TraceTriangle`` (3D
+meshes, and 2D line meshes extruded to triangles) and the native 2D
+line-segment path through ``TraceLine``: random source, diffuse, specular and
+coned-cosine reflection, one sticking value or one per material, gas
+scattering, all three wall conditions, the neighbor flux model of disks and
+the single-hit deposit of triangles and lines, normalization and smoothing.
+Every setting outside the ported slices raises ``NotImplementedError``.
 
 The package imports ``torch`` and ``numpy`` only.
 """
@@ -23,9 +25,15 @@ from .config import (
 )
 from .data import DataLog, MergeType, TraceInfo, TracingData
 from .geometry.disk_geometry import DiskGeometry
+from .geometry.line_geometry import LineGeometry
 from .geometry.mesh import DiskMesh, LineMesh, TriangleMesh
 from .geometry.triangle_geometry import TriangleGeometry
-from .physics.particle import DiffuseParticle, Particle, SpecularParticle
+from .physics.particle import (
+    ConedCosineParticle,
+    DiffuseParticle,
+    Particle,
+    SpecularParticle,
+)
 from .physics.source import RandomSource
 from .rng import GeneratorRNG, RayRNG
 from .trace.tracer import TraceDisk, TraceLine, TraceTriangle
@@ -45,10 +53,12 @@ __all__ = [
     "TracingData",
     "DiskGeometry",
     "DiskMesh",
+    "LineGeometry",
     "LineMesh",
     "TriangleMesh",
     "TriangleGeometry",
     "Particle",
+    "ConedCosineParticle",
     "DiffuseParticle",
     "SpecularParticle",
     "RandomSource",

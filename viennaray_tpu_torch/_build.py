@@ -33,17 +33,19 @@ _NEAREST_HIT = [
 _SIGNATURES = {
     "vr_disk_nearest_hit": _NEAREST_HIT,
     "vr_triangle_nearest_hit": _NEAREST_HIT,
+    "vr_line_nearest_hit": _NEAREST_HIT,
     # ids w | n_entries n_bins | out scratch stream
     "vr_flux_histogram": [
         _ptr, _ptr, ctypes.c_longlong, ctypes.c_int, _ptr, _ptr, _ptr,
     ],
     # org dir weight w0 alive hfb n_refl n_bdry uniforms | prims chunk_bbs
-    # perm neighbors neighbor_pack walls | n_rays npad pt n_prims k_nbrs
-    # n_sub kind dim first_dir second_dir ray_axis bc1 bc2 specular max_refl
-    # max_bdry roulette deposit | t_near sticking wthresh wrenew | org dir
-    # weight alive hfb n_refl n_bdry out | flux hit_prim wdep scratch stream
+    # perm neighbors neighbor_pack walls stick_lanes | n_rays npad pt n_prims
+    # k_nbrs n_sub kind dim first_dir second_dir ray_axis bc1 bc2 refl_kind
+    # max_refl max_bdry roulette deposit | t_near sticking wthresh wrenew
+    # mean_free_path | org dir weight alive hfb n_refl n_bdry out | flux
+    # hit_prim wdep scratch stream
     "vr_fused_bounce": (
-        [_ptr] * 15 + [ctypes.c_int] * 18 + [ctypes.c_float] * 4
+        [_ptr] * 16 + [ctypes.c_int] * 18 + [ctypes.c_float] * 5
         + [_ptr] * 7 + [_ptr] * 5
     ),
 }

@@ -2,22 +2,40 @@
 //
 // Replaces the TPU kernel viennaray_tpu/ops/pallas_bounce.py:_bounce_kernel
 // with its _one_bounce (launched by fused_bounce / _fused_bounce), for disks
-// (its _disk_chunk branch) and for triangles (its _tri_chunk branch); the
-// kernel is a template on the primitive kind, instantiated once for each.
-// Per ray and sub-bounce: search bound, closest hit below it, event
-// (geometry wins ties over the walls, wall 1 over wall 2), wall handling
-// (reflective / periodic / ignore, the boundary-hit cap), backface pass or
-// kill, the deposit of the pre-sticking weight, diffuse or specular
-// reflection, sticking, the reflection cap, roulette, the state update.
+// (its _disk_chunk branch), triangles (_tri_chunk) and 2D line segments
+// (_line_chunk), under the neighbor flux model; the kernel is a template on
+// the primitive kind. Per ray and sub-bounce: search bound, closest hit below
+// it, event (geometry wins ties over the walls, wall 1 over wall 2), gas
+// scattering, wall handling (reflective / periodic / ignore, the
+// boundary-hit cap), backface pass or kill, the deposit of the pre-sticking
+// weight, diffuse, specular or coned-cosine reflection, sticking (one value
+// or the hit lane's), the reflection cap, roulette, the state update. The
+// window flux model's deposit pass of the TPU kernel is not in it.
 //
 // What differs by kind, all of it compile-time (DiskKind in disk_hit.cuh,
-// TriKind in tri_hit.cuh): the hit test and the staged tile's width; where
-// the hit normal sits in the SoA (a triangle's is its STORED normal, rows
-// 9-11); the backface rule (a disk's first hit from behind passes through
-// and the second kills, a triangle's always kills, so hfb is dead state for
-// triangles); the deposit (a disk's neighbor list, a triangle's single
-// closest hit: one atomic on the hit triangle's bin). A further kind (2D
-// line segments) adds a struct with those members and one instantiation.
+// TriKind in tri_hit.cuh, LineKind in line_hit.cuh): the hit test and the
+// staged tile's width; where the hit normal sits in the SoA (a triangle's is
+// its STORED normal, rows 9-11; a line's has two rows and z = 0); the
+// backface rule (a disk's first hit from behind passes through and the
+// second kills, a triangle's or a line's always kills, so hfb is dead state
+// for them); the deposit (a disk's neighbor list, else the single closest
+// hit: one atomic on the hit primitive's bin).
+//
+// The second template parameter, kFull, compiles the coned-cosine reflection
+// and the gas scattering in. A launch without either (the diffuse and
+// specular particles, with one sticking value or one per lane) runs the
+// kFull = false instantiation, which holds none of their live values: the
+// disk and triangle flagships keep the registers and the time they had
+// before those branches existed. Coned-cosine: column 0 of a sub-bounce's
+// uniforms carries the polar angle theta, sampled outside the kernel (its
+// distribution depends on the cone angle alone); the kernel builds the
+// Frisvad basis around the normalised specular direction, combines, and
+// mirrors a direction that points into the surface. Gas scattering
+// (mfp > 0) widens a sub-bounce's uniforms from 3 to 6 columns [.., scatter,
+// scatter z, scatter phi]: a ray that does not escape scatters when
+// scatter < 1 - exp(-t_event / mfp); it then takes no wall and no geometry
+// event, moves to org + dir * scatter and takes a direction uniform on the
+// sphere (flattened and renormalised in 2D).
 //
 // What bounds it on an H100: operations, as the closest-hit kernel: a ray
 // tests every primitive of every chunk it cannot rule out, about 30 float32
@@ -56,24 +74,27 @@
 // csrc/fixed_point.cuh: integer atomics are associative, two launches on one
 // input give the same bits. The scale follows from the largest w0 (a weight
 // never exceeds its ray's w0: sticking lowers it, roulette renews it to a
-// fraction of w0) and the entry count R * n_sub * (K + 1). A triangle has
-// no neighbor list (K = 0): the hit triangle's bin takes the one atomic.
+// fraction of w0) and the entry count R * n_sub * (K + 1), which still bounds
+// the entries: a ray deposits at most once per sub-bounce, and a scattering
+// ray deposits nothing. A triangle or a line has no neighbor list (K = 0):
+// the hit primitive's bin takes the one atomic.
 //
 // Numbers: round-to-nearest intrinsics in the plain version's operation
 // order (ops/bounce.py:bounce_step), IEEE division and square root, no fused
-// multiply-add, so everything but sinf / cosf of the diffuse reflection is
-// comparable with the plain version for equality (and those two are the
-// functions PyTorch's own kernels call: on an H100 the directions agreed bit
-// for bit as well).
+// multiply-add, so everything but sinf / cosf (diffuse and coned-cosine
+// reflection, scattering direction) and expf (scattering probability) is
+// comparable with the plain version for equality (and those are the
+// functions PyTorch's own kernels call: on an H100 the diffuse directions
+// agreed bit for bit as well).
 //
-// Registers (nvcc 12.8 -Xptxas -v, sm_90a), disk instantiation: 64 a thread,
-// a 72-byte stack frame, 92 bytes of spill stores and 68 of spill loads; 16
-// KB of shared memory (24 KB for triangles). chip_smoke.py prints the figures
-// of every build, both instantiations.
+// Registers: chip_smoke.py prints ptxas' figures of every instantiation of
+// every build (nvcc -Xptxas -v, sm_90a); PERF.md keeps them. Shared memory:
+// 16 KB for disks, 24 KB for triangles, 8 KB for lines.
 #include <cuda_runtime.h>
 
 #include "disk_hit.cuh"
 #include "fixed_point.cuh"
+#include "line_hit.cuh"
 #include "prim_search.cuh"
 #include "tri_hit.cuh"
 
@@ -87,6 +108,11 @@ constexpr int kPeriodic = 1;
 // primitive kinds, as the `kind` argument of vr_fused_bounce
 constexpr int kDisks = 0;
 constexpr int kTriangles = 1;
+constexpr int kLines = 2;
+// reflection models, as config.ReflectionKind
+constexpr int kDiffuse = 0;
+constexpr int kSpecular = 1;
+constexpr int kConedCosine = 2;
 
 struct BounceArgs {
   // state in
@@ -106,10 +132,11 @@ struct BounceArgs {
   const int* neighbors;
   const float* neighbor_pack;
   const float* walls;
+  const float* stick_lanes;  // per sorted lane, or null: `sticking`
   int n_rays, npad, pt, n_prims, k_nbrs, n_sub;
-  int dim, first_dir, second_dir, ray_axis, bc1, bc2, specular;
+  int dim, first_dir, second_dir, ray_axis, bc1, bc2, refl_kind;
   int max_refl, max_bdry, roulette, deposit;
-  float t_near, sticking, wthresh, wrenew;
+  float t_near, sticking, wthresh, wrenew, mfp;
   // state out
   float* org_out;
   float* dir_out;
@@ -205,7 +232,25 @@ __device__ __forceinline__ void count_add(unsigned long long* slot, int v) {
   }
 }
 
-template <class Kind>
+// the unit sphere's point of two uniforms (ops/sampling.py:unit_sphere)
+__device__ __forceinline__ void sphere_point(float u1, float u2, float& x,
+                                             float& y, float& z) {
+  z = __fsub_rn(1.0f, __fmul_rn(2.0f, u1));
+  const float phi = __fmul_rn(kTwoPi, u2);
+  const float rr = __fsqrt_rn(fmaxf(__fsub_rn(1.0f, __fmul_rn(z, z)), 0.0f));
+  x = __fmul_rn(rr, cosf(phi));
+  y = __fmul_rn(rr, sinf(phi));
+}
+
+// v / max(|v|, 1e-12) (ops/vec.py:normalize with eps)
+__device__ __forceinline__ void normalize3(float& x, float& y, float& z) {
+  const float n = fmaxf(__fsqrt_rn(dot3(x, y, z, x, y, z)), 1e-12f);
+  x = __fdiv_rn(x, n);
+  y = __fdiv_rn(y, n);
+  z = __fdiv_rn(z, n);
+}
+
+template <class Kind, bool kFull>
 __global__ void __launch_bounds__(kSearchBlock)
 bounce_kernel(const BounceArgs a) {
   __shared__ float4 s_prim[Kind::kVec * kSearchTile];
@@ -236,6 +281,8 @@ bounce_kernel(const BounceArgs a) {
   const float lo_r = a.walls[4], hi_r = a.walls[5];
   const float r_inf = __fadd_rn(a.walls[8], a.t_near);
   const bool three_d = a.dim == 3;
+  const bool scatters = kFull && a.mfp > 0.0f;
+  const int n_uni = scatters ? 6 : 3;
 
   double scale = 0.0;
   if (a.deposit) {
@@ -243,7 +290,7 @@ bounce_kernel(const BounceArgs a) {
     if (bits != 0) scale = fixed_scale(bits, a.n_entries);
   }
 
-  int c_collide = 0, c_wall = 0, c_exit = 0, c_traces = 0;
+  int c_collide = 0, c_wall = 0, c_exit = 0, c_traces = 0, c_scatter = 0;
   int hit_prim = -1;
   float wdep = 0.0f;
 
@@ -283,15 +330,28 @@ bounce_kernel(const BounceArgs a) {
     if (!alive) continue;
 
     ++c_traces;
+    // this sub-bounce's uniforms: [reflection 1 or theta, reflection 2,
+    // roulette] and, with scattering, [scatter, scatter z, scatter phi]
+    const float* u = a.uniforms + ((size_t)r * a.n_sub + k) * n_uni;
     // ---- event ---------------------------------------------------------
     const float t_geo_m = lane >= 0 ? t_geo : kBig;
     const bool geo_first = t_geo_m <= t_w1 && t_geo_m <= t_w2;
     const bool w1_first = t_w1 <= t_w2;
     const float t_ev = fminf(t_geo_m, fminf(t_w1, t_w2));
     const bool is_exit = t_ev >= kBig;
-    const bool is_geo = !is_exit && geo_first;
-    const bool is_w1 = !is_exit && !geo_first && w1_first;
-    const bool is_w2 = !is_exit && !geo_first && !w1_first;
+    // ---- gas scattering: decided before the walls and the geometry -----
+    bool scat = false;
+    if constexpr (kFull) {
+      if (scatters && !is_exit) {
+        const float p_scat =
+            __fsub_rn(1.0f, expf(__fdiv_rn(-t_ev, a.mfp)));
+        scat = u[3] < p_scat;
+      }
+    }
+    const bool hits = !is_exit && !scat;
+    const bool is_geo = hits && geo_first;
+    const bool is_w1 = hits && !geo_first && w1_first;
+    const bool is_w2 = hits && !geo_first && !w1_first;
     const bool is_wall = is_w1 || is_w2;
 
     const float hpx = __fadd_rn(ox, __fmul_rn(dx, t_ev));
@@ -323,13 +383,12 @@ bounce_kernel(const BounceArgs a) {
     float new_weight = weight;
     float rdx = 0.f, rdy = 0.f, rdz = 0.f;
     if (is_geo) {
-      const float nx = a.prims[(Kind::kNormalRow + 0) * a.npad + lane];
-      const float ny = a.prims[(Kind::kNormalRow + 1) * a.npad + lane];
-      const float nz = a.prims[(Kind::kNormalRow + 2) * a.npad + lane];
+      float nx, ny, nz;
+      Kind::normal(a.prims, a.npad, lane, nx, ny, nz);
       const bool backface = dot3(dx, dy, dz, nx, ny, nz) > 0.0f;
       if (backface) {
         // a disk's first hit from behind passes through and its second
-        // kills; a triangle's hit from behind always kills
+        // kills; a triangle's or a line's hit from behind always kills
         if (!Kind::kBackfacePasses || hfb) dead = true;
         else bf_pass = true;
       } else {
@@ -360,7 +419,8 @@ bounce_kernel(const BounceArgs a) {
         }
 
         // ---- reflection ------------------------------------------------
-        if (a.specular) {
+        const bool coned = kFull && a.refl_kind == kConedCosine;
+        if (a.refl_kind == kSpecular) {
           // d' = (2 (n . -d)) n + d
           const float two_dp = __fmul_rn(2.0f, -dot3(nx, ny, nz, dx, dy, dz));
           rdx = __fadd_rn(__fmul_rn(two_dp, nx), dx);
@@ -374,32 +434,74 @@ bounce_kernel(const BounceArgs a) {
             rdy = __fdiv_rn(rdy, den);
             rdz = __fdiv_rn(rdz, den);
           }
-        } else {
-          const float* u = a.uniforms + ((size_t)r * a.n_sub + k) * 3;
-          const float z = __fsub_rn(1.0f, __fmul_rn(2.0f, u[0]));
+        } else if (!coned) {
+          float sx, sy, sz;
+          sphere_point(u[0], u[1], sx, sy, sz);
+          rdx = __fadd_rn(sx, nx);
+          rdy = __fadd_rn(sy, ny);
+          rdz = three_d ? __fadd_rn(sz, nz) : 0.0f;
+          normalize3(rdx, rdy, rdz);
+        } else if constexpr (kFull) {
+          // coned-cosine (physics/reflection.py:coned_cosine): theta = u[0]
+          // around the normalised specular direction w, azimuth 2 pi u[1]
+          const float two_dp = __fmul_rn(2.0f, -dot3(nx, ny, nz, dx, dy, dz));
+          float wx = __fadd_rn(__fmul_rn(two_dp, nx), dx);
+          float wy = __fadd_rn(__fmul_rn(two_dp, ny), dy);
+          float wz = __fadd_rn(__fmul_rn(two_dp, nz), dz);
+          normalize3(wx, wy, wz);
+          // Frisvad basis (ops/vec.py:frisvad_basis)
+          const bool degen = wz < -0.999999f;
+          const float inv =
+              __fdiv_rn(1.0f, degen ? 1.0f : __fadd_rn(1.0f, wz));
+          const float fb = __fmul_rn(__fmul_rn(-wx, wy), inv);
+          const float tx =
+              degen ? 0.0f
+                    : __fsub_rn(1.0f, __fmul_rn(__fmul_rn(wx, wx), inv));
+          const float ty = degen ? -1.0f : fb;
+          const float tz = degen ? 0.0f : -wx;
+          const float bx = degen ? -1.0f : fb;
+          const float by =
+              degen ? 0.0f
+                    : __fsub_rn(1.0f, __fmul_rn(__fmul_rn(wy, wy), inv));
+          const float bz = degen ? 0.0f : -wy;
+          const float sin_t = sinf(u[0]), cos_t = cosf(u[0]);
           const float phi = __fmul_rn(kTwoPi, u[1]);
-          const float rr =
-              __fsqrt_rn(fmaxf(__fsub_rn(1.0f, __fmul_rn(z, z)), 0.0f));
-          rdx = __fadd_rn(__fmul_rn(rr, cosf(phi)), nx);
-          rdy = __fadd_rn(__fmul_rn(rr, sinf(phi)), ny);
-          rdz = three_d ? __fadd_rn(z, nz) : 0.0f;
-          const float n =
-              fmaxf(__fsqrt_rn(dot3(rdx, rdy, rdz, rdx, rdy, rdz)), 1e-12f);
-          rdx = __fdiv_rn(rdx, n);
-          rdy = __fdiv_rn(rdy, n);
-          rdz = __fdiv_rn(rdz, n);
+          const float sin_p = sinf(phi), cos_p = cosf(phi);
+          rdx = __fadd_rn(
+              __fmul_rn(sin_t, __fadd_rn(__fmul_rn(cos_p, tx),
+                                         __fmul_rn(sin_p, bx))),
+              __fmul_rn(cos_t, wx));
+          rdy = __fadd_rn(
+              __fmul_rn(sin_t, __fadd_rn(__fmul_rn(cos_p, ty),
+                                         __fmul_rn(sin_p, by))),
+              __fmul_rn(cos_t, wy));
+          rdz = __fadd_rn(
+              __fmul_rn(sin_t, __fadd_rn(__fmul_rn(cos_p, tz),
+                                         __fmul_rn(sin_p, bz))),
+              __fmul_rn(cos_t, wz));
+          // a direction into the surface is mirrored back
+          const float dpn = dot3(rdx, rdy, rdz, nx, ny, nz);
+          if (dpn <= 0.0f) {
+            const float two = __fmul_rn(2.0f, dpn);
+            rdx = __fsub_rn(rdx, __fmul_rn(two, nx));
+            rdy = __fsub_rn(rdy, __fmul_rn(two, ny));
+            rdz = __fsub_rn(rdz, __fmul_rn(two, nz));
+          }
+          if (!three_d) rdz = 0.0f;
+          normalize3(rdx, rdy, rdz);
         }
 
         // ---- sticking, the reflection cap, roulette --------------------
-        new_weight = __fsub_rn(weight, __fmul_rn(weight, a.sticking));
+        const float sticking =
+            a.stick_lanes != nullptr ? a.stick_lanes[lane] : a.sticking;
+        new_weight = __fsub_rn(weight, __fmul_rn(weight, sticking));
         bool died = new_weight <= 0.0f;
         if (n_refl + 1 > a.max_refl) died = true;
         if (a.roulette) {
           const float low = __fmul_rn(a.wthresh, w0);
           const float renew = __fmul_rn(a.wrenew, w0);
           if (new_weight < low) {
-            const float u_roul =
-                a.uniforms[((size_t)r * a.n_sub + k) * 3 + 2];
+            const float u_roul = u[2];
             const float kill_prob = __fsub_rn(
                 1.0f, __fdiv_rn(new_weight, fmaxf(renew, 1e-30f)));
             if (u_roul < kill_prob) died = true;
@@ -424,13 +526,25 @@ bounce_kernel(const BounceArgs a) {
     } else {
       dx = ndx; dy = ndy; dz = ndz;
     }
+    if constexpr (kFull) {
+      if (scat) {
+        // to org + dir * scatter (the probability draw itself, the
+        // reference's arithmetic), on in a direction uniform on the sphere
+        ++c_scatter;
+        const float u_scat = u[3];
+        ox = __fadd_rn(ox, __fmul_rn(dx, u_scat));
+        oy = __fadd_rn(oy, __fmul_rn(dy, u_scat));
+        oz = __fadd_rn(oz, __fmul_rn(dz, u_scat));
+        sphere_point(u[4], u[5], dx, dy, dz);
+        if (!three_d) {
+          dz = 0.0f;
+          normalize3(dx, dy, dz);
+        }
+      }
+    }
     if (!three_d) {
       dz = 0.0f;
-      const float n =
-          fmaxf(__fsqrt_rn(dot3(dx, dy, dz, dx, dy, dz)), 1e-12f);
-      dx = __fdiv_rn(dx, n);
-      dy = __fdiv_rn(dy, n);
-      dz = __fdiv_rn(dz, n);
+      normalize3(dx, dy, dz);
     }
     if (collide) {
       weight = new_weight;
@@ -462,24 +576,39 @@ bounce_kernel(const BounceArgs a) {
   count_add(&a.counts[1], c_wall);
   count_add(&a.counts[2], c_exit);
   count_add(&a.counts[3], c_traces);
-  count_add(&a.counts[4], alive ? 1 : 0);
+  count_add(&a.counts[4], c_scatter);
+  count_add(&a.counts[5], alive ? 1 : 0);
+}
+
+template <class Kind>
+void launch_bounce(bool full, int grid, cudaStream_t s, const BounceArgs& a) {
+  if (full) {
+    bounce_kernel<Kind, true><<<grid, kSearchBlock, 0, s>>>(a);
+  } else {
+    bounce_kernel<Kind, false><<<grid, kSearchBlock, 0, s>>>(a);
+  }
 }
 
 }  // namespace
 
 // State in: org, dir (n_rays, 3) float32; weight, w0 (n_rays,) float32;
 // alive, hfb (n_rays,) bytes 0/1; n_refl, n_bdry (n_rays,) int32; uniforms
-// (n_rays, 3 n_sub) float32. kind: 0 = disks, 1 = triangles. Geometry: prims
-// (8, npad) for disks or (12, npad) for triangles, chunk_bbs (npad / pt, 8),
+// (n_rays, n_uni n_sub) float32, n_uni = 6 with mfp > 0 and else 3. kind:
+// 0 = disks, 1 = triangles, 2 = lines. Geometry: prims (8, npad) for disks,
+// (12, npad) for triangles or (6, npad) for lines, chunk_bbs (npad / pt, 8),
 // perm (npad,) sorted lane -> original id, walls (9,); disks only: neighbors
-// (n_prims, k_nbrs) int32, neighbor_pack (n_prims, k_nbrs * 8); triangles
-// pass k_nbrs = 0 and null for both.
+// (n_prims, k_nbrs) int32, neighbor_pack (n_prims, k_nbrs * 8); triangles and
+// lines pass k_nbrs = 0 and null for both. stick_lanes: (npad,) sticking per
+// sorted lane, or null for the one value `sticking`. refl_kind: 0 = diffuse,
+// 1 = specular, 2 = coned-cosine (uniform column 0 then carries theta). mfp:
+// the mean free path of gas scattering, 0 for none.
 // State out: fresh arrays of the same shapes (w0 does not change). With
 // deposit != 0 the flux (n_prims,) float32 in original numbering goes to
 // flux_out; else n_sub must be 1 and each ray's (hit primitive or -1, deposit
-// weight) goes to hit_prim_out / wdep_out. scratch: n_prims + 6 64-bit words,
-// which this call clears itself: the bins, the largest w0, and the five
-// counts (collide, wall, exit, traces, survivors) that the caller reads at
+// weight) goes to hit_prim_out / wdep_out. scratch: n_prims + 7 64-bit words,
+// which this call clears itself: the bins, the largest w0, and the six
+// counts (collide, wall, exit, traces, scatter, survivors) that the caller
+// reads at
 // scratch + n_prims + 1. Launches on `stream`, allocates nothing, does not
 // synchronise; returns the first CUDA error, else cudaGetLastError().
 extern "C" int vr_fused_bounce(
@@ -487,26 +616,30 @@ extern "C" int vr_fused_bounce(
     const unsigned char* alive, const unsigned char* hfb, const int* n_refl,
     const int* n_bdry, const float* uniforms, const float* prims,
     const float* chunk_bbs, const int* perm, const int* neighbors,
-    const float* neighbor_pack, const float* walls, int n_rays, int npad,
-    int pt, int n_prims, int k_nbrs, int n_sub, int kind, int dim,
-    int first_dir, int second_dir, int ray_axis, int bc1, int bc2,
-    int specular, int max_refl, int max_bdry, int roulette, int deposit,
-    float t_near,
-    float sticking, float wthresh, float wrenew, float* org_out,
+    const float* neighbor_pack, const float* walls, const float* stick_lanes,
+    int n_rays, int npad, int pt, int n_prims, int k_nbrs, int n_sub,
+    int kind, int dim, int first_dir, int second_dir, int ray_axis, int bc1,
+    int bc2, int refl_kind, int max_refl, int max_bdry, int roulette,
+    int deposit, float t_near, float sticking, float wthresh, float wrenew,
+    float mfp, float* org_out,
     float* dir_out, float* weight_out, unsigned char* alive_out,
     unsigned char* hfb_out, int* n_refl_out, int* n_bdry_out, float* flux_out,
     int* hit_prim_out, float* wdep_out, unsigned long long* scratch,
     void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (!deposit && n_sub != 1) return static_cast<int>(cudaErrorInvalidValue);
-  if (kind != kDisks && kind != kTriangles) {
+  if (kind != kDisks && kind != kTriangles && kind != kLines) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  if (kind == kTriangles && k_nbrs != 0) {
+  if (kind != kDisks && k_nbrs != 0) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  if (refl_kind != kDiffuse && refl_kind != kSpecular &&
+      refl_kind != kConedCosine) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   cudaError_t err = cudaMemsetAsync(
-      scratch, 0, sizeof(unsigned long long) * ((size_t)n_prims + 6), s);
+      scratch, 0, sizeof(unsigned long long) * ((size_t)n_prims + 7), s);
   if (err != cudaSuccess) return static_cast<int>(err);
   unsigned int* wmax_bits = reinterpret_cast<unsigned int*>(scratch + n_prims);
   const long long n_entries = (long long)n_rays * n_sub * (k_nbrs + 1);
@@ -523,24 +656,30 @@ extern "C" int vr_fused_bounce(
     a.uniforms = uniforms;
     a.prims = prims; a.chunk_bbs = chunk_bbs; a.perm = perm;
     a.neighbors = neighbors; a.neighbor_pack = neighbor_pack; a.walls = walls;
+    a.stick_lanes = stick_lanes;
     a.n_rays = n_rays; a.npad = npad; a.pt = pt; a.n_prims = n_prims;
     a.k_nbrs = k_nbrs; a.n_sub = n_sub;
     a.dim = dim; a.first_dir = first_dir; a.second_dir = second_dir;
-    a.ray_axis = ray_axis; a.bc1 = bc1; a.bc2 = bc2; a.specular = specular;
+    a.ray_axis = ray_axis; a.bc1 = bc1; a.bc2 = bc2; a.refl_kind = refl_kind;
     a.max_refl = max_refl; a.max_bdry = max_bdry; a.roulette = roulette;
     a.deposit = deposit;
     a.t_near = t_near; a.sticking = sticking; a.wthresh = wthresh;
-    a.wrenew = wrenew;
+    a.wrenew = wrenew; a.mfp = mfp;
     a.org_out = org_out; a.dir_out = dir_out; a.weight_out = weight_out;
     a.alive_out = alive_out; a.hfb_out = hfb_out; a.n_refl_out = n_refl_out;
     a.n_bdry_out = n_bdry_out;
     a.hit_prim_out = hit_prim_out; a.wdep_out = wdep_out;
     a.bins = scratch; a.wmax_bits = wmax_bits; a.n_entries = n_entries;
     a.counts = scratch + n_prims + 1;
+    // the coned-cosine reflection and the scattering live in the kFull
+    // instantiation alone
+    const bool full = refl_kind == kConedCosine || mfp > 0.0f;
     if (kind == kDisks) {
-      bounce_kernel<DiskKind><<<grid, kSearchBlock, 0, s>>>(a);
+      launch_bounce<DiskKind>(full, grid, s, a);
+    } else if (kind == kTriangles) {
+      launch_bounce<TriKind>(full, grid, s, a);
     } else {
-      bounce_kernel<TriKind><<<grid, kSearchBlock, 0, s>>>(a);
+      launch_bounce<LineKind>(full, grid, s, a);
     }
   }
   if (deposit && n_prims > 0) {

@@ -58,6 +58,15 @@ struct DiskKind {
                        prims[6 * npad + g], prims[7 * npad + g]);
   }
 
+  // The stored normal of sorted lane `lane`.
+  static __device__ __forceinline__ void normal(
+      const float* __restrict__ prims, int npad, int lane, float& nx,
+      float& ny, float& nz) {
+    nx = prims[(kNormalRow + 0) * npad + lane];
+    ny = prims[(kNormalRow + 1) * npad + lane];
+    nz = prims[(kNormalRow + 2) * npad + lane];
+  }
+
   static __device__ __forceinline__ bool hit(const float4* s, float ox,
                                              float oy, float oz, float dx,
                                              float dy, float dz, float t_near,

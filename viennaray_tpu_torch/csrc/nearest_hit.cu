@@ -1,9 +1,12 @@
-// Closest disk hit and closest triangle hit per ray: one kernel template,
-// instantiated for the two primitive kinds.
+// Closest disk, triangle or 2D line-segment hit per ray: one kernel template,
+// instantiated for the three primitive kinds.
 //
 // Replaces the TPU kernels viennaray_tpu/ops/pallas_intersect.py:_kernel
 // (launched by disk_nearest_hit_pallas) and :_tri_kernel (launched by
-// triangle_nearest_hit_pallas).
+// triangle_nearest_hit_pallas). The line instantiation has no TPU kernel
+// behind it: the JAX package searches lines in XLA
+// (viennaray_tpu/ops/intersect.py:line_nearest_hit); here it is one more
+// instantiation, 13 operations a (ray, segment) pair with two divisions.
 //
 // What bounds it on an H100: operations. Every ray tests every primitive of
 // every chunk it cannot rule out, about 30 float32 operations a (ray, disk)
@@ -18,11 +21,13 @@
 // multiple of the block) is masked; the search itself, with its staging of
 // the SoA through shared memory, its per-warp chunk skip and its tie rule, is
 // csrc/prim_search.cuh, shared with the bounce kernel. The hit tests are
-// csrc/disk_hit.cuh and csrc/tri_hit.cuh (no fused multiply-add, IEEE
-// division), which is why the results equal the plain versions' exactly.
+// csrc/disk_hit.cuh, csrc/tri_hit.cuh and csrc/line_hit.cuh (no fused
+// multiply-add, IEEE division), which is why the results equal the plain
+// versions' exactly.
 #include <cuda_runtime.h>
 
 #include "disk_hit.cuh"
+#include "line_hit.cuh"
 #include "prim_search.cuh"
 #include "tri_hit.cuh"
 
@@ -82,7 +87,7 @@ int launch_nearest_hit(const float* org, const float* dir, const float* prims,
 }  // namespace
 
 // org, dir: (n_rays, 3) float32; prims: (8, npad) float32 for disks, (12,
-// npad) for triangles; chunk_bbs: (npad / pt, 8) float32; perm: (npad,) int32
+// npad) for triangles, (6, npad) for lines; chunk_bbs: (npad / pt, 8) float32; perm: (npad,) int32
 // sorted lane -> original id. Outputs: t (n_rays,) float32, prim (n_rays,)
 // int32 in the original numbering, hit (n_rays,) bytes 0/1. Launches on
 // `stream`, allocates nothing, does not synchronise; returns
@@ -108,4 +113,15 @@ extern "C" int vr_triangle_nearest_hit(const float* org, const float* dir,
   return launch_nearest_hit<TriKind>(org, dir, prims, chunk_bbs, perm, n_rays,
                                      npad, pt, t_near, t_out, prim_out,
                                      hit_out, stream);
+}
+
+extern "C" int vr_line_nearest_hit(const float* org, const float* dir,
+                                   const float* prims, const float* chunk_bbs,
+                                   const int* perm, int n_rays, int npad,
+                                   int pt, float t_near, float* t_out,
+                                   int* prim_out, unsigned char* hit_out,
+                                   void* stream) {
+  return launch_nearest_hit<LineKind>(org, dir, prims, chunk_bbs, perm, n_rays,
+                                      npad, pt, t_near, t_out, prim_out,
+                                      hit_out, stream);
 }

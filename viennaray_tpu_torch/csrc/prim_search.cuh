@@ -2,10 +2,10 @@
 // kind; shared by every kernel that searches (nearest_hit.cu, bounce.cu).
 //
 // The primitive kind is a template parameter (DiskKind of disk_hit.cuh,
-// TriKind of tri_hit.cuh): it says how many float4 one staged primitive
-// takes (kVec: 2 for a disk's 8 rows, 3 for a triangle's 12), how to stage
-// one lane of the SoA into them, and the hit test on the staged values. A
-// further kind (2D line segments) needs only those three.
+// TriKind of tri_hit.cuh, LineKind of line_hit.cuh): it says how many float4
+// one staged primitive takes (kVec: 2 for a disk's 8 rows, 3 for a
+// triangle's 12, 1 for the 4 rows of a line's test), how to stage one lane
+// of the SoA into them, and the hit test on the staged values.
 //
 // One thread per ray; the whole block calls prim_search together (it holds
 // block-wide barriers), lanes without a ray pass live = false. A block

@@ -55,6 +55,15 @@ struct TriKind {
                        prims[10 * npad + g], prims[11 * npad + g]);
   }
 
+  // The stored normal of sorted lane `lane`.
+  static __device__ __forceinline__ void normal(
+      const float* __restrict__ prims, int npad, int lane, float& nx,
+      float& ny, float& nz) {
+    nx = prims[(kNormalRow + 0) * npad + lane];
+    ny = prims[(kNormalRow + 1) * npad + lane];
+    nz = prims[(kNormalRow + 2) * npad + lane];
+  }
+
   // Returns whether the ray (o, d) hits the triangle beyond t_near; t_out
   // gets the plane-crossing time either way.
   static __device__ __forceinline__ bool hit(const float4* s, float ox,

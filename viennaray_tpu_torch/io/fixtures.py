@@ -1,8 +1,10 @@
 """Test-geometry generators (ports of rayUtil.hpp fixtures).
 
-Counterpart of ``viennaray_tpu/io/fixtures.py`` (kept as a copy): the plane
-and 3D-trench point clouds and the 3D-trench triangle mesh. The 2D trench and
-the source grid wait for the slices that port their consumers.
+Counterpart of ``viennaray_tpu/io/fixtures.py`` (kept as a copy): the plane,
+2D-trench and 3D-trench point clouds and the 3D-trench triangle mesh; and the
+2D trench as a chain of line segments (``create_trench_line_mesh``), which the
+JAX package reads from a mesh file instead. The source grid waits for the
+slice that ports its consumer.
 """
 
 from __future__ import annotations
@@ -41,6 +43,55 @@ def create_plane_grid(grid_delta: float, extent: float, direction=(0, 1, 2)):
     normal[d2] = 1.0
     normals = np.broadcast_to(normal, points.shape).copy()
     return points, normals
+
+
+def create_trench_grid_2d(grid_delta=0.1, extent=5.0, trench_width=4.0,
+                          trench_depth=4.0):
+    """Synthetic 2D trench point cloud (x lateral, y vertical): flat top
+    surfaces at y=0, vertical side walls, flat bottom. Mirrors the shape of the
+    reference's checked-in examples/disk2D/trenchGrid2D.dat fixture."""
+    pts, nrm = [], []
+    half_w = trench_width / 2.0
+    x = -extent
+    while x <= extent + 1e-9:
+        if abs(x) >= half_w:
+            pts.append([x, 0.0, 0.0])
+            nrm.append([0.0, 1.0, 0.0])
+        x += grid_delta
+    y = -grid_delta
+    while y >= -trench_depth + 1e-9:
+        pts.append([-half_w, y, 0.0])
+        nrm.append([1.0, 0.0, 0.0])
+        pts.append([half_w, y, 0.0])
+        nrm.append([-1.0, 0.0, 0.0])
+        y -= grid_delta
+    x = -half_w
+    while x <= half_w + 1e-9:
+        pts.append([x, -trench_depth, 0.0])
+        nrm.append([0.0, 1.0, 0.0])
+        x += grid_delta
+    return np.array(pts, np.float32), np.array(nrm, np.float32)
+
+
+def create_trench_line_mesh(grid_delta=0.1, extent=5.0, trench_width=4.0,
+                            trench_depth=4.0):
+    """The 2D trench profile as one chain of line segments (x lateral, y
+    vertical), nodes in profile order: left shelf, left wall down, floor,
+    right wall up, right shelf. Each stretch is cut into the whole number of
+    equal segments nearest to ``grid_delta``. In this order the left-hand
+    normals (-dy, dx) of ``LineMesh`` point into the open side.
+    Returns (nodes (V, 3) f32 with z = 0, lines (V - 1, 2) int32)."""
+    half_w = trench_width / 2.0
+    corners = [(-extent, 0.0), (-half_w, 0.0), (-half_w, -trench_depth),
+               (half_w, -trench_depth), (half_w, 0.0), (extent, 0.0)]
+    nodes = [corners[0]]
+    for (x0, y0), (x1, y1) in zip(corners[:-1], corners[1:]):
+        n = max(1, int(round(max(abs(x1 - x0), abs(y1 - y0)) / grid_delta)))
+        nodes += [(x0 + (x1 - x0) * i / n, y0 + (y1 - y0) * i / n)
+                  for i in range(1, n + 1)]
+    nodes = np.c_[np.array(nodes, np.float32), np.zeros(len(nodes), np.float32)]
+    lines = np.stack([np.arange(len(nodes) - 1), np.arange(1, len(nodes))], 1)
+    return nodes.astype(np.float32), lines.astype(np.int32)
 
 
 def create_trench_grid_3d(grid_delta=0.5, extent=5.0, trench_width=4.0,

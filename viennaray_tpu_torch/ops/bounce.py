@@ -1,12 +1,13 @@
 """Whole bounces of a ray batch: plain version and CUDA wrapper.
 
-Counterpart of ``viennaray_tpu/ops/pallas_bounce.py`` for disks and triangles
-(the geometry's ``kind``).
+Counterpart of ``viennaray_tpu/ops/pallas_bounce.py`` for disks, triangles and
+2D line segments (the geometry's ``kind``), under the neighbor flux model.
 
 - ``bounce_step`` is one bounce of every ray on tensors: search bound,
-  closest hit, event (geometry / wall / escape), wall handling, backface
-  pass or kill, the deposit weight, reflection, sticking, roulette, state
-  update. The unfused wavefront body of ``trace/kernel.py`` calls it once per
+  closest hit, event (geometry / wall / escape), gas scattering, wall
+  handling, backface pass or kill, the deposit weight, reflection (diffuse,
+  specular or coned-cosine), sticking (one value or one per primitive),
+  roulette, state update. The unfused wavefront body of ``trace/kernel.py`` calls it once per
   iteration; ``fused_bounce_ref`` calls it ``n_sub`` times.
 - ``fused_bounce_ref`` is the plain PyTorch version of the fused kernel.
 - ``fused_bounce`` wraps the CUDA kernel ``csrc/bounce.cu``: on CUDA tensors
@@ -20,21 +21,31 @@ the launch returns the flux of all its sub-bounces, in original numbering.
 For disks both follow the neighbor-list contract (rayTraceKernel.hpp:255-300):
 the hit disk takes the pre-sticking weight, and so does every disk of its
 neighbor list that passes ``intersect.check_local_intersection`` against the
-ray as it was before that bounce. For triangles the single closest hit takes
-it (rayTraceKernel.hpp:301-307).
+ray as it was before that bounce. For triangles and lines the single closest
+hit takes it (rayTraceKernel.hpp:301-307).
 
-What else differs for triangles (rayTraceKernel.hpp:243-248): a hit from
-behind always kills (no pass-through, ``hfb`` is never set), and the hit
-normal is the STORED normal, which may oppose ``cross(e1, e2)``.
+What else differs for triangles and lines (rayTraceKernel.hpp:243-248): a hit
+from behind always kills (no pass-through, ``hfb`` is never set), and the hit
+normal is the STORED normal, which may oppose a triangle's ``cross(e1, e2)``.
+
+Gas scattering (``mean_free_path > 0``, rayTraceKernel.hpp:179-203) is decided
+after the event and before the walls: a ray that does not escape scatters
+with probability 1 - exp(-t / mfp) of its event's distance t. A scattering
+ray takes no wall and no geometry event: it moves to org + dir * u (u the
+probability draw itself, the reference's arithmetic) and flies on in a
+direction uniform on the sphere (flattened and renormalised in 2D).
 
 Numbers: the plain version does one float32 operation per tensor op, in a
 fixed order (``vec.dot`` sums (x + y) + z), and the kernel repeats those
 operations with round-to-nearest intrinsics, IEEE division and square root.
-Only ``sinf`` / ``cosf`` of the diffuse reflection come from two libraries.
+Only ``sinf`` / ``cosf`` of the diffuse and coned-cosine reflections and of
+the scattering direction, and ``expf`` of the scattering probability, come
+from two libraries.
 """
 
 from __future__ import annotations
 
+import math
 from typing import NamedTuple, Optional
 
 import torch
@@ -43,11 +54,14 @@ from .. import _build
 from ..config import BoundaryCondition, ReflectionKind, get_trace_settings
 from ..physics import reflection
 from . import intersect, vec
+from . import sampling
 from .nearest_hit import (
     BIG,
+    LINE_ROWS,
     PRIM_ROWS,
     TRI_ROWS,
     disk_nearest_hit_ref,
+    line_nearest_hit_ref,
     triangle_nearest_hit_ref,
 )
 
@@ -56,11 +70,13 @@ from .nearest_hit import (
 _KINDS = {
     "disk": (0, PRIM_ROWS, disk_nearest_hit_ref),
     "triangle": (1, TRI_ROWS, triangle_nearest_hit_ref),
+    "line": (2, LINE_ROWS, line_nearest_hit_ref),
 }
 
-# order of the counts a launch returns (int64): events summed over lanes and
-# sub-bounces, and the lanes still alive after the launch
-COUNT_NAMES = ("collide", "wall", "exit", "traces", "survivors")
+# order of the counts a launch returns (int64): the five events summed over
+# lanes and sub-bounces, then the lanes still alive after the launch
+COUNT_NAMES = ("collide", "wall", "exit", "traces", "scatter", "survivors")
+N_EVENTS = 5
 
 
 class RayState(NamedTuple):
@@ -72,7 +88,7 @@ class RayState(NamedTuple):
     w0: torch.Tensor  # (R,) float32, the weight the ray started with
     alive: torch.Tensor  # (R,) bool
     hfb: torch.Tensor  # (R,) bool, the ray has passed a disk from behind
-    #                    (never set on triangles)
+    #                    (never set on triangles and lines)
     n_refl: torch.Tensor  # (R,) int32
     n_bdry: torch.Tensor  # (R,) int32
 
@@ -94,6 +110,18 @@ class BounceSettings(NamedTuple):
     roulette: bool
     weight_threshold_frac: float
     renew_weight_frac: float
+    # the coned-cosine lobe's maximal angle, clipped to [1e-6, pi/2 - 1e-6]
+    # (ref: kernel.py:1002-1004); read only where theta is sampled
+    cone_angle: float = 1e-6
+    # gas scattering's mean free path; <= 0: no scattering
+    mean_free_path: float = -1.0
+
+    @property
+    def n_uni(self) -> int:
+        """Uniforms per ray and sub-bounce: [reflection 1 or theta,
+        reflection 2, roulette], and with gas scattering [scatter, scatter z,
+        scatter phi] (ref: pallas_bounce.py:62-65)."""
+        return 6 if self.mean_free_path > 0.0 else 3
 
     @classmethod
     def from_config(cls, config, particle) -> "BounceSettings":
@@ -118,12 +146,15 @@ class BounceSettings(NamedTuple):
             roulette=bool(config.roulette),
             weight_threshold_frac=float(config.weight_threshold_frac),
             renew_weight_frac=float(config.renew_weight_frac),
+            cone_angle=min(max(float(particle.cone_angle), 1e-6),
+                           math.pi / 2 - 1e-6),
+            mean_free_path=float(particle.mean_free_path),
         )
 
 
 class BounceResult(NamedTuple):
     state: RayState
-    counts: torch.Tensor  # (5,) int64, see COUNT_NAMES
+    counts: torch.Tensor  # (6,) int64, see COUNT_NAMES
     flux: Optional[torch.Tensor]  # (n_prims,) float32, deposits in the kernel
     hit_prim: Optional[torch.Tensor]  # (R,) int32, -1 where no deposit
     wdep: Optional[torch.Tensor]  # (R,) float32
@@ -135,7 +166,8 @@ def make_walls(bbox, geometry, settings: BounceSettings):
     bounding box ``bbox`` (2, 3). tau (1.1 grid_delta, the window model's
     width) and nbr2 ((2 disk_radius)^2) keep the reference's layout; r_over is
     how far a disk can reach beyond the box of the centres. All three are 0
-    for triangles, which lie inside the box of their vertices."""
+    for triangles and lines, which lie inside the box of their vertices
+    (ref: kernel.py:991-994)."""
     s = settings
     f32 = dict(dtype=torch.float32, device=geometry.device)
     if geometry.kind == "disk":
@@ -220,14 +252,29 @@ def entry_bound(org, dirn, walls, *, dim, first_dir, second_dir, ray_axis,
     return tmin0, t_w1, t_w2
 
 
-def bounce_step(state: RayState, u, geometry, walls, settings, search):
+def sticking_lanes(particle, geometry):
+    """The per-lane sticking table of a launch: ``None`` for a particle with
+    one sticking value, else (Npad,) float32 in SORTED lane order, each
+    primitive's material looked up in the particle's table (padding lanes
+    read primitive 0; they are never hit) (ref: kernel.py:1005-1014)."""
+    if particle.material_sticking is None:
+        return None
+    per_prim = particle.sticking_for(geometry.material_ids)
+    return per_prim[geometry.soa_perm.long()].contiguous()
+
+
+def bounce_step(state: RayState, u, geometry, walls, settings, search,
+                stick_lanes=None):
     """One bounce of every lane.
 
-    u: (R, 3) uniforms [reflection 1, reflection 2, roulette]. ``search`` is
-    the closest-hit function of the geometry's kind (``disk_nearest_hit``,
-    ``triangle_nearest_hit`` or a plain version). Returns (new state,
-    hit_prim (R,) int32: the primitive that takes a deposit or -1, wdep (R,) float32: the pre-sticking weight it takes, counts (4,)
-    int64: collide, wall, exit, traces). Dead lanes pass through unchanged.
+    u: (R, n_uni) uniforms [reflection 1 (coned-cosine: theta), reflection
+    2, roulette], and with gas scattering [scatter, scatter z, scatter phi].
+    ``search`` is the closest-hit function of the geometry's kind
+    (``disk_nearest_hit``, ``triangle_nearest_hit``, ``line_nearest_hit`` or
+    a plain version). ``stick_lanes``: ``sticking_lanes``. Returns (new
+    state, hit_prim (R,) int32: the primitive that takes a deposit or -1,
+    wdep (R,) float32: the pre-sticking weight it takes, counts (5,) int64:
+    collide, wall, exit, traces, scatter). Dead lanes pass through unchanged.
     """
     s = settings
     org, dirn, weight, w0, alive, hfb, n_refl, n_bdry = state
@@ -258,9 +305,27 @@ def bounce_step(state: RayState, u, geometry, walls, settings, search):
     escaped = t_ev >= big  # no hit anywhere (Embree miss)
 
     is_exit = alive & escaped
-    is_geo_ev = alive & ~escaped & geo_first
-    is_wall1 = alive & ~escaped & ~geo_first & w1_first
-    is_wall2 = alive & ~escaped & ~geo_first & ~w1_first
+
+    # ---- 3b. gas scattering (ref: rayTraceKernel.hpp:179-203): a ray that
+    # scatters on its way takes neither the wall nor the geometry event
+    if s.mean_free_path > 0.0:
+        u_scat = u[:, 3]
+        mfp = torch.tensor(s.mean_free_path, dtype=torch.float32, device=dev)
+        p_scat = 1.0 - torch.exp(-t_ev / mfp)
+        scattering = alive & ~escaped & (u_scat < p_scat)
+        scatter_org = org + dirn * u_scat[:, None]
+        scatter_dir = sampling.unit_sphere(u[:, 4], u[:, 5])
+        if s.dim == 2:
+            scatter_dir[:, 2] = 0.0
+            scatter_dir = vec.normalize(scatter_dir, eps=1e-12)
+        hits = alive & ~escaped & ~scattering
+    else:
+        scattering = None
+        hits = alive & ~escaped
+
+    is_geo_ev = hits & geo_first
+    is_wall1 = hits & ~geo_first & w1_first
+    is_wall2 = hits & ~geo_first & ~w1_first
     is_wall = is_wall1 | is_wall2
 
     hitpoint = org + dirn * t_ev[:, None]
@@ -301,8 +366,8 @@ def bounce_step(state: RayState, u, geometry, walls, settings, search):
 
     # ---- 5. surface interaction: a disk's first hit from behind passes
     # through, the second kills (ref: rayTraceKernel.hpp:225-241); a
-    # triangle's hit from behind always kills (:243-248). The normal is the
-    # stored one.
+    # triangle's or a line's hit from behind always kills (:243-248). The
+    # normal is the stored one.
     n_hit = geometry.normals[prim.long()]
     backface = vec.dot(dirn, n_hit) > 0.0
     if geometry.kind == "disk":
@@ -322,9 +387,13 @@ def bounce_step(state: RayState, u, geometry, walls, settings, search):
         refl_dir = reflection.diffuse(u[:, 0], u[:, 1], n_hit, s.dim)
     elif s.refl_kind == ReflectionKind.SPECULAR:
         refl_dir = reflection.specular(dirn, n_hit, s.dim)
+    else:  # coned-cosine: theta arrives where the diffuse model's u1 does
+        refl_dir = reflection.coned_cosine(u[:, 0], u[:, 1], dirn, n_hit, s.dim)
+    if stick_lanes is None:
+        sticking = s.sticking
     else:
-        raise NotImplementedError("coned-cosine reflection is not ported yet")
-    new_weight = weight - weight * s.sticking
+        sticking = stick_lanes[geometry.soa_inv_perm[prim.long()].long()]
+    new_weight = weight - weight * sticking
     died_absorb = collide & (new_weight <= 0.0)
     n_refl_new = n_refl + collide.to(torch.int32)
     died_max_refl = collide & (n_refl_new > s.max_reflections)
@@ -350,6 +419,9 @@ def bounce_step(state: RayState, u, geometry, walls, settings, search):
         (bf_pass | survived_collide)[:, None], hitpoint, new_org
     )
     new_dir = torch.where(survived_collide[:, None], refl_dir, new_dir)
+    if scattering is not None:
+        new_org = torch.where(scattering[:, None], scatter_org, new_org)
+        new_dir = torch.where(scattering[:, None], scatter_dir, new_dir)
     if s.dim == 2:
         zeroed = new_dir.clone()
         zeroed[:, 2] = 0.0
@@ -366,6 +438,8 @@ def bounce_step(state: RayState, u, geometry, walls, settings, search):
 
     counts = torch.stack([
         collide.sum(), is_wall.sum(), is_exit.sum(), alive.sum(),
+        torch.zeros_like(alive.sum()) if scattering is None
+        else scattering.sum(),
     ])
     new_state = RayState(
         new_org, new_dir, weight_out, w0, alive_out, hfb_out, n_refl_new,
@@ -382,11 +456,11 @@ def deposit_entries(org, dirn, hit_prim, wdep, geometry):
     takes ``wdep``, and so does every disk of its neighbor list that passes
     the local re-test; every other slot carries weight 0.
 
-    Triangles: both (R,), the single closest hit (ref: kernel.py:1216-1217);
-    a ray without a deposit carries weight 0 into bin 0.
+    Triangles and lines: both (R,), the single closest hit (ref:
+    kernel.py:1216-1217); a ray without a deposit carries weight 0 into bin 0.
     """
     n_prims = geometry.num_primitives
-    if geometry.kind == "triangle":
+    if geometry.kind != "disk":
         return torch.clamp(hit_prim, min=0), wdep
     R = org.shape[0]
     K = geometry.neighbors.shape[1]
@@ -405,8 +479,10 @@ def deposit_entries(org, dirn, hit_prim, wdep, geometry):
     return ids_all.reshape(-1), w_all.reshape(-1)
 
 
-def _check_inputs(state, uniforms, geometry, walls, n_sub, deposit_in_kernel):
+def _check_inputs(state, uniforms, geometry, walls, settings, n_sub,
+                  deposit_in_kernel, stick_lanes):
     """Shape, type, device and contiguity the kernel takes; raises otherwise."""
+    ReflectionKind(settings.refl_kind)  # raises on a kind that is none
     if n_sub < 1:
         raise ValueError("n_sub must be at least 1")
     if not deposit_in_kernel and n_sub != 1:
@@ -422,10 +498,12 @@ def _check_inputs(state, uniforms, geometry, walls, n_sub, deposit_in_kernel):
     if n_chunks == 0 or npad % n_chunks:
         raise ValueError("Npad must be a whole number of chunks")
     f32, i32, b8 = torch.float32, torch.int32, torch.bool
-    neighbor_tables = ()
+    optional_tables = ()
+    if stick_lanes is not None:
+        optional_tables = (("stick_lanes", stick_lanes, (npad,), f32),)
     if geometry.kind == "disk":
         K = geometry.neighbors.shape[1]
-        neighbor_tables = (
+        optional_tables += (
             ("neighbors", geometry.neighbors, (n_prims, K), i32),
             ("neighbor_pack", geometry.neighbor_pack, (n_prims, K * 8), f32),
         )
@@ -435,13 +513,13 @@ def _check_inputs(state, uniforms, geometry, walls, n_sub, deposit_in_kernel):
         ("alive", state.alive, (R,), b8), ("hfb", state.hfb, (R,), b8),
         ("n_refl", state.n_refl, (R,), i32),
         ("n_bdry", state.n_bdry, (R,), i32),
-        ("uniforms", uniforms, (R, 3 * n_sub), f32),
+        ("uniforms", uniforms, (R, settings.n_uni * n_sub), f32),
         ("prims_soa", geometry.prims_soa, (rows, npad), f32),
         ("soa_perm", geometry.soa_perm, (npad,), i32),
         ("soa_chunk_bbs", geometry.soa_chunk_bbs, (n_chunks, 8), f32),
         ("normals", geometry.normals, (n_prims, 3), f32),
         ("walls", walls, (9,), f32),
-        *neighbor_tables,
+        *optional_tables,
     ):
         if tuple(x.shape) != shape:
             raise ValueError(f"{name} must be {shape}, got {tuple(x.shape)}")
@@ -454,12 +532,15 @@ def _check_inputs(state, uniforms, geometry, walls, n_sub, deposit_in_kernel):
 
 
 def fused_bounce_ref(state: RayState, uniforms, geometry, walls, settings,
-                     n_sub: int = 1, deposit_in_kernel: bool = True):
+                     n_sub: int = 1, deposit_in_kernel: bool = True,
+                     stick_lanes=None):
     """Plain PyTorch version of ``fused_bounce``, on any device: ``n_sub``
     applications of ``bounce_step``. Deposits in the kernel are summed in
     float64 over all sub-bounces and rounded to float32 once, as the kernel's
     fixed-point bins are."""
-    counts = torch.zeros(5, dtype=torch.int64, device=state.org.device)
+    n_uni = settings.n_uni
+    counts = torch.zeros(N_EVENTS + 1, dtype=torch.int64,
+                         device=state.org.device)
     acc = torch.zeros(
         geometry.num_primitives, dtype=torch.float64, device=state.org.device
     )
@@ -468,28 +549,31 @@ def fused_bounce_ref(state: RayState, uniforms, geometry, walls, settings,
     for k in range(n_sub):
         org, dirn = state.org, state.dirn
         state, hit_prim, wdep, step_counts = bounce_step(
-            state, uniforms[:, 3 * k: 3 * k + 3], geometry, walls, settings,
-            search,
+            state, uniforms[:, n_uni * k: n_uni * (k + 1)], geometry, walls,
+            settings, search, stick_lanes,
         )
-        counts[:4] += step_counts
+        counts[:N_EVENTS] += step_counts
         if deposit_in_kernel:
             ids, w = deposit_entries(org, dirn, hit_prim, wdep, geometry)
             acc.index_add_(0, ids.long(), w.double())
-    counts[4] = state.alive.sum()
+    counts[N_EVENTS] = state.alive.sum()
     if deposit_in_kernel:
         return BounceResult(state, counts, acc.float(), None, None)
     return BounceResult(state, counts, None, hit_prim, wdep)
 
 
 def fused_bounce(state: RayState, uniforms, geometry, walls, settings,
-                 n_sub: int = 1, deposit_in_kernel: bool = True):
+                 n_sub: int = 1, deposit_in_kernel: bool = True,
+                 stick_lanes=None):
     """Advance every ray through ``n_sub`` whole bounces; any R.
 
-    state: ``RayState``; uniforms (R, 3 n_sub) float32 with the columns
-    [reflection 1, reflection 2, roulette] per sub-bounce; geometry: a
-    ``DiskGeometry`` or a ``TriangleGeometry`` on the rays' device (its
-    ``kind`` picks the kernel's instantiation); walls: ``make_walls``; settings:
-    ``BounceSettings``. Returns a ``BounceResult`` with fresh tensors: the new
+    state: ``RayState``; uniforms (R, n_uni n_sub) float32 with the columns
+    of ``BounceSettings.n_uni`` per sub-bounce (column 0 carries the sampled
+    theta of a coned-cosine particle); geometry: a ``DiskGeometry``, a
+    ``TriangleGeometry`` or a ``LineGeometry`` on the rays' device (its
+    ``kind`` picks the kernel's instantiation); walls: ``make_walls``;
+    settings: ``BounceSettings``; stick_lanes: ``sticking_lanes`` (``None``:
+    the settings' one value). Returns a ``BounceResult`` with fresh tensors: the new
     state, the counts (``COUNT_NAMES``), and either the flux (n_prims,) in
     original numbering (``deposit_in_kernel``) or, with ``n_sub == 1``, each
     ray's (hit primitive or -1, deposit weight) for ``deposit_entries``. Weights
@@ -501,16 +585,13 @@ def fused_bounce(state: RayState, uniforms, geometry, walls, settings,
     """
     state = RayState(*state)
     s = settings
-    if ReflectionKind(s.refl_kind) not in (
-        ReflectionKind.DIFFUSE, ReflectionKind.SPECULAR
-    ):
-        raise NotImplementedError("coned-cosine reflection is not ported yet")
-    _check_inputs(state, uniforms, geometry, walls, n_sub, deposit_in_kernel)
+    _check_inputs(state, uniforms, geometry, walls, settings, n_sub,
+                  deposit_in_kernel, stick_lanes)
     dev = state.org.device
     if dev.type == "cpu":
         return fused_bounce_ref(
             state, uniforms, geometry, walls, settings, n_sub,
-            deposit_in_kernel,
+            deposit_in_kernel, stick_lanes,
         )
     if dev.type != "cuda":
         raise RuntimeError(f"fused_bounce: unsupported device {dev}")
@@ -526,9 +607,10 @@ def fused_bounce(state: RayState, uniforms, geometry, walls, settings,
         neighbor_ptrs = (None, None)
     new = RayState(*(torch.empty_like(x) for x in state[:3]), state.w0,
                    *(torch.empty_like(x) for x in state[4:]))
-    # n_prims fixed-point bins, the largest w0, the five counts; cleared by
+    # n_prims fixed-point bins, the largest w0, the six counts; cleared by
     # the kernel's entry
-    scratch = torch.empty(n_prims + 6, dtype=torch.int64, device=dev)
+    scratch = torch.empty(n_prims + 2 + N_EVENTS, dtype=torch.int64,
+                          device=dev)
     if deposit_in_kernel:
         flux = torch.empty(n_prims, dtype=torch.float32, device=dev)
         hit_prim = wdep = None
@@ -548,13 +630,14 @@ def fused_bounce(state: RayState, uniforms, geometry, walls, settings,
             uniforms.data_ptr(), geometry.prims_soa.data_ptr(),
             geometry.soa_chunk_bbs.data_ptr(), geometry.soa_perm.data_ptr(),
             *neighbor_ptrs, walls.data_ptr(),
+            None if stick_lanes is None else stick_lanes.data_ptr(),
             R, npad, npad // geometry.soa_chunk_bbs.shape[0], n_prims, K,
-            n_sub, _KINDS[geometry.kind][0], s.dim, s.first_dir, s.second_dir, s.ray_axis, s.bc1,
-            s.bc2, int(s.refl_kind == ReflectionKind.SPECULAR),
+            n_sub, _KINDS[geometry.kind][0], s.dim, s.first_dir,
+            s.second_dir, s.ray_axis, s.bc1, s.bc2, int(s.refl_kind),
             s.max_reflections, s.max_boundary_hits, int(s.roulette),
             int(deposit_in_kernel),
             s.t_near, s.sticking, s.weight_threshold_frac,
-            s.renew_weight_frac,
+            s.renew_weight_frac, max(s.mean_free_path, 0.0),
             new.org.data_ptr(), new.dirn.data_ptr(), new.weight.data_ptr(),
             new.alive.data_ptr(), new.hfb.data_ptr(), new.n_refl.data_ptr(),
             new.n_bdry.data_ptr(), *outs, scratch.data_ptr(),

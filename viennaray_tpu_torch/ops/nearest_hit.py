@@ -1,24 +1,32 @@
-"""Closest disk or triangle hit per ray: host packers, plain versions, CUDA
-wrappers.
+"""Closest disk, triangle or 2D line-segment hit per ray: host packers, plain
+versions, CUDA wrappers.
 
-Counterpart of ``viennaray_tpu/ops/pallas_intersect.py`` (disks, triangles).
+Counterpart of ``viennaray_tpu/ops/pallas_intersect.py`` (disks, triangles,
+the line packer) and of ``viennaray_tpu/ops/intersect.py:line_nearest_hit``
+(the JAX package searches lines in XLA, not in a Pallas kernel; here the
+line search is a third instantiation of the one kernel template).
 
-- ``pack_disk_prims``, ``pack_triangle_prims`` and their helpers are the
-  host-side (numpy) packing of a geometry into Morton-compact chunks of a
-  struct-of-arrays, kept as copies.
-- ``disk_nearest_hit_ref`` / ``triangle_nearest_hit_ref`` are the plain
-  PyTorch versions.
-- ``disk_nearest_hit`` / ``triangle_nearest_hit`` are the wrappers around the
-  CUDA kernels of ``csrc/nearest_hit.cu``: on a CUDA tensor they launch the
-  kernel or raise, on a CPU tensor they run the plain version.
+- ``pack_disk_prims``, ``pack_triangle_prims``, ``pack_line_prims`` and their
+  helpers are the host-side (numpy) packing of a geometry into Morton-compact
+  chunks of a struct-of-arrays, kept as copies.
+- ``disk_nearest_hit_ref`` / ``triangle_nearest_hit_ref`` /
+  ``line_nearest_hit_ref`` are the plain PyTorch versions.
+- ``disk_nearest_hit`` / ``triangle_nearest_hit`` / ``line_nearest_hit`` are
+  the wrappers around the CUDA kernels of ``csrc/nearest_hit.cu``: on a CUDA
+  tensor they launch the kernel or raise, on a CPU tensor they run the plain
+  version.
 
-Selection rule, both versions of both kinds: the lowest t wins, then the
+Selection rule, both versions of every kind: the lowest t wins, then the
 lowest sorted lane. A disk hit needs ``denom != 0``, ``t > t_near`` and
 ``|o + t d - c|^2 < r^2``; a triangle hit is the double-sided
 Moller-Trumbore test ``|det| >= 1e-9``, ``u >= 0``, ``v >= 0``,
-``u + v <= 1``, ``t > t_near``. The two versions do the same float32
-operations in the same order without fused multiply-adds (see
-``csrc/disk_hit.cuh``, ``csrc/tri_hit.cuh``), so they agree exactly.
+``u + v <= 1``, ``t > t_near``; a line hit is the 2D cross-product test
+``denom != 0``, ``t > t_near``, ``1e-5 < s < 1 - 1e-5`` (the endpoint clip of
+GeneralPipelineLine.cu:19-49: a ray through the 2e-5 of a segment's length
+around a shared node misses both neighbours). The two versions do the same
+float32 operations in the same order without fused multiply-adds (see
+``csrc/disk_hit.cuh``, ``csrc/tri_hit.cuh``, ``csrc/line_hit.cuh``), so they
+agree exactly.
 """
 
 from __future__ import annotations
@@ -204,6 +212,68 @@ def pack_triangle_prims(vertices, triangles, normals=None, pad_to=None,
     return out, perm, bbs
 
 
+# prims row layout of 2D line segments (SoA): p0x p0y ldx ldy nx ny -> (6, Npad)
+LINE_ROWS = 6
+# the endpoint clip keeps 1e-5 < s < 1 - 1e-5. The upper end is ONE float32
+# value in both versions: float32(1) - float32(1e-5), bits 0x3f7fff58, which
+# is also what the double 1 - 1e-5 rounds to.
+LINE_S_MIN = np.float32(1e-5)
+LINE_S_MAX = np.float32(1.0) - np.float32(1e-5)
+
+
+def pack_line_prims(p0, p1, normals, pad_to=None, sort_axis=1):
+    """SoA 2D line-segment packing: rows [p0x p0y ldx ldy nx ny] -> (6, Npad)
+    in Morton-compact source-side-first chunk order (parity with the GPU
+    line pipeline's custom prims, gpu/raygLineGeometry.hpp).
+
+    Returns (prims (6, Npad), perm (Npad,), chunk_bboxes (n_chunks, 8)); the
+    chunk boxes are z-inflated by +-1 so the 3D slab test never sees a
+    degenerate interval (line geometry is strictly 2D, z = 0).
+    """
+    p0 = np.asarray(p0, np.float32)
+    p1 = np.asarray(p1, np.float32)
+    normals = np.asarray(normals, np.float32)
+    n = len(p0)
+    if pad_to is None:
+        pad_to = auto_pt(n)
+
+    if n > 0:
+        mid = 0.5 * (p0 + p1)
+        seg = max(float(np.linalg.norm((p1 - p0)[:, :2], axis=1).max()), 1e-6)
+        order = _block_order(mid, seg * 8.0, pad_to, sort_axis)
+    else:
+        order = np.zeros((0,), np.int32)
+
+    p0s, p1s, nrm_s = p0[order], p1[order], normals[order]
+    npad = -(-max(n, 1) // pad_to) * pad_to
+    out = np.zeros((LINE_ROWS, npad), np.float32)
+    out[0, :n] = p0s[:, 0]
+    out[1, :n] = p0s[:, 1]
+    out[2, :n] = (p1s - p0s)[:, 0]
+    out[3, :n] = (p1s - p0s)[:, 1]
+    out[4, :n] = nrm_s[:, 0]
+    out[5, :n] = nrm_s[:, 1]
+    out[0:2, n:] = 1e18  # far padding; zero line dir -> denom == 0 -> invalid
+
+    perm = np.zeros((npad,), np.int32)
+    perm[:n] = order
+
+    n_chunks = npad // pad_to
+    bbs = np.full((n_chunks, 8), 1e18, np.float32)
+    for ci in range(n_chunks):
+        lo = ci * pad_to
+        hi = min(lo + pad_to, n)
+        if hi <= lo:
+            continue
+        allv = np.concatenate([p0s[lo:hi], p1s[lo:hi]])
+        bbs[ci, 0:3] = allv.min(axis=0)
+        bbs[ci, 3:6] = allv.max(axis=0)
+        bbs[ci, 2] -= 1.0
+        bbs[ci, 5] += 1.0
+        bbs[ci, 6:8] = 0.0
+    return out, perm, bbs
+
+
 def _check_inputs(org, dirn, prims, perm, chunk_bbs, rows=PRIM_ROWS):
     """Shape, type, device and contiguity the kernel takes; raises otherwise."""
     if org.ndim != 2 or org.shape[1] != 3 or dirn.shape != org.shape:
@@ -359,6 +429,48 @@ def triangle_nearest_hit_ref(org, dirn, prims, perm, chunk_bbs=None,
     return _finish(t_out, idx_out, perm, big)
 
 
+def line_nearest_hit_ref(org, dirn, prims, perm, chunk_bbs=None, t_near=1e-4):
+    """Plain PyTorch version of the line kernel, on any device.
+
+    org/dirn (R, 3) f32, of which only x and y are read; prims (6, Npad);
+    perm (Npad,) sorted->original. ``chunk_bbs`` is accepted for the
+    kernel's signature and never read. One tensor op per float32 operation,
+    in the order of csrc/line_hit.cuh, with two IEEE divisions (the JAX
+    package multiplies by one reciprocal).
+    Returns (t (R,) f32, prim (R,) int32 original numbering, hit (R,) bool).
+    """
+    R = org.shape[0]
+    npad = prims.shape[1]
+    dev = org.device
+    p0x, p0y, lx, ly = (prims[i][None, :] for i in range(4))
+    lanes = torch.arange(npad, device=dev, dtype=torch.int32)[None, :]
+    big = torch.tensor(BIG, device=dev)
+    tiny = torch.tensor(1e-30, dtype=torch.float32, device=dev)
+    tn = torch.tensor(t_near, dtype=torch.float32, device=dev)
+    s_min = torch.tensor(LINE_S_MIN, device=dev)
+    s_max = torch.tensor(LINE_S_MAX, device=dev)
+    t_out = torch.empty(R, dtype=torch.float32, device=dev)
+    idx_out = torch.empty(R, dtype=torch.int32, device=dev)
+    step = max(1, min(R, _REF_BLOCK_PAIRS[dev.type] // npad))
+    for lo in range(0, R, step):
+        o = org[lo:lo + step]
+        d = dirn[lo:lo + step]
+        ox, oy = o[:, 0:1], o[:, 1:2]
+        dx, dy = d[:, 0:1], d[:, 1:2]
+        denom = dx * ly - dy * lx
+        nonzero = denom != 0.0
+        dsafe = torch.where(nonzero, denom, tiny)
+        del denom
+        wx, wy = p0x - ox, p0y - oy
+        t = (wx * ly - wy * lx) / dsafe
+        s = (wx * dy - wy * dx) / dsafe
+        del wx, wy, dsafe
+        valid = nonzero & (t > tn) & (s > s_min) & (s < s_max)
+        del s
+        _pick_lowest(torch.where(valid, t, big), lanes, t_out, idx_out, lo)
+    return _finish(t_out, idx_out, perm, big)
+
+
 def _launch(entry, org, dirn, prims, perm, chunk_bbs, t_near):
     """Launch the closest-hit kernel ``entry`` of ``csrc/nearest_hit.cu`` on
     checked CUDA tensors; returns (t, prim, hit)."""
@@ -424,3 +536,22 @@ def triangle_nearest_hit(org, dirn, prims, perm, chunk_bbs, t_near=1e-4):
 
 
 triangle_nearest_hit.launches = 0
+
+
+def line_nearest_hit(org, dirn, prims, perm, chunk_bbs, t_near=1e-4):
+    """Closest 2D line-segment hit; any R; the contract of
+    ``disk_nearest_hit`` with prims (6, Npad) from ``pack_line_prims``. On
+    CUDA tensors launches the line kernel of ``csrc/nearest_hit.cu`` (or
+    raises); on CPU tensors runs the plain version."""
+    _check_inputs(org, dirn, prims, perm, chunk_bbs, rows=LINE_ROWS)
+    if org.device.type == "cpu":
+        return line_nearest_hit_ref(org, dirn, prims, perm, chunk_bbs, t_near)
+    if org.device.type != "cuda":
+        raise RuntimeError(f"line_nearest_hit: unsupported device {org.device}")
+    out = _launch("vr_line_nearest_hit", org, dirn, prims, perm, chunk_bbs,
+                  t_near)
+    line_nearest_hit.launches += 1
+    return out
+
+
+line_nearest_hit.launches = 0

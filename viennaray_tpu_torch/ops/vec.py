@@ -67,6 +67,31 @@ def orthonormal_basis(vec):
     return torch.stack([u, v, w], dim=-2)
 
 
+def frisvad_basis(w):
+    """Fast ONB (t, b) around unit vector w (Frisvad construction), matching
+    the coned-cosine reflection's basis (ref: rayReflection.hpp:72-83). One
+    float32 operation per tensor op, products left to right, the reciprocal
+    an IEEE division: ``csrc/bounce.cu`` repeats them in this order."""
+    wx, wy, wz = w[..., 0], w[..., 1], w[..., 2]
+    degenerate = wz < -0.999999
+    one = torch.ones_like(wz)
+    a = 1.0 / torch.where(degenerate, one, 1.0 + wz)
+    bx = (-wx) * wy * a
+    by = 1.0 - wy * wy * a
+    zero = torch.zeros_like(wz)
+    t = torch.stack([
+        torch.where(degenerate, zero, 1.0 - wx * wx * a),
+        torch.where(degenerate, -one, bx),
+        torch.where(degenerate, zero, -wx),
+    ], dim=-1)
+    b = torch.stack([
+        torch.where(degenerate, -one, bx),
+        torch.where(degenerate, zero, by),
+        torch.where(degenerate, zero, -wy),
+    ], dim=-1)
+    return t, b
+
+
 def flatten_2d(direction):
     """Zero the z component and renormalize (2D mode ray directions,
     ref: rayUtil.hpp:210-215)."""

@@ -3,15 +3,18 @@
 Counterpart of ``viennaray_tpu/physics/particle.py``: the reference's CRTP
 particles (rayParticle.hpp:21-124) as one dataclass of parameters plus a
 reflection-model selector (``ops/bounce.py:bounce_step`` applies the model).
-``DiffuseParticle`` and ``SpecularParticle`` are ported. The dataclass keeps the fields of the settings that are not ported yet
-(per-material sticking, cone angle, mean free path, several data labels) so
-that the trace can refuse them by name instead of ignoring them.
+``DiffuseParticle``, ``SpecularParticle`` and ``ConedCosineParticle`` are
+ported, with per-material sticking and gas scattering (``mean_free_path``).
+Several data labels (multi-channel flux) are not: the dataclass keeps the
+field so that the trace can refuse it by name instead of ignoring it.
 """
 
 from __future__ import annotations
 
 import dataclasses
 from typing import Optional, Sequence, Tuple
+
+import torch
 
 from ..config import ReflectionKind
 
@@ -24,13 +27,14 @@ class Particle:
       sticking: default sticking probability.
       cosine_exponent: power of the source cosine lobe
         (ref: getSourceDistributionPower, rayParticle.hpp:69).
-      cone_angle: max cone angle for CONED_COSINE reflection (not ported).
-      material_sticking: per-material sticking table (not ported).
+      cone_angle: max cone angle for CONED_COSINE reflection.
+      material_sticking: optional (num_materials,) sticking lookup by material
+        id (ref GPU per-material sticking map, rayParticle.hpp:213).
       direction: optional fixed initial direction (3,) overriding the
         source's sampled direction for every ray (rayParticle.hpp:31,92);
         normalized (and z-flattened in 2D) by the trace.
       mean_free_path: gas-phase scattering mean free path; <= 0 disables
-        (scattering is not ported).
+        (ref: getMeanFreePath, rayParticle.hpp:73).
       reflection_kind: reflection model selector.
       data_labels: names of the flux channels this particle fills
         (ref: getLocalDataLabels, rayParticle.hpp:78).
@@ -46,6 +50,19 @@ class Particle:
     reflection_kind: int = int(ReflectionKind.DIFFUSE)
     data_labels: Tuple[str, ...] = ("flux",)
     name: str = "particle"
+
+    def sticking_for(self, material_ids: torch.Tensor) -> torch.Tensor:
+        """Per-hit sticking, float32 on the ids' device: the material table
+        where one is set (ids below 0 read entry 0), else the scalar."""
+        dev = material_ids.device
+        if self.material_sticking is None:
+            return torch.full(material_ids.shape, float(self.sticking),
+                              dtype=torch.float32, device=dev)
+        table = torch.tensor(
+            [float(x) for x in self.material_sticking], dtype=torch.float32,
+            device=dev,
+        )
+        return table[torch.clamp(material_ids, min=0).long()]
 
 
 def DiffuseParticle(
@@ -85,4 +102,21 @@ def SpecularParticle(
         reflection_kind=int(ReflectionKind.SPECULAR),
         data_labels=(data_label,),
         name="SpecularParticle",
+    )
+
+
+def ConedCosineParticle(
+    sticking_probability: float,
+    cone_angle: float,
+    source_power: float = 1.0,
+    data_label: str = "flux",
+) -> Particle:
+    """Coned-cosine reflecting particle (reflection: rayReflection.hpp:52-120)."""
+    return Particle(
+        sticking=float(sticking_probability),
+        cosine_exponent=float(source_power),
+        cone_angle=float(cone_angle),
+        reflection_kind=int(ReflectionKind.CONED_COSINE),
+        data_labels=(data_label,),
+        name="ConedCosineParticle",
     )

@@ -3,9 +3,13 @@
 The trace never holds a generator of its own. It asks a ``RayRNG`` for
 uniforms in [0, 1) by purpose: ``uniform(stream, batch_index, bounce, n)``.
 The streams are the two draws of the source origin, the two of the source
-direction, the two of the reflection, and the roulette draw (``STREAMS``).
-A launch of several bounces asks for all its reflection and roulette
-uniforms at once: ``uniform_block(batch_index, bounce, n, n_cols)``.
+direction, the two of the diffuse reflection, the azimuth of the coned-cosine
+reflection, the roulette draw, and the three of gas scattering: the
+probability draw, which is also the scatter point's distance, and the two of
+the new direction (``STREAMS``). A launch of several bounces asks for all its
+uniforms at once: ``uniform_block(batch_index, bounce, n, n_cols)``. The
+polar angle of the coned-cosine reflection is an accept-reject of several
+rounds and has a method of its own, ``cone_theta``.
 
 Why an interface: the JAX package keys its uniforms with threefry
 (``fold_in(base, batch) -> fold_in(batch, bounce) -> split``). The port holds
@@ -25,16 +29,23 @@ import hashlib
 
 import torch
 
+from .ops import sampling
+
 SOURCE_ORIGIN_1 = "source_origin_1"
 SOURCE_ORIGIN_2 = "source_origin_2"
 SOURCE_DIR_1 = "source_dir_1"
 SOURCE_DIR_2 = "source_dir_2"
 REFLECT_1 = "reflect_1"
 REFLECT_2 = "reflect_2"
+CONE_PHI = "cone_phi"
 ROULETTE = "roulette"
+SCATTER = "scatter"
+SCATTER_Z = "scatter_z"
+SCATTER_PHI = "scatter_phi"
 STREAMS = (
     SOURCE_ORIGIN_1, SOURCE_ORIGIN_2, SOURCE_DIR_1, SOURCE_DIR_2,
-    REFLECT_1, REFLECT_2, ROULETTE,
+    REFLECT_1, REFLECT_2, CONE_PHI, ROULETTE, SCATTER, SCATTER_Z,
+    SCATTER_PHI,
 )
 
 
@@ -43,13 +54,18 @@ class RayRNG:
 
     ``begin_batch(batch_index)`` is called once before a mega-batch's first
     draw. ``uniform`` returns ``n`` float32 uniforms in [0, 1) on the trace's
-    device. ``bounce`` is the wavefront iteration for the reflection and
-    roulette streams; for the source-direction streams it counts the rounds
-    of the tilted source's accept-reject loop (0 for the plain lobe, -1 for
-    the lobe that lanes fall back to when no round accepted).
-    ``uniform_block`` returns an (n, n_cols) block for the launch that starts
-    at iteration ``bounce`` and runs ``n_cols / 3`` bounces: per bounce the
-    columns [reflection 1, reflection 2, roulette].
+    device. ``bounce`` is the wavefront iteration for the reflection,
+    roulette and scattering streams; for the source-direction streams it
+    counts the rounds of the tilted source's accept-reject loop (0 for the
+    plain lobe, -1 for the lobe that lanes fall back to when no round
+    accepted). ``uniform_block`` returns an (n, n_cols) block for the launch
+    that starts at iteration ``bounce`` and runs ``n_cols / n_uni`` bounces,
+    ``n_uni`` = 3, or 6 with gas scattering: per bounce the columns
+    [reflection 1 (the coned-cosine launch overwrites it with theta),
+    reflection 2, roulette, then scatter, scatter z, scatter phi].
+    ``cone_theta`` returns the coned-cosine lobe's polar angles for the launch
+    that starts at ``bounce``: ``shape`` is (n,) for a launch of one bounce
+    and (n, n_sub) for one of several.
     """
 
     def begin_batch(self, batch_index: int) -> None:
@@ -61,6 +77,10 @@ class RayRNG:
 
     def uniform_block(self, batch_index: int, bounce: int, n: int,
                       n_cols: int) -> torch.Tensor:
+        raise NotImplementedError
+
+    def cone_theta(self, batch_index: int, bounce: int, shape,
+                   cone_angle: float) -> torch.Tensor:
         raise NotImplementedError
 
 
@@ -103,3 +123,12 @@ class GeneratorRNG(RayRNG):
 
     def uniform_block(self, batch_index, bounce, n, n_cols):
         return self._rand(batch_index, (n, n_cols))
+
+    def cone_theta(self, batch_index, bounce, shape, cone_angle):
+        """The rejection runs here, each round drawing two uniforms for every
+        lane, until every lane has accepted (at most 64 rounds)."""
+        return sampling.coned_cosine_theta(
+            lambda i: (self._rand(batch_index, shape),
+                       self._rand(batch_index, shape)),
+            shape, cone_angle, self._device,
+        )

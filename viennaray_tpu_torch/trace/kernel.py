@@ -13,8 +13,9 @@ through one of two bodies:
   holds the rule and its measurements). Narrower stages run 4, then 16
   bounces per launch;
 - the unfused body (``fused=False``): every iteration finds all active rays'
-  closest hit (the CUDA kernels behind ``ops.nearest_hit.disk_nearest_hit``
-  and ``triangle_nearest_hit``, by the geometry's ``kind``),
+  closest hit (the CUDA kernels behind ``ops.nearest_hit.disk_nearest_hit``,
+  ``triangle_nearest_hit`` and ``line_nearest_hit``, by the geometry's
+  ``kind``),
   resolves the bounce with the tensor code of ``ops.bounce.bounce_step``
   (which is also the arithmetic of the fused kernel's plain version) and
   deposits through ``ops.histogram.flux_histogram``.
@@ -27,16 +28,19 @@ Event semantics mirrored 1:1 from rayTraceKernel.hpp:
 - boundary hits capped at max_boundary_hits, then reflective wall = specular
   flip / periodic wall = teleport to opposite wall / ignore = kill
   (:206-214, rayBoundary.hpp:29-127)
+- gas scattering with probability 1 - exp(-t / mean_free_path) before the
+  walls and the geometry take their event (:179-203)
 - disk backface: first hit passes through, second kills (:225-241);
-  triangle backface kills (:243-248)
+  triangle and line backface kills (:243-248)
 - disk neighbor multi-hit via the packed neighbor records (:255-300);
-  triangles deposit on the single closest hit (:301-307)
-- sticking update w -= w*s, max-reflections cap, Russian roulette
-  (kill below 0.1 w0, renew to 0.3 w0, :309-335, :435-460)
+  triangles and lines deposit on the single closest hit (:301-307)
+- sticking update w -= w*s with one sticking value or one per material,
+  diffuse, specular or coned-cosine reflection, max-reflections cap, Russian
+  roulette (kill below 0.1 w0, renew to 0.3 w0, :309-335, :435-460)
 
-Not ported yet, and refused by name (``check_supported``): gas scattering,
-1/distance weighting, the window flux model, custom hooks and multi-channel
-flux, per-material sticking, coned-cosine reflection. The per-bounce
+Not ported yet, and refused by name (``check_supported``): 1/distance
+weighting, the window flux model, custom hooks and multi-channel flux, the
+grid and surface sources, float64 tracing. The per-bounce
 coherence re-sort of the reference only engages from 8 geometry chunks on and
 is not ported yet either; it changes the lane order, not the physics.
 
@@ -56,15 +60,21 @@ import torch
 from .. import rng as rng_streams
 from ..config import ReflectionKind, TraceConfig
 from ..ops.bounce import (
+    N_EVENTS,
     BounceSettings,
     RayState,
     bounce_step,
     deposit_entries,
     fused_bounce,
     make_walls,
+    sticking_lanes,
 )
 from ..ops.histogram import flux_histogram
-from ..ops.nearest_hit import disk_nearest_hit, triangle_nearest_hit
+from ..ops.nearest_hit import (
+    disk_nearest_hit,
+    line_nearest_hit,
+    triangle_nearest_hit,
+)
 from ..physics.source import RandomSource
 
 # ray-compaction ladder: halve the width per stage, floored at MIN_STAGE
@@ -78,7 +88,11 @@ N_SUB = (1, 4, 16)
 HAND_OUT_MIN_CHUNKS = 4
 
 # the closest-hit kernel's wrapper of each geometry kind
-_SEARCH = {"disk": disk_nearest_hit, "triangle": triangle_nearest_hit}
+_SEARCH = {
+    "disk": disk_nearest_hit,
+    "triangle": triangle_nearest_hit,
+    "line": line_nearest_hit,
+}
 
 
 def hand_out_for(kind: str, n_chunks: int, refl_kind, n_sub: int) -> bool:
@@ -88,13 +102,14 @@ def hand_out_for(kind: str, n_chunks: int, refl_kind, n_sub: int) -> bool:
     Only a launch of one bounce can hand out. Disks: a diffuse launch on at
     least ``HAND_OUT_MIN_CHUNKS`` chunks does (the reference's rule): its
     deposit in the kernel is a gather of K neighbor records and up to K + 1
-    atomics per colliding ray. Triangles: never (the reference's rule hands
-    them out as disks). Their deposit in the kernel is one integer atomic per
-    colliding ray, which the kernel's time does not show, and handing out
-    adds a histogram launch per wide launch: on an H100 the 5,760-triangle
-    trench's apply was 1.5 % slower handed out (``chip_diagnose.py
-    --triangles``, ``PERF.md``). Both give the same flux up to the fixed
-    point's rounding.
+    atomics per colliding ray. Triangles and lines: never. (The reference's
+    rule, kernel.py:1049-1065, treats all three kinds alike: a diffuse launch
+    of one bounce on 4 chunks or more hands out.) Their deposit in the kernel
+    is one integer atomic per colliding ray, which the kernel's time does not
+    show, and handing out adds a histogram launch per wide launch: on an H100
+    the 5,760-triangle trench's apply was 1.5 % slower handed out
+    (``chip_diagnose.py --triangles``, ``PERF.md``). Both give the same flux
+    up to the fixed point's rounding.
     """
     return (
         kind == "disk"
@@ -130,10 +145,6 @@ class BatchCounters(NamedTuple):
 def check_supported(config: TraceConfig, particle, source) -> None:
     """Raise NotImplementedError, naming the setting, for anything the port
     does not trace yet. Nothing unsupported is silently ignored."""
-    if particle.mean_free_path > 0.0:
-        raise NotImplementedError(
-            "gas scattering (mean_free_path > 0) is not ported yet"
-        )
     if config.use_wdist:
         raise NotImplementedError("use_wdist is not ported yet")
     if config.flux_model != "neighbor":
@@ -142,11 +153,7 @@ def check_supported(config: TraceConfig, particle, source) -> None:
         )
     if len(particle.data_labels) != 1:
         raise NotImplementedError("multi-channel flux is not ported yet")
-    if particle.material_sticking is not None:
-        raise NotImplementedError("per-material sticking is not ported yet")
-    kind = ReflectionKind(particle.reflection_kind)
-    if kind not in (ReflectionKind.DIFFUSE, ReflectionKind.SPECULAR):
-        raise NotImplementedError("coned-cosine reflection is not ported yet")
+    ReflectionKind(particle.reflection_kind)  # raises on a kind that is none
     if not isinstance(source, RandomSource):
         raise NotImplementedError(
             f"source {type(source).__name__} is not ported yet "
@@ -181,20 +188,38 @@ def _spatial_key(org, dirn, alive, bb_lo, bb_ext):
 
 
 def _bounce_uniforms(rng, batch_index, it, n, n_sub, settings, dev):
-    """The (n, 3 n_sub) uniforms of one launch starting at iteration ``it``.
-    One bounce draws the reflection pair (diffuse only) and the roulette
-    number as separate streams, in that order, whichever body runs; several
-    bounces draw one block."""
+    """The (n, n_uni n_sub) uniforms of one launch starting at iteration
+    ``it``; ``n_uni`` = 3, or 6 with gas scattering. One bounce draws its
+    numbers as separate streams, whichever body runs, in this order: the
+    reflection pair (diffuse: two uniforms; coned-cosine: the sampled theta
+    and the azimuth's uniform; specular: none), the roulette number, the
+    three of gas scattering. Several bounces draw one block, and a
+    coned-cosine launch then overwrites each bounce's column 0 with its theta
+    (ref: kernel.py:1084-1128)."""
+    n_uni = settings.n_uni
+    coned = settings.refl_kind == ReflectionKind.CONED_COSINE
     if n_sub > 1:
-        return rng.uniform_block(batch_index, it, n, 3 * n_sub)
+        u = rng.uniform_block(batch_index, it, n, n_uni * n_sub)
+        if coned:
+            u[:, 0::n_uni] = rng.cone_theta(
+                batch_index, it, (n, n_sub), settings.cone_angle
+            )
+        return u
     zero = torch.zeros(n, dtype=torch.float32, device=dev)
-    u1 = u2 = u3 = zero
+    cols = [zero] * n_uni
     if settings.refl_kind == ReflectionKind.DIFFUSE:
-        u1 = rng.uniform(rng_streams.REFLECT_1, batch_index, it, n)
-        u2 = rng.uniform(rng_streams.REFLECT_2, batch_index, it, n)
+        cols[0] = rng.uniform(rng_streams.REFLECT_1, batch_index, it, n)
+        cols[1] = rng.uniform(rng_streams.REFLECT_2, batch_index, it, n)
+    elif coned:
+        cols[0] = rng.cone_theta(batch_index, it, (n,), settings.cone_angle)
+        cols[1] = rng.uniform(rng_streams.CONE_PHI, batch_index, it, n)
     if settings.roulette:
-        u3 = rng.uniform(rng_streams.ROULETTE, batch_index, it, n)
-    return torch.stack([u1, u2, u3], dim=1)
+        cols[2] = rng.uniform(rng_streams.ROULETTE, batch_index, it, n)
+    if n_uni == 6:
+        cols[3] = rng.uniform(rng_streams.SCATTER, batch_index, it, n)
+        cols[4] = rng.uniform(rng_streams.SCATTER_Z, batch_index, it, n)
+        cols[5] = rng.uniform(rng_streams.SCATTER_PHI, batch_index, it, n)
+    return torch.stack(cols, dim=1)
 
 
 def trace_batch(
@@ -212,8 +237,8 @@ def trace_batch(
 ):
     """Trace one mega-batch of rays to extinction; returns (flux, counters).
 
-    geometry: DiskGeometry or TriangleGeometry (its ``kind`` picks the
-    kernels). bbox: (2, 3) float32 tensor, the source-adjusted
+    geometry: DiskGeometry, TriangleGeometry or LineGeometry (its ``kind``
+    picks the kernels). bbox: (2, 3) float32 tensor, the source-adjusted
     bounding box (ref: rayUtil.hpp:104-143). rng: a ``RayRNG`` whose
     ``begin_batch(batch_index)`` has been called. ray_indices: (R,) global
     ray indices. valid: (R,) bool — lanes beyond the total ray count start
@@ -231,6 +256,7 @@ def trace_batch(
     R = ray_indices.shape[0]
     n_prims = geometry.num_primitives
     walls = make_walls(bbox, geometry, settings)
+    stick_lanes = sticking_lanes(particle, geometry)
     lo1, hi1, lo2, hi2 = (walls[i] for i in range(4))
 
     # ---- source sampling -------------------------------------------------
@@ -252,14 +278,15 @@ def trace_batch(
     n_refl = torch.zeros(R, dtype=torch.int32, device=dev)
     n_bdry = torch.zeros(R, dtype=torch.int32, device=dev)
     flux = torch.zeros(n_prims, dtype=torch.float32, device=dev)
-    # collide, wall, exit, traces
-    counts = torch.zeros(4, dtype=torch.int64, device=dev)
+    # collide, wall, exit, traces, scatter
+    counts = torch.zeros(N_EVENTS, dtype=torch.int64, device=dev)
 
     def land(flux, org, dirn, hit_prim, wdep):
         """Deposits handed out by a bounce (ref: DiffuseParticle::
         surfaceCollision adds the current rayWeight, rayParticle.hpp:148-156):
         the hit disk and every neighbor-list disk that passes the local
-        re-test take the weight; of triangles, the single closest hit."""
+        re-test take the weight; of triangles and lines, the single closest
+        hit."""
         ids, w = deposit_entries(org, dirn, hit_prim, wdep, geometry)
         return flux + _flux_add(ids, w, n_prims)
 
@@ -271,7 +298,8 @@ def trace_batch(
             rng, batch_index, it, state.org.shape[0], 1, settings, dev
         )
         new_state, hit_prim, wdep, step_counts = bounce_step(
-            state, u, geometry, walls, settings, _SEARCH[geometry.kind]
+            state, u, geometry, walls, settings, _SEARCH[geometry.kind],
+            stick_lanes,
         )
         flux = land(flux, state.org, state.dirn, hit_prim, wdep)
         counts.add_(step_counts)
@@ -290,14 +318,14 @@ def trace_batch(
         state = RayState(*(x.contiguous() for x in state))
         res = fused_bounce(
             state, u.contiguous(), geometry, walls, settings, n_sub=k,
-            deposit_in_kernel=not hand_out,
+            deposit_in_kernel=not hand_out, stick_lanes=stick_lanes,
         )
         if hand_out:
             flux = land(flux, state.org, state.dirn, res.hit_prim, res.wdep)
         else:
             flux = flux + res.flux
-        counts.add_(res.counts[:4])
-        return flux, res.counts[4], res.state, k
+        counts.add_(res.counts[:N_EVENTS])
+        return flux, res.counts[N_EVENTS], res.state, k
 
     body = fused_body if fused else unfused_body
 
@@ -382,6 +410,6 @@ def trace_batch(
     c = counts.tolist()  # the one counter fetch per batch
     counters = BatchCounters(
         total_traces=c[3], non_geometry_hits=c[2], geometry_hits=c[0],
-        particle_hits=0, boundary_hits=c[1], reflections=c[0],
+        particle_hits=c[4], boundary_hits=c[1], reflections=c[0],
     )
     return flux, counters

@@ -1,8 +1,8 @@
-"""User-facing tracers: ``TraceDisk`` and ``TraceTriangle``.
+"""User-facing tracers: ``TraceDisk``, ``TraceTriangle`` and ``TraceLine``.
 
 Counterpart of ``viennaray_tpu/trace/tracer.py``. Mirrors the reference's
 ``Trace`` API surface (rayTrace.hpp:15-180, rayTraceDisk.hpp,
-rayTraceTriangle.hpp) — setters for
+rayTraceTriangle.hpp, gpu/raygTraceLine.hpp) — setters for
 particle, geometry, boundary conditions, ray counts, seeds; ``apply()`` runs
 the trace; ``normalize_flux`` / ``smooth_flux`` post-process — over a loop of
 mega-batches of rays (the analog of the 2^29-ray GPU launch clamp,
@@ -10,8 +10,7 @@ gpu/raygTrace.hpp:132-160).
 
 A tracer runs on a CUDA device unless the caller asks for the CPU, and
 through the fused bounce kernel unless the caller asks for the unfused body
-(``fused=False``). The line tracer is not ported yet: its class exists and
-raises.
+(``fused=False``).
 """
 
 from __future__ import annotations
@@ -34,6 +33,7 @@ from ..config import (
 from ..data import DataLog, TraceInfo, TracingData
 from ..device import resolve_device
 from ..geometry.disk_geometry import DiskGeometry
+from ..geometry.line_geometry import LineGeometry
 from ..geometry.mesh import DiskMesh, LineMesh, TriangleMesh
 from ..geometry.neighborhood import build_neighborhood
 from ..geometry.triangle_geometry import TriangleGeometry
@@ -243,7 +243,7 @@ class _TraceBase:
         n_prims = geometry.num_primitives
         total_rays = config.total_rays(n_prims)
         # (ref: rayTraceDisk.hpp:30 discRadius, rayTraceTriangle.hpp:31
-        # gridDelta)
+        # gridDelta; lines as triangles)
         bbox_margin = (
             geometry.disk_radius if geometry.kind == "disk"
             else geometry.grid_delta
@@ -479,8 +479,62 @@ class TraceTriangle(_TraceBase):
         return np.asarray(flux)
 
 
-class TraceLine:
-    """2D line-segment tracer: not ported yet."""
+class TraceLine(_TraceBase):
+    """Native 2D line-segment tracer — parity with the GPU-only
+    ``gpu::TraceLine`` (gpu/raygTraceLine.hpp): segments are primitives (no
+    triangle extrusion), flux is per segment, areas are segment lengths,
+    smoothing is not implemented."""
 
-    def __init__(self, *args, **kwargs):
-        raise NotImplementedError("TraceLine (lines) is not ported yet")
+    def __init__(self, device=None, dtype=torch.float32, fused: bool = True):
+        super().__init__(dim=2, device=device, dtype=dtype, fused=fused)
+
+    def set_geometry(self, mesh: LineMesh, material_ids=None):
+        self.geometry = LineGeometry.from_mesh(
+            mesh, material_ids=material_ids, device=self._device
+        )
+
+    def set_material_ids(self, material_ids):
+        self.geometry = self.geometry.replace(
+            material_ids=torch.from_numpy(
+                np.asarray(material_ids, np.int32)
+            ).to(self._device)
+        )
+
+    def apply(self):
+        """Run the trace; returns the raw flux per segment as a float64
+        numpy array."""
+        if self._particle is None:
+            self._info.error = True
+            raise ValueError("No particle was specified in TraceLine")
+        if self.geometry is None:
+            self._info.error = True
+            raise ValueError("No geometry was passed to TraceLine")
+        if self.geometry.device != self._device:
+            raise ValueError(
+                f"geometry is on {self.geometry.device}, the tracer on "
+                f"{self._device}"
+            )
+        flux = self._run_trace(self.geometry)
+        self._store_local_data(flux)
+        return flux
+
+    def normalize_flux(self, flux, norm: NormalizationType = NormalizationType.SOURCE):
+        """flux *= sourceArea/(length * numRays)
+        (ref: gpu/raygTraceLine.hpp:29-58, normKernels.cu line variant)."""
+        flux = torch.as_tensor(
+            np.asarray(flux, np.float32), device=self._device
+        )
+        areas = self.geometry.areas
+        if NormalizationType(norm) == NormalizationType.MAX:
+            out = postprocess.normalize_flux_max_triangle(flux, areas)
+        else:
+            config = self._make_config()
+            total = config.total_rays(self.geometry.num_primitives)
+            out = postprocess.normalize_flux_source(
+                flux, areas, self._last_source.source_area(), total
+            )
+        return out.cpu().numpy()
+
+    def smooth_flux(self, flux, num_neighbors: int = 1):
+        """Not implemented for line geometry (ref: raygTraceLine.hpp:26-28)."""
+        return np.asarray(flux)
