@@ -3,16 +3,17 @@
 
 Run from the repository root on a machine with one NVIDIA Hopper card:
 
-    python3 chip_diagnose.py [--triangles | --lines | --ion] [--unfused]
-                             [--profile FILE]
+    python3 chip_diagnose.py [--triangles | --lines | --ion | --window]
+                             [--unfused] [--profile FILE]
 
 It builds a tracer of ``chip_smoke.py`` (same geometry, particle, seed and
 batch; the default tracer, whose body is the fused bounce kernel): the
 2,993-disk trench through ``TraceDisk``; with ``--triangles`` the
 5,760-triangle trench through ``TraceTriangle``; with ``--lines`` the
 782-segment 2D trench with two materials through ``TraceLine``; with ``--ion``
-the 2,993 disks under the coned-cosine particle. It warms the tracer up with
-one apply and prints one JSON object per phase:
+the 2,993 disks under the coned-cosine particle; with ``--window`` the 2,993
+disks under the window flux model. It warms the tracer up with one apply and
+prints one JSON object per phase:
 
 - ``repeats``: five more applies of the one tracer (each a new run number, so
   a new seed): wall seconds, the process's CPU seconds, the bounce count and
@@ -26,12 +27,14 @@ one apply and prints one JSON object per phase:
   bounces per launch);
 - with ``--unfused``: both phases once more for the tracer with
   ``fused=False``, the unfused body, in the same process;
-- with ``--triangles``, ``deposit_policy``: two fused tracers in turns, run
-  number by run number (so both trace the same rays; which goes first
-  alternates): one deposits in the bounce kernel at every width (the port's
-  rule for triangles), the other runs under the reference's rule, which
+- with ``--triangles`` or ``--window``, ``deposit_policy``: two fused
+  tracers in turns, run number by run number (so both trace the same rays;
+  which goes first alternates): one deposits in the bounce kernel at every
+  width (the port's rule for triangles and for window deposits), the other
   hands the deposits of a diffuse particle's one-bounce launches out to the
-  histogram kernel on 4 chunks or more;
+  histogram kernel on 4 chunks or more (the reference's rule for triangles;
+  for window deposits, through the window list, a placement the reference
+  does not have);
 - with ``--profile FILE``: one apply of the default tracer under
   ``torch.profiler``, whose tables of kernels and host operators go to FILE.
 
@@ -162,7 +165,8 @@ def kernel_spans(tracer, body):
 
 def reference_hand_out_rule(kind, n_chunks, refl_kind, n_sub):
     """The JAX package's placement of deposits (its trace/kernel.py:1049-1065)
-    for every geometry kind."""
+    for every geometry kind, and for window deposits too (which the JAX
+    package never hands out)."""
     from viennaray_tpu_torch.config import ReflectionKind
     from viennaray_tpu_torch.trace.kernel import HAND_OUT_MIN_CHUNKS
 
@@ -286,6 +290,11 @@ def main(argv=None):
         help="the 2,993 disks under the coned-cosine particle (sticking "
              "0.5, cone angle pi/6, source power 100)",
     )
+    which.add_argument(
+        "--window", action="store_true",
+        help="the 2,993 disks under the window flux model, and its two "
+             "deposit placements in turns",
+    )
     parser.add_argument(
         "--profile", metavar="FILE", default=None,
         help="also run one apply under torch.profiler and write its tables "
@@ -314,6 +323,10 @@ def main(argv=None):
         cloud = fixtures.create_trench_grid_3d(**FLAGSHIP)
         make = lambda **kwargs: make_tracer(
             *cloud, particle=ion_particle(), **kwargs)
+    elif args.window:
+        cloud = fixtures.create_trench_grid_3d(**FLAGSHIP)
+        make = lambda **kwargs: make_tracer(
+            *cloud, flux_model="window", **kwargs)
     else:
         cloud = fixtures.create_trench_grid_3d(**FLAGSHIP)
         make = lambda **kwargs: make_tracer(*cloud, **kwargs)
@@ -324,7 +337,7 @@ def main(argv=None):
         tracer.apply()  # warm-up: builds the kernels, fills the allocator
         print(json.dumps(repeats(tracer, args.repeats, body)), flush=True)
         print(json.dumps(kernel_spans(tracer, body)), flush=True)
-    if args.triangles:
+    if args.triangles or args.window:
         print(json.dumps(deposit_policy(make, args.repeats)), flush=True)
     if args.profile:
         profile_apply(tracers["fused"], args.profile)

@@ -15,7 +15,8 @@ It imports only ``viennaray_tpu_torch`` and, in order:
    line segments (and at the 18,180-disk and 9,000-triangle trenches, and
    the bounce kernel on a 2D trench of disks and on an extruded 2D line mesh
    too); the bounce kernel also with sticking per lane, with the
-   coned-cosine reflection and with gas scattering on every kind; and times
+   coned-cosine reflection and with gas scattering on every kind, and in its
+   window form (the window flux model's deposits) on disks; and times
    kernel, plain version and, for the histogram, one ``index_add_`` call;
 4. drives the flagship through the default ``TraceDisk`` (the fused bounce
    kernel): 2,993 disks, 2,000 rays per point, periodic walls, diffuse
@@ -48,7 +49,19 @@ It imports only ``viennaray_tpu_torch`` and, in order:
    ``ion3d_trench_oracle.npy`` and unfused at 500; then a gas-scattering run
    (mean free path of one trench depth) at 200 rays per point against
    ``gas3d_trench_oracle.npy``, scatter events per ray included;
-9. prints the peak device memory.
+9. drives the flagship under the window flux model: fused at 2,000 rays per
+   point (the bounce kernel's window form on every launch, no other kernel)
+   and unfused at 500, against ``window3d_trench_jax.npy`` (the JAX
+   package's unfused window body on the CPU), and the fused window flux
+   against the fused neighbor flux of step 4 (same seed, same rays: they
+   must part by about what the JAX package's two models part by); then 1/
+   distance weighting (``set_use_wdist``, which runs the unfused body:
+   kernels 1 and 2, no bounce kernel) at 500 rays per point against
+   ``wdist3d_trench_oracle.npy``; then the grid source (2,809 points from
+   ``create_source_grid``) at 2,000 rays per point against
+   ``bench_disk3d.npy``, and the surface source (every disk along its
+   normal) at 2,000 rays per point against ``surface3d_trench_jax.npy``;
+10. prints the peak device memory.
 
 Every phase prints one JSON object on a line of its own. The line before the
 last lists the kernels; the last line is
@@ -95,6 +108,9 @@ LINE_TRENCH = dict(FLAGSHIP, grid_delta=0.023)
 LINE_STICKING = [0.5, 0.1]
 ION = dict(sticking=0.5, cone_angle=float(np.pi / 6), source_power=100.0)
 GAS_MEAN_FREE_PATH = 4.0  # one trench depth
+# the grid source's points: create_source_grid(adjusted bbox, 2993, 0.25, +z)
+GRID_POINTS = 2993
+SURFACE = dict(offset=0.01, area=100.0)  # every disk along its normal
 
 
 def emit(obj):
@@ -306,10 +322,11 @@ def gas_particle():
     )
 
 
-def bounce_settings(specular=False, walls="PERIODIC", dim=3, particle=None):
+def bounce_settings(specular=False, walls="PERIODIC", dim=3, particle=None,
+                    flux_model="neighbor"):
     """The flagship's settings of a bounce (diffuse, periodic walls, sticking
-    0.1), or a specular particle, or another particle, or other walls; in 2D
-    the source lies on the +y face."""
+    0.1), or a specular particle, or another particle, or other walls, or
+    the window flux model; in 2D the source lies on the +y face."""
     import viennaray_tpu_torch as vrt
     from viennaray_tpu_torch.ops.bounce import BounceSettings
 
@@ -320,7 +337,7 @@ def bounce_settings(specular=False, walls="PERIODIC", dim=3, particle=None):
     direction = vrt.TraceDirection.POS_Z if dim == 3 else vrt.TraceDirection.POS_Y
     return BounceSettings.from_config(
         vrt.TraceConfig(dim=dim, boundary_conditions=(bc,) * 3,
-                        source_direction=direction),
+                        source_direction=direction, flux_model=flux_model),
         particle,
     )
 
@@ -373,7 +390,7 @@ def line_trench():
     return mesh, material_ids
 
 
-def trench_2d():
+def trench_2d(device=None):
     """A 2D trench of disks (a polyline in the plane z = 0: shelf, wall,
     floor, wall, shelf at spacing 0.05, normals into the open side), and its
     source-adjusted box: the kernel's 2D branches have no other caller on
@@ -395,7 +412,7 @@ def trench_2d():
     nrm = np.concatenate(
         [np.tile((*n, 0.0), (len(p), 1)) for p, n in parts]
     )
-    geometry = DiskGeometry.build(pts, nrm, step, dim=2)
+    geometry = DiskGeometry.build(pts, nrm, step, dim=2, device=device)
     return geometry, adjusted_bbox(geometry, dim=2)
 
 
@@ -442,6 +459,9 @@ def check_bounce(geometry, bbox, n_rays, kind, n_sub, in_kernel, settings,
     per-lane sticking (none: the settings' one value)."""
     from viennaray_tpu_torch.ops import bounce as B
 
+    window = settings.deposit_kind(geometry) == "window"
+    if window:
+        geometry = geometry.with_window_list()
     walls = B.make_walls(bbox, geometry, settings)
     state, uniforms = make_state(
         geometry, bbox, n_rays, kind, n_sub, settings, seed=13
@@ -463,6 +483,8 @@ def check_bounce(geometry, bbox, n_rays, kind, n_sub, in_kernel, settings,
     )
     if not in_kernel:
         flags_same &= (res.hit_prim == ref.hit_prim) & (res.wdep == ref.wdep)
+        if window:
+            flags_same &= res.t_hit == ref.t_hit
     lanes_equal = float(flags_same.float().mean())
     # a dead lane's origin and direction are of no use to anyone; compare
     # them on the lanes both versions leave alive
@@ -509,11 +531,16 @@ def check_bounce(geometry, bbox, n_rays, kind, n_sub, in_kernel, settings,
     n_real = geometry.num_primitives
     rows, npad = geometry.prims_soa.shape
     k_nbrs = geometry.neighbors.shape[1] if geometry.kind == "disk" else 0
+    if window:
+        k_nbrs = geometry.window_ids.shape[1]
     # operations: every search of this run (a lane alive at a sub-bounce)
-    # against every real primitive; bytes: state and uniforms in, state and
-    # the flux or the (hit, weight) pair out, the geometry tables once
+    # against every real primitive, and under the window model every window
+    # record a colliding ray re-tests (W a collision, in the kernel or by the
+    # caller); bytes: state and uniforms in, state and the flux or the (hit,
+    # weight) pair out, the geometry tables once
     traces = ref_counts[3]
-    op_ms = traces * n_real * OPS_PER_PAIR[geometry.kind] / F32_FLOPS * 1e3
+    pairs = traces * n_real + (ref_counts[0] * k_nbrs if window else 0)
+    op_ms = pairs * OPS_PER_PAIR[geometry.kind] / F32_FLOPS * 1e3
     n_bytes = (
         n_rays * (66 + 4 * settings.n_uni * n_sub + 62)
         + npad * (rows + 1 + (stick_lanes is not None)) * 4
@@ -529,9 +556,11 @@ def check_bounce(geometry, bbox, n_rays, kind, n_sub, in_kernel, settings,
                  f"{('diffuse', 'specular', 'coned-cosine')[settings.refl_kind]}, "
                  f"{'sticking per lane, ' if stick_lanes is not None else ''}"
                  f"{'gas scattering, ' if settings.n_uni == 6 else ''}"
+                 f"{'window flux model, ' if window else ''}"
                  f"{('reflective', 'periodic', 'ignore')[settings.bc1]}, "
                  f"dim={settings.dim}, "
-                 f"Npad={npad}, C={geometry.soa_chunk_bbs.shape[0]}, K={k_nbrs}",
+                 f"Npad={npad}, C={geometry.soa_chunk_bbs.shape[0]}, "
+                 f"{'W' if window else 'K'}={k_nbrs}",
         "tolerance": tolerance, "lanes_equal": lanes_equal,
         "max_abs_err_state": err, "counts": counts, "plain_counts": ref_counts,
         "flux_max_abs_err": flux_err, "flux_max": flux_max,
@@ -548,13 +577,45 @@ def check_bounce(geometry, bbox, n_rays, kind, n_sub, in_kernel, settings,
 
 
 def make_tracer(pts, nrm, rays_per_point=RAYS_PER_POINT, fused=True,
-                particle=None):
+                particle=None, flux_model="neighbor", use_wdist=False,
+                source=None):
+    """The disk flagship through ``TraceDisk``, or with another particle,
+    the window flux model, 1/distance weighting, or ``source(tracer)`` (the
+    grid or the surface source of the flagship) in place of the random one."""
     import viennaray_tpu_torch as vrt
 
     # device=None: the CUDA device, or raises
     tracer = vrt.TraceDisk(dim=3, fused=fused)
     tracer.set_geometry(pts, nrm, FLAGSHIP["grid_delta"])
+    tracer.set_flux_model(flux_model)
+    tracer.set_use_wdist(use_wdist)
+    if source is not None:
+        tracer.set_source(source(tracer))
     return configure(tracer, rays_per_point, particle)
+
+
+def grid_source(tracer):
+    """The flagship's grid source: ``create_source_grid`` on the +z face of
+    the adjusted box, asked for 2,993 points (it lays 53 x 53 = 2,809),
+    cosine lobe."""
+    import viennaray_tpu_torch as vrt
+    from viennaray_tpu_torch.io import fixtures
+
+    bbox = adjusted_bbox(tracer.geometry).cpu().numpy()
+    grid = fixtures.create_source_grid(
+        bbox, GRID_POINTS, FLAGSHIP["grid_delta"], vrt.TraceDirection.POS_Z)
+    return vrt.GridSource.build(bbox, grid, 1.0, vrt.TraceDirection.POS_Z)
+
+
+def surface_source(tracer):
+    """The flagship's surface source: every disk centre along its normal,
+    offset 0.01, unit weights, source area 100, cosine lobe."""
+    import viennaray_tpu_torch as vrt
+
+    geometry = tracer.geometry
+    return vrt.SurfaceSource.build(
+        geometry.points.cpu().numpy(), geometry.normals.cpu().numpy(),
+        cosine_power=1.0, device=geometry.device, **SURFACE)
 
 
 def line_particle():
@@ -623,10 +684,10 @@ def disk_goldens():
 
 
 def oracle_golden(name):
-    """An oracle golden of ``viennaray_tpu_torch/io/golden``, its record, and
-    the bound the flux is held to: rel-L2 < 0.05, or 1.45 times the golden's
-    own noise (the rel-L2 between its two seeds) where that noise is above
-    0.035."""
+    """A golden of ``viennaray_tpu_torch/io/golden`` (the scalar oracle's,
+    or the JAX package's on the CPU), its record, and the bound the flux is
+    held to: rel-L2 < 0.05, or 1.45 times the golden's own noise (the rel-L2
+    between its two seeds) where that noise is above 0.035."""
     path = os.path.join(PORT_GOLDEN_DIR, name)
     golden = np.load(path + ".npy")
     with open(path + ".json") as f:
@@ -749,14 +810,14 @@ def phase_disk_paths(pts, nrm):
     histogram kernels at a quarter of the depth, 500 rays per point (twice
     the noise, so twice the bound)."""
     make = functools.partial(make_tracer, pts, nrm)
-    _, launches, _ = run_path(
+    _, launches, norm = run_path(
         {"body": "fused"}, make, disk_goldens(), GOLDEN_TOL,
         ("fused_bounce", "flux_histogram"), same_seed=True)
     _, unfused_launches, _ = run_path(
         {"body": "unfused"},
         functools.partial(make, rays_per_point=RAYS_PER_POINT // 4, fused=False),
         disk_goldens(), 2.0 * GOLDEN_TOL, ("disk_nearest_hit", "flux_histogram"))
-    return launches, unfused_launches
+    return launches, unfused_launches, norm
 
 
 def phase_triangle_paths(verts, tris):
@@ -877,6 +938,81 @@ def phase_gas_path(pts, nrm):
     return launches
 
 
+def phase_window_paths(pts, nrm, neighbor_norm):
+    """The flagship under the window flux model at full width through the
+    default ``TraceDisk``: the bounce kernel's window form on every launch
+    (window deposits never hand out) and no other kernel; then the unfused
+    body at 500 rays per point (kernels 1 and 2, twice the bound). Both
+    against the JAX package's window golden. Beside it the fused window flux
+    against ``neighbor_norm``, the fused neighbor run's flux of the same seed
+    (the same rays, the same events): the two models part by what the JAX
+    package's part by on its two seeds (``rel_l2_window_vs_neighbor_by_seed``
+    of the golden's record), within a factor of two either way; a window run
+    that fell back to neighbor deposits would part by 0."""
+    golden, record, tol = oracle_golden("window3d_trench_jax")
+    goldens = {"rel_l2_jax_window": golden}
+    want = float(np.mean(record["rel_l2_window_vs_neighbor_by_seed"]))
+
+    def against_neighbor(fields, norm):
+        apart = rel_l2(norm, neighbor_norm)
+        return ({"rel_l2_against_neighbor_run": apart,
+                 "jax_rel_l2_window_vs_neighbor": want},
+                0.5 * want < apart < 2.0 * want)
+
+    make = functools.partial(make_tracer, pts, nrm, flux_model="window")
+    label = {"geometry": "disks", "flux_model": "window"}
+    _, launches, _ = run_path(
+        {**label, "body": "fused"}, make, goldens, tol, ("fused_bounce",),
+        record, same_seed=True, extra=against_neighbor)
+    _, unfused_launches, _ = run_path(
+        {**label, "body": "unfused"},
+        functools.partial(make, rays_per_point=RAYS_PER_POINT // 4, fused=False),
+        goldens, 2.0 * tol, ("disk_nearest_hit", "flux_histogram"), record)
+    return launches, unfused_launches
+
+
+def phase_wdist_path(pts, nrm):
+    """1/distance weighting through the default ``TraceDisk`` (fused=True)
+    at 500 rays per point: the reference's rule sends it to the unfused
+    body, so kernels 1 and 2 run and the bounce kernel does not; against the
+    oracle's ``wdist3d_trench_oracle`` with twice the bound."""
+    golden, record, tol = oracle_golden("wdist3d_trench_oracle")
+    _, launches, _ = run_path(
+        {"geometry": "disks", "use_wdist": True, "body": "fused=True"},
+        functools.partial(make_tracer, pts, nrm, use_wdist=True,
+                          rays_per_point=RAYS_PER_POINT // 4),
+        {"rel_l2_oracle": golden}, 2.0 * tol,
+        ("disk_nearest_hit", "flux_histogram"), record, same_seed=True)
+    return launches
+
+
+def phase_source_paths(pts, nrm):
+    """The flagship from the grid source (2,809 points) at 2,000 rays per
+    point against ``bench_disk3d.npy`` (a uniform grid of origins has the
+    random source's expectation up to a quadrature error far below the
+    noise) and its hits per ray; then from the surface source (every disk
+    along its normal) at 2,000 rays per point against the JAX package's
+    ``surface3d_trench_jax``. Both fused: the bounce kernel, and the
+    histogram kernel for the wide diffuse launches' deposits."""
+    with open(os.path.join(GOLDEN_DIR, "bench_disk3d.json")) as f:
+        bench = json.load(f)
+    bench_record = {"geometry_hits_per_ray":
+                    bench["geometry_hits"] / bench["num_rays"]}
+    make = functools.partial(make_tracer, pts, nrm, source=grid_source)
+    _, grid_launches, _ = run_path(
+        {"geometry": "disks", "source": "grid", "body": "fused",
+         "grid_points": make()._custom_source.num_points},
+        make, {"rel_l2_golden": disk_goldens()["rel_l2_golden"]}, GOLDEN_TOL,
+        ("fused_bounce", "flux_histogram"), bench_record, same_seed=True)
+    golden, record, tol = oracle_golden("surface3d_trench_jax")
+    _, surface_launches, _ = run_path(
+        {"geometry": "disks", "source": "surface", "body": "fused"},
+        functools.partial(make_tracer, pts, nrm, source=surface_source),
+        {"rel_l2_jax_surface": golden}, tol,
+        ("fused_bounce", "flux_histogram"), record, same_seed=True)
+    return grid_launches, surface_launches
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke.py needs a CUDA device and found none",
@@ -942,6 +1078,29 @@ def main():
         torch.arange(len(pts), device=geometry.device) % 2).to(torch.int32))
     check_bounce(two_materials, bbox, 65536, "interior", 1, False, flagship,
                  reps=20, particle=line_particle())
+    # the window form: the window flux model's deposits in the kernel (the
+    # trace's only placement) at every width, handed out at 2^20 x 1 (the
+    # placement chip_diagnose.py --window weighs), the 2D trench, the
+    # 18,180-disk trench, and the kFull instantiation (coned-cosine)
+    window = bounce_settings(flux_model="window")
+    windowed = geometry.with_window_list()
+    window_bounce_wide = check_bounce(
+        windowed, bbox, 1 << 20, "source", 1, True, window, reps=10)
+    check_bounce(windowed, bbox, 1 << 20, "interior", 1, False, window,
+                 reps=10)
+    check_bounce(windowed, bbox, 16384, "interior", 4, True, window, reps=50)
+    check_bounce(windowed, bbox, 512, "interior", 16, True, window, reps=100)
+    check_bounce(windowed, bbox, 1000, "interior", 16, True, window,
+                 reps=100)  # ragged R
+    check_bounce(flat, flat_bbox, 4096, "flat", 4, True,
+                 flat_ignore._replace(window=True), reps=50)
+    check_bounce(fine_geometry, fine_bbox, 16384, "interior", 4, True, window,
+                 reps=5)
+    ion_window = ion._replace(window=True)
+    check_bounce(windowed, bbox, 1 << 20, "source", 1, True, ion_window,
+                 reps=10)
+    check_bounce(windowed, bbox, 512, "interior", 16, True, ion_window,
+                 reps=100)
 
     # ---- triangles: 5,760 in 12 chunks of 512 lanes ------------------------
     verts, tris = fixtures.create_trench_mesh_3d(**FLAGSHIP)
@@ -1020,11 +1179,15 @@ def main():
                  bounce_settings(dim=2, particle=ion_particle()), reps=50)
 
     torch.cuda.reset_peak_memory_stats()
-    launches, unfused_launches = phase_disk_paths(pts, nrm)
+    launches, unfused_launches, neighbor_norm = phase_disk_paths(pts, nrm)
     tri_launches, tri_unfused_launches = phase_triangle_paths(verts, tris)
     line_launches, line_unfused_launches = phase_line_paths()
     ion_launches, ion_unfused_launches = phase_ion_paths(pts, nrm)
     gas_launches = phase_gas_path(pts, nrm)
+    window_launches, window_unfused_launches = phase_window_paths(
+        pts, nrm, neighbor_norm)
+    wdist_launches = phase_wdist_path(pts, nrm)
+    grid_launches, surface_launches = phase_source_paths(pts, nrm)
     emit({"phase": "peak_memory",
           "max_memory_allocated_bytes": torch.cuda.max_memory_allocated()})
 
@@ -1036,12 +1199,16 @@ def main():
             "source": "viennaray_tpu_torch/csrc/nearest_hit.cu",
             "replaces": "viennaray_tpu/ops/pallas_intersect.py:166",
             # the default path is fused and never reaches it: its count is
-            # the unfused paths' runs
+            # the unfused paths' runs and the wdist run's
             "launches": unfused_launches["disk_nearest_hit"]
-            + ion_unfused_launches["disk_nearest_hit"],
+            + ion_unfused_launches["disk_nearest_hit"]
+            + window_unfused_launches["disk_nearest_hit"]
+            + wdist_launches["disk_nearest_hit"],
             "launches_by_path": {
                 "disks_unfused": unfused_launches["disk_nearest_hit"],
                 "ion_unfused": ion_unfused_launches["disk_nearest_hit"],
+                "window_unfused": window_unfused_launches["disk_nearest_hit"],
+                "wdist": wdist_launches["disk_nearest_hit"],
             },
             **{k: hit_wide[k] for k in keys},
         },
@@ -1059,6 +1226,11 @@ def main():
                 "lines_unfused": line_unfused_launches["flux_histogram"],
                 "ion": ion_launches["flux_histogram"],
                 "ion_unfused": ion_unfused_launches["flux_histogram"],
+                "window": window_launches["flux_histogram"],
+                "window_unfused": window_unfused_launches["flux_histogram"],
+                "wdist": wdist_launches["flux_histogram"],
+                "grid": grid_launches["flux_histogram"],
+                "surface": surface_launches["flux_histogram"],
             },
             **{k: hist_wide[k] for k in keys},
         },
@@ -1084,21 +1256,27 @@ def main():
             "source": "viennaray_tpu_torch/csrc/bounce.cu",
             "replaces": "viennaray_tpu/ops/pallas_bounce.py:1056",
             # every instantiation: the applies of the disk, triangle, line
-            # and ion configurations and the gas run
+            # and ion configurations, the gas run, the window flagship and
+            # the grid and surface sources' runs
             "launches": launches["fused_bounce"] + tri_launches["fused_bounce"]
             + line_launches["fused_bounce"] + ion_launches["fused_bounce"]
-            + gas_launches["fused_bounce"],
+            + gas_launches["fused_bounce"] + window_launches["fused_bounce"]
+            + grid_launches["fused_bounce"] + surface_launches["fused_bounce"],
             "launches_by_path": {
                 "disks": launches["fused_bounce"],
                 "triangles": tri_launches["fused_bounce"],
                 "lines": line_launches["fused_bounce"],
                 "ion": ion_launches["fused_bounce"],
                 "gas": gas_launches["fused_bounce"],
+                "window": window_launches["fused_bounce"],
+                "grid": grid_launches["fused_bounce"],
+                "surface": surface_launches["fused_bounce"],
             },
             **{k: bounce_wide[k] for k in keys},
             "triangles": {k: tri_bounce_wide[k] for k in keys},
             "lines": {k: line_bounce_wide[k] for k in keys},
             "ion": {k: ion_bounce_wide[k] for k in keys},
+            "window": {k: window_bounce_wide[k] for k in keys},
         },
     ]})
     emit({"ok": True, "device": {

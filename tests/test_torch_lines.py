@@ -621,8 +621,20 @@ def test_trace_line_setters_and_errors():
         t.apply()
     with pytest.raises(NotImplementedError):
         vrtt.TraceLine(device="cpu", dtype=torch.float64)
-    with pytest.raises(NotImplementedError):
-        t.set_flux_model("window")
+    # the window flux model is a disk model: a line trace ignores it and
+    # traces exactly as under the neighbor model (as the reference does,
+    # kernel.py:751)
+    fluxes = {}
+    for model in ("neighbor", "window"):
+        t = vrtt.TraceLine(device="cpu")
+        t.set_geometry(mesh)
+        t.set_particle_type(vrtt.DiffuseParticle(0.5))
+        t.set_number_of_rays_per_point(50)
+        t.set_rng_seed(5)
+        t.set_flux_model(model)
+        fluxes[model] = t.apply()
+    assert fluxes["neighbor"].sum() > 0
+    assert np.array_equal(fluxes["neighbor"], fluxes["window"])
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError):
             vrtt.TraceLine()

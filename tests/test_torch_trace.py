@@ -334,11 +334,10 @@ def _apply_with_particle(**fields):
 
 
 REFUSALS = {
-    "use_wdist": lambda: _small_tracer().set_use_wdist(True),
-    "window_flux_model": lambda: _small_tracer().set_flux_model("window"),
-    "window_in_config": lambda: trace_batch(
+    # the JAX package refuses this pair too (trace/kernel.py:336-342)
+    "window_with_wdist": lambda: trace_batch(
         None, None, vrtt.DiffuseParticle(0.5), None, None, 0, None, None,
-        vrtt.TraceConfig(flux_model="window"),
+        vrtt.TraceConfig(flux_model="window", use_wdist=True),
     ),
     "custom_hooks": lambda: _small_tracer().set_custom_functions(
         collision_fn=lambda *a: None

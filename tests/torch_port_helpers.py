@@ -182,10 +182,12 @@ def port_state(arrays):
 
 
 def reference_bounce(ref_geo, walls, arrays, settings, n_sub, hand_out,
-                     geo_kind="disk", stick_lanes=None):
+                     geo_kind="disk", stick_lanes=None, flux_model="neighbor"):
     """The megakernel in interpret mode, as the JAX package's own tests run
     it on the CPU; outputs as numpy in the port's layout. ``stick_lanes``:
-    the per-lane sticking table (``per_mat``), else the settings' value."""
+    the per-lane sticking table (``per_mat``), else the settings' value;
+    ``flux_model``: the disks' deposit model ("window" deposits in the
+    kernel only)."""
     org, dirn, weight, w0, alive, hfb, n_refl, n_bdry, uniforms = arrays
     flags = np.stack(
         [alive, hfb, n_refl, n_bdry], axis=1
@@ -211,7 +213,11 @@ def reference_bounce(ref_geo, walls, arrays, settings, n_sub, hand_out,
         wthresh=settings.weight_threshold_frac,
         wrenew=settings.renew_weight_frac, roulette=True, interpret=True,
         n_sub=n_sub, xla_deposit=hand_out, rt=256, mxu_pick=False,
-        precand=True, slice_w=1 << 19, entry_aux=True, geo_kind=geo_kind,
+        # the window deposit pass reads the ordered sweep's drift, which the
+        # pre-computed candidate path does not set: that path is off for it
+        precand=flux_model != "window", slice_w=1 << 19,
+        entry_aux=flux_model != "window", geo_kind=geo_kind,
+        flux_model=flux_model,
     )
     org2, dir2, w2, flags2, stats, flux_sorted = (np.asarray(o) for o in outs[:6])
     res = dict(
@@ -284,7 +290,9 @@ class JaxKeyedRNG(streams.RayRNG):
     origin and direction keys (kernel.py:282-283, source.py:109-112), each
     split again for its two draws (source.py:58, sampling.py:44); a tilted
     source's round i folds i into the direction key (sampling.py:74) and its
-    fallback folds 987654 (source.py:106); bounce ``it`` uses
+    fallback folds 987654 (source.py:106); a grid or surface source feeds
+    the source key itself to the lobe's two draws (source.py:143, 194,
+    sampling.py:44); bounce ``it`` uses
     fold_in(batch key, it + 1) split four ways into scatter, scatter
     direction, reflection and roulette keys (kernel.py:531-532), the
     reflection key split for the sphere point's two draws (sampling.py:31).
@@ -309,9 +317,11 @@ class JaxKeyedRNG(streams.RayRNG):
 
     def _key(self, stream, bounce):
         if stream.startswith("source"):
-            k_o, k_d = jax.random.split(
-                jax.random.fold_in(self.batch_key, 0x5EED)
-            )
+            k_src = jax.random.fold_in(self.batch_key, 0x5EED)
+            if stream in (streams.SOURCE_LOBE_1, streams.SOURCE_LOBE_2):
+                pair = jax.random.split(k_src)
+                return pair[0 if stream == streams.SOURCE_LOBE_1 else 1]
+            k_o, k_d = jax.random.split(k_src)
             if stream in (streams.SOURCE_ORIGIN_1, streams.SOURCE_ORIGIN_2):
                 pair = jax.random.split(k_o)
                 return pair[0 if stream == streams.SOURCE_ORIGIN_1 else 1]
@@ -354,3 +364,229 @@ class JaxKeyedRNG(streams.RayRNG):
             key, tuple(shape), jnp.float32(cone_angle), dtype=jnp.float32
         )
         return torch.from_numpy(np.array(theta))
+
+
+# ---- one mega-batch through both packages, lane by lane ----------------------
+def lane_matched_batch(ref_particle, particle, ref_knobs, *, flux_model="neighbor",
+                       use_wdist=False, source="random", max_bounces=3000,
+                       R=4096, **port_kwargs):
+    """One mega-batch of ``R`` rays on the 777-disk trench (grid delta 0.5)
+    through both packages' ``trace_batch`` on the same tables with the same
+    uniforms (``JaxKeyedRNG``); the cloud in packed order, where the two tie
+    rules coincide. ``source``: "random" (the +z face), "grid"
+    (``create_source_grid`` on that face, 400 points) or "surface" (every
+    disk along its normal, ``surface_source_of``). Returns (port flux,
+    port counters, reference flux, reference counters)."""
+    import functools
+
+    from viennaray_tpu.config import TraceConfig as RefConfig
+    from viennaray_tpu.trace import kernel as ref_kernel
+    from viennaray_tpu_torch.config import (
+        BoundaryCondition, TraceConfig, TraceDirection, adjust_bounding_box,
+    )
+    from viennaray_tpu_torch.io import fixtures
+    from viennaray_tpu_torch.physics.source import GridSource, RandomSource
+    from viennaray_tpu_torch.trace.kernel import trace_batch
+    import viennaray_tpu_torch as vrtt
+
+    batch_index, seed = 1, 4321
+    pts, nrm, grid_delta, first_build = reference_geometry("trench_0.5")
+    order = np.asarray(first_build.soa_perm)[: len(pts)]
+    pts, nrm = pts[order], nrm[order]
+    ref_geo = vrt.DiskGeometry.build(pts, nrm, grid_delta, dim=3)
+    conds = [vrt.BoundaryCondition.PERIODIC] * 3
+    ref_geo = ref_geo.with_areas((0, 1), conds)
+    geo = port_geometry(ref_geo)
+    bbox = adjust_bounding_box(
+        np.asarray(ref_geo.bbox), TraceDirection.POS_Z, ref_geo.disk_radius, 3,
+    ).astype(np.float32)
+    common = dict(dim=3, ray_batch_size=R, rng_seed=seed,
+                  use_random_seed=False, max_bounces=max_bounces,
+                  flux_model=flux_model, use_wdist=use_wdist)
+    ref_config = RefConfig(boundary_conditions=tuple(conds), **common)
+    config = TraceConfig(
+        boundary_conditions=(BoundaryCondition.PERIODIC,) * 3, **common)
+    axes = dict(ray_dir=2, first_dir=0, second_dir=1, pos_neg=-1.0, dim=3)
+    if source == "random":
+        ref_source = vrt.RandomSource(
+            bbox=jnp.asarray(bbox), cosine_power=jnp.float32(1.0), min_max=1,
+            **axes)
+        port_source = RandomSource(bbox=torch.from_numpy(bbox),
+                                   cosine_power=1.0, min_max=1, **axes)
+    elif source == "grid":
+        grid = fixtures.create_source_grid(bbox, 400, grid_delta,
+                                           TraceDirection.POS_Z)
+        ref_source = vrt.GridSource(
+            bbox=jnp.asarray(bbox), grid=jnp.asarray(grid),
+            cosine_power=jnp.asarray(1.0), **axes)
+        port_source = GridSource(bbox=torch.from_numpy(bbox),
+                                 grid=torch.from_numpy(grid),
+                                 cosine_power=1.0, **axes)
+    else:
+        ref_source = surface_source_of(vrt, pts, nrm)
+        port_source = surface_source_of(vrtt, pts, nrm)
+    base_key = jax.random.PRNGKey(seed)
+    ray_indices = np.arange(batch_index * R, (batch_index + 1) * R)
+    valid = np.ones(R, bool)
+    ref_trace = jax.jit(functools.partial(
+        ref_kernel.trace_batch, config=ref_config, geo_type="disk",
+        knobs=ref_knobs,
+    ))
+    ref_flux, ref_cnt = ref_trace(
+        ref_geo, ref_source, ref_particle, jnp.asarray(bbox),
+        jax.random.fold_in(base_key, batch_index),
+        jnp.asarray(ray_indices, jnp.int32), jnp.asarray(valid),
+    )
+    rng = JaxKeyedRNG(base_key)
+    rng.begin_batch(batch_index)
+    flux, cnt = trace_batch(
+        geo, port_source, particle, torch.from_numpy(bbox), rng, batch_index,
+        torch.from_numpy(ray_indices), torch.from_numpy(valid), config,
+        **port_kwargs,
+    )
+    return flux.numpy(), cnt, np.asarray(ref_flux), ref_cnt
+
+
+# ---- goldens made by the JAX package on the CPU -----------------------------
+# Configurations that no scalar oracle runs: the window flux model, and the
+# surface source. The JAX package traces them on the CPU through its unfused
+# body, in batches of 65,536 rays (its window deposit holds (R, 1024) arrays),
+# on the disk flagship: create_trench_grid_3d at grid_delta 0.25 (2,993
+# disks), diffuse particle with sticking 0.1, periodic walls.
+JAX_GOLDEN_SEEDS = (101, 202)
+JAX_GOLDEN_BATCH = 1 << 16
+JAX_GOLDEN_TRENCH = dict(grid_delta=0.25, extent=5.0, trench_width=4.0,
+                         trench_depth=4.0)
+JAX_GOLDENS = {
+    # flux_model="window", random source on the +z face; the same seeds also
+    # run under "neighbor", so the record says how far the two models part
+    "window3d_trench_jax": dict(flux_model="window", source="random"),
+    # flux_model="neighbor", rays from every disk centre along its normal
+    # (offset 0.01, unit weights, source area 100)
+    "surface3d_trench_jax": dict(flux_model="neighbor", source="surface"),
+}
+
+
+def surface_source_of(module, points, normals, dim=3):
+    """The golden's surface source in either package (``module`` is
+    ``viennaray_tpu`` or ``viennaray_tpu_torch``): every point emits along
+    its normal from 0.01 above it, unit weights, source area 100."""
+    n = len(points)
+    if module.__name__ == "viennaray_tpu":
+        arr = lambda x: jnp.asarray(np.asarray(x, np.float32))  # noqa: E731
+        return module.SurfaceSource(
+            points=arr(points), normals=arr(normals), weights=arr(np.ones(n)),
+            cosine_power=jnp.asarray(1.0), offset=jnp.asarray(0.01),
+            area=jnp.asarray(100.0), dim=dim,
+        )
+    return module.SurfaceSource.build(
+        points, normals, weights=np.ones(n), cosine_power=1.0, offset=0.01,
+        area=100.0, dim=dim, device=torch.device("cpu"),
+    )
+
+
+def _jax_golden_run(args):
+    """One seed of a JAX golden (a process of its own): (normalized flux,
+    counters, seconds) for ``flux_model``."""
+    name, flux_model, seed, rays_per_point = args
+    jax.config.update("jax_platforms", "cpu")
+    import time
+
+    cfg = JAX_GOLDENS[name]
+    pts, nrm = ref_fixtures.create_trench_grid_3d(**JAX_GOLDEN_TRENCH)
+    t = vrt.TraceDisk(dim=3)
+    t.set_geometry(pts, nrm, JAX_GOLDEN_TRENCH["grid_delta"])
+    t.set_boundary_conditions([vrt.BoundaryCondition.PERIODIC] * 3)
+    t.set_particle_type(vrt.DiffuseParticle(0.1, "flux"))
+    t.set_number_of_rays_per_point(rays_per_point)
+    t.set_rng_seed(seed)
+    t.set_ray_batch_size(JAX_GOLDEN_BATCH)
+    t.set_flux_model(flux_model)
+    if cfg["source"] == "surface":
+        t.set_source(surface_source_of(vrt, pts, nrm))
+    t0 = time.perf_counter()
+    flux = t.apply()
+    seconds = time.perf_counter() - t0
+    info = t.get_ray_trace_info()
+    counters = {k: int(getattr(info, k)) for k in (
+        "num_rays", "total_rays_traced", "non_geometry_hits", "geometry_hits",
+        "boundary_hits")}
+    return np.asarray(t.normalize_flux(flux), np.float64), counters, seconds
+
+
+def make_jax_golden(name, rays_per_point, out_dir):
+    """Traces a configuration of ``JAX_GOLDENS`` with the JAX package on the
+    CPU, one process per seed and flux model, and writes
+    ``<out_dir>/<name>.npy`` (the mean of the seeds' SOURCE-normalized
+    fluxes) and ``<name>.json`` (rays, seeds, rel-L2 between the seeds, hits
+    per ray, seconds; for the window model also the rel-L2 between the
+    window and the neighbor flux of each seed)."""
+    import json
+    import multiprocessing
+    import os
+    import time
+
+    cfg = JAX_GOLDENS[name]
+    models = [cfg["flux_model"]]
+    if cfg["flux_model"] == "window":
+        models.append("neighbor")
+    jobs = [(name, m, s, rays_per_point) for m in models
+            for s in JAX_GOLDEN_SEEDS]
+    t0 = time.perf_counter()
+    with multiprocessing.get_context("spawn").Pool(len(jobs)) as pool:
+        runs = dict(zip([(m, s) for _, m, s, _ in jobs],
+                        pool.map(_jax_golden_run, jobs)))
+    wall = time.perf_counter() - t0
+
+    def rel(a, b):
+        return float(np.linalg.norm(a - b) / np.linalg.norm(b))
+
+    main = [runs[(cfg["flux_model"], s)] for s in JAX_GOLDEN_SEEDS]
+    rays = main[0][1]["num_rays"]
+    hits = [c["geometry_hits"] / c["num_rays"] for _, c, _ in main]
+    record = {
+        "mesh": {"fixture": "create_trench_grid_3d", **JAX_GOLDEN_TRENCH,
+                 "disks": int(len(main[0][0]))},
+        "physics": {"particle": "diffuse", "sticking": 0.1,
+                    "boundary": "periodic", "flux_model": cfg["flux_model"],
+                    "source": ("+z face, cosine lobe" if cfg["source"] == "random"
+                               else "surface: every disk centre along its "
+                                    "normal, offset 0.01, unit weights, "
+                                    "area 100, cosine lobe")},
+        "maker": "JAX package on the CPU, unfused body "
+                 "(tests/torch_port_helpers.py:make_jax_golden)",
+        "ray_batch": JAX_GOLDEN_BATCH,
+        "normalization": "SOURCE: flux * source_area / (rays * area)",
+        "rays_per_point": rays_per_point, "rays_per_seed": rays,
+        "seeds": list(JAX_GOLDEN_SEEDS),
+        "rel_l2_between_seeds": rel(main[1][0], main[0][0]),
+        "geometry_hits_per_ray": float(np.mean(hits)),
+        "geometry_hits_per_ray_by_seed": hits,
+        "counters": [c for _, c, _ in main],
+        "seconds_by_seed": [s for _, _, s in main],
+        "wall_seconds": wall,
+    }
+    if cfg["flux_model"] == "window":
+        record["rel_l2_window_vs_neighbor_by_seed"] = [
+            rel(runs[("window", s)][0], runs[("neighbor", s)][0])
+            for s in JAX_GOLDEN_SEEDS
+        ]
+        record["neighbor_geometry_hits_per_ray_by_seed"] = [
+            runs[("neighbor", s)][1]["geometry_hits"] / rays
+            for s in JAX_GOLDEN_SEEDS
+        ]
+    os.makedirs(out_dir, exist_ok=True)
+    np.save(os.path.join(out_dir, name + ".npy"),
+            np.mean([f for f, _, _ in main], axis=0))
+    with open(os.path.join(out_dir, name + ".json"), "w") as f:
+        json.dump(record, f, indent=1)
+        f.write("\n")
+    return record
+
+
+if __name__ == "__main__":
+    # python3 tests/torch_port_helpers.py NAME RAYS_PER_POINT [OUT_DIR]
+    import sys
+
+    out = sys.argv[3] if len(sys.argv) > 3 else "viennaray_tpu_torch/io/golden"
+    print(make_jax_golden(sys.argv[1], int(sys.argv[2]), out))

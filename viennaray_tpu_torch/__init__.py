@@ -6,10 +6,11 @@ code is PyTorch; the kernels (``csrc/``) are CUDA C++ for ``sm_90a``, built at
 first use. The port goes slice by slice: this package holds the disk path
 through ``TraceDisk``, the triangle path through ``TraceTriangle`` (3D
 meshes, and 2D line meshes extruded to triangles) and the native 2D
-line-segment path through ``TraceLine``: random source, diffuse, specular and
-coned-cosine reflection, one sticking value or one per material, gas
-scattering, all three wall conditions, the neighbor flux model of disks and
-the single-hit deposit of triangles and lines, normalization and smoothing.
+line-segment path through ``TraceLine``: random, grid and surface sources,
+diffuse, specular and coned-cosine reflection, one sticking value or one per
+material, gas scattering, all three wall conditions, the neighbor flux model
+of disks (with optional 1/distance weights) and their window flux model, the
+single-hit deposit of triangles and lines, normalization and smoothing.
 Every setting outside the ported slices raises ``NotImplementedError``.
 
 The package imports ``torch`` and ``numpy`` only.
@@ -34,7 +35,7 @@ from .physics.particle import (
     Particle,
     SpecularParticle,
 )
-from .physics.source import RandomSource
+from .physics.source import GridSource, RandomSource, SurfaceSource
 from .rng import GeneratorRNG, RayRNG
 from .trace.tracer import TraceDisk, TraceLine, TraceTriangle
 
@@ -61,7 +62,9 @@ __all__ = [
     "ConedCosineParticle",
     "DiffuseParticle",
     "SpecularParticle",
+    "GridSource",
     "RandomSource",
+    "SurfaceSource",
     "RayRNG",
     "GeneratorRNG",
     "TraceDisk",

@@ -43,10 +43,10 @@ _SIGNATURES = {
     # k_nbrs n_sub kind dim first_dir second_dir ray_axis bc1 bc2 refl_kind
     # max_refl max_bdry roulette deposit | t_near sticking wthresh wrenew
     # mean_free_path | org dir weight alive hfb n_refl n_bdry out | flux
-    # hit_prim wdep scratch stream
+    # hit_prim wdep t_hit scratch stream
     "vr_fused_bounce": (
         [_ptr] * 16 + [ctypes.c_int] * 18 + [ctypes.c_float] * 5
-        + [_ptr] * 7 + [_ptr] * 5
+        + [_ptr] * 7 + [_ptr] * 6
     ),
 }
 

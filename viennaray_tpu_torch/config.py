@@ -88,12 +88,14 @@ class TraceConfig:
       renew_weight_frac: roulette renewal weight fraction
         (ref: rayTraceKernel.hpp:439 -> 0.3).
       t_near: ray epsilon offset (ref: rayUtil.hpp:230 -> 1e-4).
-      use_wdist: 1/distance multi-hit weighting (not ported yet; the trace
-        refuses it).
+      use_wdist: 1/distance multi-hit weighting (ref: rayTraceKernel.hpp:
+        258-296); the trace runs its unfused body with it.
       roulette: Russian roulette on/off.
       flux_model: disk multi-hit flux model. "neighbor" = the CPU reference
         contract (hit prim + neighbor-list re-test, rayTraceKernel.hpp:
-        255-300); "window" is not ported yet and the trace refuses it.
+        255-300); "window" = the GPU candidate-window contract
+        (GeneralPipelineDisk.cu:51-59): every disk the ray crosses within
+        tau = 1.1 grid_delta past the primary hit. Disks only.
     """
 
     dim: int = 3

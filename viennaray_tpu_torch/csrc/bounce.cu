@@ -3,23 +3,25 @@
 // Replaces the TPU kernel viennaray_tpu/ops/pallas_bounce.py:_bounce_kernel
 // with its _one_bounce (launched by fused_bounce / _fused_bounce), for disks
 // (its _disk_chunk branch), triangles (_tri_chunk) and 2D line segments
-// (_line_chunk), under the neighbor flux model; the kernel is a template on
-// the primitive kind. Per ray and sub-bounce: search bound, closest hit below
-// it, event (geometry wins ties over the walls, wall 1 over wall 2), gas
-// scattering, wall handling (reflective / periodic / ignore, the
-// boundary-hit cap), backface pass or kill, the deposit of the pre-sticking
-// weight, diffuse, specular or coned-cosine reflection, sticking (one value
-// or the hit lane's), the reflection cap, roulette, the state update. The
-// window flux model's deposit pass of the TPU kernel is not in it.
+// (_line_chunk), under the neighbor flux model and, for disks, the window
+// flux model (its deposit pass, pallas_bounce.py:868-892); the kernel is a
+// template on the primitive kind. Per ray and sub-bounce: search bound,
+// closest hit below it, event (geometry wins ties over the walls, wall 1
+// over wall 2), gas scattering, wall handling (reflective / periodic /
+// ignore, the boundary-hit cap), backface pass or kill, the deposit of the
+// pre-sticking weight, diffuse, specular or coned-cosine reflection, sticking
+// (one value or the hit lane's), the reflection cap, roulette, the state
+// update.
 //
-// What differs by kind, all of it compile-time (DiskKind in disk_hit.cuh,
-// TriKind in tri_hit.cuh, LineKind in line_hit.cuh): the hit test and the
-// staged tile's width; where the hit normal sits in the SoA (a triangle's is
-// its STORED normal, rows 9-11; a line's has two rows and z = 0); the
-// backface rule (a disk's first hit from behind passes through and the
-// second kills, a triangle's or a line's always kills, so hfb is dead state
-// for them); the deposit (a disk's neighbor list, else the single closest
-// hit: one atomic on the hit primitive's bin).
+// What differs by kind, all of it compile-time (DiskKind and DiskWindowKind
+// in disk_hit.cuh, TriKind in tri_hit.cuh, LineKind in line_hit.cuh): the hit
+// test and the staged tile's width; where the hit normal sits in the SoA (a
+// triangle's is its STORED normal, rows 9-11; a line's has two rows and
+// z = 0); the backface rule (a disk's first hit from behind passes through
+// and the second kills, a triangle's or a line's always kills, so hfb is dead
+// state for them); the deposit (a disk's neighbor list, a disk's window list
+// under the window model, else the single closest hit: one atomic on the hit
+// primitive's bin).
 //
 // The second template parameter, kFull, compiles the coned-cosine reflection
 // and the gas scattering in. A launch without either (the diffuse and
@@ -70,14 +72,20 @@
 // sweeps the chunks a second time with a 2r ball around the hit centre,
 // because it has no gather; the neighbor list is by construction that ball,
 // a thread here can gather, and K records are far fewer than a chunk sweep.
+// The window model (DiskWindowKind) gathers the same way: the hit disk's
+// window list (neighbors / neighbor_pack then hold its ids and its records in
+// the SoA's layout, k_nbrs = W) holds every disk that can lie within tau past
+// the primary hit, the hit disk first; each passes when disk_hit finds it at
+// t <= t_hit + tau. The TPU kernel sweeps the chunks a second time instead.
 // Blocks run in no order, so the bins are the 64-bit fixed-point integers of
 // csrc/fixed_point.cuh: integer atomics are associative, two launches on one
 // input give the same bits. The scale follows from the largest w0 (a weight
 // never exceeds its ray's w0: sticking lowers it, roulette renews it to a
 // fraction of w0) and the entry count R * n_sub * (K + 1), which still bounds
 // the entries: a ray deposits at most once per sub-bounce, and a scattering
-// ray deposits nothing. A triangle or a line has no neighbor list (K = 0):
-// the hit primitive's bin takes the one atomic.
+// ray deposits nothing; under the window model R * n_sub * W (a list of W
+// slots, the hit disk's among them). A triangle or a line has no neighbor
+// list (K = 0): the hit primitive's bin takes the one atomic.
 //
 // Numbers: round-to-nearest intrinsics in the plain version's operation
 // order (ops/bounce.py:bounce_step), IEEE division and square root, no fused
@@ -109,6 +117,7 @@ constexpr int kPeriodic = 1;
 constexpr int kDisks = 0;
 constexpr int kTriangles = 1;
 constexpr int kLines = 2;
+constexpr int kDiskWindow = 3;
 // reflection models, as config.ReflectionKind
 constexpr int kDiffuse = 0;
 constexpr int kSpecular = 1;
@@ -130,7 +139,7 @@ struct BounceArgs {
   const float* chunk_bbs;
   const int* perm;
   const int* neighbors;
-  const float* neighbor_pack;
+  const float* neighbor_pack;  // or the window list's records
   const float* walls;
   const float* stick_lanes;  // per sorted lane, or null: `sticking`
   int n_rays, npad, pt, n_prims, k_nbrs, n_sub;
@@ -145,9 +154,10 @@ struct BounceArgs {
   unsigned char* hfb_out;
   int* n_refl_out;
   int* n_bdry_out;
-  // deposits handed out
+  // deposits handed out (the window form also hands out the hit time)
   int* hit_prim_out;
   float* wdep_out;
+  float* thit_out;
   // deposits in the kernel, and the counts
   unsigned long long* bins;
   const unsigned int* wmax_bits;
@@ -293,6 +303,7 @@ bounce_kernel(const BounceArgs a) {
   int c_collide = 0, c_wall = 0, c_exit = 0, c_traces = 0, c_scatter = 0;
   int hit_prim = -1;
   float wdep = 0.0f;
+  float thit = 0.0f;
 
   for (int k = 0; k < a.n_sub; ++k) {
     if (!__syncthreads_or(alive)) break;  // uniform across the block
@@ -399,7 +410,27 @@ bounce_kernel(const BounceArgs a) {
         if (a.deposit) {
           if (weight != 0.0f) {
             const unsigned long long q = to_fixed(weight, scale);
-            atomicAdd(&a.bins[prim], q);
+            if constexpr (Kind::kWindowDeposit) {
+              // every disk of the window list (the hit disk first) that the
+              // ray crosses with t_near < t <= t_geo + tau
+              const float tlim = __fadd_rn(t_geo, a.walls[6]);
+              const float4* rec = reinterpret_cast<const float4*>(
+                  a.neighbor_pack + (size_t)prim * a.k_nbrs * 8);
+              const int* ids = a.neighbors + (size_t)prim * a.k_nbrs;
+              for (int j = 0; j < a.k_nbrs; ++j) {
+                const float4 p0 = rec[2 * j], p1 = rec[2 * j + 1];
+                const DiskPrim p{p0.x, p0.y, p0.z, p0.w,
+                                 p1.x, p1.y, p1.z, p1.w};
+                float t;
+                if (disk_hit(ox, oy, oz, dx, dy, dz, p, a.t_near, t) &&
+                    t <= tlim) {
+                  const int id = min(max(ids[j], 0), a.n_prims - 1);
+                  atomicAdd(&a.bins[id], q);
+                }
+              }
+            } else {
+              atomicAdd(&a.bins[prim], q);
+            }
             if constexpr (Kind::kNeighborDeposit) {
               const float4* rec = reinterpret_cast<const float4*>(
                   a.neighbor_pack + (size_t)prim * a.k_nbrs * 8);
@@ -416,6 +447,7 @@ bounce_kernel(const BounceArgs a) {
         } else {
           hit_prim = prim;
           wdep = weight;
+          if constexpr (Kind::kWindowDeposit) thit = t_geo;
         }
 
         // ---- reflection ------------------------------------------------
@@ -570,6 +602,7 @@ bounce_kernel(const BounceArgs a) {
     if (!a.deposit) {
       a.hit_prim_out[r] = hit_prim;
       a.wdep_out[r] = wdep;
+      if constexpr (Kind::kWindowDeposit) a.thit_out[r] = thit;
     }
   }
   count_add(&a.counts[0], c_collide);
@@ -594,18 +627,21 @@ void launch_bounce(bool full, int grid, cudaStream_t s, const BounceArgs& a) {
 // State in: org, dir (n_rays, 3) float32; weight, w0 (n_rays,) float32;
 // alive, hfb (n_rays,) bytes 0/1; n_refl, n_bdry (n_rays,) int32; uniforms
 // (n_rays, n_uni n_sub) float32, n_uni = 6 with mfp > 0 and else 3. kind:
-// 0 = disks, 1 = triangles, 2 = lines. Geometry: prims (8, npad) for disks,
-// (12, npad) for triangles or (6, npad) for lines, chunk_bbs (npad / pt, 8),
-// perm (npad,) sorted lane -> original id, walls (9,); disks only: neighbors
-// (n_prims, k_nbrs) int32, neighbor_pack (n_prims, k_nbrs * 8); triangles and
-// lines pass k_nbrs = 0 and null for both. stick_lanes: (npad,) sticking per
+// 0 = disks, 1 = triangles, 2 = lines, 3 = disks under the window flux
+// model. Geometry: prims (8, npad) for disks, (12, npad) for triangles or
+// (6, npad) for lines, chunk_bbs (npad / pt, 8), perm (npad,) sorted lane ->
+// original id, walls (9,); disks only: neighbors (n_prims, k_nbrs) int32,
+// neighbor_pack (n_prims, k_nbrs * 8), under the window model the window
+// list's ids and records [centre(3) normal(3) r2 n.c] (k_nbrs = W, the hit
+// disk in every list); triangles and lines pass k_nbrs = 0 and null for both. stick_lanes: (npad,) sticking per
 // sorted lane, or null for the one value `sticking`. refl_kind: 0 = diffuse,
 // 1 = specular, 2 = coned-cosine (uniform column 0 then carries theta). mfp:
 // the mean free path of gas scattering, 0 for none.
 // State out: fresh arrays of the same shapes (w0 does not change). With
 // deposit != 0 the flux (n_prims,) float32 in original numbering goes to
 // flux_out; else n_sub must be 1 and each ray's (hit primitive or -1, deposit
-// weight) goes to hit_prim_out / wdep_out. scratch: n_prims + 7 64-bit words,
+// weight) goes to hit_prim_out / wdep_out, and under the window model its
+// hit time to thit_out (else null). scratch: n_prims + 7 64-bit words,
 // which this call clears itself: the bins, the largest w0, and the six
 // counts (collide, wall, exit, traces, scatter, survivors) that the caller
 // reads at
@@ -624,14 +660,18 @@ extern "C" int vr_fused_bounce(
     float mfp, float* org_out,
     float* dir_out, float* weight_out, unsigned char* alive_out,
     unsigned char* hfb_out, int* n_refl_out, int* n_bdry_out, float* flux_out,
-    int* hit_prim_out, float* wdep_out, unsigned long long* scratch,
-    void* stream) {
+    int* hit_prim_out, float* wdep_out, float* thit_out,
+    unsigned long long* scratch, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (!deposit && n_sub != 1) return static_cast<int>(cudaErrorInvalidValue);
-  if (kind != kDisks && kind != kTriangles && kind != kLines) {
+  if (kind != kDisks && kind != kTriangles && kind != kLines &&
+      kind != kDiskWindow) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  if (kind != kDisks && k_nbrs != 0) {
+  if (kind != kDisks && kind != kDiskWindow && k_nbrs != 0) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  if (kind == kDiskWindow && (k_nbrs < 1 || (!deposit && !thit_out))) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   if (refl_kind != kDiffuse && refl_kind != kSpecular &&
@@ -642,7 +682,10 @@ extern "C" int vr_fused_bounce(
       scratch, 0, sizeof(unsigned long long) * ((size_t)n_prims + 7), s);
   if (err != cudaSuccess) return static_cast<int>(err);
   unsigned int* wmax_bits = reinterpret_cast<unsigned int*>(scratch + n_prims);
-  const long long n_entries = (long long)n_rays * n_sub * (k_nbrs + 1);
+  // deposits per ray and sub-bounce at most: the hit primitive and its K
+  // neighbors, or the W slots of a window list
+  const long long n_entries =
+      (long long)n_rays * n_sub * (kind == kDiskWindow ? k_nbrs : k_nbrs + 1);
 
   if (n_rays > 0) {
     const int grid = (n_rays + kSearchBlock - 1) / kSearchBlock;
@@ -669,6 +712,7 @@ extern "C" int vr_fused_bounce(
     a.alive_out = alive_out; a.hfb_out = hfb_out; a.n_refl_out = n_refl_out;
     a.n_bdry_out = n_bdry_out;
     a.hit_prim_out = hit_prim_out; a.wdep_out = wdep_out;
+    a.thit_out = thit_out;
     a.bins = scratch; a.wmax_bits = wmax_bits; a.n_entries = n_entries;
     a.counts = scratch + n_prims + 1;
     // the coned-cosine reflection and the scattering live in the kFull
@@ -676,6 +720,8 @@ extern "C" int vr_fused_bounce(
     const bool full = refl_kind == kConedCosine || mfp > 0.0f;
     if (kind == kDisks) {
       launch_bounce<DiskKind>(full, grid, s, a);
+    } else if (kind == kDiskWindow) {
+      launch_bounce<DiskWindowKind>(full, grid, s, a);
     } else if (kind == kTriangles) {
       launch_bounce<TriKind>(full, grid, s, a);
     } else {

@@ -48,6 +48,7 @@ struct DiskKind {
   static constexpr int kNormalRow = 3;
   static constexpr bool kBackfacePasses = true;
   static constexpr bool kNeighborDeposit = true;
+  static constexpr bool kWindowDeposit = false;
 
   static __device__ __forceinline__ void stage(float4* s,
                                                const float* __restrict__ prims,
@@ -76,4 +77,14 @@ struct DiskKind {
     const DiskPrim p{a.x, a.y, a.z, a.w, b.x, b.y, b.z, b.w};
     return disk_hit(ox, oy, oz, dx, dy, dz, p, t_near, t_out);
   }
+};
+
+// Disks under the window flux model (the GPU candidate-window contract): the
+// same search, hit test and backface rule; a colliding ray deposits on every
+// disk of the hit disk's window list (the hit disk itself included) that it
+// crosses with t_near < t <= t_hit + tau, with no facing test. The list's
+// records are SoA columns, so disk_hit re-tests them with the search's bits.
+struct DiskWindowKind : DiskKind {
+  static constexpr bool kNeighborDeposit = false;
+  static constexpr bool kWindowDeposit = true;
 };

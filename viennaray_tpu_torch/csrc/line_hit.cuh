@@ -50,6 +50,7 @@ struct LineKind {
   static constexpr int kVec = 1;
   static constexpr bool kBackfacePasses = false;
   static constexpr bool kNeighborDeposit = false;
+  static constexpr bool kWindowDeposit = false;
 
   static __device__ __forceinline__ void stage(float4* s,
                                                const float* __restrict__ prims,

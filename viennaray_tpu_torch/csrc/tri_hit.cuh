@@ -43,6 +43,7 @@ struct TriKind {
   static constexpr int kNormalRow = 9;
   static constexpr bool kBackfacePasses = false;
   static constexpr bool kNeighborDeposit = false;
+  static constexpr bool kWindowDeposit = false;
 
   static __device__ __forceinline__ void stage(float4* s,
                                                const float* __restrict__ prims,

@@ -47,6 +47,10 @@ class DiskGeometry:
       sorted position.
     neighbor_pack: (N, K*8) per-prim neighbor records
       [center(3) normal(3) radius valid]*K: one contiguous gather per hit.
+    window_ids, window_pack: the window list of the window flux model, or
+      ``None`` until ``with_window_list`` builds it: (N, W) int32 padded -1,
+      and (N, W*8) records in the SoA's layout [center(3) normal(3) r2 n.c]
+      (a padding record is all zeros: its zero normal never passes).
     """
 
     kind: ClassVar[str] = "disk"  # the primitive kind the kernels search
@@ -66,6 +70,8 @@ class DiskGeometry:
     dim: int = 3
     grid_delta: float = 0.0
     disk_radius: float = 0.0
+    window_ids: Optional[torch.Tensor] = None
+    window_pack: Optional[torch.Tensor] = None
 
     @property
     def num_primitives(self) -> int:
@@ -190,6 +196,42 @@ class DiskGeometry:
             disk_radius=radius, radii=mesh.radii, device=device,
         )
 
+    @property
+    def window_tau(self) -> float:
+        """The window flux model's width past the primary hit: 1.1 grid
+        deltas (ref: gpu/raygTrace.hpp:116)."""
+        return 1.1 * self.grid_delta
+
+    def with_window_list(self) -> "DiskGeometry":
+        """The geometry with its window list (itself when it has one).
+
+        Under the window flux model a colliding ray deposits on every disk j
+        it crosses with t_near < t_j <= t_hit + tau. The primary hit is the
+        closest valid crossing, so t_j >= t_hit: the crossing point of j lies
+        within r_j of c_j and within tau |d| of the primary hit point, which
+        lies within r_i of the hit disk's centre c_i. Every such j has
+        |c_j - c_i| < tau + 2 r_max, and the window list of disk i holds
+        every disk within that distance, widened by a relative 1e-4 against
+        rounding, the hit disk itself first. Its records are the SoA's
+        columns bit for bit, so that a kernel re-testing them computes what
+        its search computed. Built on the host once (numpy)."""
+        if self.window_pack is not None:
+            return self
+        ids, pack = window_tables(
+            self.points.cpu().numpy(), self.prims_soa.cpu().numpy(),
+            self.soa_inv_perm.cpu().numpy(), self.window_radius(), self.dim,
+        )
+        return self.replace(
+            window_ids=torch.from_numpy(ids).to(self.device),
+            window_pack=torch.from_numpy(pack).to(self.device),
+        )
+
+    def window_radius(self) -> float:
+        """The distance between centres within which a disk can take a
+        window deposit from a hit on another: (tau + 2 r_max)(1 + 1e-4)."""
+        r_max = max(self.disk_radius, float(self.radii.max()))
+        return (self.window_tau + 2.0 * r_max) * (1.0 + 1e-4)
+
     def with_areas(self, boundary_dirs, boundary_conds) -> "DiskGeometry":
         """Compute boundary-clipped disk areas against the geometry's own
         bounding box (ref: rayGeometryDisk.hpp:computeDiskAreas uses
@@ -210,3 +252,15 @@ class DiskGeometry:
         return self.replace(
             areas=torch.from_numpy(np.asarray(areas, np.float32)).to(self.device)
         )
+
+
+def window_tables(points, prims_soa, inv_perm, radius, dim):
+    """The window list of every disk: (ids (N, W) int32, padded -1, the disk
+    itself in slot 0; records (N, W*8) float32, each the disk's SoA column
+    [cx cy cz nx ny nz r2 n.c], zeros for padding). W is the longest list."""
+    n = len(points)
+    nbrs, _ = neighborhood.build_neighborhood(points, radius, dim=dim)
+    ids = np.concatenate([np.arange(n, dtype=np.int32)[:, None], nbrs], axis=1)
+    columns = np.asarray(prims_soa, np.float32).T[np.asarray(inv_perm)]
+    pack = np.where((ids >= 0)[:, :, None], columns[np.clip(ids, 0, None)], 0.0)
+    return ids, pack.astype(np.float32).reshape(n, -1)

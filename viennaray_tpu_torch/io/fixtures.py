@@ -3,13 +3,15 @@
 Counterpart of ``viennaray_tpu/io/fixtures.py`` (kept as a copy): the plane,
 2D-trench and 3D-trench point clouds and the 3D-trench triangle mesh; and the
 2D trench as a chain of line segments (``create_trench_line_mesh``), which the
-JAX package reads from a mesh file instead. The source grid waits for the
-slice that ports its consumer.
+JAX package reads from a mesh file instead; and the source grid of
+``GridSource`` (``create_source_grid``).
 """
 
 from __future__ import annotations
 
 import numpy as np
+
+from ..config import get_trace_settings
 
 
 def create_plane_grid(grid_delta: float, extent: float, direction=(0, 1, 2)):
@@ -176,3 +178,36 @@ def create_trench_mesh_3d(grid_delta=0.5, extent=5.0, trench_width=4.0,
           n_w, ny)
     return (np.asarray(verts, np.float32),
             np.asarray(tris, np.int32))
+
+
+def create_source_grid(bbox, num_points: int, grid_delta: float, source_dir,
+                       dim: int = 3):
+    """Regular grid of source points on the source plane
+    (ref: rayUtil.hpp:564-611 ``createSourceGrid``)."""
+    ray_dir, first_dir, second_dir, min_max, _ = get_trace_settings(source_dir)
+    bbox = np.asarray(bbox, np.float64)
+    eps = 1e-4
+
+    len1 = bbox[1][first_dir] - bbox[0][first_dir]
+    len2 = bbox[1][second_dir] - bbox[0][second_dir]
+    n1 = max(int(round(len1 / grid_delta)), 1)
+    n2 = max(int(round(len2 / grid_delta)), 1)
+    ratio = max(n1 // max(n2, 1), 1)
+    n1 = int(np.sqrt(num_points * ratio))
+    n2 = int(np.sqrt(num_points / ratio))
+    d1 = (len1 - 2 * eps) / max(n1 - 1, 1)
+    d2 = (len2 - 2 * eps) / max(n2 - 1, 1)
+
+    grid = []
+    uu = bbox[0][second_dir] + eps
+    while uu <= bbox[1][second_dir] - eps:
+        vv = bbox[0][first_dir] + eps
+        while vv <= bbox[1][first_dir] - eps:
+            p = np.zeros(3)
+            p[ray_dir] = bbox[min_max][ray_dir]
+            p[second_dir] = 0.0 if dim == 2 else uu
+            p[first_dir] = vv
+            grid.append(p)
+            vv += d1
+        uu += d2
+    return np.array(grid, np.float32).reshape(-1, 3)

@@ -22,7 +22,10 @@ it. The configurations (``--name``):
   (2,993 disks), coned-cosine particle with sticking 0.5, cone angle pi/6 and
   source power 100, periodic walls;
 - ``gas3d_trench_oracle``: the same disks, diffuse particle with sticking
-  0.1 and a mean free path of one trench depth (4.0), periodic walls.
+  0.1 and a mean free path of one trench depth (4.0), periodic walls;
+- ``wdist3d_trench_oracle``: the same disks, diffuse particle with sticking
+  0.1, periodic walls, the neighbor deposits weighted by 1/distance
+  (``use_wdist``).
 
     python3 viennaray_tpu_torch/io/make_oracle_goldens.py --name NAME [--rays N]
 
@@ -80,6 +83,12 @@ CONFIGS = {
                  "mean_free_path": 4.0, "boundary": "periodic",
                  "source": "+z face, cosine lobe"},
         oracle=dict(sticking=0.1, reflection="diffuse", mean_free_path=4.0),
+    ),
+    "wdist3d_trench_oracle": dict(
+        kind="disk", grid_delta=0.25, rays=3_000_000,
+        physics={"particle": "diffuse", "sticking": 0.1, "use_wdist": True,
+                 "boundary": "periodic", "source": "+z face, cosine lobe"},
+        oracle=dict(sticking=0.1, reflection="diffuse", use_wdist=True),
     ),
 }
 

@@ -1,7 +1,8 @@
 """Whole bounces of a ray batch: plain version and CUDA wrapper.
 
 Counterpart of ``viennaray_tpu/ops/pallas_bounce.py`` for disks, triangles and
-2D line segments (the geometry's ``kind``), under the neighbor flux model.
+2D line segments (the geometry's ``kind``), under the neighbor flux model and,
+for disks, the window flux model.
 
 - ``bounce_step`` is one bounce of every ray on tensors: search bound,
   closest hit, event (geometry / wall / escape), gas scattering, wall
@@ -21,8 +22,13 @@ the launch returns the flux of all its sub-bounces, in original numbering.
 For disks both follow the neighbor-list contract (rayTraceKernel.hpp:255-300):
 the hit disk takes the pre-sticking weight, and so does every disk of its
 neighbor list that passes ``intersect.check_local_intersection`` against the
-ray as it was before that bounce. For triangles and lines the single closest
-hit takes it (rayTraceKernel.hpp:301-307).
+ray as it was before that bounce. Under the window flux model
+(``BounceSettings.window``, the GPU candidate-window contract,
+GeneralPipelineDisk.cu:51-59) every disk that ray crosses with
+t_near < t <= t_hit + tau takes it, with no facing test: the hit disk's window
+list (``DiskGeometry.with_window_list``) holds them all, and the search's own
+hit test (``intersect.disk_hit_packed``) re-tests its records. For triangles
+and lines the single closest hit takes it (rayTraceKernel.hpp:301-307).
 
 What else differs for triangles and lines (rayTraceKernel.hpp:243-248): a hit
 from behind always kills (no pass-through, ``hfb`` is never set), and the hit
@@ -72,6 +78,8 @@ _KINDS = {
     "triangle": (1, TRI_ROWS, triangle_nearest_hit_ref),
     "line": (2, LINE_ROWS, line_nearest_hit_ref),
 }
+# the kernel's `kind` argument of disks under the window flux model
+WINDOW_KIND = 3
 
 # order of the counts a launch returns (int64): the five events summed over
 # lanes and sub-bounces, then the lanes still alive after the launch
@@ -111,10 +119,14 @@ class BounceSettings(NamedTuple):
     weight_threshold_frac: float
     renew_weight_frac: float
     # the coned-cosine lobe's maximal angle, clipped to [1e-6, pi/2 - 1e-6]
-    # (ref: kernel.py:1002-1004); read only where theta is sampled
+    # (ref: kernel.py:1002-1004); read only where theta is sampled. The
+    # unfused body's settings take the specular or diffuse model at the
+    # limits instead (``from_config``)
     cone_angle: float = 1e-6
     # gas scattering's mean free path; <= 0: no scattering
     mean_free_path: float = -1.0
+    # the window flux model (disks only; triangles and lines ignore it)
+    window: bool = False
 
     @property
     def n_uni(self) -> int:
@@ -124,10 +136,20 @@ class BounceSettings(NamedTuple):
         return 6 if self.mean_free_path > 0.0 else 3
 
     @classmethod
-    def from_config(cls, config, particle) -> "BounceSettings":
+    def from_config(cls, config, particle, fused=True) -> "BounceSettings":
+        """The settings of a trace's bounces. ``fused=False``: the unfused
+        body's, where a coned-cosine particle at a cone angle <= 0 or >=
+        pi/2 reflects with the specular or the diffuse model
+        (``reflection.cone_limit_kind``); the fused kernel clips the angle
+        instead, as the reference's kernel does."""
         ray_axis, first_dir, second_dir, _, _ = get_trace_settings(
             config.source_direction
         )
+        refl_kind = ReflectionKind(particle.reflection_kind)
+        if not fused and refl_kind == ReflectionKind.CONED_COSINE:
+            limit = reflection.cone_limit_kind(particle.cone_angle)
+            if limit is not None:
+                refl_kind = limit
         bc2 = (
             config.boundary_conditions[second_dir]
             if config.dim == 3
@@ -138,7 +160,7 @@ class BounceSettings(NamedTuple):
             ray_axis=ray_axis,
             bc1=int(BoundaryCondition(config.boundary_conditions[first_dir])),
             bc2=int(BoundaryCondition(bc2)),
-            refl_kind=int(ReflectionKind(particle.reflection_kind)),
+            refl_kind=int(refl_kind),
             sticking=float(particle.sticking), t_near=float(config.t_near),
             # the counters are int32
             max_reflections=min(int(config.max_reflections), 2**31 - 1),
@@ -149,7 +171,15 @@ class BounceSettings(NamedTuple):
             cone_angle=min(max(float(particle.cone_angle), 1e-6),
                            math.pi / 2 - 1e-6),
             mean_free_path=float(particle.mean_free_path),
+            window=config.flux_model == "window",
         )
+
+    def deposit_kind(self, geometry) -> str:
+        """How a colliding ray deposits: "window" (disks under the window
+        flux model), else the geometry's kind."""
+        if geometry.kind == "disk" and self.window:
+            return "window"
+        return geometry.kind
 
 
 class BounceResult(NamedTuple):
@@ -158,6 +188,9 @@ class BounceResult(NamedTuple):
     flux: Optional[torch.Tensor]  # (n_prims,) float32, deposits in the kernel
     hit_prim: Optional[torch.Tensor]  # (R,) int32, -1 where no deposit
     wdep: Optional[torch.Tensor]  # (R,) float32
+    # (R,) float32, the primary hit's t where a deposit is (0 elsewhere);
+    # handed out by the window form only
+    t_hit: Optional[torch.Tensor] = None
 
 
 def make_walls(bbox, geometry, settings: BounceSettings):
@@ -273,8 +306,9 @@ def bounce_step(state: RayState, u, geometry, walls, settings, search,
     (``disk_nearest_hit``, ``triangle_nearest_hit``, ``line_nearest_hit`` or
     a plain version). ``stick_lanes``: ``sticking_lanes``. Returns (new
     state, hit_prim (R,) int32: the primitive that takes a deposit or -1,
-    wdep (R,) float32: the pre-sticking weight it takes, counts (5,) int64:
-    collide, wall, exit, traces, scatter). Dead lanes pass through unchanged.
+    wdep (R,) float32: the pre-sticking weight it takes, t_hit (R,) float32:
+    its hit time (0 where no deposit), counts (5,) int64: collide, wall,
+    exit, traces, scatter). Dead lanes pass through unchanged.
     """
     s = settings
     org, dirn, weight, w0, alive, hfb, n_refl, n_bdry = state
@@ -381,6 +415,7 @@ def bounce_step(state: RayState, u, geometry, walls, settings, search,
     # the deposit: the weight before sticking, where the ray collides
     hit_prim = torch.where(collide, prim, torch.full_like(prim, -1))
     wdep = torch.where(collide, weight, torch.zeros_like(weight))
+    t_hit = torch.where(collide, t_geo, torch.zeros_like(t_geo))
 
     # ---- 6. reflection + sticking (ref: rayTraceKernel.hpp:309-335) ------
     if s.refl_kind == ReflectionKind.DIFFUSE:
@@ -445,16 +480,28 @@ def bounce_step(state: RayState, u, geometry, walls, settings, search,
         new_org, new_dir, weight_out, w0, alive_out, hfb_out, n_refl_new,
         n_bdry_new,
     )
-    return new_state, hit_prim, wdep, counts
+    return new_state, hit_prim, wdep, t_hit, counts
 
 
-def deposit_entries(org, dirn, hit_prim, wdep, geometry):
+def deposit_entries(org, dirn, hit_prim, wdep, geometry, t_hit=None,
+                    settings=None, use_wdist=False):
     """The histogram entries of one bounce's deposits: (ids, w).
 
-    Disks: both (R * (K + 1),), for the hit disk and its K neighbor slots.
-    org, dirn: the rays as they were BEFORE the bounce. Per ray the hit disk
-    takes ``wdep``, and so does every disk of its neighbor list that passes
-    the local re-test; every other slot carries weight 0.
+    org, dirn: the rays as they were BEFORE the bounce; t_hit: the primary
+    hit's t (``bounce_step``), read by the window model and by ``use_wdist``;
+    settings: the bounce's ``BounceSettings``, read by the window model.
+
+    Disks, neighbor model: both (R * (K + 1),), for the hit disk and its K
+    neighbor slots. Per ray the hit disk takes ``wdep``, and so does every
+    disk of its neighbor list that passes the local re-test; every other
+    slot carries weight 0. With ``use_wdist`` (1/distance weighting, ref:
+    kernel.py:786-808) the weights become wdep / d / sum(1 / d) * hits, d the
+    distance of the hit point from the hit disk's centre, or of the neighbor
+    plane's crossing from the neighbor's, plus 1e-6.
+
+    Disks, window model: both (R * W,), one slot per disk of the hit disk's
+    window list (itself included): a disk the ray crosses with
+    t_near < t <= t_hit + tau takes ``wdep``, every other slot weight 0.
 
     Triangles and lines: both (R,), the single closest hit (ref:
     kernel.py:1216-1217); a ray without a deposit carries weight 0 into bin 0.
@@ -463,20 +510,54 @@ def deposit_entries(org, dirn, hit_prim, wdep, geometry):
     if geometry.kind != "disk":
         return torch.clamp(hit_prim, min=0), wdep
     R = org.shape[0]
-    K = geometry.neighbors.shape[1]
     collide = hit_prim >= 0
     prim_c = torch.clamp(hit_prim, min=0).long()
+    zero = torch.zeros((), dtype=wdep.dtype, device=wdep.device)
+    if settings is not None and settings.deposit_kind(geometry) == "window":
+        W = geometry.window_ids.shape[1]
+        rec = geometry.window_pack[prim_c].reshape(R, W, 8)
+        ok, t = intersect.disk_hit_packed(org, dirn, rec, settings.t_near)
+        tau = torch.tensor(geometry.window_tau, dtype=torch.float32,
+                           device=org.device)
+        ok = ok & (t <= (t_hit + tau)[:, None]) & collide[:, None]
+        ids = torch.clamp(geometry.window_ids[prim_c], 0, n_prims - 1)
+        return ids.reshape(-1), torch.where(ok, wdep[:, None], zero).reshape(-1)
+    K = geometry.neighbors.shape[1]
     rec = geometry.neighbor_pack[prim_c].reshape(R, K, 8)
-    nb_ok, _ = intersect.check_neighbors_packed(org, dirn, rec)
+    nb_ok, nb_dist = intersect.check_neighbors_packed(org, dirn, rec)
     nb_ok = nb_ok & collide[:, None]
-    w_all = torch.where(
-        torch.cat([collide[:, None], nb_ok], dim=1),
-        wdep[:, None],
-        torch.zeros((), dtype=wdep.dtype, device=wdep.device),
-    )
+    hits = torch.cat([collide[:, None], nb_ok], dim=1)
+    if use_wdist:
+        hitpoint = org + dirn * t_hit[:, None]
+        prim_dist = vec.norm(hitpoint - geometry.points[prim_c]) + 1e-6
+        dists = torch.cat([prim_dist[:, None], nb_dist + 1e-6], dim=1)
+        inv_sum = torch.where(hits, 1.0 / dists, zero).sum(dim=1, keepdim=True)
+        num_hits = hits.sum(dim=1, keepdim=True).to(wdep.dtype)
+        w_all = (wdep[:, None] / dists / torch.clamp(inv_sum, min=1e-30)
+                 * num_hits)
+        w_all = torch.where(hits, w_all, zero)
+    else:
+        w_all = torch.where(hits, wdep[:, None], zero)
     nb_c = torch.clamp(geometry.neighbors[prim_c], 0, n_prims - 1)
     ids_all = torch.cat([prim_c[:, None].to(torch.int32), nb_c], dim=1)
     return ids_all.reshape(-1), w_all.reshape(-1)
+
+
+def _deposit_tables(geometry, settings):
+    """(ids, records) the kernel's deposit gathers: the window list under the
+    window model, else the neighbor list of disks; None for triangles and
+    lines."""
+    kind = settings.deposit_kind(geometry)
+    if kind == "window":
+        if geometry.window_pack is None:
+            raise ValueError(
+                "the window flux model needs the geometry's window list: "
+                "call geometry.with_window_list()"
+            )
+        return geometry.window_ids, geometry.window_pack
+    if kind == "disk":
+        return geometry.neighbors, geometry.neighbor_pack
+    return None
 
 
 def _check_inputs(state, uniforms, geometry, walls, settings, n_sub,
@@ -501,11 +582,12 @@ def _check_inputs(state, uniforms, geometry, walls, settings, n_sub,
     optional_tables = ()
     if stick_lanes is not None:
         optional_tables = (("stick_lanes", stick_lanes, (npad,), f32),)
-    if geometry.kind == "disk":
-        K = geometry.neighbors.shape[1]
+    tables = _deposit_tables(geometry, settings)
+    if tables is not None:
+        K = tables[0].shape[1]
         optional_tables += (
-            ("neighbors", geometry.neighbors, (n_prims, K), i32),
-            ("neighbor_pack", geometry.neighbor_pack, (n_prims, K * 8), f32),
+            ("deposit ids", tables[0], (n_prims, K), i32),
+            ("deposit records", tables[1], (n_prims, K * 8), f32),
         )
     for name, x, shape, dt in (
         ("org", org, (R, 3), f32), ("dirn", state.dirn, (R, 3), f32),
@@ -544,22 +626,25 @@ def fused_bounce_ref(state: RayState, uniforms, geometry, walls, settings,
     acc = torch.zeros(
         geometry.num_primitives, dtype=torch.float64, device=state.org.device
     )
-    hit_prim = wdep = None
+    hit_prim = wdep = t_hit = None
     search = _KINDS[geometry.kind][2]
     for k in range(n_sub):
         org, dirn = state.org, state.dirn
-        state, hit_prim, wdep, step_counts = bounce_step(
+        state, hit_prim, wdep, t_hit, step_counts = bounce_step(
             state, uniforms[:, n_uni * k: n_uni * (k + 1)], geometry, walls,
             settings, search, stick_lanes,
         )
         counts[:N_EVENTS] += step_counts
         if deposit_in_kernel:
-            ids, w = deposit_entries(org, dirn, hit_prim, wdep, geometry)
+            ids, w = deposit_entries(org, dirn, hit_prim, wdep, geometry,
+                                     t_hit, settings)
             acc.index_add_(0, ids.long(), w.double())
     counts[N_EVENTS] = state.alive.sum()
     if deposit_in_kernel:
         return BounceResult(state, counts, acc.float(), None, None)
-    return BounceResult(state, counts, None, hit_prim, wdep)
+    if settings.deposit_kind(geometry) != "window":
+        t_hit = None
+    return BounceResult(state, counts, None, hit_prim, wdep, t_hit)
 
 
 def fused_bounce(state: RayState, uniforms, geometry, walls, settings,
@@ -571,13 +656,16 @@ def fused_bounce(state: RayState, uniforms, geometry, walls, settings,
     of ``BounceSettings.n_uni`` per sub-bounce (column 0 carries the sampled
     theta of a coned-cosine particle); geometry: a ``DiskGeometry``, a
     ``TriangleGeometry`` or a ``LineGeometry`` on the rays' device (its
-    ``kind`` picks the kernel's instantiation); walls: ``make_walls``;
+    ``kind`` picks the kernel's instantiation, and the settings' ``window``
+    the window form on disks, which needs ``with_window_list``); walls:
+    ``make_walls``;
     settings: ``BounceSettings``; stick_lanes: ``sticking_lanes`` (``None``:
     the settings' one value). Returns a ``BounceResult`` with fresh tensors: the new
     state, the counts (``COUNT_NAMES``), and either the flux (n_prims,) in
     original numbering (``deposit_in_kernel``) or, with ``n_sub == 1``, each
-    ray's (hit primitive or -1, deposit weight) for ``deposit_entries``. Weights
-    must be finite and never exceed their ray's ``w0``.
+    ray's (hit primitive or -1, deposit weight), and in the window form its
+    hit time, for ``deposit_entries``. Weights must be finite and never
+    exceed their ray's ``w0``.
 
     On CUDA tensors this launches the kernel of ``csrc/bounce.cu`` (or
     raises); on CPU tensors it runs the plain version. Two calls on the same
@@ -598,11 +686,12 @@ def fused_bounce(state: RayState, uniforms, geometry, walls, settings,
     R = state.org.shape[0]
     n_prims = geometry.num_primitives
     npad = geometry.prims_soa.shape[1]
-    if geometry.kind == "disk":
-        K = geometry.neighbors.shape[1]
-        neighbor_ptrs = (geometry.neighbors.data_ptr(),
-                         geometry.neighbor_pack.data_ptr())
-    else:  # the single closest hit: no neighbor tables
+    window = settings.deposit_kind(geometry) == "window"
+    tables = _deposit_tables(geometry, settings)
+    if tables is not None:  # the neighbor or the window list
+        K = tables[0].shape[1]
+        neighbor_ptrs = (tables[0].data_ptr(), tables[1].data_ptr())
+    else:  # the single closest hit: no tables
         K = 0
         neighbor_ptrs = (None, None)
     new = RayState(*(torch.empty_like(x) for x in state[:3]), state.w0,
@@ -611,15 +700,19 @@ def fused_bounce(state: RayState, uniforms, geometry, walls, settings,
     # the kernel's entry
     scratch = torch.empty(n_prims + 2 + N_EVENTS, dtype=torch.int64,
                           device=dev)
+    t_hit = None
     if deposit_in_kernel:
         flux = torch.empty(n_prims, dtype=torch.float32, device=dev)
         hit_prim = wdep = None
-        outs = (flux.data_ptr(), None, None)
+        outs = (flux.data_ptr(), None, None, None)
     else:
         flux = None
         hit_prim = torch.empty(R, dtype=torch.int32, device=dev)
         wdep = torch.empty(R, dtype=torch.float32, device=dev)
-        outs = (None, hit_prim.data_ptr(), wdep.data_ptr())
+        if window:
+            t_hit = torch.empty(R, dtype=torch.float32, device=dev)
+        outs = (None, hit_prim.data_ptr(), wdep.data_ptr(),
+                None if t_hit is None else t_hit.data_ptr())
     lib = _build.library()
     with torch.cuda.device(dev):
         err = lib.vr_fused_bounce(
@@ -632,7 +725,8 @@ def fused_bounce(state: RayState, uniforms, geometry, walls, settings,
             *neighbor_ptrs, walls.data_ptr(),
             None if stick_lanes is None else stick_lanes.data_ptr(),
             R, npad, npad // geometry.soa_chunk_bbs.shape[0], n_prims, K,
-            n_sub, _KINDS[geometry.kind][0], s.dim, s.first_dir,
+            n_sub, WINDOW_KIND if window else _KINDS[geometry.kind][0],
+            s.dim, s.first_dir,
             s.second_dir, s.ray_axis, s.bc1, s.bc2, int(s.refl_kind),
             s.max_reflections, s.max_boundary_hits, int(s.roulette),
             int(deposit_in_kernel),
@@ -647,7 +741,8 @@ def fused_bounce(state: RayState, uniforms, geometry, walls, settings,
         raise RuntimeError(f"vr_fused_bounce: CUDA error {err}")
     fused_bounce.launches += 1
     fused_bounce.sub_bounces += n_sub
-    return BounceResult(new, scratch[n_prims + 1:], flux, hit_prim, wdep)
+    return BounceResult(new, scratch[n_prims + 1:], flux, hit_prim, wdep,
+                        t_hit)
 
 
 fused_bounce.launches = 0  # kernel launches

@@ -13,6 +13,7 @@ import math
 
 import torch
 
+from ..config import ReflectionKind
 from ..ops import sampling, vec
 
 
@@ -37,6 +38,18 @@ def diffuse(u1, u2, normal, dim: int = 3):
     return vec.normalize(d, eps=1e-12)
 
 
+def cone_limit_kind(cone_angle):
+    """The model the unfused body's coned-cosine reflection takes at a limit
+    of the cone: specular at an angle <= 0, diffuse at >= pi/2, else None
+    (the lobe itself). Follows the JAX package's unfused ``coned_cosine``
+    (reflection.py:74-79, rayReflection.hpp:60-63)."""
+    if cone_angle <= 0.0:
+        return ReflectionKind.SPECULAR
+    if cone_angle >= math.pi / 2:
+        return ReflectionKind.DIFFUSE
+    return None
+
+
 def coned_cosine(theta, u_phi, ray_dir, normal, dim: int = 3):
     """Specular lobe with a maximal cone angle (ref: rayReflection.hpp:52-120):
     the polar angle ``theta`` around the specular direction comes from the
@@ -44,10 +57,10 @@ def coned_cosine(theta, u_phi, ray_dir, normal, dim: int = 3):
     2 pi ``u_phi``; a direction that points into the surface is mirrored back
     (:108-111).
 
-    The cone angle itself plays no part here. The JAX package's unfused
-    ``coned_cosine`` switches to the specular model at an angle <= 0 and to
-    the diffuse one at >= pi/2, while its fused kernel only clips the angle
-    to [1e-6, pi/2 - 1e-6]; the port follows the kernel in both bodies.
+    The cone angle itself plays no part here. At the cone's limits the
+    unfused body reflects with another model instead (``cone_limit_kind``);
+    the fused kernel clips the angle to [1e-6, pi/2 - 1e-6] and always runs
+    this one, as the JAX package's two bodies do.
     """
     # specular direction w and Frisvad ONB (ref: rayReflection.hpp:66-83)
     w = vec.normalize(vec.reflect_specular(ray_dir, normal), eps=1e-12)

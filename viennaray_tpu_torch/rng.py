@@ -3,7 +3,8 @@
 The trace never holds a generator of its own. It asks a ``RayRNG`` for
 uniforms in [0, 1) by purpose: ``uniform(stream, batch_index, bounce, n)``.
 The streams are the two draws of the source origin, the two of the source
-direction, the two of the diffuse reflection, the azimuth of the coned-cosine
+direction, the two of the lobe of a source that draws no origin (grid and
+surface sources), the two of the diffuse reflection, the azimuth of the coned-cosine
 reflection, the roulette draw, and the three of gas scattering: the
 probability draw, which is also the scatter point's distance, and the two of
 the new direction (``STREAMS``). A launch of several bounces asks for all its
@@ -35,6 +36,8 @@ SOURCE_ORIGIN_1 = "source_origin_1"
 SOURCE_ORIGIN_2 = "source_origin_2"
 SOURCE_DIR_1 = "source_dir_1"
 SOURCE_DIR_2 = "source_dir_2"
+SOURCE_LOBE_1 = "source_lobe_1"
+SOURCE_LOBE_2 = "source_lobe_2"
 REFLECT_1 = "reflect_1"
 REFLECT_2 = "reflect_2"
 CONE_PHI = "cone_phi"
@@ -44,7 +47,7 @@ SCATTER_Z = "scatter_z"
 SCATTER_PHI = "scatter_phi"
 STREAMS = (
     SOURCE_ORIGIN_1, SOURCE_ORIGIN_2, SOURCE_DIR_1, SOURCE_DIR_2,
-    REFLECT_1, REFLECT_2, CONE_PHI, ROULETTE, SCATTER, SCATTER_Z,
+    SOURCE_LOBE_1, SOURCE_LOBE_2, REFLECT_1, REFLECT_2, CONE_PHI, ROULETTE, SCATTER, SCATTER_Z,
     SCATTER_PHI,
 )
 

@@ -8,17 +8,19 @@ through one of two bodies:
 - the fused body (the default): one launch of the CUDA kernel behind
   ``ops.bounce.fused_bounce`` advances every ray through ``n_sub`` whole
   bounces. Wide stages run one bounce per launch and, for a diffuse particle
-  on a disk geometry of at least 4 chunks, hand their deposits out to the
-  histogram kernel; every other launch deposits in the kernel (``hand_out_for``
-  holds the rule and its measurements). Narrower stages run 4, then 16
-  bounces per launch;
+  on a disk geometry of at least 4 chunks under the neighbor flux model, hand
+  their deposits out to the histogram kernel; every other launch deposits in
+  the kernel (``hand_out_for`` holds the rule and its measurements). Narrower
+  stages run 4, then 16 bounces per launch;
 - the unfused body (``fused=False``): every iteration finds all active rays'
   closest hit (the CUDA kernels behind ``ops.nearest_hit.disk_nearest_hit``,
   ``triangle_nearest_hit`` and ``line_nearest_hit``, by the geometry's
   ``kind``),
   resolves the bounce with the tensor code of ``ops.bounce.bounce_step``
   (which is also the arithmetic of the fused kernel's plain version) and
-  deposits through ``ops.histogram.flux_histogram``.
+  deposits through ``ops.histogram.flux_histogram``. 1/distance weighting
+  (``use_wdist``) runs this body whatever ``fused`` says, as the reference's
+  does: its fused kernel has no such deposit.
 
 A Python loop drives the launches; it reads the survivor count from the
 device once per launch to decide when to compact.
@@ -32,17 +34,20 @@ Event semantics mirrored 1:1 from rayTraceKernel.hpp:
   walls and the geometry take their event (:179-203)
 - disk backface: first hit passes through, second kills (:225-241);
   triangle and line backface kills (:243-248)
-- disk neighbor multi-hit via the packed neighbor records (:255-300);
-  triangles and lines deposit on the single closest hit (:301-307)
+- disk neighbor multi-hit via the packed neighbor records (:255-300), with
+  optional 1/distance weights (:258-296), or the window flux model (the GPU
+  candidate-window contract, GeneralPipelineDisk.cu:51-59) via the hit
+  disk's window list; triangles and lines deposit on the single closest hit
+  (:301-307) whatever the flux model
 - sticking update w -= w*s with one sticking value or one per material,
   diffuse, specular or coned-cosine reflection, max-reflections cap, Russian
   roulette (kill below 0.1 w0, renew to 0.3 w0, :309-335, :435-460)
 
-Not ported yet, and refused by name (``check_supported``): 1/distance
-weighting, the window flux model, custom hooks and multi-channel flux, the
-grid and surface sources, float64 tracing. The per-bounce
-coherence re-sort of the reference only engages from 8 geometry chunks on and
-is not ported yet either; it changes the lane order, not the physics.
+Not ported yet, and refused by name (``check_supported``): custom hooks and
+multi-channel flux, float64 tracing; and, as in the reference, the window
+flux model together with 1/distance weighting. The per-bounce coherence
+re-sort of the reference only engages from 8 geometry chunks on and is not
+ported yet either; it changes the lane order, not the physics.
 
 Determinism: every reduction on the path has a fixed order or is a sum of
 integers (stable sorts, the fixed-point bins of the histogram and bounce
@@ -75,7 +80,7 @@ from ..ops.nearest_hit import (
     line_nearest_hit,
     triangle_nearest_hit,
 )
-from ..physics.source import RandomSource
+from ..physics.source import GridSource, RandomSource, SurfaceSource
 
 # ray-compaction ladder: halve the width per stage, floored at MIN_STAGE
 MIN_STAGE = 512
@@ -97,9 +102,12 @@ _SEARCH = {
 
 def hand_out_for(kind: str, n_chunks: int, refl_kind, n_sub: int) -> bool:
     """Whether a fused launch hands its deposits out to the histogram kernel
-    (True) or deposits in the kernel (False).
+    (True) or deposits in the kernel (False). ``kind``: how a colliding ray
+    deposits, ``BounceSettings.deposit_kind``: "disk", "window", "triangle"
+    or "line".
 
-    Only a launch of one bounce can hand out. Disks: a diffuse launch on at
+    Only a launch of one bounce can hand out. Window deposits never do, as
+    in the reference (kernel.py:1049-1052). Disks: a diffuse launch on at
     least ``HAND_OUT_MIN_CHUNKS`` chunks does (the reference's rule): its
     deposit in the kernel is a gather of K neighbor records and up to K + 1
     atomics per colliding ray. Triangles and lines: never. (The reference's
@@ -142,24 +150,27 @@ class BatchCounters(NamedTuple):
     reflections: int
 
 
+SOURCES = (RandomSource, GridSource, SurfaceSource)
+
+
 def check_supported(config: TraceConfig, particle, source) -> None:
     """Raise NotImplementedError, naming the setting, for anything the port
-    does not trace yet. Nothing unsupported is silently ignored."""
-    if config.use_wdist:
-        raise NotImplementedError("use_wdist is not ported yet")
-    if config.flux_model != "neighbor":
+    does not trace. Nothing unsupported is silently ignored."""
+    if config.flux_model == "window" and config.use_wdist:
+        # the reference refuses it too (kernel.py:336-342): the window
+        # contract has no neighbor distances to weight by
         raise NotImplementedError(
-            f"flux_model={config.flux_model!r} is not ported yet"
+            "flux_model='window' does not take use_wdist"
         )
     if len(particle.data_labels) != 1:
         raise NotImplementedError("multi-channel flux is not ported yet")
     ReflectionKind(particle.reflection_kind)  # raises on a kind that is none
-    if not isinstance(source, RandomSource):
+    if not isinstance(source, SOURCES):
         raise NotImplementedError(
-            f"source {type(source).__name__} is not ported yet "
-            "(GridSource and SurfaceSource wait for a later slice)"
+            f"source {type(source).__name__} is none of "
+            f"{', '.join(s.__name__ for s in SOURCES)}"
         )
-    if source.bbox.dtype != torch.float32:
+    if source.dtype != torch.float32:
         raise NotImplementedError("f64 tracing is not ported yet")
 
 
@@ -241,16 +252,25 @@ def trace_batch(
     picks the kernels). bbox: (2, 3) float32 tensor, the source-adjusted
     bounding box (ref: rayUtil.hpp:104-143). rng: a ``RayRNG`` whose
     ``begin_batch(batch_index)`` has been called. ray_indices: (R,) global
-    ray indices. valid: (R,) bool — lanes beyond the total ray count start
-    dead. fused: the fused body (one kernel launch per ``n_sub`` bounces) or
-    the unfused one. n_sub: the fused body's bounces per launch at (wide,
-    mid, tail) stage widths. Returns flux (n_prims,) float32 on the device
-    and ``BatchCounters``.
+    ray indices (a grid or surface source picks its points by them). valid:
+    (R,) bool — lanes beyond the total ray count start dead. fused: the
+    fused body (one kernel launch per ``n_sub`` bounces) or the unfused one;
+    ``config.use_wdist`` takes the unfused body whatever ``fused`` says (the
+    reference's rule, kernel.py:959-976). n_sub: the fused body's bounces per
+    launch at (wide, mid, tail) stage widths. Under the window flux model a
+    disk geometry without a window list gets one here
+    (``DiskGeometry.with_window_list``; the tracers build it once). Returns
+    flux (n_prims,) float32 on the device and ``BatchCounters``.
     """
     check_supported(config, particle, source)
     dim = config.dim
-    settings = BounceSettings.from_config(config, particle)
+    fused = fused and not config.use_wdist
+    settings = BounceSettings.from_config(config, particle, fused=fused)
     first_dir, second_dir = settings.first_dir, settings.second_dir
+    deposit_kind = settings.deposit_kind(geometry)
+    if deposit_kind == "window":
+        geometry = geometry.with_window_list()
+    wdist = config.use_wdist and deposit_kind == "disk"
 
     dev = geometry.device
     R = ray_indices.shape[0]
@@ -260,7 +280,7 @@ def trace_batch(
     lo1, hi1, lo2, hi2 = (walls[i] for i in range(4))
 
     # ---- source sampling -------------------------------------------------
-    org, dirn, w0 = source.sample(rng, batch_index, R)
+    org, dirn, w0 = source.sample(rng, batch_index, R, ray_indices)
 
     # particle-controlled initial direction (ref: initNewWithDirection,
     # rayParticle.hpp:31,92; the zero vector means "use the source's")
@@ -281,13 +301,15 @@ def trace_batch(
     # collide, wall, exit, traces, scatter
     counts = torch.zeros(N_EVENTS, dtype=torch.int64, device=dev)
 
-    def land(flux, org, dirn, hit_prim, wdep):
+    def land(flux, org, dirn, hit_prim, wdep, t_hit):
         """Deposits handed out by a bounce (ref: DiffuseParticle::
         surfaceCollision adds the current rayWeight, rayParticle.hpp:148-156):
         the hit disk and every neighbor-list disk that passes the local
-        re-test take the weight; of triangles and lines, the single closest
-        hit."""
-        ids, w = deposit_entries(org, dirn, hit_prim, wdep, geometry)
+        re-test take the weight (with ``use_wdist`` weighted by 1/distance),
+        or under the window model every window-list disk within tau past the
+        hit; of triangles and lines, the single closest hit."""
+        ids, w = deposit_entries(org, dirn, hit_prim, wdep, geometry, t_hit,
+                                 settings, use_wdist=wdist)
         return flux + _flux_add(ids, w, n_prims)
 
     def unfused_body(it, flux, state):
@@ -297,11 +319,11 @@ def trace_batch(
         u = _bounce_uniforms(
             rng, batch_index, it, state.org.shape[0], 1, settings, dev
         )
-        new_state, hit_prim, wdep, step_counts = bounce_step(
+        new_state, hit_prim, wdep, t_hit, step_counts = bounce_step(
             state, u, geometry, walls, settings, _SEARCH[geometry.kind],
             stick_lanes,
         )
-        flux = land(flux, state.org, state.dirn, hit_prim, wdep)
+        flux = land(flux, state.org, state.dirn, hit_prim, wdep, t_hit)
         counts.add_(step_counts)
         return flux, new_state.alive.sum(), new_state, 1
 
@@ -311,7 +333,7 @@ def trace_batch(
         width = state.org.shape[0]
         k = n_sub_for(width, n_sub)
         hand_out = hand_out_for(
-            geometry.kind, geometry.soa_chunk_bbs.shape[0],
+            deposit_kind, geometry.soa_chunk_bbs.shape[0],
             settings.refl_kind, k,
         )
         u = _bounce_uniforms(rng, batch_index, it, width, k, settings, dev)
@@ -321,7 +343,8 @@ def trace_batch(
             deposit_in_kernel=not hand_out, stick_lanes=stick_lanes,
         )
         if hand_out:
-            flux = land(flux, state.org, state.dirn, res.hit_prim, res.wdep)
+            flux = land(flux, state.org, state.dirn, res.hit_prim, res.wdep,
+                        res.t_hit)
         else:
             flux = flux + res.flux
         counts.add_(res.counts[:N_EVENTS])

@@ -41,7 +41,7 @@ from ..ops import vec
 from ..physics.source import RandomSource
 from ..rng import GeneratorRNG
 from . import postprocess
-from .kernel import check_supported, trace_batch
+from .kernel import SOURCES, check_supported, trace_batch
 
 
 class _TraceBase:
@@ -97,10 +97,12 @@ class _TraceBase:
         self._boundary_conditions = padded[:3]
 
     def set_source(self, source):
-        if not isinstance(source, RandomSource):
+        """A ``RandomSource``, ``GridSource`` or ``SurfaceSource`` in place
+        of the default random source (ref: rayTrace.hpp:46-49)."""
+        if not isinstance(source, SOURCES):
             raise NotImplementedError(
-                f"source {type(source).__name__} is not ported yet "
-                "(GridSource and SurfaceSource wait for a later slice)"
+                f"source {type(source).__name__} is none of "
+                f"{', '.join(s.__name__ for s in SOURCES)}"
             )
         self._custom_source = source
 
@@ -140,18 +142,18 @@ class _TraceBase:
         self._ray_batch_size = int(n)
 
     def set_use_wdist(self, use: bool):
-        if use:
-            raise NotImplementedError("use_wdist is not ported yet")
-        self._use_wdist = False
+        """1/distance weighting of the disk neighbor deposits
+        (VIENNARAY_USE_WDIST, ref: rayTraceKernel.hpp:258-296). It runs the
+        unfused body, whatever ``fused`` says, as the reference does."""
+        self._use_wdist = bool(use)
 
     def set_flux_model(self, model: str):
         """Disk flux deposit model: "neighbor" (CPU reference contract,
-        rayTraceKernel.hpp:255-300). "window" (the GPU candidate-window
-        contract) is not ported yet."""
+        rayTraceKernel.hpp:255-300) or "window" (GPU candidate-window
+        contract, GeneralPipelineDisk.cu:51-59). Triangles and lines ignore
+        it."""
         if model not in ("neighbor", "window"):
             raise ValueError(f"unknown flux model {model!r}")
-        if model == "window":
-            raise NotImplementedError("flux_model='window' is not ported yet")
         self._flux_model = model
 
     def enable_progress_bar(self):
@@ -356,6 +358,8 @@ class TraceDisk(_TraceBase):
         self.geometry = self.geometry.with_areas(
             boundary_dirs, self._boundary_conditions
         )
+        if self._flux_model == "window":
+            self.geometry = self.geometry.with_window_list()
         flux = self._run_trace(self.geometry)
         self._store_local_data(flux)
         return flux
