@@ -5,6 +5,7 @@ Run from the repository root on a machine with one NVIDIA Hopper card:
 
     python3 chip_diagnose.py [--triangles | --lines | --ion | --window]
                              [--unfused] [--profile FILE]
+    python3 chip_diagnose.py --groups | --paths
 
 It builds a tracer of ``chip_smoke.py`` (same geometry, particle, seed and
 batch; the default tracer, whose body is the fused bounce kernel): the
@@ -46,6 +47,22 @@ parent, change, change, parent) a fresh process builds THAT tree's kernels
 and times its bounce kernel on both flagships at 2^20 rays x 1 bounce and at
 512 rays x 16, and prints ``ptxas``' lines of its bounce kernel.
 
+``python3 chip_diagnose.py --groups`` times the bounce kernel under every
+instantiated group size G (threads per ray) at every width of the trace's
+ladder (2^20 rays down to 512, with the ladder's bounces per launch and
+deposit placement), on the disk flagship, its window form, the triangle
+flagship, the line configuration and the 18,180-disk trench, in two rounds of
+alternating order, one process: the measurement behind
+``ops/bounce.py:group_for``. ``--paths`` times the histogram kernel's
+two paths beside one ``index_add_`` call at numbers of entries from 2,048 to
+2^20 on the flagship's 2,993 bins: the measurement behind
+``ops/histogram.py:SMALL_ENTRIES``.
+
+In the default mode the fused body's ``kernel_spans`` run twice more on fresh
+tracers (so on the same rays as each other), with every launch of the bounce
+kernel at one thread per ray (``group=1``, the mapping before the group
+search) and at the default G, in that order and again reversed.
+
 It checks nothing: ``chip_smoke.py`` holds the kernels and the flux to their
 references.
 """
@@ -59,8 +76,11 @@ import subprocess
 import sys
 import time
 
+import functools
+
 import torch
 
+import chip_smoke as cs
 from chip_smoke import (
     FLAGSHIP,
     ion_particle,
@@ -99,7 +119,9 @@ def repeats(tracer, n, body):
     }
 
 
-def kernel_spans(tracer, body):
+def kernel_spans(tracer, body, group=None):
+    """One apply with CUDA events around every kernel launch; ``group``
+    forces the bounce kernel's threads per ray on every launch."""
     from viennaray_tpu_torch.trace import kernel as TK
 
     search = f"{tracer.geometry.kind}_nearest_hit"
@@ -129,6 +151,8 @@ def kernel_spans(tracer, body):
     # table by geometry kind): the wrappers themselves stay as they are, with
     # their launch counts
     kind = tracer.geometry.kind
+    bounce = (B.fused_bounce if group is None
+              else functools.partial(B.fused_bounce, group=group))
     real = {"fused_bounce": TK.fused_bounce, search: TK._SEARCH[kind],
             "flux_histogram": TK.flux_histogram}
 
@@ -137,7 +161,8 @@ def kernel_spans(tracer, body):
         TK.flux_histogram = fns["flux_histogram"]
         TK._SEARCH[kind] = fns[search]
 
-    install({name: timed(name, fn) for name, fn in real.items()})
+    install({name: timed(name, bounce if name == "fused_bounce" else fn)
+             for name, fn in real.items()})
     try:
         torch.cuda.synchronize()
         t0 = time.perf_counter()
@@ -152,6 +177,7 @@ def kernel_spans(tracer, body):
     in_kernels = {name: seconds(evs) for name, evs in spans.items()}
     return {
         "phase": "kernel_spans", "body": body, "seconds": wall,
+        "group": "by width" if group is None else group,
         "seconds_in_kernels": in_kernels,
         "share_outside_kernels": 1.0 - sum(in_kernels.values()) / wall,
         "launches_by_width_x_bounces": {
@@ -204,6 +230,102 @@ def deposit_policy(make, n):
         TK.hand_out_for = rules["in_kernel"]
     return {"phase": "deposit_policy", "seconds": seconds,
             "launches": launches}
+
+
+def group_ab(rounds=2):
+    """The bounce kernel under every G of ``B.GROUPS`` at every width of the
+    ladder, with the ladder's bounces per launch and deposit placement, on
+    interior rays of ``chip_smoke.make_state``; rounds in alternating order
+    of G. One JSON object per (configuration, width)."""
+    from viennaray_tpu_torch.geometry.disk_geometry import DiskGeometry
+    from viennaray_tpu_torch.geometry.line_geometry import LineGeometry
+    from viennaray_tpu_torch.geometry.triangle_geometry import TriangleGeometry
+    from viennaray_tpu_torch.io import fixtures
+    from viennaray_tpu_torch.trace import kernel as TK
+
+    gd = FLAGSHIP["grid_delta"]
+    disks = DiskGeometry.build(*fixtures.create_trench_grid_3d(**FLAGSHIP), gd)
+    fine = dict(FLAGSHIP, grid_delta=0.1)
+    mesh, materials = cs.line_trench()
+    lines = LineGeometry.from_mesh(mesh, material_ids=materials)
+    configs = {
+        "disks": (disks, cs.bounce_settings(), "interior", None),
+        "window": (disks.with_window_list(),
+                   cs.bounce_settings(flux_model="window"), "interior", None),
+        "triangles": (TriangleGeometry.build(
+            *fixtures.create_trench_mesh_3d(**FLAGSHIP), gd),
+            cs.bounce_settings(), "interior", None),
+        "lines": (lines, cs.bounce_settings(dim=2, particle=cs.line_particle()),
+                  "flat", cs.line_particle()),
+        "disks_18180": (DiskGeometry.build(
+            *fixtures.create_trench_grid_3d(**fine), fine["grid_delta"]),
+            cs.bounce_settings(), "interior", None),
+    }
+    widths = [1 << k for k in range(20, 8, -1)]
+    for name, (geometry, settings, rays, particle) in configs.items():
+        bbox = cs.adjusted_bbox(geometry, dim=settings.dim)
+        walls = B.make_walls(bbox, geometry, settings)
+        stick_lanes = (None if particle is None
+                       else B.sticking_lanes(particle, geometry))
+        for width in widths:
+            n_sub = TK.n_sub_for(width, TK.N_SUB)
+            hand_out = TK.hand_out_for(
+                settings.deposit_kind(geometry),
+                geometry.soa_chunk_bbs.shape[0], settings.refl_kind, n_sub)
+            state, uniforms = cs.make_state(geometry, bbox, width, rays,
+                                            n_sub, settings, seed=13)
+            args = (state, uniforms, geometry, walls, settings)
+            kw = dict(n_sub=n_sub, deposit_in_kernel=not hand_out,
+                      stick_lanes=stick_lanes)
+            reps = 3 if width >= 1 << 17 else 10
+            ms = {g: [] for g in B.GROUPS}
+            for r in range(rounds):
+                for g in B.GROUPS if r % 2 == 0 else B.GROUPS[::-1]:
+                    ms[g].append(cs.time_cuda(
+                        lambda g=g: B.fused_bounce(*args, **kw, group=g),
+                        reps))
+            mean = {g: sum(v) / len(v) for g, v in ms.items()}
+            print(json.dumps({
+                "phase": "group_ab", "config": name, "width": width,
+                "n_sub": n_sub, "deposits_handed_out": hand_out,
+                "ms_by_group": {str(g): v for g, v in ms.items()},
+                "best_group": min(mean, key=mean.get),
+                "default_group": B.group_for(
+                    width, geometry.soa_chunk_bbs.shape[0]),
+            }), flush=True)
+
+
+def histogram_paths(rounds=2):
+    """The histogram kernel's two paths and ``index_add_`` by number of
+    entries, on one bounce's worth of the flagship's deposits (2,993 bins),
+    in two rounds of alternating order."""
+    from viennaray_tpu_torch.geometry.disk_geometry import DiskGeometry
+    from viennaray_tpu_torch.io import fixtures
+    from viennaray_tpu_torch.ops import histogram as H
+
+    geometry = DiskGeometry.build(*fixtures.create_trench_grid_3d(**FLAGSHIP),
+                                  FLAGSHIP["grid_delta"])
+    n_bins = geometry.num_primitives
+    # 2^17 rays' deposits: 12 entries a ray, 1,572,864 in all
+    all_ids, all_w = cs.make_deposits(geometry, 1 << 17, n_bins, seed=11)
+    for n in (2048, 6144, 16384, 32768, 49152, 65536, 98304, 131072, 262144,
+              1 << 20):
+        ids, w = all_ids[:n].contiguous(), all_w[:n].contiguous()
+        ids64 = ids.long()
+        calls = {
+            "small": lambda: H.flux_histogram(ids, w, n_bins, path="small"),
+            "large": lambda: H.flux_histogram(ids, w, n_bins, path="large"),
+            "index_add_": lambda: torch.zeros(n_bins, device=w.device)
+            .index_add_(0, ids64, w),
+        }
+        ms = {name: [] for name in calls}
+        for r in range(rounds):
+            for name in list(calls) if r % 2 == 0 else list(calls)[::-1]:
+                ms[name].append(cs.time_cuda(calls[name], 200))
+        print(json.dumps({
+            "phase": "histogram_paths", "entries": n, "bins": n_bins,
+            "ms": ms, "default_path": H.path_for(n, n_bins),
+        }), flush=True)
 
 
 def profile_apply(tracer, path):
@@ -269,6 +391,16 @@ def main(argv=None):
         help="only time the bounce kernel's flagship launches of each "
              "checkout named, one process each, in the order given",
     )
+    parser.add_argument(
+        "--groups", action="store_true",
+        help="only time the bounce kernel under every group size G at every "
+             "width of the ladder",
+    )
+    parser.add_argument(
+        "--paths", action="store_true",
+        help="only time the histogram kernel's two paths and index_add_ by "
+             "number of entries",
+    )
     parser.add_argument("--repeats", type=int, default=5)
     parser.add_argument(
         "--unfused", action="store_true",
@@ -314,6 +446,12 @@ def main(argv=None):
     if args.launch_times:
         launch_times(args.launch_times)
         return 0
+    if args.groups or args.paths:
+        if args.groups:
+            group_ab()
+        if args.paths:
+            histogram_paths()
+        return 0
     if args.triangles:
         mesh = fixtures.create_trench_mesh_3d(**FLAGSHIP)
         make = lambda **kwargs: make_tri_tracer(*mesh, **kwargs)
@@ -337,6 +475,11 @@ def main(argv=None):
         tracer.apply()  # warm-up: builds the kernels, fills the allocator
         print(json.dumps(repeats(tracer, args.repeats, body)), flush=True)
         print(json.dumps(kernel_spans(tracer, body)), flush=True)
+    # the fused body's spans at one thread per ray and at the default G, on
+    # fresh tracers (the same rays), in turns
+    for group in (1, None, None, 1):
+        spans = kernel_spans(make(), "fused, first apply", group=group)
+        print(json.dumps(spans), flush=True)
     if args.triangles or args.window:
         print(json.dumps(deposit_policy(make, args.repeats)), flush=True)
     if args.profile:

@@ -16,8 +16,15 @@ It imports only ``viennaray_tpu_torch`` and, in order:
    the bounce kernel on a 2D trench of disks and on an extruded 2D line mesh
    too); the bounce kernel also with sticking per lane, with the
    coned-cosine reflection and with gas scattering on every kind, and in its
-   window form (the window flux model's deposits) on disks; and times
-   kernel, plain version and, for the histogram, one ``index_add_`` call;
+   window form (the window flux model's deposits) on disks; the bounce
+   kernel's group mapping (a warp per ray) at 512 x 16, 1,000 x 16, 2,048 x
+   16, 16,384 x 4 and 65,536 x 1 on every kind, both kFull values, the window
+   form and tie-heavy rays (straight down onto packed flat faces and shared
+   triangle edges), and every instantiated group size at 2,048 x 16; the
+   histogram kernel's two paths bit for bit against each other (one entry
+   either side of the threshold too); and times kernel, plain version and,
+   for the histogram, one ``index_add_`` call (at 6,144, 65,536, 2^20 and
+   12,582,912 entries);
 4. drives the flagship through the default ``TraceDisk`` (the fused bounce
    kernel): 2,993 disks, 2,000 rays per point, periodic walls, diffuse
    particle with sticking 0.1, seed 42, mega-batches of 2^20 rays; checks the
@@ -61,7 +68,15 @@ It imports only ``viennaray_tpu_torch`` and, in order:
    ``create_source_grid``) at 2,000 rays per point against
    ``bench_disk3d.npy``, and the surface source (every disk along its
    normal) at 2,000 rays per point against ``surface3d_trench_jax.npy``;
-10. prints the peak device memory.
+10. drives the JAX package's ``disk2d_trench`` configuration through
+    ``TraceDisk(dim=2)`` (180 disks, 200,000 rays in batches of 16,384)
+    fused, and unfused at a quarter of the rays, against the oracle's
+    ``disk2d_trench_oracle.npy``;
+11. prints the peak device memory.
+
+Every path of the bounce kernel runs once more from a fresh tracer with
+every launch at one thread per ray (``fused_bounce``'s private ``group=1``),
+and its flux and counters must equal the default run's bit for bit.
 
 Every phase prints one JSON object on a line of its own. The line before the
 last lists the kernels; the last line is
@@ -111,6 +126,8 @@ GAS_MEAN_FREE_PATH = 4.0  # one trench depth
 # the grid source's points: create_source_grid(adjusted bbox, 2993, 0.25, +z)
 GRID_POINTS = 2993
 SURFACE = dict(offset=0.01, area=100.0)  # every disk along its normal
+# the JAX package's disk2d_trench (benchmarks/make_goldens.py:48-63)
+DISK2D = dict(grid_delta=0.1, rays=200_000, batch=16384, seed=12345)
 
 
 def emit(obj):
@@ -166,7 +183,11 @@ def make_rays(geometry, bbox, n, kind, seed):
     anywhere in the box with directions all over the sphere, as after
     diffuse bounces, ``flat`` = the same in the plane z = 0 of a 2D run,
     ``flat_source`` = what a 2D trace's first bounce sees (+y face, the
-    cosine lobe flattened into the plane)."""
+    cosine lobe flattened into the plane), ``ties`` = straight down from the
+    top face through points on the grid of half the grid spacing, so that
+    rays meet a flat face where packed disks overlap (the same t on several
+    disks) or a mesh's shared edges and vertices (the same t on two or more
+    triangles): the selection's tie rule decides them."""
     from viennaray_tpu_torch.ops import sampling
 
     dev = geometry.device
@@ -175,6 +196,13 @@ def make_rays(geometry, bbox, n, kind, seed):
     u = torch.rand((4, n), generator=gen, device=dev)
     lo, hi = bbox[0], bbox[1]
     org = lo + (hi - lo) * torch.stack([u[0], u[1], u[2]], dim=1)
+    if kind == "ties":
+        half = 0.5 * geometry.grid_delta
+        org[:, :2] = torch.round(org[:, :2] / half) * half
+        org[:, 2] = hi[2]
+        dirn = torch.zeros_like(org)
+        dirn[:, 2] = -1.0
+        return org.contiguous(), dirn.contiguous()
     if kind in ("source", "flat_source"):
         lobe = sampling.power_cosine_direction(u[2], u[3], 1.0)
         if kind == "source":
@@ -265,18 +293,33 @@ def make_deposits(geometry, n_rays, n_bins, seed):
     return ids.reshape(-1).contiguous(), w.reshape(-1).contiguous()
 
 
-def check_histogram(geometry, n_rays, n_bins, reps):
+def check_histogram(geometry, n_rays, n_bins, reps, n_entries=None):
+    """Kernel 2 on one bounce's worth of deposits (the first ``n_entries``
+    of them where given) against its plain version, on the path the wrapper
+    picks; the other path on the same input must give the same bits. Times
+    both paths, the plain version and one ``index_add_`` call."""
     from viennaray_tpu_torch.ops import histogram as H
 
     ids, w = make_deposits(geometry, n_rays, n_bins, seed=11)
+    if n_entries is not None:
+        ids, w = ids[:n_entries].contiguous(), w[:n_entries].contiguous()
+    path = H.path_for(ids.numel(), n_bins)
+    paths = [path]
+    if n_bins <= H.SMALL_MAX_BINS:
+        paths.append("large" if path == "small" else "small")
+    outs = {p: H.flux_histogram(ids, w, n_bins, path=p) for p in paths}
     out_1 = H.flux_histogram(ids, w, n_bins)
     out_2 = H.flux_histogram(ids, w, n_bins)
     torch.cuda.synchronize()
     ref = H.flux_histogram_ref(ids, w, n_bins)
     bitwise = bool(torch.equal(out_1, out_2))
+    paths_equal = all(torch.equal(o, out_1) for o in outs.values())
     max_abs_err = float((out_1 - ref).abs().max())
     tol = float(ref.abs().max()) * 2.0 ** -22
-    ms = time_cuda(lambda: H.flux_histogram(ids, w, n_bins), reps)
+    ms_by_path = {
+        p: time_cuda(lambda p=p: H.flux_histogram(ids, w, n_bins, path=p), reps)
+        for p in paths
+    }
     plain_ms = time_cuda(lambda: H.flux_histogram_ref(ids, w, n_bins), reps)
     ids64 = ids.long()
     library_ms = time_cuda(
@@ -290,16 +333,20 @@ def check_histogram(geometry, n_rays, n_bins, reps):
         "phase": "kernel_check", "kernel": "flux_histogram",
         "shape": f"E={ids.numel()}, n={n_bins}, "
                  f"nonzero={float((w != 0).float().mean()):.3f}",
+        "path": path, "threshold": H.SMALL_ENTRIES,
         "tolerance": "|kernel - plain| <= 2^-22 * max|plain| (the plain "
-                     "version sums in float64; both round once to float32)",
+                     "version sums in float64; both round once to float32); "
+                     "both paths bit for bit",
         "tolerance_abs": tol, "max_abs_err": max_abs_err,
-        "bitwise_repeatable": bitwise, "ms": ms, "plain_ms": plain_ms,
+        "bitwise_repeatable": bitwise, "paths_bitwise_equal": paths_equal,
+        "ms": ms_by_path[path], "ms_by_path": ms_by_path,
+        "plain_ms": plain_ms,
         "bound_ms": max(op_ms, byte_ms),
         "bound_by": "operations" if op_ms > byte_ms else "bytes",
         "library_ms": library_ms,
     }
     emit(res)
-    if not (bitwise and max_abs_err <= tol):
+    if not (bitwise and paths_equal and max_abs_err <= tol):
         raise RuntimeError(f"flux_histogram fails its check: {res}")
     return res
 
@@ -453,10 +500,12 @@ def make_state(geometry, bbox, n_rays, kind, n_sub, settings, seed):
 
 
 def check_bounce(geometry, bbox, n_rays, kind, n_sub, in_kernel, settings,
-                 reps, particle=None):
+                 reps, particle=None, group=None, time_plain=True):
     """The bounce kernel against its plain version on one seeded state.
     ``particle``: the particle whose per-material table gives the launch its
-    per-lane sticking (none: the settings' one value)."""
+    per-lane sticking (none: the settings' one value); ``group``: the threads
+    per ray (none: the wrapper's choice for the width); ``time_plain``: also
+    time the plain version (else its time is null)."""
     from viennaray_tpu_torch.ops import bounce as B
 
     window = settings.deposit_kind(geometry) == "window"
@@ -471,8 +520,10 @@ def check_bounce(geometry, bbox, n_rays, kind, n_sub, in_kernel, settings,
     args = (state, uniforms, geometry, walls, settings)
     kw = dict(n_sub=n_sub, deposit_in_kernel=in_kernel,
               stick_lanes=stick_lanes)
-    res = B.fused_bounce(*args, **kw)
-    again = B.fused_bounce(*args, **kw)
+    g = (B.group_for(n_rays, geometry.soa_chunk_bbs.shape[0]) if group is None
+         else group)
+    res = B.fused_bounce(*args, **kw, group=g)
+    again = B.fused_bounce(*args, **kw, group=g)
     torch.cuda.synchronize()
     ref = B.fused_bounce_ref(*args, **kw)
 
@@ -498,7 +549,21 @@ def check_bounce(geometry, bbox, n_rays, kind, n_sub, in_kernel, settings,
         "dirn": worst(st.dirn - rs.dirn, live),
         "weight": worst(st.weight - rs.weight, flags_same),
     }
-    counts, ref_counts = res.counts.tolist(), ref.counts.tolist()
+    # the plain version sweeps no chunks: the kernel's two search counts are
+    # held to what they must be instead. A group of threads runs a
+    # sub-bounce for each alive ray (one search each); a warp (G = 1) runs
+    # one where any of its 32 rays is alive. Either sweeps a chunk at most
+    # once a sub-bounce
+    n_events = B.N_EVENTS + 1
+    counts, ref_counts = (res.counts[:n_events].tolist(),
+                          ref.counts[:n_events].tolist())
+    swept, tiles = res.counts[n_events:].tolist()
+    n_chunks = geometry.soa_chunk_bbs.shape[0]
+    if g > 1:
+        tiles_ok = tiles == counts[3]
+    else:
+        tiles_ok = -(-counts[3] // 32) <= tiles <= n_sub * -(-n_rays // 32)
+    search_counts_ok = tiles_ok and 0 <= swept <= tiles * n_chunks
     bitwise = all(
         torch.equal(a, b) for a, b in zip(res.state, again.state)
     ) and torch.equal(res.counts, again.counts)
@@ -524,10 +589,12 @@ def check_bounce(geometry, bbox, n_rays, kind, n_sub, in_kernel, settings,
     ok = (
         lanes_equal == 1.0 and max(err.values()) == 0.0
         and counts == ref_counts and flux_err <= flux_max * 2.0 ** -22
+        and search_counts_ok
     )
 
-    ms = time_cuda(lambda: B.fused_bounce(*args, **kw), reps)
-    plain_ms = time_cuda(lambda: B.fused_bounce_ref(*args, **kw), 1)
+    ms = time_cuda(lambda: B.fused_bounce(*args, **kw, group=g), reps)
+    plain_ms = (time_cuda(lambda: B.fused_bounce_ref(*args, **kw), 1)
+                if time_plain else None)
     n_real = geometry.num_primitives
     rows, npad = geometry.prims_soa.shape
     k_nbrs = geometry.neighbors.shape[1] if geometry.kind == "disk" else 0
@@ -551,7 +618,7 @@ def check_bounce(geometry, bbox, n_rays, kind, n_sub, in_kernel, settings,
     res_out = {
         "phase": "kernel_check", "kernel": "fused_bounce",
         "shape": f"{geometry.kind}s, R={n_rays} ({kind} rays), n_sub={n_sub}, "
-                 f"deposits "
+                 f"G={g}, deposits "
                  f"{'in the kernel' if in_kernel else 'handed out'}, "
                  f"{('diffuse', 'specular', 'coned-cosine')[settings.refl_kind]}, "
                  f"{'sticking per lane, ' if stick_lanes is not None else ''}"
@@ -563,6 +630,7 @@ def check_bounce(geometry, bbox, n_rays, kind, n_sub, in_kernel, settings,
                  f"{'W' if window else 'K'}={k_nbrs}",
         "tolerance": tolerance, "lanes_equal": lanes_equal,
         "max_abs_err_state": err, "counts": counts, "plain_counts": ref_counts,
+        "group": g, "chunks_swept": swept, "tile_bounces": tiles,
         "flux_max_abs_err": flux_err, "flux_max": flux_max,
         "bitwise_repeatable": bool(bitwise),
         "max_abs_err": max(max(err.values()), flux_err),
@@ -712,9 +780,14 @@ def _kernel_wrappers():
 
 
 def reset_launches():
-    for wrapper in _kernel_wrappers().values():
+    wrappers = _kernel_wrappers()
+    for wrapper in wrappers.values():
         wrapper.launches = 0
-    _kernel_wrappers()["fused_bounce"].sub_bounces = 0
+    wrappers["fused_bounce"].sub_bounces = 0
+    for table in (wrappers["fused_bounce"].launches_by_group,
+                  wrappers["flux_histogram"].launches_by_path):
+        for key in table:
+            table[key] = 0
 
 
 def read_launches():
@@ -732,7 +805,8 @@ def timed_apply(tracer, goldens, tol=GOLDEN_TOL):
     torch.cuda.synchronize()
     seconds = time.perf_counter() - t0
     launches = read_launches()
-    sub_bounces = _kernel_wrappers()["fused_bounce"].sub_bounces
+    wrappers = _kernel_wrappers()
+    sub_bounces = wrappers["fused_bounce"].sub_bounces
     info = tracer.get_ray_trace_info()
     norm = np.asarray(tracer.normalize_flux(flux), np.float64)
     n_prims = tracer.geometry.num_primitives
@@ -749,6 +823,11 @@ def timed_apply(tracer, goldens, tol=GOLDEN_TOL):
         "geometry_hits_per_ray": info.geometry_hits / info.num_rays,
         **errors, "rel_l2_bound": tol,
         "launches": launches,
+        "bounce_launches_by_group": {
+            str(g): n for g, n in
+            wrappers["fused_bounce"].launches_by_group.items() if n},
+        "histogram_launches_by_path": dict(
+            wrappers["flux_histogram"].launches_by_path),
         "bounces": sub_bounces or launches["disk_nearest_hit"]
         or launches["triangle_nearest_hit"] or launches["line_nearest_hit"],
     }
@@ -772,6 +851,26 @@ def hits_per_ray_ok(fields, record):
     return abs(fields["geometry_hits_per_ray"] - want) <= 0.02 * want
 
 
+INFO_COUNTERS = ("num_rays", "total_rays_traced", "non_geometry_hits",
+                 "geometry_hits", "particle_hits", "boundary_hits",
+                 "reflections")
+
+
+def apply_with_group_one(tracer):
+    """One apply with every launch of the bounce kernel at one thread per
+    ray (``fused_bounce``'s private ``group=1``, put in the trace module's
+    place for this apply); returns the flux and the run's TraceInfo."""
+    from viennaray_tpu_torch.ops import bounce as B
+    from viennaray_tpu_torch.trace import kernel as TK
+
+    TK.fused_bounce = functools.partial(B.fused_bounce, group=1)
+    try:
+        flux = tracer.apply()
+    finally:
+        TK.fused_bounce = B.fused_bounce
+    return flux, tracer.get_ray_trace_info()
+
+
 def run_path(label, make, goldens, tol, kernels, record=None, same_seed=False,
              extra=None):
     """One path of a configuration: a warm-up apply of ``make()``'s tracer,
@@ -780,11 +879,17 @@ def run_path(label, make, goldens, tol, kernels, record=None, same_seed=False,
     within ``tol`` of ``goldens``, the hits per ray within 2 % of the oracle
     ``record``'s (where one is given), exactly ``kernels`` were launched,
     with ``same_seed`` a fresh tracer's first apply is bitwise equal to the
-    warm-up, and ``extra(fields, norm) -> (more fields, ok)`` holds. In one
-    process, so that the paths' times can be compared. Returns (fields,
-    launches, normalized flux)."""
+    warm-up, a path of the bounce kernel gives the warm-up's flux and
+    counters bit for bit with every launch at one thread per ray (a fresh
+    tracer's first apply; the two search counts differ by design), and
+    ``extra(fields, norm) -> (more fields, ok)`` holds. In one process, so
+    that the paths' times can be compared. Returns (fields, launches,
+    normalized flux)."""
+    import dataclasses
+
     tracer = make()
     first = tracer.apply()
+    first_info = dataclasses.asdict(tracer.get_ray_trace_info())
     fields, ok, launches, norm = timed_apply(tracer, goldens, tol)
     if record is not None:
         ok = ok and hits_per_ray_ok(fields, record)
@@ -793,6 +898,19 @@ def run_path(label, make, goldens, tol, kernels, record=None, same_seed=False,
         bitwise = bool(np.array_equal(first, make().apply()))
         res["same_seed_bitwise_equal"] = bitwise
         ok = ok and bitwise
+    if launches["fused_bounce"]:
+        one, one_info = apply_with_group_one(make())
+        one_info = dataclasses.asdict(one_info)
+        equal = bool(np.array_equal(first, one)) and all(
+            first_info[k] == one_info[k] for k in INFO_COUNTERS)
+        res["group_one_bitwise_equal"] = equal
+        res["search_counts"] = {
+            k: first_info[k] for k in ("chunks_swept", "tile_bounces")}
+        res["search_counts_group_one"] = {
+            k: one_info[k] for k in ("chunks_swept", "tile_bounces")}
+        res["seconds_group_one_first_apply"] = one_info["time"]
+        res["seconds_first_apply"] = first_info["time"]
+        ok = ok and equal
     if extra is not None:
         more, extra_ok = extra(fields, norm)
         res.update(more)
@@ -986,6 +1104,48 @@ def phase_wdist_path(pts, nrm):
     return launches
 
 
+def make_disk2d_tracer(fused=True, rays=DISK2D["rays"]):
+    """The JAX package's ``disk2d_trench`` configuration
+    (``benchmarks/make_goldens.py:config_disk2d_trench``) through
+    ``TraceDisk(dim=2)``: ``create_trench_grid_2d`` at grid delta 0.1 (180
+    disks), periodic walls, diffuse particle with sticking 0.1, source on the
+    +y face, 200,000 rays (or ``rays``) in batches of 16,384, seed 12345."""
+    import viennaray_tpu_torch as vrt
+    from viennaray_tpu_torch.io import fixtures
+
+    tracer = vrt.TraceDisk(dim=2, fused=fused)
+    tracer.set_geometry(*fixtures.create_trench_grid_2d(
+        grid_delta=DISK2D["grid_delta"]), DISK2D["grid_delta"])
+    tracer.set_boundary_conditions([vrt.BoundaryCondition.PERIODIC] * 2)
+    tracer.set_particle_type(vrt.DiffuseParticle(0.1, "flux"))
+    tracer.set_source_direction(vrt.TraceDirection.POS_Y)
+    tracer.set_number_of_rays_fixed(rays)
+    tracer.set_rng_seed(DISK2D["seed"])
+    tracer.set_ray_batch_size(DISK2D["batch"])
+    return tracer
+
+
+def phase_disk2d_paths():
+    """The 2D disk trench end to end through ``TraceDisk(dim=2)``: fused at
+    the configuration's full depth (every launch of its ladder, from 16,384
+    rays down, runs the bounce kernel's group mapping), then unfused
+    (kernels 1 and 2, bound by the host) at a quarter of the rays with twice
+    the bound; each against the oracle's ``disk2d_trench_oracle`` and its
+    hits per ray."""
+    golden, record, tol = oracle_golden("disk2d_trench_oracle")
+    goldens = {"rel_l2_oracle": golden}
+    label = {"geometry": "disks (2D)"}
+    _, launches, _ = run_path(
+        {**label, "body": "fused"}, make_disk2d_tracer, goldens, tol,
+        ("fused_bounce",), record, same_seed=True)
+    _, unfused_launches, _ = run_path(
+        {**label, "body": "unfused"},
+        functools.partial(make_disk2d_tracer, fused=False,
+                          rays=DISK2D["rays"] // 4),
+        goldens, 2.0 * tol, ("disk_nearest_hit", "flux_histogram"), record)
+    return launches, unfused_launches
+
+
 def phase_source_paths(pts, nrm):
     """The flagship from the grid source (2,809 points) at 2,000 rays per
     point against ``bench_disk3d.npy`` (a uniform grid of origins has the
@@ -1022,6 +1182,8 @@ def main():
     from viennaray_tpu_torch.geometry.line_geometry import LineGeometry
     from viennaray_tpu_torch.geometry.triangle_geometry import TriangleGeometry
     from viennaray_tpu_torch.io import fixtures
+    from viennaray_tpu_torch.ops import bounce as B
+    from viennaray_tpu_torch.ops.histogram import SMALL_ENTRIES
 
     phase_card()
     phase_build()
@@ -1036,7 +1198,16 @@ def main():
     check_nearest_hit(geometry, bbox, 512, "interior", reps=200)
     check_nearest_hit(geometry, bbox, 1000, "interior", reps=200)  # ragged R
     hist_wide = check_histogram(geometry, 1 << 20, len(pts), reps=20)
-    check_histogram(geometry, 512, len(pts), reps=200)
+    # kernel 2's two paths: 6,144 entries (a 512-ray bounce of the unfused
+    # body), 65,536 and 2^20, beside index_add_; and one entry either side
+    # of the threshold, where both paths must give the same bits
+    hist_small = check_histogram(geometry, 512, len(pts), reps=200)
+    hist_mid = check_histogram(geometry, 1 << 20, len(pts), reps=200,
+                               n_entries=65536)
+    check_histogram(geometry, 1 << 20, len(pts), reps=100, n_entries=1 << 20)
+    for n_entries in (SMALL_ENTRIES - 1, SMALL_ENTRIES + 1):
+        check_histogram(geometry, 1 << 20, len(pts), reps=50,
+                        n_entries=n_entries)
     check_histogram(geometry, 1 << 20, 18180, reps=20)
     flagship = bounce_settings()
     mirror = bounce_settings(specular=True, walls="REFLECTIVE")
@@ -1046,8 +1217,8 @@ def main():
                  reps=10)
     check_bounce(geometry, bbox, 16384, "interior", 4, True, flagship,
                  reps=50)
-    check_bounce(geometry, bbox, 512, "interior", 16, True, flagship,
-                 reps=100)
+    disk_tail = check_bounce(geometry, bbox, 512, "interior", 16, True,
+                             flagship, reps=100)
     check_bounce(geometry, bbox, 1000, "interior", 16, True, flagship,
                  reps=100)  # ragged R
     check_bounce(geometry, bbox, 65536, "interior", 1, True, mirror, reps=50)
@@ -1058,8 +1229,8 @@ def main():
     )
     fine_bbox = adjusted_bbox(fine_geometry)
     check_nearest_hit(fine_geometry, fine_bbox, 65536, "interior", reps=5)
-    check_bounce(fine_geometry, fine_bbox, 16384, "interior", 4, True,
-                 flagship, reps=5)
+    fine_mid = check_bounce(fine_geometry, fine_bbox, 16384, "interior", 4,
+                            True, flagship, reps=5)
     flat, flat_bbox = trench_2d()
     flat_ignore = bounce_settings(walls="IGNORE", dim=2)
     flat_mirror = bounce_settings(specular=True, walls="REFLECTIVE", dim=2)
@@ -1089,7 +1260,8 @@ def main():
     check_bounce(windowed, bbox, 1 << 20, "interior", 1, False, window,
                  reps=10)
     check_bounce(windowed, bbox, 16384, "interior", 4, True, window, reps=50)
-    check_bounce(windowed, bbox, 512, "interior", 16, True, window, reps=100)
+    window_tail = check_bounce(windowed, bbox, 512, "interior", 16, True,
+                               window, reps=100)
     check_bounce(windowed, bbox, 1000, "interior", 16, True, window,
                  reps=100)  # ragged R
     check_bounce(flat, flat_bbox, 4096, "flat", 4, True,
@@ -1120,8 +1292,8 @@ def main():
                  reps=5)
     check_bounce(mesh, mesh_bbox, 16384, "interior", 4, True, flagship,
                  reps=20)
-    check_bounce(mesh, mesh_bbox, 512, "interior", 16, True, flagship,
-                 reps=50)
+    tri_tail = check_bounce(mesh, mesh_bbox, 512, "interior", 16, True,
+                            flagship, reps=50)
     check_bounce(mesh, mesh_bbox, 1000, "interior", 16, True, flagship,
                  reps=50)  # ragged R
     check_bounce(mesh, mesh_bbox, 65536, "interior", 1, True, mirror, reps=20)
@@ -1165,8 +1337,8 @@ def main():
                  reps=10, particle=table)
     check_bounce(lines, lines_bbox, 16384, "flat", 4, True, line_diffuse,
                  reps=50, particle=table)
-    check_bounce(lines, lines_bbox, 512, "flat", 16, True, line_diffuse,
-                 reps=100, particle=table)
+    line_tail = check_bounce(lines, lines_bbox, 512, "flat", 16, True,
+                             line_diffuse, reps=100, particle=table)
     check_bounce(lines, lines_bbox, 1000, "flat", 16, True, line_diffuse,
                  reps=100, particle=table)  # ragged R
     check_bounce(lines, lines_bbox, 1 << 20, "flat", 1, True, line_mirror,
@@ -1178,6 +1350,37 @@ def main():
     check_bounce(lines, lines_bbox, 4096, "flat", 4, True,
                  bounce_settings(dim=2, particle=ion_particle()), reps=50)
 
+    # ---- kernel 4's group mapping: the narrow and mid widths of the ladder
+    # (and one wide one) on every kind, both kFull values, the window form
+    # and tie-heavy rays; then every instantiated G at one shape per kind
+    group_shapes = ((512, 16), (1000, 16), (2048, 16), (16384, 4), (65536, 1))
+    for geom, box, rays, settings, particle in (
+        (geometry, bbox, "interior", flagship, None),
+        (geometry, bbox, "interior", ion, None),
+        (geometry, bbox, "ties", flagship, None),
+        (windowed, bbox, "interior", window, None),
+        (windowed, bbox, "interior", ion_window, None),
+        (windowed, bbox, "ties", window, None),
+        (mesh, mesh_bbox, "interior", flagship, None),
+        (mesh, mesh_bbox, "interior", gas, None),
+        (mesh, mesh_bbox, "ties", flagship, None),
+        (lines, lines_bbox, "flat", line_diffuse, table),
+        (lines, lines_bbox, "flat", line_gas, None),
+        (flat, flat_bbox, "flat", flat_ignore, None),
+    ):
+        for n_rays, n_sub in group_shapes:
+            check_bounce(geom, box, n_rays, rays, n_sub, True, settings,
+                         reps=1, particle=particle, time_plain=False)
+    for geom, box, rays, settings, particle in (
+        (geometry, bbox, "interior", flagship, None),
+        (windowed, bbox, "interior", window, None),
+        (mesh, mesh_bbox, "interior", flagship, None),
+        (lines, lines_bbox, "flat", line_diffuse, table),
+    ):
+        for g in B.GROUPS:
+            check_bounce(geom, box, 2048, rays, 16, True, settings, reps=3,
+                         particle=particle, group=g, time_plain=False)
+
     torch.cuda.reset_peak_memory_stats()
     launches, unfused_launches, neighbor_norm = phase_disk_paths(pts, nrm)
     tri_launches, tri_unfused_launches = phase_triangle_paths(verts, tris)
@@ -1188,6 +1391,7 @@ def main():
         pts, nrm, neighbor_norm)
     wdist_launches = phase_wdist_path(pts, nrm)
     grid_launches, surface_launches = phase_source_paths(pts, nrm)
+    disk2d_launches, disk2d_unfused_launches = phase_disk2d_paths()
     emit({"phase": "peak_memory",
           "max_memory_allocated_bytes": torch.cuda.max_memory_allocated()})
 
@@ -1203,12 +1407,15 @@ def main():
             "launches": unfused_launches["disk_nearest_hit"]
             + ion_unfused_launches["disk_nearest_hit"]
             + window_unfused_launches["disk_nearest_hit"]
-            + wdist_launches["disk_nearest_hit"],
+            + wdist_launches["disk_nearest_hit"]
+            + disk2d_unfused_launches["disk_nearest_hit"],
             "launches_by_path": {
                 "disks_unfused": unfused_launches["disk_nearest_hit"],
                 "ion_unfused": ion_unfused_launches["disk_nearest_hit"],
                 "window_unfused": window_unfused_launches["disk_nearest_hit"],
                 "wdist": wdist_launches["disk_nearest_hit"],
+                "disk2d_unfused":
+                    disk2d_unfused_launches["disk_nearest_hit"],
             },
             **{k: hit_wide[k] for k in keys},
         },
@@ -1231,8 +1438,14 @@ def main():
                 "wdist": wdist_launches["flux_histogram"],
                 "grid": grid_launches["flux_histogram"],
                 "surface": surface_launches["flux_histogram"],
+                "disk2d_unfused": disk2d_unfused_launches["flux_histogram"],
             },
+            # two paths of one kernel (ops/histogram.py:path_for): one block
+            # below the threshold of entries, the whole card above it
+            "paths": {"small": f"E < {SMALL_ENTRIES}", "large": "else"},
             **{k: hist_wide[k] for k in keys},
+            "E_6144": {k: hist_small[k] for k in keys + ("path", "ms_by_path")},
+            "E_65536": {k: hist_mid[k] for k in keys + ("path", "ms_by_path")},
         },
         {
             "name": "triangle_nearest_hit", "route": "cuda",
@@ -1261,7 +1474,15 @@ def main():
             "launches": launches["fused_bounce"] + tri_launches["fused_bounce"]
             + line_launches["fused_bounce"] + ion_launches["fused_bounce"]
             + gas_launches["fused_bounce"] + window_launches["fused_bounce"]
-            + grid_launches["fused_bounce"] + surface_launches["fused_bounce"],
+            + grid_launches["fused_bounce"] + surface_launches["fused_bounce"]
+            + disk2d_launches["fused_bounce"],
+            # the threads per ray G (ops/bounce.py:group_for), and the G
+            # values instantiated
+            "groups": {
+                "32": f"R < {B.GROUP_BELOW_WIDTH} or chunks >= "
+                      f"{B.GROUP_ALL_WIDTHS_CHUNKS}",
+                "1": "else"},
+            "groups_instantiated": list(B.GROUPS),
             "launches_by_path": {
                 "disks": launches["fused_bounce"],
                 "triangles": tri_launches["fused_bounce"],
@@ -1271,12 +1492,21 @@ def main():
                 "window": window_launches["fused_bounce"],
                 "grid": grid_launches["fused_bounce"],
                 "surface": surface_launches["fused_bounce"],
+                "disk2d": disk2d_launches["fused_bounce"],
             },
             **{k: bounce_wide[k] for k in keys},
             "triangles": {k: tri_bounce_wide[k] for k in keys},
             "lines": {k: line_bounce_wide[k] for k in keys},
             "ion": {k: ion_bounce_wide[k] for k in keys},
             "window": {k: window_bounce_wide[k] for k in keys},
+            # the tail's launches, which the group mapping serves
+            "narrow": {name: {k: res[k] for k in keys + ("group",)}
+                       for name, res in (
+                           ("disks_512x16", disk_tail),
+                           ("window_512x16", window_tail),
+                           ("triangles_512x16", tri_tail),
+                           ("lines_512x16", line_tail),
+                           ("disks_18180_16384x4", fine_mid))},
         },
     ]})
     emit({"ok": True, "device": {

@@ -1,8 +1,11 @@
 """The port's trace against the JAX package's, at small sizes on the CPU.
 
 (a) one mega-batch, lane-matched: both packages trace the same tables with
-    the same uniforms, through the unfused and the fused body; (b) end to end through ``TraceDisk`` against the
-    ``disk3d_trench`` golden; (c) determinism; (d) refusals.
+    the same uniforms, through the unfused and the fused body; (b) end to end
+    through ``TraceDisk`` against the ``disk3d_trench`` golden; (c)
+    determinism; (d) refusals. Several data labels on a built-in particle are
+    traced, not refused: ``test_torch_repairs.py`` holds them to the JAX
+    package.
 """
 
 import functools
@@ -343,9 +346,6 @@ REFUSALS = {
         collision_fn=lambda *a: None
     ),
     "data_log_hook": lambda: _small_tracer().set_data_log_fn(lambda *a: []),
-    "multi_channel_flux": lambda: _apply_with_particle(
-        data_labels=("flux", "energy")
-    ),
     "other_sources": lambda: _small_tracer().set_source(object()),
     "f64_tracing": lambda: vrtt.TraceDisk(
         dim=3, device="cpu", dtype=torch.float64

@@ -781,12 +781,19 @@ def test_trace_triangle_setters_and_refusals():
             vrtt.TraceTriangle(dim=3)
         with pytest.raises(RuntimeError):
             TriangleGeometry.build(verts, tris, 1.0)
-    # gas scattering traces on triangles; two flux channels are refused
+    # gas scattering traces on triangles; a particle with two data labels
+    # traces one channel, as in the JAX package: the first label receives
+    # the flux, the second zeros
     t.set_particle_type(vrtt.Particle(sticking=0.5, mean_free_path=0.5))
     assert t.apply().sum() > 0
     assert t.get_ray_trace_info().particle_hits > 0
     t.set_particle_type(
         vrtt.Particle(sticking=0.5, data_labels=("flux", "energy"))
     )
+    flux = t.apply()
+    assert flux.sum() > 0
+    assert not t.get_local_data().get_vector_data("energy").any()
+    # a custom collision function, which would give several channels, is
+    # still refused
     with pytest.raises(NotImplementedError):
-        t.apply()
+        t.set_custom_functions(collision_fn=lambda *a: None)

@@ -1,8 +1,9 @@
 """Builds the CUDA kernels of ``csrc/`` into one shared library and loads it.
 
 ``nvcc`` compiles every ``*.cu`` for ``sm_90a`` (one process per source, all
-started together), links the objects into one shared library with a plain C
-interface, and ``ctypes`` loads it. The build happens at first use, into
+started together; the bounce kernel's instantiations are four sources, one
+per primitive kind, so that they build in parallel), links the objects into
+one shared library with a plain C interface, and ``ctypes`` loads it. The build happens at first use, into
 ``build/`` beside the package, and again whenever a hash of the sources
 changes. Nothing here runs when the module is imported.
 """
@@ -34,19 +35,24 @@ _SIGNATURES = {
     "vr_disk_nearest_hit": _NEAREST_HIT,
     "vr_triangle_nearest_hit": _NEAREST_HIT,
     "vr_line_nearest_hit": _NEAREST_HIT,
-    # ids w | n_entries n_bins | out scratch stream
+    # ids w | n_entries n_bins | out scratch | sms | stream
     "vr_flux_histogram": [
-        _ptr, _ptr, ctypes.c_longlong, ctypes.c_int, _ptr, _ptr, _ptr,
+        _ptr, _ptr, ctypes.c_longlong, ctypes.c_int, _ptr, _ptr, ctypes.c_int,
+        _ptr,
+    ],
+    # ids w | n_entries n_bins | out stream
+    "vr_flux_histogram_small": [
+        _ptr, _ptr, ctypes.c_int, ctypes.c_int, _ptr, _ptr,
     ],
     # org dir weight w0 alive hfb n_refl n_bdry uniforms | prims chunk_bbs
     # perm neighbors neighbor_pack walls stick_lanes | n_rays npad pt n_prims
     # k_nbrs n_sub kind dim first_dir second_dir ray_axis bc1 bc2 refl_kind
     # max_refl max_bdry roulette deposit | t_near sticking wthresh wrenew
-    # mean_free_path | org dir weight alive hfb n_refl n_bdry out | flux
-    # hit_prim wdep t_hit scratch stream
+    # mean_free_path | group | org dir weight alive hfb n_refl n_bdry out |
+    # flux hit_prim wdep t_hit scratch stream
     "vr_fused_bounce": (
         [_ptr] * 16 + [ctypes.c_int] * 18 + [ctypes.c_float] * 5
-        + [_ptr] * 7 + [_ptr] * 6
+        + [ctypes.c_int] + [_ptr] * 7 + [_ptr] * 6
     ),
 }
 

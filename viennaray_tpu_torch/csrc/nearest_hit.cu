@@ -59,9 +59,9 @@ nearest_hit_kernel(const float* __restrict__ org,
     dz = dir[3 * r + 2];
   }
   float tmin = kBig;
-  int idx;
+  int idx, woken;
   prim_search<Kind>(s_prim, ox, oy, oz, dx, dy, dz, prims, chunk_bbs, npad,
-                    pt, t_near, live, tmin, idx);
+                    pt, t_near, live, tmin, idx, woken);
   if (live) {
     t_out[r] = tmin;
     prim_out[r] = perm[idx < 0 ? 0 : idx];

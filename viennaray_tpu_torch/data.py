@@ -40,6 +40,17 @@ class TraceInfo:
     time: float = 0.0
     warning: bool = False
     error: bool = False
+    # how hard the fused bounce kernel's search worked, summed over the
+    # apply's launches (ops/bounce.py:COUNT_NAMES): the (search group, chunk)
+    # pairs whose chunk the group walked, and the (search group, sub-bounce)
+    # pairs it ran. A search group shares one chunk-skip decision: a warp of
+    # 32 rays under one thread per ray, one ray under a group of threads. 0
+    # on the unfused body and on the CPU (the plain version sweeps no chunks)
+    chunks_swept: int = 0
+    # the reference's second sweep for deposits; always 0 here: the kernel
+    # gathers the hit disk's neighbor or window list instead
+    chunks_deposited: int = 0
+    tile_bounces: int = 0
 
 
 class TracingData:

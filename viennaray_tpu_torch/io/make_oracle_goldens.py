@@ -25,7 +25,11 @@ it. The configurations (``--name``):
   0.1 and a mean free path of one trench depth (4.0), periodic walls;
 - ``wdist3d_trench_oracle``: the same disks, diffuse particle with sticking
   0.1, periodic walls, the neighbor deposits weighted by 1/distance
-  (``use_wdist``).
+  (``use_wdist``);
+- ``disk2d_trench_oracle``: the JAX package's ``disk2d_trench`` configuration
+  (``benchmarks/make_goldens.py:config_disk2d_trench``) on its fixture
+  ``create_trench_grid_2d`` at ``grid_delta`` 0.1 (180 disks in 2D), diffuse
+  particle with sticking 0.1, periodic walls, source on the +y face.
 
     python3 viennaray_tpu_torch/io/make_oracle_goldens.py --name NAME [--rays N]
 
@@ -89,6 +93,13 @@ CONFIGS = {
         physics={"particle": "diffuse", "sticking": 0.1, "use_wdist": True,
                  "boundary": "periodic", "source": "+z face, cosine lobe"},
         oracle=dict(sticking=0.1, reflection="diffuse", use_wdist=True),
+    ),
+    "disk2d_trench_oracle": dict(
+        kind="disk2d", grid_delta=0.1, rays=4_000_000,
+        physics={"particle": "diffuse", "sticking": 0.1,
+                 "boundary": "periodic",
+                 "source": "+y face, cosine lobe flattened to 2D"},
+        oracle=dict(sticking=0.1, reflection="diffuse"),
     ),
 }
 
@@ -156,22 +167,31 @@ def _setup(name):
         record = {"fixture": "create_trench_line_mesh", "grid_delta": gd,
                   **TRENCH, "segments": int(len(lengths))}
         return trace, lengths, float(nodes[:, 0].max() - nodes[:, 0].min()), record
-    pts, nrm = fixtures.create_trench_grid_3d(grid_delta=gd, **TRENCH)
-    geometry = vrt.DiskGeometry.build(pts, nrm, gd, device="cpu").with_areas(
-        (0, 1), (vrt.BoundaryCondition.PERIODIC,) * 3
-    )
+    # disks: in 3D the source lies on the +z face (walls on x and y), in 2D
+    # on the +y face (wall on x), as TraceDisk's default source direction
+    dim = 2 if cfg["kind"] == "disk2d" else 3
+    if dim == 2:
+        pts, nrm = fixtures.create_trench_grid_2d(grid_delta=gd, **TRENCH)
+        fixture, walls = "create_trench_grid_2d", (0, 2)
+    else:
+        pts, nrm = fixtures.create_trench_grid_3d(grid_delta=gd, **TRENCH)
+        fixture, walls = "create_trench_grid_3d", (0, 1)
+    geometry = vrt.DiskGeometry.build(
+        pts, nrm, gd, dim=dim, device="cpu"
+    ).with_areas(walls, (vrt.BoundaryCondition.PERIODIC,) * 3)
     radius = geometry.disk_radius
     extent = pts.max(axis=0) - pts.min(axis=0)
 
     def trace(seed, rays):
         return _oracle().trace_disks_oracle(
-            pts, nrm, np.full(len(pts), radius), dim=3, disk_radius=radius,
+            pts, nrm, np.full(len(pts), radius), dim=dim, disk_radius=radius,
             num_rays=rays, seed=seed, **oracle_kw)
 
-    record = {"fixture": "create_trench_grid_3d", "grid_delta": gd, **TRENCH,
+    record = {"fixture": fixture, "grid_delta": gd, **TRENCH,
               "disks": int(len(pts)), "disk_radius": radius}
+    source_area = extent[0] if dim == 2 else extent[0] * extent[1]
     return (trace, geometry.areas.numpy().astype(np.float64),
-            float(extent[0] * extent[1]), record)
+            float(source_area), record)
 
 
 def _one_seed(args):

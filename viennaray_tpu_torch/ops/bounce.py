@@ -82,9 +82,39 @@ _KINDS = {
 WINDOW_KIND = 3
 
 # order of the counts a launch returns (int64): the five events summed over
-# lanes and sub-bounces, then the lanes still alive after the launch
-COUNT_NAMES = ("collide", "wall", "exit", "traces", "scatter", "survivors")
+# lanes and sub-bounces, then the lanes still alive after the launch, then
+# how hard the kernel's search worked: the (search group, chunk) pairs whose
+# chunk the group walked and the (search group, sub-bounce) pairs it ran (a
+# search group shares one chunk-skip decision: a warp of 32 rays under one
+# thread per ray, one ray under a group of threads; ``group_for``). The plain
+# version sweeps no chunks: it returns 0 for those two.
+COUNT_NAMES = ("collide", "wall", "exit", "traces", "scatter", "survivors",
+               "chunks_swept", "tile_bounces")
 N_EVENTS = 5
+
+# The kernel's group sizes G (threads that search for one ray) and the
+# wrapper's choice (``group_for``). One thread per ray stages each chunk of
+# the SoA once per block and tests it from shared memory, but skips a chunk
+# only when none of a warp's 32 rays can enter it; a group of G threads
+# reads the SoA from L1 and L2, skips for the one ray, and puts G times the
+# threads on the card. On an H100 (``chip_diagnose.py --groups``, PERF.md)
+# G = 32 was the fastest G of 1, 2, 4, 8, 16, 32 at every width below 65,536
+# rays on all four kinds (512 x 16 disks 9.59 -> 0.22 ms), and at every
+# width on the geometries of 12 and 18 chunks (triangles at 2^20 x 1:
+# 21.57 -> 9.70 ms); one thread per ray stayed fastest from 65,536 rays up on
+# the 6-chunk disks and the 2-chunk lines (disks at 2^20 x 1: 5.39 against
+# 6.46 ms). Between 6 and 12 chunks nothing was measured: the rule takes 8.
+GROUPS = (1, 32)
+GROUP_ALL_WIDTHS_CHUNKS = 8  # from this many chunks on, every width: G = 32
+GROUP_BELOW_WIDTH = 65536  # below this width, every geometry: G = 32
+
+
+def group_for(n_rays: int, n_chunks: int) -> int:
+    """The threads that search for one ray in a launch of ``n_rays`` on a
+    geometry of ``n_chunks`` SoA chunks."""
+    if n_rays < GROUP_BELOW_WIDTH or n_chunks >= GROUP_ALL_WIDTHS_CHUNKS:
+        return 32
+    return 1
 
 
 class RayState(NamedTuple):
@@ -184,7 +214,7 @@ class BounceSettings(NamedTuple):
 
 class BounceResult(NamedTuple):
     state: RayState
-    counts: torch.Tensor  # (6,) int64, see COUNT_NAMES
+    counts: torch.Tensor  # (8,) int64, see COUNT_NAMES
     flux: Optional[torch.Tensor]  # (n_prims,) float32, deposits in the kernel
     hit_prim: Optional[torch.Tensor]  # (R,) int32, -1 where no deposit
     wdep: Optional[torch.Tensor]  # (R,) float32
@@ -621,7 +651,7 @@ def fused_bounce_ref(state: RayState, uniforms, geometry, walls, settings,
     float64 over all sub-bounces and rounded to float32 once, as the kernel's
     fixed-point bins are."""
     n_uni = settings.n_uni
-    counts = torch.zeros(N_EVENTS + 1, dtype=torch.int64,
+    counts = torch.zeros(len(COUNT_NAMES), dtype=torch.int64,
                          device=state.org.device)
     acc = torch.zeros(
         geometry.num_primitives, dtype=torch.float64, device=state.org.device
@@ -649,7 +679,7 @@ def fused_bounce_ref(state: RayState, uniforms, geometry, walls, settings,
 
 def fused_bounce(state: RayState, uniforms, geometry, walls, settings,
                  n_sub: int = 1, deposit_in_kernel: bool = True,
-                 stick_lanes=None):
+                 stick_lanes=None, group=None):
     """Advance every ray through ``n_sub`` whole bounces; any R.
 
     state: ``RayState``; uniforms (R, n_uni n_sub) float32 with the columns
@@ -669,12 +699,17 @@ def fused_bounce(state: RayState, uniforms, geometry, walls, settings,
 
     On CUDA tensors this launches the kernel of ``csrc/bounce.cu`` (or
     raises); on CPU tensors it runs the plain version. Two calls on the same
-    inputs give bitwise the same outputs on either device.
+    inputs give bitwise the same outputs on either device. ``group`` (one of
+    ``GROUPS``; None: ``group_for``) forces the threads per ray, to
+    compare two mappings: every G gives the same outputs bit for bit but the
+    two search counts. The trace never sets it.
     """
     state = RayState(*state)
     s = settings
     _check_inputs(state, uniforms, geometry, walls, settings, n_sub,
                   deposit_in_kernel, stick_lanes)
+    if group is not None and group not in GROUPS:
+        raise ValueError(f"group must be one of {GROUPS}, got {group}")
     dev = state.org.device
     if dev.type == "cpu":
         return fused_bounce_ref(
@@ -696,9 +731,9 @@ def fused_bounce(state: RayState, uniforms, geometry, walls, settings,
         neighbor_ptrs = (None, None)
     new = RayState(*(torch.empty_like(x) for x in state[:3]), state.w0,
                    *(torch.empty_like(x) for x in state[4:]))
-    # n_prims fixed-point bins, the largest w0, the six counts; cleared by
-    # the kernel's entry
-    scratch = torch.empty(n_prims + 2 + N_EVENTS, dtype=torch.int64,
+    # n_prims fixed-point bins, the largest w0, the counts; cleared by the
+    # kernel's entry
+    scratch = torch.empty(n_prims + 1 + len(COUNT_NAMES), dtype=torch.int64,
                           device=dev)
     t_hit = None
     if deposit_in_kernel:
@@ -713,6 +748,8 @@ def fused_bounce(state: RayState, uniforms, geometry, walls, settings,
             t_hit = torch.empty(R, dtype=torch.float32, device=dev)
         outs = (None, hit_prim.data_ptr(), wdep.data_ptr(),
                 None if t_hit is None else t_hit.data_ptr())
+    n_chunks = geometry.soa_chunk_bbs.shape[0]
+    g = group_for(R, n_chunks) if group is None else group
     lib = _build.library()
     with torch.cuda.device(dev):
         err = lib.vr_fused_bounce(
@@ -724,7 +761,7 @@ def fused_bounce(state: RayState, uniforms, geometry, walls, settings,
             geometry.soa_chunk_bbs.data_ptr(), geometry.soa_perm.data_ptr(),
             *neighbor_ptrs, walls.data_ptr(),
             None if stick_lanes is None else stick_lanes.data_ptr(),
-            R, npad, npad // geometry.soa_chunk_bbs.shape[0], n_prims, K,
+            R, npad, npad // n_chunks, n_prims, K,
             n_sub, WINDOW_KIND if window else _KINDS[geometry.kind][0],
             s.dim, s.first_dir,
             s.second_dir, s.ray_axis, s.bc1, s.bc2, int(s.refl_kind),
@@ -732,7 +769,7 @@ def fused_bounce(state: RayState, uniforms, geometry, walls, settings,
             int(deposit_in_kernel),
             s.t_near, s.sticking, s.weight_threshold_frac,
             s.renew_weight_frac, max(s.mean_free_path, 0.0),
-            new.org.data_ptr(), new.dirn.data_ptr(), new.weight.data_ptr(),
+            g, new.org.data_ptr(), new.dirn.data_ptr(), new.weight.data_ptr(),
             new.alive.data_ptr(), new.hfb.data_ptr(), new.n_refl.data_ptr(),
             new.n_bdry.data_ptr(), *outs, scratch.data_ptr(),
             torch.cuda.current_stream().cuda_stream,
@@ -741,9 +778,11 @@ def fused_bounce(state: RayState, uniforms, geometry, walls, settings,
         raise RuntimeError(f"vr_fused_bounce: CUDA error {err}")
     fused_bounce.launches += 1
     fused_bounce.sub_bounces += n_sub
+    fused_bounce.launches_by_group[g] += 1
     return BounceResult(new, scratch[n_prims + 1:], flux, hit_prim, wdep,
                         t_hit)
 
 
 fused_bounce.launches = 0  # kernel launches
 fused_bounce.sub_bounces = 0  # bounces those launches ran, n_sub each
+fused_bounce.launches_by_group = dict.fromkeys(GROUPS, 0)  # launches by G

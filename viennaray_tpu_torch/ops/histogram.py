@@ -5,13 +5,43 @@ wraps the CUDA kernel ``csrc/flux_histogram.cu`` (fixed-point integer
 atomics: deterministic, float32-accurate); ``flux_histogram_ref`` is the plain
 PyTorch version. On a CUDA tensor the wrapper launches the kernel or raises;
 on a CPU tensor it runs the plain version.
+
+The kernel has two paths with the same bits: below ``SMALL_ENTRIES`` entries,
+where the bins fit in one block's shared memory, one launch of one block
+(``vr_flux_histogram_small``); else four device operations over the whole
+card (``vr_flux_histogram``). ``path_for`` holds the rule.
 """
 
 from __future__ import annotations
 
+import contextlib
+import functools
+
 import torch
 
 from .. import _build
+
+# Entries below which a call takes the one-block path: its time grows with E
+# on one SM (0.0117 to 0.0133 ms at 6,144 entries, 0.0174 to 0.0179 at
+# 16,384, 0.0303 to 0.0305 at 32,768), the other path's is about a fixed
+# 0.023 to 0.031 ms of four device operations (H100, ``chip_diagnose.py
+# --paths``; PERF.md)
+SMALL_ENTRIES = 24576
+# the bins of one block's shared memory: 200 KB of 64-bit integers
+SMALL_MAX_BINS = 200 * 1024 // 8
+
+
+def path_for(n_entries: int, n_prims: int) -> str:
+    """The kernel's path for a call: "small" (one launch of one block) or
+    "large"."""
+    if n_entries < SMALL_ENTRIES and n_prims <= SMALL_MAX_BINS:
+        return "small"
+    return "large"
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
 
 
 def flux_histogram_ref(ids, w, n_prims: int):
@@ -21,41 +51,67 @@ def flux_histogram_ref(ids, w, n_prims: int):
     return acc.float()
 
 
-def flux_histogram(ids, w, n_prims: int):
+def flux_histogram(ids, w, n_prims: int, path=None):
     """sum_e w[e] into bin ids[e]; returns (n_prims,) f32.
 
     ids (E,) int32 in [0, n_prims); w (E,) f32, finite. Two calls on the same
-    inputs give bitwise the same output on either device.
+    inputs give bitwise the same output on either device, and so do the
+    kernel's two paths. ``path`` ("small" or "large", default ``path_for``)
+    forces one of them, to compare the two; the trace never sets it.
     """
-    if ids.ndim != 1 or w.shape != ids.shape:
+    # the unfused body calls this once a bounce, mostly on a few thousand
+    # entries, where the host's work per call is the call's time: the
+    # checks below stay on cheap tensor attributes
+    if ids.dim() != 1 or w.dim() != 1 or ids.size(0) != w.size(0):
         raise ValueError("ids and w must both be (E,)")
-    if ids.dtype != torch.int32 or w.dtype != torch.float32:
+    if ids.dtype is not torch.int32 or w.dtype is not torch.float32:
         raise TypeError("ids must be int32 and w float32")
-    if ids.device != w.device:
+    index = w.get_device()  # -1 on the CPU
+    if ids.get_device() != index:
         raise ValueError(f"ids is on {ids.device}, w on {w.device}")
     if not (ids.is_contiguous() and w.is_contiguous()):
         raise ValueError("ids and w must be contiguous")
     n_prims = int(n_prims)
-    if w.device.type == "cpu":
-        return flux_histogram_ref(ids, w, n_prims)
-    if w.device.type != "cuda":
+    n_entries = ids.size(0)
+    if path is None:
+        path = path_for(n_entries, n_prims)
+    elif path not in ("small", "large"):
+        raise ValueError(f"no such path {path!r}")
+    elif path == "small" and (n_prims > SMALL_MAX_BINS or n_entries >= 2**31):
+        raise ValueError("the one-block path takes up to SMALL_MAX_BINS bins "
+                         "and fewer than 2^31 entries")
+    if not w.is_cuda:
+        if w.device.type == "cpu":
+            return flux_histogram_ref(ids, w, n_prims)
         raise RuntimeError(f"flux_histogram: unsupported device {w.device}")
-    out = torch.empty(n_prims, dtype=torch.float32, device=w.device)
+    out = w.new_empty(n_prims)
     if n_prims == 0:
         return out
-    # n_prims accumulators and the largest |w|, cleared by the kernel's entry
-    scratch = torch.empty(n_prims + 1, dtype=torch.int64, device=w.device)
     lib = _build.library()
-    with torch.cuda.device(w.device):
-        err = lib.vr_flux_histogram(
-            ids.data_ptr(), w.data_ptr(), ids.shape[0], n_prims,
-            out.data_ptr(), scratch.data_ptr(),
-            torch.cuda.current_stream().cuda_stream,
-        )
+    # switch devices only when the tensors are not on the current one
+    switch = index != torch._C._cuda_getDevice()
+    with torch.cuda.device(index) if switch else contextlib.nullcontext():
+        stream = torch._C._cuda_getCurrentRawStream(index)
+        if path == "small":
+            err = lib.vr_flux_histogram_small(
+                ids.data_ptr(), w.data_ptr(), n_entries, n_prims,
+                out.data_ptr(), stream,
+            )
+        else:
+            # n_prims accumulators and the largest |w|, cleared by the
+            # kernel's entry
+            scratch = torch.empty(n_prims + 1, dtype=torch.int64,
+                                  device=w.device)
+            err = lib.vr_flux_histogram(
+                ids.data_ptr(), w.data_ptr(), n_entries, n_prims,
+                out.data_ptr(), scratch.data_ptr(), _sm_count(index), stream,
+            )
     if err != 0:
-        raise RuntimeError(f"vr_flux_histogram: CUDA error {err}")
+        raise RuntimeError(f"vr_flux_histogram ({path}): CUDA error {err}")
     flux_histogram.launches += 1
+    flux_histogram.launches_by_path[path] += 1
     return out
 
 
 flux_histogram.launches = 0
+flux_histogram.launches_by_path = {"small": 0, "large": 0}

@@ -43,9 +43,11 @@ Event semantics mirrored 1:1 from rayTraceKernel.hpp:
   diffuse, specular or coned-cosine reflection, max-reflections cap, Russian
   roulette (kill below 0.1 w0, renew to 0.3 w0, :309-335, :435-460)
 
-Not ported yet, and refused by name (``check_supported``): custom hooks and
-multi-channel flux, float64 tracing; and, as in the reference, the window
-flux model together with 1/distance weighting. The per-bounce coherence
+Not ported yet, and refused by name (``check_supported`` and the tracers):
+custom hooks (so a particle's flux is one channel: with several data labels
+the first receives it, as in the reference without a custom collision
+function), float64 tracing; and, as in the reference, the window flux model
+together with 1/distance weighting. The per-bounce coherence
 re-sort of the reference only engages from 8 geometry chunks on and is not
 ported yet either; it changes the lane order, not the physics.
 
@@ -65,6 +67,7 @@ import torch
 from .. import rng as rng_streams
 from ..config import ReflectionKind, TraceConfig
 from ..ops.bounce import (
+    COUNT_NAMES,
     N_EVENTS,
     BounceSettings,
     RayState,
@@ -140,7 +143,13 @@ def n_sub_for(width: int, n_sub) -> int:
 
 class BatchCounters(NamedTuple):
     """Per-batch counters (ref: TraceInfo, rayUtil.hpp:65-76), as Python ints
-    fetched from the device once per batch."""
+    fetched from the device once per batch. The last three say how hard the
+    fused kernel's search worked (``ops.bounce.COUNT_NAMES``): chunks woken
+    and sub-bounces run by its search groups, summed over the batch's
+    launches; 0 on the unfused body, and on the CPU, where the plain version
+    sweeps no chunks. ``chunks_deposited`` is always 0: the reference's
+    kernel sweeps the chunks a second time for its deposits, the port's
+    gathers the hit disk's neighbor or window list instead."""
 
     total_traces: int
     non_geometry_hits: int
@@ -148,6 +157,9 @@ class BatchCounters(NamedTuple):
     particle_hits: int
     boundary_hits: int
     reflections: int
+    chunks_swept: int = 0
+    chunks_deposited: int = 0
+    tile_bounces: int = 0
 
 
 SOURCES = (RandomSource, GridSource, SurfaceSource)
@@ -162,8 +174,6 @@ def check_supported(config: TraceConfig, particle, source) -> None:
         raise NotImplementedError(
             "flux_model='window' does not take use_wdist"
         )
-    if len(particle.data_labels) != 1:
-        raise NotImplementedError("multi-channel flux is not ported yet")
     ReflectionKind(particle.reflection_kind)  # raises on a kind that is none
     if not isinstance(source, SOURCES):
         raise NotImplementedError(
@@ -298,8 +308,8 @@ def trace_batch(
     n_refl = torch.zeros(R, dtype=torch.int32, device=dev)
     n_bdry = torch.zeros(R, dtype=torch.int32, device=dev)
     flux = torch.zeros(n_prims, dtype=torch.float32, device=dev)
-    # collide, wall, exit, traces, scatter
-    counts = torch.zeros(N_EVENTS, dtype=torch.int64, device=dev)
+    # a launch's counts summed (COUNT_NAMES; the survivors' slot is not read)
+    counts = torch.zeros(len(COUNT_NAMES), dtype=torch.int64, device=dev)
 
     def land(flux, org, dirn, hit_prim, wdep, t_hit):
         """Deposits handed out by a bounce (ref: DiffuseParticle::
@@ -324,7 +334,7 @@ def trace_batch(
             stick_lanes,
         )
         flux = land(flux, state.org, state.dirn, hit_prim, wdep, t_hit)
-        counts.add_(step_counts)
+        counts[:N_EVENTS].add_(step_counts)
         return flux, new_state.alive.sum(), new_state, 1
 
     def fused_body(it, flux, state):
@@ -347,7 +357,7 @@ def trace_batch(
                         res.t_hit)
         else:
             flux = flux + res.flux
-        counts.add_(res.counts[:N_EVENTS])
+        counts.add_(res.counts)
         return flux, res.counts[N_EVENTS], res.state, k
 
     body = fused_body if fused else unfused_body
@@ -430,9 +440,11 @@ def trace_batch(
             state = RayState(*(x[take] for x in state))
             sorted_since_bounce = True
 
-    c = counts.tolist()  # the one counter fetch per batch
+    c = dict(zip(COUNT_NAMES, counts.tolist()))  # the one fetch per batch
     counters = BatchCounters(
-        total_traces=c[3], non_geometry_hits=c[2], geometry_hits=c[0],
-        particle_hits=c[4], boundary_hits=c[1], reflections=c[0],
+        total_traces=c["traces"], non_geometry_hits=c["exit"],
+        geometry_hits=c["collide"], particle_hits=c["scatter"],
+        boundary_hits=c["wall"], reflections=c["collide"],
+        chunks_swept=c["chunks_swept"], tile_bounces=c["tile_bounces"],
     )
     return flux, counters
