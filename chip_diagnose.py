@@ -40,12 +40,16 @@ prints one JSON object per phase:
   ``torch.profiler``, whose tables of kernels and host operators go to FILE.
 
 ``python3 chip_diagnose.py --launch-times TREE [TREE ...]`` is another mode,
-for comparing two versions of the bounce kernel on one card: for each TREE
-in turn (a checkout of this repository, for instance the parent commit
-unpacked by ``git archive`` beside ``.``; name each twice, in the order
-parent, change, change, parent) a fresh process builds THAT tree's kernels
-and times its bounce kernel on both flagships at 2^20 rays x 1 bounce and at
-512 rays x 16, and prints ``ptxas``' lines of its bounce kernel.
+for comparing two versions of the kernels on one card: for each TREE in
+turn (a checkout of this repository, for instance the parent commit unpacked
+by ``git archive`` beside ``.``; name each twice, in the order parent,
+change, change, parent) a fresh process builds THAT tree's kernels, times
+its closest-hit kernels (disks, triangles, lines) at 2^20 source rays and
+at every width of the unfused ladder (2^20 rays down to 512) on interior
+rays, on the 2,993 disks, the 5,760 triangles, the 782 segments and the
+18,180 disks, and its bounce kernel on both flagships at 2^20 rays x 1
+bounce and at 512 rays x 16, and prints ``ptxas``' lines of its bounce and
+closest-hit kernels.
 
 ``python3 chip_diagnose.py --groups`` times the bounce kernel under every
 instantiated group size G (threads per ray) at every width of the trace's
@@ -351,13 +355,15 @@ os.chdir(root)
 import chip_smoke as cs
 from viennaray_tpu_torch import _build
 from viennaray_tpu_torch.geometry.disk_geometry import DiskGeometry
+from viennaray_tpu_torch.geometry.line_geometry import LineGeometry
 from viennaray_tpu_torch.geometry.triangle_geometry import TriangleGeometry
 from viennaray_tpu_torch.io import fixtures
 _build.library()
 lines = [l.strip() for l in _build.build_log.splitlines()]
+names = ("bounce_kernel", "nearest_hit_kernel")
 out = {"tree": sys.argv[1], "ptxas": [
     l for i, l in enumerate(lines)
-    if "bounce_kernel" in l or any("bounce_kernel" in p for p in lines[max(i - 2, 0):i])
+    if any(n in l or any(n in p for p in lines[max(i - 2, 0):i]) for n in names)
 ]}
 gd = cs.FLAGSHIP["grid_delta"]
 geometries = {
@@ -365,8 +371,27 @@ geometries = {
     "triangles": TriangleGeometry.build(
         *fixtures.create_trench_mesh_3d(**cs.FLAGSHIP), gd),
 }
+mesh, materials = cs.line_trench()
+fine = dict(cs.FLAGSHIP, grid_delta=0.1)
+searches = (
+    ("disks", geometries["disks"], 3, "source", "interior"),
+    ("triangles", geometries["triangles"], 3, "source", "interior"),
+    ("lines", LineGeometry.from_mesh(mesh, material_ids=materials), 2,
+     "flat_source", "flat"),
+    ("disks_18180", DiskGeometry.build(
+        *fixtures.create_trench_grid_3d(**fine), fine["grid_delta"]), 3,
+     "source", "interior"),
+)
 flagship = cs.bounce_settings()
 with contextlib.redirect_stdout(io.StringIO()):
+    # the closest-hit kernels (kernels 1, 3 and lines): 2^20 source rays,
+    # then every width of the unfused ladder on interior rays
+    for name, geometry, dim, source, interior in searches:
+        bbox = cs.adjusted_bbox(geometry, dim=dim)
+        for kind, n in [(source, 1 << 20)] + [
+                (interior, 1 << k) for k in range(20, 8, -1)]:
+            out[f"search_{name}_{kind}_{n}_ms"] = cs.check_nearest_hit(
+                geometry, bbox, n, kind, reps=10 if n >= 1 << 17 else 50)["ms"]
     for name, geometry in geometries.items():
         bbox = cs.adjusted_bbox(geometry)
         out[name + "_1048576x1_ms"] = [
@@ -388,8 +413,9 @@ def main(argv=None):
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument(
         "--launch-times", nargs="+", metavar="TREE", default=None,
-        help="only time the bounce kernel's flagship launches of each "
-             "checkout named, one process each, in the order given",
+        help="only time the closest-hit and bounce kernels' flagship "
+             "launches of each checkout named, one process each, in the "
+             "order given",
     )
     parser.add_argument(
         "--groups", action="store_true",

@@ -21,6 +21,12 @@ It imports only ``viennaray_tpu_torch`` and, in order:
    16, 16,384 x 4 and 65,536 x 1 on every kind, both kFull values, the window
    form and tie-heavy rays (straight down onto packed flat faces and shared
    triangle edges), and every instantiated group size at 2,048 x 16; the
+   closest-hit kernels (disks, triangles, lines; the division-free reject
+   before the exact test on disks and triangles) at 512, 1,000, 2,048,
+   16,384, 65,536 and 2^20 rays on source, interior, tie-heavy and rim rays
+   (aimed a hair inside and outside disk rims and triangle edges, a quarter
+   grazing), hit, prim and t bit for bit, and past 2^27 rays (where the
+   warp per ray's thread index passes 2^32) at both ends of the batch; the
    histogram kernel's two paths bit for bit against each other (one entry
    either side of the threshold too); and times kernel, plain version and,
    for the histogram, one ``index_add_`` call (at 6,144, 65,536, 2^20 and
@@ -187,12 +193,16 @@ def make_rays(geometry, bbox, n, kind, seed):
     top face through points on the grid of half the grid spacing, so that
     rays meet a flat face where packed disks overlap (the same t on several
     disks) or a mesh's shared edges and vertices (the same t on two or more
-    triangles): the selection's tie rule decides them."""
+    triangles): the selection's tie rule decides them; ``rims`` = rays
+    aimed at points a hair inside and outside disk rims or triangle edges
+    (``rim_rays``), a quarter of them grazing."""
     from viennaray_tpu_torch.ops import sampling
 
     dev = geometry.device
     gen = torch.Generator(device=dev)
     gen.manual_seed(seed)
+    if kind == "rims":
+        return rim_rays(geometry, n, gen)
     u = torch.rand((4, n), generator=gen, device=dev)
     lo, hi = bbox[0], bbox[1]
     org = lo + (hi - lo) * torch.stack([u[0], u[1], u[2]], dim=1)
@@ -220,6 +230,63 @@ def make_rays(geometry, bbox, n, kind, seed):
     return org.contiguous(), dirn.contiguous()
 
 
+def _unit(v):
+    return v / torch.linalg.norm(v, dim=1, keepdim=True)
+
+
+def rim_rays(geometry, n, gen):
+    """Rays through points a hair inside and outside the rims of random
+    disks (r (1 +- 1e-6), r (1 +- 1e-7)) or on and a hair off the edges and
+    vertices of random triangles (u = 0, v = 0, u + v = 1, scaled by 1 +-
+    1e-6), from 0.01 to 3 units before the point; a quarter of them graze
+    the primitive's plane (tilts of 1e-6 to 1e-2), the rest come from any
+    side. An over-eager reject before the exact test shows here first."""
+    dev = geometry.device
+    soa = geometry.prims_soa
+    lane = torch.randint(0, geometry.num_primitives, (n,), generator=gen,
+                         device=dev)
+    col = soa[:, lane].T  # (n, rows)
+    u = torch.rand((6, n), generator=gen, device=dev)
+    if geometry.kind == "disk":
+        normal = col[:, 3:6]
+        helper = torch.where(normal[:, :1].abs() < 0.9,
+                             torch.tensor([1.0, 0.0, 0.0], device=dev),
+                             torch.tensor([0.0, 1.0, 0.0], device=dev))
+        a = _unit(torch.linalg.cross(normal, helper))
+        b = torch.linalg.cross(normal, a)
+        ang = (2 * np.pi * u[0])[:, None]
+        frac = torch.tensor([1 - 1e-6, 1 + 1e-6, 1 - 1e-7, 1 + 1e-7],
+                            device=dev)[(u[1] * 4).long().clamp(max=3)]
+        radius = col[:, 6].sqrt() * frac
+        target = col[:, 0:3] + radius[:, None] * (torch.cos(ang) * a
+                                                  + torch.sin(ang) * b)
+    else:
+        normal = col[:, 9:12]
+        a, b = _unit(col[:, 3:6]), _unit(col[:, 6:9])
+        off = torch.tensor([0.0, 1e-6, -1e-6], device=dev)[
+            (u[1] * 3).long().clamp(max=2)]
+        # which place: u = 0, v = 0, u + v = 1 or a vertex
+        edge = (u[2] * 4).long().clamp(max=3)
+        w = u[3]
+        bu = torch.where(edge == 0, off, torch.where(edge == 1, w, w))
+        bv = torch.where(edge == 0, w, torch.where(edge == 1, off,
+                                                   (1 - w) * (1 + off)))
+        vert = edge == 3
+        bu = torch.where(vert, (w > 0.5).float(), bu)
+        bv = torch.where(vert, ((w > 0.25) & (w <= 0.5)).float(), bv)
+        target = (col[:, 0:3] + bu[:, None] * col[:, 3:6]
+                  + bv[:, None] * col[:, 6:9])
+        b = _unit(torch.linalg.cross(normal, a))
+    ang = (2 * np.pi * u[4])[:, None]
+    tilt = torch.tensor([1e-6, 1e-4, 1e-2], device=dev)[
+        (u[5] * 3).long().clamp(max=2)][:, None]
+    grazing = _unit(torch.cos(ang) * a + torch.sin(ang) * b + tilt * normal)
+    anyway = _unit(torch.randn((n, 3), generator=gen, device=dev))
+    dirn = torch.where((u[5] < 0.25)[:, None], grazing, anyway)
+    dist = 0.01 + 3.0 * torch.rand((n, 1), generator=gen, device=dev)
+    return (target - dist * dirn).contiguous(), dirn.contiguous()
+
+
 def check_nearest_hit(geometry, bbox, n_rays, kind, reps):
     """The closest-hit kernel of the geometry's kind (disks, triangles or
     lines) against its plain version."""
@@ -236,6 +303,7 @@ def check_nearest_hit(geometry, bbox, n_rays, kind, reps):
     hit_equal = bool(torch.equal(h_k, h_p))
     prim_equal = bool(torch.equal(p_k, p_p))
     max_abs_err = float((t_k - t_p)[h_p].abs().max()) if bool(h_p.any()) else 0.0
+    t_equal = bool(torch.equal(t_k, t_p))
     ms = time_cuda(lambda: kernel(*args, t_near=1e-4), reps)
     plain_ms = time_cuda(lambda: plain(*args, t_near=1e-4), 1)
     n_real = geometry.num_primitives
@@ -248,9 +316,11 @@ def check_nearest_hit(geometry, bbox, n_rays, kind, reps):
         "phase": "kernel_check", "kernel": name,
         "shape": f"R={n_rays} ({kind} rays), Npad={npad}, "
                  f"C={geometry.soa_chunk_bbs.shape[0]}",
-        "tolerance": "hit and prim equal on every lane, t equal bit for bit "
-                     "(no fused multiply-add, IEEE division, same order)",
-        "hit_equal": hit_equal, "prim_equal": prim_equal,
+        "tolerance": "hit, prim and t equal bit for bit on every lane (the "
+                     "exact test: no fused multiply-add, IEEE division, same "
+                     "order; the reject before it drops only pairs it would "
+                     "not select)",
+        "hit_equal": hit_equal, "prim_equal": prim_equal, "t_equal": t_equal,
         "hit_fraction": float(h_p.float().mean()),
         "max_abs_err": max_abs_err, "ms": ms, "plain_ms": plain_ms,
         "bound_ms": max(op_ms, byte_ms),
@@ -258,9 +328,85 @@ def check_nearest_hit(geometry, bbox, n_rays, kind, reps):
         "library_ms": None,
     }
     emit(res)
-    if not (hit_equal and prim_equal and max_abs_err == 0.0):
+    if not (hit_equal and prim_equal and t_equal and max_abs_err == 0.0):
         raise RuntimeError(f"{name} disagrees with its plain version: {res}")
     return res
+
+
+SEARCH_WIDTHS = (512, 1000, 2048, 16384, 65536, 1 << 20)
+
+
+def check_search_widths(geometry, bbox, kind, widths=SEARCH_WIDTHS):
+    """The closest-hit kernel of the geometry's kind at every width of
+    ``widths`` on ``kind`` rays, each held bit for bit (hit, prim, t) to one
+    plain run; one JSON object per width with the kernel's time (few
+    repeats) beside the bound."""
+    from viennaray_tpu_torch.ops import nearest_hit as NH
+
+    name = f"{geometry.kind}_nearest_hit"
+    kernel, plain = getattr(NH, name), getattr(NH, name + "_ref")
+    for n_rays in widths:
+        org, dirn = make_rays(geometry, bbox, n_rays, kind, seed=11)
+        args = (org, dirn, geometry.prims_soa, geometry.soa_perm,
+                geometry.soa_chunk_bbs)
+        want = plain(*args, t_near=1e-4)
+        got = kernel(*args, t_near=1e-4)
+        torch.cuda.synchronize()
+        equal = all(bool(torch.equal(a, b)) for a, b in zip(got, want))
+        ms = time_cuda(lambda: kernel(*args, t_near=1e-4),
+                       2 if n_rays >= 65536 else 5)
+        op_ms = (n_rays * geometry.num_primitives
+                 * OPS_PER_PAIR[geometry.kind] / F32_FLOPS * 1e3)
+        res = {
+            "phase": "search_widths", "kernel": name, "rays": kind,
+            "width": n_rays, "chunks": geometry.soa_chunk_bbs.shape[0],
+            "bitwise_equal": equal, "ms": ms,
+            "hit_fraction": float(want[2].float().mean()),
+            "bound_ms": op_ms, "bound_by": "operations",
+        }
+        emit(res)
+        if not equal:
+            raise RuntimeError(f"{name} disagrees with its plain version: "
+                               f"{res}")
+
+
+def check_search_wide_index(geometry, bbox, edge=8192):
+    """The closest-hit kernel on 2^27 + ``edge`` rays, past the width at
+    which a warp per ray's thread index passes 2^32: the batch is one block
+    of interior rays repeated, with fresh rays in its first and last
+    ``edge`` places, and both ends must equal the plain version on those
+    rays bit for bit (a wrapped index would put the last rays' results in
+    the first places and leave the last unwritten)."""
+    from viennaray_tpu_torch.ops import nearest_hit as NH
+
+    name = f"{geometry.kind}_nearest_hit"
+    kernel, plain = getattr(NH, name), getattr(NH, name + "_ref")
+    n_rays = (1 << 27) + edge
+    head = make_rays(geometry, bbox, edge, "interior", seed=21)
+    tail = make_rays(geometry, bbox, edge, "interior", seed=22)
+    fill = make_rays(geometry, bbox, edge, "interior", seed=23)
+    org, dirn = (f.repeat(n_rays // edge, 1) for f in fill)
+    for big, h, t in zip((org, dirn), head, tail):
+        big[:edge] = h
+        big[-edge:] = t
+    geo = (geometry.prims_soa, geometry.soa_perm, geometry.soa_chunk_bbs)
+    start = time.perf_counter()
+    got = kernel(org, dirn, *geo, t_near=1e-4)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - start
+    equal = {}
+    for end, rays, part in (("first", head, slice(0, edge)),
+                            ("last", tail, slice(n_rays - edge, n_rays))):
+        want = plain(*rays, *geo, t_near=1e-4)
+        equal[end] = all(bool(torch.equal(a[part], b))
+                         for a, b in zip(got, want))
+    res = {"phase": "search_wide_index", "kernel": name, "width": n_rays,
+           "bitwise_equal": equal, "seconds": seconds}
+    emit(res)
+    del org, dirn, got
+    torch.cuda.empty_cache()
+    if not all(equal.values()):
+        raise RuntimeError(f"{name} disagrees past 2^27 rays: {res}")
 
 
 def make_deposits(geometry, n_rays, n_bins, seed):
@@ -1349,6 +1495,20 @@ def main():
     check_bounce(lines, lines_bbox, 4096, "flat", 4, True, line_gas, reps=50)
     check_bounce(lines, lines_bbox, 4096, "flat", 4, True,
                  bounce_settings(dim=2, particle=ion_particle()), reps=50)
+
+    # ---- the closest-hit kernels' warp per ray and reject: every width of
+    # the unfused ladder on every ray kind; then one batch past 2^27 rays
+    for geom, box, kinds in (
+        (geometry, bbox, ("source", "interior", "ties", "rims")),
+        (mesh, mesh_bbox, ("source", "interior", "ties", "rims")),
+        (lines, lines_bbox, ("flat_source", "flat")),
+    ):
+        for kind in kinds:
+            check_search_widths(geom, box, kind)
+    for geom in (fine_geometry, mid_mesh):
+        check_search_widths(geom, adjusted_bbox(geom), "interior",
+                            (512, 65536))
+    check_search_wide_index(geometry, bbox)
 
     # ---- kernel 4's group mapping: the narrow and mid widths of the ladder
     # (and one wide one) on every kind, both kFull values, the window form

@@ -33,6 +33,21 @@ __device__ __forceinline__ float line_det2(float a, float b, float c,
   return __fsub_rn(__fmul_rn(a, b), __fmul_rn(c, d));
 }
 
+// The reject of the closest-hit search (prim_search.cuh with kReject) for
+// segments: it keeps every pair, so the line search runs the exact test on
+// every lane it visits, as before. 13 operations with two divisions leave a
+// cheaper test little to save.
+struct LineReject {
+  __device__ __forceinline__ LineReject(float, float, float, float, float,
+                                        float, float) {}
+  __device__ __forceinline__ void chunk(const float* __restrict__) {}
+  static __device__ __forceinline__ void stage(float4*, const float*, int,
+                                               int) {}
+  __device__ __forceinline__ bool drop(const float4*, float) const {
+    return false;
+  }
+};
+
 // The line kind of prim_search.cuh: a staged segment is one float4
 // [p0x p0y lx ly] (the normal is not part of the test; the bounce kernel
 // reads the winning lane's from the SoA); the stored normal sits in SoA rows
@@ -51,6 +66,7 @@ struct LineKind {
   static constexpr bool kBackfacePasses = false;
   static constexpr bool kNeighborDeposit = false;
   static constexpr bool kWindowDeposit = false;
+  using Reject = LineReject;
 
   static __device__ __forceinline__ void stage(float4* s,
                                                const float* __restrict__ prims,

@@ -29,6 +29,17 @@
 // (t, sorted lane) over its threads with __shfl_xor_sync, and every thread
 // goes on with it as the bound.
 //
+// kReject (prim_search_group only; the closest-hit kernel sets it, the
+// bounce kernel leaves it off): before the exact test of each pair, the
+// kind's division-free reject (Kind::Reject: DiskReject of disk_hit.cuh,
+// TriReject of tri_hit.cuh, LineReject of line_hit.cuh, which keeps every
+// pair) drops pairs that the exact test would not select below the thread's
+// own running best in the chunk. A dropped pair would not have moved
+// (t, lane), so the result does not depend on the reject, and the walk's
+// strict < still picks it. A thread reads only the reject's rows of a lane
+// (Kind::Reject::stage) and the whole lane only when it survives: the SoA
+// reads through L1 are what the group search spends most on.
+//
 // Selection is the lowest t, then the lowest sorted lane, in both: lanes are
 // walked in ascending order with a strict <, whatever chunks are skipped,
 // and the group's minimum over (t, lane) picks what that walk picks, ties
@@ -129,7 +140,7 @@ __device__ __forceinline__ unsigned group_mask() {
 // prim_search. On return every thread of the group holds the same (tmin,
 // idx): the closest hit below the bound, or tmin unchanged and idx -1.
 // woken: the chunks the group walked.
-template <class Kind, int G>
+template <class Kind, int G, bool kReject = false>
 __device__ __forceinline__ void prim_search_group(
     float ox, float oy, float oz, float dx, float dy, float dz,
     const float* __restrict__ prims, const float* __restrict__ chunk_bbs,
@@ -137,18 +148,25 @@ __device__ __forceinline__ void prim_search_group(
     int& woken) {
   const unsigned mask = group_mask<G>();
   const float ix = safe_inv(dx), iy = safe_inv(dy), iz = safe_inv(dz);
+  typename Kind::Reject rj(ox, oy, oz, dx, dy, dz, t_near);
   idx = -1;
   woken = 0;
   const int n_chunks = npad / pt;
   for (int c = 0; c < n_chunks; ++c) {
     if (!chunk_needed(chunk_bbs, c, ox, oy, oz, ix, iy, iz, tmin)) continue;
     ++woken;
+    if constexpr (kReject) rj.chunk(chunk_bbs + 8 * c);
     float tl = tmin;
     int il = -1;
     const int c_hi = (c + 1) * pt;
 #pragma unroll 2
     for (int j = c * pt + gl; j < c_hi; j += G) {
       float4 s[Kind::kVec];
+      if constexpr (kReject) {
+        // the reject's rows first; the rest only for a survivor
+        Kind::Reject::stage(s, prims, npad, j);
+        if (rj.drop(s, tl)) continue;
+      }
       Kind::stage(s, prims, npad, j);
       float t;
       if (Kind::hit(s, ox, oy, oz, dx, dy, dz, t_near, t) && t < tl) {

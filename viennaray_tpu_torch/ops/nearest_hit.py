@@ -14,7 +14,11 @@ line search is a third instantiation of the one kernel template).
 - ``disk_nearest_hit`` / ``triangle_nearest_hit`` / ``line_nearest_hit`` are
   the wrappers around the CUDA kernels of ``csrc/nearest_hit.cu``: on a CUDA
   tensor they launch the kernel or raise, on a CPU tensor they run the plain
-  version.
+  version. ``GROUP`` is the kernels' threads per ray.
+- ``disk_reject_ref`` / ``triangle_reject_ref`` are plain versions of the
+  kernels' division-free reject (``csrc/disk_hit.cuh:DiskReject``,
+  ``csrc/tri_hit.cuh:TriReject``), for the tests that hold it to its
+  invariant; nothing on the trace's path calls them.
 
 Selection rule, both versions of every kind: the lowest t wins, then the
 lowest sorted lane. A disk hit needs ``denom != 0``, ``t > t_near`` and
@@ -40,6 +44,18 @@ BIG = np.float32(3.4e38)
 
 # prims row layout (SoA): cx cy cz nx ny nz r2 ndc  -> (8, Npad)
 PRIM_ROWS = 8
+
+# The kernel's threads per ray (``csrc/nearest_hit.cu:kGroup``): a warp, at
+# every width. On an H100 (PERF.md §6: ``chip_diagnose.py --launch-times``
+# beside a build at one thread per ray with the same reject) a warp per ray
+# was faster at every width of the unfused ladder (512 to 2^20 rays) on the
+# 2,993 disks, the 5,760 triangles, the 782 segments and the 18,180 disks:
+# 1.1x at 2^20 disks, 5.7x at 512 disks, 3.7x at 2^20 triangles, 40x at 512
+# triangles. So the closest-hit search, unlike the bounce kernel
+# (``ops/bounce.py:group_for``), has no rule by width.
+GROUP = 32
+# The most rays one launch takes: the kernel's ray count is a C int.
+MAX_RAYS = 2**31 - 1
 
 
 def auto_pt(n_prims: int) -> int:
@@ -278,6 +294,8 @@ def _check_inputs(org, dirn, prims, perm, chunk_bbs, rows=PRIM_ROWS):
     """Shape, type, device and contiguity the kernel takes; raises otherwise."""
     if org.ndim != 2 or org.shape[1] != 3 or dirn.shape != org.shape:
         raise ValueError("org and dirn must both be (R, 3)")
+    if org.shape[0] > MAX_RAYS:
+        raise ValueError(f"at most {MAX_RAYS} rays, got {org.shape[0]}")
     if prims.ndim != 2 or prims.shape[0] != rows:
         raise ValueError(f"prims must be ({rows}, Npad)")
     npad = prims.shape[1]
@@ -317,43 +335,54 @@ def disk_nearest_hit_ref(org, dirn, prims, perm, chunk_bbs=None, t_near=1e-4):
     R = org.shape[0]
     npad = prims.shape[1]
     dev = org.device
-    cx, cy, cz, nx, ny, nz, r2, ndc = (prims[i][None, :] for i in range(8))
     lanes = torch.arange(npad, device=dev, dtype=torch.int32)[None, :]
     big = torch.tensor(BIG, device=dev)
-    tiny = torch.tensor(1e-30, dtype=torch.float32, device=dev)
-    tn = torch.tensor(t_near, dtype=torch.float32, device=dev)
     t_out = torch.empty(R, dtype=torch.float32, device=dev)
     idx_out = torch.empty(R, dtype=torch.int32, device=dev)
     step = max(1, min(R, _REF_BLOCK_PAIRS[dev.type] // npad))
     bufs = torch.empty((4, step, npad), dtype=torch.float32, device=dev)
     for lo in range(0, R, step):
-        o = org[lo:lo + step]
-        d = dirn[lo:lo + step]
-        den, t, tmp, dist2 = (b[: o.shape[0]] for b in bufs)
-        ox, oy, oz = o[:, 0:1], o[:, 1:2], o[:, 2:3]
-        dx, dy, dz = d[:, 0:1], d[:, 1:2], d[:, 2:3]
-        # One op per operation, in the order of csrc/disk_hit.cuh:
-        # denom = (dx*nx + dy*ny) + dz*nz
-        torch.mul(dx, nx, out=den)
-        den.add_(torch.mul(dy, ny, out=tmp))
-        den.add_(torch.mul(dz, nz, out=tmp))
-        # t = (ndc - ((ox*nx + oy*ny) + oz*nz)) / dsafe
-        torch.mul(ox, nx, out=t)
-        t.add_(torch.mul(oy, ny, out=tmp))
-        t.add_(torch.mul(oz, nz, out=tmp))
-        torch.sub(ndc, t, out=t)
-        nonzero = den != 0.0
-        t.div_(torch.where(nonzero, den, tiny, out=den))
-        # dist2 = (hx*hx + hy*hy) + hz*hz with h = (o + t*d) - c
-        torch.mul(t, dx, out=dist2).add_(ox).sub_(cx)
-        dist2.mul_(dist2)
-        torch.mul(t, dy, out=tmp).add_(oy).sub_(cy)
-        dist2.add_(tmp.mul_(tmp))
-        torch.mul(t, dz, out=tmp).add_(oz).sub_(cz)
-        dist2.add_(tmp.mul_(tmp))
-        valid = nonzero & (t > tn) & (dist2 < r2)
-        _pick_lowest(torch.where(valid, t, big), lanes, t_out, idx_out, lo)
+        tt = disk_pair_times(org[lo:lo + step], dirn[lo:lo + step], prims,
+                             t_near, bufs)
+        _pick_lowest(tt, lanes, t_out, idx_out, lo)
     return _finish(t_out, idx_out, perm, big)
+
+
+def disk_pair_times(o, d, prims, t_near, bufs=None):
+    """The exact disk test of every (ray, lane) pair of a block of rays: (n,
+    Npad) float32, the hit's t where the pair hits, else ``BIG``. ``bufs``:
+    four (>= n, Npad) float32 buffers it may write (None: fresh ones)."""
+    dev = o.device
+    n, npad = o.shape[0], prims.shape[1]
+    if bufs is None:
+        bufs = torch.empty((4, n, npad), dtype=torch.float32, device=dev)
+    cx, cy, cz, nx, ny, nz, r2, ndc = (prims[i][None, :] for i in range(8))
+    tiny = torch.tensor(1e-30, dtype=torch.float32, device=dev)
+    tn = torch.tensor(t_near, dtype=torch.float32, device=dev)
+    den, t, tmp, dist2 = (b[:n] for b in bufs)
+    ox, oy, oz = o[:, 0:1], o[:, 1:2], o[:, 2:3]
+    dx, dy, dz = d[:, 0:1], d[:, 1:2], d[:, 2:3]
+    # One op per operation, in the order of csrc/disk_hit.cuh:
+    # denom = (dx*nx + dy*ny) + dz*nz
+    torch.mul(dx, nx, out=den)
+    den.add_(torch.mul(dy, ny, out=tmp))
+    den.add_(torch.mul(dz, nz, out=tmp))
+    # t = (ndc - ((ox*nx + oy*ny) + oz*nz)) / dsafe
+    torch.mul(ox, nx, out=t)
+    t.add_(torch.mul(oy, ny, out=tmp))
+    t.add_(torch.mul(oz, nz, out=tmp))
+    torch.sub(ndc, t, out=t)
+    nonzero = den != 0.0
+    t.div_(torch.where(nonzero, den, tiny, out=den))
+    # dist2 = (hx*hx + hy*hy) + hz*hz with h = (o + t*d) - c
+    torch.mul(t, dx, out=dist2).add_(ox).sub_(cx)
+    dist2.mul_(dist2)
+    torch.mul(t, dy, out=tmp).add_(oy).sub_(cy)
+    dist2.add_(tmp.mul_(tmp))
+    torch.mul(t, dz, out=tmp).add_(oz).sub_(cz)
+    dist2.add_(tmp.mul_(tmp))
+    valid = nonzero & (t > tn) & (dist2 < r2)
+    return torch.where(valid, t, torch.tensor(BIG, device=dev))
 
 
 def _pick_lowest(tt, lanes, t_out, idx_out, lo):
@@ -380,53 +409,59 @@ def triangle_nearest_hit_ref(org, dirn, prims, perm, chunk_bbs=None,
 
     org/dirn (R, 3) f32; prims (12, Npad); perm (Npad,) sorted->original.
     ``chunk_bbs`` is accepted for the kernel's signature and never read. Rays
-    go through in blocks of a fixed number of (ray, triangle) pairs. One
-    tensor op per float32 operation, in the order of csrc/tri_hit.cuh; three
-    products are summed as (a + b) + c.
+    go through in blocks of a fixed number of (ray, triangle) pairs.
     Returns (t (R,) f32, prim (R,) int32 original numbering, hit (R,) bool).
     """
     R = org.shape[0]
     npad = prims.shape[1]
     dev = org.device
-    ax, ay, az, e1x, e1y, e1z, e2x, e2y, e2z = (
-        prims[i][None, :] for i in range(9)
-    )
     lanes = torch.arange(npad, device=dev, dtype=torch.int32)[None, :]
     big = torch.tensor(BIG, device=dev)
-    tiny = torch.tensor(1e-30, dtype=torch.float32, device=dev)
-    eps = torch.tensor(1e-9, dtype=torch.float32, device=dev)
-    tn = torch.tensor(t_near, dtype=torch.float32, device=dev)
     t_out = torch.empty(R, dtype=torch.float32, device=dev)
     idx_out = torch.empty(R, dtype=torch.int32, device=dev)
     step = max(1, min(R, _REF_BLOCK_PAIRS[dev.type] // npad))
     for lo in range(0, R, step):
-        o = org[lo:lo + step]
-        d = dirn[lo:lo + step]
-        ox, oy, oz = o[:, 0:1], o[:, 1:2], o[:, 2:3]
-        dx, dy, dz = d[:, 0:1], d[:, 1:2], d[:, 2:3]
-        # h = d x e2
-        hx = dy * e2z - dz * e2y
-        hy = dz * e2x - dx * e2z
-        hz = dx * e2y - dy * e2x
-        det = (hx * e1x + hy * e1y) + hz * e1z
-        ok = det.abs() >= eps
-        dsafe = torch.where(ok, det, tiny)
-        del det
-        sx, sy, sz = ox - ax, oy - ay, oz - az
-        u = ((sx * hx + sy * hy) + sz * hz) / dsafe
-        del hx, hy, hz
-        # q = s x e1
-        qx = sy * e1z - sz * e1y
-        qy = sz * e1x - sx * e1z
-        qz = sx * e1y - sy * e1x
-        del sx, sy, sz
-        v = ((qx * dx + qy * dy) + qz * dz) / dsafe
-        t = ((qx * e2x + qy * e2y) + qz * e2z) / dsafe
-        del qx, qy, qz, dsafe
-        valid = ok & (u >= 0.0) & (v >= 0.0) & (u + v <= 1.0) & (t > tn)
-        del u, v
-        _pick_lowest(torch.where(valid, t, big), lanes, t_out, idx_out, lo)
+        tt = triangle_pair_times(org[lo:lo + step], dirn[lo:lo + step], prims,
+                                 t_near)
+        _pick_lowest(tt, lanes, t_out, idx_out, lo)
     return _finish(t_out, idx_out, perm, big)
+
+
+def triangle_pair_times(o, d, prims, t_near):
+    """The exact triangle test of every (ray, lane) pair of a block of rays:
+    (n, Npad) float32, the hit's t where the pair hits, else ``BIG``. One
+    tensor op per float32 operation, in the order of csrc/tri_hit.cuh; three
+    products are summed as (a + b) + c."""
+    dev = o.device
+    ax, ay, az, e1x, e1y, e1z, e2x, e2y, e2z = (
+        prims[i][None, :] for i in range(9)
+    )
+    tiny = torch.tensor(1e-30, dtype=torch.float32, device=dev)
+    eps = torch.tensor(1e-9, dtype=torch.float32, device=dev)
+    tn = torch.tensor(t_near, dtype=torch.float32, device=dev)
+    ox, oy, oz = o[:, 0:1], o[:, 1:2], o[:, 2:3]
+    dx, dy, dz = d[:, 0:1], d[:, 1:2], d[:, 2:3]
+    # h = d x e2
+    hx = dy * e2z - dz * e2y
+    hy = dz * e2x - dx * e2z
+    hz = dx * e2y - dy * e2x
+    det = (hx * e1x + hy * e1y) + hz * e1z
+    ok = det.abs() >= eps
+    dsafe = torch.where(ok, det, tiny)
+    del det
+    sx, sy, sz = ox - ax, oy - ay, oz - az
+    u = ((sx * hx + sy * hy) + sz * hz) / dsafe
+    del hx, hy, hz
+    # q = s x e1
+    qx = sy * e1z - sz * e1y
+    qy = sz * e1x - sx * e1z
+    qz = sx * e1y - sy * e1x
+    del sx, sy, sz
+    v = ((qx * dx + qy * dy) + qz * dz) / dsafe
+    t = ((qx * e2x + qy * e2y) + qz * e2z) / dsafe
+    del qx, qy, qz, dsafe
+    valid = ok & (u >= 0.0) & (v >= 0.0) & (u + v <= 1.0) & (t > tn)
+    return torch.where(valid, t, torch.tensor(BIG, device=dev))
 
 
 def line_nearest_hit_ref(org, dirn, prims, perm, chunk_bbs=None, t_near=1e-4):
@@ -471,6 +506,100 @@ def line_nearest_hit_ref(org, dirn, prims, perm, chunk_bbs=None, t_near=1e-4):
     return _finish(t_out, idx_out, perm, big)
 
 
+def _fma(a, b, c, fma):
+    """a * b + c in float32: one rounding (a fused multiply-add, emulated by
+    the exact float64 product and one float64 sum, rounded once more to
+    float32) with ``fma``, else two (one op per operation)."""
+    if fma:
+        return (a.double() * b.double() + c.double()).float()
+    return a * b + c
+
+
+def _reject_setup(org, chunk_bbs, npad):
+    """Per ray |o|_inf (R, 1); per lane the largest |coordinate| B and the
+    largest extent L of its chunk's box (1, Npad)."""
+    pt = npad // chunk_bbs.shape[0]
+    box = chunk_bbs[:, :6]
+    b = box.abs().amax(dim=1)
+    ext = box[:, 3:6] - box[:, 0:3]
+    l = torch.maximum(torch.maximum(ext[:, 0], ext[:, 1]), ext[:, 2])
+    so = org.abs().amax(dim=1, keepdim=True)
+    return (so, b.repeat_interleave(pt)[None, :],
+            l.repeat_interleave(pt)[None, :])
+
+
+def disk_reject_ref(org, dirn, prims, chunk_bbs, t_near, tmin, fma=False):
+    """Plain version of the kernel's division-free disk reject
+    (``csrc/disk_hit.cuh:DiskReject``), on any device: the (R, Npad) bool
+    mask of the (ray, lane) pairs it drops below the bound ``tmin`` ((R, 1)
+    or (R, Npad) float32). The same float32 operations in the same order;
+    ``fma`` rounds each of the kernel's FMAs once (as the card does), else
+    twice. Used by the tests that hold the reject to its invariant (a dropped
+    pair is never one that the exact test selects below ``tmin``)."""
+    so, b, _ = _reject_setup(org, chunk_bbs, prims.shape[1])
+    ox, oy, oz = (org[:, i:i + 1] for i in range(3))
+    dx, dy, dz = (dirn[:, i:i + 1] for i in range(3))
+    cx, cy, cz, r2 = (prims[i][None, :] for i in (0, 1, 2, 6))
+    dd = _fma(dx, dx, _fma(dy, dy, dz * dz, fma), fma)
+    tnd = torch.tensor(t_near, dtype=torch.float32, device=org.device) * dd
+    eps = (so + b) * 2.0**-16
+    kr = dd * (1.0 + 2.0**-9)
+    ke = dd * (eps * eps * 4096.0)
+    wx, wy, wz = cx - ox, cy - oy, cz - oz
+    kx = _fma(wy, dz, -(wz * dy), fma)
+    ky = _fma(wz, dx, -(wx * dz), fma)
+    kz = _fma(wx, dy, -(wy * dx), fma)
+    cross2 = _fma(kx, kx, _fma(ky, ky, kz * kz, fma), fma)
+    bb = _fma(wx, dx, _fma(wy, dy, wz * dz, fma), fma)
+    thr = _fma(r2, kr, ke, fma)
+    e = tnd - bb
+    f = _fma(-tmin, dd, bb, fma)
+    return ((cross2 > thr) | ((e > 0.0) & (e * e > thr))
+            | ((f > 0.0) & (f * f > thr)))
+
+
+def triangle_reject_ref(org, dirn, prims, chunk_bbs, t_near, tmin, fma=False):
+    """Plain version of the kernel's division-free triangle reject
+    (``csrc/tri_hit.cuh:TriReject``), with the contract of
+    ``disk_reject_ref``."""
+    so, b, l = _reject_setup(org, chunk_bbs, prims.shape[1])
+    ox, oy, oz = (org[:, i:i + 1] for i in range(3))
+    dx, dy, dz = (dirn[:, i:i + 1] for i in range(3))
+    ax, ay, az, e1x, e1y, e1z, e2x, e2y, e2z = (
+        prims[i][None, :] for i in range(9)
+    )
+    tn = torch.tensor(t_near, dtype=torch.float32, device=org.device)
+    dm = dirn.abs().amax(dim=1, keepdim=True)
+    sl = (so + b) * 2.0**-16 * l
+    m_det = l * 2.0**-16 * l * dm
+    m_u = sl * dm
+    m_t = sl * l
+    lim = 1e-9 - m_det
+    hx = _fma(dy, e2z, -(dz * e2y), fma)
+    hy = _fma(dz, e2x, -(dx * e2z), fma)
+    hz = _fma(dx, e2y, -(dy * e2x), fma)
+    det = _fma(hx, e1x, _fma(hy, e1y, hz * e1z, fma), fma)
+    sx, sy, sz = ox - ax, oy - ay, oz - az
+    uu = _fma(sx, hx, _fma(sy, hy, sz * hz, fma), fma)
+    qx = _fma(sy, e1z, -(sz * e1y), fma)
+    qy = _fma(sz, e1x, -(sx * e1z), fma)
+    qz = _fma(sx, e1y, -(sy * e1x), fma)
+    vv = _fma(qx, dx, _fma(qy, dy, qz * dz, fma), fma)
+    tt = _fma(qx, e2x, _fma(qy, e2y, qz * e2z, fma), fma)
+    ad = det.abs()
+    g = torch.where(det < 0.0, -1.0, 1.0)
+    gu, gv, gt = g * uu, g * vv, g * tt
+    mb = ad * 2.0**-100 + m_u
+    signed = (
+        (gu < -mb) | (gv < -mb)
+        | ((gu + gv) - ad > ad * 2.0**-18 + (m_u * 2.0 + m_det))
+        | (gt + m_t <= tn * (ad - m_det) * (1.0 - 2.0**-18))
+        | (gt - m_t >= tmin * (ad + m_det) * (1.0 + 2.0**-18))
+    )
+    zero_edge = (ad == 0.0) & (e2x == 0.0) & (e2y == 0.0) & (e2z == 0.0)
+    return (ad < lim) | torch.where(ad > m_det, signed, zero_edge)
+
+
 def _launch(entry, org, dirn, prims, perm, chunk_bbs, t_near):
     """Launch the closest-hit kernel ``entry`` of ``csrc/nearest_hit.cu`` on
     checked CUDA tensors; returns (t, prim, hit)."""
@@ -494,8 +623,9 @@ def _launch(entry, org, dirn, prims, perm, chunk_bbs, t_near):
 
 
 def disk_nearest_hit(org, dirn, prims, perm, chunk_bbs, t_near=1e-4):
-    """Closest disk hit; any R. On CUDA tensors launches the kernel of
-    ``csrc/nearest_hit.cu`` (or raises); on CPU tensors runs the plain version.
+    """Closest disk hit; R up to ``MAX_RAYS``. On CUDA tensors launches the
+    kernel of ``csrc/nearest_hit.cu`` (or raises); on CPU tensors runs the
+    plain version.
 
     org/dirn (R, 3) f32; prims (8, Npad) f32; perm (Npad,) int32; chunk_bbs
     (Npad / pt, 8) f32. Returns (t (R,), prim (R,) int32 in ORIGINAL
@@ -516,10 +646,10 @@ disk_nearest_hit.launches = 0
 
 
 def triangle_nearest_hit(org, dirn, prims, perm, chunk_bbs, t_near=1e-4):
-    """Closest triangle hit; any R; the contract of ``disk_nearest_hit`` with
-    prims (12, Npad) from ``pack_triangle_prims``. On CUDA tensors launches
-    the triangle kernel of ``csrc/nearest_hit.cu`` (or raises); on CPU
-    tensors runs the plain version."""
+    """Closest triangle hit; R up to ``MAX_RAYS``; the contract of
+    ``disk_nearest_hit`` with prims (12, Npad) from ``pack_triangle_prims``.
+    On CUDA tensors launches the triangle kernel of ``csrc/nearest_hit.cu``
+    (or raises); on CPU tensors runs the plain version."""
     _check_inputs(org, dirn, prims, perm, chunk_bbs, rows=TRI_ROWS)
     if org.device.type == "cpu":
         return triangle_nearest_hit_ref(
@@ -539,7 +669,7 @@ triangle_nearest_hit.launches = 0
 
 
 def line_nearest_hit(org, dirn, prims, perm, chunk_bbs, t_near=1e-4):
-    """Closest 2D line-segment hit; any R; the contract of
+    """Closest 2D line-segment hit; R up to ``MAX_RAYS``; the contract of
     ``disk_nearest_hit`` with prims (6, Npad) from ``pack_line_prims``. On
     CUDA tensors launches the line kernel of ``csrc/nearest_hit.cu`` (or
     raises); on CPU tensors runs the plain version."""
