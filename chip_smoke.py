@@ -78,7 +78,28 @@ It imports only ``viennaray_tpu_torch`` and, in order:
     ``TraceDisk(dim=2)`` (180 disks, 200,000 rays in batches of 16,384)
     fused, and unfused at a quarter of the rays, against the oracle's
     ``disk2d_trench_oracle.npy``;
-11. prints the peak device memory.
+11. drives custom particles at full width (``phase_hook_paths``), each
+    hooked apply timed beside the built-in apply of the same rays, with the
+    share of its wall time outside the kernels' spans: the JAX package's
+    ``examples/multi_channel.py`` (two labelled channels on the 2,993
+    disks, 500 rays per point: the ion channel equals the built-in unfused
+    apply bit for bit, both channels against ``multichannel3d_trench_jax``
+    and its energy ratio within 2 %); hooks that reimplement the built-in
+    deposit and diffuse reflection (the built-in unfused apply's flux and
+    counters bit for bit); the energy-carrying ion of
+    ``viennaray_tpu_torch/examples/stateful_ion.py`` against
+    ``stateful3d_trench_jax`` and its deposit per hit within 2 %, its data
+    log counting every ray; the 5,760 triangles (250 rays each) and the 782
+    lines with a two-channel collision hook and the reimplemented
+    reflection (channel 0 the built-in apply's bits); an all-zero
+    ``init_dir_fn`` with a ``log_fn`` on the fused body (the unhooked fused
+    apply's bits, the log adding up over two applies); and the JAX package's
+    ``examples/multi_species.py`` through ``apply_particles`` (each species
+    equal to its own apply on a fresh tracer). The hooked disk, triangle
+    and line paths must launch kernel 1, 3 or the line search and kernel 2,
+    never the bounce kernel; the ``init_dir_fn`` / ``log_fn`` and
+    multi-species paths the bounce kernel;
+12. prints the peak device memory.
 
 Every path of the bounce kernel runs once more from a fresh tracer with
 every launch at one thread per ray (``fused_bounce``'s private ``group=1``),
@@ -1319,6 +1340,288 @@ def phase_source_paths(pts, nrm):
     return grid_launches, surface_launches
 
 
+# ---- custom particles and multi-species runs -----------------------------------
+HOOK_RAYS = 500  # rays per point of the hooked applies
+HOOK_LABELS = ("ionFlux", "energyFlux")
+
+
+def span_apply(tracer):
+    """One apply with the launch counts set to 0 just before and read just
+    after, and CUDA events around every launch of a kernel wrapper: the
+    trace's own (the bounce kernel, the geometry's closest-hit search, the
+    histogram) and the histogram the hooks call. Returns (flux, fields,
+    launches); ``share_outside_kernels`` is 1 minus the events' spans over
+    the apply's wall time."""
+    from viennaray_tpu_torch.ops import histogram as H
+    from viennaray_tpu_torch.trace import kernel as TK
+
+    kind = tracer.geometry.kind
+    spans = []
+
+    def timed(fn):
+        def wrapper(*args, **kwargs):
+            a = torch.cuda.Event(enable_timing=True)
+            b = torch.cuda.Event(enable_timing=True)
+            a.record()
+            out = fn(*args, **kwargs)
+            b.record()
+            spans.append((a, b))
+            return out
+        return wrapper
+
+    real = (TK.fused_bounce, TK._SEARCH[kind], TK.flux_histogram,
+            H.flux_histogram)
+
+    def install(bounce, search, trace_hist, hist):
+        TK.fused_bounce, TK._SEARCH[kind] = bounce, search
+        TK.flux_histogram, H.flux_histogram = trace_hist, hist
+
+    reset_launches()
+    # the histogram wrapper counts its launches on the module's name, which
+    # is the timed wrapper during the apply: give that the counters
+    hist = timed(real[3])
+    hist.launches = 0
+    hist.launches_by_path = real[3].launches_by_path
+    install(timed(real[0]), timed(real[1]), hist, hist)
+    try:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        flux = tracer.apply()
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+    finally:
+        install(*real)
+        real[3].launches += hist.launches
+    launches = read_launches()
+    info = tracer.get_ray_trace_info()
+    in_kernels = sum(a.elapsed_time(b) for a, b in spans) / 1e3
+    fields = {
+        "num_rays": info.num_rays, "seconds": seconds,
+        "rays_per_s": info.num_rays / seconds,
+        "seconds_in_kernels": in_kernels,
+        "share_outside_kernels": 1.0 - in_kernels / seconds,
+        **{k: getattr(info, k) for k in INFO_COUNTERS[1:]},
+        "launches": launches,
+    }
+    return flux, fields, launches
+
+
+def same_counters(a, b):
+    return all(getattr(a, k) == getattr(b, k) for k in INFO_COUNTERS)
+
+
+def builtin_hooks(particle, dim, device):
+    """A collision_fn and a reflection_fn that do what the built-in deposit
+    and diffuse reflection do (sticking by material where the particle has a
+    table), and a two-channel variant of the collision_fn whose channel 0
+    is the built-in deposit and channel 1 half of it."""
+    from viennaray_tpu_torch.ops import histogram as H
+    from viennaray_tpu_torch.physics import reflection
+
+    table = torch.tensor(particle.material_sticking or [particle.sticking],
+                         dtype=torch.float32, device=device)
+
+    def deposit(flux, ids, w):
+        return flux + H.flux_histogram(ids.reshape(-1), w.reshape(-1),
+                                       flux.shape[-1])
+
+    def collision_fn(flux, ids, w, dirn, normal, mat, rng):
+        return deposit(flux, ids, w)
+
+    def two_channels(flux, ids, w, dirn, normal, mat, rng):
+        return torch.stack([deposit(flux[0], ids, w),
+                            deposit(flux[1], ids, 0.5 * w)])
+
+    def reflection_fn(rng, dirn, normal, prim, mat, weight):
+        sticking = table[torch.clamp(mat, 0, len(table) - 1).long()]
+        return sticking, reflection.diffuse(*rng.reflect_uniforms, normal, dim)
+
+    return collision_fn, two_channels, reflection_fn
+
+
+def phase_hook_paths(pts, nrm, verts, tris):
+    """Custom particles at full width, each hooked apply beside the built-in
+    apply of the same rays (timed alike, ``span_apply``), each printed as
+    one ``hook_path`` object; a failed check raises. Returns the launches of
+    each hooked path by name."""
+    import viennaray_tpu_torch as vrt
+    from viennaray_tpu_torch.examples import (
+        multi_channel, multi_species, stateful_ion,
+    )
+
+    out = {}
+
+    timing = ("seconds", "rays_per_s", "share_outside_kernels")
+
+    def report(name, fields, builtin, checks, launches, kernels, rerun=None):
+        """Print one path, raise if a check failed. ``rerun`` = (built-in
+        tracer, hooked tracer): after the checks each runs a second apply,
+        hooked first, so that the call times built-in, hooked, hooked,
+        built-in and the first apply's warm-up shows on both sides."""
+        checks = {**checks, "launched_" + "_and_".join(kernels):
+                  only_launched(launches, *kernels)}
+        if rerun is not None:
+            second = span_apply(rerun[1])[1]
+            fields["second_apply"] = {k: second[k] for k in timing}
+            second = span_apply(rerun[0])[1]
+            builtin["second_apply"] = {k: second[k] for k in timing}
+        res = {"phase": "hook_path", "path": name, **fields,
+               "builtin": builtin, "checks": checks}
+        emit(res)
+        if not all(checks.values()):
+            raise RuntimeError(f"hook path {name} failed its checks: {res}")
+        out[name] = launches
+
+    def builtin_fields(fields):
+        return {k: fields[k] for k in timing + ("launches",)}
+
+    # 1. two labelled channels on the disk flagship (the JAX package's
+    # examples/multi_channel.py): kernels 1 and 2, never the bounce kernel
+    golden, record, tol = oracle_golden("multichannel3d_trench_jax")
+    plain = multi_channel.make_tracer(HOOK_RAYS, fused=False)
+    plain.set_custom_functions()
+    plain.set_particle_type(vrt.SpecularParticle(0.4, 100.0))
+    want, plain_fields, _ = span_apply(plain)
+    tracer = multi_channel.make_tracer(HOOK_RAYS)
+    flux, fields, launches = span_apply(tracer)
+    norm = np.stack([tracer.normalize_flux(f) for f in flux])
+    errors = [rel_l2(norm[c], golden[c]) for c in range(2)]
+    ratio = float(flux[1].sum() / flux[0].sum())
+    fields.update(rel_l2_jax_by_channel=errors, rel_l2_bound=tol,
+                  energy_ratio=ratio, jax_energy_ratio=record["energy_ratio"])
+    report("multi_channel_disks", fields, builtin_fields(plain_fields), {
+        "shape": flux.shape == (2, len(pts)),
+        "ion_channel_bitwise_equal_builtin": bool(np.array_equal(flux[0],
+                                                                 want)),
+        "counters_equal_builtin": same_counters(
+            tracer.get_ray_trace_info(), plain.get_ray_trace_info()),
+        "rel_l2_both_channels": all(e < tol for e in errors),
+        "energy_ratio_within_2_percent":
+            abs(ratio / record["energy_ratio"] - 1.0) <= 0.02,
+    }, launches, ("disk_nearest_hit", "flux_histogram"), rerun=(plain, tracer))
+
+    # 2. hooks that reimplement the built-in deposit and diffuse reflection
+    # on the disk flagship: the built-in unfused apply's bits
+    plain = make_tracer(pts, nrm, HOOK_RAYS, fused=False)
+    want, plain_fields, _ = span_apply(plain)
+    tracer = make_tracer(pts, nrm, HOOK_RAYS)  # fused asked, unfused run
+    collide, _, reflect = builtin_hooks(tracer._particle, 3,
+                                        tracer.geometry.device)
+    tracer.set_custom_functions(collision_fn=collide, reflection_fn=reflect)
+    flux, fields, launches = span_apply(tracer)
+    report("builtin_reimplemented_disks", fields, builtin_fields(plain_fields), {
+        "flux_bitwise_equal_builtin": bool(np.array_equal(flux, want)),
+        "counters_equal_builtin": same_counters(
+            tracer.get_ray_trace_info(), plain.get_ray_trace_info()),
+    }, launches, ("disk_nearest_hit", "flux_histogram"), rerun=(plain, tracer))
+
+    # 3. the energy-carrying ion (aux through the sort and the compactions)
+    golden, record, tol = oracle_golden("stateful3d_trench_jax")
+    plain = stateful_ion.make_tracer(HOOK_RAYS, fused=False)
+    plain.set_custom_functions()
+    plain.set_data_log_fn(None)
+    _, plain_fields, _ = span_apply(plain)
+    tracer = stateful_ion.make_tracer(HOOK_RAYS)
+    flux, fields, launches = span_apply(tracer)
+    info = tracer.get_ray_trace_info()
+    error = rel_l2(tracer.normalize_flux(flux), golden)
+    per_hit = float(flux.sum() / info.geometry_hits)
+    logged = float(tracer.get_data_log().data[0].sum())
+    fields.update(rel_l2_jax=error, rel_l2_bound=tol, deposit_per_hit=per_hit,
+                  jax_deposit_per_hit=record["deposit_per_hit"],
+                  logged_rays=logged)
+    report("stateful_ion_disks", fields, builtin_fields(plain_fields), {
+        "finite": bool(np.isfinite(flux).all() and flux.max() > 0),
+        "rel_l2": error < tol,
+        "deposit_per_hit_within_2_percent":
+            abs(per_hit / record["deposit_per_hit"] - 1.0) <= 0.02,
+        "log_counts_every_ray": logged == info.num_rays,
+    }, launches, ("disk_nearest_hit", "flux_histogram"), rerun=(plain, tracer))
+
+    # 4. triangles and lines: the two-channel collision_fn with the
+    # reimplemented reflection; channel 0 is the built-in apply's bits
+    for name, make, rays, search, dim in (
+        ("triangles", functools.partial(make_tri_tracer, verts, tris),
+         RAYS_PER_POINT // 8, "triangle_nearest_hit", 3),
+        ("lines", make_line_tracer, HOOK_RAYS, "line_nearest_hit", 2),
+    ):
+        plain = make(rays_per_point=rays, fused=False)
+        want, plain_fields, _ = span_apply(plain)
+        tracer = make(rays_per_point=rays)
+        particle = tracer._particle.replace(data_labels=HOOK_LABELS)
+        tracer.set_particle_type(particle)
+        _, two, reflect = builtin_hooks(particle, dim, tracer.geometry.device)
+        tracer.set_custom_functions(collision_fn=two, reflection_fn=reflect)
+        flux, fields, launches = span_apply(tracer)
+        report(f"two_channels_builtin_reimplemented_{name}", fields,
+               builtin_fields(plain_fields), {
+                   "channel_0_bitwise_equal_builtin":
+                       bool(np.array_equal(flux[0], want)),
+                   "channel_1_half_of_channel_0":
+                       bool(np.array_equal(flux[1], 0.5 * flux[0])),
+                   "counters_equal_builtin": same_counters(
+                       tracer.get_ray_trace_info(),
+                       plain.get_ray_trace_info()),
+               }, launches, (search, "flux_histogram"), rerun=(plain, tracer))
+
+    # 5. an all-zero init_dir_fn and a log_fn on the fused body (the
+    # reference's tests/test_round2_features.py:85-119): the bounce kernel
+    plain = make_tracer(pts, nrm, RAYS_PER_POINT)
+    want, plain_fields, _ = span_apply(plain)
+    tracer = make_tracer(pts, nrm, RAYS_PER_POINT)
+    tracer.set_custom_functions(
+        init_dir_fn=lambda rng, idx: torch.zeros((idx.shape[0], 3),
+                                                 device=idx.device))
+    tracer.set_data_log_fn(lambda rng, aux, idx, valid: [
+        torch.bincount((rng.uniform(idx.shape[0]) * 8).long()[valid],
+                       minlength=8)])
+    flux, fields, launches = span_apply(tracer)
+    first_log = float(tracer.get_data_log().data[0].sum())
+    tracer.apply()
+    second_log = float(tracer.get_data_log().data[0].sum())
+    fields.update(logged_rays=[first_log, second_log])
+    report("init_dir_and_log_fused_disks", fields, builtin_fields(plain_fields), {
+        "flux_bitwise_equal_builtin": bool(np.array_equal(flux, want)),
+        "log_counts_every_ray": first_log == fields["num_rays"],
+        "log_adds_up": second_log == 2 * fields["num_rays"],
+    }, launches, ("fused_bounce", "flux_histogram"), rerun=(plain, tracer))
+
+    # 6. two species through apply_particles (the JAX package's
+    # examples/multi_species.py), each against its own apply on a fresh
+    # tracer at the same run number
+    tracer = multi_species.make_tracer(HOOK_RAYS)
+    reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    flux, infos = vrt.apply_particles(tracer, multi_species.species())
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = read_launches()
+    alone, alone_seconds = [], []
+    for k, particle in enumerate(multi_species.species()):
+        fresh = multi_species.make_tracer(HOOK_RAYS, seed=3 + k)
+        fresh.set_particle_type(particle)
+        f, alone_fields, _ = span_apply(fresh)
+        alone.append(f)
+        alone_seconds.append(alone_fields["seconds"])
+    data = tracer.get_local_data()
+    labels = [data.get_vector_data_label(i) for i in range(data.num_vector_data)]
+    num_rays = sum(i.num_rays for i in infos)
+    report("multi_species_disks", {
+        "num_rays": num_rays, "seconds": seconds,
+        "rays_per_s": num_rays / seconds,
+        "seconds_by_species": [i.time for i in infos],
+        "geometry_hits_by_species": [i.geometry_hits for i in infos],
+        "launches": launches, "channels": labels,
+    }, {"seconds_by_species_alone": alone_seconds}, {
+        "species_bitwise_equal_own_apply": all(
+            np.array_equal(flux[k], alone[k]) for k in range(2)),
+        "channels": labels == ["ionFlux", "neutralFlux"],
+        "finite": bool(np.isfinite(flux).all() and (flux.max(axis=1) > 0).all()),
+    }, launches, ("fused_bounce", "flux_histogram"))
+    return out
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke.py needs a CUDA device and found none",
@@ -1552,6 +1855,7 @@ def main():
     wdist_launches = phase_wdist_path(pts, nrm)
     grid_launches, surface_launches = phase_source_paths(pts, nrm)
     disk2d_launches, disk2d_unfused_launches = phase_disk2d_paths()
+    hooks = phase_hook_paths(pts, nrm, verts, tris)
     emit({"phase": "peak_memory",
           "max_memory_allocated_bytes": torch.cuda.max_memory_allocated()})
 
@@ -1568,7 +1872,8 @@ def main():
             + ion_unfused_launches["disk_nearest_hit"]
             + window_unfused_launches["disk_nearest_hit"]
             + wdist_launches["disk_nearest_hit"]
-            + disk2d_unfused_launches["disk_nearest_hit"],
+            + disk2d_unfused_launches["disk_nearest_hit"]
+            + sum(n["disk_nearest_hit"] for n in hooks.values()),
             "launches_by_path": {
                 "disks_unfused": unfused_launches["disk_nearest_hit"],
                 "ion_unfused": ion_unfused_launches["disk_nearest_hit"],
@@ -1576,6 +1881,8 @@ def main():
                 "wdist": wdist_launches["disk_nearest_hit"],
                 "disk2d_unfused":
                     disk2d_unfused_launches["disk_nearest_hit"],
+                **{name: n["disk_nearest_hit"] for name, n in hooks.items()
+                   if n["disk_nearest_hit"]},
             },
             **{k: hit_wide[k] for k in keys},
         },
@@ -1599,6 +1906,7 @@ def main():
                 "grid": grid_launches["flux_histogram"],
                 "surface": surface_launches["flux_histogram"],
                 "disk2d_unfused": disk2d_unfused_launches["flux_histogram"],
+                **{name: n["flux_histogram"] for name, n in hooks.items()},
             },
             # two paths of one kernel (ops/histogram.py:path_for): one block
             # below the threshold of entries, the whole card above it
@@ -1611,8 +1919,17 @@ def main():
             "name": "triangle_nearest_hit", "route": "cuda",
             "source": "viennaray_tpu_torch/csrc/nearest_hit.cu",
             "replaces": "viennaray_tpu/ops/pallas_intersect.py:359",
-            # as for disks: the unfused triangle path's run
-            "launches": tri_unfused_launches["triangle_nearest_hit"],
+            # as for disks: the unfused triangle path's run, and the hooked
+            # triangle run's
+            "launches": tri_unfused_launches["triangle_nearest_hit"]
+            + hooks["two_channels_builtin_reimplemented_triangles"][
+                "triangle_nearest_hit"],
+            "launches_by_path": {
+                "triangles_unfused": tri_unfused_launches["triangle_nearest_hit"],
+                "two_channels_builtin_reimplemented_triangles": hooks[
+                    "two_channels_builtin_reimplemented_triangles"][
+                    "triangle_nearest_hit"],
+            },
             **{k: tri_hit_wide[k] for k in keys},
         },
         {
@@ -1621,7 +1938,15 @@ def main():
             "name": "line_nearest_hit", "route": "cuda",
             "source": "viennaray_tpu_torch/csrc/nearest_hit.cu",
             "replaces": "viennaray_tpu/ops/intersect.py:172",
-            "launches": line_unfused_launches["line_nearest_hit"],
+            "launches": line_unfused_launches["line_nearest_hit"]
+            + hooks["two_channels_builtin_reimplemented_lines"][
+                "line_nearest_hit"],
+            "launches_by_path": {
+                "lines_unfused": line_unfused_launches["line_nearest_hit"],
+                "two_channels_builtin_reimplemented_lines": hooks[
+                    "two_channels_builtin_reimplemented_lines"][
+                    "line_nearest_hit"],
+            },
             **{k: line_hit_wide[k] for k in keys},
         },
         {
@@ -1635,7 +1960,8 @@ def main():
             + line_launches["fused_bounce"] + ion_launches["fused_bounce"]
             + gas_launches["fused_bounce"] + window_launches["fused_bounce"]
             + grid_launches["fused_bounce"] + surface_launches["fused_bounce"]
-            + disk2d_launches["fused_bounce"],
+            + disk2d_launches["fused_bounce"]
+            + sum(n["fused_bounce"] for n in hooks.values()),
             # the threads per ray G (ops/bounce.py:group_for), and the G
             # values instantiated
             "groups": {
@@ -1653,6 +1979,8 @@ def main():
                 "grid": grid_launches["fused_bounce"],
                 "surface": surface_launches["fused_bounce"],
                 "disk2d": disk2d_launches["fused_bounce"],
+                **{name: n["fused_bounce"] for name, n in hooks.items()
+                   if n["fused_bounce"]},
             },
             **{k: bounce_wide[k] for k in keys},
             "triangles": {k: tri_bounce_wide[k] for k in keys},

@@ -42,6 +42,7 @@ from torch_port_helpers import (
     check_state_and_counts,
     make_settings,
     make_state,
+    oracle_available,
     port_line_geometry,
     port_state,
     reference_bounce,
@@ -581,7 +582,7 @@ def test_trace_line_agrees_with_oracle():
     oracle, which traces the mesh extruded to triangle pairs in 2D with each
     pair's sticking that of its segment: hits per ray within 2 %, normalized
     flux rel-L2 < 0.1 (100,000 rays on 72 segments against 400,000)."""
-    if not oracle_ref.available():
+    if not oracle_available():
         pytest.skip("the oracle needs g++")
     _, mesh = _trench_meshes(0.25)
     ids = _two_materials(len(mesh.lines))

@@ -45,6 +45,7 @@ from torch_port_helpers import (
     check_state_and_counts,
     make_settings,
     make_state,
+    oracle_available,
     port_geometry,
     port_line_geometry,
     port_state,
@@ -641,7 +642,7 @@ def test_ion_run_agrees_with_oracle(fused):
     """The ion particle (coned-cosine, sticking 0.5, cone pi/6, source power
     100) on the 800-disk trench, 100,000 rays against the oracle's 400,000:
     hits per ray within 2 %, normalized flux rel-L2 < 0.1."""
-    if not oracle_ref.available():
+    if not oracle_available():
         pytest.skip("the oracle needs g++")
     t, pts, nrm = _disk_tracer(
         vrtt.ConedCosineParticle(0.5, CONE, 100.0), 100_000, fused=fused
@@ -662,7 +663,7 @@ def test_two_material_disk_run_agrees_with_oracle():
     """Disks of two materials (sticking 0.5 and 0.1 by the parity of the
     disk's index) through ``set_material_ids``: hits per ray within 2 % of
     the oracle's, which takes the sticking per disk; flux rel-L2 < 0.1."""
-    if not oracle_ref.available():
+    if not oracle_available():
         pytest.skip("the oracle needs g++")
     particle = vrtt.DiffuseParticle(0.3, material_sticking=[0.5, 0.1])
     t, pts, nrm = _disk_tracer(particle, 100_000)
@@ -684,7 +685,7 @@ def test_gas_run_agrees_with_oracle():
     """A diffuse particle with a mean free path of 4 on the 800-disk trench:
     scatter events and hits per ray within 3 % of the oracle's, flux rel-L2
     < 0.12 (scattering spreads the flux over more bounces per ray)."""
-    if not oracle_ref.available():
+    if not oracle_available():
         pytest.skip("the oracle needs g++")
     t, pts, nrm = _disk_tracer(_gas(vrtt.DiffuseParticle(0.1), 4.0), 100_000)
     norm = t.normalize_flux(t.apply())

@@ -240,9 +240,29 @@ def test_multi_label_fills_the_first_label_on_every_tracer(kind):
     assert data.get_vector_data("energy").shape == first.shape
 
 
-def test_custom_hooks_stay_refused():
-    with pytest.raises(NotImplementedError):
-        _port_disks(LABELS).set_custom_functions(collision_fn=lambda *a: None)
+def test_custom_hooks_fill_the_labelled_channels():
+    """What this test refused before the hooks were ported: a collision_fn
+    of a two-label particle now fills both channels, the first with the
+    built-in deposit's bits."""
+    from viennaray_tpu_torch.ops.histogram import flux_histogram
+
+    single = _port_disks(("flux",)).apply()
+
+    def collision_fn(flux, ids, w, dirn, normal, mat, rng):
+        ids, w = ids.reshape(-1), w.reshape(-1)
+        return torch.stack([flux[0] + flux_histogram(ids, w, flux.shape[1]),
+                            flux[1] + flux_histogram(ids, 2.0 * w,
+                                                     flux.shape[1])])
+
+    t = _port_disks(LABELS)
+    t.set_custom_functions(collision_fn=collision_fn)
+    flux = t.apply()
+    assert flux.shape == (2,) + single.shape
+    np.testing.assert_array_equal(flux[0], single)
+    data = t.get_local_data()
+    np.testing.assert_array_equal(data.get_vector_data("energy"),
+                                  2.0 * data.get_vector_data("flux"))
+    assert data.get_vector_data("flux").sum() > 0
 
 
 # ---- TraceInfo's search counters -------------------------------------------

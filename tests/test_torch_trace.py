@@ -342,10 +342,11 @@ REFUSALS = {
         None, None, vrtt.DiffuseParticle(0.5), None, None, 0, None, None,
         vrtt.TraceConfig(flux_model="window", use_wdist=True),
     ),
-    "custom_hooks": lambda: _small_tracer().set_custom_functions(
-        collision_fn=lambda *a: None
+    # and this one (kernel.py:336-343)
+    "window_with_collision_fn": lambda: trace_batch(
+        None, None, vrtt.DiffuseParticle(0.5), None, None, 0, None, None,
+        vrtt.TraceConfig(flux_model="window"), collision_fn=lambda *a: None,
     ),
-    "data_log_hook": lambda: _small_tracer().set_data_log_fn(lambda *a: []),
     "other_sources": lambda: _small_tracer().set_source(object()),
     "f64_tracing": lambda: vrtt.TraceDisk(
         dim=3, device="cpu", dtype=torch.float64
@@ -357,6 +358,34 @@ REFUSALS = {
 def test_unsupported_setting_raises(setting):
     with pytest.raises(NotImplementedError):
         REFUSALS[setting]()
+
+
+def _hooked(setter):
+    """The refusal cases' tracer with a collision_fn that counts the
+    weights twice, or a log_fn that counts the valid rays."""
+    from viennaray_tpu_torch.ops.histogram import flux_histogram
+
+    t = _small_tracer()
+    if setter == "custom_hooks":
+        t.set_custom_functions(collision_fn=lambda flux, ids, w, *rest: (
+            flux + flux_histogram(ids.reshape(-1), 2.0 * w.reshape(-1), 25)))
+    else:
+        t.set_data_log_fn(lambda rng, aux, idx, valid: [valid.sum()[None]])
+    return t
+
+
+@pytest.mark.parametrize("setter", ["custom_hooks", "data_log_hook"])
+def test_hook_setters_take_their_hooks(setter):
+    """What earlier slices refused by name now traces: the custom hooks and
+    the data-log hook (their contract: ``trace.kernel.trace_batch``)."""
+    plain = _small_tracer().apply()
+    t = _hooked(setter)
+    flux = t.apply()
+    if setter == "custom_hooks":
+        np.testing.assert_array_equal(flux, 2.0 * plain)
+    else:
+        np.testing.assert_array_equal(flux, plain)
+        assert t.get_data_log().data[0].tolist() == [512.0]
 
 
 def test_supported_small_run_and_no_cuda_refusal():

@@ -793,7 +793,18 @@ def test_trace_triangle_setters_and_refusals():
     flux = t.apply()
     assert flux.sum() > 0
     assert not t.get_local_data().get_vector_data("energy").any()
-    # a custom collision function, which would give several channels, is
-    # still refused
-    with pytest.raises(NotImplementedError):
-        t.set_custom_functions(collision_fn=lambda *a: None)
+    # a custom collision function gives each label a channel of its own:
+    # (R, 1) ids and weights on triangles
+    from viennaray_tpu_torch.ops.histogram import flux_histogram
+
+    def collision_fn(flux, ids, w, dirn, normal, mat, rng):
+        assert ids.shape[1] == w.shape[1] == 1
+        ids, w = ids.reshape(-1), w.reshape(-1)
+        return torch.stack([flux[0] + flux_histogram(ids, w, flux.shape[1]),
+                            flux[1] + flux_histogram(ids, 0.5 * w,
+                                                     flux.shape[1])])
+
+    t.set_custom_functions(collision_fn=collision_fn)
+    flux = t.apply()
+    assert flux.shape == (2, t.geometry.num_primitives) and flux[0].sum() > 0
+    np.testing.assert_array_equal(flux[1], 0.5 * flux[0])

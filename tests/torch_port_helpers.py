@@ -2,6 +2,8 @@
 both packages, and a ``RayRNG`` that hands the port the JAX package's own
 uniforms, drawn with ``jax.random`` under the reference's key schedule."""
 
+import sys
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -89,6 +91,47 @@ def port_line_geometry(ref_geo):
         reference_line_arrays(ref_geo), grid_delta=ref_geo.grid_delta,
         device="cpu",
     )
+
+
+# ---- the scalar oracle, loaded steadily ---------------------------------------
+def oracle_available():
+    """``oracle_ref.available()``, steady when several processes load it at
+    once into an empty cache. ``oracle_ref._load`` compiles into one shared
+    ``<name>.so.tmp`` path, so concurrent first loads can race and the
+    losers keep ``None``. After such a failure this rebuilds the library
+    under an exclusive ``fcntl.flock`` into a temporary file of its own,
+    moves it into place, resets the module's cached state and loads again.
+    """
+    import fcntl
+    import os
+    import subprocess
+    import tempfile
+
+    import oracle_ref
+
+    if oracle_ref.available():
+        return True
+    src = os.path.join(os.path.dirname(os.path.abspath(oracle_ref.__file__)),
+                       "oracle_ref.cpp")
+    cache = os.path.expanduser("~/.cache/viennaray_tpu_native")
+    os.makedirs(cache, exist_ok=True)
+    with open(os.path.join(cache, "oracle_ref.lock"), "w") as lock:
+        fcntl.flock(lock, fcntl.LOCK_EX)
+        fd, tmp = tempfile.mkstemp(dir=cache, suffix=".so")
+        os.close(fd)
+        try:
+            subprocess.run(
+                ["g++", "-O2", "-shared", "-fPIC", "-std=c++17", src, "-o",
+                 tmp], check=True, capture_output=True, timeout=180,
+            )
+            os.replace(tmp, os.path.join(cache, "oracle_ref.so"))
+        except (OSError, subprocess.SubprocessError):
+            return False
+        finally:
+            if os.path.exists(tmp):
+                os.remove(tmp)
+            oracle_ref._LIB, oracle_ref._TRIED = None, False
+        return oracle_ref.available()
 
 
 # ---- one launch of the bounce against the reference's megakernel ----------
@@ -305,6 +348,14 @@ class JaxKeyedRNG(streams.RayRNG):
     whole block from fold_in(batch key, it + 1) in one call and a
     coned-cosine launch its thetas from fold_in of 0x7E7A into that key
     (kernel.py:1118-1128).
+
+    The hooks' keys (kernel.py:301-315, 816-859): ``init_dir_fn`` gets
+    fold_in(batch key, 0xD1B), ``aux_init_fn`` 0xA0C, ``log_fn`` 0x10C;
+    ``collision_fn`` at bounce ``it`` gets fold_in(batch key, it + 1) itself
+    and ``reflection_fn`` its reflection key. A hook's ``rng.uniform(shape)``
+    is ``jax.random.uniform(key, shape)`` at its first call and under
+    fold_in(key, c) at call c > 0: a JAX hook that draws so sees the port
+    hook's numbers.
     """
 
     def __init__(self, base_key, tilted=False):
@@ -354,6 +405,24 @@ class JaxKeyedRNG(streams.RayRNG):
         u = jax.random.uniform(key_b, (n, n_cols), dtype=np.float32)
         return torch.from_numpy(np.array(u))
 
+    def hook_key(self, stream, bounce):
+        """The reference's key of a hook (see the class's docstring)."""
+        once = {streams.HOOK_INIT_DIR: 0xD1B, streams.HOOK_AUX_INIT: 0xA0C,
+                streams.HOOK_LOG: 0x10C}
+        if stream in once:
+            return jax.random.fold_in(self.batch_key, once[stream])
+        key_b = jax.random.fold_in(self.batch_key, bounce + 1)
+        if stream == streams.HOOK_COLLISION:
+            return key_b
+        return jax.random.split(key_b, 4)[2]
+
+    def hook_uniform(self, stream, batch_index, bounce, shape, call):
+        key = self.hook_key(stream, bounce)
+        if call:
+            key = jax.random.fold_in(key, call)
+        u = jax.random.uniform(key, tuple(shape), dtype=np.float32)
+        return torch.from_numpy(np.array(u))
+
     def cone_theta(self, batch_index, bounce, shape, cone_angle):
         key_b = jax.random.fold_in(self.batch_key, bounce + 1)
         if len(shape) == 1:
@@ -367,22 +436,74 @@ class JaxKeyedRNG(streams.RayRNG):
 
 
 # ---- one mega-batch through both packages, lane by lane ----------------------
+def packed_geometries(geo_kind):
+    """(reference geometry, port geometry, adjusted box, dim) of the
+    lane-matched batch's geometry, in packed order, where the reference's tie
+    rule (lowest original index) and the port's (lowest sorted lane)
+    coincide: the 777-disk trench at grid delta 0.5 (periodic areas), the
+    1,440-triangle trench mesh at 0.5, or the 72-segment 2D trench at 0.25
+    with two materials."""
+    from viennaray_tpu.geometry.line_geometry import (
+        LineGeometry as RefLineGeometry,
+    )
+    from viennaray_tpu_torch.config import TraceDirection, adjust_bounding_box
+
+    if geo_kind == "disk":
+        pts, nrm, grid_delta, first_build = reference_geometry("trench_0.5")
+        order = np.asarray(first_build.soa_perm)[: len(pts)]
+        pts, nrm = pts[order], nrm[order]
+        ref_geo = vrt.DiskGeometry.build(pts, nrm, grid_delta, dim=3)
+        conds = [vrt.BoundaryCondition.PERIODIC] * 3
+        ref_geo = ref_geo.with_areas((0, 1), conds)
+        geo, margin, dim = port_geometry(ref_geo), ref_geo.disk_radius, 3
+    elif geo_kind == "triangle":
+        verts, tris = ref_fixtures.create_trench_mesh_3d(grid_delta=0.5)
+        first = vrt.TriangleGeometry.build(verts, tris, 0.5, dim=3)
+        tris = tris[np.asarray(first.soa_perm)[: len(tris)]]
+        ref_geo = vrt.TriangleGeometry.build(verts, tris, 0.5, dim=3)
+        geo, margin, dim = port_triangle_geometry(ref_geo), 0.5, 3
+    else:
+        from viennaray_tpu_torch.io import fixtures
+
+        nodes, lines = fixtures.create_trench_line_mesh(0.25)
+        first = RefLineGeometry.from_mesh(
+            vrt.LineMesh(nodes=nodes, lines=lines, grid_delta=0.25))
+        lines = lines[np.asarray(first.soa_perm)[: len(lines)]]
+        ids = np.zeros(len(lines), np.int32)
+        ids[len(lines) // 2:] = 1
+        ref_geo = RefLineGeometry.from_mesh(
+            vrt.LineMesh(nodes=nodes, lines=lines, grid_delta=0.25),
+            material_ids=ids)
+        geo, margin, dim = port_line_geometry(ref_geo), 0.25, 2
+    n = ref_geo.num_primitives
+    np.testing.assert_array_equal(np.asarray(ref_geo.soa_perm)[:n],
+                                  np.arange(n))
+    direction = TraceDirection.POS_Z if dim == 3 else TraceDirection.POS_Y
+    bbox = adjust_bounding_box(
+        np.asarray(ref_geo.bbox), direction, margin, dim).astype(np.float32)
+    return ref_geo, geo, bbox, dim
+
+
 def lane_matched_batch(ref_particle, particle, ref_knobs, *, flux_model="neighbor",
                        use_wdist=False, source="random", max_bounces=3000,
-                       R=4096, **port_kwargs):
-    """One mega-batch of ``R`` rays on the 777-disk trench (grid delta 0.5)
-    through both packages' ``trace_batch`` on the same tables with the same
-    uniforms (``JaxKeyedRNG``); the cloud in packed order, where the two tie
-    rules coincide. ``source``: "random" (the +z face), "grid"
+                       R=4096, geo_kind="disk", ref_hooks=None, user_source=None,
+                       **port_kwargs):
+    """One mega-batch of ``R`` rays through both packages' ``trace_batch`` on
+    the same tables with the same uniforms (``JaxKeyedRNG``), on a geometry
+    of ``packed_geometries`` (``geo_kind`` "disk", "triangle" or "line").
+    ``source``: "random" (the +z face, or +y in 2D), "grid"
     (``create_source_grid`` on that face, 400 points) or "surface" (every
-    disk along its normal, ``surface_source_of``). Returns (port flux,
-    port counters, reference flux, reference counters)."""
+    disk along its normal, ``surface_source_of``); ``user_source(source)``
+    wraps the port's. ``ref_hooks``: the reference's hooks (``port_kwargs`` carry
+    the port's). Returns (port flux, port counters, reference flux,
+    reference counters), and both packages' logs after them with a
+    ``log_fn``."""
     import functools
 
     from viennaray_tpu.config import TraceConfig as RefConfig
     from viennaray_tpu.trace import kernel as ref_kernel
     from viennaray_tpu_torch.config import (
-        BoundaryCondition, TraceConfig, TraceDirection, adjust_bounding_box,
+        BoundaryCondition, TraceConfig, TraceDirection,
     )
     from viennaray_tpu_torch.io import fixtures
     from viennaray_tpu_torch.physics.source import GridSource, RandomSource
@@ -390,23 +511,22 @@ def lane_matched_batch(ref_particle, particle, ref_knobs, *, flux_model="neighbo
     import viennaray_tpu_torch as vrtt
 
     batch_index, seed = 1, 4321
-    pts, nrm, grid_delta, first_build = reference_geometry("trench_0.5")
-    order = np.asarray(first_build.soa_perm)[: len(pts)]
-    pts, nrm = pts[order], nrm[order]
-    ref_geo = vrt.DiskGeometry.build(pts, nrm, grid_delta, dim=3)
+    ref_geo, geo, bbox, dim = packed_geometries(geo_kind)
+    grid_delta = ref_geo.grid_delta
     conds = [vrt.BoundaryCondition.PERIODIC] * 3
-    ref_geo = ref_geo.with_areas((0, 1), conds)
-    geo = port_geometry(ref_geo)
-    bbox = adjust_bounding_box(
-        np.asarray(ref_geo.bbox), TraceDirection.POS_Z, ref_geo.disk_radius, 3,
-    ).astype(np.float32)
-    common = dict(dim=3, ray_batch_size=R, rng_seed=seed,
+    direction = TraceDirection.POS_Z if dim == 3 else TraceDirection.POS_Y
+    common = dict(dim=dim, ray_batch_size=R, rng_seed=seed,
                   use_random_seed=False, max_bounces=max_bounces,
                   flux_model=flux_model, use_wdist=use_wdist)
-    ref_config = RefConfig(boundary_conditions=tuple(conds), **common)
+    ref_config = RefConfig(boundary_conditions=tuple(conds),
+                           source_direction=vrt.TraceDirection(int(direction)),
+                           **common)
     config = TraceConfig(
-        boundary_conditions=(BoundaryCondition.PERIODIC,) * 3, **common)
+        boundary_conditions=(BoundaryCondition.PERIODIC,) * 3,
+        source_direction=direction, **common)
     axes = dict(ray_dir=2, first_dir=0, second_dir=1, pos_neg=-1.0, dim=3)
+    if dim == 2:
+        axes = dict(ray_dir=1, first_dir=0, second_dir=2, pos_neg=-1.0, dim=2)
     if source == "random":
         ref_source = vrt.RandomSource(
             bbox=jnp.asarray(bbox), cosine_power=jnp.float32(1.0), min_max=1,
@@ -423,28 +543,34 @@ def lane_matched_batch(ref_particle, particle, ref_knobs, *, flux_model="neighbo
                                  grid=torch.from_numpy(grid),
                                  cosine_power=1.0, **axes)
     else:
+        pts, nrm = np.asarray(ref_geo.points), np.asarray(ref_geo.normals)
         ref_source = surface_source_of(vrt, pts, nrm)
         port_source = surface_source_of(vrtt, pts, nrm)
+    if user_source is not None:
+        port_source = user_source(port_source)
     base_key = jax.random.PRNGKey(seed)
     ray_indices = np.arange(batch_index * R, (batch_index + 1) * R)
     valid = np.ones(R, bool)
     ref_trace = jax.jit(functools.partial(
-        ref_kernel.trace_batch, config=ref_config, geo_type="disk",
-        knobs=ref_knobs,
+        ref_kernel.trace_batch, config=ref_config, geo_type=geo_kind,
+        knobs=ref_knobs, **(ref_hooks or {}),
     ))
-    ref_flux, ref_cnt = ref_trace(
+    ref_out = ref_trace(
         ref_geo, ref_source, ref_particle, jnp.asarray(bbox),
         jax.random.fold_in(base_key, batch_index),
         jnp.asarray(ray_indices, jnp.int32), jnp.asarray(valid),
     )
     rng = JaxKeyedRNG(base_key)
     rng.begin_batch(batch_index)
-    flux, cnt = trace_batch(
+    out = trace_batch(
         geo, port_source, particle, torch.from_numpy(bbox), rng, batch_index,
         torch.from_numpy(ray_indices), torch.from_numpy(valid), config,
         **port_kwargs,
     )
-    return flux.numpy(), cnt, np.asarray(ref_flux), ref_cnt
+    res = (out[0].numpy(), out[1], np.asarray(ref_out[0]), ref_out[1])
+    if len(out) == 3:
+        res += (out[2], ref_out[2])
+    return res
 
 
 # ---- goldens made by the JAX package on the CPU -----------------------------
@@ -464,7 +590,51 @@ JAX_GOLDENS = {
     # flux_model="neighbor", rays from every disk centre along its normal
     # (offset 0.01, unit weights, source area 100)
     "surface3d_trench_jax": dict(flux_model="neighbor", source="surface"),
+    # custom particles, through the reference's hooks (both neighbor model,
+    # random source): SpecularParticle(0.4, 100) filling "ionFlux" and
+    # "energyFlux" (weight times the incidence cosine), the JAX package's
+    # examples/multi_channel.py; and an energy-carrying ion (energy
+    # N(100, 10), diffuse reflection with sticking 0.2 losing 30 % of the
+    # energy per bounce, energy-weighted deposits), the pattern of
+    # tests/test_stateful_particle.py
+    "multichannel3d_trench_jax": dict(flux_model="neighbor", source="random",
+                                      particle="multichannel"),
+    "stateful3d_trench_jax": dict(flux_model="neighbor", source="random",
+                                  particle="stateful"),
 }
+
+
+def jax_hooked_particle(name, dim=3):
+    """(particle, hooks for ``set_custom_functions``) of a hooked golden's
+    ``particle`` in the JAX package."""
+    from viennaray_tpu.physics import reflection as ref_reflection
+
+    if name == "multichannel":
+        def collision_fn(flux, ids, w, dirn, normal, mat, key):
+            cosi = jnp.abs(jnp.sum(dirn * normal, axis=1, keepdims=True))
+            f_ion = flux[0].at[ids.reshape(-1)].add(w.reshape(-1))
+            f_en = flux[1].at[ids.reshape(-1)].add((w * cosi).reshape(-1))
+            return jnp.stack([f_ion, f_en])
+
+        particle = vrt.SpecularParticle(0.4, 100.0).replace(
+            data_labels=("ionFlux", "energyFlux"))
+        return particle, dict(collision_fn=collision_fn)
+
+    def aux_init_fn(key, ray_indices):
+        e = 100.0 + 10.0 * jax.random.normal(key, (ray_indices.shape[0],))
+        return e[:, None]
+
+    def collision_fn(flux, ids, weights, dirn, normal, mat, key, aux):
+        energy = jnp.clip(aux[:, 0:1], 0.0, None)
+        return flux.at[ids.reshape(-1)].add((weights * energy).reshape(-1))
+
+    def reflection_fn(key, dirn, normal, prim, mat, weight, aux):
+        new_dir = ref_reflection.diffuse(key, normal, dim)
+        return jnp.full(dirn.shape[:1], 0.2), new_dir, aux * 0.7
+
+    return vrt.DiffuseParticle(0.2, "flux"), dict(
+        collision_fn=collision_fn, reflection_fn=reflection_fn,
+        aux_init_fn=aux_init_fn)
 
 
 def surface_source_of(module, points, normals, dim=3):
@@ -497,7 +667,12 @@ def _jax_golden_run(args):
     t = vrt.TraceDisk(dim=3)
     t.set_geometry(pts, nrm, JAX_GOLDEN_TRENCH["grid_delta"])
     t.set_boundary_conditions([vrt.BoundaryCondition.PERIODIC] * 3)
-    t.set_particle_type(vrt.DiffuseParticle(0.1, "flux"))
+    if "particle" in cfg:
+        particle, hooks = jax_hooked_particle(cfg["particle"])
+        t.set_particle_type(particle)
+        t.set_custom_functions(**hooks)
+    else:
+        t.set_particle_type(vrt.DiffuseParticle(0.1, "flux"))
     t.set_number_of_rays_per_point(rays_per_point)
     t.set_rng_seed(seed)
     t.set_ray_batch_size(JAX_GOLDEN_BATCH)
@@ -511,7 +686,15 @@ def _jax_golden_run(args):
     counters = {k: int(getattr(info, k)) for k in (
         "num_rays", "total_rays_traced", "non_geometry_hits", "geometry_hits",
         "boundary_hits")}
-    return np.asarray(t.normalize_flux(flux), np.float64), counters, seconds
+    flux = np.asarray(flux, np.float64)
+    # raw sums: the energy ratio of two channels, the deposit per hit
+    counters["flux_sum"] = [float(x) for x in flux.reshape(-1, len(pts)).sum(1)]
+    if flux.ndim == 2:
+        norm = np.stack([np.asarray(t.normalize_flux(f), np.float64)
+                         for f in flux])
+    else:
+        norm = np.asarray(t.normalize_flux(flux), np.float64)
+    return norm, counters, seconds
 
 
 def make_jax_golden(name, rays_per_point, out_dir):
@@ -544,10 +727,19 @@ def make_jax_golden(name, rays_per_point, out_dir):
     main = [runs[(cfg["flux_model"], s)] for s in JAX_GOLDEN_SEEDS]
     rays = main[0][1]["num_rays"]
     hits = [c["geometry_hits"] / c["num_rays"] for _, c, _ in main]
+    physics = {"particle": "diffuse", "sticking": 0.1}
+    if cfg.get("particle") == "multichannel":
+        physics = {"particle": "specular, sticking 0.4, source power 100",
+                   "channels": ["ionFlux: weight",
+                                "energyFlux: weight * |cos incidence|"]}
+    elif cfg.get("particle") == "stateful":
+        physics = {"particle": "energy-carrying ion: energy N(100, 10), "
+                               "diffuse reflection, sticking 0.2, energy "
+                               "* 0.7 per bounce, deposits weight * energy"}
     record = {
         "mesh": {"fixture": "create_trench_grid_3d", **JAX_GOLDEN_TRENCH,
-                 "disks": int(len(main[0][0]))},
-        "physics": {"particle": "diffuse", "sticking": 0.1,
+                 "disks": int(main[0][0].shape[-1])},
+        "physics": {**physics,
                     "boundary": "periodic", "flux_model": cfg["flux_model"],
                     "source": ("+z face, cosine lobe" if cfg["source"] == "random"
                                else "surface: every disk centre along its "
@@ -566,6 +758,18 @@ def make_jax_golden(name, rays_per_point, out_dir):
         "seconds_by_seed": [s for _, _, s in main],
         "wall_seconds": wall,
     }
+    sums = [c["flux_sum"] for _, c, _ in main]
+    if cfg.get("particle") == "multichannel":
+        record["rel_l2_between_seeds_by_channel"] = [
+            rel(main[1][0][i], main[0][0][i]) for i in range(2)]
+        ratios = [s[1] / s[0] for s in sums]
+        record["energy_ratio_by_seed"] = ratios
+        record["energy_ratio"] = float(np.mean(ratios))
+    elif cfg.get("particle") == "stateful":
+        per_hit = [s[0] / c["geometry_hits"]
+                   for s, (_, c, _) in zip(sums, main)]
+        record["deposit_per_hit_by_seed"] = per_hit
+        record["deposit_per_hit"] = float(np.mean(per_hit))
     if cfg["flux_model"] == "window":
         record["rel_l2_window_vs_neighbor_by_seed"] = [
             rel(runs[("window", s)][0], runs[("neighbor", s)][0])
@@ -584,9 +788,93 @@ def make_jax_golden(name, rays_per_point, out_dir):
     return record
 
 
-if __name__ == "__main__":
+if __name__ == "__main__" and sys.argv[1:2] != ["--record-draws"]:
     # python3 tests/torch_port_helpers.py NAME RAYS_PER_POINT [OUT_DIR]
-    import sys
-
     out = sys.argv[3] if len(sys.argv) > 3 else "viennaray_tpu_torch/io/golden"
     print(make_jax_golden(sys.argv[1], int(sys.argv[2]), out))
+
+
+# ---- the order of a trace's draws ---------------------------------------------
+# Small traces without hooks, fused and unfused on disks (diffuse), triangles
+# (coned-cosine) and lines (gas scattering): every stream and draw method of
+# ``GeneratorRNG`` is met. ``record_draws`` lists each trace's draws as
+# (method and stream, bounce, shape); ``tests/torch_parent_draws.json`` holds
+# the list recorded from the tree before hooks existed (``python3
+# tests/torch_port_helpers.py --record-draws OUT`` with that tree's package
+# first on the path), and a trace without hooks must keep drawing exactly it.
+DRAW_TRACES = ("disks_fused", "disks_unfused", "triangles_fused",
+               "triangles_unfused", "lines_fused", "lines_unfused")
+
+
+def draw_trace(name):
+    """The tracer of one of ``DRAW_TRACES``, on the CPU."""
+    import viennaray_tpu_torch as vrtt
+    from viennaray_tpu_torch.io import fixtures
+
+    kind, body = name.split("_")
+    fused = body == "fused"
+    if kind == "disks":
+        pts, nrm = fixtures.create_trench_grid_3d(grid_delta=0.5)
+        t = vrtt.TraceDisk(dim=3, device="cpu", fused=fused)
+        t.set_geometry(pts, nrm, 0.5)
+        particle = vrtt.DiffuseParticle(0.1)
+        rays, batch = 20000, 1 << 15
+    elif kind == "triangles":
+        verts, tris = fixtures.create_trench_mesh_3d(grid_delta=1.0)
+        t = vrtt.TraceTriangle(dim=3, device="cpu", fused=fused)
+        t.set_geometry(verts, tris, 1.0)
+        particle = vrtt.ConedCosineParticle(0.5, 0.5, 20.0)
+        rays, batch = 3000, 1 << 12
+    else:
+        nodes, lines = fixtures.create_trench_line_mesh(grid_delta=0.2)
+        t = vrtt.TraceLine(device="cpu", fused=fused)
+        t.set_geometry(vrtt.LineMesh(nodes, lines, grid_delta=0.2))
+        particle = vrtt.Particle(sticking=0.3, mean_free_path=2.0)
+        rays, batch = 3000, 1 << 11
+    t.set_boundary_conditions([vrtt.BoundaryCondition.PERIODIC] * 3)
+    t.set_particle_type(particle)
+    t.set_number_of_rays_fixed(rays)
+    t.set_ray_batch_size(batch)
+    t.set_rng_seed(7)
+    return t
+
+
+def record_draws(name):
+    """Apply one of ``DRAW_TRACES`` through a ``GeneratorRNG`` that notes
+    every draw; returns [[method:stream, bounce, shape], ...]."""
+    from viennaray_tpu_torch import rng as rng_mod
+    from viennaray_tpu_torch.trace import tracer as tracer_mod
+
+    log = []
+
+    class Recording(rng_mod.GeneratorRNG):
+        def uniform(self, stream, batch_index, bounce, n):
+            log.append([f"uniform:{stream}", int(bounce), [int(n)]])
+            return super().uniform(stream, batch_index, bounce, n)
+
+        def uniform_block(self, batch_index, bounce, n, n_cols):
+            log.append(["uniform_block", int(bounce), [int(n), int(n_cols)]])
+            return super().uniform_block(batch_index, bounce, n, n_cols)
+
+        def cone_theta(self, batch_index, bounce, shape, cone_angle):
+            log.append(["cone_theta", int(bounce), [int(x) for x in shape]])
+            return super().cone_theta(batch_index, bounce, shape, cone_angle)
+
+    t = draw_trace(name)
+    saved = tracer_mod.GeneratorRNG
+    tracer_mod.GeneratorRNG = Recording
+    try:
+        t.apply()
+    finally:
+        tracer_mod.GeneratorRNG = saved
+    return log
+
+
+if __name__ == "__main__" and sys.argv[1:2] == ["--record-draws"]:
+    import json
+
+    with open(sys.argv[2], "w") as f:
+        json.dump({name: record_draws(name) for name in DRAW_TRACES}, f,
+                  separators=(",", ":"))
+        f.write("\n")
+    sys.exit(0)

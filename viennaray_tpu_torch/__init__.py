@@ -10,7 +10,10 @@ line-segment path through ``TraceLine``: random, grid and surface sources,
 diffuse, specular and coned-cosine reflection, one sticking value or one per
 material, gas scattering, all three wall conditions, the neighbor flux model
 of disks (with optional 1/distance weights) and their window flux model, the
-single-hit deposit of triangles and lines, normalization and smoothing.
+single-hit deposit of triangles and lines, normalization and smoothing;
+custom particles (collision, reflection, per-ray state, initial-direction
+and data-log hooks, multi-channel flux, user sources) and multi-species runs
+(``apply_particles``); the host's readers, writers, checkpoints and logging.
 Every setting outside the ported slices raises ``NotImplementedError``.
 
 The package imports ``torch`` and ``numpy`` only.
@@ -37,7 +40,12 @@ from .physics.particle import (
 )
 from .physics.source import GridSource, RandomSource, SurfaceSource
 from .rng import GeneratorRNG, RayRNG
+from .trace.multi import apply_particles
 from .trace.tracer import TraceDisk, TraceLine, TraceTriangle
+from .io.dat import read_grid_from_file, read_mesh_from_file
+from .io.vtk import write_vtk, write_vtp
+from .utils.checkpoint import load_checkpoint, save_checkpoint
+from .utils.logging import LogLevel, set_log_level
 
 __version__ = "0.1.0"
 
@@ -70,4 +78,13 @@ __all__ = [
     "TraceDisk",
     "TraceLine",
     "TraceTriangle",
+    "apply_particles",
+    "read_grid_from_file",
+    "read_mesh_from_file",
+    "write_vtk",
+    "write_vtp",
+    "save_checkpoint",
+    "load_checkpoint",
+    "LogLevel",
+    "set_log_level",
 ]

@@ -1,5 +1,5 @@
-"""Geometry fixtures (readers and writers are not ported yet)."""
+"""IO modules: dat readers, VTK/VTP writers, fixtures."""
 
-from . import fixtures
+from . import dat, fixtures, vtk
 
-__all__ = ["fixtures"]
+__all__ = ["dat", "fixtures", "vtk"]

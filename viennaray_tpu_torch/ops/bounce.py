@@ -327,14 +327,19 @@ def sticking_lanes(particle, geometry):
 
 
 def bounce_step(state: RayState, u, geometry, walls, settings, search,
-                stick_lanes=None):
+                stick_lanes=None, reflect=None):
     """One bounce of every lane.
 
     u: (R, n_uni) uniforms [reflection 1 (coned-cosine: theta), reflection
     2, roulette], and with gas scattering [scatter, scatter z, scatter phi].
     ``search`` is the closest-hit function of the geometry's kind
     (``disk_nearest_hit``, ``triangle_nearest_hit``, ``line_nearest_hit`` or
-    a plain version). ``stick_lanes``: ``sticking_lanes``. Returns (new
+    a plain version). ``stick_lanes``: ``sticking_lanes``. ``reflect``: a
+    custom particle's reflection, ``reflect(dirn, normal, prim, weight,
+    collide) -> (sticking (R,), new direction (R, 3))`` in place of the
+    built-in reflection and sticking (the sticking update, the reflection
+    cap and the roulette stay); ``prim`` is the hit primitive in original
+    numbering, meaningless where ``collide`` is False. Returns (new
     state, hit_prim (R,) int32: the primitive that takes a deposit or -1,
     wdep (R,) float32: the pre-sticking weight it takes, t_hit (R,) float32:
     its hit time (0 where no deposit), counts (5,) int64: collide, wall,
@@ -448,16 +453,20 @@ def bounce_step(state: RayState, u, geometry, walls, settings, search,
     t_hit = torch.where(collide, t_geo, torch.zeros_like(t_geo))
 
     # ---- 6. reflection + sticking (ref: rayTraceKernel.hpp:309-335) ------
-    if s.refl_kind == ReflectionKind.DIFFUSE:
-        refl_dir = reflection.diffuse(u[:, 0], u[:, 1], n_hit, s.dim)
-    elif s.refl_kind == ReflectionKind.SPECULAR:
-        refl_dir = reflection.specular(dirn, n_hit, s.dim)
-    else:  # coned-cosine: theta arrives where the diffuse model's u1 does
-        refl_dir = reflection.coned_cosine(u[:, 0], u[:, 1], dirn, n_hit, s.dim)
-    if stick_lanes is None:
-        sticking = s.sticking
+    if reflect is not None:
+        sticking, refl_dir = reflect(dirn, n_hit, prim, weight, collide)
     else:
-        sticking = stick_lanes[geometry.soa_inv_perm[prim.long()].long()]
+        if s.refl_kind == ReflectionKind.DIFFUSE:
+            refl_dir = reflection.diffuse(u[:, 0], u[:, 1], n_hit, s.dim)
+        elif s.refl_kind == ReflectionKind.SPECULAR:
+            refl_dir = reflection.specular(dirn, n_hit, s.dim)
+        else:  # coned-cosine: theta arrives where the diffuse model's u1 does
+            refl_dir = reflection.coned_cosine(u[:, 0], u[:, 1], dirn, n_hit,
+                                               s.dim)
+        if stick_lanes is None:
+            sticking = s.sticking
+        else:
+            sticking = stick_lanes[geometry.soa_inv_perm[prim.long()].long()]
     new_weight = weight - weight * sticking
     died_absorb = collide & (new_weight <= 0.0)
     n_refl_new = n_refl + collide.to(torch.int32)

@@ -5,8 +5,8 @@ particles (rayParticle.hpp:21-124) as one dataclass of parameters plus a
 reflection-model selector (``ops/bounce.py:bounce_step`` applies the model).
 ``DiffuseParticle``, ``SpecularParticle`` and ``ConedCosineParticle`` are
 ported, with per-material sticking and gas scattering (``mean_free_path``).
-Several data labels (multi-channel flux) are not: the dataclass keeps the
-field so that the trace can refuse it by name instead of ignoring it.
+Several data labels give a custom ``collision_fn`` that many flux channels
+(``trace.kernel.trace_batch``); without one the first label takes the flux.
 """
 
 from __future__ import annotations
@@ -50,6 +50,10 @@ class Particle:
     reflection_kind: int = int(ReflectionKind.DIFFUSE)
     data_labels: Tuple[str, ...] = ("flux",)
     name: str = "particle"
+
+    def replace(self, **changes) -> "Particle":
+        """A copy with ``changes`` (the JAX package's ``struct`` method)."""
+        return dataclasses.replace(self, **changes)
 
     def sticking_for(self, material_ids: torch.Tensor) -> torch.Tensor:
         """Per-hit sticking, float32 on the ids' device: the material table

@@ -12,8 +12,12 @@ Counterpart of ``viennaray_tpu/physics/source.py``:
   102-132) — rays from surface points along their normals, with per-point
   relative weights.
 
-A source's ``sample(rng, batch_index, n, ray_indices)`` returns (origins,
-directions, weights) of one batch; the grid and surface sources pick their
+A source's ``sample(rng, batch_index, n, ray_indices)`` returns (origins
+(n, 3), directions (n, 3), weights (n,)) of one batch, float32 on the trace's
+device. Any object with such a method is a source (``check_source``): a
+user's source draws from ``rng`` as these do, by stream, and gives
+``source_area()`` where the flux is normalized to the source. The three here
+are the reference's; the grid and surface sources pick their
 points by the global ray indices and draw their lobe from the streams
 ``SOURCE_LOBE_1`` / ``SOURCE_LOBE_2`` (the JAX package feeds them the batch's
 source key unsplit, where the random source splits it into origin and
@@ -28,6 +32,7 @@ z-flattened renormalized 3D one.
 from __future__ import annotations
 
 import dataclasses
+import inspect
 from typing import Optional
 
 import numpy as np
@@ -273,3 +278,34 @@ class SurfaceSource:
         if self.dim == 2:
             d = vec.flatten_2d(d)
         return origins, vec.normalize(d, eps=1e-12), self.weights[pidx]
+
+
+def check_source(source) -> None:
+    """Raise NotImplementedError, naming the source's type, unless it has a
+    ``sample`` that takes (rng, batch_index, n, ray_indices)."""
+    sample = getattr(source, "sample", None)
+    try:
+        if not callable(sample):
+            raise TypeError
+        inspect.signature(sample).bind(None, 0, 1, None)
+    except (TypeError, ValueError):
+        raise NotImplementedError(
+            f"source {type(source).__name__} has no "
+            "sample(rng, batch_index, n, ray_indices)"
+        ) from None
+
+
+def check_sample(org, dirn, w0, n, device) -> None:
+    """Raise unless a user source's sample is (n, 3), (n, 3), (n,) float32
+    on ``device``; f64 tracing is not ported."""
+    for name, x, shape in (("origins", org, (n, 3)),
+                           ("directions", dirn, (n, 3)),
+                           ("weights", w0, (n,))):
+        if x.dtype != torch.float32:
+            raise NotImplementedError(
+                f"the source's {name} are {x.dtype}: f64 tracing is not "
+                "ported yet, and a source samples float32")
+        if tuple(x.shape) != shape or x.device != device:
+            raise ValueError(
+                f"the source's {name} must be {shape} on {device}, got "
+                f"{tuple(x.shape)} on {x.device}")

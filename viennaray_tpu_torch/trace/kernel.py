@@ -19,8 +19,11 @@ through one of two bodies:
   resolves the bounce with the tensor code of ``ops.bounce.bounce_step``
   (which is also the arithmetic of the fused kernel's plain version) and
   deposits through ``ops.histogram.flux_histogram``. 1/distance weighting
-  (``use_wdist``) runs this body whatever ``fused`` says, as the reference's
-  does: its fused kernel has no such deposit.
+  (``use_wdist``) and a custom particle's ``collision_fn``, ``reflection_fn``
+  or ``aux_init_fn`` run this body whatever ``fused`` says, as the
+  reference's do (kernel.py:959-976): its fused kernel has no such deposit
+  and no hook. ``init_dir_fn`` and ``log_fn`` run before the first bounce
+  and keep the fused body.
 
 A Python loop drives the launches; it reads the survivor count from the
 device once per launch to decide when to compact.
@@ -43,13 +46,18 @@ Event semantics mirrored 1:1 from rayTraceKernel.hpp:
   diffuse, specular or coned-cosine reflection, max-reflections cap, Russian
   roulette (kill below 0.1 w0, renew to 0.3 w0, :309-335, :435-460)
 
+- custom particles (``trace_batch``'s hooks, the reference's
+  surfaceCollision / surfaceReflection / initNew / logData,
+  rayParticle.hpp:30-66): a ``collision_fn`` owns the deposits and fills one
+  channel, or L channels for a particle of L data labels (the GPU's species
+  x label buffer, gpu/raygTrace.hpp:97-99); without it a particle's flux is
+  one channel, and with several data labels the first receives it
+
 Not ported yet, and refused by name (``check_supported`` and the tracers):
-custom hooks (so a particle's flux is one channel: with several data labels
-the first receives it, as in the reference without a custom collision
-function), float64 tracing; and, as in the reference, the window flux model
-together with 1/distance weighting. The per-bounce coherence
-re-sort of the reference only engages from 8 geometry chunks on and is not
-ported yet either; it changes the lane order, not the physics.
+float64 tracing; and, as in the reference, the window flux model together
+with 1/distance weighting or with a ``collision_fn``. The per-bounce
+coherence re-sort of the reference only engages from 8 geometry chunks on
+and is not ported yet either; it changes the lane order, not the physics.
 
 Determinism: every reduction on the path has a fixed order or is a sum of
 integers (stable sorts, the fixed-point bins of the histogram and bounce
@@ -65,6 +73,7 @@ from typing import NamedTuple
 import torch
 
 from .. import rng as rng_streams
+from ..rng import HookRNG
 from ..config import ReflectionKind, TraceConfig
 from ..ops.bounce import (
     COUNT_NAMES,
@@ -83,7 +92,13 @@ from ..ops.nearest_hit import (
     line_nearest_hit,
     triangle_nearest_hit,
 )
-from ..physics.source import GridSource, RandomSource, SurfaceSource
+from ..physics.source import (
+    GridSource,
+    RandomSource,
+    SurfaceSource,
+    check_sample,
+    check_source,
+)
 
 # ray-compaction ladder: halve the width per stage, floored at MIN_STAGE
 MIN_STAGE = 512
@@ -165,7 +180,8 @@ class BatchCounters(NamedTuple):
 SOURCES = (RandomSource, GridSource, SurfaceSource)
 
 
-def check_supported(config: TraceConfig, particle, source) -> None:
+def check_supported(config: TraceConfig, particle, source,
+                    collision_fn=None) -> None:
     """Raise NotImplementedError, naming the setting, for anything the port
     does not trace. Nothing unsupported is silently ignored."""
     if config.flux_model == "window" and config.use_wdist:
@@ -174,13 +190,15 @@ def check_supported(config: TraceConfig, particle, source) -> None:
         raise NotImplementedError(
             "flux_model='window' does not take use_wdist"
         )
-    ReflectionKind(particle.reflection_kind)  # raises on a kind that is none
-    if not isinstance(source, SOURCES):
+    if config.flux_model == "window" and collision_fn is not None:
+        # as the reference (kernel.py:336-343): the window contract has no
+        # neighbor-id list to hand to a custom collision
         raise NotImplementedError(
-            f"source {type(source).__name__} is none of "
-            f"{', '.join(s.__name__ for s in SOURCES)}"
+            "flux_model='window' does not take a collision_fn"
         )
-    if source.dtype != torch.float32:
+    ReflectionKind(particle.reflection_kind)  # raises on a kind that is none
+    check_source(source)
+    if isinstance(source, SOURCES) and source.dtype != torch.float32:
         raise NotImplementedError("f64 tracing is not ported yet")
 
 
@@ -243,6 +261,20 @@ def _bounce_uniforms(rng, batch_index, it, n, n_sub, settings, dev):
     return torch.stack(cols, dim=1)
 
 
+def _use_dir(cand, dirn, dim):
+    """Initial directions from a particle: rows of ``cand`` that are exactly
+    zero keep the source's direction (the reference's isZero check,
+    rayTraceKernel.hpp:133-139); the others, with z zeroed first in 2D, are
+    normalized (ref: kernel.py:291-297)."""
+    cand = cand.to(torch.float32).clone()
+    nonzero = (cand != 0.0).any(dim=1, keepdim=True)
+    if dim == 2:
+        cand[:, 2] = 0.0
+    n = torch.linalg.norm(cand, dim=1, keepdim=True)
+    cand = cand / torch.where(n > 0.0, n, torch.ones_like(n))
+    return torch.where(nonzero, cand, dirn)
+
+
 def trace_batch(
     geometry,
     source,
@@ -255,26 +287,97 @@ def trace_batch(
     config: TraceConfig,
     fused: bool = True,
     n_sub=N_SUB,
+    collision_fn=None,
+    reflection_fn=None,
+    aux_init_fn=None,
+    init_dir_fn=None,
+    log_fn=None,
 ):
-    """Trace one mega-batch of rays to extinction; returns (flux, counters).
+    """Trace one mega-batch of rays to extinction; returns (flux, counters),
+    or (flux, counters, logs) with a ``log_fn``.
 
     geometry: DiskGeometry, TriangleGeometry or LineGeometry (its ``kind``
-    picks the kernels). bbox: (2, 3) float32 tensor, the source-adjusted
-    bounding box (ref: rayUtil.hpp:104-143). rng: a ``RayRNG`` whose
-    ``begin_batch(batch_index)`` has been called. ray_indices: (R,) global
-    ray indices (a grid or surface source picks its points by them). valid:
-    (R,) bool — lanes beyond the total ray count start dead. fused: the
-    fused body (one kernel launch per ``n_sub`` bounces) or the unfused one;
-    ``config.use_wdist`` takes the unfused body whatever ``fused`` says (the
-    reference's rule, kernel.py:959-976). n_sub: the fused body's bounces per
-    launch at (wide, mid, tail) stage widths. Under the window flux model a
-    disk geometry without a window list gets one here
-    (``DiskGeometry.with_window_list``; the tracers build it once). Returns
-    flux (n_prims,) float32 on the device and ``BatchCounters``.
+    picks the kernels). source: any object with ``sample(rng, batch_index,
+    n, ray_indices)`` (``physics.source``). bbox: (2, 3) float32 tensor, the
+    source-adjusted bounding box (ref: rayUtil.hpp:104-143). rng: a
+    ``RayRNG`` whose ``begin_batch(batch_index)`` has been called.
+    ray_indices: (R,) global ray indices (a grid or surface source picks its
+    points by them). valid: (R,) bool — lanes beyond the total ray count
+    start dead. fused: the fused body (one kernel launch per ``n_sub``
+    bounces) or the unfused one; ``config.use_wdist``, ``collision_fn``,
+    ``reflection_fn`` and ``aux_init_fn`` take the unfused body whatever
+    ``fused`` says (the reference's rule, kernel.py:959-976). n_sub: the
+    fused body's bounces per launch at (wide, mid, tail) stage widths. Under
+    the window flux model a disk geometry without a window list gets one
+    here (``DiskGeometry.with_window_list``; the tracers build it once).
+    Returns flux (n_prims,) float32 on the device, or (L, n_prims) for a
+    ``collision_fn`` and a particle of L > 1 ``data_labels``, and
+    ``BatchCounters``.
+
+    **The hook contract** (custom particles: the reference's virtual
+    surfaceCollision / surfaceReflection / initNew / logData,
+    rayParticle.hpp:30-66, and the GPU's callable table; the JAX package's
+    hooks, viennaray_tpu/trace/kernel.py:219-246, with torch tensors on the
+    trace's device). Every hook is optional. In place of a key each gets
+    ``rng``, a ``rng.HookRNG`` bound to (batch, bounce, hook) that draws
+    float32 numbers (``rng.uniform(shape)``, ``rng.normal(shape)``) from the
+    trace's ``RayRNG`` under the hook's own stream, keyed by (batch, bounce,
+    hook, call): a hook's draws never move the trace's own, so a trace draws
+    the same built-in numbers with hooks and without, as it did before hooks
+    existed. Per batch, in this order:
+
+    - ``init_dir_fn(rng, ray_indices) -> (R, 3)``: initial directions after
+      the source's; zero rows keep the source's, the others are normalized
+      (in 2D with z zeroed first). The analog of initNewWithDirection.
+    - ``aux_init_fn(rng, ray_indices) -> (R, A)`` float32: per-ray state
+      (e.g. an ion's energy, initNew). It runs before the source-coherence
+      sort; the rows then move with their rays through that sort and every
+      compaction. Given it, ``collision_fn`` and ``reflection_fn`` take
+      ``aux`` as their last argument and ``reflection_fn`` returns the new
+      aux, which only colliding lanes take.
+    - ``log_fn(rng, aux, ray_indices, valid) -> sequence of 1-D tensors``:
+      one row each for the tracer's ``DataLog`` (logData), summed over
+      batches and applies as float64; ``aux`` is (R, 1) zeros without an
+      ``aux_init_fn``.
+
+    Per bounce, on every lane of the stage (dead and non-colliding lanes
+    included: their weights are 0 and what a hook returns for them is
+    dropped):
+
+    - ``reflection_fn(rng, dirn, normal, prim, mat, weight[, aux]) ->
+      (sticking (R,), new_dir (R, 3)[, aux])``, in place of the particle's
+      reflection and sticking: ``dirn`` the incoming direction, ``normal``
+      and ``mat`` the hit primitive's stored normal and material, ``prim``
+      its index, ``weight`` the ray's weight before sticking. The sticking
+      update w -= w * sticking, the max-reflection cap and the roulette then
+      run as for the built-in (ref: kernel.py:845-881). Its ``rng`` also
+      carries ``reflect_uniforms``, the built-in reflection's two uniforms
+      of this bounce: ``physics.reflection.diffuse(*rng.reflect_uniforms,
+      normal, dim)`` is the built-in diffuse reflection bit for bit.
+    - ``collision_fn(flux, ids, weights, dirn, normal, mat, rng[, aux]) ->
+      flux``, in place of the built-in deposit: ``flux`` is (N,) float32, or
+      (L, N) for a particle of L > 1 data labels, and the hook returns it
+      with the bounce's deposits added. ``ids`` (int32) and ``weights``
+      (float32) are (R, K + 1) on disks (the hit disk, then its K
+      neighbor-list disks; weight 0 where a disk takes nothing) and (R, 1)
+      on triangles and lines, ids in original numbering as the flux is
+      indexed (ref: kernel.py:810-843). The weights are the pre-sticking
+      weights, 1/distance weighted under ``use_wdist``. ``dirn`` is the
+      incoming direction, ``normal`` and ``mat`` the hit primitive's
+      (primitive 0's where the lane does not collide).
+
+    Deposit with ``ops.histogram.flux_histogram(ids.reshape(-1),
+    w.reshape(-1), N)`` (the histogram kernel; the port's spelling of JAX's
+    ``flux.at[ids].add(w)``): it sums in a fixed order, so a fixed seed
+    gives the same flux. ``index_add_`` on CUDA adds floats in an order that
+    changes from run to run. For L channels call it once per channel, or
+    once with ``ids + c * N`` into L x N bins.
     """
-    check_supported(config, particle, source)
+    hooked = (collision_fn is not None or reflection_fn is not None
+              or aux_init_fn is not None)
+    check_supported(config, particle, source, collision_fn)
     dim = config.dim
-    fused = fused and not config.use_wdist
+    fused = fused and not config.use_wdist and not hooked
     settings = BounceSettings.from_config(config, particle, fused=fused)
     first_dir, second_dir = settings.first_dir, settings.second_dir
     deposit_kind = settings.deposit_kind(geometry)
@@ -291,23 +394,46 @@ def trace_batch(
 
     # ---- source sampling -------------------------------------------------
     org, dirn, w0 = source.sample(rng, batch_index, R, ray_indices)
+    if not isinstance(source, SOURCES):
+        check_sample(org, dirn, w0, R, dev)
 
     # particle-controlled initial direction (ref: initNewWithDirection,
     # rayParticle.hpp:31,92; the zero vector means "use the source's")
-    if particle.direction is not None and any(particle.direction):
-        cand = torch.tensor(particle.direction, dtype=torch.float32, device=dev)
-        if dim == 2:
-            cand[2] = 0.0
-        n = torch.linalg.norm(cand)
-        cand = cand / torch.where(n > 0.0, n, torch.ones_like(n))
-        dirn = cand.expand(R, 3).contiguous()
+    if particle.direction is not None:
+        dirn = _use_dir(torch.tensor(particle.direction, device=dev).expand(
+            R, 3), dirn, dim)
+    if init_dir_fn is not None:
+        dirn = _use_dir(
+            init_dir_fn(HookRNG(rng, rng_streams.HOOK_INIT_DIR, batch_index),
+                        ray_indices),
+            dirn, dim,
+        )
+    aux = None
+    if aux_init_fn is not None:
+        aux = aux_init_fn(HookRNG(rng, rng_streams.HOOK_AUX_INIT, batch_index),
+                          ray_indices)
+        if aux.ndim != 2 or aux.shape[0] != R or aux.dtype != torch.float32:
+            raise ValueError(
+                f"aux_init_fn must return (R, A) float32 with R = {R}, got "
+                f"{tuple(aux.shape)} {aux.dtype}")
+    logs = None
+    if log_fn is not None:
+        logs = tuple(log_fn(
+            HookRNG(rng, rng_streams.HOOK_LOG, batch_index),
+            aux if aux is not None
+            else torch.zeros((R, 1), dtype=torch.float32, device=dev),
+            ray_indices, valid,
+        ))
 
     weight = torch.where(valid, w0, torch.zeros_like(w0))
     alive = valid
     hfb = torch.zeros(R, dtype=torch.bool, device=dev)
     n_refl = torch.zeros(R, dtype=torch.int32, device=dev)
     n_bdry = torch.zeros(R, dtype=torch.int32, device=dev)
-    flux = torch.zeros(n_prims, dtype=torch.float32, device=dev)
+    # a collision_fn fills one channel per data label (ref: kernel.py:324-334)
+    n_chan = len(particle.data_labels) if collision_fn is not None else 1
+    flux_shape = (n_chan, n_prims) if n_chan > 1 else (n_prims,)
+    flux = torch.zeros(flux_shape, dtype=torch.float32, device=dev)
     # a launch's counts summed (COUNT_NAMES; the survivors' slot is not read)
     counts = torch.zeros(len(COUNT_NAMES), dtype=torch.int64, device=dev)
 
@@ -322,24 +448,70 @@ def trace_batch(
                                  settings, use_wdist=wdist)
         return flux + _flux_add(ids, w, n_prims)
 
-    def unfused_body(it, flux, state):
+    def with_aux(args, aux):
+        return args if aux is None else args + (aux,)
+
+    def hook_reflect(it, u, aux, new_aux):
+        """``bounce_step``'s ``reflect`` around the reflection_fn; the new
+        aux of colliding lanes lands in ``new_aux[0]``."""
+        handle = HookRNG(rng, rng_streams.HOOK_REFLECTION, batch_index, it,
+                         reflect_uniforms=(u[:, 0], u[:, 1]))
+
+        def reflect(dirn, normal, prim, weight, collide):
+            mat = geometry.material_ids[prim.long()]
+            out = reflection_fn(*with_aux(
+                (handle, dirn, normal, prim, mat, weight), aux))
+            if aux is not None:
+                new_aux[0] = torch.where(collide[:, None], out[2], aux)
+            sticking = torch.as_tensor(out[0], dtype=torch.float32,
+                                       device=dev)
+            return sticking, out[1].to(torch.float32)
+
+        return reflect
+
+    def hook_collide(it, flux, org, dirn, hit_prim, wdep, t_hit, aux):
+        """The bounce's deposits through the collision_fn, ids and weights
+        (R, K + 1) or (R, 1)."""
+        ids, w = deposit_entries(org, dirn, hit_prim, wdep, geometry, t_hit,
+                                 settings, use_wdist=wdist)
+        width = org.shape[0]
+        prim_c = torch.clamp(hit_prim, min=0).long()
+        out = collision_fn(*with_aux((
+            flux, ids.view(width, -1), w.view(width, -1), dirn,
+            geometry.normals[prim_c], geometry.material_ids[prim_c],
+            HookRNG(rng, rng_streams.HOOK_COLLISION, batch_index, it),
+        ), aux))
+        if out.shape != flux.shape or out.dtype != flux.dtype:
+            raise ValueError(
+                f"collision_fn must return the flux {tuple(flux.shape)} "
+                f"{flux.dtype}, got {tuple(out.shape)} {out.dtype}")
+        return out
+
+    def unfused_body(it, flux, state, aux):
         """One bounce of the whole stage by tensor ops around the closest-hit
         and histogram kernels; returns (flux, survivor count, new state,
-        iterations done)."""
+        iterations done, new aux)."""
         u = _bounce_uniforms(
             rng, batch_index, it, state.org.shape[0], 1, settings, dev
         )
+        new_aux = [aux]
+        reflect = (None if reflection_fn is None
+                   else hook_reflect(it, u, aux, new_aux))
         new_state, hit_prim, wdep, t_hit, step_counts = bounce_step(
             state, u, geometry, walls, settings, _SEARCH[geometry.kind],
-            stick_lanes,
+            stick_lanes, reflect=reflect,
         )
-        flux = land(flux, state.org, state.dirn, hit_prim, wdep, t_hit)
+        if collision_fn is not None:
+            flux = hook_collide(it, flux, state.org, state.dirn, hit_prim,
+                                wdep, t_hit, aux)
+        else:
+            flux = land(flux, state.org, state.dirn, hit_prim, wdep, t_hit)
         counts[:N_EVENTS].add_(step_counts)
-        return flux, new_state.alive.sum(), new_state, 1
+        return flux, new_state.alive.sum(), new_state, 1, new_aux[0]
 
-    def fused_body(it, flux, state):
+    def fused_body(it, flux, state, aux):
         """One launch of the bounce kernel: ``n_sub`` bounces of the whole
-        stage; same returns."""
+        stage; same returns (no hook reaches it: ``aux`` is None)."""
         width = state.org.shape[0]
         k = n_sub_for(width, n_sub)
         hand_out = hand_out_for(
@@ -358,7 +530,7 @@ def trace_batch(
         else:
             flux = flux + res.flux
         counts.add_(res.counts)
-        return flux, res.counts[N_EVENTS], res.state, k
+        return flux, res.counts[N_EVENTS], res.state, k, aux
 
     body = fused_body if fused else unfused_body
 
@@ -390,6 +562,8 @@ def trace_batch(
         take = torch.argsort(key_m, stable=True)
         org, dirn = org[take], dirn[take]
         weight, w0, alive = weight[take], w0[take], alive[take]
+        if aux is not None:
+            aux = aux[take]
 
     # ---- staged execution with ray compaction ---------------------------
     # Roulette kills rays at different bounce counts, so a fixed-size
@@ -417,7 +591,7 @@ def trace_batch(
     sorted_since_bounce = False
     for cap in stage_caps:
         while it < config.max_bounces and n_alive > cap:
-            flux, alive_count, state, done = body(it, flux, state)
+            flux, alive_count, state, done, aux = body(it, flux, state, aux)
             it += done
             # the one host read per launch: the ladder needs the survivor
             # count
@@ -429,6 +603,8 @@ def trace_batch(
             # no bounce since the last compaction: the lanes are still in
             # key order, so the stable sort would be the identity
             state = RayState(*(x[:cap] for x in state))
+            if aux is not None:
+                aux = aux[:cap]
         else:
             # spatial compaction: survivors sorted by origin cell and
             # direction octant, so neighbouring lanes stay coherent after
@@ -438,6 +614,8 @@ def trace_batch(
             )
             take = torch.argsort(key_s, stable=True)[:cap]
             state = RayState(*(x[take] for x in state))
+            if aux is not None:
+                aux = aux[take]
             sorted_since_bounce = True
 
     c = dict(zip(COUNT_NAMES, counts.tolist()))  # the one fetch per batch
@@ -447,4 +625,6 @@ def trace_batch(
         boundary_hits=c["wall"], reflections=c["collide"],
         chunks_swept=c["chunks_swept"], tile_bounces=c["tile_bounces"],
     )
+    if log_fn is not None:
+        return flux, counters, logs
     return flux, counters

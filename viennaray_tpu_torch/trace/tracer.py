@@ -38,10 +38,10 @@ from ..geometry.mesh import DiskMesh, LineMesh, TriangleMesh
 from ..geometry.neighborhood import build_neighborhood
 from ..geometry.triangle_geometry import TriangleGeometry
 from ..ops import vec
-from ..physics.source import RandomSource
+from ..physics.source import RandomSource, check_source
 from ..rng import GeneratorRNG
 from . import postprocess
-from .kernel import SOURCES, BatchCounters, check_supported, trace_batch
+from .kernel import BatchCounters, check_supported, trace_batch
 
 
 class _TraceBase:
@@ -81,6 +81,8 @@ class _TraceBase:
         self._global_data = None
         self._info = TraceInfo()
         self._data_log = DataLog()
+        self._hooks = dict(collision_fn=None, reflection_fn=None,
+                           aux_init_fn=None, init_dir_fn=None, log_fn=None)
         self._last_source = None
         self.geometry = None
 
@@ -98,13 +100,13 @@ class _TraceBase:
         self._boundary_conditions = padded[:3]
 
     def set_source(self, source):
-        """A ``RandomSource``, ``GridSource`` or ``SurfaceSource`` in place
-        of the default random source (ref: rayTrace.hpp:46-49)."""
-        if not isinstance(source, SOURCES):
-            raise NotImplementedError(
-                f"source {type(source).__name__} is none of "
-                f"{', '.join(s.__name__ for s in SOURCES)}"
-            )
+        """A source in place of the default random source (ref:
+        rayTrace.hpp:46-49): a ``RandomSource``, ``GridSource`` or
+        ``SurfaceSource``, or any object whose ``sample(rng, batch_index, n,
+        ray_indices)`` returns (origins (n, 3), directions (n, 3), weights
+        (n,)) float32 on the tracer's device (``physics.source``); an object
+        that cannot be called so is refused by name."""
+        check_source(source)
         self._custom_source = source
 
     def reset_source(self):
@@ -172,18 +174,24 @@ class _TraceBase:
         self._print_progress = False
 
     def set_data_log_fn(self, fn):
-        if fn is not None:
-            raise NotImplementedError("the data-log hook is not ported yet")
+        """The per-ray log hook (logData, rayUtil.hpp:49-63,
+        rayTraceKernel.hpp:132): ``fn(rng, aux, ray_indices, valid)`` returns
+        1-D tensors, summed over batches and applies into
+        ``get_data_log().data`` as float64. The contract:
+        ``trace.kernel.trace_batch``. None removes it."""
+        self._hooks["log_fn"] = fn
 
     def set_custom_functions(self, collision_fn=None, reflection_fn=None,
                              aux_init_fn=None, init_dir_fn=None):
-        hooks = dict(collision_fn=collision_fn, reflection_fn=reflection_fn,
-                     aux_init_fn=aux_init_fn, init_dir_fn=init_dir_fn)
-        given = [name for name, fn in hooks.items() if fn is not None]
-        if given:
-            raise NotImplementedError(
-                f"custom hooks are not ported yet: {', '.join(given)}"
-            )
+        """A custom particle's hooks (the reference's virtual dispatch and
+        GPU callable table, rayParticle.hpp:43-66); each call sets all four,
+        None for a hook not wanted. Their signatures, the ``rng`` handle they
+        draw from and how to deposit: the hook contract in
+        ``trace.kernel.trace_batch``'s docstring. ``collision_fn``,
+        ``reflection_fn`` and ``aux_init_fn`` run the unfused body."""
+        self._hooks.update(collision_fn=collision_fn,
+                           reflection_fn=reflection_fn,
+                           aux_init_fn=aux_init_fn, init_dir_fn=init_dir_fn)
 
     # -- data access (ref: rayTrace.hpp:135-145) ---------------------------
     def get_local_data(self) -> TracingData:
@@ -267,7 +275,8 @@ class _TraceBase:
             source = self._custom_source
         else:
             source = self._default_source(adjusted, n_prims)
-        check_supported(config, self._particle, source)
+        check_supported(config, self._particle, source,
+                        self._hooks["collision_fn"])
         self._last_source = source
 
         dev = self._device
@@ -287,7 +296,12 @@ class _TraceBase:
         # JAX package's compensated (Kahan) float32 pair stood in for on the
         # TPU. set_f64_accumulation(False): float32, in batch order.
         acc_dtype = torch.float64 if self._accumulate_f64 else torch.float32
-        flux = torch.zeros(n_prims, dtype=acc_dtype, device=dev)
+        # a collision_fn fills one channel per data label
+        # (ref: tracer.py:324-330)
+        n_chan = (len(self._particle.data_labels)
+                  if self._hooks["collision_fn"] is not None else 1)
+        flux_shape = (n_chan, n_prims) if n_chan > 1 else (n_prims,)
+        flux = torch.zeros(flux_shape, dtype=acc_dtype, device=dev)
         totals = np.zeros(len(BatchCounters._fields), np.int64)
 
         t0 = time.perf_counter()
@@ -297,12 +311,15 @@ class _TraceBase:
             )
             valid = ray_indices < total_rays
             rng.begin_batch(b)
-            batch_flux, counters = trace_batch(
+            out = trace_batch(
                 geometry, source, self._particle, bbox_dev, rng, b,
-                ray_indices, valid, config, fused=self._fused,
+                ray_indices, valid, config, fused=self._fused, **self._hooks,
             )
+            batch_flux, counters = out[:2]
             flux += batch_flux.to(acc_dtype)
             totals += np.asarray(counters, np.int64)
+            if len(out) == 3:
+                self._add_logs(out[2])
             if self._print_progress:
                 print(
                     f"viennaray-tpu-torch: batch {b + 1}/{num_batches} "
@@ -329,15 +346,31 @@ class _TraceBase:
         self._run_number += 1  # (ref: rayTraceDisk.hpp:54)
         return out
 
+    def _add_logs(self, logs):
+        """Sum one batch's log rows into the DataLog, as float64 (ref:
+        tracer.py:360-369): the first rows start it, later batches and
+        applies add."""
+        rows = [torch.as_tensor(r).detach().cpu().numpy().astype(np.float64)
+                for r in logs]
+        if not self._data_log.data:
+            self._data_log.data = rows
+        else:
+            for j, r in enumerate(rows):
+                self._data_log.data[j] = self._data_log.data[j] + r
+
     def _store_local_data(self, flux):
         """Accumulate the flux into the particle's labelled channels;
         channels are keyed by label so runs of different particles on one
-        tracer keep separate flux rows. The flux is one channel (custom
-        collision functions are not ported): the first label receives it and
-        every other label zeros, as in the reference
-        (viennaray_tpu/trace/tracer.py:_store_local_data)."""
+        tracer keep separate flux rows (the GPU tracer's species x label
+        buffer, gpu/raygTrace.hpp:97-99). An (L, N) flux, from a
+        collision_fn, gives channel i to label i (rayParticle.hpp:60-66); an
+        (N,) flux fills the first label and every other label takes zeros,
+        as in the reference (viennaray_tpu/trace/tracer.py:_store_local_data)."""
         labels = self._particle.data_labels
-        rows = [flux] + [np.zeros_like(flux) for _ in labels[1:]]
+        if flux.ndim == 2:
+            rows = list(flux)
+        else:
+            rows = [flux] + [np.zeros_like(flux) for _ in labels[1:]]
         for label, row in zip(labels, rows):
             try:
                 idx = self._local_data.get_vector_data_index(label)
@@ -370,7 +403,8 @@ class TraceDisk(_TraceBase):
 
     def apply(self):
         """Run the trace (ref: rayTraceDisk.hpp:19-57); returns the raw flux
-        per disk as a float64 numpy array."""
+        per disk as a float64 numpy array, (L, N) for a ``collision_fn`` and
+        a particle of L > 1 data labels."""
         self._check_settings()
         settings = get_trace_settings(self._source_direction)
         boundary_dirs = (settings[1], settings[2])
@@ -465,7 +499,8 @@ class TraceTriangle(_TraceBase):
 
     def apply(self):
         """Run the trace (ref: rayTraceTriangle.hpp:19-61); returns the raw
-        flux per triangle as a float64 numpy array."""
+        flux per triangle as a float64 numpy array, (L, N) for a
+        ``collision_fn`` and a particle of L > 1 data labels."""
         if self._particle is None:
             self._info.error = True
             raise ValueError("No particle was specified in TraceTriangle")
@@ -525,7 +560,8 @@ class TraceLine(_TraceBase):
 
     def apply(self):
         """Run the trace; returns the raw flux per segment as a float64
-        numpy array."""
+        numpy array, (L, N) for a ``collision_fn`` and a particle of L > 1
+        data labels."""
         if self._particle is None:
             self._info.error = True
             raise ValueError("No particle was specified in TraceLine")
