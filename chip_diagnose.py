@@ -5,7 +5,7 @@ Run from the repository root on a machine with one NVIDIA Hopper card:
 
     python3 chip_diagnose.py [--triangles | --lines | --ion | --window]
                              [--unfused] [--profile FILE]
-    python3 chip_diagnose.py --groups | --paths
+    python3 chip_diagnose.py --groups | --paths | --grad
 
 It builds a tracer of ``chip_smoke.py`` (same geometry, particle, seed and
 batch; the default tracer, whose body is the fused bounce kernel): the
@@ -50,6 +50,15 @@ rays, on the 2,993 disks, the 5,760 triangles, the 782 segments and the
 18,180 disks, and its bounce kernel on both flagships at 2^20 rays x 1
 bounce and at 512 rays x 16, and prints ``ptxas``' lines of its bounce and
 closest-hit kernels.
+
+``python3 chip_diagnose.py --grad`` times the differentiable trace
+(``viennaray_tpu_torch.diff``) as ``chip_smoke.py``'s ``phase_grad_paths``
+drives it: BASELINE config 5's d sum(flux) / d sticking (10^7 rays) and
+d / d points under 1/distance weighting (2^21 rays), each warmed up, then
+``--repeats`` runs (wall and CPU seconds), then one run under
+``torch.profiler``: its device busy seconds (the kernels' own durations),
+the idle share of its wall time, and the operators and kernels that hold
+the most device time.
 
 ``python3 chip_diagnose.py --groups`` times the bounce kernel under every
 instantiated group size G (threads per ray) at every width of the trace's
@@ -346,6 +355,60 @@ def profile_apply(tracer, path):
         f.write(averages.table(sort_by="self_cpu_time_total", row_limit=25))
 
 
+def grad_runs(n):
+    """The gradient paths of ``chip_smoke.phase_grad_paths``: one JSON
+    object each (see the module's docstring)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from viennaray_tpu_torch.geometry.disk_geometry import DiskGeometry
+    from viennaray_tpu_torch.io import fixtures
+
+    geometry = DiskGeometry.build(*fixtures.create_trench_grid_3d(**FLAGSHIP),
+                                  FLAGSHIP["grid_delta"])
+    sticking = cs.grad_problem(geometry)
+    wdist = cs.grad_problem(geometry, use_wdist=True)
+    runs = {
+        "sticking_1e7": lambda: cs.grad_sticking(geometry, sticking,
+                                                 cs.GRAD["rays"]),
+        "points_wdist_2e21": lambda: cs.grad_geometry(
+            geometry, wdist, cs.GRAD_SIDE_RAYS, "points"),
+    }
+    for name, run in runs.items():
+        run()  # warm-up
+        walls, cpus = [], []
+        for _ in range(n):
+            torch.cuda.synchronize()
+            t0, c0 = time.perf_counter(), time.process_time()
+            run()
+            torch.cuda.synchronize()
+            walls.append(time.perf_counter() - t0)
+            cpus.append(time.process_time() - c0)
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            run()
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        kernels = [e for e in prof.key_averages()
+                   if e.device_type == DeviceType.CUDA]
+        busy = sum(e.self_device_time_total for e in kernels) / 1e6
+        ops = sorted(prof.key_averages(), reverse=True,
+                     key=lambda e: e.device_time_total)
+        print(json.dumps({
+            "phase": "grad_" + name, "wall_s": walls, "cpu_s": cpus,
+            "profiled_wall_s": wall, "device_busy_s": busy,
+            "device_idle_share": 1.0 - busy / wall,
+            "top_kernels_ms": [
+                (e.key[:80], e.count, e.self_device_time_total / 1e3)
+                for e in sorted(kernels, reverse=True,
+                                key=lambda e: e.self_device_time_total)[:12]],
+            "top_operators_device_ms": [
+                (e.key[:80], e.count, e.device_time_total / 1e3)
+                for e in ops if e.device_type != DeviceType.CUDA][:12],
+        }), flush=True)
+
+
 # run as ``python3 -c LAUNCH_TIMES tree``: imports the tree's own modules
 LAUNCH_TIMES = """
 import contextlib, io, json, os, sys
@@ -427,6 +490,10 @@ def main(argv=None):
         help="only time the histogram kernel's two paths and index_add_ by "
              "number of entries",
     )
+    parser.add_argument(
+        "--grad", action="store_true",
+        help="only time and profile the gradient paths",
+    )
     parser.add_argument("--repeats", type=int, default=5)
     parser.add_argument(
         "--unfused", action="store_true",
@@ -471,6 +538,9 @@ def main(argv=None):
     ).stdout.strip().splitlines()[0], flush=True)
     if args.launch_times:
         launch_times(args.launch_times)
+        return 0
+    if args.grad:
+        grad_runs(args.repeats)
         return 0
     if args.groups or args.paths:
         if args.groups:

@@ -99,7 +99,23 @@ It imports only ``viennaray_tpu_torch`` and, in order:
     and line paths must launch kernel 1, 3 or the line search and kernel 2,
     never the bounce kernel; the ``init_dir_fn`` / ``log_fn`` and
     multi-species paths the bounce kernel;
-12. prints the peak device memory.
+12. prints the peak device memory;
+13. drives the differentiable trace (``phase_grad_paths``,
+    ``viennaray_tpu_torch.diff``): BASELINE config 5 at full width
+    (d sum(flux) / d sticking of 10,000,000 rays on the 2,993 disks, 8
+    bounces, batches of 2^19, seed 13) timed with its peak memory and share
+    outside kernel spans, kernels 1 and 2 forward 8 times a batch and the
+    histogram's backward 7 times (the first bounce's deposits do not depend
+    on the sticking) and no other kernel; a second same-seed run
+    bit for bit; flux and d / d sticking per ray against
+    ``grad3d_trench_jax`` (the JAX package's gradient driver on the CPU);
+    central differences (rtol 5e-3); one batch through the kernels and
+    through their plain versions bit for bit (d / d sticking, and d / d
+    points under 1/distance weighting); d / d points and d / d normals at
+    2^21 rays, finite and not all zero; the 5,760 triangles' d / d sticking
+    at 2^21 rays against central differences and one batch against the
+    plain versions. The histogram's backward kernel is held bit for bit to
+    ``index_select`` and timed beside it with the other kernel checks.
 
 Every path of the bounce kernel runs once more from a fresh tracer with
 every launch at one thread per ray (``fused_bounce``'s private ``group=1``),
@@ -114,6 +130,7 @@ it exits non-zero before printing any result.
 
 from __future__ import annotations
 
+import contextlib
 import functools
 import json
 import os
@@ -943,6 +960,7 @@ def _kernel_wrappers():
         "triangle_nearest_hit": NH.triangle_nearest_hit,
         "line_nearest_hit": NH.line_nearest_hit,
         "flux_histogram": H.flux_histogram,
+        "flux_histogram_grad": H.flux_histogram_grad,
     }
 
 
@@ -1345,17 +1363,18 @@ HOOK_RAYS = 500  # rays per point of the hooked applies
 HOOK_LABELS = ("ionFlux", "energyFlux")
 
 
-def span_apply(tracer):
-    """One apply with the launch counts set to 0 just before and read just
-    after, and CUDA events around every launch of a kernel wrapper: the
-    trace's own (the bounce kernel, the geometry's closest-hit search, the
-    histogram) and the histogram the hooks call. Returns (flux, fields,
-    launches); ``share_outside_kernels`` is 1 minus the events' spans over
-    the apply's wall time."""
+@contextlib.contextmanager
+def kernel_spans(kind):
+    """CUDA events around every launch of a kernel wrapper while the block
+    runs: the trace's own (the bounce kernel, the closest-hit search of the
+    geometry ``kind``, the histogram), the histogram the hooks call, and the
+    histogram's backward. Yields the list of (start, end) event pairs. The
+    two histogram wrappers count their launches on their module's names,
+    which are the timed wrappers inside the block: those take the counts
+    and hand them back after."""
     from viennaray_tpu_torch.ops import histogram as H
     from viennaray_tpu_torch.trace import kernel as TK
 
-    kind = tracer.geometry.kind
     spans = []
 
     def timed(fn):
@@ -1370,28 +1389,39 @@ def span_apply(tracer):
         return wrapper
 
     real = (TK.fused_bounce, TK._SEARCH[kind], TK.flux_histogram,
-            H.flux_histogram)
+            H.flux_histogram, H.flux_histogram_grad)
 
-    def install(bounce, search, trace_hist, hist):
+    def install(bounce, search, trace_hist, hist, hist_grad):
         TK.fused_bounce, TK._SEARCH[kind] = bounce, search
         TK.flux_histogram, H.flux_histogram = trace_hist, hist
+        H.flux_histogram_grad = hist_grad
 
-    reset_launches()
-    # the histogram wrapper counts its launches on the module's name, which
-    # is the timed wrapper during the apply: give that the counters
     hist = timed(real[3])
     hist.launches = 0
     hist.launches_by_path = real[3].launches_by_path
-    install(timed(real[0]), timed(real[1]), hist, hist)
+    hist_grad = timed(real[4])
+    hist_grad.launches = 0
+    install(timed(real[0]), timed(real[1]), hist, hist, hist_grad)
     try:
+        yield spans
+    finally:
+        install(*real)
+        real[3].launches += hist.launches
+        real[4].launches += hist_grad.launches
+
+
+def span_apply(tracer):
+    """One apply with the launch counts set to 0 just before and read just
+    after, inside ``kernel_spans``. Returns (flux, fields, launches);
+    ``share_outside_kernels`` is 1 minus the events' spans over the apply's
+    wall time."""
+    reset_launches()
+    with kernel_spans(tracer.geometry.kind) as spans:
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         flux = tracer.apply()
         torch.cuda.synchronize()
         seconds = time.perf_counter() - t0
-    finally:
-        install(*real)
-        real[3].launches += hist.launches
     launches = read_launches()
     info = tracer.get_ray_trace_info()
     in_kernels = sum(a.elapsed_time(b) for a, b in spans) / 1e3
@@ -1622,6 +1652,326 @@ def phase_hook_paths(pts, nrm, verts, tris):
     return out
 
 
+# BASELINE config 5 (benchmarks/grad_bench.py:33-75): d sum(flux) / d
+# sticking of 10^7 rays on the flagship's 2,993 disks, 8 bounces, mega-batches
+# of 2^19, seed 13; the points, normals and triangle runs at 2^21 rays
+GRAD = dict(rays=10_000_000, batch=1 << 19, bounces=8, seed=13, sticking=0.1)
+GRAD_SIDE_RAYS = 1 << 21
+FD_EPS = 3e-3
+FD_RTOL = 5e-3  # tests/test_diff.py:78
+# d sum(flux) / d sticking per ray against the golden: 1.45 times the
+# golden's two seeds' relative difference, at least this. One difference of
+# two draws can land near 0; a gradient that drops a bounce's term or keeps
+# the roulette's renewal moves by whole percents
+GRAD_TOL_FLOOR = 0.005
+
+
+def check_histogram_grad(geometry, n_rays, reps):
+    """The histogram's backward (``vr_flux_histogram_grad``) on one bounce's
+    worth of deposit ids (a ray's hit disk and its K neighbours) against its
+    plain version, ``index_select``: a gather, so bit for bit. Times the
+    kernel, the plain version and one ``index_select`` call on int64 ids."""
+    from viennaray_tpu_torch.ops import histogram as H
+
+    n_bins = geometry.num_primitives
+    ids, _ = make_deposits(geometry, n_rays, n_bins, seed=12)
+    gen = torch.Generator(device=geometry.device)
+    gen.manual_seed(13)
+    grad_out = torch.randn(n_bins, generator=gen, device=geometry.device)
+    out_1 = H.flux_histogram_grad(grad_out, ids)
+    out_2 = H.flux_histogram_grad(grad_out, ids)
+    ref = H.flux_histogram_grad_ref(grad_out, ids)
+    torch.cuda.synchronize()
+    bitwise = bool(torch.equal(out_1, ref) and torch.equal(out_1, out_2))
+    ms = time_cuda(lambda: H.flux_histogram_grad(grad_out, ids), reps)
+    plain_ms = time_cuda(lambda: H.flux_histogram_grad_ref(grad_out, ids), reps)
+    ids64 = ids.long()
+    library_ms = time_cuda(lambda: grad_out.index_select(0, ids64), reps)
+    # ids read and the gradient written once, the bins read once; no
+    # arithmetic
+    byte_ms = (ids.numel() * 8 + n_bins * 4) / HBM_BYTES_PER_S * 1e3
+    res = {
+        "phase": "kernel_check", "kernel": "flux_histogram_grad",
+        "shape": f"E={ids.numel()}, n={n_bins}",
+        "tolerance": "bit for bit against index_select (a gather)",
+        "max_abs_err": float((out_1 - ref).abs().max()),
+        "bitwise_equal": bitwise, "ms": ms, "plain_ms": plain_ms,
+        "bound_ms": byte_ms, "bound_by": "bytes", "library_ms": library_ms,
+    }
+    emit(res)
+    if not bitwise:
+        raise RuntimeError(f"flux_histogram_grad fails its check: {res}")
+    return res
+
+
+def grad_problem(geometry, **config_changes):
+    """BASELINE config 5's physics on ``geometry``: the random source on the
+    +z face with the cosine lobe, ``DiffuseParticle(0.1)``, periodic walls,
+    roulette off, mega-batches of 2^19. Returns (source, particle, bbox,
+    config)."""
+    import viennaray_tpu_torch as vrt
+    from viennaray_tpu_torch.config import get_trace_settings
+
+    bbox = adjusted_bbox(geometry)
+    config = vrt.TraceConfig(
+        dim=3, source_direction=vrt.TraceDirection.POS_Z,
+        boundary_conditions=(vrt.BoundaryCondition.PERIODIC,) * 3,
+        ray_batch_size=GRAD["batch"], rng_seed=GRAD["seed"],
+        use_random_seed=False, roulette=False, **config_changes)
+    s = get_trace_settings(config.source_direction)
+    source = vrt.RandomSource(
+        bbox=bbox, cosine_power=1.0, ray_dir=s[0], first_dir=s[1],
+        second_dir=s[2], min_max=s[3], pos_neg=float(s[4]), dim=3,
+        num_points=geometry.num_primitives)
+    return (source, vrt.DiffuseParticle(GRAD["sticking"], "flux"), bbox,
+            config)
+
+
+def grad_rng(geometry):
+    from viennaray_tpu_torch.rng import GeneratorRNG
+
+    return GeneratorRNG(GRAD["seed"], geometry.device)
+
+
+def grad_sticking(geometry, problem, rays):
+    """``flux_and_grad_sticking_batched`` at seed 13: (flux (N,) float64,
+    d sum(flux) / d sticking)."""
+    from viennaray_tpu_torch import diff
+
+    source, particle, bbox, config = problem
+    return diff.flux_and_grad_sticking_batched(
+        geometry, source, particle, bbox, grad_rng(geometry), rays, config,
+        num_bounces=GRAD["bounces"])
+
+
+def grad_geometry(geometry, problem, rays, field):
+    """``flux_and_grad_points_batched`` or ``..._normals_batched``."""
+    from viennaray_tpu_torch import diff
+
+    source, particle, bbox, config = problem
+    batched = getattr(diff, f"flux_and_grad_{field}_batched")
+    return batched(geometry, source, particle, bbox, grad_rng(geometry), rays,
+                   config, num_bounces=GRAD["bounces"])
+
+
+def flux_total(geometry, problem, rays, sticking):
+    """sum(flux) of the same rays and batches as ``grad_sticking`` at another
+    sticking, forward only (``trace_flux`` without a graph), summed in
+    float64."""
+    from viennaray_tpu_torch import diff
+
+    source, particle, bbox, config = problem
+    particle = particle.replace(sticking=sticking)
+    rng = grad_rng(geometry)
+    batch = config.ray_batch_size
+    total = 0.0
+    with torch.no_grad():
+        for b in range(-(-rays // batch)):
+            idx = torch.arange(b * batch, (b + 1) * batch,
+                               device=geometry.device)
+            flux = diff.trace_flux(
+                geometry, source, particle, bbox, rng, idx, idx < rays,
+                config, num_bounces=GRAD["bounces"], batch_index=b)
+            total += float(flux.double().sum())
+    return total
+
+
+def finite_difference(geometry, problem, rays, grad):
+    """Central differences of sum(flux) at sticking 0.1 +- 3e-3 on the same
+    rays against ``grad`` (rtol 5e-3, tests/test_diff.py:78)."""
+    plus = flux_total(geometry, problem, rays, GRAD["sticking"] + FD_EPS)
+    minus = flux_total(geometry, problem, rays, GRAD["sticking"] - FD_EPS)
+    fd = (plus - minus) / (2 * FD_EPS)
+    rel = abs(grad - fd) / abs(fd)
+    return {"fd_d_flux_d_sticking": fd, "fd_rel_err": rel,
+            "fd_rtol": FD_RTOL}, bool(rel <= FD_RTOL)
+
+
+@contextlib.contextmanager
+def plain_versions(kind):
+    """The trace's closest-hit search and histogram replaced by their plain
+    versions (``*_nearest_hit_ref``, ``flux_histogram_ref``, whose backward
+    is then ``index_add_``'s own gather) while the block runs."""
+    from viennaray_tpu_torch.ops import histogram as H
+    from viennaray_tpu_torch.ops import nearest_hit as NH
+    from viennaray_tpu_torch.trace import kernel as TK
+
+    saved = TK._SEARCH[kind], TK.flux_histogram
+    TK._SEARCH[kind] = getattr(NH, f"{kind}_nearest_hit_ref")
+    TK.flux_histogram = H.flux_histogram_ref
+    try:
+        yield
+    finally:
+        TK._SEARCH[kind], TK.flux_histogram = saved
+
+
+def against_plain(geometry, run):
+    """``run()`` -> (flux, gradient) through the kernels and through their
+    plain versions on the card: bit for bit?"""
+    flux, grad = run()
+    with plain_versions(geometry.kind):
+        plain_flux, plain_grad = run()
+    return bool(np.array_equal(flux, plain_flux)
+                and np.array_equal(grad, plain_grad))
+
+
+def timed_grad(geometry, run):
+    """``run()`` with the launch counts set to 0 just before and read just
+    after, inside ``kernel_spans``, on a fresh peak of device memory.
+    Returns (result, fields, launches)."""
+    reset_launches()
+    torch.cuda.reset_peak_memory_stats()
+    with kernel_spans(geometry.kind) as spans:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = run()
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+    launches = read_launches()
+    in_kernels = sum(a.elapsed_time(b) for a, b in spans) / 1e3
+    return out, {
+        "seconds": seconds, "seconds_in_kernels": in_kernels,
+        "share_outside_kernels": 1.0 - in_kernels / seconds,
+        "max_memory_allocated_bytes": torch.cuda.max_memory_allocated(),
+        "launches": launches,
+    }, launches
+
+
+def phase_grad_paths(pts, nrm, verts, tris):
+    """The differentiable trace and its drivers (``viennaray_tpu_torch.diff``)
+    on kernels 1, 2 and 3 and the histogram's backward, each run printed as
+    one ``grad_path`` object; a failed check raises. (a) BASELINE config 5
+    at full width: d sum(flux) / d sticking of 10^7 rays, timed, with its
+    launches (8 a batch of kernels 1 and 2 forward, 7 of the backward, no
+    other kernel); (e) a second run of the same seed, bit for bit; (b) flux
+    and d / d sticking per ray against ``grad3d_trench_jax``; (c) central
+    differences on the same rays; (d) one batch through the kernels and
+    through their plain versions: flux, d / d sticking and, under
+    1/distance weighting, d / d points bit for bit; (f) d / d points and
+    d / d normals at 2^21 rays under 1/distance weighting, finite and not
+    all zero; (g) the 5,760 triangles at 2^21 rays: d / d sticking against
+    central differences and one batch bit for bit against the plain
+    versions. Returns the launches of each timed run by name."""
+    from viennaray_tpu_torch.geometry.disk_geometry import DiskGeometry
+    from viennaray_tpu_torch.geometry.triangle_geometry import TriangleGeometry
+
+    geometry = DiskGeometry.build(pts, nrm, FLAGSHIP["grid_delta"])
+    problem = grad_problem(geometry)
+    rays = GRAD["rays"]
+    n_batches = -(-rays // GRAD["batch"])
+    out = {}
+
+    # (a) and (e): the warm-up run, then the timed run of the same seed
+    first = grad_sticking(geometry, problem, rays)
+    (flux, grad), fields, launches = timed_grad(
+        geometry, lambda: grad_sticking(geometry, problem, rays))
+    out["grad"] = launches
+    same_seed = bool(np.array_equal(first[0], flux) and first[1] == grad)
+    want = GRAD["bounces"] * n_batches
+    # the first bounce deposits the source's weights, which do not depend on
+    # the sticking: its histogram has no backward
+    want_backward = (GRAD["bounces"] - 1) * n_batches
+    launches_ok = (
+        launches["disk_nearest_hit"] == want
+        and launches["flux_histogram"] == want
+        and launches["flux_histogram_grad"] == want_backward
+        and only_launched(launches, "disk_nearest_hit", "flux_histogram",
+                          "flux_histogram_grad"))
+    # (b) per ray against the JAX package's golden
+    golden, record, tol = oracle_golden("grad3d_trench_jax")
+    per_ray = flux / rays
+    flux_err = rel_l2(per_ray, golden)
+    grad_per_ray = grad / rays
+    grad_err = abs(grad_per_ray - record["grad_per_ray"]) / abs(
+        record["grad_per_ray"])
+    grad_tol = max(1.45 * record["grad_rel_diff_between_seeds"],
+                   GRAD_TOL_FLOOR)
+    with open(os.path.join(ROOT, "benchmarks", "grad_bench.json")) as f:
+        tpu = json.load(f)
+    # (c) central differences on the same rays and batches
+    fd_fields, fd_ok = finite_difference(geometry, problem, rays, grad)
+    res = {
+        "phase": "grad_path", "config": "grad_1e7 (BASELINE config 5)",
+        "disks": geometry.num_primitives, "num_rays": rays,
+        "batch": GRAD["batch"], "bounces": GRAD["bounces"],
+        "seed": GRAD["seed"], **fields,
+        "rays_per_s_fwd_bwd": rays / fields["seconds"],
+        "flux_sum": float(flux.sum()), "d_flux_d_sticking": grad,
+        "finite": bool(np.isfinite(flux).all() and np.isfinite(grad)),
+        "same_seed_bitwise_equal": same_seed,
+        "expected_launches": want, "expected_backward_launches":
+        want_backward, "launches_ok": launches_ok,
+        "rel_l2_golden": flux_err, "rel_l2_bound": tol,
+        "d_flux_d_sticking_per_ray": grad_per_ray,
+        "golden_d_flux_d_sticking_per_ray": record["grad_per_ray"],
+        "d_flux_d_sticking_rel_err": grad_err,
+        "d_flux_d_sticking_bound": grad_tol,
+        # a cross-check only: another RNG, another code, taken on a TPU v5e
+        "tpu_v5e_grad_bench_json": {k: tpu[k] for k in (
+            "d_flux_d_sticking", "flux_sum", "total_rays", "num_bounces")},
+        **fd_fields,
+    }
+    emit(res)
+    if not (res["finite"] and same_seed and launches_ok and flux_err < tol
+            and grad_err <= grad_tol and fd_ok):
+        raise RuntimeError(f"grad path failed its checks: {res}")
+
+    # (d) one batch: the kernels against their plain versions
+    batch = GRAD["batch"]
+    wdist = grad_problem(geometry, use_wdist=True)
+    sticking_equal = against_plain(
+        geometry, lambda: grad_sticking(geometry, problem, batch))
+    points_equal = against_plain(
+        geometry, lambda: grad_geometry(geometry, wdist, batch, "points"))
+    res = {"phase": "grad_path", "check": "kernels against plain versions",
+           "num_rays": batch, "d_sticking_bitwise_equal": sticking_equal,
+           "d_points_wdist_bitwise_equal": points_equal}
+    emit(res)
+    if not (sticking_equal and points_equal):
+        raise RuntimeError(f"grad path failed its checks: {res}")
+
+    # (f) geometry gradients under 1/distance weighting
+    for field in ("points", "normals"):
+        (flux_f, grad_f), fields, launches = timed_grad(
+            geometry,
+            lambda field=field: grad_geometry(geometry, wdist,
+                                              GRAD_SIDE_RAYS, field))
+        out[f"grad_{field}"] = launches
+        res = {"phase": "grad_path", "field": field, "use_wdist": True,
+               "num_rays": GRAD_SIDE_RAYS, **fields,
+               "finite": bool(np.isfinite(flux_f).all()
+                              and np.isfinite(grad_f).all()),
+               "grad_abs_max": float(np.abs(grad_f).max()),
+               "grad_nonzero_rows": int((np.abs(grad_f).sum(1) > 0).sum())}
+        emit(res)
+        if not (res["finite"] and res["grad_abs_max"] > 0
+                and only_launched(launches, "disk_nearest_hit",
+                                  "flux_histogram", "flux_histogram_grad")):
+            raise RuntimeError(f"grad path failed its checks: {res}")
+
+    # (g) triangles (kernel 3)
+    mesh = TriangleGeometry.build(verts, tris, FLAGSHIP["grid_delta"])
+    tri_problem = grad_problem(mesh)
+    (flux_t, grad_t), fields, launches = timed_grad(
+        mesh, lambda: grad_sticking(mesh, tri_problem, GRAD_SIDE_RAYS))
+    out["grad_triangles"] = launches
+    fd_fields, fd_ok = finite_difference(mesh, tri_problem, GRAD_SIDE_RAYS,
+                                         grad_t)
+    tri_equal = against_plain(
+        mesh, lambda: grad_sticking(mesh, tri_problem, GRAD["batch"]))
+    res = {"phase": "grad_path", "triangles": mesh.num_primitives,
+           "num_rays": GRAD_SIDE_RAYS, **fields,
+           "d_flux_d_sticking": grad_t, "flux_sum": float(flux_t.sum()),
+           "finite": bool(np.isfinite(flux_t).all() and np.isfinite(grad_t)),
+           **fd_fields, "one_batch_bitwise_equal_plain": tri_equal}
+    emit(res)
+    if not (res["finite"] and fd_ok and tri_equal
+            and only_launched(launches, "triangle_nearest_hit",
+                              "flux_histogram", "flux_histogram_grad")):
+        raise RuntimeError(f"grad path failed its checks: {res}")
+    return out
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke.py needs a CUDA device and found none",
@@ -1658,6 +2008,9 @@ def main():
         check_histogram(geometry, 1 << 20, len(pts), reps=50,
                         n_entries=n_entries)
     check_histogram(geometry, 1 << 20, 18180, reps=20)
+    # the histogram's backward at the gradient path's shape: 2^19 rays x
+    # (K + 1) = 12 entries
+    hist_grad = check_histogram_grad(geometry, 1 << 19, reps=50)
     flagship = bounce_settings()
     mirror = bounce_settings(specular=True, walls="REFLECTIVE")
     bounce_wide = check_bounce(
@@ -1858,6 +2211,7 @@ def main():
     hooks = phase_hook_paths(pts, nrm, verts, tris)
     emit({"phase": "peak_memory",
           "max_memory_allocated_bytes": torch.cuda.max_memory_allocated()})
+    grad = phase_grad_paths(pts, nrm, verts, tris)
 
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
             "library_ms", "shape")
@@ -1873,7 +2227,8 @@ def main():
             + window_unfused_launches["disk_nearest_hit"]
             + wdist_launches["disk_nearest_hit"]
             + disk2d_unfused_launches["disk_nearest_hit"]
-            + sum(n["disk_nearest_hit"] for n in hooks.values()),
+            + sum(n["disk_nearest_hit"] for n in hooks.values())
+            + sum(n["disk_nearest_hit"] for n in grad.values()),
             "launches_by_path": {
                 "disks_unfused": unfused_launches["disk_nearest_hit"],
                 "ion_unfused": ion_unfused_launches["disk_nearest_hit"],
@@ -1882,6 +2237,8 @@ def main():
                 "disk2d_unfused":
                     disk2d_unfused_launches["disk_nearest_hit"],
                 **{name: n["disk_nearest_hit"] for name, n in hooks.items()
+                   if n["disk_nearest_hit"]},
+                **{name: n["disk_nearest_hit"] for name, n in grad.items()
                    if n["disk_nearest_hit"]},
             },
             **{k: hit_wide[k] for k in keys},
@@ -1907,6 +2264,7 @@ def main():
                 "surface": surface_launches["flux_histogram"],
                 "disk2d_unfused": disk2d_unfused_launches["flux_histogram"],
                 **{name: n["flux_histogram"] for name, n in hooks.items()},
+                **{name: n["flux_histogram"] for name, n in grad.items()},
             },
             # two paths of one kernel (ops/histogram.py:path_for): one block
             # below the threshold of entries, the whole card above it
@@ -1916,6 +2274,18 @@ def main():
             "E_65536": {k: hist_mid[k] for k in keys + ("path", "ms_by_path")},
         },
         {
+            # kernel 2's backward: the gradient of the weights, a gather. The
+            # JAX package has no TPU kernel for it: XLA transposes its
+            # one-hot contraction
+            "name": "flux_histogram_grad", "route": "cuda",
+            "source": "viennaray_tpu_torch/csrc/flux_histogram.cu",
+            "replaces": "viennaray_tpu/trace/kernel.py:161",
+            "launches": grad["grad"]["flux_histogram_grad"],
+            "launches_by_path": {
+                name: n["flux_histogram_grad"] for name, n in grad.items()},
+            **{k: hist_grad[k] for k in keys},
+        },
+        {
             "name": "triangle_nearest_hit", "route": "cuda",
             "source": "viennaray_tpu_torch/csrc/nearest_hit.cu",
             "replaces": "viennaray_tpu/ops/pallas_intersect.py:359",
@@ -1923,11 +2293,14 @@ def main():
             # triangle run's
             "launches": tri_unfused_launches["triangle_nearest_hit"]
             + hooks["two_channels_builtin_reimplemented_triangles"][
-                "triangle_nearest_hit"],
+                "triangle_nearest_hit"]
+            + grad["grad_triangles"]["triangle_nearest_hit"],
             "launches_by_path": {
                 "triangles_unfused": tri_unfused_launches["triangle_nearest_hit"],
                 "two_channels_builtin_reimplemented_triangles": hooks[
                     "two_channels_builtin_reimplemented_triangles"][
+                    "triangle_nearest_hit"],
+                "grad_triangles": grad["grad_triangles"][
                     "triangle_nearest_hit"],
             },
             **{k: tri_hit_wide[k] for k in keys},

@@ -49,6 +49,16 @@ t.set_geometry(pts, nrm, 1.0)
 t.set_particle_type(vrt.ConedCosineParticle(0.5, 0.5, 100.0))
 t.set_number_of_rays_fixed(600)
 assert t.apply().sum() > 0
+from viennaray_tpu_torch import diff
+from viennaray_tpu_torch.config import adjust_bounding_box
+geo = vrt.DiskGeometry.build(pts, nrm, 1.0, device="cpu")
+box = torch.tensor(adjust_bounding_box(geo.bbox.numpy(), vrt.TraceDirection.POS_Z,
+                                       geo.disk_radius, 3), dtype=torch.float32)
+config = vrt.TraceConfig(dim=3, ray_batch_size=256, roulette=False)
+flux, grad = diff.flux_and_grad_sticking_batched(
+    geo, vrt.RandomSource(bbox=box, cosine_power=1.0), vrt.DiffuseParticle(0.5),
+    box, vrt.GeneratorRNG(3, "cpu"), 512, config, num_bounces=4, device="cpu")
+assert flux.sum() > 0 and grad <= 0
 bad = [m for m in ("jax", "flax", "viennaray_tpu") if m in sys.modules]
 assert not bad, bad
 print("standalone-ok")
@@ -76,7 +86,8 @@ def test_sources_name_neither_jax_nor_the_jax_package_as_an_import():
     for module in ("geometry/triangle_geometry.py",
                    "geometry/line_geometry.py", "io/make_oracle_goldens.py",
                    "utils/materials.py", "csrc/tri_hit.cuh",
-                   "csrc/line_hit.cuh", "csrc/prim_search.cuh"):
+                   "csrc/line_hit.cuh", "csrc/prim_search.cuh",
+                   "diff/trace_grad.py"):
         assert os.path.join(package, *module.split("/")) in files, module
     # ``viennaray_tpu`` not followed by ``_torch``, outside a path-like
     # mention in prose (docstrings name their counterpart as

@@ -573,6 +573,90 @@ def lane_matched_batch(ref_particle, particle, ref_knobs, *, flux_model="neighbo
     return res
 
 
+# ---- the differentiable trace through both packages --------------------------
+def diff_setups(geo_kind, sticking=0.3, **config_changes):
+    """(reference, port) dicts of ``geometry``, ``source``, ``particle``,
+    ``bbox``, ``config`` and ``geo_type`` for the differentiable trace on one
+    set of tables. ``geo_kind`` "disk2d": ``tests/test_diff.py:_setup``'s 2D
+    trench (180 disks, reflective walls, source +y, 2,048 rays) in packed
+    order; "disk", "triangle", "line": ``packed_geometries``' (periodic
+    walls). A diffuse particle with ``sticking``; roulette off."""
+    from viennaray_tpu.config import TraceConfig as RefConfig
+    from viennaray_tpu.config import get_trace_settings as ref_settings
+    import viennaray_tpu_torch as vrtt
+    from viennaray_tpu_torch.config import adjust_bounding_box
+
+    if geo_kind == "disk2d":
+        pts, nrm = ref_fixtures.create_trench_grid_2d(grid_delta=0.1)
+        first = vrt.DiskGeometry.build(pts, nrm, 0.1, dim=2)
+        order = np.asarray(first.soa_perm)[: len(pts)]
+        ref_geo = vrt.DiskGeometry.build(pts[order], nrm[order], 0.1, dim=2)
+        geo, dim = port_geometry(ref_geo), 2
+        bbox = adjust_bounding_box(
+            np.asarray(ref_geo.bbox), vrtt.TraceDirection.POS_Y,
+            ref_geo.disk_radius, 2).astype(np.float32)
+        bc = "REFLECTIVE"
+        geo_type = "disk"
+    else:
+        ref_geo, geo, bbox, dim = packed_geometries(geo_kind)
+        bc = "PERIODIC"
+        geo_type = geo_kind
+    direction = "POS_Z" if dim == 3 else "POS_Y"
+    common = dict(dim=dim, num_rays_fixed=2048, rng_seed=11,
+                  use_random_seed=False, ray_batch_size=2048, roulette=False)
+    common.update(config_changes)
+    out = []
+    for pkg, make_geo in ((vrt, ref_geo), (vrtt, geo)):
+        config_cls = RefConfig if pkg is vrt else vrtt.TraceConfig
+        config = config_cls(
+            source_direction=getattr(pkg.TraceDirection, direction),
+            boundary_conditions=(getattr(pkg.BoundaryCondition, bc),) * 3,
+            **common)
+        s = ref_settings(config.source_direction)
+        axes = dict(ray_dir=s[0], first_dir=s[1], second_dir=s[2],
+                    min_max=s[3], pos_neg=float(s[4]), dim=dim,
+                    num_points=ref_geo.num_primitives)
+        if pkg is vrt:
+            source = vrt.RandomSource(bbox=jnp.asarray(bbox),
+                                      cosine_power=jnp.float32(1.0), **axes)
+            box = jnp.asarray(bbox)
+        else:
+            source = vrtt.RandomSource(bbox=torch.from_numpy(bbox),
+                                       cosine_power=1.0, **axes)
+            box = torch.from_numpy(bbox)
+        out.append(dict(geometry=make_geo, source=source,
+                        particle=pkg.DiffuseParticle(sticking, "flux"),
+                        bbox=box, config=config, geo_type=geo_type))
+    return tuple(out)
+
+
+def reference_trace_flux(ref, key, R, num_bounces, **changes):
+    """The JAX package's ``trace_flux`` of ``R`` rays (indices 0 to R - 1)
+    under ``key`` on a ``diff_setups`` reference, with ``changes`` (a
+    ``particle`` or ``geometry`` in place of the setup's)."""
+    from viennaray_tpu.diff.trace_grad import trace_flux as ref_trace_flux
+
+    args = {**ref, **changes}
+    return ref_trace_flux(
+        args["geometry"], args["source"], args["particle"], args["bbox"], key,
+        jnp.arange(R, dtype=jnp.int32), jnp.ones((R,), bool), args["config"],
+        args["geo_type"], num_bounces=num_bounces,
+    )
+
+
+def port_trace_flux(port, rng, R, num_bounces, **changes):
+    """The port's ``trace_flux`` of ``R`` rays (indices 0 to R - 1, batch 0)
+    on a ``diff_setups`` port, on the CPU."""
+    from viennaray_tpu_torch.diff import trace_flux
+
+    args = {**port, **changes}
+    return trace_flux(
+        args["geometry"], args["source"], args["particle"], args["bbox"], rng,
+        torch.arange(R), torch.ones(R, dtype=torch.bool), args["config"],
+        args["geo_type"], num_bounces=num_bounces, device="cpu",
+    )
+
+
 # ---- goldens made by the JAX package on the CPU -----------------------------
 # Configurations that no scalar oracle runs: the window flux model, and the
 # surface source. The JAX package traces them on the CPU through its unfused
@@ -788,10 +872,124 @@ def make_jax_golden(name, rays_per_point, out_dir):
     return record
 
 
+# The gradient golden: BASELINE config 5 (benchmarks/grad_bench.py:33-75) on
+# the JAX package's flux_and_grad_sticking_batched, 8 bounces, roulette off,
+# in batches small enough for its brute-force search on the CPU.
+GRAD_GOLDEN = "grad3d_trench_jax"
+GRAD_GOLDEN_BATCH = 1 << 15
+GRAD_GOLDEN_BOUNCES = 8
+
+
+def _jax_grad_golden_run(args):
+    """One seed of the gradient golden (a process of its own): (raw flux
+    (N,) float64, d sum(flux) / d sticking, seconds)."""
+    seed, total_rays = args
+    jax.config.update("jax_platforms", "cpu")
+    import time
+
+    from viennaray_tpu.config import (
+        TraceConfig as RefConfig, adjust_bounding_box as ref_adjust,
+        get_trace_settings as ref_settings,
+    )
+    from viennaray_tpu.diff.trace_grad import flux_and_grad_sticking_batched
+
+    pts, nrm = ref_fixtures.create_trench_grid_3d(**JAX_GOLDEN_TRENCH)
+    grid_delta = JAX_GOLDEN_TRENCH["grid_delta"]
+    # in packed order, where the CPU search's tie rule (lowest original
+    # index) is the kernels' (lowest sorted lane): ties decide which disk's
+    # neighbor list deposits
+    first = vrt.DiskGeometry.build(pts, nrm, grid_delta, dim=3)
+    order = np.asarray(first.soa_perm)[: len(pts)]
+    geometry = vrt.DiskGeometry.build(pts[order], nrm[order], grid_delta,
+                                      dim=3)
+    particle = vrt.DiffuseParticle(0.1, "flux")
+    config = RefConfig(
+        dim=3, num_rays_fixed=total_rays,
+        source_direction=vrt.TraceDirection.POS_Z,
+        boundary_conditions=(vrt.BoundaryCondition.PERIODIC,) * 3,
+        ray_batch_size=GRAD_GOLDEN_BATCH, rng_seed=seed,
+        use_random_seed=False, roulette=False,
+    )
+    bbox = ref_adjust(np.asarray(geometry.bbox), config.source_direction,
+                      geometry.disk_radius, 3)
+    s = ref_settings(config.source_direction)
+    source = vrt.RandomSource(
+        bbox=jnp.asarray(bbox, jnp.float32),
+        cosine_power=particle.cosine_exponent, ray_dir=s[0], first_dir=s[1],
+        second_dir=s[2], min_max=s[3], pos_neg=float(s[4]), dim=3,
+        num_points=geometry.num_primitives,
+    )
+    t0 = time.perf_counter()
+    flux, grad = flux_and_grad_sticking_batched(
+        geometry, source, particle, jnp.asarray(bbox, jnp.float32),
+        jax.random.PRNGKey(seed), total_rays, config, "disk",
+        num_bounces=GRAD_GOLDEN_BOUNCES,
+    )
+    seconds = time.perf_counter() - t0
+    original = np.empty(len(pts), np.float64)
+    original[order] = np.asarray(flux, np.float64)
+    return original, float(grad), seconds
+
+
+def make_jax_grad_golden(rays_per_seed, out_dir):
+    """Runs BASELINE config 5's gradient with the JAX package on the CPU at
+    the two ``JAX_GOLDEN_SEEDS``, one process each, and writes
+    ``<out_dir>/grad3d_trench_jax.npy`` (the seeds' mean raw flux per ray,
+    (N,) float64) and ``.json`` (the flux sum and d sum(flux) / d sticking
+    per ray for each seed, the flux rel-L2 and the gradient's relative
+    difference between the seeds, seconds)."""
+    import json
+    import multiprocessing
+    import os
+
+    jobs = [(s, rays_per_seed) for s in JAX_GOLDEN_SEEDS]
+    with multiprocessing.get_context("spawn").Pool(len(jobs)) as pool:
+        runs = pool.map(_jax_grad_golden_run, jobs)
+    per_ray = [f / rays_per_seed for f, _, _ in runs]
+    grads = [g / rays_per_seed for _, g, _ in runs]
+    record = {
+        "mesh": {"fixture": "create_trench_grid_3d", **JAX_GOLDEN_TRENCH,
+                 "disks": int(per_ray[0].shape[0])},
+        "physics": {"particle": "diffuse", "sticking": 0.1,
+                    "boundary": "periodic", "flux_model": "neighbor",
+                    "source": "+z face, cosine lobe", "roulette": False,
+                    "bounces": GRAD_GOLDEN_BOUNCES},
+        "config": "BASELINE config 5 (benchmarks/grad_bench.py:33-75) but "
+                  "for the ray count and the batch",
+        "maker": "JAX package on the CPU, viennaray_tpu.diff.trace_grad."
+                 "flux_and_grad_sticking_batched, the disks in packed order "
+                 "(the kernels' tie rule), flux in original numbering "
+                 "(tests/torch_port_helpers.py:make_jax_grad_golden)",
+        "ray_batch": GRAD_GOLDEN_BATCH,
+        "normalization": "raw flux and d sum(flux) / d sticking divided by "
+                         "the rays",
+        "rays_per_seed": rays_per_seed, "seeds": list(JAX_GOLDEN_SEEDS),
+        "flux_sum_per_ray_by_seed": [float(f.sum()) for f in per_ray],
+        "grad_per_ray_by_seed": grads,
+        "grad_per_ray": float(np.mean(grads)),
+        "rel_l2_between_seeds": float(np.linalg.norm(per_ray[1] - per_ray[0])
+                                      / np.linalg.norm(per_ray[0])),
+        "grad_rel_diff_between_seeds": abs(grads[1] - grads[0])
+        / abs(grads[0]),
+        "seconds_by_seed": [s for _, _, s in runs],
+    }
+    os.makedirs(out_dir, exist_ok=True)
+    np.save(os.path.join(out_dir, GRAD_GOLDEN + ".npy"),
+            np.mean(per_ray, axis=0))
+    with open(os.path.join(out_dir, GRAD_GOLDEN + ".json"), "w") as f:
+        json.dump(record, f, indent=1)
+        f.write("\n")
+    return record
+
+
 if __name__ == "__main__" and sys.argv[1:2] != ["--record-draws"]:
     # python3 tests/torch_port_helpers.py NAME RAYS_PER_POINT [OUT_DIR]
+    # (grad3d_trench_jax: RAYS_PER_SEED)
     out = sys.argv[3] if len(sys.argv) > 3 else "viennaray_tpu_torch/io/golden"
-    print(make_jax_golden(sys.argv[1], int(sys.argv[2]), out))
+    if sys.argv[1] == GRAD_GOLDEN:
+        print(make_jax_grad_golden(int(sys.argv[2]), out))
+    else:
+        print(make_jax_golden(sys.argv[1], int(sys.argv[2]), out))
 
 
 # ---- the order of a trace's draws ---------------------------------------------

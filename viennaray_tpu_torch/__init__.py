@@ -13,12 +13,14 @@ of disks (with optional 1/distance weights) and their window flux model, the
 single-hit deposit of triangles and lines, normalization and smoothing;
 custom particles (collision, reflection, per-ray state, initial-direction
 and data-log hooks, multi-channel flux, user sources) and multi-species runs
-(``apply_particles``); the host's readers, writers, checkpoints and logging.
+(``apply_particles``); the differentiable trace and its gradient drivers
+(``diff``); the host's readers, writers, checkpoints and logging.
 Every setting outside the ported slices raises ``NotImplementedError``.
 
 The package imports ``torch`` and ``numpy`` only.
 """
 
+from . import diff
 from .config import (
     BoundaryCondition,
     NormalizationType,
@@ -50,6 +52,7 @@ from .utils.logging import LogLevel, set_log_level
 __version__ = "0.1.0"
 
 __all__ = [
+    "diff",
     "BoundaryCondition",
     "NormalizationType",
     "ReflectionKind",

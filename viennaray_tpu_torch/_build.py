@@ -44,6 +44,10 @@ _SIGNATURES = {
     "vr_flux_histogram_small": [
         _ptr, _ptr, ctypes.c_int, ctypes.c_int, _ptr, _ptr,
     ],
+    # grad_out ids | n_entries n_bins | grad_w | sms | stream
+    "vr_flux_histogram_grad": [
+        _ptr, _ptr, ctypes.c_longlong, ctypes.c_int, _ptr, ctypes.c_int, _ptr,
+    ],
     # org dir weight w0 alive hfb n_refl n_bdry uniforms | prims chunk_bbs
     # perm neighbors neighbor_pack walls stick_lanes | n_rays npad pt n_prims
     # k_nbrs n_sub kind dim first_dir second_dir ray_axis bc1 bc2 refl_kind

@@ -27,6 +27,13 @@
 // one launch of one block: the largest |w| with the same bits, its own
 // shared bins, the same scale, the same integer sums and the same final
 // conversion, so both paths give the same bits for the same input.
+//
+// The backward (vr_flux_histogram_grad): d out[b] / d w[e] is 1 where
+// ids[e] == b, so the gradient of the weights is a gather, grad_w[e] =
+// grad_out[ids[e]]. The JAX package has no TPU kernel for it: XLA transposes
+// its one-hot contraction (viennaray_tpu/trace/kernel.py:161-163). Bound by
+// bytes, 8 per entry (ids read, grad_w written) plus the bins, which stay
+// in L2; one thread per entry, a grid-stride loop, exact (no arithmetic).
 #include <cuda_runtime.h>
 
 #include "fixed_point.cuh"
@@ -183,6 +190,22 @@ small_histogram_kernel(const int* __restrict__ ids,
   }
 }
 
+constexpr int kGradThreads = 256;
+
+__global__ void __launch_bounds__(kGradThreads)
+gather_grad_kernel(const float* __restrict__ grad_out,
+                   const int* __restrict__ ids, long long n_entries,
+                   int n_bins, float* __restrict__ grad_w) {
+  const long long stride = (long long)gridDim.x * kGradThreads;
+  for (long long e = (long long)blockIdx.x * kGradThreads + threadIdx.x;
+       e < n_entries; e += stride) {
+    const int id = ids[e];
+    // an id outside the bins added nothing in the forward
+    grad_w[e] = (unsigned int)id < (unsigned int)n_bins ? __ldg(grad_out + id)
+                                                        : 0.0f;
+  }
+}
+
 }  // namespace
 
 // ids: (n_entries,) int32 in [0, n_bins); w: (n_entries,) float32;
@@ -250,5 +273,21 @@ extern "C" int vr_flux_histogram_small(const int* ids, const float* w,
   }
   small_histogram_kernel<<<1, kSmallThreads, smem, s>>>(ids, w, n_entries,
                                                         n_bins, out);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The histogram's backward: grad_w[e] = grad_out[ids[e]] (0 for an id outside
+// [0, n_bins)). grad_out: (n_bins,) float32; ids: (n_entries,) int32; grad_w:
+// (n_entries,) float32; sms: the device's SM count. Launches on `stream`,
+// allocates nothing, does not synchronise; returns cudaGetLastError().
+extern "C" int vr_flux_histogram_grad(const float* grad_out, const int* ids,
+                                      long long n_entries, int n_bins,
+                                      float* grad_w, int sms, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (n_entries <= 0) return static_cast<int>(cudaGetLastError());
+  const long long want = (n_entries + kGradThreads - 1) / kGradThreads;
+  const long long cap = (long long)sms * 16;
+  gather_grad_kernel<<<(int)(want < cap ? want : cap), kGradThreads, 0, s>>>(
+      grad_out, ids, n_entries, n_bins, grad_w);
   return static_cast<int>(cudaGetLastError());
 }

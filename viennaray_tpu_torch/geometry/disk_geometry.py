@@ -218,7 +218,7 @@ class DiskGeometry:
         if self.window_pack is not None:
             return self
         ids, pack = window_tables(
-            self.points.cpu().numpy(), self.prims_soa.cpu().numpy(),
+            self.points.detach().cpu().numpy(), self.prims_soa.cpu().numpy(),
             self.soa_inv_perm.cpu().numpy(), self.window_radius(), self.dim,
         )
         return self.replace(

@@ -191,7 +191,9 @@ class BounceSettings(NamedTuple):
             bc1=int(BoundaryCondition(config.boundary_conditions[first_dir])),
             bc2=int(BoundaryCondition(bc2)),
             refl_kind=int(refl_kind),
-            sticking=float(particle.sticking), t_near=float(config.t_near),
+            # a tensor's value (the differentiable trace puts the tensor in)
+            sticking=float(torch.as_tensor(particle.sticking).detach()),
+            t_near=float(config.t_near),
             # the counters are int32
             max_reflections=min(int(config.max_reflections), 2**31 - 1),
             max_boundary_hits=min(int(config.max_boundary_hits), 2**31 - 1),
@@ -326,8 +328,38 @@ def sticking_lanes(particle, geometry):
     return per_prim[geometry.soa_perm.long()].contiguous()
 
 
+def hit_time(org, dirn, prim, geometry):
+    """The hit time of each ray on the primitive ``prim`` (original
+    numbering; -1 reads primitive 0), as a differentiable function of org,
+    dirn and the geometry's own tensors. Disks: the plane-hit identity
+    t = (n . c - n . o) / (d . n) on the centre and the stored normal, in
+    the order of the search's own disk test (csrc/disk_hit.cuh), so that it
+    gives the search's t; the JAX package's chip writes the same function as
+    ((c - o) . n) / (d . n). Triangles: ((v0 - o) . n) / (d . n) on the first
+    vertex (the triangle is planar). d . n == 0 reads 1e-30 (ref:
+    viennaray_tpu/trace/kernel.py:585-593, 621-629). Lines: the segment's
+    own t from p0 and p1 (ref: viennaray_tpu/ops/intersect.py:172-229), its
+    denominator guarded alike."""
+    pc = torch.clamp(prim, min=0).long()
+    tiny = torch.tensor(1e-30, dtype=torch.float32, device=org.device)
+    if geometry.kind == "line":
+        p0 = geometry.p0[pc]
+        ld = geometry.p1[pc] - p0
+        denom = dirn[:, 0] * ld[:, 1] - dirn[:, 1] * ld[:, 0]
+        denom = torch.where(denom == 0.0, tiny, denom)
+        w = p0 - org
+        return (w[:, 0] * ld[:, 1] - w[:, 1] * ld[:, 0]) / denom
+    n = geometry.normals[pc]
+    den = vec.dot(dirn, n)
+    den = torch.where(den == 0.0, tiny, den)
+    if geometry.kind == "disk":
+        return (vec.dot(geometry.points[pc], n) - vec.dot(org, n)) / den
+    v0 = geometry.vertices[geometry.triangles[pc, 0].long()]
+    return vec.dot(v0 - org, n) / den
+
+
 def bounce_step(state: RayState, u, geometry, walls, settings, search,
-                stick_lanes=None, reflect=None):
+                stick_lanes=None, reflect=None, differentiable=False):
     """One bounce of every lane.
 
     u: (R, n_uni) uniforms [reflection 1 (coned-cosine: theta), reflection
@@ -344,6 +376,15 @@ def bounce_step(state: RayState, u, geometry, walls, settings, search,
     wdep (R,) float32: the pre-sticking weight it takes, t_hit (R,) float32:
     its hit time (0 where no deposit), counts (5,) int64: collide, wall,
     exit, traces, scatter). Dead lanes pass through unchanged.
+
+    ``differentiable``: the closest-hit search runs on detached rays (the
+    hit's selection is piecewise constant, and the kernels see no tensor
+    that requires a gradient), then the hit time is recomputed from the
+    selected primitive by ``hit_time``, as the JAX package's differentiable
+    trace does on its chip (ref: viennaray_tpu/trace/kernel.py:542-629).
+    Gradients then reach org, dirn, the geometry's points and normals (the
+    hit time, the hit point, the reflection) and the sticking, which may be
+    a tensor: ``settings.sticking`` (0-d) or ``stick_lanes``.
     """
     s = settings
     org, dirn, weight, w0, alive, hfb, n_refl, n_bdry = state
@@ -359,10 +400,14 @@ def bounce_step(state: RayState, u, geometry, walls, settings, search,
     )
 
     # ---- 2. closest hit below the bound (ref: rayTraceKernel.hpp:163-167)
+    o_search, d_search = (
+        (org.detach(), dirn.detach()) if differentiable else (org, dirn))
     t_geo, prim, hit_geo = search(
-        org.contiguous(), dirn.contiguous(), geometry.prims_soa,
+        o_search.contiguous(), d_search.contiguous(), geometry.prims_soa,
         geometry.soa_perm, geometry.soa_chunk_bbs, t_near=s.t_near,
     )
+    if differentiable:
+        t_geo = hit_time(org, dirn, prim, geometry)
     hit_geo = hit_geo & (t_geo < tmin0)
 
     # ---- 3. event: geometry wins ties over the walls, wall 1 over wall 2,
@@ -523,7 +568,7 @@ def bounce_step(state: RayState, u, geometry, walls, settings, search,
 
 
 def deposit_entries(org, dirn, hit_prim, wdep, geometry, t_hit=None,
-                    settings=None, use_wdist=False):
+                    settings=None, use_wdist=False, differentiable=False):
     """The histogram entries of one bounce's deposits: (ids, w).
 
     org, dirn: the rays as they were BEFORE the bounce; t_hit: the primary
@@ -544,6 +589,12 @@ def deposit_entries(org, dirn, hit_prim, wdep, geometry, t_hit=None,
 
     Triangles and lines: both (R,), the single closest hit (ref:
     kernel.py:1216-1217); a ray without a deposit carries weight 0 into bin 0.
+
+    ``differentiable``: the window model re-tests its list on the geometry's
+    points, normals and radii, which the JAX package's window deposit reads
+    (kernel.py:752-762), instead of the packed records, so that a driver's
+    points or normals leaf reaches it; the neighbor records stay packed, as
+    the reference's do.
     """
     n_prims = geometry.num_primitives
     if geometry.kind != "disk":
@@ -554,12 +605,21 @@ def deposit_entries(org, dirn, hit_prim, wdep, geometry, t_hit=None,
     zero = torch.zeros((), dtype=wdep.dtype, device=wdep.device)
     if settings is not None and settings.deposit_kind(geometry) == "window":
         W = geometry.window_ids.shape[1]
-        rec = geometry.window_pack[prim_c].reshape(R, W, 8)
+        listed = geometry.window_ids[prim_c]
+        ids = torch.clamp(listed, 0, n_prims - 1)
+        if differentiable:
+            c = geometry.points[ids]
+            n = geometry.normals[ids]
+            r = geometry.radii[ids]
+            rec = torch.cat([c, n, (r * r)[..., None],
+                             vec.dot(c, n)[..., None]], dim=-1)
+        else:
+            rec = geometry.window_pack[prim_c].reshape(R, W, 8)
         ok, t = intersect.disk_hit_packed(org, dirn, rec, settings.t_near)
         tau = torch.tensor(geometry.window_tau, dtype=torch.float32,
                            device=org.device)
-        ok = ok & (t <= (t_hit + tau)[:, None]) & collide[:, None]
-        ids = torch.clamp(geometry.window_ids[prim_c], 0, n_prims - 1)
+        ok = (ok & (t <= (t_hit + tau)[:, None]) & collide[:, None]
+              & (listed >= 0))
         return ids.reshape(-1), torch.where(ok, wdep[:, None], zero).reshape(-1)
     K = geometry.neighbors.shape[1]
     rec = geometry.neighbor_pack[prim_c].reshape(R, K, 8)

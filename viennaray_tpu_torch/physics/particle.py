@@ -12,7 +12,7 @@ Several data labels give a custom ``collision_fn`` that many flux channels
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional, Sequence, Tuple
+from typing import Optional, Tuple
 
 import torch
 
@@ -24,12 +24,15 @@ class Particle:
     """A particle species' parameters.
 
     Attributes:
-      sticking: default sticking probability.
+      sticking: default sticking probability: a float, or a 0-d float32
+        tensor whose graph the differentiable trace keeps (``diff``).
       cosine_exponent: power of the source cosine lobe
         (ref: getSourceDistributionPower, rayParticle.hpp:69).
       cone_angle: max cone angle for CONED_COSINE reflection.
       material_sticking: optional (num_materials,) sticking lookup by material
-        id (ref GPU per-material sticking map, rayParticle.hpp:213).
+        id (ref GPU per-material sticking map, rayParticle.hpp:213): a
+        sequence of floats, or a float32 tensor whose graph the
+        differentiable trace keeps.
       direction: optional fixed initial direction (3,) overriding the
         source's sampled direction for every ray (rayParticle.hpp:31,92);
         normalized (and z-flattened in 2D) by the trace.
@@ -41,10 +44,10 @@ class Particle:
       name: species name.
     """
 
-    sticking: float
+    sticking: object  # float, or a 0-d float32 tensor
     cosine_exponent: float = 1.0
     cone_angle: float = 0.0
-    material_sticking: Optional[Sequence[float]] = None
+    material_sticking: Optional[object] = None  # floats, or a tensor
     direction: Optional[Tuple[float, float, float]] = None
     mean_free_path: float = -1.0
     reflection_kind: int = int(ReflectionKind.DIFFUSE)
@@ -57,15 +60,14 @@ class Particle:
 
     def sticking_for(self, material_ids: torch.Tensor) -> torch.Tensor:
         """Per-hit sticking, float32 on the ids' device: the material table
-        where one is set (ids below 0 read entry 0), else the scalar."""
+        where one is set (ids below 0 read entry 0), else the scalar. A
+        sticking value or table given as a tensor keeps its graph."""
         dev = material_ids.device
         if self.material_sticking is None:
-            return torch.full(material_ids.shape, float(self.sticking),
-                              dtype=torch.float32, device=dev)
-        table = torch.tensor(
-            [float(x) for x in self.material_sticking], dtype=torch.float32,
-            device=dev,
-        )
+            return torch.as_tensor(self.sticking, dtype=torch.float32,
+                                   device=dev).expand(material_ids.shape)
+        table = torch.as_tensor(self.material_sticking, dtype=torch.float32,
+                                device=dev)
         return table[torch.clamp(material_ids, min=0).long()]
 
 

@@ -292,6 +292,8 @@ def trace_batch(
     aux_init_fn=None,
     init_dir_fn=None,
     log_fn=None,
+    differentiable=False,
+    num_bounces=None,
 ):
     """Trace one mega-batch of rays to extinction; returns (flux, counters),
     or (flux, counters, logs) with a ``log_fn``.
@@ -313,6 +315,20 @@ def trace_batch(
     Returns flux (n_prims,) float32 on the device, or (L, n_prims) for a
     ``collision_fn`` and a particle of L > 1 ``data_labels``, and
     ``BatchCounters``.
+
+    ``differentiable`` (the JAX package's differentiable trace,
+    viennaray_tpu/trace/kernel.py:1260-1330): the unfused body for exactly
+    ``num_bounces`` iterations (default 32; dead lanes pass through), with
+    roulette off, no source sort, no compaction and no host read of the
+    survivor count, so lanes keep their places. The closest-hit search runs
+    on detached rays and the hit time is recomputed from the selected
+    primitive (``ops.bounce.bounce_step``); the deposits go through
+    ``ops.histogram.flux_histogram``, whose backward is a kernel too. The
+    flux then carries the graph of the particle's sticking (a tensor, or a
+    tensor table) and of the geometry's points and normals where they are
+    tensors that require a gradient. Discrete events (the hit's selection,
+    walls, backfaces) are piecewise constant: straight-through. The hooks
+    are refused by name: the JAX package's differentiable trace takes none.
 
     **The hook contract** (custom particles: the reference's virtual
     surfaceCollision / surfaceReflection / initNew / logData,
@@ -376,8 +392,17 @@ def trace_batch(
     hooked = (collision_fn is not None or reflection_fn is not None
               or aux_init_fn is not None)
     check_supported(config, particle, source, collision_fn)
+    if differentiable:
+        given = [name for name, fn in (
+            ("collision_fn", collision_fn), ("reflection_fn", reflection_fn),
+            ("aux_init_fn", aux_init_fn), ("init_dir_fn", init_dir_fn),
+            ("log_fn", log_fn)) if fn is not None]
+        if given:
+            raise NotImplementedError(
+                "the differentiable trace takes no " + ", ".join(given))
     dim = config.dim
-    fused = fused and not config.use_wdist and not hooked
+    fused = (fused and not config.use_wdist and not hooked
+             and not differentiable)
     settings = BounceSettings.from_config(config, particle, fused=fused)
     first_dir, second_dir = settings.first_dir, settings.second_dir
     deposit_kind = settings.deposit_kind(geometry)
@@ -386,6 +411,12 @@ def trace_batch(
     wdist = config.use_wdist and deposit_kind == "disk"
 
     dev = geometry.device
+    if differentiable:
+        # roulette's renewal zeroes d w / d sticking (ref: diff/trace_grad.py)
+        settings = settings._replace(roulette=False)
+        if torch.is_tensor(particle.sticking):
+            settings = settings._replace(sticking=particle.sticking.to(
+                device=dev, dtype=torch.float32))
     R = ray_indices.shape[0]
     n_prims = geometry.num_primitives
     walls = make_walls(bbox, geometry, settings)
@@ -445,7 +476,8 @@ def trace_batch(
         or under the window model every window-list disk within tau past the
         hit; of triangles and lines, the single closest hit."""
         ids, w = deposit_entries(org, dirn, hit_prim, wdep, geometry, t_hit,
-                                 settings, use_wdist=wdist)
+                                 settings, use_wdist=wdist,
+                                 differentiable=differentiable)
         return flux + _flux_add(ids, w, n_prims)
 
     def with_aux(args, aux):
@@ -499,7 +531,7 @@ def trace_batch(
                    else hook_reflect(it, u, aux, new_aux))
         new_state, hit_prim, wdep, t_hit, step_counts = bounce_step(
             state, u, geometry, walls, settings, _SEARCH[geometry.kind],
-            stick_lanes, reflect=reflect,
+            stick_lanes, reflect=reflect, differentiable=differentiable,
         )
         if collision_fn is not None:
             flux = hook_collide(it, flux, state.org, state.dirn, hit_prim,
@@ -539,7 +571,7 @@ def trace_batch(
     # Sorting the batch by source-plane Morton cell makes blocks of lanes
     # spatially compact (deterministic per seed; deposits are
     # order-independent sums, and each lane's uniforms remain i.i.d.).
-    if R >= 2048:
+    if R >= 2048 and not differentiable:
         nb = 6  # 64x64 source-plane cells
         one = torch.tensor(1e-30, dtype=torch.float32, device=dev)
         c1 = torch.clamp(
@@ -574,20 +606,26 @@ def trace_batch(
     # near-horizontal rays ping-ponging between periodic walls until the
     # max_boundary_hits cap — then runs at minimal width. A fused launch of
     # several bounces may pass several caps at once: dead lanes are no-ops,
-    # and a stage whose cap is already met runs no iteration.
+    # and a stage whose cap is already met runs no iteration. The
+    # differentiable trace has no ladder: a fixed bounce count at full width
+    # (the reference's scan).
     stage_caps = []
     cap = R
-    while cap > MIN_STAGE:
+    while cap > MIN_STAGE and not differentiable:
         cap //= STAGE_SHRINK
         stage_caps.append(max(cap, MIN_STAGE))
-    stage_caps.append(0)  # final stage: run to extinction
+    if not differentiable:
+        stage_caps.append(0)  # final stage: run to extinction
 
     bb_lo = bbox[0]
     bb_ext = torch.clamp(bbox[1] - bbox[0], min=1e-6)
 
     state = RayState(org, dirn, weight, w0, alive, hfb, n_refl, n_bdry)
+    if differentiable:
+        for it in range(32 if num_bounces is None else int(num_bounces)):
+            flux, _, state, _, _ = body(it, flux, state, None)
     it = 0
-    n_alive = int(alive.sum())
+    n_alive = 0 if differentiable else int(alive.sum())
     sorted_since_bounce = False
     for cap in stage_caps:
         while it < config.max_bounces and n_alive > cap:
