@@ -5,7 +5,7 @@ Run from the repository root on a machine with one NVIDIA Hopper card:
 
     python3 chip_diagnose.py [--triangles | --lines | --ion | --window]
                              [--unfused] [--profile FILE]
-    python3 chip_diagnose.py --groups | --paths | --grad
+    python3 chip_diagnose.py --groups | --paths | --grad | --f64
 
 It builds a tracer of ``chip_smoke.py`` (same geometry, particle, seed and
 batch; the default tracer, whose body is the fused bounce kernel): the
@@ -75,6 +75,14 @@ In the default mode the fused body's ``kernel_spans`` run twice more on fresh
 tracers (so on the same rays as each other), with every launch of the bounce
 kernel at one thread per ray (``group=1``, the mapping before the group
 search) and at the default G, in that order and again reversed.
+
+``python3 chip_diagnose.py --f64`` traces the disk and triangle flagships
+through ``trace_batch``'s unfused body in float32 and float64 in turns
+(``chip_smoke.py:trace_unfused``: the rays of ``phase_f64_paths``, 500 per
+disk and 250 per triangle, ``--repeats`` rounds): per run the seconds, the
+launches of the search, and the last survivors of each batch (when at most
+eight rays are left: their boundary hits, reflections, direction z and
+weight), which say what the ladder's tail is spent on.
 
 It checks nothing: ``chip_smoke.py`` holds the kernels and the flux to their
 references.
@@ -472,6 +480,60 @@ def launch_times(trees):
         subprocess.run([sys.executable, "-c", LAUNCH_TIMES, tree], check=True)
 
 
+def f64_tails(rounds):
+    """The float32 and float64 unfused paths of the disk and triangle
+    flagships in turns, with the tail of each batch (``--f64``)."""
+    from viennaray_tpu_torch.io import fixtures
+    from viennaray_tpu_torch.trace import kernel as TK
+
+    tracers = {
+        "disks": make_tracer(*fixtures.create_trench_grid_3d(**FLAGSHIP),
+                             rays_per_point=cs.RAYS_PER_POINT // 4,
+                             fused=False),
+        "triangles": make_tri_tracer(
+            *fixtures.create_trench_mesh_3d(**FLAGSHIP),
+            rays_per_point=cs.RAYS_PER_POINT // 8, fused=False),
+    }
+    real = TK.bounce_step
+    tail = []
+
+    def step(state, *args, **kwargs):
+        out = real(state, *args, **kwargs)
+        alive = out[0].alive
+        n = int(alive.sum())
+        if 0 < n <= 8:
+            tail.append({
+                "width": state.org.shape[0], "alive": n,
+                "boundary_hits": out[0].n_bdry[alive].tolist(),
+                "reflections": out[0].n_refl[alive].tolist(),
+                "dir_z": out[0].dirn[alive, 2].tolist(),
+                "weight": out[0].weight[alive].tolist()})
+        return out
+
+    for tracer in tracers.values():
+        tracer.apply()  # the areas, and the kernels warm
+    TK.bounce_step = step
+    try:
+        for r in range(rounds):
+            for name, tracer in tracers.items():
+                order = ((torch.float32, torch.float64) if r % 2 == 0
+                         else (torch.float64, torch.float32))
+                for dtype in order:
+                    tail.clear()
+                    reset_launches()
+                    _, counters, seconds = cs.trace_unfused(tracer, dtype)
+                    launches = read_launches()
+                    print(json.dumps({
+                        "phase": "f64_tail", "geometry": name,
+                        "dtype": str(dtype), "round": r, "seconds": seconds,
+                        "launches": {k: v for k, v in launches.items() if v},
+                        "total_traces": counters["total_traces"],
+                        "tail_first": tail[:1], "tail_last": tail[-2:],
+                        "tail_iterations": len(tail)}), flush=True)
+    finally:
+        TK.bounce_step = real
+
+
 def main(argv=None):
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument(
@@ -493,6 +555,11 @@ def main(argv=None):
     parser.add_argument(
         "--grad", action="store_true",
         help="only time and profile the gradient paths",
+    )
+    parser.add_argument(
+        "--f64", action="store_true",
+        help="only trace the disk and triangle flagships unfused in float32 "
+             "and float64 in turns, with each batch's last survivors",
     )
     parser.add_argument("--repeats", type=int, default=5)
     parser.add_argument(
@@ -541,6 +608,9 @@ def main(argv=None):
         return 0
     if args.grad:
         grad_runs(args.repeats)
+        return 0
+    if args.f64:
+        f64_tails(args.repeats)
         return 0
     if args.groups or args.paths:
         if args.groups:

@@ -143,6 +143,7 @@ import torch
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
 F32_FLOPS = 67e12  # H100 SXM data sheet, float32 outside the tensor cores
+F64_FLOPS = 34e12  # H100 SXM data sheet, float64 outside the tensor cores
 # float32 arithmetic operations of one (ray, primitive) test. A disk
 # (csrc/disk_hit.cuh): two dot products (5 each), the plane time (2), the hit
 # offset (9) and its squared length (5). A triangle (csrc/tri_hit.cuh): two
@@ -327,12 +328,15 @@ def rim_rays(geometry, n, gen):
 
 def check_nearest_hit(geometry, bbox, n_rays, kind, reps):
     """The closest-hit kernel of the geometry's kind (disks, triangles or
-    lines) against its plain version."""
+    lines) against its plain version; the float64 form for a geometry
+    widened by ``to(torch.float64)`` (the rays widened too)."""
     from viennaray_tpu_torch.ops import nearest_hit as NH
 
+    f64 = geometry.dtype == torch.float64
     name = f"{geometry.kind}_nearest_hit"
     kernel, plain = getattr(NH, name), getattr(NH, name + "_ref")
     org, dirn = make_rays(geometry, bbox, n_rays, kind, seed=7)
+    org, dirn = org.to(geometry.dtype), dirn.to(geometry.dtype)
     args = (org, dirn, geometry.prims_soa, geometry.soa_perm,
             geometry.soa_chunk_bbs)
     t_k, p_k, h_k = kernel(*args, t_near=1e-4)
@@ -346,12 +350,14 @@ def check_nearest_hit(geometry, bbox, n_rays, kind, reps):
     plain_ms = time_cuda(lambda: plain(*args, t_near=1e-4), 1)
     n_real = geometry.num_primitives
     rows, npad = geometry.prims_soa.shape
-    op_ms = n_rays * n_real * OPS_PER_PAIR[geometry.kind] / F32_FLOPS * 1e3
-    n_bytes = (n_rays * (24 + 9) + npad * (rows + 1) * 4
-               + geometry.soa_chunk_bbs.numel() * 4)
+    word = 8 if f64 else 4
+    op_ms = (n_rays * n_real * OPS_PER_PAIR[geometry.kind]
+             / (F64_FLOPS if f64 else F32_FLOPS) * 1e3)
+    n_bytes = (n_rays * (6 * word + word + 5) + npad * (rows * word + 4)
+               + geometry.soa_chunk_bbs.numel() * word)
     byte_ms = n_bytes / HBM_BYTES_PER_S * 1e3
     res = {
-        "phase": "kernel_check", "kernel": name,
+        "phase": "kernel_check", "kernel": name + ("_f64" if f64 else ""),
         "shape": f"R={n_rays} ({kind} rays), Npad={npad}, "
                  f"C={geometry.soa_chunk_bbs.shape[0]}",
         "tolerance": "hit, prim and t equal bit for bit on every lane (the "
@@ -477,19 +483,24 @@ def make_deposits(geometry, n_rays, n_bins, seed):
     return ids.reshape(-1).contiguous(), w.reshape(-1).contiguous()
 
 
-def check_histogram(geometry, n_rays, n_bins, reps, n_entries=None):
+def check_histogram(geometry, n_rays, n_bins, reps, n_entries=None,
+                    dtype=torch.float32):
     """Kernel 2 on one bounce's worth of deposits (the first ``n_entries``
     of them where given) against its plain version, on the path the wrapper
     picks; the other path on the same input must give the same bits. Times
-    both paths, the plain version and one ``index_add_`` call."""
+    both paths, the plain version and one ``index_add_`` call. ``dtype``
+    float64: the float64 form on the weights widened, held bit for bit to
+    its plain version (the same integer sums)."""
     from viennaray_tpu_torch.ops import histogram as H
 
+    f64 = dtype == torch.float64
     ids, w = make_deposits(geometry, n_rays, n_bins, seed=11)
+    w = w.to(dtype)
     if n_entries is not None:
         ids, w = ids[:n_entries].contiguous(), w[:n_entries].contiguous()
-    path = H.path_for(ids.numel(), n_bins)
+    path = H.path_for(ids.numel(), n_bins, dtype)
     paths = [path]
-    if n_bins <= H.SMALL_MAX_BINS:
+    if n_bins <= H.small_max_bins(dtype):
         paths.append("large" if path == "small" else "small")
     outs = {p: H.flux_histogram(ids, w, n_bins, path=p) for p in paths}
     out_1 = H.flux_histogram(ids, w, n_bins)
@@ -499,7 +510,7 @@ def check_histogram(geometry, n_rays, n_bins, reps, n_entries=None):
     bitwise = bool(torch.equal(out_1, out_2))
     paths_equal = all(torch.equal(o, out_1) for o in outs.values())
     max_abs_err = float((out_1 - ref).abs().max())
-    tol = float(ref.abs().max()) * 2.0 ** -22
+    tol = 0.0 if f64 else float(ref.abs().max()) * 2.0 ** -22
     ms_by_path = {
         p: time_cuda(lambda p=p: H.flux_histogram(ids, w, n_bins, path=p), reps)
         for p in paths
@@ -507,18 +518,25 @@ def check_histogram(geometry, n_rays, n_bins, reps, n_entries=None):
     plain_ms = time_cuda(lambda: H.flux_histogram_ref(ids, w, n_bins), reps)
     ids64 = ids.long()
     library_ms = time_cuda(
-        lambda: torch.zeros(n_bins, device=w.device).index_add_(0, ids64, w),
+        lambda: torch.zeros(n_bins, dtype=dtype,
+                            device=w.device).index_add_(0, ids64, w),
         reps,
     )
-    byte_ms = (ids.numel() * 8 + n_bins * 4) / HBM_BYTES_PER_S * 1e3
-    # one float32 addition per entry that carries weight
-    op_ms = float((w != 0).sum()) / F32_FLOPS * 1e3
+    # ids and w read once, the bins written once (float64: two words a bin)
+    byte_ms = ((ids.numel() * (12 if f64 else 8) + n_bins * (16 if f64 else 4))
+               / HBM_BYTES_PER_S * 1e3)
+    # one addition per entry that carries weight
+    op_ms = float((w != 0).sum()) / (F64_FLOPS if f64 else F32_FLOPS) * 1e3
     res = {
-        "phase": "kernel_check", "kernel": "flux_histogram",
+        "phase": "kernel_check",
+        "kernel": "flux_histogram" + ("_f64" if f64 else ""),
         "shape": f"E={ids.numel()}, n={n_bins}, "
                  f"nonzero={float((w != 0).float().mean()):.3f}",
         "path": path, "threshold": H.SMALL_ENTRIES,
-        "tolerance": "|kernel - plain| <= 2^-22 * max|plain| (the plain "
+        "tolerance": "bit for bit against the plain version (the same "
+                     "integer sums of two fixed-point words an entry) and "
+                     "between the paths" if f64 else
+                     "|kernel - plain| <= 2^-22 * max|plain| (the plain "
                      "version sums in float64; both round once to float32); "
                      "both paths bit for bit",
         "tolerance_abs": tol, "max_abs_err": max_abs_err,
@@ -964,19 +982,33 @@ def _kernel_wrappers():
     }
 
 
+# the wrappers that also launch a float64 form, counted in ``launches_f64``
+F64_KERNELS = ("disk_nearest_hit", "triangle_nearest_hit", "line_nearest_hit",
+               "flux_histogram", "flux_histogram_grad")
+
+
 def reset_launches():
     wrappers = _kernel_wrappers()
-    for wrapper in wrappers.values():
+    for name, wrapper in wrappers.items():
         wrapper.launches = 0
+        if name in F64_KERNELS:
+            wrapper.launches_f64 = 0
     wrappers["fused_bounce"].sub_bounces = 0
     for table in (wrappers["fused_bounce"].launches_by_group,
-                  wrappers["flux_histogram"].launches_by_path):
+                  wrappers["flux_histogram"].launches_by_path,
+                  wrappers["flux_histogram"].launches_by_path_f64):
         for key in table:
             table[key] = 0
 
 
 def read_launches():
-    return {name: w.launches for name, w in _kernel_wrappers().items()}
+    """Every kernel's launches: the float32 forms by the wrapper's name, the
+    float64 forms as ``<name>_f64``."""
+    wrappers = _kernel_wrappers()
+    out = {name: w.launches for name, w in wrappers.items()}
+    out.update({f"{name}_f64": wrappers[name].launches_f64
+                for name in F64_KERNELS})
+    return out
 
 
 def timed_apply(tracer, goldens, tol=GOLDEN_TOL):
@@ -1072,13 +1104,16 @@ def run_path(label, make, goldens, tol, kernels, record=None, same_seed=False,
     normalized flux)."""
     import dataclasses
 
-    tracer = make()
+    t0 = time.perf_counter()
+    tracer = make()  # the geometry's build on the host
+    build_seconds = time.perf_counter() - t0
     first = tracer.apply()
     first_info = dataclasses.asdict(tracer.get_ray_trace_info())
     fields, ok, launches, norm = timed_apply(tracer, goldens, tol)
     if record is not None:
         ok = ok and hits_per_ray_ok(fields, record)
-    res = {"phase": "main_path", **label, **fields}
+    res = {"phase": "main_path", **label, **fields,
+           "tracer_build_seconds": build_seconds}
     if same_seed:
         bitwise = bool(np.array_equal(first, make().apply()))
         res["same_seed_bitwise_equal"] = bitwise
@@ -1397,17 +1432,19 @@ def kernel_spans(kind):
         H.flux_histogram_grad = hist_grad
 
     hist = timed(real[3])
-    hist.launches = 0
+    hist.launches = hist.launches_f64 = 0
     hist.launches_by_path = real[3].launches_by_path
+    hist.launches_by_path_f64 = real[3].launches_by_path_f64
     hist_grad = timed(real[4])
-    hist_grad.launches = 0
+    hist_grad.launches = hist_grad.launches_f64 = 0
     install(timed(real[0]), timed(real[1]), hist, hist, hist_grad)
     try:
         yield spans
     finally:
         install(*real)
-        real[3].launches += hist.launches
-        real[4].launches += hist_grad.launches
+        for wrapper, counted in ((real[3], hist), (real[4], hist_grad)):
+            wrapper.launches += counted.launches
+            wrapper.launches_f64 += counted.launches_f64
 
 
 def span_apply(tracer):
@@ -1666,18 +1703,21 @@ FD_RTOL = 5e-3  # tests/test_diff.py:78
 GRAD_TOL_FLOOR = 0.005
 
 
-def check_histogram_grad(geometry, n_rays, reps):
-    """The histogram's backward (``vr_flux_histogram_grad``) on one bounce's
-    worth of deposit ids (a ray's hit disk and its K neighbours) against its
-    plain version, ``index_select``: a gather, so bit for bit. Times the
-    kernel, the plain version and one ``index_select`` call on int64 ids."""
+def check_histogram_grad(geometry, n_rays, reps, dtype=torch.float32):
+    """The histogram's backward (``vr_flux_histogram_grad``, or its float64
+    form for ``dtype`` float64) on one bounce's worth of deposit ids (a
+    ray's hit disk and its K neighbours) against its plain version,
+    ``index_select``: a gather, so bit for bit. Times the kernel, the plain
+    version and one ``index_select`` call on int64 ids."""
     from viennaray_tpu_torch.ops import histogram as H
 
+    f64 = dtype == torch.float64
     n_bins = geometry.num_primitives
     ids, _ = make_deposits(geometry, n_rays, n_bins, seed=12)
     gen = torch.Generator(device=geometry.device)
     gen.manual_seed(13)
-    grad_out = torch.randn(n_bins, generator=gen, device=geometry.device)
+    grad_out = torch.randn(n_bins, generator=gen, device=geometry.device,
+                           dtype=dtype)
     out_1 = H.flux_histogram_grad(grad_out, ids)
     out_2 = H.flux_histogram_grad(grad_out, ids)
     ref = H.flux_histogram_grad_ref(grad_out, ids)
@@ -1689,9 +1729,11 @@ def check_histogram_grad(geometry, n_rays, reps):
     library_ms = time_cuda(lambda: grad_out.index_select(0, ids64), reps)
     # ids read and the gradient written once, the bins read once; no
     # arithmetic
-    byte_ms = (ids.numel() * 8 + n_bins * 4) / HBM_BYTES_PER_S * 1e3
+    word = 8 if f64 else 4
+    byte_ms = (ids.numel() * (4 + word) + n_bins * word) / HBM_BYTES_PER_S * 1e3
     res = {
-        "phase": "kernel_check", "kernel": "flux_histogram_grad",
+        "phase": "kernel_check",
+        "kernel": "flux_histogram_grad" + ("_f64" if f64 else ""),
         "shape": f"E={ids.numel()}, n={n_bins}",
         "tolerance": "bit for bit against index_select (a gather)",
         "max_abs_err": float((out_1 - ref).abs().max()),
@@ -1972,6 +2014,412 @@ def phase_grad_paths(pts, nrm, verts, tris):
     return out
 
 
+# ---- the compiled host geometry build -------------------------------------
+HOST_BUILD_DELTAS = (0.25, 0.1)  # the flagship's 2,993 disks and 18,180
+
+
+@contextlib.contextmanager
+def numpy_neighborhood():
+    """``geometry.neighborhood.build_neighborhood`` replaced by its numpy path
+    while the block runs (every caller reads it through the module)."""
+    from viennaray_tpu_torch.geometry import neighborhood
+
+    saved = neighborhood.build_neighborhood
+    neighborhood.build_neighborhood = neighborhood.build_neighborhood_numpy
+    try:
+        yield
+    finally:
+        neighborhood.build_neighborhood = saved
+
+
+def phase_host_build():
+    """The compiled host helper (``native/host_accel.cpp``): it must load on
+    this machine. At 2,993 and 18,180 disks, ``DiskGeometry.build`` and
+    ``with_window_list`` by the helper and by the numpy path, in turns
+    (numpy, helper, helper, numpy), their seconds printed, and every table
+    (neighbors, neighbor records, window ids and records) equal; beside them
+    the neighborhood alone (``build_neighborhood`` at the disk diameter)."""
+    from viennaray_tpu_torch.geometry.disk_geometry import DiskGeometry
+    from viennaray_tpu_torch.io import fixtures
+    from viennaray_tpu_torch.utils import native
+
+    t0 = time.perf_counter()
+    lib = native.load()
+    load_seconds = time.perf_counter() - t0
+    if lib is None:
+        raise RuntimeError("the compiled host helper did not load")
+    for delta in HOST_BUILD_DELTAS:
+        pts, nrm = fixtures.create_trench_grid_3d(**dict(FLAGSHIP,
+                                                          grid_delta=delta))
+
+        def build():
+            t0 = time.perf_counter()
+            geometry = DiskGeometry.build(pts, nrm, delta)
+            t1 = time.perf_counter()
+            windowed = geometry.with_window_list()
+            torch.cuda.synchronize()
+            return windowed, t1 - t0, time.perf_counter() - t1
+
+        # the neighborhood alone (the disk table's: pairs within the disk
+        # diameter), each path twice
+        from viennaray_tpu_torch.config import disk_factor
+        from viennaray_tpu_torch.geometry import neighborhood
+
+        radius = 2.0 * delta * disk_factor(3)
+        nbr_seconds = {"numpy": [], "native": []}
+        nbr_tables = {}
+        for mode, fn in (("numpy", neighborhood.build_neighborhood_numpy),
+                         ("native", neighborhood.build_neighborhood),
+                         ("native", neighborhood.build_neighborhood),
+                         ("numpy", neighborhood.build_neighborhood_numpy)):
+            t0 = time.perf_counter()
+            nbr_tables[mode] = fn(pts, radius, dim=3)
+            nbr_seconds[mode].append(time.perf_counter() - t0)
+        nbr_equal = all(np.array_equal(a, b) for a, b in zip(
+            nbr_tables["numpy"], nbr_tables["native"]))
+        runs = {"numpy": [], "native": []}
+        tables = {}
+        for mode in ("numpy", "native", "native", "numpy"):
+            with (numpy_neighborhood() if mode == "numpy"
+                  else contextlib.nullcontext()):
+                geometry, build_s, window_s = build()
+            runs[mode].append((build_s, window_s))
+            tables[mode] = geometry
+        a, b = tables["native"], tables["numpy"]
+        equal = all(torch.equal(getattr(a, f), getattr(b, f)) for f in (
+            "neighbors", "neighbor_pack", "window_ids", "window_pack"))
+        best = {m: (min(r[0] for r in v), min(r[1] for r in v))
+                for m, v in runs.items()}
+        res = {
+            "phase": "host_build", "disks": a.num_primitives,
+            "neighborhood_seconds": nbr_seconds,
+            "neighborhood_speedup": min(nbr_seconds["numpy"])
+            / min(nbr_seconds["native"]),
+            "neighbors_k": a.neighbors.shape[1],
+            "window_w": a.window_ids.shape[1],
+            "build_seconds": {m: [r[0] for r in v] for m, v in runs.items()},
+            "window_list_seconds": {m: [r[1] for r in v]
+                                    for m, v in runs.items()},
+            "build_speedup": best["numpy"][0] / best["native"][0],
+            "window_list_speedup": best["numpy"][1] / best["native"][1],
+            "tables_equal": equal and nbr_equal,
+            "helper_load_seconds": load_seconds,
+            "helper_gxx_seconds": native.build_seconds,
+        }
+        emit(res)
+        if not (equal and nbr_equal):
+            raise RuntimeError(f"the helper's tables differ: {res}")
+
+
+# ---- float64 tracing -------------------------------------------------------
+F64 = torch.float64
+
+
+def trace_unfused(tracer, dtype):
+    """The tracer's rays (its configuration, source, seed and batches)
+    through ``trace_batch``'s unfused body in ``dtype``, on its geometry
+    widened by ``to(dtype)``, its source cast alike, and a ``GeneratorRNG``
+    of that type: the tracers are float32 only, so this is how a user traces
+    a configuration in float64. Run after one apply of the tracer (which
+    builds the areas its normalization reads). Returns (raw flux (N,)
+    float64 numpy, counters dict, seconds)."""
+    from viennaray_tpu_torch.config import adjust_bounding_box
+    from viennaray_tpu_torch.rng import GeneratorRNG
+    from viennaray_tpu_torch.trace.kernel import BatchCounters, trace_batch
+
+    geometry = tracer.geometry.to(dtype)
+    dev = geometry.device
+    config = tracer._make_config()
+    n = geometry.num_primitives
+    total = config.total_rays(n)
+    margin = (geometry.disk_radius if geometry.kind == "disk"
+              else geometry.grid_delta)
+    adjusted = adjust_bounding_box(tracer.geometry.bbox.cpu().numpy(),
+                                   tracer._source_direction, margin,
+                                   tracer._dim)
+    source = tracer._default_source(adjusted, n).to(dtype)
+    bbox = torch.tensor(adjusted, dtype=dtype, device=dev)
+    rng = GeneratorRNG(tracer._rng_seed + 1, dev, dtype=dtype)
+    batch = min(config.ray_batch_size,
+                max(512, 1 << (max(total, 2) - 1).bit_length()))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    flux = torch.zeros(n, dtype=F64, device=dev)
+    totals = np.zeros(len(BatchCounters._fields), np.int64)
+    for b in range(max(1, -(-total // batch))):
+        idx = torch.arange(b * batch, (b + 1) * batch, device=dev)
+        rng.begin_batch(b)
+        batch_flux, counters = trace_batch(
+            geometry, source, tracer._particle, bbox, rng, b, idx,
+            idx < total, config, fused=False)
+        flux += batch_flux.double()
+        totals += np.asarray(counters, np.int64)
+    out = flux.cpu().numpy()
+    seconds = time.perf_counter() - t0
+    return out, dict(zip(BatchCounters._fields, totals.tolist())), seconds
+
+
+def f64_flagship(label, tracer, goldens, tol, kernels, record):
+    """One flagship in float64 through ``trace_unfused`` beside the float32
+    run of the same rays through the same loop, in turns (float32,
+    float64, float64, float32), the launch counts read around the second
+    float64 run; the float32 loop must give the tracer's own unfused
+    apply bit for bit. Holds the float64 flux to ``goldens`` (rel-L2 <
+    ``tol``), its hits per ray to the oracle ``record``'s (2 %), the launches
+    to the float64 ``kernels`` alone, and two float64 runs to the same bits."""
+    applied = tracer.apply()  # the areas; the float32 unfused apply
+    flux32, cnt32, s32a = trace_unfused(tracer, torch.float32)
+    flux64, cnt64, s64a = trace_unfused(tracer, F64)
+    reset_launches()
+    again, cnt_again, s64b = trace_unfused(tracer, F64)
+    launches = read_launches()
+    _, _, s32b = trace_unfused(tracer, torch.float32)
+    norm = np.asarray(tracer.normalize_flux(flux64), np.float64)
+    errors = {key: rel_l2(norm, g) for key, g in goldens.items()}
+    hits = cnt64["geometry_hits"] / tracer._make_config().total_rays(
+        tracer.geometry.num_primitives)
+    res = {
+        "phase": "f64_path", **label, "dtype": "float64", "body": "unfused",
+        "num_rays": tracer._make_config().total_rays(
+            tracer.geometry.num_primitives),
+        "seconds_f32_f64_f64_f32": [s32a, s64a, s64b, s32b],
+        "geometry_hits_per_ray": hits,
+        "oracle_geometry_hits_per_ray": record["geometry_hits_per_ray"],
+        **errors, "rel_l2_bound": tol, "counters": cnt64,
+        "counters_f32": cnt32, "launches": launches,
+        "same_seed_bitwise_equal": bool(np.array_equal(flux64, again)
+                                        and cnt64 == cnt_again),
+        "f32_loop_equals_tracer": bool(np.array_equal(flux32, applied)),
+    }
+    emit(res)
+    ok = (np.isfinite(norm).all() and all(e < tol for e in errors.values())
+          and abs(hits - res["oracle_geometry_hits_per_ray"])
+          <= 0.02 * res["oracle_geometry_hits_per_ray"]
+          and res["same_seed_bitwise_equal"] and res["f32_loop_equals_tracer"]
+          and only_launched(launches, *kernels))
+    if not ok:
+        raise RuntimeError(f"float64 path failed its checks: {res}")
+    return launches
+
+
+def normals_fd_full_width(geometry64, problem64):
+    """d dot(lw, flux) / d (x of an off-centre bottom disk's normal), the
+    pick of tests/test_diff.py:247-251 on the flagship's floor, at 2^21 rays
+    under 1/distance weighting, 4 bounces, in float64: the batched gradient
+    within 1e-3 of either one-sided difference at eps 1e-6, forward runs of
+    the same rays and batches."""
+    from viennaray_tpu_torch import diff
+    from viennaray_tpu_torch.rng import GeneratorRNG
+
+    source, particle, bbox, config = problem64
+    pts = geometry64.points.cpu().numpy()
+    pi = int(np.where((np.abs(pts[:, 2] - pts[:, 2].min()) < 1e-6)
+                      & (np.abs(pts[:, 0] + 0.5) < 0.2))[0][0])
+    n = geometry64.num_primitives
+    lw = np.random.default_rng(5).random(n)
+    rays, bounces = GRAD_SIDE_RAYS, 4
+
+    def rng():
+        return GeneratorRNG(GRAD["seed"], geometry64.device, dtype=F64)
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    _, grad = diff.flux_and_grad_normals_batched(
+        geometry64, source, particle, bbox, rng(), rays, config,
+        num_bounces=bounces, loss_weights=lw)
+    torch.cuda.synchronize()
+    grad_seconds = time.perf_counter() - t0
+    weights = torch.as_tensor(lw, device=geometry64.device)
+
+    def loss(du):
+        normals = geometry64.normals.clone()
+        normals[pi, 0] += du
+        geo = geometry64.replace(normals=normals)
+        r = rng()
+        total = 0.0
+        with torch.no_grad():
+            for b in range(-(-rays // config.ray_batch_size)):
+                idx = torch.arange(b * config.ray_batch_size,
+                                   (b + 1) * config.ray_batch_size,
+                                   device=geometry64.device)
+                flux = diff.trace_flux(geo, source, particle, bbox, r, idx,
+                                       idx < rays, config,
+                                       num_bounces=bounces, batch_index=b)
+                total += float(torch.dot(weights, flux))
+        return total
+
+    eps = 1e-6
+    f0 = loss(0.0)
+    fwd = (loss(eps) - f0) / eps
+    bwd = (f0 - loss(-eps)) / eps
+    g = float(grad[pi, 0])
+    err = min(abs(g - fwd) / max(abs(fwd), 1e-12),
+              abs(g - bwd) / max(abs(bwd), 1e-12))
+    res = {"phase": "f64_path", "check": "normals finite differences",
+           "disks": n, "disk": pi, "num_rays": rays, "bounces": bounces,
+           "use_wdist": True, "eps": eps, "d_loss_d_normal_x": g,
+           "fd_forward": fwd, "fd_backward": bwd, "rel_err": err,
+           "bound": 1e-3, "grad_seconds": grad_seconds}
+    emit(res)
+    if not (np.isfinite(g) and g != 0.0 and err < 1e-3):
+        raise RuntimeError(f"the float64 normals gradient fails: {res}")
+
+
+def phase_f64_paths(pts, nrm, verts, tris):
+    """Float64 tracing: the float64 forms of kernels 1, 3, the line search,
+    kernel 2 (both paths) and its backward against their plain versions bit
+    for bit at 2^20 source rays and 512 (kernel 2 at 2^19 x 12 and 6,144
+    entries); the disk flagship (500 rays per point), the triangle flagship
+    (250 per triangle) and the lines (500 per segment) through
+    ``trace_batch``'s unfused body in float64 beside float32; ``grad_1e7``
+    in float64 against ``grad3d_trench_jax``; the normals' finite
+    differences at full width. Returns (kernel results, launches by path)."""
+    from viennaray_tpu_torch.geometry.disk_geometry import DiskGeometry
+    from viennaray_tpu_torch.geometry.line_geometry import LineGeometry
+    from viennaray_tpu_torch.geometry.triangle_geometry import TriangleGeometry
+
+    geometry = DiskGeometry.build(pts, nrm, FLAGSHIP["grid_delta"])
+    bbox = adjusted_bbox(geometry)
+    mesh = TriangleGeometry.build(verts, tris, FLAGSHIP["grid_delta"])
+    mesh_bbox = adjusted_bbox(mesh)
+    line_mesh, line_materials = line_trench()
+    lines = LineGeometry.from_mesh(line_mesh, material_ids=line_materials)
+    lines_bbox = adjusted_bbox(lines, dim=2)
+    g64, mesh64, lines64 = (g.to(F64) for g in (geometry, mesh, lines))
+    kernels = {
+        "disk": check_nearest_hit(g64, bbox, 1 << 20, "source", reps=5),
+        "triangle": check_nearest_hit(mesh64, mesh_bbox, 1 << 20, "source",
+                                      reps=3),
+        "line": check_nearest_hit(lines64, lines_bbox, 1 << 20,
+                                  "flat_source", reps=5),
+    }
+    narrow = {
+        "disk": check_nearest_hit(g64, bbox, 512, "interior", reps=100),
+        "triangle": check_nearest_hit(mesh64, mesh_bbox, 512, "interior",
+                                      reps=50),
+        "line": check_nearest_hit(lines64, lines_bbox, 512, "flat", reps=100),
+    }
+    kernels["histogram"] = check_histogram(geometry, 1 << 19, len(pts),
+                                           reps=50, dtype=F64)
+    narrow["histogram"] = check_histogram(geometry, 512, len(pts), reps=200,
+                                          dtype=F64)
+    kernels["histogram_grad"] = check_histogram_grad(geometry, 1 << 19,
+                                                     reps=50, dtype=F64)
+    narrow["histogram_grad"] = check_histogram_grad(geometry, 512, reps=200,
+                                                    dtype=F64)
+
+    launches = {}
+    disk_kernels = ("disk_nearest_hit_f64", "flux_histogram_f64")
+    launches["disks_f64"] = f64_flagship(
+        {"geometry": "disks"},
+        make_tracer(pts, nrm, rays_per_point=RAYS_PER_POINT // 4,
+                    fused=False),
+        disk_goldens(), 2.0 * GOLDEN_TOL, disk_kernels,
+        {"geometry_hits_per_ray": 1.6957})
+    golden, record, tol = oracle_golden("tri3d_trench_oracle")
+    launches["triangles_f64"] = f64_flagship(
+        {"geometry": "triangles"},
+        make_tri_tracer(verts, tris, rays_per_point=RAYS_PER_POINT // 8,
+                        fused=False),
+        {"rel_l2_oracle": golden}, 3.0 * tol,
+        ("triangle_nearest_hit_f64", "flux_histogram_f64"), record)
+    golden, record, tol = oracle_golden("line2d_trench_oracle")
+    launches["lines_f64"] = f64_flagship(
+        {"geometry": "lines"},
+        make_line_tracer(rays_per_point=RAYS_PER_POINT // 4, fused=False),
+        {"rel_l2_oracle": golden}, 2.0 * tol,
+        ("line_nearest_hit_f64", "flux_histogram_f64"), record)
+
+    # grad_1e7 in float64: the warm-up run, then the timed run of the seed
+    source, particle, box, config = grad_problem(geometry)
+    problem64 = (source.to(F64), particle, box.to(F64), config)
+    rays = GRAD["rays"]
+    n_batches = -(-rays // GRAD["batch"])
+
+    def grad64(rays=rays):
+        from viennaray_tpu_torch import diff
+        from viennaray_tpu_torch.rng import GeneratorRNG
+
+        return diff.flux_and_grad_sticking_batched(
+            g64, *problem64[:3], GeneratorRNG(GRAD["seed"], g64.device,
+                                              dtype=F64),
+            rays, problem64[3], num_bounces=GRAD["bounces"])
+
+    first = grad64()
+    (flux, grad), fields, grad_launches = timed_grad(g64, grad64)
+    launches["grad_f64"] = grad_launches
+    golden, grec, gtol = oracle_golden("grad3d_trench_jax")
+    flux_err = rel_l2(flux / rays, golden)
+    grad_err = abs(grad / rays - grec["grad_per_ray"]) / abs(
+        grec["grad_per_ray"])
+    grad_tol = max(1.45 * grec["grad_rel_diff_between_seeds"],
+                   GRAD_TOL_FLOOR)
+    want = GRAD["bounces"] * n_batches
+    launches_ok = (
+        grad_launches["disk_nearest_hit_f64"] == want
+        and grad_launches["flux_histogram_f64"] == want
+        and grad_launches["flux_histogram_grad_f64"]
+        == (GRAD["bounces"] - 1) * n_batches
+        and only_launched(grad_launches, "disk_nearest_hit_f64",
+                          "flux_histogram_f64", "flux_histogram_grad_f64"))
+    res = {"phase": "f64_path", "config": "grad_1e7 (BASELINE config 5)",
+           "dtype": "float64", "num_rays": rays, **fields,
+           "rays_per_s_fwd_bwd": rays / fields["seconds"],
+           "d_flux_d_sticking_per_ray": grad / rays,
+           "golden_d_flux_d_sticking_per_ray": grec["grad_per_ray"],
+           "d_flux_d_sticking_rel_err": grad_err,
+           "d_flux_d_sticking_bound": grad_tol, "rel_l2_golden": flux_err,
+           "rel_l2_bound": gtol, "launches_ok": launches_ok,
+           "same_seed_bitwise_equal": bool(
+               np.array_equal(first[0], flux) and first[1] == grad),
+           "flux_dtype": str(flux.dtype)}
+    emit(res)
+    if not (np.isfinite(flux).all() and np.isfinite(grad) and launches_ok
+            and flux_err < gtol and grad_err <= grad_tol
+            and res["same_seed_bitwise_equal"]):
+        raise RuntimeError(f"float64 grad path failed its checks: {res}")
+
+    wdist = grad_problem(geometry, use_wdist=True)
+    normals_fd_full_width(g64, (wdist[0].to(F64), wdist[1],
+                                wdist[2].to(F64), wdist[3]))
+    return kernels, narrow, launches
+
+
+def f64_kernel_entries(results, narrow, launches, keys):
+    """The ``kernels`` line's entries of the float64 forms: each replaces the
+    TPU kernel of its float32 form; launches from the float64 paths' timed
+    runs (``phase_f64_paths``), times at 2^20 rays (kernel 2 at 2^19 x 12
+    entries) and, under ``narrow``, at 512 rays (6,144 entries)."""
+    def count(name, *paths):
+        by_path = {p: launches[p][name] for p in paths}
+        return {"launches": sum(by_path.values()),
+                "launches_by_path": by_path}
+
+    entries = []
+    for name, key, source, replaces, paths in (
+        ("disk_nearest_hit_f64", "disk", "nearest_hit.cu",
+         "viennaray_tpu/ops/pallas_intersect.py:166",
+         ("disks_f64", "grad_f64")),
+        ("triangle_nearest_hit_f64", "triangle", "nearest_hit.cu",
+         "viennaray_tpu/ops/pallas_intersect.py:359", ("triangles_f64",)),
+        ("line_nearest_hit_f64", "line", "nearest_hit.cu",
+         "viennaray_tpu/ops/intersect.py:172", ("lines_f64",)),
+        ("flux_histogram_f64", "histogram", "flux_histogram.cu",
+         "viennaray_tpu/ops/pallas_histogram.py:39",
+         ("disks_f64", "triangles_f64", "lines_f64", "grad_f64")),
+        ("flux_histogram_grad_f64", "histogram_grad", "flux_histogram.cu",
+         "viennaray_tpu/trace/kernel.py:161", ("grad_f64",)),
+    ):
+        entries.append({
+            "name": name, "route": "cuda",
+            "source": f"viennaray_tpu_torch/csrc/{source}",
+            "replaces": replaces, **count(name, *paths),
+            **{k: results[key][k] for k in keys},
+            "narrow": {k: narrow[key][k] for k in keys},
+        })
+    return entries
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke.py needs a CUDA device and found none",
@@ -1986,6 +2434,7 @@ def main():
 
     phase_card()
     phase_build()
+    phase_host_build()
 
     pts, nrm = fixtures.create_trench_grid_3d(**FLAGSHIP)
     # no device named: the CUDA device, as a user's call would get it
@@ -2212,6 +2661,7 @@ def main():
     emit({"phase": "peak_memory",
           "max_memory_allocated_bytes": torch.cuda.max_memory_allocated()})
     grad = phase_grad_paths(pts, nrm, verts, tris)
+    f64_kernels, f64_narrow, f64 = phase_f64_paths(pts, nrm, verts, tris)
 
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
             "library_ms", "shape")
@@ -2285,6 +2735,7 @@ def main():
                 name: n["flux_histogram_grad"] for name, n in grad.items()},
             **{k: hist_grad[k] for k in keys},
         },
+        *f64_kernel_entries(f64_kernels, f64_narrow, f64, keys),
         {
             "name": "triangle_nearest_hit", "route": "cuda",
             "source": "viennaray_tpu_torch/csrc/nearest_hit.cu",

@@ -356,12 +356,19 @@ class JaxKeyedRNG(streams.RayRNG):
     is ``jax.random.uniform(key, shape)`` at its first call and under
     fold_in(key, c) at call c > 0: a JAX hook that draws so sees the port
     hook's numbers.
+
+    ``dtype``: torch.float32, or torch.float64 for the float64 trace, whose
+    numbers are ``jax.random.uniform(..., dtype=jnp.float64)`` as the JAX
+    package draws them under ``jax_enable_x64`` (which must be on while it
+    draws).
     """
 
-    def __init__(self, base_key, tilted=False):
+    def __init__(self, base_key, tilted=False, dtype=torch.float32):
         self.base_key = base_key
         self.tilted = tilted
         self.batch_key = None
+        self.dtype = dtype
+        self._np_dtype = np.float64 if dtype == torch.float64 else np.float32
 
     def begin_batch(self, batch_index):
         self.batch_key = jax.random.fold_in(self.base_key, batch_index)
@@ -396,14 +403,17 @@ class JaxKeyedRNG(streams.RayRNG):
         pair = jax.random.split(k_refl)
         return pair[0 if stream == streams.REFLECT_1 else 1]
 
+    def _draw(self, key, shape):
+        u = np.array(jax.random.uniform(key, shape, dtype=self._np_dtype))
+        assert u.dtype == self._np_dtype, "float64 draws need jax_enable_x64"
+        return torch.from_numpy(u)
+
     def uniform(self, stream, batch_index, bounce, n):
-        u = jax.random.uniform(self._key(stream, bounce), (n,), dtype=np.float32)
-        return torch.from_numpy(np.array(u))
+        return self._draw(self._key(stream, bounce), (n,))
 
     def uniform_block(self, batch_index, bounce, n, n_cols):
         key_b = jax.random.fold_in(self.batch_key, bounce + 1)
-        u = jax.random.uniform(key_b, (n, n_cols), dtype=np.float32)
-        return torch.from_numpy(np.array(u))
+        return self._draw(key_b, (n, n_cols))
 
     def hook_key(self, stream, bounce):
         """The reference's key of a hook (see the class's docstring)."""
@@ -420,8 +430,7 @@ class JaxKeyedRNG(streams.RayRNG):
         key = self.hook_key(stream, bounce)
         if call:
             key = jax.random.fold_in(key, call)
-        u = jax.random.uniform(key, tuple(shape), dtype=np.float32)
-        return torch.from_numpy(np.array(u))
+        return self._draw(key, tuple(shape))
 
     def cone_theta(self, batch_index, bounce, shape, cone_angle):
         key_b = jax.random.fold_in(self.batch_key, bounce + 1)
@@ -430,7 +439,8 @@ class JaxKeyedRNG(streams.RayRNG):
         else:
             key = jax.random.fold_in(key_b, 0x7E7A)
         theta = ref_sampling.coned_cosine_theta(
-            key, tuple(shape), jnp.float32(cone_angle), dtype=jnp.float32
+            key, tuple(shape), jnp.asarray(cone_angle, self._np_dtype),
+            dtype=self._np_dtype,
         )
         return torch.from_numpy(np.array(theta))
 
@@ -982,7 +992,8 @@ def make_jax_grad_golden(rays_per_seed, out_dir):
     return record
 
 
-if __name__ == "__main__" and sys.argv[1:2] != ["--record-draws"]:
+if __name__ == "__main__" and sys.argv[1] not in ("--record-draws",
+                                                  "--record-f32-digests"):
     # python3 tests/torch_port_helpers.py NAME RAYS_PER_POINT [OUT_DIR]
     # (grad3d_trench_jax: RAYS_PER_SEED)
     out = sys.argv[3] if len(sys.argv) > 3 else "viennaray_tpu_torch/io/golden"
@@ -1066,6 +1077,102 @@ def record_draws(name):
     finally:
         tracer_mod.GeneratorRNG = saved
     return log
+
+
+# ---- float32 traces as the tree before float64 tracing traced them ---------
+# sha256 of the flux bytes and counters of small float32 ``trace_batch``
+# runs on the CPU, recorded from the tree before float64 tracing existed
+# (``python3 tests/torch_port_helpers.py --record-f32-digests OUT`` with that
+# tree's package first on the path): a float32 trace must keep giving them.
+# A beam of one fixed direction with specular reflection: no sine, cosine,
+# power or exponential on the path (only IEEE arithmetic and square roots),
+# so the bits do not depend on the CPU's vector library.
+F32_DIGEST_TRACES = ("disks_unfused", "disks_fused", "triangles_unfused",
+                     "lines_unfused")
+
+
+class Beam:
+    """A source of origins uniform on the source face (+z, or +y in 2D) and
+    one fixed direction, from the streams of the random source's origins."""
+
+    def __init__(self, bbox, direction, dim):
+        self.bbox = torch.as_tensor(np.asarray(bbox, np.float32))
+        d = np.asarray(direction, np.float64)
+        self.direction = torch.tensor(d / np.linalg.norm(d), dtype=torch.float32)
+        self.dim = dim
+
+    def sample(self, rng, batch_index, n, ray_indices):
+        lo, hi = self.bbox[0], self.bbox[1]
+        u1 = rng.uniform(streams.SOURCE_ORIGIN_1, batch_index, 0, n)
+        org = torch.zeros((n, 3), dtype=torch.float32)
+        org[:, 0] = lo[0] + (hi[0] - lo[0]) * u1
+        if self.dim == 3:
+            u2 = rng.uniform(streams.SOURCE_ORIGIN_2, batch_index, 0, n)
+            org[:, 1] = lo[1] + (hi[1] - lo[1]) * u2
+            org[:, 2] = hi[2]
+        else:
+            org[:, 1] = hi[1]
+        return (org, self.direction.expand(n, 3).contiguous(),
+                torch.ones(n, dtype=torch.float32))
+
+    def source_area(self):
+        return 1.0
+
+
+def f32_digest(name):
+    """sha256 of one of ``F32_DIGEST_TRACES``: a float32 ``trace_batch`` of
+    4,096 rays (batch 1, seed 5) on the CPU, with roulette, periodic walls
+    and the compaction ladder, through only what the tree before float64
+    tracing had."""
+    import hashlib
+
+    import viennaray_tpu_torch as vrtt
+    from viennaray_tpu_torch.config import adjust_bounding_box
+    from viennaray_tpu_torch.io import fixtures
+    from viennaray_tpu_torch.trace.kernel import trace_batch
+
+    kind, body = name.split("_")
+    if kind == "disks":
+        pts, nrm = fixtures.create_trench_grid_3d(grid_delta=0.5)
+        geo = vrtt.DiskGeometry.build(pts, nrm, 0.5, device="cpu")
+        margin, dim, direction = geo.disk_radius, 3, (0.31, 0.17, -1.0)
+    elif kind == "triangles":
+        verts, tris = fixtures.create_trench_mesh_3d(grid_delta=0.5)
+        geo = vrtt.TriangleGeometry.build(verts, tris, 0.5, device="cpu")
+        margin, dim, direction = 0.5, 3, (0.31, 0.17, -1.0)
+    else:
+        nodes, lines = fixtures.create_trench_line_mesh(0.25)
+        geo = vrtt.LineGeometry.from_mesh(
+            vrtt.LineMesh(nodes=nodes, lines=lines, grid_delta=0.25),
+            device="cpu")
+        margin, dim, direction = 0.25, 2, (0.29, -1.0, 0.0)
+    face = vrtt.TraceDirection.POS_Z if dim == 3 else vrtt.TraceDirection.POS_Y
+    bbox = adjust_bounding_box(geo.bbox.numpy(), face, margin,
+                               dim).astype(np.float32)
+    config = vrtt.TraceConfig(
+        dim=dim, source_direction=face,
+        boundary_conditions=(vrtt.BoundaryCondition.PERIODIC,) * 3,
+        ray_batch_size=4096, rng_seed=5, use_random_seed=False)
+    rng = streams.GeneratorRNG(5, "cpu")
+    rng.begin_batch(1)
+    idx = torch.arange(4096, 8192)
+    flux, counters = trace_batch(
+        geo, Beam(bbox, direction, dim), vrtt.SpecularParticle(0.2, 100.0),
+        torch.from_numpy(bbox), rng, 1, idx, idx < 8100, config,
+        fused=body == "fused")
+    h = hashlib.sha256(flux.numpy().tobytes())
+    h.update(repr(tuple(int(c) for c in counters)).encode())
+    return h.hexdigest()
+
+
+if __name__ == "__main__" and sys.argv[1:2] == ["--record-f32-digests"]:
+    import json
+
+    with open(sys.argv[2], "w") as f:
+        json.dump({name: f32_digest(name) for name in F32_DIGEST_TRACES}, f,
+                  indent=1)
+        f.write("\n")
+    sys.exit(0)
 
 
 if __name__ == "__main__" and sys.argv[1:2] == ["--record-draws"]:

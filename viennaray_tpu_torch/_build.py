@@ -31,10 +31,15 @@ _NEAREST_HIT = [
     _ptr, _ptr, _ptr, _ptr, _ptr, ctypes.c_int, ctypes.c_int, ctypes.c_int,
     ctypes.c_float, _ptr, _ptr, _ptr, _ptr,
 ]
+# the float64 forms: every float pointer to doubles, t_near a double
+_NEAREST_HIT_F64 = _NEAREST_HIT[:8] + [ctypes.c_double] + _NEAREST_HIT[9:]
 _SIGNATURES = {
     "vr_disk_nearest_hit": _NEAREST_HIT,
     "vr_triangle_nearest_hit": _NEAREST_HIT,
     "vr_line_nearest_hit": _NEAREST_HIT,
+    "vr_disk_nearest_hit_f64": _NEAREST_HIT_F64,
+    "vr_triangle_nearest_hit_f64": _NEAREST_HIT_F64,
+    "vr_line_nearest_hit_f64": _NEAREST_HIT_F64,
     # ids w | n_entries n_bins | out scratch | sms | stream
     "vr_flux_histogram": [
         _ptr, _ptr, ctypes.c_longlong, ctypes.c_int, _ptr, _ptr, ctypes.c_int,
@@ -46,6 +51,18 @@ _SIGNATURES = {
     ],
     # grad_out ids | n_entries n_bins | grad_w | sms | stream
     "vr_flux_histogram_grad": [
+        _ptr, _ptr, ctypes.c_longlong, ctypes.c_int, _ptr, ctypes.c_int, _ptr,
+    ],
+    # the float64 forms take the same arguments, w / out / grad_out / grad_w
+    # as doubles and a scratch of 2 n_bins + 1 words
+    "vr_flux_histogram_f64": [
+        _ptr, _ptr, ctypes.c_longlong, ctypes.c_int, _ptr, _ptr, ctypes.c_int,
+        _ptr,
+    ],
+    "vr_flux_histogram_small_f64": [
+        _ptr, _ptr, ctypes.c_int, ctypes.c_int, _ptr, _ptr,
+    ],
+    "vr_flux_histogram_grad_f64": [
         _ptr, _ptr, ctypes.c_longlong, ctypes.c_int, _ptr, ctypes.c_int, _ptr,
     ],
     # org dir weight w0 alive hfb n_refl n_bdry uniforms | prims chunk_bbs

@@ -6,38 +6,44 @@
 // ops/nearest_hit.py:pack_disk_prims writes.
 //
 // Numbers: every product, sum and quotient goes through the round-to-nearest
-// intrinsics (__fmul_rn, __fadd_rn, __fsub_rn, __fdiv_rn). nvcc never
-// contracts those into fused multiply-adds, whatever -fmad says, so the test
-// computes bit for bit what ops/nearest_hit.py:disk_nearest_hit_ref computes
-// with one eager PyTorch op per operation, in the same order. The quotient is
-// an IEEE division. That makes (t, prim, hit) comparable for equality with
-// the plain version, not within a tolerance.
+// intrinsics (__fmul_rn, __fadd_rn, __fsub_rn, __fdiv_rn; in float64 their
+// __d* twins, scalar.cuh). nvcc never contracts those into fused
+// multiply-adds, whatever -fmad says, so the test computes bit for bit what
+// ops/nearest_hit.py:disk_nearest_hit_ref computes with one eager PyTorch op
+// per operation, in the same order, in either type. The quotient is an IEEE
+// division. That makes (t, prim, hit) comparable for equality with the plain
+// version, not within a tolerance.
 #pragma once
 
-struct DiskPrim {
-  float cx, cy, cz, nx, ny, nz, r2, ndc;
+#include "prim_search.cuh"
+#include "scalar.cuh"
+
+template <class T>
+struct DiskPrimT {
+  T cx, cy, cz, nx, ny, nz, r2, ndc;
 };
+using DiskPrim = DiskPrimT<float>;
 
 // Returns whether the ray (o, d) hits the disk beyond t_near; t_out gets the
 // plane-crossing time either way. Padding disks have a zero normal, so denom
-// is 0 and they are never valid.
-__device__ __forceinline__ bool disk_hit(float ox, float oy, float oz,
-                                         float dx, float dy, float dz,
-                                         const DiskPrim& p, float t_near,
-                                         float& t_out) {
-  const float denom = __fadd_rn(
-      __fadd_rn(__fmul_rn(dx, p.nx), __fmul_rn(dy, p.ny)), __fmul_rn(dz, p.nz));
-  const float ndo = __fadd_rn(
-      __fadd_rn(__fmul_rn(ox, p.nx), __fmul_rn(oy, p.ny)), __fmul_rn(oz, p.nz));
-  const float dsafe = denom == 0.0f ? 1e-30f : denom;
-  const float t = __fdiv_rn(__fsub_rn(p.ndc, ndo), dsafe);
-  const float hx = __fsub_rn(__fadd_rn(ox, __fmul_rn(t, dx)), p.cx);
-  const float hy = __fsub_rn(__fadd_rn(oy, __fmul_rn(t, dy)), p.cy);
-  const float hz = __fsub_rn(__fadd_rn(oz, __fmul_rn(t, dz)), p.cz);
-  const float dist2 = __fadd_rn(
-      __fadd_rn(__fmul_rn(hx, hx), __fmul_rn(hy, hy)), __fmul_rn(hz, hz));
+// is 0 and they are never valid. T: float, or double in the float64 form.
+template <class T>
+__device__ __forceinline__ bool disk_hit(T ox, T oy, T oz, T dx, T dy, T dz,
+                                         const DiskPrimT<T>& p, T t_near,
+                                         T& t_out) {
+  const T denom = add_rn(add_rn(mul_rn(dx, p.nx), mul_rn(dy, p.ny)),
+                         mul_rn(dz, p.nz));
+  const T ndo = add_rn(add_rn(mul_rn(ox, p.nx), mul_rn(oy, p.ny)),
+                       mul_rn(oz, p.nz));
+  const T dsafe = denom == T(0) ? Const<T>::tiny() : denom;
+  const T t = div_rn(sub_rn(p.ndc, ndo), dsafe);
+  const T hx = sub_rn(add_rn(ox, mul_rn(t, dx)), p.cx);
+  const T hy = sub_rn(add_rn(oy, mul_rn(t, dy)), p.cy);
+  const T hz = sub_rn(add_rn(oz, mul_rn(t, dz)), p.cz);
+  const T dist2 = add_rn(add_rn(mul_rn(hx, hx), mul_rn(hy, hy)),
+                         mul_rn(hz, hz));
   t_out = t;
-  return denom != 0.0f && t > t_near && dist2 < p.r2;
+  return denom != T(0) && t > t_near && dist2 < p.r2;
 }
 
 // The division-free reject of the closest-hit search (prim_search.cuh with
@@ -137,6 +143,8 @@ struct DiskReject {
 // [cx cy cz nx] [ny nz r2 ndc]; the unit normal sits in SoA rows 3-5; a
 // disk's first hit from behind passes through (the bounce kernel's rule).
 struct DiskKind {
+  using Scalar = float;
+  using Staged = float4;
   static constexpr int kVec = 2;
   static constexpr int kNormalRow = 3;
   static constexpr bool kBackfacePasses = true;
@@ -181,4 +189,35 @@ struct DiskKind {
 struct DiskWindowKind : DiskKind {
   static constexpr bool kNeighborDeposit = false;
   static constexpr bool kWindowDeposit = true;
+};
+
+// The float64 form's disk kind (the float64 closest-hit kernel,
+// nearest_hit.cu): a staged disk is two Double4 [cx cy cz nx] [ny nz r2 ndc]
+// of the float64 SoA and its test is disk_hit<double>. No reject: DiskReject's
+// margins are float32 rounding bounds, so every pair of a visited chunk takes
+// the exact test.
+struct DiskKindF64 {
+  using Scalar = double;
+  using Staged = Double4;
+  static constexpr int kVec = 2;
+  using Reject = KeepAll<double>;
+
+  static __device__ __forceinline__ void stage(Double4* s,
+                                               const double* __restrict__ prims,
+                                               int npad, int g) {
+    s[0] = Double4{prims[g], prims[npad + g], prims[2 * npad + g],
+                   prims[3 * npad + g]};
+    s[1] = Double4{prims[4 * npad + g], prims[5 * npad + g],
+                   prims[6 * npad + g], prims[7 * npad + g]};
+  }
+
+  static __device__ __forceinline__ bool hit(const Double4* s, double ox,
+                                             double oy, double oz, double dx,
+                                             double dy, double dz,
+                                             double t_near, double& t_out) {
+    const Double4 a = s[0];
+    const Double4 b = s[1];
+    const DiskPrimT<double> p{a.x, a.y, a.z, a.w, b.x, b.y, b.z, b.w};
+    return disk_hit(ox, oy, oz, dx, dy, dz, p, t_near, t_out);
+  }
 };

@@ -28,6 +28,16 @@
 // shared bins, the same scale, the same integer sums and the same final
 // conversion, so both paths give the same bits for the same input.
 //
+// Float64 weights (the float64 trace; vr_flux_histogram_f64,
+// vr_flux_histogram_small_f64): the same two paths with two fixed-point words
+// an entry (fixed_point.cuh, "float64 weights"), summed in two 64-bit bins
+// each (16 bytes a bin in shared memory: the one-block path takes up to
+// 12,800 bins). Bound by bytes: 12 an entry (ids and w read once) and two
+// words a bin. The plain version does the same integer sums with index_add_
+// on int64 tensors, so kernel, plain version and both paths give the same
+// bits. The library call beside it, index_add_ on float64, adds floats with
+// atomics in an order that changes from run to run on a card.
+//
 // The backward (vr_flux_histogram_grad): d out[b] / d w[e] is 1 where
 // ids[e] == b, so the gradient of the weights is a gather, grad_w[e] =
 // grad_out[ids[e]]. The JAX package has no TPU kernel for it: XLA transposes
@@ -206,6 +216,153 @@ gather_grad_kernel(const float* __restrict__ grad_out,
   }
 }
 
+// ---- float64 weights ------------------------------------------------------
+
+__global__ void __launch_bounds__(kThreads)
+accumulate_f64_kernel(const int* __restrict__ ids,
+                      const double* __restrict__ w, long long n_entries,
+                      int n_bins,
+                      const unsigned long long* __restrict__ wmax_bits,
+                      unsigned long long* __restrict__ acc, int use_shared) {
+  extern __shared__ unsigned long long s_bins[];
+  const unsigned long long bits = *wmax_bits;
+  if (bits == 0) return;  // every weight is 0; uniform across the grid
+  const double scale = scalbn(1.0, scale_exponent_f64(bits, n_entries));
+  const double scale_lo = scalbn(1.0, low_exponent_f64(n_entries));
+
+  // the bins' high words, then their low words
+  if (use_shared) {
+    for (int i = threadIdx.x; i < 2 * n_bins; i += kThreads) s_bins[i] = 0ull;
+    __syncthreads();
+  }
+  unsigned long long* bins = use_shared ? s_bins : acc;
+
+  const long long stride = (long long)gridDim.x * kThreads;
+  for (long long e = (long long)blockIdx.x * kThreads + threadIdx.x;
+       e < n_entries; e += stride) {
+    const double we = w[e];
+    if (we == 0.0) continue;
+    const int id = ids[e];
+    if ((unsigned int)id >= (unsigned int)n_bins) continue;
+    unsigned long long hi, lo;
+    to_fixed_f64(we, scale, scale_lo, hi, lo);
+    atomicAdd(&bins[id], hi);
+    if (lo != 0ull) atomicAdd(&bins[n_bins + id], lo);
+  }
+
+  if (use_shared) {
+    __syncthreads();
+    for (int i = threadIdx.x; i < 2 * n_bins; i += kThreads) {
+      const unsigned long long v = s_bins[i];
+      if (v != 0ull) atomicAdd(&acc[i], v);
+    }
+  }
+}
+
+// out[i] from the bins' two words
+__global__ void finalize_f64_kernel(
+    const unsigned long long* __restrict__ acc,
+    const unsigned long long* __restrict__ wmax_bits, long long n_entries,
+    int n_bins, double* __restrict__ out) {
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= n_bins) return;
+  const unsigned long long bits = *wmax_bits;
+  out[i] = bits == 0 ? 0.0
+                     : from_fixed_f64(acc[i], acc[n_bins + i], bits,
+                                      n_entries);
+}
+
+// The whole float64 histogram in one block: the largest |w| (bits, integer
+// maximum), the two words of each entry added with shared atomics, the bins
+// read back as finalize_f64_kernel does. One entry per thread at a time,
+// whole warps in step: the threads whose entries share a bin sum their
+// words first (add_warp's tree, once for each word), so a bin that many
+// entries hit costs one atomic a warp and word.
+__device__ __forceinline__ void add_warp_f64(unsigned long long* s_hi,
+                                             unsigned long long* s_lo, int id,
+                                             double we, int n_bins,
+                                             double scale, double scale_lo) {
+  const int lane = threadIdx.x & 31;
+  const bool valid = we != 0.0 && (unsigned int)id < (unsigned int)n_bins;
+  const int key = valid ? id : -1;
+  unsigned long long vh = 0ull, vl = 0ull;
+  if (valid) to_fixed_f64(we, scale, scale_lo, vh, vl);
+  unsigned int peers = __match_any_sync(0xffffffffu, key);
+  const int first = __ffs(peers) - 1;
+  int rank = __popc(peers & ((1u << lane) - 1u));
+  peers &= 0xfffffffeu << lane;  // the peers on higher lanes
+  while (__any_sync(0xffffffffu, peers != 0u)) {
+    const int next = __ffs(peers);  // 1 + the next peer's lane, or 0
+    const unsigned long long th = __shfl_sync(0xffffffffu, vh, next - 1);
+    const unsigned long long tl = __shfl_sync(0xffffffffu, vl, next - 1);
+    if (next) {
+      vh += th;
+      vl += tl;
+    }
+    peers &= __ballot_sync(0xffffffffu, (rank & 1) == 0);
+    rank >>= 1;
+  }
+  if (valid && lane == first) {
+    atomicAdd(&s_hi[id], vh);
+    if (vl != 0ull) atomicAdd(&s_lo[id], vl);
+  }
+}
+
+__global__ void __launch_bounds__(kSmallThreads)
+small_histogram_f64_kernel(const int* __restrict__ ids,
+                           const double* __restrict__ w, int n_entries,
+                           int n_bins, double* __restrict__ out) {
+  extern __shared__ unsigned long long s_bins[];
+  __shared__ unsigned long long s_max;
+  if (threadIdx.x == 0) s_max = 0ull;
+  for (int i = threadIdx.x; i < 2 * n_bins; i += kSmallThreads) {
+    s_bins[i] = 0ull;
+  }
+  unsigned long long m = 0;
+  for (int e = threadIdx.x; e < n_entries; e += kSmallThreads) {
+    m = max(m, (unsigned long long)__double_as_longlong(fabs(w[e])));
+  }
+  for (int o = 16; o > 0; o >>= 1) {
+    m = max(m, __shfl_xor_sync(0xffffffffu, m, o));
+  }
+  __syncthreads();  // s_max and the bins are cleared
+  if ((threadIdx.x & 31) == 0 && m != 0) atomicMax(&s_max, m);
+  __syncthreads();
+  const unsigned long long bits = s_max;
+  if (bits != 0) {
+    const double scale = scalbn(1.0, scale_exponent_f64(bits, n_entries));
+    const double scale_lo = scalbn(1.0, low_exponent_f64(n_entries));
+    const int lane = threadIdx.x & 31;
+    // warp-uniform trip counts: add_warp_f64 takes the whole warp
+    for (int base = threadIdx.x & ~31; base < n_entries;
+         base += kSmallThreads) {
+      const int e = base + lane;
+      const bool in = e < n_entries;
+      add_warp_f64(s_bins, s_bins + n_bins, in ? ids[e] : -1,
+                   in ? w[e] : 0.0, n_bins, scale, scale_lo);
+    }
+  }
+  __syncthreads();
+  for (int i = threadIdx.x; i < n_bins; i += kSmallThreads) {
+    out[i] = bits == 0 ? 0.0
+                       : from_fixed_f64(s_bins[i], s_bins[n_bins + i], bits,
+                                        n_entries);
+  }
+}
+
+__global__ void __launch_bounds__(kGradThreads)
+gather_grad_f64_kernel(const double* __restrict__ grad_out,
+                       const int* __restrict__ ids, long long n_entries,
+                       int n_bins, double* __restrict__ grad_w) {
+  const long long stride = (long long)gridDim.x * kGradThreads;
+  for (long long e = (long long)blockIdx.x * kGradThreads + threadIdx.x;
+       e < n_entries; e += stride) {
+    const int id = ids[e];
+    grad_w[e] = (unsigned int)id < (unsigned int)n_bins ? __ldg(grad_out + id)
+                                                        : 0.0;
+  }
+}
+
 }  // namespace
 
 // ids: (n_entries,) int32 in [0, n_bins); w: (n_entries,) float32;
@@ -289,5 +446,80 @@ extern "C" int vr_flux_histogram_grad(const float* grad_out, const int* ids,
   const long long cap = (long long)sms * 16;
   gather_grad_kernel<<<(int)(want < cap ? want : cap), kGradThreads, 0, s>>>(
       grad_out, ids, n_entries, n_bins, grad_w);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The float64 forms: w, out, grad_out and grad_w doubles; the large path's
+// scratch holds 2 n_bins + 1 64-bit words (the bins' high words, their low
+// words, the largest |w|), which this call clears itself; the one-block path
+// takes n_bins * 16 <= 200 KB. Launch, allocation and errors as above.
+extern "C" int vr_flux_histogram_f64(const int* ids, const double* w,
+                                     long long n_entries, int n_bins,
+                                     double* out, unsigned long long* scratch,
+                                     int sms, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (n_bins <= 0) return static_cast<int>(cudaGetLastError());
+  cudaError_t err = cudaMemsetAsync(
+      scratch, 0, sizeof(unsigned long long) * (2 * (size_t)n_bins + 1), s);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  unsigned long long* wmax_bits = scratch + 2 * (size_t)n_bins;
+
+  if (n_entries > 0) {
+    const long long per_block = (long long)kThreads * 8;
+    const long long want = (n_entries + per_block - 1) / per_block;
+    const int grid_max = (int)(want < (long long)sms * 8 ? want : sms * 8);
+    absmax_f64_kernel<<<grid_max, kThreads, 0, s>>>(w, n_entries, wmax_bits);
+
+    const size_t smem = 2 * sizeof(unsigned long long) * (size_t)n_bins;
+    const int use_shared = smem <= kMaxSharedBins ? 1 : 0;
+    int grid = grid_max;
+    if (use_shared) {
+      const long long fit = (long long)(kMaxSharedBins / smem);
+      const long long per_sm = fit < 1 ? 1 : (fit > 4 ? 4 : fit);
+      const long long cap = per_sm * sms;
+      grid = (int)(want < cap ? want : cap);
+      if (smem > 48 * 1024) {
+        err = cudaFuncSetAttribute(accumulate_f64_kernel,
+                                   cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                   (int)smem);
+        if (err != cudaSuccess) return static_cast<int>(err);
+      }
+    }
+    accumulate_f64_kernel<<<grid, kThreads, use_shared ? smem : 0, s>>>(
+        ids, w, n_entries, n_bins, wmax_bits, scratch, use_shared);
+  }
+  finalize_f64_kernel<<<(n_bins + 255) / 256, 256, 0, s>>>(
+      scratch, wmax_bits, n_entries, n_bins, out);
+  return static_cast<int>(cudaGetLastError());
+}
+
+extern "C" int vr_flux_histogram_small_f64(const int* ids, const double* w,
+                                           int n_entries, int n_bins,
+                                           double* out, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (n_bins <= 0) return static_cast<int>(cudaGetLastError());
+  const size_t smem = 2 * sizeof(unsigned long long) * (size_t)n_bins;
+  if (smem > kMaxSharedBins) return static_cast<int>(cudaErrorInvalidValue);
+  if (smem > 48 * 1024) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        small_histogram_f64_kernel,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
+  small_histogram_f64_kernel<<<1, kSmallThreads, smem, s>>>(ids, w, n_entries,
+                                                            n_bins, out);
+  return static_cast<int>(cudaGetLastError());
+}
+
+extern "C" int vr_flux_histogram_grad_f64(const double* grad_out,
+                                          const int* ids, long long n_entries,
+                                          int n_bins, double* grad_w, int sms,
+                                          void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (n_entries <= 0) return static_cast<int>(cudaGetLastError());
+  const long long want = (n_entries + kGradThreads - 1) / kGradThreads;
+  const long long cap = (long long)sms * 16;
+  gather_grad_f64_kernel<<<(int)(want < cap ? want : cap), kGradThreads, 0,
+                           s>>>(grad_out, ids, n_entries, n_bins, grad_w);
   return static_cast<int>(cudaGetLastError());
 }

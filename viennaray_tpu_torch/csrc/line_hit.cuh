@@ -14,8 +14,8 @@
 // reference. The normal takes no part in the test.
 //
 // Numbers: every product, difference and quotient goes through the
-// round-to-nearest intrinsics, which nvcc never contracts into fused
-// multiply-adds, and the two quotients are IEEE divisions (the TPU kernel
+// round-to-nearest intrinsics (scalar.cuh; float64 in the float64 form),
+// which nvcc never contracts into fused multiply-adds, and the two quotients are IEEE divisions (the TPU kernel
 // multiplies by an approximate reciprocal with one Newton step). So the test
 // computes bit for bit what ops/nearest_hit.py:line_nearest_hit_ref computes
 // with one eager PyTorch op per operation, and (t, prim, hit) compare for
@@ -27,10 +27,31 @@
 // two-by-two determinants (3 each) and two quotients.
 #pragma once
 
+#include "prim_search.cuh"
+#include "scalar.cuh"
+
 // a*b - c*d
-__device__ __forceinline__ float line_det2(float a, float b, float c,
-                                           float d) {
-  return __fsub_rn(__fmul_rn(a, b), __fmul_rn(c, d));
+template <class T>
+__device__ __forceinline__ T line_det2(T a, T b, T c, T d) {
+  return sub_rn(mul_rn(a, b), mul_rn(c, d));
+}
+
+// The 2D test of the ray (o, d) against the segment from p0 along l beyond
+// t_near, the clip's ends Const<T>::s_min() and s_max() (float32 values in
+// both types); t_out gets the crossing time of the segment's line either way.
+template <class T>
+__device__ __forceinline__ bool line_test(T p0x, T p0y, T lx, T ly, T ox,
+                                          T oy, T dx, T dy, T t_near,
+                                          T& t_out) {
+  const T denom = line_det2(dx, ly, dy, lx);
+  const T dsafe = denom != T(0) ? denom : Const<T>::tiny();
+  const T wx = sub_rn(p0x, ox);
+  const T wy = sub_rn(p0y, oy);
+  const T t = div_rn(line_det2(wx, ly, wy, lx), dsafe);
+  const T sp = div_rn(line_det2(wx, dy, wy, dx), dsafe);
+  t_out = t;
+  return denom != T(0) && t > t_near && sp > Const<T>::s_min() &&
+         sp < Const<T>::s_max();
 }
 
 // The reject of the closest-hit search (prim_search.cuh with kReject) for
@@ -62,6 +83,8 @@ struct LineReject {
 // -1e30 and +1e30 (or +inf for a padding chunk's 1e18), never 0 * inf, so
 // the z slab is the whole line and no NaN arises.
 struct LineKind {
+  using Scalar = float;
+  using Staged = float4;
   static constexpr int kVec = 1;
   static constexpr bool kBackfacePasses = false;
   static constexpr bool kNeighborDeposit = false;
@@ -91,16 +114,31 @@ struct LineKind {
                                              float dy, float dz, float t_near,
                                              float& t_out) {
     const float4 a = s[0];
-    const float lx = a.z, ly = a.w;
-    const float denom = line_det2(dx, ly, dy, lx);
-    const float dsafe = denom != 0.0f ? denom : 1e-30f;
-    const float wx = __fsub_rn(a.x, ox);
-    const float wy = __fsub_rn(a.y, oy);
-    const float t = __fdiv_rn(line_det2(wx, ly, wy, lx), dsafe);
-    const float sp = __fdiv_rn(line_det2(wx, dy, wy, dx), dsafe);
-    t_out = t;
-    // 1 - 1e-5 in float32: 0x3f7fff58
-    return denom != 0.0f && t > t_near && sp > 1e-5f &&
-           sp < __uint_as_float(0x3f7fff58u);
+    return line_test(a.x, a.y, a.z, a.w, ox, oy, dx, dy, t_near, t_out);
+  }
+};
+
+// The float64 form's line kind (the float64 closest-hit kernel,
+// nearest_hit.cu): a staged segment is one Double4 [p0x p0y lx ly] of the
+// float64 SoA and its test is line_test<double>.
+struct LineKindF64 {
+  using Scalar = double;
+  using Staged = Double4;
+  static constexpr int kVec = 1;
+  using Reject = KeepAll<double>;
+
+  static __device__ __forceinline__ void stage(Double4* s,
+                                               const double* __restrict__ prims,
+                                               int npad, int g) {
+    s[0] = Double4{prims[g], prims[npad + g], prims[2 * npad + g],
+                   prims[3 * npad + g]};
+  }
+
+  static __device__ __forceinline__ bool hit(const Double4* s, double ox,
+                                             double oy, double oz, double dx,
+                                             double dy, double dz,
+                                             double t_near, double& t_out) {
+    const Double4 a = s[0];
+    return line_test(a.x, a.y, a.z, a.w, ox, oy, dx, dy, t_near, t_out);
   }
 };

@@ -56,7 +56,20 @@
 // The search itself, with its per-ray chunk skip and its tie rule, is
 // prim_search_group of csrc/prim_search.cuh, shared with the bounce kernel
 // (which instantiates it without the reject).
+//
+// The float64 forms (vr_*_nearest_hit_f64; the float64 trace, whose rays,
+// SoA and chunk boxes are doubles): the same kernel template on the float64
+// kinds (DiskKindF64, TriKindF64, LineKindF64), whose tests are the same
+// templates in double (scalar.cuh's __d*_rn intrinsics, the JAX package's
+// float64 constants), a warp per ray, and no reject: the rejects' margins
+// are float32 rounding bounds (DiskReject, TriReject), and a float64 bound
+// is not derived. Bound: the same operations a pair over the H100's 34
+// TFLOP/s of float64 outside the tensor cores (NVIDIA's data sheet, SXM);
+// every pair of a visited chunk takes the exact test, with its one (disk)
+// or three (triangle) IEEE float64 divisions.
 #include <cuda_runtime.h>
+
+#include <type_traits>
 
 #include "disk_hit.cuh"
 #include "line_hit.cuh"
@@ -64,8 +77,6 @@
 #include "tri_hit.cuh"
 
 namespace {
-
-constexpr float kBig = 3.4e38f;
 
 constexpr int kGroup = 32;   // threads that search for one ray: a warp
 constexpr int kBlock = 128;  // four rays a block: a narrow launch spreads
@@ -75,27 +86,29 @@ constexpr int kBlock = 128;  // four rays a block: a narrow launch spreads
 // the group search, with no barrier; every thread of the warp ends with the
 // same (t, lane), and its first thread writes it. The thread index is 64-bit:
 // n_rays * kGroup passes 2^31 from 2^26 rays on.
-template <class Kind>
+// kReject: the kind's division-free reject before the exact test (the
+// float32 kinds); the float64 kinds have none.
+template <class Kind, class T = typename Kind::Scalar,
+          bool kReject = !std::is_same<T, double>::value>
 __global__ void __launch_bounds__(kBlock)
-nearest_hit_kernel(const float* __restrict__ org,
-                   const float* __restrict__ dir,
-                   const float* __restrict__ prims,
-                   const float* __restrict__ chunk_bbs,
+nearest_hit_kernel(const T* __restrict__ org, const T* __restrict__ dir,
+                   const T* __restrict__ prims,
+                   const T* __restrict__ chunk_bbs,
                    const int* __restrict__ perm, int n_rays, int npad, int pt,
-                   float t_near, float* __restrict__ t_out,
+                   T t_near, T* __restrict__ t_out,
                    int* __restrict__ prim_out,
                    unsigned char* __restrict__ hit_out) {
   const long long thread = (long long)blockIdx.x * kBlock + threadIdx.x;
   const long long r = thread / kGroup;
   const int gl = (int)threadIdx.x & (kGroup - 1);
   if (r >= n_rays) return;  // whole warps: a warp's threads are one ray
-  const float ox = org[3 * r + 0], oy = org[3 * r + 1], oz = org[3 * r + 2];
-  const float dx = dir[3 * r + 0], dy = dir[3 * r + 1], dz = dir[3 * r + 2];
-  float tmin = kBig;
+  const T ox = org[3 * r + 0], oy = org[3 * r + 1], oz = org[3 * r + 2];
+  const T dx = dir[3 * r + 0], dy = dir[3 * r + 1], dz = dir[3 * r + 2];
+  T tmin = Const<T>::big();
   int idx, woken;
-  prim_search_group<Kind, kGroup, true>(ox, oy, oz, dx, dy, dz, prims,
-                                        chunk_bbs, npad, pt, t_near, gl, tmin,
-                                        idx, woken);
+  prim_search_group<Kind, kGroup, kReject>(ox, oy, oz, dx, dy, dz, prims,
+                                           chunk_bbs, npad, pt, t_near, gl,
+                                           tmin, idx, woken);
   if (gl == 0) {
     t_out[r] = tmin;
     prim_out[r] = perm[idx < 0 ? 0 : idx];
@@ -103,16 +116,16 @@ nearest_hit_kernel(const float* __restrict__ org,
   }
 }
 
-template <class Kind>
-int launch_nearest_hit(const float* org, const float* dir, const float* prims,
-                       const float* chunk_bbs, const int* perm, int n_rays,
-                       int npad, int pt, float t_near, float* t_out,
-                       int* prim_out, unsigned char* hit_out, void* stream) {
+template <class Kind, class T = typename Kind::Scalar>
+int launch_nearest_hit(const T* org, const T* dir, const T* prims,
+                       const T* chunk_bbs, const int* perm, int n_rays,
+                       int npad, int pt, T t_near, T* t_out, int* prim_out,
+                       unsigned char* hit_out, void* stream) {
   if (n_rays > 0) {
     const long long threads = (long long)n_rays * kGroup;
     const unsigned grid = (unsigned)((threads + kBlock - 1) / kBlock);
-    nearest_hit_kernel<Kind><<<grid, kBlock, 0,
-                               static_cast<cudaStream_t>(stream)>>>(
+    nearest_hit_kernel<Kind, T><<<grid, kBlock, 0,
+                                  static_cast<cudaStream_t>(stream)>>>(
         org, dir, prims, chunk_bbs, perm, n_rays, npad, pt, t_near, t_out,
         prim_out, hit_out);
   }
@@ -159,4 +172,40 @@ extern "C" int vr_line_nearest_hit(const float* org, const float* dir,
   return launch_nearest_hit<LineKind>(org, dir, prims, chunk_bbs, perm, n_rays,
                                       npad, pt, t_near, t_out, prim_out,
                                       hit_out, stream);
+}
+
+// The float64 forms: org, dir, prims, chunk_bbs, t_out and t_near doubles,
+// the layouts and the rest as above.
+extern "C" int vr_disk_nearest_hit_f64(const double* org, const double* dir,
+                                       const double* prims,
+                                       const double* chunk_bbs,
+                                       const int* perm, int n_rays, int npad,
+                                       int pt, double t_near, double* t_out,
+                                       int* prim_out, unsigned char* hit_out,
+                                       void* stream) {
+  return launch_nearest_hit<DiskKindF64>(org, dir, prims, chunk_bbs, perm,
+                                         n_rays, npad, pt, t_near, t_out,
+                                         prim_out, hit_out, stream);
+}
+
+extern "C" int vr_triangle_nearest_hit_f64(
+    const double* org, const double* dir, const double* prims,
+    const double* chunk_bbs, const int* perm, int n_rays, int npad, int pt,
+    double t_near, double* t_out, int* prim_out, unsigned char* hit_out,
+    void* stream) {
+  return launch_nearest_hit<TriKindF64>(org, dir, prims, chunk_bbs, perm,
+                                        n_rays, npad, pt, t_near, t_out,
+                                        prim_out, hit_out, stream);
+}
+
+extern "C" int vr_line_nearest_hit_f64(const double* org, const double* dir,
+                                       const double* prims,
+                                       const double* chunk_bbs,
+                                       const int* perm, int n_rays, int npad,
+                                       int pt, double t_near, double* t_out,
+                                       int* prim_out, unsigned char* hit_out,
+                                       void* stream) {
+  return launch_nearest_hit<LineKindF64>(org, dir, prims, chunk_bbs, perm,
+                                         n_rays, npad, pt, t_near, t_out,
+                                         prim_out, hit_out, stream);
 }

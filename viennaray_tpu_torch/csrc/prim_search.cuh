@@ -40,6 +40,12 @@
 // (Kind::Reject::stage) and the whole lane only when it survives: the SoA
 // reads through L1 are what the group search spends most on.
 //
+// The scalar type: prim_search is float32 only (the bounce kernel's G = 1).
+// prim_search_group runs in the kind's Scalar, float32, or float64 for the
+// float64 kinds of the closest-hit kernel's float64 form (DiskKindF64,
+// TriKindF64, LineKindF64), whose rays, SoA and chunk boxes are doubles; a
+// kind's Staged is its float4, or Double4 of scalar.cuh.
+//
 // Selection is the lowest t, then the lowest sorted lane, in both: lanes are
 // walked in ascending order with a strict <, whatever chunks are skipped,
 // and the group's minimum over (t, lane) picks what that walk picks, ties
@@ -47,36 +53,48 @@
 // so they visit the same chunks and return the same (t, lane).
 #pragma once
 
+#include "scalar.cuh"
+
 constexpr int kSearchBlock = 256;  // threads of a block that calls prim_search
 constexpr int kSearchTile = 512;   // lanes staged at a time
 
-__device__ __forceinline__ float safe_inv(float d) {
-  return 1.0f / (d == 0.0f ? 1e-30f : d);
+template <class T>
+__device__ __forceinline__ T safe_inv(T d) {
+  return T(1) / (d == T(0) ? Const<T>::tiny() : d);
 }
 
 // Whether a ray can enter chunk c's bounding box nearer than tmin (slab
 // test). The box is widened by a margin (1e-4 relative and absolute) orders
-// above float32 rounding in the slab arithmetic, so a chunk that holds a hit
-// below tmin always passes.
+// above the rounding of the slab arithmetic in either type, so a chunk that
+// holds a hit below tmin always passes.
+template <class T>
 __device__ __forceinline__ bool chunk_needed(
-    const float* __restrict__ chunk_bbs, int c, float ox, float oy, float oz,
-    float ix, float iy, float iz, float tmin) {
-  const float* bb = chunk_bbs + 8 * c;
-  const float lx = bb[0] - 1e-4f * (1.0f + fabsf(bb[0]));
-  const float ly = bb[1] - 1e-4f * (1.0f + fabsf(bb[1]));
-  const float lz = bb[2] - 1e-4f * (1.0f + fabsf(bb[2]));
-  const float hx = bb[3] + 1e-4f * (1.0f + fabsf(bb[3]));
-  const float hy = bb[4] + 1e-4f * (1.0f + fabsf(bb[4]));
-  const float hz = bb[5] + 1e-4f * (1.0f + fabsf(bb[5]));
-  const float t0x = (lx - ox) * ix, t1x = (hx - ox) * ix;
-  const float t0y = (ly - oy) * iy, t1y = (hy - oy) * iy;
-  const float t0z = (lz - oz) * iz, t1z = (hz - oz) * iz;
-  const float tlo = fmaxf(fmaxf(fminf(t0x, t1x), fminf(t0y, t1y)),
-                          fminf(t0z, t1z));
-  const float thi = fminf(fminf(fmaxf(t0x, t1x), fmaxf(t0y, t1y)),
-                          fmaxf(t0z, t1z));
-  return (thi >= tlo) && (thi > 0.0f) && (tlo < tmin);
+    const T* __restrict__ chunk_bbs, int c, T ox, T oy, T oz, T ix, T iy,
+    T iz, T tmin) {
+  const T* bb = chunk_bbs + 8 * c;
+  const T m = Const<T>::box_margin();
+  const T lx = bb[0] - m * (T(1) + vabs(bb[0]));
+  const T ly = bb[1] - m * (T(1) + vabs(bb[1]));
+  const T lz = bb[2] - m * (T(1) + vabs(bb[2]));
+  const T hx = bb[3] + m * (T(1) + vabs(bb[3]));
+  const T hy = bb[4] + m * (T(1) + vabs(bb[4]));
+  const T hz = bb[5] + m * (T(1) + vabs(bb[5]));
+  const T t0x = (lx - ox) * ix, t1x = (hx - ox) * ix;
+  const T t0y = (ly - oy) * iy, t1y = (hy - oy) * iy;
+  const T t0z = (lz - oz) * iz, t1z = (hz - oz) * iz;
+  const T tlo = vmax(vmax(vmin(t0x, t1x), vmin(t0y, t1y)), vmin(t0z, t1z));
+  const T thi = vmin(vmin(vmax(t0x, t1x), vmax(t0y, t1y)), vmax(t0z, t1z));
+  return (thi >= tlo) && (thi > T(0)) && (tlo < tmin);
 }
+
+// The reject of a kind that has none (the float64 kinds): it keeps every
+// pair. prim_search_group constructs it and, with kReject off, calls nothing
+// else of it.
+template <class T>
+struct KeepAll {
+  __device__ __forceinline__ KeepAll(T, T, T, T, T, T, T) {}
+  __device__ __forceinline__ void chunk(const T* __restrict__) {}
+};
 
 // s_prim: Kind::kVec * kSearchTile float4 of shared memory. prims:
 // (4 * Kind::kVec, npad) SoA; chunk_bbs: (npad / pt, 8). On entry tmin is the
@@ -137,17 +155,21 @@ __device__ __forceinline__ unsigned group_mask() {
 
 // Every thread of a group calls it with the same ray and bound; gl is the
 // thread's place in the group (0 to G - 1). prims and chunk_bbs as for
-// prim_search. On return every thread of the group holds the same (tmin,
-// idx): the closest hit below the bound, or tmin unchanged and idx -1.
-// woken: the chunks the group walked.
+// prim_search, in the kind's Scalar. On return every thread of the group
+// holds the same (tmin, idx): the closest hit below the bound, or tmin
+// unchanged and idx -1. woken: the chunks the group walked.
 template <class Kind, int G, bool kReject = false>
 __device__ __forceinline__ void prim_search_group(
-    float ox, float oy, float oz, float dx, float dy, float dz,
-    const float* __restrict__ prims, const float* __restrict__ chunk_bbs,
-    int npad, int pt, float t_near, int gl, float& tmin, int& idx,
-    int& woken) {
+    typename Kind::Scalar ox, typename Kind::Scalar oy,
+    typename Kind::Scalar oz, typename Kind::Scalar dx,
+    typename Kind::Scalar dy, typename Kind::Scalar dz,
+    const typename Kind::Scalar* __restrict__ prims,
+    const typename Kind::Scalar* __restrict__ chunk_bbs, int npad, int pt,
+    typename Kind::Scalar t_near, int gl, typename Kind::Scalar& tmin,
+    int& idx, int& woken) {
+  using T = typename Kind::Scalar;
   const unsigned mask = group_mask<G>();
-  const float ix = safe_inv(dx), iy = safe_inv(dy), iz = safe_inv(dz);
+  const T ix = safe_inv(dx), iy = safe_inv(dy), iz = safe_inv(dz);
   typename Kind::Reject rj(ox, oy, oz, dx, dy, dz, t_near);
   idx = -1;
   woken = 0;
@@ -156,19 +178,19 @@ __device__ __forceinline__ void prim_search_group(
     if (!chunk_needed(chunk_bbs, c, ox, oy, oz, ix, iy, iz, tmin)) continue;
     ++woken;
     if constexpr (kReject) rj.chunk(chunk_bbs + 8 * c);
-    float tl = tmin;
+    T tl = tmin;
     int il = -1;
     const int c_hi = (c + 1) * pt;
 #pragma unroll 2
     for (int j = c * pt + gl; j < c_hi; j += G) {
-      float4 s[Kind::kVec];
+      typename Kind::Staged s[Kind::kVec];
       if constexpr (kReject) {
         // the reject's rows first; the rest only for a survivor
         Kind::Reject::stage(s, prims, npad, j);
         if (rj.drop(s, tl)) continue;
       }
       Kind::stage(s, prims, npad, j);
-      float t;
+      T t;
       if (Kind::hit(s, ox, oy, oz, dx, dy, dz, t_near, t) && t < tl) {
         tl = t;
         il = j;
@@ -178,7 +200,7 @@ __device__ __forceinline__ void prim_search_group(
     // so equal t means both hit (lower lane wins) or neither (nothing moves)
 #pragma unroll
     for (int o = G / 2; o > 0; o >>= 1) {
-      const float to = __shfl_xor_sync(mask, tl, o);
+      const T to = __shfl_xor_sync(mask, tl, o);
       const int io = __shfl_xor_sync(mask, il, o);
       if (to < tl || (to == tl && io < il)) {
         tl = to;

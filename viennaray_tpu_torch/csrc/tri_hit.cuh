@@ -9,9 +9,9 @@
 // u >= 0, v >= 0, u + v <= 1, t > t_near. The normal takes no part in it.
 //
 // Numbers: every product, sum, difference and quotient goes through the
-// round-to-nearest intrinsics, which nvcc never contracts into fused
-// multiply-adds, three products are summed as (a + b) + c, and the three
-// quotients are IEEE divisions (the TPU kernel multiplies by an approximate
+// round-to-nearest intrinsics (scalar.cuh; float64 in the float64 form),
+// which nvcc never contracts into fused multiply-adds, three products are
+// summed as (a + b) + c, and the three quotients are IEEE divisions (the TPU kernel multiplies by an approximate
 // reciprocal with one Newton step). So the test computes bit for bit what
 // ops/nearest_hit.py:triangle_nearest_hit_ref computes with one eager
 // PyTorch op per operation, and (t, prim, hit) compare for equality. That
@@ -22,16 +22,48 @@
 // dot products (5 each), the offset s (3), three quotients, and u + v.
 #pragma once
 
+#include "prim_search.cuh"
+#include "scalar.cuh"
+
 // (ax*bx + ay*by) + az*bz
-__device__ __forceinline__ float tri_dot(float ax, float ay, float az,
-                                         float bx, float by, float bz) {
-  return __fadd_rn(__fadd_rn(__fmul_rn(ax, bx), __fmul_rn(ay, by)),
-                   __fmul_rn(az, bz));
+template <class T>
+__device__ __forceinline__ T tri_dot(T ax, T ay, T az, T bx, T by, T bz) {
+  return add_rn(add_rn(mul_rn(ax, bx), mul_rn(ay, by)), mul_rn(az, bz));
 }
 
 // a*b - c*d
-__device__ __forceinline__ float tri_det2(float a, float b, float c, float d) {
-  return __fsub_rn(__fmul_rn(a, b), __fmul_rn(c, d));
+template <class T>
+__device__ __forceinline__ T tri_det2(T a, T b, T c, T d) {
+  return sub_rn(mul_rn(a, b), mul_rn(c, d));
+}
+
+// The double-sided Moller-Trumbore test of the ray (o, d) against the
+// triangle (a, e1, e2) beyond t_near; t_out gets the plane-crossing time
+// either way. T: float, or double in the float64 form.
+template <class T>
+__device__ __forceinline__ bool tri_test(T ax, T ay, T az, T e1x, T e1y,
+                                         T e1z, T e2x, T e2y, T e2z, T ox,
+                                         T oy, T oz, T dx, T dy, T dz,
+                                         T t_near, T& t_out) {
+  // h = d x e2
+  const T hx = tri_det2(dy, e2z, dz, e2y);
+  const T hy = tri_det2(dz, e2x, dx, e2z);
+  const T hz = tri_det2(dx, e2y, dy, e2x);
+  const T det = tri_dot(hx, hy, hz, e1x, e1y, e1z);
+  const bool ok = vabs(det) >= Const<T>::tri_eps();
+  const T dsafe = ok ? det : Const<T>::tiny();
+  const T sx = sub_rn(ox, ax);
+  const T sy = sub_rn(oy, ay);
+  const T sz = sub_rn(oz, az);
+  const T u = div_rn(tri_dot(sx, sy, sz, hx, hy, hz), dsafe);
+  // q = s x e1
+  const T qx = tri_det2(sy, e1z, sz, e1y);
+  const T qy = tri_det2(sz, e1x, sx, e1z);
+  const T qz = tri_det2(sx, e1y, sy, e1x);
+  const T v = div_rn(tri_dot(qx, qy, qz, dx, dy, dz), dsafe);
+  const T t = div_rn(tri_dot(qx, qy, qz, e2x, e2y, e2z), dsafe);
+  t_out = t;
+  return ok && u >= T(0) && v >= T(0) && add_rn(u, v) <= T(1) && t > t_near;
 }
 
 // The division-free reject of the closest-hit search (prim_search.cuh with
@@ -152,6 +184,8 @@ struct TriReject {
 // SoA rows 9-11; a hit from behind always kills (the bounce kernel's rule).
 // Padding triangles have zero edges, so det is 0 and they are never valid.
 struct TriKind {
+  using Scalar = float;
+  using Staged = float4;
   static constexpr int kVec = 3;
   static constexpr int kNormalRow = 9;
   static constexpr bool kBackfacePasses = false;
@@ -187,29 +221,39 @@ struct TriKind {
                                              float& t_out) {
     const float4 a = s[0];
     const float4 b = s[1];
-    const float e2z = s[2].x;
-    const float ax = a.x, ay = a.y, az = a.z;
-    const float e1x = a.w, e1y = b.x, e1z = b.y;
-    const float e2x = b.z, e2y = b.w;
-    // h = d x e2
-    const float hx = tri_det2(dy, e2z, dz, e2y);
-    const float hy = tri_det2(dz, e2x, dx, e2z);
-    const float hz = tri_det2(dx, e2y, dy, e2x);
-    const float det = tri_dot(hx, hy, hz, e1x, e1y, e1z);
-    const bool ok = fabsf(det) >= 1e-9f;
-    const float dsafe = ok ? det : 1e-30f;
-    const float sx = __fsub_rn(ox, ax);
-    const float sy = __fsub_rn(oy, ay);
-    const float sz = __fsub_rn(oz, az);
-    const float u = __fdiv_rn(tri_dot(sx, sy, sz, hx, hy, hz), dsafe);
-    // q = s x e1
-    const float qx = tri_det2(sy, e1z, sz, e1y);
-    const float qy = tri_det2(sz, e1x, sx, e1z);
-    const float qz = tri_det2(sx, e1y, sy, e1x);
-    const float v = __fdiv_rn(tri_dot(qx, qy, qz, dx, dy, dz), dsafe);
-    const float t = __fdiv_rn(tri_dot(qx, qy, qz, e2x, e2y, e2z), dsafe);
-    t_out = t;
-    return ok && u >= 0.0f && v >= 0.0f && __fadd_rn(u, v) <= 1.0f &&
-           t > t_near;
+    return tri_test(a.x, a.y, a.z, a.w, b.x, b.y, b.z, b.w, s[2].x, ox, oy,
+                    oz, dx, dy, dz, t_near, t_out);
+  }
+};
+
+// The float64 form's triangle kind (the float64 closest-hit kernel,
+// nearest_hit.cu): a staged triangle is three Double4 of the float64 SoA, in
+// TriKind's places, and its test is tri_test<double>. No reject: TriReject's
+// margins are float32 rounding bounds.
+struct TriKindF64 {
+  using Scalar = double;
+  using Staged = Double4;
+  static constexpr int kVec = 3;
+  using Reject = KeepAll<double>;
+
+  static __device__ __forceinline__ void stage(Double4* s,
+                                               const double* __restrict__ prims,
+                                               int npad, int g) {
+    s[0] = Double4{prims[g], prims[npad + g], prims[2 * npad + g],
+                   prims[3 * npad + g]};
+    s[1] = Double4{prims[4 * npad + g], prims[5 * npad + g],
+                   prims[6 * npad + g], prims[7 * npad + g]};
+    s[2] = Double4{prims[8 * npad + g], prims[9 * npad + g],
+                   prims[10 * npad + g], prims[11 * npad + g]};
+  }
+
+  static __device__ __forceinline__ bool hit(const Double4* s, double ox,
+                                             double oy, double oz, double dx,
+                                             double dy, double dz,
+                                             double t_near, double& t_out) {
+    const Double4 a = s[0];
+    const Double4 b = s[1];
+    return tri_test(a.x, a.y, a.z, a.w, b.x, b.y, b.z, b.w, s[2].x, ox, oy,
+                    oz, dx, dy, dz, t_near, t_out);
   }
 };

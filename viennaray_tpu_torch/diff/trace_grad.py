@@ -22,6 +22,12 @@ while discrete events (the hit's selection, walls, backfaces) are
 piecewise constant and treated straight-through. Finite differences agree
 only for smooth parameters away from visibility changes.
 
+Float64: on a geometry widened by ``to(torch.float64)``, with a source and
+an ``rng`` of that type, every function runs in float64 end to end (the
+JAX package's float64 mode, in which its normals gradient is checked
+against finite differences, tests/test_diff.py:215-287): the leaves take
+the geometry's type.
+
 Differences from the JAX package's functions: an ``rng`` (a
 ``rng.RayRNG``) takes the place of the key, batch b drawing
 ``rng.begin_batch(b)``'s numbers as the tracer's batch b does; and every
@@ -49,9 +55,10 @@ def _device(geometry, geo_type, device):
     return dev
 
 
-def _leaf(value, dev):
-    """A float32 copy of ``value`` on ``dev`` that requires a gradient."""
-    return (torch.as_tensor(value, dtype=torch.float32).detach().to(dev)
+def _leaf(value, dev, dtype):
+    """A copy of ``value`` of ``dtype`` on ``dev`` that requires a
+    gradient."""
+    return (torch.as_tensor(value, dtype=dtype).detach().to(dev)
             .clone().requires_grad_(True))
 
 
@@ -86,9 +93,9 @@ def flux_and_grad_sticking(geometry, source, particle, bbox, rng, ray_indices,
                            valid, config, geo_type=None, num_bounces=16,
                            batch_index=0, device=None):
     """(flux (N,), d sum(flux) / d sticking) of one mega-batch, both
-    float32 tensors on the device (the gradient 0-d)."""
+    tensors of the geometry's type on the device (the gradient 0-d)."""
     dev = _device(geometry, geo_type, device)
-    sticking = _leaf(particle.sticking, dev)
+    sticking = _leaf(particle.sticking, dev, geometry.dtype)
     flux = trace_flux(
         geometry, source, particle.replace(sticking=sticking), bbox, rng,
         ray_indices, valid, config, geo_type, num_bounces, batch_index, dev,
@@ -138,10 +145,10 @@ def _flux_and_grad_geom_batched(geometry, source, particle, bbox, rng,
     dot(loss_weights, flux). Returns (flux (N,) float64, grad float64 numpy
     of the field's shape), both summed over batches on the host."""
     dev = _device(geometry, geo_type, device)
-    leaf = _leaf(getattr(geometry, field), dev)
+    leaf = _leaf(getattr(geometry, field), dev, geometry.dtype)
     geo = geometry.replace(**{field: leaf})
     weights = (None if loss_weights is None else torch.as_tensor(
-        loss_weights, dtype=torch.float32, device=dev))
+        loss_weights, dtype=geometry.dtype, device=dev))
     flux_acc = np.zeros((geometry.num_primitives,), np.float64)
     grad_acc = np.zeros(tuple(leaf.shape), np.float64)
     for b, ray_indices, valid in _batches(total_rays, config, dev):

@@ -19,9 +19,10 @@ import torch
 
 from ..config import disk_factor
 from ..device import resolve_device
+from ..ops import vec
 from ..ops.nearest_hit import pack_disk_prims
 from . import disk_area, neighborhood
-from .mesh import DiskMesh, compute_bounding_box
+from .mesh import DiskMesh, compute_bounding_box, with_dtype
 
 # field -> dtype of the tables handed across by ``from_reference_arrays``
 _FIELD_DTYPES = {
@@ -83,6 +84,38 @@ class DiskGeometry:
 
     def replace(self, **changes) -> "DiskGeometry":
         return dataclasses.replace(self, **changes)
+
+    @property
+    def dtype(self) -> torch.dtype:
+        """The float type of the tables: float32 as built, float64 after
+        ``to(torch.float64)``."""
+        return self.prims_soa.dtype
+
+    def to(self, dtype) -> "DiskGeometry":
+        """The geometry in ``dtype`` (``mesh.with_dtype``): the float64
+        tracing of ``trace.kernel.trace_batch`` and ``diff`` takes a
+        geometry widened so. The SoA's derived rows, r^2 and n . c ((x + y)
+        + z), are recomputed in ``dtype`` from the widened radii, normals and
+        centres, as the JAX package's float64 search computes them
+        (viennaray_tpu/ops/intersect.py:54-55), and so is the window list's
+        copy of them."""
+        if dtype == self.dtype:
+            return self
+        geo = with_dtype(self, dtype)
+        soa = geo.prims_soa.detach().clone()
+        lanes = geo.soa_inv_perm.long()
+        r = geo.radii.detach()
+        soa[6, lanes] = r * r
+        soa[7, lanes] = vec.dot(geo.normals.detach(), geo.points.detach())
+        geo = geo.replace(prims_soa=soa)
+        if geo.window_ids is not None:
+            columns = soa.T[lanes]
+            ids = geo.window_ids.long()
+            pack = torch.where((ids >= 0)[:, :, None],
+                               columns[torch.clamp(ids, min=0)],
+                               torch.zeros((), dtype=dtype, device=geo.device))
+            geo = geo.replace(window_pack=pack.reshape(len(ids), -1))
+        return geo
 
     @classmethod
     def from_reference_arrays(
@@ -223,7 +256,7 @@ class DiskGeometry:
         )
         return self.replace(
             window_ids=torch.from_numpy(ids).to(self.device),
-            window_pack=torch.from_numpy(pack).to(self.device),
+            window_pack=torch.from_numpy(pack).to(self.device, self.dtype),
         )
 
     def window_radius(self) -> float:
@@ -250,17 +283,19 @@ class DiskGeometry:
                 pts, nrm, rad, bbox, boundary_dirs, boundary_conds
             )
         return self.replace(
-            areas=torch.from_numpy(np.asarray(areas, np.float32)).to(self.device)
+            areas=torch.from_numpy(np.asarray(areas, np.float32)).to(
+                self.device, self.dtype)
         )
 
 
 def window_tables(points, prims_soa, inv_perm, radius, dim):
     """The window list of every disk: (ids (N, W) int32, padded -1, the disk
-    itself in slot 0; records (N, W*8) float32, each the disk's SoA column
+    itself in slot 0; records (N, W*8) of the SoA's type, each the disk's
+    SoA column
     [cx cy cz nx ny nz r2 n.c], zeros for padding). W is the longest list."""
     n = len(points)
     nbrs, _ = neighborhood.build_neighborhood(points, radius, dim=dim)
     ids = np.concatenate([np.arange(n, dtype=np.int32)[:, None], nbrs], axis=1)
-    columns = np.asarray(prims_soa, np.float32).T[np.asarray(inv_perm)]
+    columns = np.asarray(prims_soa).T[np.asarray(inv_perm)]
     pack = np.where((ids >= 0)[:, :, None], columns[np.clip(ids, 0, None)], 0.0)
-    return ids, pack.astype(np.float32).reshape(n, -1)
+    return ids, pack.astype(columns.dtype).reshape(n, -1)

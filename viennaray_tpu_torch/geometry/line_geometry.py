@@ -19,7 +19,7 @@ import torch
 
 from ..device import resolve_device
 from ..ops.nearest_hit import pack_line_prims
-from .mesh import LineMesh, compute_bounding_box
+from .mesh import LineMesh, compute_bounding_box, with_dtype
 
 # field -> dtype of the tables handed across by ``from_reference_arrays``
 _FIELD_DTYPES = {
@@ -70,6 +70,28 @@ class LineGeometry:
 
     def replace(self, **changes) -> "LineGeometry":
         return dataclasses.replace(self, **changes)
+
+    @property
+    def dtype(self) -> torch.dtype:
+        """The float type of the tables: float32 as built, float64 after
+        ``to(torch.float64)``."""
+        return self.prims_soa.dtype
+
+    def to(self, dtype) -> "LineGeometry":
+        """The geometry in ``dtype`` (``mesh.with_dtype``): the float64
+        tracing of ``trace.kernel.trace_batch`` and ``diff`` takes a
+        geometry widened so. The SoA's segment directions p1 - p0 are
+        recomputed in ``dtype`` from the widened end points, as the JAX
+        package's float64 search computes them
+        (viennaray_tpu/ops/intersect.py:186)."""
+        if dtype == self.dtype:
+            return self
+        geo = with_dtype(self, dtype)
+        n = geo.num_primitives
+        soa = geo.prims_soa.detach().clone()
+        order = geo.soa_perm[:n].long()
+        soa[2:4, :n] = (geo.p1.detach() - geo.p0.detach())[order, :2].T
+        return geo.replace(prims_soa=soa)
 
     @classmethod
     def from_reference_arrays(

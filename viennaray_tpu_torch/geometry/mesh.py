@@ -13,6 +13,7 @@ import dataclasses
 from typing import Optional
 
 import numpy as np
+import torch
 
 
 def compute_bounding_box(nodes: np.ndarray):
@@ -123,3 +124,22 @@ def lines_to_triangles(line_mesh: LineMesh) -> TriangleMesh:
     return TriangleMesh(
         nodes=nodes, triangles=triangles, grid_delta=line_mesh.grid_delta
     )
+
+
+def with_dtype(geometry, dtype):
+    """``geometry`` with every floating table in ``dtype`` (float32 or
+    float64), the integer tables as they are; a tensor that requires a
+    gradient is cast in the graph. The packing was computed in float32 when
+    the geometry was built, so the chunk order, the permutation, the chunk
+    boxes and the ties stay those of the float32 geometry: the values are
+    widened, as the JAX package's float64 test widens its pytree
+    (tests/test_diff.py:231-239). The geometries' ``to`` then recompute the
+    SoA's derived rows in ``dtype``."""
+    if dtype not in (torch.float32, torch.float64):
+        raise ValueError(f"a geometry is float32 or float64, not {dtype}")
+    changes = {}
+    for field in dataclasses.fields(geometry):
+        value = getattr(geometry, field.name)
+        if torch.is_tensor(value) and value.is_floating_point():
+            changes[field.name] = value.to(dtype)
+    return geometry.replace(**changes)

@@ -1,7 +1,12 @@
 """Point neighborhood: all pairs within a distance, as a padded index matrix.
 
-Counterpart of ``viennaray_tpu/geometry/neighborhood.py`` (the numpy path,
-kept as a copy; the compiled host helper is not ported yet).
+Counterpart of ``viennaray_tpu/geometry/neighborhood.py``. ``build_neighborhood``
+runs the port's compiled host helper (``native/host_accel.cpp`` through
+``utils/native.py``), as the JAX package runs its own; ``build_neighborhood_numpy``
+is the numpy path, a copy, which it falls back to where the helper cannot be
+built. Both give the same table, counts and row order: row i lists its
+neighbours by (grid cell, index), the order the flux smoothing and the window
+list read.
 
 The reference builds ragged per-point neighbor lists with a median-split
 divide & conquer in 3D and a hash grid in 2D (rayPointNeighborhood.hpp). The
@@ -15,6 +20,8 @@ from __future__ import annotations
 
 import numpy as np
 
+from ..utils import native
+
 
 def build_neighborhood(points: np.ndarray, distance: float, dim: int = 3):
     """All-pairs-within-``distance`` (strictly: ||p_i - p_j|| <= distance).
@@ -27,6 +34,19 @@ def build_neighborhood(points: np.ndarray, distance: float, dim: int = 3):
       neighbors: (N, K) int32 padded with -1.
       counts: (N,) int32 neighbor counts.
     """
+    points = np.asarray(points, np.float64)[:, :dim]
+    n = len(points)
+    if n == 0 or distance <= 0:
+        return np.full((n, 1), -1, np.int32), np.zeros((n,), np.int32)
+    got = native.build_neighborhood_native(points, distance, dim)
+    if got is not None:
+        return got
+    return build_neighborhood_numpy(points, distance, dim)
+
+
+def build_neighborhood_numpy(points: np.ndarray, distance: float, dim: int = 3):
+    """``build_neighborhood`` in numpy: the uniform-grid pass of the JAX
+    package's fallback, the same tables as the compiled helper."""
     points = np.asarray(points, np.float64)[:, :dim]
     n = len(points)
     if n == 0 or distance <= 0:

@@ -19,7 +19,10 @@ import torch
 
 from ..device import resolve_device
 from ..ops.nearest_hit import pack_triangle_prims
-from .mesh import LineMesh, TriangleMesh, compute_bounding_box, lines_to_triangles
+from .mesh import (
+    LineMesh, TriangleMesh, compute_bounding_box, lines_to_triangles,
+    with_dtype,
+)
 
 # field -> dtype of the tables handed across by ``from_reference_arrays``
 _FIELD_DTYPES = {
@@ -67,6 +70,31 @@ class TriangleGeometry:
 
     def replace(self, **changes) -> "TriangleGeometry":
         return dataclasses.replace(self, **changes)
+
+    @property
+    def dtype(self) -> torch.dtype:
+        """The float type of the tables: float32 as built, float64 after
+        ``to(torch.float64)``."""
+        return self.prims_soa.dtype
+
+    def to(self, dtype) -> "TriangleGeometry":
+        """The geometry in ``dtype`` (``mesh.with_dtype``): the float64
+        tracing of ``trace.kernel.trace_batch`` and ``diff`` takes a
+        geometry widened so. The SoA's edges e1 = v1 - v0 and e2 = v2 - v0
+        are recomputed in ``dtype`` from the widened vertices, as the JAX
+        package's float64 search computes them
+        (viennaray_tpu/ops/intersect.py:114-116)."""
+        if dtype == self.dtype:
+            return self
+        geo = with_dtype(self, dtype)
+        n = geo.num_primitives
+        soa = geo.prims_soa.detach().clone()
+        tri = geo.triangles.long()[geo.soa_perm[:n].long()]
+        v = geo.vertices.detach()
+        v0 = v[tri[:, 0]]
+        soa[3:6, :n] = (v[tri[:, 1]] - v0).T
+        soa[6:9, :n] = (v[tri[:, 2]] - v0).T
+        return geo.replace(prims_soa=soa)
 
     @classmethod
     def from_reference_arrays(

@@ -47,6 +47,15 @@ operations with round-to-nearest intrinsics, IEEE division and square root.
 Only ``sinf`` / ``cosf`` of the diffuse and coned-cosine reflections and of
 the scattering direction, and ``expf`` of the scattering probability, come
 from two libraries.
+
+Float64: ``bounce_step`` and ``hit_time`` run in the state's type, which
+follows the geometry's (the float64 trace: a geometry widened by
+``to(torch.float64)``, its walls, uniforms and sticking in float64; the
+constants ``t_near``, the mean free path and the guards are float64 values,
+the float32 values of the JAX package's float64 path, ``BIG`` and the
+re-test's ``float32(1e-6)``, are widened as there). ``fused_bounce`` is
+float32 only, as the JAX package's megakernel is: the float64 trace takes
+the unfused body.
 """
 
 from __future__ import annotations
@@ -120,10 +129,10 @@ def group_for(n_rays: int, n_chunks: int) -> int:
 class RayState(NamedTuple):
     """Per-ray state, one row per lane."""
 
-    org: torch.Tensor  # (R, 3) float32
-    dirn: torch.Tensor  # (R, 3) float32
-    weight: torch.Tensor  # (R,) float32
-    w0: torch.Tensor  # (R,) float32, the weight the ray started with
+    org: torch.Tensor  # (R, 3) float32 (float64 in the float64 trace)
+    dirn: torch.Tensor  # (R, 3), the same type
+    weight: torch.Tensor  # (R,), the same type
+    w0: torch.Tensor  # (R,), the weight the ray started with
     alive: torch.Tensor  # (R,) bool
     hfb: torch.Tensor  # (R,) bool, the ray has passed a disk from behind
     #                    (never set on triangles and lines)
@@ -191,8 +200,11 @@ class BounceSettings(NamedTuple):
             bc1=int(BoundaryCondition(config.boundary_conditions[first_dir])),
             bc2=int(BoundaryCondition(bc2)),
             refl_kind=int(refl_kind),
-            # a tensor's value (the differentiable trace puts the tensor in)
-            sticking=float(torch.as_tensor(particle.sticking).detach()),
+            # a tensor's value (the differentiable trace puts the tensor in);
+            # a float keeps its float64 value: the float64 trace reads it
+            # whole, a float32 trace rounds it to float32
+            sticking=float(torch.as_tensor(particle.sticking,
+                                           dtype=torch.float64).detach()),
             t_near=float(config.t_near),
             # the counters are int32
             max_reflections=min(int(config.max_reflections), 2**31 - 1),
@@ -226,29 +238,30 @@ class BounceResult(NamedTuple):
 
 
 def make_walls(bbox, geometry, settings: BounceSettings):
-    """The nine wall values of a launch, (9,) float32 on the geometry's
-    device: [lo1 hi1 lo2 hi2 lo_r hi_r tau nbr2 r_over] of the source-adjusted
+    """The nine wall values of a launch, (9,) in the geometry's float type
+    (``geometry.dtype``) on its device: [lo1 hi1 lo2 hi2 lo_r hi_r tau nbr2 r_over] of the source-adjusted
     bounding box ``bbox`` (2, 3). tau (1.1 grid_delta, the window model's
     width) and nbr2 ((2 disk_radius)^2) keep the reference's layout; r_over is
     how far a disk can reach beyond the box of the centres. All three are 0
     for triangles and lines, which lie inside the box of their vertices
     (ref: kernel.py:991-994)."""
     s = settings
-    f32 = dict(dtype=torch.float32, device=geometry.device)
+    like = dict(dtype=geometry.dtype, device=geometry.device)
     if geometry.kind == "disk":
-        tau = torch.tensor(1.1 * geometry.grid_delta, **f32)
-        nbr2 = torch.tensor((2.0 * geometry.disk_radius) ** 2, **f32)
+        tau = torch.tensor(1.1 * geometry.grid_delta, **like)
+        nbr2 = torch.tensor((2.0 * geometry.disk_radius) ** 2, **like)
         r_over = torch.maximum(
-            torch.tensor(geometry.disk_radius, **f32), geometry.radii.max()
+            torch.tensor(geometry.disk_radius, **like), geometry.radii.max()
         )
     else:
-        tau = nbr2 = r_over = torch.zeros((), **f32)
+        tau = nbr2 = r_over = torch.zeros((), **like)
+    box = bbox.to(**like)
     return torch.stack([
-        bbox[0, s.first_dir], bbox[1, s.first_dir],
-        bbox[0, s.second_dir], bbox[1, s.second_dir],
-        bbox[0, s.ray_axis], bbox[1, s.ray_axis],
+        box[0, s.first_dir], box[1, s.first_dir],
+        box[0, s.second_dir], box[1, s.second_dir],
+        box[0, s.ray_axis], box[1, s.ray_axis],
         tau, nbr2, r_over,
-    ]).to(torch.float32)
+    ])
 
 
 def _wall_crossing(org, dirn, axis, lo, hi, t_near, big):
@@ -279,7 +292,7 @@ def entry_bound(org, dirn, walls, *, dim, first_dir, second_dir, ray_axis,
     time: (1 + 1e-4) t + t_near.
     """
     big = torch.tensor(BIG, device=org.device)
-    tn = torch.tensor(t_near, dtype=torch.float32, device=org.device)
+    tn = torch.tensor(t_near, dtype=org.dtype, device=org.device)
     lo1, hi1, lo2, hi2, lo_r, hi_r = (walls[i] for i in range(6))
 
     def wall_t(axis, lo, hi, other_axis, other_lo, other_hi):
@@ -319,12 +332,13 @@ def entry_bound(org, dirn, walls, *, dim, first_dir, second_dir, ray_axis,
 
 def sticking_lanes(particle, geometry):
     """The per-lane sticking table of a launch: ``None`` for a particle with
-    one sticking value, else (Npad,) float32 in SORTED lane order, each
-    primitive's material looked up in the particle's table (padding lanes
-    read primitive 0; they are never hit) (ref: kernel.py:1005-1014)."""
+    one sticking value, else (Npad,) in the geometry's float type in SORTED
+    lane order, each primitive's material looked up in the particle's table
+    (padding lanes read primitive 0; they are never hit)
+    (ref: kernel.py:1005-1014)."""
     if particle.material_sticking is None:
         return None
-    per_prim = particle.sticking_for(geometry.material_ids)
+    per_prim = particle.sticking_for(geometry.material_ids, geometry.dtype)
     return per_prim[geometry.soa_perm.long()].contiguous()
 
 
@@ -341,7 +355,7 @@ def hit_time(org, dirn, prim, geometry):
     own t from p0 and p1 (ref: viennaray_tpu/ops/intersect.py:172-229), its
     denominator guarded alike."""
     pc = torch.clamp(prim, min=0).long()
-    tiny = torch.tensor(1e-30, dtype=torch.float32, device=org.device)
+    tiny = torch.tensor(1e-30, dtype=org.dtype, device=org.device)
     if geometry.kind == "line":
         p0 = geometry.p0[pc]
         ld = geometry.p1[pc] - p0
@@ -424,7 +438,7 @@ def bounce_step(state: RayState, u, geometry, walls, settings, search,
     # scatters on its way takes neither the wall nor the geometry event
     if s.mean_free_path > 0.0:
         u_scat = u[:, 3]
-        mfp = torch.tensor(s.mean_free_path, dtype=torch.float32, device=dev)
+        mfp = torch.tensor(s.mean_free_path, dtype=org.dtype, device=dev)
         p_scat = 1.0 - torch.exp(-t_ev / mfp)
         scattering = alive & ~escaped & (u_scat < p_scat)
         scatter_org = org + dirn * u_scat[:, None]
@@ -616,7 +630,7 @@ def deposit_entries(org, dirn, hit_prim, wdep, geometry, t_hit=None,
         else:
             rec = geometry.window_pack[prim_c].reshape(R, W, 8)
         ok, t = intersect.disk_hit_packed(org, dirn, rec, settings.t_near)
-        tau = torch.tensor(geometry.window_tau, dtype=torch.float32,
+        tau = torch.tensor(geometry.window_tau, dtype=org.dtype,
                            device=org.device)
         ok = (ok & (t <= (t_hit + tau)[:, None]) & collide[:, None]
               & (listed >= 0))

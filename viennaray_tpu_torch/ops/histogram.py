@@ -17,12 +17,26 @@ Gradients: where ``w`` requires one, ``flux_histogram`` runs through
 ``flux_histogram_grad_ref``). The kernel is called through raw pointers, so
 without the Function its output would carry no graph and a gradient through
 it would be silently zero.
+
+Float64 weights (the float64 trace) take the kernels' float64 forms
+(``vr_flux_histogram_f64``, ``vr_flux_histogram_small_f64``,
+``vr_flux_histogram_grad_f64``; counted in ``launches_f64``). One 64-bit
+fixed-point word per weight would resolve 2^-37 of the weights' range, short
+of float64's 2^-53, so each weight becomes two words, each summed in a
+64-bit integer bin of its own (``fixed_point_f64``): the high word the
+weight scaled by 2^k and rounded, the low word the remainder scaled by a
+further 2^L and rounded. A bin then resolves 2^-(k + L), about 2^-77 of the
+largest weight at 2^24 entries. The plain version does the same integer sums
+with ``index_add_`` on int64 tensors and the same conversion back, so kernel
+and plain version give the same bits on the card and on the CPU, and so do
+both paths.
 """
 
 from __future__ import annotations
 
 import contextlib
 import functools
+import math
 
 import torch
 
@@ -36,14 +50,38 @@ from .. import _build
 SMALL_ENTRIES = 24576
 # the bins of one block's shared memory: 200 KB of 64-bit integers
 SMALL_MAX_BINS = 200 * 1024 // 8
+# float64 weights take two 64-bit words a bin (the same threshold of
+# entries: not measured apart)
+SMALL_MAX_BINS_F64 = SMALL_MAX_BINS // 2
+# the float64 form's largest scale exponent, so that 2^-(k + L) stays a
+# normal float64 (``fixed_point_f64``); it binds only where the largest
+# weight is below 2^-(898 + log2 E)
+F64_MAX_SCALE_EXP = 960
 
 
-def path_for(n_entries: int, n_prims: int) -> str:
+def small_max_bins(dtype) -> int:
+    """The most bins the one-block path takes for weights of ``dtype``."""
+    return SMALL_MAX_BINS if dtype == torch.float32 else SMALL_MAX_BINS_F64
+
+
+def path_for(n_entries: int, n_prims: int, dtype=torch.float32) -> str:
     """The kernel's path for a call: "small" (one launch of one block) or
     "large"."""
-    if n_entries < SMALL_ENTRIES and n_prims <= SMALL_MAX_BINS:
+    if n_entries < SMALL_ENTRIES and n_prims <= small_max_bins(dtype):
         return "small"
     return "large"
+
+
+def fixed_point_f64(wmax: float, n_entries: int):
+    """The float64 form's two scale exponents (k, L) for weights of largest
+    magnitude ``wmax`` (> 0) and ``n_entries`` entries: wmax < 2^e, E <
+    2^b, k = min(62 - e - b, ``F64_MAX_SCALE_EXP``), L = 63 - b. A weight w
+    becomes hi = rint(w 2^k) and lo = rint((w 2^k - hi) 2^L); |hi| E and
+    |lo| E stay below 2^62, so no bin overflows even if every entry lands
+    in it (``csrc/fixed_point.cuh:fixed_scale_f64``)."""
+    e = math.frexp(wmax)[1]
+    b = int(n_entries).bit_length()
+    return min(62 - e - b, F64_MAX_SCALE_EXP), 63 - b
 
 
 @functools.lru_cache(maxsize=None)
@@ -52,16 +90,46 @@ def _sm_count(index: int) -> int:
 
 
 def flux_histogram_ref(ids, w, n_prims: int):
-    """sum_e w[e] into bin ids[e], summed in float64; returns (n_prims,) f32."""
+    """sum_e w[e] into bin ids[e]; returns (n_prims,) of w's type. Float32
+    weights: summed in float64, rounded once to float32. Float64 weights:
+    the kernel's fixed-point sums (``fixed_point_f64``) on int64 tensors,
+    its bits exactly."""
+    if w.dtype == torch.float64:
+        return _histogram_f64_ref(ids, w, n_prims)
     acc = torch.zeros(n_prims, dtype=torch.float64, device=w.device)
     acc.index_add_(0, ids.long(), w.double())
     return acc.float()
 
 
-def flux_histogram(ids, w, n_prims: int, path=None):
-    """sum_e w[e] into bin ids[e]; returns (n_prims,) f32.
+def _histogram_f64_ref(ids, w, n_prims):
+    """The float64 form's arithmetic, one tensor op per operation of
+    ``csrc/flux_histogram.cu``: hi = rint(w 2^k), lo = rint((w 2^k - hi)
+    2^L) (round half to even, exact products by powers of two), integer
+    sums per bin, out = double(hi_sum) 2^-k + double(lo_sum) 2^-(k + L)."""
+    out = torch.zeros(n_prims, dtype=torch.float64, device=w.device)
+    n_entries = ids.size(0)
+    wmax = float(w.abs().max()) if n_entries else 0.0
+    if wmax == 0.0:
+        return out
+    k, low = fixed_point_f64(wmax, n_entries)
+    x = w * math.ldexp(1.0, k)
+    hi = torch.round(x)
+    lo = torch.round((x - hi) * math.ldexp(1.0, low))
+    index = ids.long()
+    hi_sum = torch.zeros(n_prims, dtype=torch.int64, device=w.device)
+    lo_sum = torch.zeros(n_prims, dtype=torch.int64, device=w.device)
+    hi_sum.index_add_(0, index, hi.long())
+    lo_sum.index_add_(0, index, lo.long())
+    return (hi_sum.double() * math.ldexp(1.0, -k)
+            + lo_sum.double() * math.ldexp(1.0, -(k + low)))
 
-    ids (E,) int32 in [0, n_prims); w (E,) f32, finite. Two calls on the same
+
+def flux_histogram(ids, w, n_prims: int, path=None):
+    """sum_e w[e] into bin ids[e]; returns (n_prims,) of w's type.
+
+    ids (E,) int32 in [0, n_prims); w (E,) f32, finite; or w f64, finite and
+    of largest magnitude below 2^900, which takes the float64 form (counted
+    in ``launches_f64`` and ``launches_by_path_f64``). Two calls on the same
     inputs give bitwise the same output on either device, and so do the
     kernel's two paths. ``path`` ("small" or "large", default ``path_for``)
     forces one of them, to compare the two; the trace never sets it. Where
@@ -72,8 +140,9 @@ def flux_histogram(ids, w, n_prims: int, path=None):
     # checks below stay on cheap tensor attributes
     if ids.dim() != 1 or w.dim() != 1 or ids.size(0) != w.size(0):
         raise ValueError("ids and w must both be (E,)")
-    if ids.dtype is not torch.int32 or w.dtype is not torch.float32:
-        raise TypeError("ids must be int32 and w float32")
+    if ids.dtype is not torch.int32 or w.dtype not in (torch.float32,
+                                                        torch.float64):
+        raise TypeError("ids must be int32 and w float32 or float64")
     if ids.get_device() != w.get_device():
         raise ValueError(f"ids is on {ids.device}, w on {w.device}")
     if not (ids.is_contiguous() and w.is_contiguous()):
@@ -81,12 +150,14 @@ def flux_histogram(ids, w, n_prims: int, path=None):
     n_prims = int(n_prims)
     n_entries = ids.size(0)
     if path is None:
-        path = path_for(n_entries, n_prims)
+        path = path_for(n_entries, n_prims, w.dtype)
     elif path not in ("small", "large"):
         raise ValueError(f"no such path {path!r}")
-    elif path == "small" and (n_prims > SMALL_MAX_BINS or n_entries >= 2**31):
+    elif path == "small" and (n_prims > small_max_bins(w.dtype)
+                              or n_entries >= 2**31):
         raise ValueError("the one-block path takes up to SMALL_MAX_BINS bins "
-                         "and fewer than 2^31 entries")
+                         "(SMALL_MAX_BINS_F64 for float64 weights) and fewer "
+                         "than 2^31 entries")
     if w.requires_grad and torch.is_grad_enabled():
         return FluxHistogramFn.apply(ids, w, n_prims, path)
     return _histogram(ids, w, n_prims, path)
@@ -105,33 +176,43 @@ def _histogram(ids, w, n_prims, path):
     lib = _build.library()
     index = w.get_device()
     n_entries = ids.size(0)
+    f64 = w.dtype is torch.float64
+    suffix = "_f64" if f64 else ""
     # switch devices only when the tensors are not on the current one
     switch = index != torch._C._cuda_getDevice()
     with torch.cuda.device(index) if switch else contextlib.nullcontext():
         stream = torch._C._cuda_getCurrentRawStream(index)
         if path == "small":
-            err = lib.vr_flux_histogram_small(
+            err = getattr(lib, "vr_flux_histogram_small" + suffix)(
                 ids.data_ptr(), w.data_ptr(), n_entries, n_prims,
                 out.data_ptr(), stream,
             )
         else:
-            # n_prims accumulators and the largest |w|, cleared by the
-            # kernel's entry
-            scratch = torch.empty(n_prims + 1, dtype=torch.int64,
+            # the accumulators (one word a bin, two for float64 weights)
+            # and the largest |w|, cleared by the kernel's entry
+            words = 2 * n_prims if f64 else n_prims
+            scratch = torch.empty(words + 1, dtype=torch.int64,
                                   device=w.device)
-            err = lib.vr_flux_histogram(
+            err = getattr(lib, "vr_flux_histogram" + suffix)(
                 ids.data_ptr(), w.data_ptr(), n_entries, n_prims,
                 out.data_ptr(), scratch.data_ptr(), _sm_count(index), stream,
             )
     if err != 0:
-        raise RuntimeError(f"vr_flux_histogram ({path}): CUDA error {err}")
-    flux_histogram.launches += 1
-    flux_histogram.launches_by_path[path] += 1
+        raise RuntimeError(
+            f"vr_flux_histogram{suffix} ({path}): CUDA error {err}")
+    if f64:
+        flux_histogram.launches_f64 += 1
+        flux_histogram.launches_by_path_f64[path] += 1
+    else:
+        flux_histogram.launches += 1
+        flux_histogram.launches_by_path[path] += 1
     return out
 
 
 flux_histogram.launches = 0
 flux_histogram.launches_by_path = {"small": 0, "large": 0}
+flux_histogram.launches_f64 = 0
+flux_histogram.launches_by_path_f64 = {"small": 0, "large": 0}
 
 
 class FluxHistogramFn(torch.autograd.Function):
@@ -158,16 +239,19 @@ def flux_histogram_grad_ref(grad_out, ids):
 
 
 def flux_histogram_grad(grad_out, ids):
-    """The histogram's backward: (E,) float32 grad_w[e] = grad_out[ids[e]].
+    """The histogram's backward: (E,) grad_w[e] = grad_out[ids[e]], of
+    grad_out's type.
 
-    grad_out (n,) f32; ids (E,) int32 in [0, n). A gather: the kernel and
-    the plain version give the same bits. On a CUDA tensor this launches
-    ``vr_flux_histogram_grad`` or raises; on a CPU tensor it runs the plain
-    version."""
+    grad_out (n,) f32 or f64; ids (E,) int32 in [0, n). A gather: the kernel
+    and the plain version give the same bits. On a CUDA tensor this launches
+    ``vr_flux_histogram_grad`` (its float64 form ``vr_flux_histogram_grad_f64``
+    for float64, counted in ``launches_f64``) or raises; on a CPU tensor it
+    runs the plain version."""
     if grad_out.dim() != 1 or ids.dim() != 1:
         raise ValueError("grad_out must be (n,) and ids (E,)")
-    if ids.dtype is not torch.int32 or grad_out.dtype is not torch.float32:
-        raise TypeError("ids must be int32 and grad_out float32")
+    if ids.dtype is not torch.int32 or grad_out.dtype not in (torch.float32,
+                                                              torch.float64):
+        raise TypeError("ids must be int32 and grad_out float32 or float64")
     index = grad_out.get_device()
     if ids.get_device() != index:
         raise ValueError(f"ids is on {ids.device}, grad_out on "
@@ -184,17 +268,23 @@ def flux_histogram_grad(grad_out, ids):
     if n_entries == 0:
         return out
     lib = _build.library()
+    f64 = grad_out.dtype is torch.float64
+    entry = "vr_flux_histogram_grad" + ("_f64" if f64 else "")
     switch = index != torch._C._cuda_getDevice()
     with torch.cuda.device(index) if switch else contextlib.nullcontext():
-        err = lib.vr_flux_histogram_grad(
+        err = getattr(lib, entry)(
             grad_out.data_ptr(), ids.data_ptr(), n_entries, grad_out.size(0),
             out.data_ptr(), _sm_count(index),
             torch._C._cuda_getCurrentRawStream(index),
         )
     if err != 0:
-        raise RuntimeError(f"vr_flux_histogram_grad: CUDA error {err}")
-    flux_histogram_grad.launches += 1
+        raise RuntimeError(f"{entry}: CUDA error {err}")
+    if f64:
+        flux_histogram_grad.launches_f64 += 1
+    else:
+        flux_histogram_grad.launches += 1
     return out
 
 
 flux_histogram_grad.launches = 0
+flux_histogram_grad.launches_f64 = 0

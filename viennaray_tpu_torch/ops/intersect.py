@@ -9,9 +9,14 @@ hit disk's window list.
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from . import vec
+
+# the re-test's least |n . d|: the JAX package's float32(1e-6), widened in
+# its float64 path (ops/intersect.py:263); in float32 the same value
+NEIGHBOR_EPS = float(np.float32(1e-6))
 
 
 def check_neighbors_packed(org, direction, rec):
@@ -38,7 +43,7 @@ def check_local_intersection(org, direction, centers, normals, radii):
     (NOT t_near — the reference uses a strict 0 here); in-plane distance
     strictly < radius. Returns (valid (R, K) bool, distance (R, K)).
     """
-    eps = 1e-6
+    eps = NEIGHBOR_EPS
     d = direction[:, None, :]
     o = org[:, None, :]
     prod = vec.dot(normals, d)  # (R, K)
@@ -75,5 +80,5 @@ def disk_hit_packed(org, direction, rec, t_near):
     )
     h = (o + t[..., None] * d) - centers
     dist2 = vec.dot(h, h)
-    tn = torch.tensor(t_near, dtype=torch.float32, device=org.device)
+    tn = torch.tensor(t_near, dtype=org.dtype, device=org.device)
     return nonzero & (t > tn) & (dist2 < rec[:, :, 6]), t

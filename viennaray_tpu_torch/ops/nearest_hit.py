@@ -31,6 +31,18 @@ around a shared node misses both neighbours). The two versions do the same
 float32 operations in the same order without fused multiply-adds (see
 ``csrc/disk_hit.cuh``, ``csrc/tri_hit.cuh``, ``csrc/line_hit.cuh``), so they
 agree exactly.
+
+Float64 (the float64 trace: rays, SoA and chunk boxes all float64, the
+tables of a geometry widened by ``to(torch.float64)``): the plain versions
+run the same operations in float64, and the wrappers launch the kernels'
+float64 forms (``vr_*_nearest_hit_f64``, counted in ``launches_f64``), which
+repeat them with the float64 round-to-nearest intrinsics, bit for bit. The
+constants are the JAX package's float64 search's
+(``viennaray_tpu/ops/intersect.py:29, 122, 188``): float32 values widened,
+``BIG``, the determinant's ``float32(1e-9)`` and the clip's
+``float32(1e-5)`` and ``float32(1) - float32(1e-5)``; ``t_near`` and the
+guard ``1e-30`` are float64 values, as there. The float64 forms run no
+reject: its margins are float32 rounding bounds.
 """
 
 from __future__ import annotations
@@ -41,6 +53,9 @@ import torch
 from .. import _build
 
 BIG = np.float32(3.4e38)
+# the triangle test's least |det|: a float32 value in both types, as the JAX
+# package's float64 search widens its float32 eps (ops/intersect.py:122)
+TRI_EPS = np.float32(1e-9)
 
 # prims row layout (SoA): cx cy cz nx ny nz r2 ndc  -> (8, Npad)
 PRIM_ROWS = 8
@@ -305,9 +320,12 @@ def _check_inputs(org, dirn, prims, perm, chunk_bbs, rows=PRIM_ROWS):
         raise ValueError("chunk_bbs must be (n_chunks, 8)")
     if chunk_bbs.shape[0] == 0 or npad % chunk_bbs.shape[0]:
         raise ValueError("Npad must be a whole number of chunks")
+    if org.dtype not in (torch.float32, torch.float64):
+        raise TypeError(f"org must be float32 or float64, got {org.dtype}")
+    fdt = org.dtype  # every float table in the rays' type
     for name, x, dt in (
-        ("org", org, torch.float32), ("dirn", dirn, torch.float32),
-        ("prims", prims, torch.float32), ("chunk_bbs", chunk_bbs, torch.float32),
+        ("org", org, fdt), ("dirn", dirn, fdt),
+        ("prims", prims, fdt), ("chunk_bbs", chunk_bbs, fdt),
         ("perm", perm, torch.int32),
     ):
         if x.dtype != dt:
@@ -326,21 +344,23 @@ _REF_BLOCK_PAIRS = {"cpu": 1 << 16, "cuda": 1 << 24}
 def disk_nearest_hit_ref(org, dirn, prims, perm, chunk_bbs=None, t_near=1e-4):
     """Plain PyTorch version of the kernel, on any device.
 
-    org/dirn (R, 3) f32; prims (8, Npad); perm (Npad,) sorted->original.
-    ``chunk_bbs`` is accepted for the kernel's signature and never read: the
-    result does not depend on chunk skipping. Rays go through in blocks of
-    a fixed number of (ray, disk) pairs, through four reused buffers.
-    Returns (t (R,) f32, prim (R,) int32 original numbering, hit (R,) bool).
+    org/dirn (R, 3) f32 or f64; prims (8, Npad) of the same type; perm
+    (Npad,) sorted->original. ``chunk_bbs`` is accepted for the kernel's
+    signature and never read: the result does not depend on chunk skipping.
+    Rays go through in blocks of a fixed number of (ray, disk) pairs,
+    through four reused buffers.
+    Returns (t (R,) of org's type, prim (R,) int32 original numbering, hit
+    (R,) bool).
     """
     R = org.shape[0]
     npad = prims.shape[1]
     dev = org.device
     lanes = torch.arange(npad, device=dev, dtype=torch.int32)[None, :]
     big = torch.tensor(BIG, device=dev)
-    t_out = torch.empty(R, dtype=torch.float32, device=dev)
+    t_out = torch.empty(R, dtype=org.dtype, device=dev)
     idx_out = torch.empty(R, dtype=torch.int32, device=dev)
     step = max(1, min(R, _REF_BLOCK_PAIRS[dev.type] // npad))
-    bufs = torch.empty((4, step, npad), dtype=torch.float32, device=dev)
+    bufs = torch.empty((4, step, npad), dtype=org.dtype, device=dev)
     for lo in range(0, R, step):
         tt = disk_pair_times(org[lo:lo + step], dirn[lo:lo + step], prims,
                              t_near, bufs)
@@ -350,15 +370,16 @@ def disk_nearest_hit_ref(org, dirn, prims, perm, chunk_bbs=None, t_near=1e-4):
 
 def disk_pair_times(o, d, prims, t_near, bufs=None):
     """The exact disk test of every (ray, lane) pair of a block of rays: (n,
-    Npad) float32, the hit's t where the pair hits, else ``BIG``. ``bufs``:
-    four (>= n, Npad) float32 buffers it may write (None: fresh ones)."""
+    Npad) of the rays' type, the hit's t where the pair hits, else ``BIG``.
+    ``bufs``: four (>= n, Npad) buffers of that type it may write (None:
+    fresh ones)."""
     dev = o.device
     n, npad = o.shape[0], prims.shape[1]
     if bufs is None:
-        bufs = torch.empty((4, n, npad), dtype=torch.float32, device=dev)
+        bufs = torch.empty((4, n, npad), dtype=o.dtype, device=dev)
     cx, cy, cz, nx, ny, nz, r2, ndc = (prims[i][None, :] for i in range(8))
-    tiny = torch.tensor(1e-30, dtype=torch.float32, device=dev)
-    tn = torch.tensor(t_near, dtype=torch.float32, device=dev)
+    tiny = torch.tensor(1e-30, dtype=o.dtype, device=dev)
+    tn = torch.tensor(t_near, dtype=o.dtype, device=dev)
     den, t, tmp, dist2 = (b[:n] for b in bufs)
     ox, oy, oz = o[:, 0:1], o[:, 1:2], o[:, 2:3]
     dx, dy, dz = d[:, 0:1], d[:, 1:2], d[:, 2:3]
@@ -407,17 +428,19 @@ def triangle_nearest_hit_ref(org, dirn, prims, perm, chunk_bbs=None,
                              t_near=1e-4):
     """Plain PyTorch version of the triangle kernel, on any device.
 
-    org/dirn (R, 3) f32; prims (12, Npad); perm (Npad,) sorted->original.
-    ``chunk_bbs`` is accepted for the kernel's signature and never read. Rays
-    go through in blocks of a fixed number of (ray, triangle) pairs.
-    Returns (t (R,) f32, prim (R,) int32 original numbering, hit (R,) bool).
+    org/dirn (R, 3) f32 or f64; prims (12, Npad) of the same type; perm
+    (Npad,) sorted->original. ``chunk_bbs`` is accepted for the kernel's
+    signature and never read. Rays go through in blocks of a fixed number of
+    (ray, triangle) pairs.
+    Returns (t (R,) of org's type, prim (R,) int32 original numbering, hit
+    (R,) bool).
     """
     R = org.shape[0]
     npad = prims.shape[1]
     dev = org.device
     lanes = torch.arange(npad, device=dev, dtype=torch.int32)[None, :]
     big = torch.tensor(BIG, device=dev)
-    t_out = torch.empty(R, dtype=torch.float32, device=dev)
+    t_out = torch.empty(R, dtype=org.dtype, device=dev)
     idx_out = torch.empty(R, dtype=torch.int32, device=dev)
     step = max(1, min(R, _REF_BLOCK_PAIRS[dev.type] // npad))
     for lo in range(0, R, step):
@@ -429,16 +452,17 @@ def triangle_nearest_hit_ref(org, dirn, prims, perm, chunk_bbs=None,
 
 def triangle_pair_times(o, d, prims, t_near):
     """The exact triangle test of every (ray, lane) pair of a block of rays:
-    (n, Npad) float32, the hit's t where the pair hits, else ``BIG``. One
-    tensor op per float32 operation, in the order of csrc/tri_hit.cuh; three
-    products are summed as (a + b) + c."""
+    (n, Npad) of the rays' type, the hit's t where the pair hits, else
+    ``BIG``. One tensor op per operation, in the order of csrc/tri_hit.cuh;
+    three products are summed as (a + b) + c."""
     dev = o.device
     ax, ay, az, e1x, e1y, e1z, e2x, e2y, e2z = (
         prims[i][None, :] for i in range(9)
     )
-    tiny = torch.tensor(1e-30, dtype=torch.float32, device=dev)
-    eps = torch.tensor(1e-9, dtype=torch.float32, device=dev)
-    tn = torch.tensor(t_near, dtype=torch.float32, device=dev)
+    like = dict(dtype=o.dtype, device=dev)
+    tiny = torch.tensor(1e-30, **like)
+    eps = torch.tensor(float(TRI_EPS), **like)
+    tn = torch.tensor(t_near, **like)
     ox, oy, oz = o[:, 0:1], o[:, 1:2], o[:, 2:3]
     dx, dy, dz = d[:, 0:1], d[:, 1:2], d[:, 2:3]
     # h = d x e2
@@ -467,12 +491,13 @@ def triangle_pair_times(o, d, prims, t_near):
 def line_nearest_hit_ref(org, dirn, prims, perm, chunk_bbs=None, t_near=1e-4):
     """Plain PyTorch version of the line kernel, on any device.
 
-    org/dirn (R, 3) f32, of which only x and y are read; prims (6, Npad);
-    perm (Npad,) sorted->original. ``chunk_bbs`` is accepted for the
-    kernel's signature and never read. One tensor op per float32 operation,
-    in the order of csrc/line_hit.cuh, with two IEEE divisions (the JAX
-    package multiplies by one reciprocal).
-    Returns (t (R,) f32, prim (R,) int32 original numbering, hit (R,) bool).
+    org/dirn (R, 3) f32 or f64, of which only x and y are read; prims (6,
+    Npad) of the same type; perm (Npad,) sorted->original. ``chunk_bbs`` is
+    accepted for the kernel's signature and never read. One tensor op per
+    operation, in the order of csrc/line_hit.cuh, with two IEEE divisions
+    (the JAX package multiplies by one reciprocal).
+    Returns (t (R,) of org's type, prim (R,) int32 original numbering, hit
+    (R,) bool).
     """
     R = org.shape[0]
     npad = prims.shape[1]
@@ -480,11 +505,13 @@ def line_nearest_hit_ref(org, dirn, prims, perm, chunk_bbs=None, t_near=1e-4):
     p0x, p0y, lx, ly = (prims[i][None, :] for i in range(4))
     lanes = torch.arange(npad, device=dev, dtype=torch.int32)[None, :]
     big = torch.tensor(BIG, device=dev)
-    tiny = torch.tensor(1e-30, dtype=torch.float32, device=dev)
-    tn = torch.tensor(t_near, dtype=torch.float32, device=dev)
-    s_min = torch.tensor(LINE_S_MIN, device=dev)
-    s_max = torch.tensor(LINE_S_MAX, device=dev)
-    t_out = torch.empty(R, dtype=torch.float32, device=dev)
+    like = dict(dtype=org.dtype, device=dev)
+    tiny = torch.tensor(1e-30, **like)
+    tn = torch.tensor(t_near, **like)
+    # the clip's ends are float32 values in both types (widened in float64)
+    s_min = torch.tensor(float(LINE_S_MIN), **like)
+    s_max = torch.tensor(float(LINE_S_MAX), **like)
+    t_out = torch.empty(R, dtype=org.dtype, device=dev)
     idx_out = torch.empty(R, dtype=torch.int32, device=dev)
     step = max(1, min(R, _REF_BLOCK_PAIRS[dev.type] // npad))
     for lo in range(0, R, step):
@@ -600,12 +627,16 @@ def triangle_reject_ref(org, dirn, prims, chunk_bbs, t_near, tmin, fma=False):
     return (ad < lim) | torch.where(ad > m_det, signed, zero_edge)
 
 
-def _launch(entry, org, dirn, prims, perm, chunk_bbs, t_near):
-    """Launch the closest-hit kernel ``entry`` of ``csrc/nearest_hit.cu`` on
-    checked CUDA tensors; returns (t, prim, hit)."""
+def _launch(wrapper, entry, org, dirn, prims, perm, chunk_bbs, t_near):
+    """Launch the closest-hit kernel ``entry`` of ``csrc/nearest_hit.cu``, or
+    its float64 form ``entry + "_f64"`` for float64 rays, on checked CUDA
+    tensors and count it on ``wrapper``; returns (t, prim, hit)."""
+    f64 = org.dtype == torch.float64
+    if f64:
+        entry += "_f64"
     R = org.shape[0]
     npad = prims.shape[1]
-    t = torch.empty(R, dtype=torch.float32, device=org.device)
+    t = torch.empty(R, dtype=org.dtype, device=org.device)
     prim = torch.empty(R, dtype=torch.int32, device=org.device)
     hit = torch.empty(R, dtype=torch.bool, device=org.device)
     lib = _build.library()
@@ -619,6 +650,10 @@ def _launch(entry, org, dirn, prims, perm, chunk_bbs, t_near):
         )
     if err != 0:
         raise RuntimeError(f"{entry}: CUDA error {err}")
+    if f64:
+        wrapper.launches_f64 += 1
+    else:
+        wrapper.launches += 1
     return t, prim, hit
 
 
@@ -628,21 +663,21 @@ def disk_nearest_hit(org, dirn, prims, perm, chunk_bbs, t_near=1e-4):
     plain version.
 
     org/dirn (R, 3) f32; prims (8, Npad) f32; perm (Npad,) int32; chunk_bbs
-    (Npad / pt, 8) f32. Returns (t (R,), prim (R,) int32 in ORIGINAL
-    numbering, hit (R,) bool).
+    (Npad / pt, 8) f32; or every float tensor f64, which launches the float64
+    form (``launches_f64``). Returns (t (R,) of org's type, prim (R,) int32 in
+    ORIGINAL numbering, hit (R,) bool).
     """
     _check_inputs(org, dirn, prims, perm, chunk_bbs)
     if org.device.type == "cpu":
         return disk_nearest_hit_ref(org, dirn, prims, perm, chunk_bbs, t_near)
     if org.device.type != "cuda":
         raise RuntimeError(f"disk_nearest_hit: unsupported device {org.device}")
-    out = _launch("vr_disk_nearest_hit", org, dirn, prims, perm, chunk_bbs,
-                  t_near)
-    disk_nearest_hit.launches += 1
-    return out
+    return _launch(disk_nearest_hit, "vr_disk_nearest_hit", org, dirn,
+                   prims, perm, chunk_bbs, t_near)
 
 
 disk_nearest_hit.launches = 0
+disk_nearest_hit.launches_f64 = 0
 
 
 def triangle_nearest_hit(org, dirn, prims, perm, chunk_bbs, t_near=1e-4):
@@ -659,13 +694,12 @@ def triangle_nearest_hit(org, dirn, prims, perm, chunk_bbs, t_near=1e-4):
         raise RuntimeError(
             f"triangle_nearest_hit: unsupported device {org.device}"
         )
-    out = _launch("vr_triangle_nearest_hit", org, dirn, prims, perm,
-                  chunk_bbs, t_near)
-    triangle_nearest_hit.launches += 1
-    return out
+    return _launch(triangle_nearest_hit, "vr_triangle_nearest_hit", org, dirn,
+                   prims, perm, chunk_bbs, t_near)
 
 
 triangle_nearest_hit.launches = 0
+triangle_nearest_hit.launches_f64 = 0
 
 
 def line_nearest_hit(org, dirn, prims, perm, chunk_bbs, t_near=1e-4):
@@ -678,10 +712,9 @@ def line_nearest_hit(org, dirn, prims, perm, chunk_bbs, t_near=1e-4):
         return line_nearest_hit_ref(org, dirn, prims, perm, chunk_bbs, t_near)
     if org.device.type != "cuda":
         raise RuntimeError(f"line_nearest_hit: unsupported device {org.device}")
-    out = _launch("vr_line_nearest_hit", org, dirn, prims, perm, chunk_bbs,
-                  t_near)
-    line_nearest_hit.launches += 1
-    return out
+    return _launch(line_nearest_hit, "vr_line_nearest_hit", org, dirn,
+                   prims, perm, chunk_bbs, t_near)
 
 
 line_nearest_hit.launches = 0
+line_nearest_hit.launches_f64 = 0

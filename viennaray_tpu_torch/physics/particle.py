@@ -44,7 +44,7 @@ class Particle:
       name: species name.
     """
 
-    sticking: object  # float, or a 0-d float32 tensor
+    sticking: object  # float, or a 0-d float tensor
     cosine_exponent: float = 1.0
     cone_angle: float = 0.0
     material_sticking: Optional[object] = None  # floats, or a tensor
@@ -58,15 +58,17 @@ class Particle:
         """A copy with ``changes`` (the JAX package's ``struct`` method)."""
         return dataclasses.replace(self, **changes)
 
-    def sticking_for(self, material_ids: torch.Tensor) -> torch.Tensor:
-        """Per-hit sticking, float32 on the ids' device: the material table
-        where one is set (ids below 0 read entry 0), else the scalar. A
-        sticking value or table given as a tensor keeps its graph."""
+    def sticking_for(self, material_ids: torch.Tensor,
+                     dtype=torch.float32) -> torch.Tensor:
+        """Per-hit sticking of ``dtype`` (float32, or float64 for the float64
+        trace) on the ids' device: the material table where one is set (ids
+        below 0 read entry 0), else the scalar. A sticking value or table
+        given as a tensor keeps its graph."""
         dev = material_ids.device
         if self.material_sticking is None:
-            return torch.as_tensor(self.sticking, dtype=torch.float32,
+            return torch.as_tensor(self.sticking, dtype=dtype,
                                    device=dev).expand(material_ids.shape)
-        table = torch.as_tensor(self.material_sticking, dtype=torch.float32,
+        table = torch.as_tensor(self.material_sticking, dtype=dtype,
                                 device=dev)
         return table[torch.clamp(material_ids, min=0).long()]
 

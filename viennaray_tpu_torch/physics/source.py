@@ -13,8 +13,11 @@ Counterpart of ``viennaray_tpu/physics/source.py``:
   relative weights.
 
 A source's ``sample(rng, batch_index, n, ray_indices)`` returns (origins
-(n, 3), directions (n, 3), weights (n,)) of one batch, float32 on the trace's
-device. Any object with such a method is a source (``check_source``): a
+(n, 3), directions (n, 3), weights (n,)) of one batch on the trace's device,
+in the trace's float type: float32, or float64 for the float64 trace, where a
+source samples in the type of its box, grid or points (``to(dtype)`` widens
+them) from a ``RayRNG`` of that type, as the JAX package's sources sample in
+``self.bbox.dtype`` / ``self.grid.dtype`` / ``self.points.dtype``. Any object with such a method is a source (``check_source``): a
 user's source draws from ``rng`` as these do, by stream, and gives
 ``source_area()`` where the flux is normalized to the source. The three here
 are the reference's; the grid and surface sources pick their
@@ -64,6 +67,11 @@ class RandomSource:
     @property
     def dtype(self):
         return self.bbox.dtype
+
+    def to(self, dtype) -> "RandomSource":
+        """The source sampling in ``dtype``: its box and basis cast."""
+        basis = None if self.basis is None else self.basis.to(dtype)
+        return dataclasses.replace(self, bbox=self.bbox.to(dtype), basis=basis)
 
     def source_area(self):
         """(ref: raySourceRandom.hpp:40-47)"""
@@ -200,6 +208,11 @@ class GridSource:
     def dtype(self):
         return self.grid.dtype
 
+    def to(self, dtype) -> "GridSource":
+        """The source sampling in ``dtype``: its box and grid cast."""
+        return dataclasses.replace(self, bbox=self.bbox.to(dtype),
+                                   grid=self.grid.to(dtype))
+
     def source_area(self):
         return _plane_area(self.bbox, self.first_dir, self.second_dir,
                            self.dim)
@@ -261,6 +274,13 @@ class SurfaceSource:
     def dtype(self):
         return self.points.dtype
 
+    def to(self, dtype) -> "SurfaceSource":
+        """The source sampling in ``dtype``: its points, normals and weights
+        cast."""
+        return dataclasses.replace(
+            self, points=self.points.to(dtype), normals=self.normals.to(dtype),
+            weights=self.weights.to(dtype))
+
     def source_area(self):
         return self.area
 
@@ -295,16 +315,19 @@ def check_source(source) -> None:
         ) from None
 
 
-def check_sample(org, dirn, w0, n, device) -> None:
-    """Raise unless a user source's sample is (n, 3), (n, 3), (n,) float32
-    on ``device``; f64 tracing is not ported."""
+def check_sample(org, dirn, w0, n, device, dtype=torch.float32) -> None:
+    """Raise unless a user source's sample is (n, 3), (n, 3), (n,) of the
+    trace's float type ``dtype`` on ``device``."""
     for name, x, shape in (("origins", org, (n, 3)),
                            ("directions", dirn, (n, 3)),
                            ("weights", w0, (n,))):
-        if x.dtype != torch.float32:
+        if x.dtype != dtype:
+            # a mix of types is not traced
             raise NotImplementedError(
-                f"the source's {name} are {x.dtype}: f64 tracing is not "
-                "ported yet, and a source samples float32")
+                f"the source's {name} are {x.dtype}, the trace is {dtype}: a "
+                "source samples in the trace's float type (float32, or "
+                "float64 for f64 tracing on a geometry widened by "
+                "to(torch.float64))")
         if tuple(x.shape) != shape or x.device != device:
             raise ValueError(
                 f"the source's {name} must be {shape} on {device}, got "

@@ -24,6 +24,12 @@ by lane.
 Contract kept by every implementation: a fixed seed and a fixed batch size
 give the same numbers on the same device, and a batch's numbers depend on its
 global index only, not on which batches ran before it.
+
+Float type: an implementation draws in its ``dtype`` attribute, float32 by
+default (an implementation without one draws float32). The float64 trace
+(a geometry widened by ``to(torch.float64)``) asks for a float64 one, as the
+JAX package under ``jax_enable_x64`` draws its uniforms in the geometry's
+type: ``GeneratorRNG(seed, device, dtype=torch.float64)``.
 """
 
 from __future__ import annotations
@@ -68,8 +74,8 @@ class RayRNG:
     """Interface: uniforms by purpose.
 
     ``begin_batch(batch_index)`` is called once before a mega-batch's first
-    draw. ``uniform`` returns ``n`` float32 uniforms in [0, 1) on the trace's
-    device. ``bounce`` is the wavefront iteration for the reflection,
+    draw. ``uniform`` returns ``n`` uniforms in [0, 1) of ``dtype`` on the
+    trace's device. ``bounce`` is the wavefront iteration for the reflection,
     roulette and scattering streams; for the source-direction streams it
     counts the rounds of the tilted source's accept-reject loop (0 for the
     plain lobe, -1 for the lobe that lanes fall back to when no round
@@ -84,6 +90,8 @@ class RayRNG:
     any ``shape`` for a hook's ``call``-th draw (0, 1, ...) from one of
     ``HOOK_STREAMS`` at ``bounce`` (0 for the hooks that run once a batch).
     """
+
+    dtype = torch.float32
 
     def begin_batch(self, batch_index: int) -> None:
         raise NotImplementedError
@@ -107,8 +115,8 @@ class RayRNG:
 
 class HookRNG:
     """The ``rng`` a custom particle's hook receives, in place of the JAX
-    package's key: bound to one (batch, bounce, hook), it draws float32
-    uniforms from the trace's ``RayRNG`` under the hook's own stream, keyed
+    package's key: bound to one (batch, bounce, hook), it draws uniforms of
+    the trace's ``RayRNG``'s type under the hook's own stream, keyed
     by (batch, bounce, stream, call), so they never move the trace's own
     draws. Each call draws fresh numbers; the same trace makes the same
     calls, so a fixed seed gives the same numbers.
@@ -154,7 +162,8 @@ class HookRNG:
         the inverse error function (as ``jax.random.normal`` maps its own
         uniforms)."""
         u = self.uniform(shape)
-        lo = torch.nextafter(torch.tensor(-1.0), torch.tensor(0.0)).item()
+        lo = torch.nextafter(torch.tensor(-1.0, dtype=u.dtype),
+                             torch.tensor(0.0, dtype=u.dtype)).item()
         v = torch.clamp(u * (1.0 - lo) + lo, min=lo)
         return torch.erfinv(v) * math.sqrt(2.0)
 
@@ -164,9 +173,15 @@ class GeneratorRNG(RayRNG):
     re-seeded for each mega-batch from (base seed, global batch index). The
     numbers then follow from the order of the draws, which the trace keeps
     fixed, so ``stream`` and ``bounce`` only document the call. The hooks
-    draw from a second generator (``hook_uniform``)."""
+    draw from a second generator (``hook_uniform``). ``dtype``: float32 (the
+    default), or float64 for the float64 trace; ``torch.rand`` draws in
+    it."""
 
-    def __init__(self, seed: int, device):
+    def __init__(self, seed: int, device, dtype=torch.float32):
+        if dtype not in (torch.float32, torch.float64):
+            raise ValueError(f"GeneratorRNG draws float32 or float64, not "
+                             f"{dtype}")
+        self.dtype = dtype
         self._seed = int(seed)
         self._device = torch.device(device)
         self._generator = torch.Generator(device=self._device)
@@ -190,7 +205,7 @@ class GeneratorRNG(RayRNG):
             )
         return torch.rand(
             shape, generator=self._generator, device=self._device,
-            dtype=torch.float32,
+            dtype=self.dtype,
         )
 
     def uniform(self, stream, batch_index, bounce, n):
@@ -215,7 +230,7 @@ class GeneratorRNG(RayRNG):
         self._hook_generator.manual_seed(self._seed_of(
             self._seed, int(batch_index), stream, int(bounce), int(call)))
         return torch.rand(tuple(shape), generator=self._hook_generator,
-                          device=self._device, dtype=torch.float32)
+                          device=self._device, dtype=self.dtype)
 
     def cone_theta(self, batch_index, bounce, shape, cone_angle):
         """The rejection runs here, each round drawing two uniforms for every
@@ -223,5 +238,5 @@ class GeneratorRNG(RayRNG):
         return sampling.coned_cosine_theta(
             lambda i: (self._rand(batch_index, shape),
                        self._rand(batch_index, shape)),
-            shape, cone_angle, self._device,
+            shape, cone_angle, self._device, self.dtype,
         )

@@ -53,11 +53,21 @@ Event semantics mirrored 1:1 from rayTraceKernel.hpp:
   x label buffer, gpu/raygTrace.hpp:97-99); without it a particle's flux is
   one channel, and with several data labels the first receives it
 
-Not ported yet, and refused by name (``check_supported`` and the tracers):
-float64 tracing; and, as in the reference, the window flux model together
-with 1/distance weighting or with a ``collision_fn``. The per-bounce
-coherence re-sort of the reference only engages from 8 geometry chunks on
-and is not ported yet either; it changes the lane order, not the physics.
+Float64 tracing (the JAX package's ``jax_enable_x64`` mode, the analog of
+the reference's ``NumericType=double``): a geometry widened by
+``to(torch.float64)``, a source of the same type (``to``) and a ``RayRNG``
+drawing float64 (``GeneratorRNG(..., dtype=torch.float64)``) trace the
+unfused body in float64 end to end, on the float64 forms of the closest-hit
+and histogram kernels; the counters stay int. The fused body is float32
+only, as the JAX package's megakernel is (its walls and loop carries are
+float32): ``check_supported`` refuses float64 where the fused body would run,
+by name. The tracers (``TraceDisk`` and the others) are float32 only, as the
+JAX package's are.
+
+Refused by name (``check_supported``), as in the reference: the window flux
+model together with 1/distance weighting or with a ``collision_fn``. The
+per-bounce coherence re-sort of the reference only engages from 8 geometry
+chunks on and is not ported yet; it changes the lane order, not the physics.
 
 Determinism: every reduction on the path has a fixed order or is a sum of
 integers (stable sorts, the fixed-point bins of the histogram and bounce
@@ -181,9 +191,11 @@ SOURCES = (RandomSource, GridSource, SurfaceSource)
 
 
 def check_supported(config: TraceConfig, particle, source,
-                    collision_fn=None) -> None:
+                    collision_fn=None, geometry=None, fused=False) -> None:
     """Raise NotImplementedError, naming the setting, for anything the port
-    does not trace. Nothing unsupported is silently ignored."""
+    does not trace. Nothing unsupported is silently ignored. ``geometry``:
+    the trace's, whose ``dtype`` is the trace's float type (None: float32,
+    as the tracers trace); ``fused``: whether the fused body would run."""
     if config.flux_model == "window" and config.use_wdist:
         # the reference refuses it too (kernel.py:336-342): the window
         # contract has no neighbor distances to weight by
@@ -198,8 +210,20 @@ def check_supported(config: TraceConfig, particle, source,
         )
     ReflectionKind(particle.reflection_kind)  # raises on a kind that is none
     check_source(source)
-    if isinstance(source, SOURCES) and source.dtype != torch.float32:
-        raise NotImplementedError("f64 tracing is not ported yet")
+    dtype = torch.float32 if geometry is None else geometry.dtype
+    if dtype not in (torch.float32, torch.float64):
+        raise NotImplementedError(f"a trace runs float32 or float64, not "
+                                  f"{dtype}")
+    if dtype == torch.float64 and fused:
+        # as the JAX package: its megakernel casts the walls to float32 and
+        # carries float32 state (kernel.py:995-997)
+        raise NotImplementedError(
+            "float64 tracing runs the unfused body only: pass fused=False "
+            "(fused=True is float32 only)")
+    if isinstance(source, SOURCES) and source.dtype != dtype:
+        raise NotImplementedError(
+            f"the source samples {source.dtype} but the trace is {dtype}: "
+            "cast the source with to(dtype), as the geometry")
 
 
 def _flux_add(ids, weights, n_prims):
@@ -226,7 +250,8 @@ def _spatial_key(org, dirn, alive, bb_lo, bb_ext):
     return torch.where(alive, key, torch.full_like(key, 1 << 30))
 
 
-def _bounce_uniforms(rng, batch_index, it, n, n_sub, settings, dev):
+def _bounce_uniforms(rng, batch_index, it, n, n_sub, settings, dev,
+                     dtype=torch.float32):
     """The (n, n_uni n_sub) uniforms of one launch starting at iteration
     ``it``; ``n_uni`` = 3, or 6 with gas scattering. One bounce draws its
     numbers as separate streams, whichever body runs, in this order: the
@@ -244,7 +269,7 @@ def _bounce_uniforms(rng, batch_index, it, n, n_sub, settings, dev):
                 batch_index, it, (n, n_sub), settings.cone_angle
             )
         return u
-    zero = torch.zeros(n, dtype=torch.float32, device=dev)
+    zero = torch.zeros(n, dtype=dtype, device=dev)
     cols = [zero] * n_uni
     if settings.refl_kind == ReflectionKind.DIFFUSE:
         cols[0] = rng.uniform(rng_streams.REFLECT_1, batch_index, it, n)
@@ -266,7 +291,7 @@ def _use_dir(cand, dirn, dim):
     zero keep the source's direction (the reference's isZero check,
     rayTraceKernel.hpp:133-139); the others, with z zeroed first in 2D, are
     normalized (ref: kernel.py:291-297)."""
-    cand = cand.to(torch.float32).clone()
+    cand = cand.to(dirn.dtype).clone()
     nonzero = (cand != 0.0).any(dim=1, keepdim=True)
     if dim == 2:
         cand[:, 2] = 0.0
@@ -299,10 +324,12 @@ def trace_batch(
     or (flux, counters, logs) with a ``log_fn``.
 
     geometry: DiskGeometry, TriangleGeometry or LineGeometry (its ``kind``
-    picks the kernels). source: any object with ``sample(rng, batch_index,
-    n, ray_indices)`` (``physics.source``). bbox: (2, 3) float32 tensor, the
-    source-adjusted bounding box (ref: rayUtil.hpp:104-143). rng: a
-    ``RayRNG`` whose ``begin_batch(batch_index)`` has been called.
+    picks the kernels, its ``dtype`` the float type of the trace). source:
+    any object with ``sample(rng, batch_index, n, ray_indices)``
+    (``physics.source``) in that type. bbox: (2, 3) tensor, the
+    source-adjusted bounding box (ref: rayUtil.hpp:104-143), read in the
+    trace's type. rng: a ``RayRNG`` of the trace's type whose
+    ``begin_batch(batch_index)`` has been called.
     ray_indices: (R,) global ray indices (a grid or surface source picks its
     points by them). valid: (R,) bool — lanes beyond the total ray count
     start dead. fused: the fused body (one kernel launch per ``n_sub``
@@ -312,9 +339,17 @@ def trace_batch(
     fused body's bounces per launch at (wide, mid, tail) stage widths. Under
     the window flux model a disk geometry without a window list gets one
     here (``DiskGeometry.with_window_list``; the tracers build it once).
-    Returns flux (n_prims,) float32 on the device, or (L, n_prims) for a
-    ``collision_fn`` and a particle of L > 1 ``data_labels``, and
-    ``BatchCounters``.
+    Returns flux (n_prims,) on the device in the trace's type, or (L,
+    n_prims) for a ``collision_fn`` and a particle of L > 1 ``data_labels``,
+    and ``BatchCounters``.
+
+    Float64 (``geometry.dtype`` float64; the JAX package's trace under
+    ``jax_enable_x64``, kernel.py:263-286): source, rays, weights, flux and
+    the hooks' tensors are float64, the bounce runs ``bounce_step`` in
+    float64 on the float64 forms of the closest-hit and histogram kernels,
+    and the counters stay int. It takes ``fused=False`` (or runs unfused
+    anyway: ``differentiable``, ``use_wdist``, a hook); ``fused=True`` is
+    refused by name.
 
     ``differentiable`` (the JAX package's differentiable trace,
     viennaray_tpu/trace/kernel.py:1260-1330): the unfused body for exactly
@@ -336,11 +371,13 @@ def trace_batch(
     hooks, viennaray_tpu/trace/kernel.py:219-246, with torch tensors on the
     trace's device). Every hook is optional. In place of a key each gets
     ``rng``, a ``rng.HookRNG`` bound to (batch, bounce, hook) that draws
-    float32 numbers (``rng.uniform(shape)``, ``rng.normal(shape)``) from the
-    trace's ``RayRNG`` under the hook's own stream, keyed by (batch, bounce,
-    hook, call): a hook's draws never move the trace's own, so a trace draws
-    the same built-in numbers with hooks and without, as it did before hooks
-    existed. Per batch, in this order:
+    numbers (``rng.uniform(shape)``, ``rng.normal(shape)``) from the trace's
+    ``RayRNG``, in its type, under the hook's own stream, keyed by (batch,
+    bounce, hook, call): a hook's draws never move the trace's own, so a
+    trace draws the same built-in numbers with hooks and without, as it did
+    before hooks existed. Every float tensor a hook gets or returns is of
+    the trace's type (float32 below; float64 in the float64 trace). Per
+    batch, in this order:
 
     - ``init_dir_fn(rng, ray_indices) -> (R, 3)``: initial directions after
       the source's; zero rows keep the source's, the others are normalized
@@ -391,7 +428,16 @@ def trace_batch(
     """
     hooked = (collision_fn is not None or reflection_fn is not None
               or aux_init_fn is not None)
-    check_supported(config, particle, source, collision_fn)
+    fused = (fused and not config.use_wdist and not hooked
+             and not differentiable)
+    check_supported(config, particle, source, collision_fn, geometry, fused)
+    dtype = geometry.dtype
+    rng_dtype = getattr(rng, "dtype", torch.float32)
+    if rng_dtype != dtype:
+        raise NotImplementedError(
+            f"the rng draws {rng_dtype} but the trace is {dtype}: give a "
+            f"RayRNG of the trace's type (GeneratorRNG(seed, device, "
+            f"dtype={dtype}))")
     if differentiable:
         given = [name for name, fn in (
             ("collision_fn", collision_fn), ("reflection_fn", reflection_fn),
@@ -401,8 +447,6 @@ def trace_batch(
             raise NotImplementedError(
                 "the differentiable trace takes no " + ", ".join(given))
     dim = config.dim
-    fused = (fused and not config.use_wdist and not hooked
-             and not differentiable)
     settings = BounceSettings.from_config(config, particle, fused=fused)
     first_dir, second_dir = settings.first_dir, settings.second_dir
     deposit_kind = settings.deposit_kind(geometry)
@@ -416,7 +460,7 @@ def trace_batch(
         settings = settings._replace(roulette=False)
         if torch.is_tensor(particle.sticking):
             settings = settings._replace(sticking=particle.sticking.to(
-                device=dev, dtype=torch.float32))
+                device=dev, dtype=dtype))
     R = ray_indices.shape[0]
     n_prims = geometry.num_primitives
     walls = make_walls(bbox, geometry, settings)
@@ -426,7 +470,7 @@ def trace_batch(
     # ---- source sampling -------------------------------------------------
     org, dirn, w0 = source.sample(rng, batch_index, R, ray_indices)
     if not isinstance(source, SOURCES):
-        check_sample(org, dirn, w0, R, dev)
+        check_sample(org, dirn, w0, R, dev, dtype)
 
     # particle-controlled initial direction (ref: initNewWithDirection,
     # rayParticle.hpp:31,92; the zero vector means "use the source's")
@@ -443,16 +487,16 @@ def trace_batch(
     if aux_init_fn is not None:
         aux = aux_init_fn(HookRNG(rng, rng_streams.HOOK_AUX_INIT, batch_index),
                           ray_indices)
-        if aux.ndim != 2 or aux.shape[0] != R or aux.dtype != torch.float32:
+        if aux.ndim != 2 or aux.shape[0] != R or aux.dtype != dtype:
             raise ValueError(
-                f"aux_init_fn must return (R, A) float32 with R = {R}, got "
+                f"aux_init_fn must return (R, A) {dtype} with R = {R}, got "
                 f"{tuple(aux.shape)} {aux.dtype}")
     logs = None
     if log_fn is not None:
         logs = tuple(log_fn(
             HookRNG(rng, rng_streams.HOOK_LOG, batch_index),
             aux if aux is not None
-            else torch.zeros((R, 1), dtype=torch.float32, device=dev),
+            else torch.zeros((R, 1), dtype=dtype, device=dev),
             ray_indices, valid,
         ))
 
@@ -464,7 +508,7 @@ def trace_batch(
     # a collision_fn fills one channel per data label (ref: kernel.py:324-334)
     n_chan = len(particle.data_labels) if collision_fn is not None else 1
     flux_shape = (n_chan, n_prims) if n_chan > 1 else (n_prims,)
-    flux = torch.zeros(flux_shape, dtype=torch.float32, device=dev)
+    flux = torch.zeros(flux_shape, dtype=dtype, device=dev)
     # a launch's counts summed (COUNT_NAMES; the survivors' slot is not read)
     counts = torch.zeros(len(COUNT_NAMES), dtype=torch.int64, device=dev)
 
@@ -495,9 +539,8 @@ def trace_batch(
                 (handle, dirn, normal, prim, mat, weight), aux))
             if aux is not None:
                 new_aux[0] = torch.where(collide[:, None], out[2], aux)
-            sticking = torch.as_tensor(out[0], dtype=torch.float32,
-                                       device=dev)
-            return sticking, out[1].to(torch.float32)
+            sticking = torch.as_tensor(out[0], dtype=dtype, device=dev)
+            return sticking, out[1].to(dtype)
 
         return reflect
 
@@ -524,7 +567,7 @@ def trace_batch(
         and histogram kernels; returns (flux, survivor count, new state,
         iterations done, new aux)."""
         u = _bounce_uniforms(
-            rng, batch_index, it, state.org.shape[0], 1, settings, dev
+            rng, batch_index, it, state.org.shape[0], 1, settings, dev, dtype
         )
         new_aux = [aux]
         reflect = (None if reflection_fn is None
@@ -573,7 +616,7 @@ def trace_batch(
     # order-independent sums, and each lane's uniforms remain i.i.d.).
     if R >= 2048 and not differentiable:
         nb = 6  # 64x64 source-plane cells
-        one = torch.tensor(1e-30, dtype=torch.float32, device=dev)
+        one = torch.tensor(1e-30, dtype=dtype, device=dev)
         c1 = torch.clamp(
             ((org[:, first_dir] - lo1) / torch.maximum(hi1 - lo1, one)
              * (1 << nb)).to(torch.int32),

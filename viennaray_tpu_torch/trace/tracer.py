@@ -50,7 +50,12 @@ class _TraceBase:
     def __init__(self, dim: int = 3, device=None, dtype=torch.float32,
                  fused: bool = True):
         if dtype != torch.float32:
-            raise NotImplementedError("f64 tracing is not ported yet")
+            # as the JAX package's tracers (viennaray_tpu/trace/tracer.py)
+            raise NotImplementedError(
+                f"the tracers run float32 only (dtype={dtype}): float64 "
+                "tracing runs through trace.kernel.trace_batch(fused=False) "
+                "and diff.trace_flux on a geometry widened by "
+                "to(torch.float64)")
         self._dim = dim
         self._fused = bool(fused)
         self._device = resolve_device(device)
