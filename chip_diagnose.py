@@ -3,7 +3,8 @@
 
 Run from the repository root on a machine with one NVIDIA Hopper card:
 
-    python3 chip_diagnose.py [--triangles | --lines | --ion | --window]
+    python3 chip_diagnose.py [--triangles | --lines | --ion | --window |
+                              --disk1m]
                              [--unfused] [--profile FILE]
     python3 chip_diagnose.py --groups | --paths | --grad | --f64
 
@@ -13,7 +14,9 @@ batch; the default tracer, whose body is the fused bounce kernel): the
 5,760-triangle trench through ``TraceTriangle``; with ``--lines`` the
 782-segment 2D trench with two materials through ``TraceLine``; with ``--ion``
 the 2,993 disks under the coned-cosine particle; with ``--window`` the 2,993
-disks under the window flux model. It warms the tracer up with one apply and
+disks under the window flux model; with ``--disk1m`` the sweep's 704,250-disk
+cell (``viennaray_tpu_torch/bench/perf_sweep.py``). It warms the tracer up with
+one apply and
 prints one JSON object per phase:
 
 - ``repeats``: five more applies of the one tracer (each a new run number, so
@@ -583,6 +586,12 @@ def main(argv=None):
              "0.5, cone angle pi/6, source power 100)",
     )
     which.add_argument(
+        "--disk1m", action="store_true",
+        help="the sweep's disk1m cell (704,250 disks, 4 rays per point, "
+             "built without the neighbor records; "
+             "viennaray_tpu_torch/bench/perf_sweep.py)",
+    )
+    which.add_argument(
         "--window", action="store_true",
         help="the 2,993 disks under the window flux model, and its two "
              "deposit placements in turns",
@@ -627,6 +636,11 @@ def main(argv=None):
         cloud = fixtures.create_trench_grid_3d(**FLAGSHIP)
         make = lambda **kwargs: make_tracer(
             *cloud, particle=ion_particle(), **kwargs)
+    elif args.disk1m:
+        from viennaray_tpu_torch.bench import perf_sweep
+
+        make = lambda **kwargs: perf_sweep.make_tracer("disk1m", None,
+                                                       **kwargs)
     elif args.window:
         cloud = fixtures.create_trench_grid_3d(**FLAGSHIP)
         make = lambda **kwargs: make_tracer(
@@ -642,8 +656,9 @@ def main(argv=None):
         print(json.dumps(repeats(tracer, args.repeats, body)), flush=True)
         print(json.dumps(kernel_spans(tracer, body)), flush=True)
     # the fused body's spans at one thread per ray and at the default G, on
-    # fresh tracers (the same rays), in turns
-    for group in (1, None, None, 1):
+    # fresh tracers (the same rays), in turns (not on disk1m: each fresh
+    # tracer builds 704,250 disks on the host)
+    for group in () if args.disk1m else (1, None, None, 1):
         spans = kernel_spans(make(), "fused, first apply", group=group)
         print(json.dumps(spans), flush=True)
     if args.triangles or args.window:

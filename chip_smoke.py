@@ -99,8 +99,17 @@ It imports only ``viennaray_tpu_torch`` and, in order:
     and line paths must launch kernel 1, 3 or the line search and kernel 2,
     never the bounce kernel; the ``init_dir_fn`` / ``log_fn`` and
     multi-species paths the bounce kernel;
-12. prints the peak device memory;
-13. drives the differentiable trace (``phase_grad_paths``,
+12. drives the sharded trace (``phase_sharded_path``,
+    ``viennaray_tpu_torch.parallel``) at full width on the disk flagship:
+    a one-rank NCCL process group on cuda:0 and a 4-shard mesh on cuda:0
+    in it, each equal in flux and counters, bit for bit, to
+    ``TraceDisk.apply`` of the same seed at 5,986,000 rays, with the bounce
+    and histogram kernels' launches of every sub-batch equal to the
+    tracer's batch of that index; then the differentiable leg (loss =
+    sum(flux^2) of a ``differentiable=True`` trace, 2^17 rays, 4 bounces)
+    at 1 and 4 shards, finite and bit for bit equal;
+13. prints the peak device memory;
+14. drives the differentiable trace (``phase_grad_paths``,
     ``viennaray_tpu_torch.diff``): BASELINE config 5 at full width
     (d sum(flux) / d sticking of 10,000,000 rays on the 2,993 disks, 8
     bounces, batches of 2^19, seed 13) timed with its peak memory and share
@@ -2123,7 +2132,7 @@ def trace_unfused(tracer, dtype):
     a configuration in float64. Run after one apply of the tracer (which
     builds the areas its normalization reads). Returns (raw flux (N,)
     float64 numpy, counters dict, seconds)."""
-    from viennaray_tpu_torch.config import adjust_bounding_box
+    from viennaray_tpu_torch.physics.source import RandomSource, source_box
     from viennaray_tpu_torch.rng import GeneratorRNG
     from viennaray_tpu_torch.trace.kernel import BatchCounters, trace_batch
 
@@ -2132,13 +2141,10 @@ def trace_unfused(tracer, dtype):
     config = tracer._make_config()
     n = geometry.num_primitives
     total = config.total_rays(n)
-    margin = (geometry.disk_radius if geometry.kind == "disk"
-              else geometry.grid_delta)
-    adjusted = adjust_bounding_box(tracer.geometry.bbox.cpu().numpy(),
-                                   tracer._source_direction, margin,
-                                   tracer._dim)
-    source = tracer._default_source(adjusted, n).to(dtype)
-    bbox = torch.tensor(adjusted, dtype=dtype, device=dev)
+    source = RandomSource.default(tracer.geometry, config,
+                                  tracer._particle.cosine_exponent).to(dtype)
+    bbox = torch.tensor(source_box(tracer.geometry, config), dtype=dtype,
+                        device=dev)
     rng = GeneratorRNG(tracer._rng_seed + 1, dev, dtype=dtype)
     batch = min(config.ray_batch_size,
                 max(512, 1 << (max(total, 2) - 1).bit_length()))
@@ -2420,6 +2426,198 @@ def f64_kernel_entries(results, narrow, launches, keys):
     return entries
 
 
+# the sharded path's differentiable leg (``__graft_entry__.py:
+# dryrun_multichip``'s first leg at the flagship's cloud): 2^17 rays in
+# sub-batches of 2^15, 4 bounces, roulette off
+SHARDED_GRAD = dict(rays=1 << 17, batch=1 << 15, bounces=4, seed=3)
+
+
+@contextlib.contextmanager
+def launches_by_batch(module):
+    """The launches of the bounce and histogram kernels in each
+    ``trace_batch`` call made through ``module.trace_batch``, by batch
+    index: {batch: (bounce kernel, histogram kernel)}."""
+    from viennaray_tpu_torch.ops import bounce as B
+    from viennaray_tpu_torch.ops import histogram as H
+
+    real = module.trace_batch
+    seen = {}
+
+    def wrapper(geometry, source, particle, bbox, rng, batch_index, *args,
+                **kwargs):
+        k4, k2 = B.fused_bounce.launches, H.flux_histogram.launches
+        out = real(geometry, source, particle, bbox, rng, batch_index, *args,
+                   **kwargs)
+        seen[int(batch_index)] = (B.fused_bounce.launches - k4,
+                                  H.flux_histogram.launches - k2)
+        return out
+
+    module.trace_batch = wrapper
+    try:
+        yield seen
+    finally:
+        module.trace_batch = real
+
+
+def sharded_flagship(geometry, **config_changes):
+    """The flagship as ``trace_sharded`` takes it, built as a user would:
+    (source, particle, bbox, config) of ``TraceDisk``'s flagship apply (the
+    random source on the +z face, cosine lobe; mega-batches of 2^20)."""
+    import viennaray_tpu_torch as vrt
+
+    config = vrt.TraceConfig(**{**dict(
+        dim=3, num_rays_per_point=RAYS_PER_POINT, rng_seed=SEED,
+        use_random_seed=False, ray_batch_size=1 << 20,
+        boundary_conditions=(vrt.BoundaryCondition.PERIODIC,) * 3),
+        **config_changes})
+    source = vrt.RandomSource.default(geometry, config)
+    return source, vrt.DiffuseParticle(0.1, "flux"), source.bbox, config
+
+
+def phase_sharded_path(pts, nrm):
+    """The sharded trace (``viennaray_tpu_torch.parallel``) at full width on
+    the disk flagship (2,993 disks, 5,986,000 rays), printed as one
+    ``sharded_path`` object; a failed check raises. ``TraceDisk``'s warm
+    and timed applies (base seeds 43 and 44), then (a) a one-rank NCCL
+    process group on cuda:0 and (b) a 4-shard mesh on cuda:0 in that group:
+    each a warm run (seed 43) and a timed one (seed 44), flux and counters
+    bit for bit against the tracer's apply of the same seed; (d) the bounce
+    and histogram kernels' launches of every sub-batch equal the tracer's
+    batch of that index (the mesh's extra sub-batches hold no live ray and
+    launch nothing); (c) the differentiable leg, loss = sum(flux^2) of a
+    ``differentiable=True`` trace of 2^17 rays and 4 bounces, at 1 and 4
+    shards (1, 4, then 1 again, timed: the first leg of a process runs its
+    first backward): loss, flux and d loss / d sticking finite and bit for
+    bit equal. Returns the launches of the 4-shard timed run and of the
+    4-shard differentiable leg."""
+    import torch.distributed as dist
+
+    import viennaray_tpu_torch as vrt
+    from viennaray_tpu_torch.parallel import mesh as ray_mesh
+    from viennaray_tpu_torch.trace import tracer as tracer_module
+
+    tracer = make_tracer(pts, nrm)
+    warm_want = tracer.apply()
+    reset_launches()
+    with launches_by_batch(tracer_module) as tracer_batches:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        want = tracer.apply()
+        torch.cuda.synchronize()
+        tracer_seconds = time.perf_counter() - t0
+    tracer_launches = read_launches()
+    info = tracer.get_ray_trace_info()
+    want_counters = [info.total_rays_traced, info.non_geometry_hits,
+                     info.geometry_hits, info.particle_hits,
+                     info.boundary_hits, info.reflections]
+    geometry = tracer.geometry
+    source, particle, bbox, config = sharded_flagship(geometry)
+    total = config.total_rays(geometry.num_primitives)
+
+    ray_mesh.initialize_distributed("cuda")
+    try:
+        meshes = {"nccl_one_rank": ray_mesh.make_ray_mesh(),
+                  "four_shards": ray_mesh.make_ray_mesh(["cuda:0"] * 4)}
+        runs, launches = {}, {}
+        for name, mesh in meshes.items():
+            warm, _ = ray_mesh.trace_sharded(
+                geometry, source, particle, bbox, config,
+                vrt.GeneratorRNG(SEED + 1, geometry.device), total, mesh)
+            reset_launches()
+            with launches_by_batch(ray_mesh) as batches:
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                flux, counters = ray_mesh.trace_sharded(
+                    geometry, source, particle, bbox, config,
+                    vrt.GeneratorRNG(SEED + 2, geometry.device), total, mesh)
+                flux = flux.cpu().numpy()
+                seconds = time.perf_counter() - t0
+            launches[name] = read_launches()
+            live = {b: n for b, n in batches.items() if b in tracer_batches}
+            extra = {b: n for b, n in batches.items()
+                     if b not in tracer_batches}
+            runs[name] = {
+                "shards": mesh.size, "world_size": mesh.world_size,
+                "backend": dist.get_backend(mesh.group), "seconds": seconds,
+                "rays_per_s": total / seconds,
+                "warm_bitwise_equal": bool(np.array_equal(
+                    warm.cpu().numpy(), warm_want)),
+                "bitwise_equal": bool(np.array_equal(flux, want)),
+                "counters": counters[:6].tolist(),
+                "counters_equal": counters[:6].tolist() == want_counters,
+                "sub_batches": len(batches),
+                "launches": launches[name],
+                "launches_by_sub_batch_equal": live == tracer_batches,
+                "extra_sub_batches_launch_nothing": all(
+                    n == (0, 0) for n in extra.values()),
+            }
+
+        # (c) the differentiable leg at 1 and 4 shards
+        _, _, _, grad_config = sharded_flagship(
+            geometry, num_rays_fixed=SHARDED_GRAD["rays"],
+            ray_batch_size=SHARDED_GRAD["batch"], roulette=False)
+        legs = {}
+        for n in (1, 4, 1):  # the first leg warms the process's autograd up
+            sticking = torch.tensor(0.1, device=geometry.device,
+                                    requires_grad=True)
+            reset_launches()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            flux, _ = ray_mesh.trace_sharded(
+                geometry, source, particle.replace(sticking=sticking), bbox,
+                grad_config,
+                vrt.GeneratorRNG(SHARDED_GRAD["seed"], geometry.device),
+                SHARDED_GRAD["rays"],
+                ray_mesh.make_ray_mesh(["cuda:0"] * n), differentiable=True,
+                num_bounces=SHARDED_GRAD["bounces"])
+            loss = (flux * flux).sum()
+            loss.backward()
+            torch.cuda.synchronize()
+            legs[n] = dict(seconds=time.perf_counter() - t0,
+                           loss=loss.item(),
+                           flux=flux.detach().cpu().numpy(),
+                           grad=sticking.grad.item(),
+                           launches=read_launches())
+    finally:
+        dist.destroy_process_group()
+    one, four = legs[1], legs[4]
+    grad_leg = {
+        "rays": SHARDED_GRAD["rays"], "sub_batch": SHARDED_GRAD["batch"],
+        "bounces": SHARDED_GRAD["bounces"],
+        "seconds_1_shard": one["seconds"], "seconds_4_shards": four["seconds"],
+        "loss": four["loss"], "d_loss_d_sticking": four["grad"],
+        "finite": bool(np.isfinite(four["loss"])
+                       and np.isfinite(four["flux"]).all()
+                       and np.isfinite(four["grad"])),
+        "bitwise_equal_1_4_shards": bool(
+            one["loss"] == four["loss"] and one["grad"] == four["grad"]
+            and np.array_equal(one["flux"], four["flux"])),
+        "launches": four["launches"],
+        "launches_equal_1_4_shards": one["launches"] == four["launches"],
+    }
+    res = {
+        "phase": "sharded_path", "disks": geometry.num_primitives,
+        "num_rays": total, "tracer_seconds": tracer_seconds,
+        "tracer_launches": tracer_launches,
+        "tracer_batches": len(tracer_batches), **runs, "grad_leg": grad_leg,
+    }
+    emit(res)
+    ok = grad_leg["finite"] and grad_leg["bitwise_equal_1_4_shards"] and (
+        grad_leg["launches_equal_1_4_shards"]) and only_launched(
+        four["launches"], "disk_nearest_hit", "flux_histogram",
+        "flux_histogram_grad")
+    for run in runs.values():
+        ok = ok and all(run[k] for k in (
+            "warm_bitwise_equal", "bitwise_equal", "counters_equal",
+            "launches_by_sub_batch_equal",
+            "extra_sub_batches_launch_nothing"))
+    ok = ok and only_launched(launches["four_shards"], "fused_bounce",
+                              "flux_histogram")
+    if not ok:
+        raise RuntimeError(f"sharded path failed its checks: {res}")
+    return launches["four_shards"], four["launches"]
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke.py needs a CUDA device and found none",
@@ -2658,6 +2856,7 @@ def main():
     grid_launches, surface_launches = phase_source_paths(pts, nrm)
     disk2d_launches, disk2d_unfused_launches = phase_disk2d_paths()
     hooks = phase_hook_paths(pts, nrm, verts, tris)
+    sharded_launches, sharded_grad_launches = phase_sharded_path(pts, nrm)
     emit({"phase": "peak_memory",
           "max_memory_allocated_bytes": torch.cuda.max_memory_allocated()})
     grad = phase_grad_paths(pts, nrm, verts, tris)
@@ -2678,7 +2877,8 @@ def main():
             + wdist_launches["disk_nearest_hit"]
             + disk2d_unfused_launches["disk_nearest_hit"]
             + sum(n["disk_nearest_hit"] for n in hooks.values())
-            + sum(n["disk_nearest_hit"] for n in grad.values()),
+            + sum(n["disk_nearest_hit"] for n in grad.values())
+            + sharded_grad_launches["disk_nearest_hit"],
             "launches_by_path": {
                 "disks_unfused": unfused_launches["disk_nearest_hit"],
                 "ion_unfused": ion_unfused_launches["disk_nearest_hit"],
@@ -2690,6 +2890,7 @@ def main():
                    if n["disk_nearest_hit"]},
                 **{name: n["disk_nearest_hit"] for name, n in grad.items()
                    if n["disk_nearest_hit"]},
+                "sharded_grad": sharded_grad_launches["disk_nearest_hit"],
             },
             **{k: hit_wide[k] for k in keys},
         },
@@ -2715,6 +2916,8 @@ def main():
                 "disk2d_unfused": disk2d_unfused_launches["flux_histogram"],
                 **{name: n["flux_histogram"] for name, n in hooks.items()},
                 **{name: n["flux_histogram"] for name, n in grad.items()},
+                "sharded": sharded_launches["flux_histogram"],
+                "sharded_grad": sharded_grad_launches["flux_histogram"],
             },
             # two paths of one kernel (ops/histogram.py:path_for): one block
             # below the threshold of entries, the whole card above it
@@ -2732,7 +2935,9 @@ def main():
             "replaces": "viennaray_tpu/trace/kernel.py:161",
             "launches": grad["grad"]["flux_histogram_grad"],
             "launches_by_path": {
-                name: n["flux_histogram_grad"] for name, n in grad.items()},
+                **{name: n["flux_histogram_grad"]
+                   for name, n in grad.items()},
+                "sharded_grad": sharded_grad_launches["flux_histogram_grad"]},
             **{k: hist_grad[k] for k in keys},
         },
         *f64_kernel_entries(f64_kernels, f64_narrow, f64, keys),
@@ -2785,7 +2990,8 @@ def main():
             + gas_launches["fused_bounce"] + window_launches["fused_bounce"]
             + grid_launches["fused_bounce"] + surface_launches["fused_bounce"]
             + disk2d_launches["fused_bounce"]
-            + sum(n["fused_bounce"] for n in hooks.values()),
+            + sum(n["fused_bounce"] for n in hooks.values())
+            + sharded_launches["fused_bounce"],
             # the threads per ray G (ops/bounce.py:group_for), and the G
             # values instantiated
             "groups": {
@@ -2805,6 +3011,7 @@ def main():
                 "disk2d": disk2d_launches["fused_bounce"],
                 **{name: n["fused_bounce"] for name, n in hooks.items()
                    if n["fused_bounce"]},
+                "sharded": sharded_launches["fused_bounce"],
             },
             **{k: bounce_wide[k] for k in keys},
             "triangles": {k: tri_bounce_wide[k] for k in keys},

@@ -288,21 +288,78 @@ def test_beam_source_matches_the_jax_package():
 
 
 # ---- the port's examples ---------------------------------------------------------
-@pytest.mark.parametrize("name", ["multi_channel", "multi_species",
-                                  "stateful_ion"])
+def _grid_dat(path):
+    """The 2D trench fixture at grid delta 0.5 in the reference's point-grid
+    format (count, grid delta, points, normals); returns the point count."""
+    pts, nrm = fixtures.create_trench_grid_2d(grid_delta=0.5)
+    with open(path, "w") as f:
+        f.write(f"{len(pts)} 0.5\n")
+        for row in np.concatenate([pts, nrm]):
+            f.write(" ".join(str(float(v)) for v in row) + "\n")
+    return len(pts)
+
+
+def _mesh_dat(path):
+    """The 3D trench mesh fixture at grid delta 1.0 in the reference's mesh
+    format; returns the triangle count."""
+    nodes, tris = fixtures.create_trench_mesh_3d(grid_delta=1.0)
+    with open(path, "w") as f:
+        f.write(f"grid_delta 1.0\nn_nodes {len(nodes)}\n"
+                f"n_elements {len(tris)}\n")
+        for x, y, z in nodes:
+            f.write(f"n {float(x)} {float(y)} {float(z)}\n")
+        for a, b, c in tris:
+            f.write(f"e {a} {b} {c}\n")
+    return len(tris)
+
+
+# example -> the file it writes into --out (None: none)
+EXAMPLES = {
+    "multi_channel": "trenchIonFlux.vtk", "multi_species": None,
+    "stateful_ion": None, "disk2D": "trenchResult2D.vtk",
+    "disk3D": "trenchResult3D.vtk", "line2D": "trenchLines_lineFlux.vtp",
+    "triangle2D": "lineResult2D.vtp", "triangle3D": "trenchResultTri3D.vtp",
+    "sharded_trace": None,
+}
+
+
+@pytest.mark.parametrize("name", list(EXAMPLES))
 def test_examples_run_on_the_cpu(name, tmp_path, capsys):
+    """Every example of the port at a small depth on the CPU: the tracing
+    examples on their fixtures, or on a ``.dat`` file of the reference's
+    format read by ``io.dat`` (disk2D a point grid, triangle3D a mesh), each
+    writing its VTK or VTP file into the directory named, at 2 rays per
+    primitive; the sharded trace over 8 CPU shards."""
     import importlib
 
     module = importlib.import_module(f"viennaray_tpu_torch.examples.{name}")
-    argv = ["--device", "cpu", "--rays-per-point", "2"]
-    if name == "multi_channel":
+    argv = ["--device", "cpu"]
+    if name == "sharded_trace":
+        argv += ["--shards", "8", "--rays", "3000"]
+    else:
+        argv += ["--rays-per-point", "2"]
+    if EXAMPLES[name] is not None:
         argv += ["--out", str(tmp_path)]
+    n_lines = len(fixtures.create_trench_line_mesh(0.1)[1])
+    rays = {"disk3D": 2 * 2993, "line2D": 2 * n_lines,
+            "triangle2D": 4 * n_lines}
+    if name == "disk2D":
+        argv.insert(0, str(tmp_path / "trenchGrid2D.dat"))
+        rays[name] = 2 * _grid_dat(argv[0])
+    elif name == "triangle3D":
+        argv.insert(0, str(tmp_path / "trenchMesh.dat"))
+        rays[name] = 2 * _mesh_dat(argv[0])
     module.main(argv)
     out = capsys.readouterr().out
     if name == "multi_channel":
         assert "energy/ion ratio=0.9" in out
-        assert (tmp_path / "trenchIonFlux.vtk").exists()
     elif name == "multi_species":
         assert "channels: ['ionFlux', 'neutralFlux']" in out
-    else:
+    elif name == "stateful_ion":
         assert "deposit per hit=" in out
+    elif name == "sharded_trace":
+        assert "rays/s over 8 shards" in out and "flux sum" in out
+    else:
+        assert f"num_rays={rays[name]}," in out
+    if EXAMPLES[name] is not None:
+        assert (tmp_path / EXAMPLES[name]).stat().st_size > 0

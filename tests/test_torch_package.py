@@ -59,6 +59,14 @@ flux, grad = diff.flux_and_grad_sticking_batched(
     geo, vrt.RandomSource(bbox=box, cosine_power=1.0), vrt.DiffuseParticle(0.5),
     box, vrt.GeneratorRNG(3, "cpu"), 512, config, num_bounces=4, device="cpu")
 assert flux.sum() > 0 and grad <= 0
+from viennaray_tpu_torch import bench, parallel
+from viennaray_tpu_torch.bench import flagship, grad_bench, perf_sweep
+from viennaray_tpu_torch.examples import disk2D, sharded_trace, triangle3D
+flux, totals = parallel.trace_sharded(
+    geo, vrt.RandomSource(bbox=box, cosine_power=1.0), vrt.DiffuseParticle(0.5),
+    box, config, vrt.GeneratorRNG(3, "cpu"), 512,
+    parallel.make_ray_mesh(["cpu"] * 2))
+assert flux.sum() > 0 and totals[2] > 0
 bad = [m for m in ("jax", "flax", "viennaray_tpu") if m in sys.modules]
 assert not bad, bad
 print("standalone-ok")
@@ -87,7 +95,8 @@ def test_sources_name_neither_jax_nor_the_jax_package_as_an_import():
                    "geometry/line_geometry.py", "io/make_oracle_goldens.py",
                    "utils/materials.py", "csrc/tri_hit.cuh",
                    "csrc/line_hit.cuh", "csrc/prim_search.cuh",
-                   "diff/trace_grad.py"):
+                   "diff/trace_grad.py", "parallel/mesh.py",
+                   "bench/perf_sweep.py", "examples/sharded_trace.py"):
         assert os.path.join(package, *module.split("/")) in files, module
     # ``viennaray_tpu`` not followed by ``_torch``, outside a path-like
     # mention in prose (docstrings name their counterpart as

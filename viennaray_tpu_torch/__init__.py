@@ -14,7 +14,9 @@ single-hit deposit of triangles and lines, normalization and smoothing;
 custom particles (collision, reflection, per-ray state, initial-direction
 and data-log hooks, multi-channel flux, user sources) and multi-species runs
 (``apply_particles``); the differentiable trace and its gradient drivers
-(``diff``); the host's readers, writers, checkpoints and logging.
+(``diff``); the sharded trace over devices and processes (``parallel``, an
+entry point of its own); the host's readers, writers, checkpoints and
+logging; the benchmark programs (``bench``) and the examples (``examples``).
 Every setting outside the ported slices raises ``NotImplementedError``.
 
 The package imports ``torch`` and ``numpy`` only.
@@ -32,7 +34,7 @@ from .config import (
 from .data import DataLog, MergeType, TraceInfo, TracingData
 from .geometry.disk_geometry import DiskGeometry
 from .geometry.line_geometry import LineGeometry
-from .geometry.mesh import DiskMesh, LineMesh, TriangleMesh
+from .geometry.mesh import DiskMesh, LineMesh, TriangleMesh, lines_to_triangles
 from .geometry.triangle_geometry import TriangleGeometry
 from .physics.particle import (
     ConedCosineParticle,
@@ -68,6 +70,7 @@ __all__ = [
     "LineGeometry",
     "LineMesh",
     "TriangleMesh",
+    "lines_to_triangles",
     "TriangleGeometry",
     "Particle",
     "ConedCosineParticle",

@@ -5,16 +5,22 @@ started together; the bounce kernel's instantiations are four sources, one
 per primitive kind, so that they build in parallel), links the objects into
 one shared library with a plain C interface, and ``ctypes`` loads it. The build happens at first use, into
 ``build/`` beside the package, and again whenever a hash of the sources
-changes. Nothing here runs when the module is imported.
+changes. Nothing here runs when the module is imported. Several processes
+may start at once on an empty directory (the ranks of a sharded trace): each
+takes an exclusive ``fcntl.flock`` on a lock file there, the first builds in
+a temporary directory of its own and moves the library into place with
+``os.replace``, and the others find it built.
 """
 
 from __future__ import annotations
 
 import ctypes
+import fcntl
 import hashlib
 import os
 import shutil
 import subprocess
+import tempfile
 import time
 from pathlib import Path
 
@@ -125,20 +131,26 @@ def _build(target: Path) -> None:
     global build_seconds, build_log
     nvcc = _find_nvcc()
     target.parent.mkdir(parents=True, exist_ok=True)
-    work = target.parent / (target.stem + ".tmp")
-    work.mkdir(exist_ok=True)
-    sources = sorted(CSRC.glob("*.cu"))
-    objects = [work / (src.stem + ".o") for src in sources]
-    t0 = time.perf_counter()
-    build_log = "\n".join(_run_all([
-        [nvcc, *NVCC_FLAGS, "-c", str(src), "-o", str(obj)]
-        for src, obj in zip(sources, objects)
-    ]))
-    linked = work / target.name
-    _run_all([[nvcc, "-shared", "-o", str(linked), *map(str, objects)]])
-    os.replace(linked, target)
-    shutil.rmtree(work, ignore_errors=True)
-    build_seconds = time.perf_counter() - t0
+    with open(target.parent / "kernels.lock", "w") as lock:
+        fcntl.flock(lock, fcntl.LOCK_EX)
+        if target.exists():  # another process built it while this one waited
+            return
+        work = Path(tempfile.mkdtemp(dir=target.parent, suffix=".tmp"))
+        try:
+            sources = sorted(CSRC.glob("*.cu"))
+            objects = [work / (src.stem + ".o") for src in sources]
+            t0 = time.perf_counter()
+            build_log = "\n".join(_run_all([
+                [nvcc, *NVCC_FLAGS, "-c", str(src), "-o", str(obj)]
+                for src, obj in zip(sources, objects)
+            ]))
+            linked = work / target.name
+            _run_all([[nvcc, "-shared", "-o", str(linked),
+                       *map(str, objects)]])
+            os.replace(linked, target)
+            build_seconds = time.perf_counter() - t0
+        finally:
+            shutil.rmtree(work, ignore_errors=True)
 
 
 def library() -> ctypes.CDLL:

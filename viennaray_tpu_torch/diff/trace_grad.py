@@ -42,7 +42,7 @@ import numpy as np
 import torch
 
 from ..device import resolve_device
-from ..trace.kernel import trace_batch
+from ..trace.kernel import trace_batch, with_deposit_tables
 
 
 def _device(geometry, geo_type, device):
@@ -124,6 +124,7 @@ def flux_and_grad_sticking_batched(geometry, source, particle, bbox, rng,
 
     Returns (flux (N,) float64 numpy, d sum(flux) / d sticking float)."""
     dev = _device(geometry, geo_type, device)
+    geometry = with_deposit_tables(geometry, config)
     flux_acc = np.zeros((geometry.num_primitives,), np.float64)
     grad_acc = 0.0
     for b, ray_indices, valid in _batches(total_rays, config, dev):
@@ -146,7 +147,7 @@ def _flux_and_grad_geom_batched(geometry, source, particle, bbox, rng,
     of the field's shape), both summed over batches on the host."""
     dev = _device(geometry, geo_type, device)
     leaf = _leaf(getattr(geometry, field), dev, geometry.dtype)
-    geo = geometry.replace(**{field: leaf})
+    geo = with_deposit_tables(geometry.replace(**{field: leaf}), config)
     weights = (None if loss_weights is None else torch.as_tensor(
         loss_weights, dtype=geometry.dtype, device=dev))
     flux_acc = np.zeros((geometry.num_primitives,), np.float64)

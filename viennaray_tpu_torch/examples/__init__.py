@@ -1,7 +1,10 @@
-"""The JAX package's custom-particle examples on the port: a two-channel
+"""The JAX package's examples on the port, each at its own settings on the
+fixtures: the trench of disks in 2D and 3D (``disk2D``, ``disk3D``), the 2D
+trench as native line segments (``line2D``) and as extruded triangles
+(``triangle2D``), the 3D triangle trench (``triangle3D``), each of which
+takes the reference's ``.dat`` file where one is named; a two-channel
 particle (``multi_channel``), two species through ``apply_particles``
-(``multi_species``) and an energy-carrying ion (``stateful_ion``), each at
-its own settings on the fixtures. Each module's ``make_tracer`` builds the
-configured tracer (the CUDA device unless ``device`` is given) and ``main``
-runs it: ``python3 -m viennaray_tpu_torch.examples.multi_channel
-[--device cpu]``."""
+(``multi_species``), an energy-carrying ion (``stateful_ion``) and the
+sharded trace (``sharded_trace``). Each runs on the CUDA device unless
+``--device cpu`` is given: ``python3 -m
+viennaray_tpu_torch.examples.disk3D [--device cpu]``."""

@@ -5,8 +5,9 @@ Counterpart of ``viennaray_tpu/geometry/disk_geometry.py``: the analog of
 on one device, with a padded neighbor matrix (for the disk multi-hit
 semantics and flux smoothing), the packed SoA tables of the nearest-hit
 kernel, and precomputed clipped areas. Built on the host (numpy) once per
-geometry via ``DiskGeometry.build``. The uniform-grid field of the JAX
-geometry is not ported yet.
+geometry via ``DiskGeometry.build``, the neighbor records gathered on the
+device. The uniform-grid field of the JAX geometry is not ported yet:
+``build`` takes ``accel`` and builds nothing for it.
 """
 
 from __future__ import annotations
@@ -47,7 +48,10 @@ class DiskGeometry:
       soa_chunk_bbs carries per-chunk AABBs, soa_inv_perm maps original id ->
       sorted position.
     neighbor_pack: (N, K*8) per-prim neighbor records
-      [center(3) normal(3) radius valid]*K: one contiguous gather per hit.
+      [center(3) normal(3) radius valid]*K: one contiguous gather per hit;
+      ``None`` from ``build(..., pack_neighbors=False)`` until
+      ``with_neighbor_pack`` gathers it (the trace does, where a deposit
+      needs it).
     window_ids, window_pack: the window list of the window flux model, or
       ``None`` until ``with_window_list`` builds it: (N, W) int32 padded -1,
       and (N, W*8) records in the SoA's layout [center(3) normal(3) r2 n.c]
@@ -67,7 +71,7 @@ class DiskGeometry:
     soa_perm: torch.Tensor
     soa_chunk_bbs: torch.Tensor
     soa_inv_perm: torch.Tensor
-    neighbor_pack: torch.Tensor
+    neighbor_pack: Optional[torch.Tensor]
     dim: int = 3
     grid_delta: float = 0.0
     disk_radius: float = 0.0
@@ -128,13 +132,15 @@ class DiskGeometry:
         device,
     ) -> "DiskGeometry":
         """Geometry from the tables of a JAX-package ``DiskGeometry`` handed
-        across as numpy arrays (all twelve array fields), so that both
-        packages can trace the very same tables."""
+        across as numpy arrays (all twelve array fields; ``neighbor_pack``
+        may be None, as a JAX geometry built with ``pack_neighbors=False``
+        holds it), so that both packages can trace the very same tables."""
         missing = sorted(set(_FIELD_DTYPES) - set(fields))
         if missing:
             raise KeyError(f"missing geometry fields: {missing}")
         tensors = {
-            name: torch.from_numpy(np.array(fields[name], dt)).to(device)
+            name: None if fields[name] is None
+            else torch.from_numpy(np.array(fields[name], dt)).to(device)
             for name, dt in _FIELD_DTYPES.items()
         }
         return cls(
@@ -153,11 +159,25 @@ class DiskGeometry:
         radii=None,
         material_ids=None,
         device=None,
+        accel: bool = True,
+        pack_neighbors: bool = True,
     ) -> "DiskGeometry":
         """Host-side construction (ref: rayGeometryDisk.hpp:initGeometry).
 
         The tables go to ``device``; ``None`` is the CUDA device, and without
         one this raises (``device="cpu"`` asks for the CPU).
+
+        ``accel`` is taken as the JAX package's ``build`` takes it and builds
+        nothing: its uniform grid (the grid DDA) is not ported yet, and the
+        port's search needs none at any size. The (N, K*8) neighbor records
+        are gathered on the device (``with_neighbor_pack``);
+        ``pack_neighbors=False`` leaves them out (about 600 MB at 700,000
+        disks). Unlike the JAX package's fused kernel, which sweeps the
+        chunks a second time for its neighbor deposits, the port's bounce
+        kernel gathers these records, so the trace still needs them: it
+        gathers them once, where a deposit of the neighbor flux model needs
+        them (``trace.kernel.with_deposit_tables``; ``TraceDisk.apply``
+        keeps them for its later applies).
 
         In 2D the z coordinate of points and normals is zeroed
         (ref: rayGeometryDisk.hpp:49-51,68-69).
@@ -200,25 +220,18 @@ class DiskGeometry:
         inv_perm = np.zeros((n,), np.int32)
         inv_perm[soa_perm[:n]] = np.arange(n, dtype=np.int32)
 
-        k = nbrs.shape[1]
-        cl = np.clip(nbrs, 0, None)
-        pack = np.zeros((n, k, 8), np.float32)
-        pack[:, :, 0:3] = points[cl]
-        pack[:, :, 3:6] = normals[cl]
-        pack[:, :, 6] = radii_arr[cl]
-        pack[:, :, 7] = (nbrs >= 0).astype(np.float32)
-
-        return cls.from_reference_arrays(
+        geometry = cls.from_reference_arrays(
             dict(
                 points=points, normals=normals, radii=radii_arr,
                 material_ids=mat, neighbors=nbrs,
                 areas=np.zeros((n,), np.float32), bbox=bbox, prims_soa=soa,
                 soa_perm=soa_perm, soa_chunk_bbs=soa_bbs,
-                soa_inv_perm=inv_perm, neighbor_pack=pack.reshape(n, -1),
+                soa_inv_perm=inv_perm, neighbor_pack=None,
             ),
             dim=dim, grid_delta=grid_delta, disk_radius=disk_radius,
             device=device,
         )
+        return geometry.with_neighbor_pack() if pack_neighbors else geometry
 
     @classmethod
     def from_mesh(cls, mesh: DiskMesh, dim: int = 3,
@@ -234,6 +247,25 @@ class DiskGeometry:
         """The window flux model's width past the primary hit: 1.1 grid
         deltas (ref: gpu/raygTrace.hpp:116)."""
         return 1.1 * self.grid_delta
+
+    def with_neighbor_pack(self) -> "DiskGeometry":
+        """The geometry with its neighbor records (itself when it has them):
+        row i holds [center(3) normal(3) radius valid] of each of disk i's K
+        neighbor-list disks (valid 0 and disk 0's values in a padding slot),
+        gathered on the geometry's device from its own tables: the JAX
+        package's host packing bit for bit, as a gather rounds nothing.
+        Outside any gradient's graph."""
+        if self.neighbor_pack is not None:
+            return self
+        nbrs = self.neighbors.long()
+        cl = torch.clamp(nbrs, min=0)
+        radii = self.radii.detach()[cl][..., None]
+        pack = torch.cat([
+            self.points.detach()[cl], self.normals.detach()[cl], radii,
+            (nbrs >= 0)[..., None].to(radii.dtype),
+        ], dim=2)
+        return self.replace(
+            neighbor_pack=pack.reshape(len(nbrs), nbrs.shape[1] * 8))
 
     def with_window_list(self) -> "DiskGeometry":
         """The geometry with its window list (itself when it has one).

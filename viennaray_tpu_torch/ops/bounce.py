@@ -669,6 +669,11 @@ def _deposit_tables(geometry, settings):
             )
         return geometry.window_ids, geometry.window_pack
     if kind == "disk":
+        if geometry.neighbor_pack is None:
+            raise ValueError(
+                "the neighbor flux model needs the geometry's neighbor "
+                "records: call geometry.with_neighbor_pack()"
+            )
         return geometry.neighbors, geometry.neighbor_pack
     return None
 

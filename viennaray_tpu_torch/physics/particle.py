@@ -17,6 +17,7 @@ from typing import Optional, Tuple
 import torch
 
 from ..config import ReflectionKind
+from . import reflection
 
 
 @dataclasses.dataclass(frozen=True)
@@ -57,6 +58,29 @@ class Particle:
     def replace(self, **changes) -> "Particle":
         """A copy with ``changes`` (the JAX package's ``struct`` method)."""
         return dataclasses.replace(self, **changes)
+
+    def reflect(self, rng, ray_dir, normal, dim: int) -> torch.Tensor:
+        """New unit directions (R, 3) of rays ``ray_dir`` (R, 3) reflected
+        off ``normal`` (R, 3) by the particle's model: the JAX package's
+        ``reflect(key, ray_dir, normal, dim)``
+        (viennaray_tpu/physics/particle.py:72-78), for a ``reflection_fn``
+        hook. ``rng`` is the hook's ``rng.HookRNG``: its ``reflect_uniforms``
+        are the numbers the built-in reflection draws at this bounce, so a
+        hook that reflects with this reflects as the built-in body does, bit
+        for bit. A coned-cosine particle at a cone angle <= 0 or >= pi/2
+        reflects with the specular or the diffuse model, as that body does
+        (``reflection.cone_limit_kind``)."""
+        kind = ReflectionKind(self.reflection_kind)
+        if kind == ReflectionKind.CONED_COSINE:
+            limit = reflection.cone_limit_kind(self.cone_angle)
+            kind = kind if limit is None else limit
+        u1, u2 = rng.reflect_uniforms
+        if kind == ReflectionKind.DIFFUSE:
+            return reflection.diffuse(u1, u2, normal, dim)
+        if kind == ReflectionKind.SPECULAR:
+            return reflection.specular(ray_dir, normal, dim)
+        # coned-cosine: the polar angle arrives where diffuse's u1 does
+        return reflection.coned_cosine(u1, u2, ray_dir, normal, dim)
 
     def sticking_for(self, material_ids: torch.Tensor,
                      dtype=torch.float32) -> torch.Tensor:

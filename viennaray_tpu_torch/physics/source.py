@@ -42,7 +42,7 @@ import numpy as np
 import torch
 
 from .. import rng as rng_streams
-from ..config import get_trace_settings
+from ..config import adjust_bounding_box, get_trace_settings
 from ..device import resolve_device
 from ..ops import sampling, vec
 
@@ -67,6 +67,35 @@ class RandomSource:
     @property
     def dtype(self):
         return self.bbox.dtype
+
+    @classmethod
+    def default(cls, geometry, config, cosine_power: float = 1.0
+                ) -> "RandomSource":
+        """The tracers' own source for ``geometry`` under ``config``: the
+        plane on the face ``config.source_direction`` names of
+        ``source_box(geometry, config)`` (in float32 on the geometry's
+        device), tilted to ``config.primary_direction`` where one is given,
+        a point per primitive. Its ``bbox`` is the box that ``trace_batch``
+        and the sharded trace take beside it."""
+        ray_dir, first_dir, second_dir, min_max, pos_neg = (
+            get_trace_settings(config.source_direction))
+        dev = geometry.device
+        basis = None
+        if config.primary_direction is not None:
+            basis = vec.orthonormal_basis(torch.tensor(
+                config.primary_direction, dtype=torch.float32, device=dev))
+        return cls(
+            bbox=torch.tensor(source_box(geometry, config),
+                              dtype=torch.float32, device=dev),
+            cosine_power=float(cosine_power), basis=basis, ray_dir=ray_dir,
+            first_dir=first_dir, second_dir=second_dir, min_max=min_max,
+            pos_neg=float(pos_neg), dim=config.dim,
+            num_points=geometry.num_primitives,
+        )
+
+    def replace(self, **changes) -> "RandomSource":
+        """A copy with ``changes`` (the JAX package's ``struct`` method)."""
+        return dataclasses.replace(self, **changes)
 
     def to(self, dtype) -> "RandomSource":
         """The source sampling in ``dtype``: its box and basis cast."""
@@ -148,6 +177,17 @@ class RandomSource:
         return origins, dirs, weights
 
 
+def source_box(geometry, config):
+    """The geometry's bounding box extended toward the source face
+    (``config.adjust_bounding_box``) by the disk radius, or by the grid
+    delta for triangles and lines (ref: rayTraceDisk.hpp:30,
+    rayTraceTriangle.hpp:31): a (2, 3) float64 numpy array."""
+    margin = (geometry.disk_radius if geometry.kind == "disk"
+              else geometry.grid_delta)
+    return adjust_bounding_box(geometry.bbox.detach().cpu().numpy(),
+                               config.source_direction, margin, config.dim)
+
+
 def _plane_area(bbox, first_dir, second_dir, dim):
     """The source plane's area: its extent along the first lateral axis, times
     the second's in 3D (ref: raySourceRandom.hpp:40-47)."""
@@ -207,6 +247,10 @@ class GridSource:
     @property
     def dtype(self):
         return self.grid.dtype
+
+    def replace(self, **changes) -> "GridSource":
+        """A copy with ``changes`` (the JAX package's ``struct`` method)."""
+        return dataclasses.replace(self, **changes)
 
     def to(self, dtype) -> "GridSource":
         """The source sampling in ``dtype``: its box and grid cast."""
@@ -273,6 +317,10 @@ class SurfaceSource:
     @property
     def dtype(self):
         return self.points.dtype
+
+    def replace(self, **changes) -> "SurfaceSource":
+        """A copy with ``changes`` (the JAX package's ``struct`` method)."""
+        return dataclasses.replace(self, **changes)
 
     def to(self, dtype) -> "SurfaceSource":
         """The source sampling in ``dtype``: its points, normals and weights

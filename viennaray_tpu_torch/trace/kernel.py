@@ -300,6 +300,21 @@ def _use_dir(cand, dirn, dim):
     return torch.where(nonzero, cand, dirn)
 
 
+def with_deposit_tables(geometry, config: TraceConfig):
+    """The geometry with the tables its deposits read (itself when it has
+    them): a disk geometry's window list under the window flux model
+    (``DiskGeometry.with_window_list``), else its neighbor records
+    (``with_neighbor_pack``); a triangle or line geometry as it is.
+    ``trace_batch`` calls it on every batch; a loop over batches calls it
+    once before them, so that a geometry built without the tables builds
+    them once."""
+    if geometry.kind != "disk":
+        return geometry
+    if config.flux_model == "window":
+        return geometry.with_window_list()
+    return geometry.with_neighbor_pack()
+
+
 def trace_batch(
     geometry,
     source,
@@ -338,7 +353,12 @@ def trace_batch(
     ``fused`` says (the reference's rule, kernel.py:959-976). n_sub: the
     fused body's bounces per launch at (wide, mid, tail) stage widths. Under
     the window flux model a disk geometry without a window list gets one
-    here (``DiskGeometry.with_window_list``; the tracers build it once).
+    here (``DiskGeometry.with_window_list``; the tracers build it once), and
+    under the neighbor model one built without its neighbor records
+    (``DiskGeometry.build(..., pack_neighbors=False)``) gets them
+    (``with_neighbor_pack``): ``with_deposit_tables``, which the tracers,
+    the sharded trace and the gradient drivers call once before their
+    batches.
     Returns flux (n_prims,) on the device in the trace's type, or (L,
     n_prims) for a ``collision_fn`` and a particle of L > 1 ``data_labels``,
     and ``BatchCounters``.
@@ -450,8 +470,7 @@ def trace_batch(
     settings = BounceSettings.from_config(config, particle, fused=fused)
     first_dir, second_dir = settings.first_dir, settings.second_dir
     deposit_kind = settings.deposit_kind(geometry)
-    if deposit_kind == "window":
-        geometry = geometry.with_window_list()
+    geometry = with_deposit_tables(geometry, config)
     wdist = config.use_wdist and deposit_kind == "disk"
 
     dev = geometry.device

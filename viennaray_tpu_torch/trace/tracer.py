@@ -27,7 +27,6 @@ from ..config import (
     NormalizationType,
     TraceConfig,
     TraceDirection,
-    adjust_bounding_box,
     get_trace_settings,
 )
 from ..data import DataLog, TraceInfo, TracingData
@@ -37,11 +36,12 @@ from ..geometry.line_geometry import LineGeometry
 from ..geometry.mesh import DiskMesh, LineMesh, TriangleMesh
 from ..geometry.neighborhood import build_neighborhood
 from ..geometry.triangle_geometry import TriangleGeometry
-from ..ops import vec
-from ..physics.source import RandomSource, check_source
+from ..physics.source import RandomSource, check_source, source_box
 from ..rng import GeneratorRNG
 from . import postprocess
-from .kernel import BatchCounters, check_supported, trace_batch
+from .kernel import (
+    BatchCounters, check_supported, trace_batch, with_deposit_tables,
+)
 
 
 class _TraceBase:
@@ -238,48 +238,17 @@ class _TraceBase:
         # (ref: rayTraceKernel.hpp:100 seed = runNumber + rngSeed)
         return (self._rng_seed + self._run_number) & 0xFFFFFFFF
 
-    def _default_source(self, adjusted_bbox, num_points):
-        settings = get_trace_settings(self._source_direction)
-        ray_dir, first_dir, second_dir, min_max, pos_neg = settings
-        basis = None
-        if self._primary_direction is not None:
-            basis = vec.orthonormal_basis(
-                torch.tensor(self._primary_direction, dtype=torch.float32,
-                             device=self._device)
-            )
-        return RandomSource(
-            bbox=torch.tensor(adjusted_bbox, dtype=torch.float32,
-                              device=self._device),
-            cosine_power=float(self._particle.cosine_exponent),
-            basis=basis,
-            ray_dir=ray_dir,
-            first_dir=first_dir,
-            second_dir=second_dir,
-            min_max=min_max,
-            pos_neg=float(pos_neg),
-            dim=self._dim,
-            num_points=num_points,
-        )
-
     def _run_trace(self, geometry):
         config = self._make_config()
         n_prims = geometry.num_primitives
         total_rays = config.total_rays(n_prims)
-        # (ref: rayTraceDisk.hpp:30 discRadius, rayTraceTriangle.hpp:31
-        # gridDelta; lines as triangles)
-        bbox_margin = (
-            geometry.disk_radius if geometry.kind == "disk"
-            else geometry.grid_delta
-        )
-        adjusted = adjust_bounding_box(
-            geometry.bbox.cpu().numpy(), self._source_direction,
-            bbox_margin, self._dim,
-        )
+        adjusted = source_box(geometry, config)
 
         if self._custom_source is not None:
             source = self._custom_source
         else:
-            source = self._default_source(adjusted, n_prims)
+            source = RandomSource.default(
+                geometry, config, self._particle.cosine_exponent)
         check_supported(config, self._particle, source,
                         self._hooks["collision_fn"])
         self._last_source = source
@@ -416,8 +385,8 @@ class TraceDisk(_TraceBase):
         self.geometry = self.geometry.with_areas(
             boundary_dirs, self._boundary_conditions
         )
-        if self._flux_model == "window":
-            self.geometry = self.geometry.with_window_list()
+        self.geometry = with_deposit_tables(self.geometry,
+                                            self._make_config())
         flux = self._run_trace(self.geometry)
         self._store_local_data(flux)
         return flux
