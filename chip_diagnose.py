@@ -6,7 +6,7 @@ Run from the repository root on a machine with one NVIDIA Hopper card:
     python3 chip_diagnose.py [--triangles | --lines | --ion | --window |
                               --disk1m]
                              [--unfused] [--profile FILE]
-    python3 chip_diagnose.py --groups | --paths | --grad | --f64
+    python3 chip_diagnose.py --groups | --paths | --grad | --f64 | --grid
 
 It builds a tracer of ``chip_smoke.py`` (same geometry, particle, seed and
 batch; the default tracer, whose body is the fused bounce kernel): the
@@ -86,6 +86,17 @@ disk and 250 per triangle, ``--repeats`` rounds): per run the seconds, the
 launches of the search, and the last survivors of each batch (when at most
 eight rays are left: their boundary hits, reflections, direction z and
 weight), which say what the ladder's tail is spent on.
+
+``python3 chip_diagnose.py --grid`` times the chunk search against the grid
+walk (``ops/grid_traverse.py``, kernel 4's grid search) on the trench at
+four sizes, 9,216, 18,180, 72,360 and 704,250 disks (grid delta 0.14, 0.1,
+0.05, 0.016), in ``--repeats`` rounds whose order of the two searches
+alternates, one process: the closest-hit kernel (kernel 1 against the grid
+kernel) at 2^20 source and interior rays, and kernel 4 at 2^20 x 1, 16,384
+x 4 and 512 x 16 on one seeded state each: the measurement behind the path
+rule (``trace/kernel.py:grid_for``). Then disk1m (the sweep's cell, built
+with its grid) through ``TraceDisk`` with the grid and without, in turns:
+``repeats`` and ``kernel_spans`` of each.
 
 It checks nothing: ``chip_smoke.py`` holds the kernels and the flux to their
 references.
@@ -537,6 +548,84 @@ def f64_tails(rounds):
         TK.bounce_step = real
 
 
+# the trench's grid deltas of the crossover (--grid), and their names
+GRID_SIZES = ((0.14, "disk9k"), (0.1, "disk18k"), (0.05, "disk72k"),
+              (0.016, "disk1m"))
+
+
+def grid_crossover(rounds):
+    """Kernel 1 and kernel 4 with the chunk search and with the grid walk on
+    the trench at each size of ``GRID_SIZES``, in rounds whose order of the
+    two alternates; milliseconds by CUDA events."""
+    from viennaray_tpu_torch.geometry.disk_geometry import DiskGeometry
+    from viennaray_tpu_torch.io import fixtures
+    from viennaray_tpu_torch.ops import grid_traverse as GT
+    from viennaray_tpu_torch.ops import nearest_hit as NH
+
+    settings = cs.bounce_settings()
+    for gd, name in GRID_SIZES:
+        pts, nrm = fixtures.create_trench_grid_3d(**dict(FLAGSHIP,
+                                                         grid_delta=gd))
+        geo = DiskGeometry.build(pts, nrm, gd).with_neighbor_pack()
+        bbox = cs.adjusted_bbox(geo)
+        walls = B.make_walls(bbox, geo, settings)
+        runs = {}
+        for kind in ("source", "interior"):
+            org, dirn = cs.make_rays(geo, bbox, 1 << 20, kind, seed=7)
+            runs[f"kernel1_{kind}_2^20"] = {
+                "chunks": lambda o=org, d=dirn: NH.disk_nearest_hit(
+                    o, d, geo.prims_soa, geo.soa_perm, geo.soa_chunk_bbs),
+                "grid": lambda o=org, d=dirn: GT.disk_grid_nearest_hit(
+                    o, d, geo.prims_soa, geo.soa_perm, geo.grid)}
+        for n_rays, n_sub in ((1 << 20, 1), (16384, 4), (512, 16)):
+            state, uni = cs.make_state(geo, bbox, n_rays, "interior", n_sub,
+                                       settings, seed=13)
+            args = (state, uni, geo, walls, settings)
+            runs[f"kernel4_{n_rays}x{n_sub}"] = {
+                "chunks": lambda a=args, k=n_sub: B.fused_bounce(
+                    *a, n_sub=k),
+                "grid": lambda a=args, k=n_sub: B.fused_bounce(
+                    *a, n_sub=k, grid=geo.grid)}
+        ms = {key: {"chunks": [], "grid": []} for key in runs}
+        for r in range(rounds):
+            order = ("chunks", "grid") if r % 2 == 0 else ("grid", "chunks")
+            for key, fns in runs.items():
+                reps = 3 if key.endswith("2^20") or "1048576" in key else 20
+                for mode in order:
+                    ms[key][mode].append(cs.time_cuda(fns[mode], reps))
+        print(json.dumps({
+            "phase": "grid_crossover", "geometry": name, "grid_delta": gd,
+            "disks": geo.num_primitives,
+            "chunks": geo.soa_chunk_bbs.shape[0],
+            "grid_cells": list(geo.grid.walk_dims),
+            "grid_slots": geo.grid.lanes.shape[1], "ms": ms}), flush=True)
+        del geo, runs, walls
+        torch.cuda.empty_cache()
+
+
+def grid_disk1m(n):
+    """disk1m through ``TraceDisk`` with its grid and without, in turns:
+    ``repeats`` and ``kernel_spans`` of each."""
+    from viennaray_tpu_torch.bench import perf_sweep
+    from viennaray_tpu_torch.geometry.disk_geometry import DiskGeometry
+
+    gd = perf_sweep.CELLS["disk1m"][1]
+    geo = DiskGeometry.build(*perf_sweep.fixture("disk1m"), gd, dim=3,
+                             pack_neighbors=False).with_neighbor_pack()
+    tracers = {}
+    for mode, g in (("chunks", geo.replace(grid=None)), ("grid", geo)):
+        tracers[mode] = perf_sweep.make_tracer("disk1m", None)
+        tracers[mode].geometry = g
+        tracers[mode].apply()  # warm-up
+    for i in range(2):
+        for mode in ("chunks", "grid") if i == 0 else ("grid", "chunks"):
+            print(json.dumps({"mode": mode, **repeats(tracers[mode], n,
+                                                      f"fused, {mode}")}),
+                  flush=True)
+            print(json.dumps({"mode": mode, **kernel_spans(
+                tracers[mode], f"fused, {mode}")}), flush=True)
+
+
 def main(argv=None):
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument(
@@ -563,6 +652,11 @@ def main(argv=None):
         "--f64", action="store_true",
         help="only trace the disk and triangle flagships unfused in float32 "
              "and float64 in turns, with each batch's last survivors",
+    )
+    parser.add_argument(
+        "--grid", action="store_true",
+        help="only time the chunk search against the grid walk at four "
+             "sizes, and disk1m's applies and spans with and without grid",
     )
     parser.add_argument("--repeats", type=int, default=5)
     parser.add_argument(
@@ -620,6 +714,10 @@ def main(argv=None):
         return 0
     if args.f64:
         f64_tails(args.repeats)
+        return 0
+    if args.grid:
+        grid_crossover(args.repeats)
+        grid_disk1m(args.repeats)
         return 0
     if args.groups or args.paths:
         if args.groups:

@@ -126,6 +126,21 @@ It imports only ``viennaray_tpu_torch`` and, in order:
     plain versions. The histogram's backward kernel is held bit for bit to
     ``index_select`` and timed beside it with the other kernel checks.
 
+15. right after the kernel checks of step 3, the uniform grid
+    (``phase_grid_path``): the grid closest-hit kernels (disks, triangles;
+    float32 and float64) against their plain versions and against kernels 1
+    and 3 at 2^20 source and interior rays on the 18,180-disk trench and the
+    36,000-triangle trench (grid delta 0.1), and on rim and tie rays; kernel
+    4 with the grid search against kernel 4 with the chunk search on one
+    state at 2^20 x 1, 16,384 x 4 and 512 x 16 on the disks, at 2^20 x 1 and
+    512 x 16 on the triangles, and at 2^20 x 1 on disk1m (704,250 disks);
+    then fused applies of disk18k (200 rays per point) and disk1m (4 rays
+    per point, 2,817,000 rays) and unfused applies of disk18k and the
+    triangles, each with the geometry's grid (the trace walks it: above
+    ``TraceConfig.grid_min_prims``) and without it, flux and event counters
+    bit for bit, with seconds, cells or chunks a search, and the grid's host
+    build seconds and table bytes.
+
 Every path of the bounce kernel runs once more from a fresh tracer with
 every launch at one thread per ray (``fused_bounce``'s private ``group=1``),
 and its flux and counters must equal the default run's bit for bit.
@@ -978,12 +993,15 @@ def oracle_golden(name):
 
 def _kernel_wrappers():
     from viennaray_tpu_torch.ops import bounce as B
+    from viennaray_tpu_torch.ops import grid_traverse as GT
     from viennaray_tpu_torch.ops import histogram as H
     from viennaray_tpu_torch.ops import nearest_hit as NH
 
     return {
         "fused_bounce": B.fused_bounce,
         "disk_nearest_hit": NH.disk_nearest_hit,
+        "disk_grid_nearest_hit": GT.disk_grid_nearest_hit,
+        "triangle_grid_nearest_hit": GT.triangle_grid_nearest_hit,
         "triangle_nearest_hit": NH.triangle_nearest_hit,
         "line_nearest_hit": NH.line_nearest_hit,
         "flux_histogram": H.flux_histogram,
@@ -993,7 +1011,8 @@ def _kernel_wrappers():
 
 # the wrappers that also launch a float64 form, counted in ``launches_f64``
 F64_KERNELS = ("disk_nearest_hit", "triangle_nearest_hit", "line_nearest_hit",
-               "flux_histogram", "flux_histogram_grad")
+               "flux_histogram", "flux_histogram_grad",
+               "disk_grid_nearest_hit", "triangle_grid_nearest_hit")
 
 
 def reset_launches():
@@ -1003,6 +1022,7 @@ def reset_launches():
         if name in F64_KERNELS:
             wrapper.launches_f64 = 0
     wrappers["fused_bounce"].sub_bounces = 0
+    wrappers["fused_bounce"].launches_grid = 0
     for table in (wrappers["fused_bounce"].launches_by_group,
                   wrappers["flux_histogram"].launches_by_path,
                   wrappers["flux_histogram"].launches_by_path_f64):
@@ -1017,6 +1037,7 @@ def read_launches():
     out = {name: w.launches for name, w in wrappers.items()}
     out.update({f"{name}_f64": wrappers[name].launches_f64
                 for name in F64_KERNELS})
+    out["fused_bounce_grid"] = wrappers["fused_bounce"].launches_grid
     return out
 
 
@@ -2617,6 +2638,340 @@ def phase_sharded_path(pts, nrm):
         raise RuntimeError(f"sharded path failed its checks: {res}")
     return launches["four_shards"], four["launches"]
 
+# ---- the uniform grid (the grid DDA) -----------------------------------------
+# disk18k and the 36,000-triangle trench (grid delta 0.1), and disk1m, the
+# perf sweep's cell (viennaray_tpu_torch/bench/perf_sweep.py): 704,250 disks,
+# 4 rays per point, built here with its grid
+GRID_FINE = dict(FLAGSHIP, grid_delta=0.1)
+DISK1M = dict(FLAGSHIP, grid_delta=0.016)
+DISK1M_RAYS_PER_POINT = 4
+GRID_RAYS_PER_POINT = 200  # disk18k, as the perf sweep's cell
+# the kernel 4 shapes of the ladder: wide, mid, tail
+GRID_BOUNCE_SHAPES = ((1 << 20, 1), (16384, 4), (512, 16))
+
+
+def grid_tables(build):
+    """The grid's build seconds (``build()``: the JAX package's table on
+    the host, the walk's on the card), the bytes of the walk's table on the
+    card and of the JAX package's table on the host."""
+    t0 = time.perf_counter()
+    grid = build()
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    return {"dims": list(grid.dims), "walk_dims": list(grid.walk_dims),
+            "slots": grid.cells.shape[1], "walk_slots": grid.lanes.shape[1],
+            "exact": grid.exact, "host_build_seconds": seconds,
+            "device_table_bytes": grid.device_bytes,
+            "host_table_bytes": grid.cells.nbytes}
+
+
+def check_grid_hit(geometry, bbox, n_rays, kind, reps):
+    """The grid closest-hit kernel of the geometry's kind against its plain
+    version (the walk in tensor ops) and against the chunk search's kernel
+    (kernel 1 or 3) on the same rays, bit for bit; the float64 form for a
+    geometry widened by ``to(torch.float64)``. Times all three; the bound
+    counts the pairs the walks tested."""
+    from viennaray_tpu_torch.ops import grid_traverse as GT
+    from viennaray_tpu_torch.ops import nearest_hit as NH
+
+    f64 = geometry.dtype == torch.float64
+    name = f"{geometry.kind}_grid_nearest_hit"
+    kernel = getattr(GT, name)
+    chunk = getattr(NH, f"{geometry.kind}_nearest_hit")
+    org, dirn = make_rays(geometry, bbox, n_rays, kind, seed=7)
+    org, dirn = org.to(geometry.dtype), dirn.to(geometry.dtype)
+    args = (org, dirn, geometry.prims_soa, geometry.soa_perm, geometry.grid)
+    chunk_args = (org, dirn, geometry.prims_soa, geometry.soa_perm,
+                  geometry.soa_chunk_bbs)
+    got = kernel(*args, t_near=1e-4)
+    by_chunks = chunk(*chunk_args, t_near=1e-4)
+    torch.cuda.synchronize()
+    t_p, lane_p, visited, tested = GT.grid_walk_ref(
+        org, dirn, geometry.grid, geometry.prims_soa,
+        GT.TEST[geometry.kind], 1e-4)
+    plain = (t_p, geometry.soa_perm[torch.clamp(lane_p, min=0)], lane_p >= 0)
+    plain_equal = all(bool(torch.equal(a, b)) for a, b in zip(got, plain))
+    chunk_equal = all(bool(torch.equal(a, b)) for a, b in zip(got, by_chunks))
+    hit = plain[2]
+    max_abs_err = max(
+        float((got[0] - plain[0])[hit].abs().max()) if bool(hit.any())
+        else 0.0,
+        float((got[0] - by_chunks[0])[hit].abs().max()) if bool(hit.any())
+        else 0.0)
+    ms = time_cuda(lambda: kernel(*args, t_near=1e-4), reps)
+    chunk_ms = time_cuda(lambda: chunk(*chunk_args, t_near=1e-4), reps)
+    plain_ms = time_cuda(lambda: GT.grid_walk_ref(
+        org, dirn, geometry.grid, geometry.prims_soa,
+        GT.TEST[geometry.kind], 1e-4), 1)
+    rows, npad = geometry.prims_soa.shape
+    word = 8 if f64 else 4
+    pairs = int(tested.sum())
+    cells = int(visited.sum())
+    op_ms = (pairs * OPS_PER_PAIR[geometry.kind]
+             / (F64_FLOPS if f64 else F32_FLOPS) * 1e3)
+    # rays in, (t, prim, hit) out, and the tables once: the SoA and its
+    # permutation (as kernel 1's bound counts them) and the walk's table
+    n_bytes = (n_rays * (6 * word + word + 5) + npad * (rows * word + 4)
+               + geometry.grid.device_bytes)
+    byte_ms = n_bytes / HBM_BYTES_PER_S * 1e3
+    res = {
+        "phase": "kernel_check", "kernel": name + ("_f64" if f64 else ""),
+        "shape": f"R={n_rays} ({kind} rays), N={geometry.num_primitives}, "
+                 f"cells {geometry.grid.walk_dims}, "
+                 f"K={geometry.grid.lanes.shape[1]}",
+        "tolerance": "hit, prim and t equal bit for bit on every lane to the "
+                     "plain walk and to the chunk search's kernel",
+        "plain_equal": plain_equal, "chunk_kernel_equal": chunk_equal,
+        "hit_fraction": float(hit.float().mean()),
+        "cells_a_ray": cells / n_rays, "pairs_a_ray": pairs / n_rays,
+        "max_abs_err": max_abs_err, "ms": ms, "plain_ms": plain_ms,
+        "chunk_kernel_ms": chunk_ms,
+        "bound_ms": max(op_ms, byte_ms),
+        "bound_by": "operations" if op_ms >= byte_ms else "bytes",
+        "library_ms": None,
+    }
+    emit(res)
+    if not (plain_equal and chunk_equal and max_abs_err == 0.0):
+        raise RuntimeError(f"{name} disagrees: {res}")
+    return res
+
+
+def check_grid_bounce(geometry, bbox, n_rays, kind, n_sub, settings, reps):
+    """Kernel 4 with the grid search against kernel 4 with the chunk search
+    on the same seeded state, in the kernel's deposits (and handed out at
+    one bounce): state, events, survivors and flux bit for bit, each timed.
+    In grid mode the search counts are the cells the walks visited and the
+    searches they ran, one per live ray and sub-bounce."""
+    from viennaray_tpu_torch.ops import bounce as B
+
+    walls = B.make_walls(bbox, geometry, settings)
+    state, uniforms = make_state(geometry, bbox, n_rays, kind, n_sub,
+                                 settings, seed=13)
+    args = (state, uniforms, geometry, walls, settings)
+    out = {}
+    for in_kernel in ((True, False) if n_sub == 1 else (True,)):
+        kw = dict(n_sub=n_sub, deposit_in_kernel=in_kernel)
+        chunk = B.fused_bounce(*args, **kw)
+        grid = B.fused_bounce(*args, **kw, grid=geometry.grid)
+        torch.cuda.synchronize()
+        n_events = B.N_EVENTS + 1
+        equal = (all(bool(torch.equal(a, b))
+                     for a, b in zip(chunk.state, grid.state))
+                 and bool(torch.equal(chunk.counts[:n_events],
+                                      grid.counts[:n_events])))
+        if in_kernel:
+            equal = equal and bool(torch.equal(chunk.flux, grid.flux))
+        else:
+            equal = (equal and bool(torch.equal(chunk.hit_prim, grid.hit_prim))
+                     and bool(torch.equal(chunk.wdep, grid.wdep)))
+        swept, searches = grid.counts[n_events:].tolist()
+        counts_ok = searches == int(grid.counts[3]) and swept >= searches
+        ms = time_cuda(lambda: B.fused_bounce(*args, **kw), reps)
+        grid_ms = time_cuda(
+            lambda: B.fused_bounce(*args, **kw, grid=geometry.grid), reps)
+        chunk_swept, chunk_tiles = chunk.counts[n_events:].tolist()
+        res = {
+            "phase": "grid_bounce", "shape":
+                f"{geometry.kind}s N={geometry.num_primitives}, R={n_rays} "
+                f"({kind} rays), n_sub={n_sub}, deposits "
+                f"{'in the kernel' if in_kernel else 'handed out'}, "
+                f"G={B.GRID_GROUP} (grid), "
+                f"{B.group_for(n_rays, geometry.soa_chunk_bbs.shape[0])} "
+                f"(chunks)",
+            "tolerance": "state, events, survivors, flux (or hit and weight) "
+                         "bit for bit between the two searches",
+            "bitwise_equal": equal, "grid_ms": grid_ms, "chunk_ms": ms,
+            "cells_a_search": swept / max(searches, 1),
+            "chunks_a_search_group": chunk_swept / max(chunk_tiles, 1),
+            "search_counts_ok": counts_ok,
+        }
+        emit(res)
+        if not (equal and counts_ok):
+            raise RuntimeError(f"kernel 4's grid search disagrees: {res}")
+        out[in_kernel] = res
+    return out
+
+
+def make_grid_tracer(geometry, rays_per_point, fused=True):
+    """``TraceDisk`` or ``TraceTriangle`` on a built geometry, the flagships'
+    physics."""
+    import viennaray_tpu_torch as vrt
+
+    cls = vrt.TraceDisk if geometry.kind == "disk" else vrt.TraceTriangle
+    tracer = cls(dim=3, fused=fused)
+    tracer.geometry = geometry
+    return configure(tracer, rays_per_point)
+
+
+def grid_apply_pair(label, geometry, rays_per_point, fused, kernels):
+    """One apply of ``geometry`` with its grid (the trace walks it: at least
+    ``grid_min_prims`` primitives) and one of the same geometry without
+    (the chunk search), the launch counts set to 0 just before each and read
+    just after; flux and event counters bit for bit. Returns the grid run's
+    launches."""
+    import dataclasses
+
+    runs = {}
+    for mode, geo in (("chunks", geometry.replace(grid=None)),
+                      ("grid", geometry)):
+        tracer = make_grid_tracer(geo, rays_per_point, fused)
+        reset_launches()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        flux = tracer.apply()
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        info = dataclasses.asdict(tracer.get_ray_trace_info())
+        runs[mode] = dict(flux=flux, info=info, seconds=seconds,
+                          launches=read_launches())
+        del tracer
+    chunks, grid = runs["chunks"], runs["grid"]
+    equal = bool(np.array_equal(chunks["flux"], grid["flux"])) and all(
+        chunks["info"][k] == grid["info"][k] for k in INFO_COUNTERS)
+    n = grid["info"]["num_rays"]
+    res = {
+        "phase": "main_path", "path": label, "fused": fused,
+        f"{geometry.kind}s": geometry.num_primitives, "num_rays": n,
+        "bitwise_equal": equal,
+        "seconds": {m: r["seconds"] for m, r in runs.items()},
+        "rays_per_s": {m: n / r["seconds"] for m, r in runs.items()},
+        "geometry_hits_per_ray": grid["info"]["geometry_hits"] / n,
+        "cells_a_search": grid["info"]["chunks_swept"]
+        / max(grid["info"]["tile_bounces"], 1),
+        "chunks_a_search_group": chunks["info"]["chunks_swept"]
+        / max(chunks["info"]["tile_bounces"], 1),
+        "launches": {m: {k: v for k, v in r["launches"].items() if v}
+                     for m, r in runs.items()},
+    }
+    finite = bool(np.isfinite(grid["flux"]).all()) and grid["flux"].max() > 0
+    # every launch of the bounce kernel walked the grid
+    all_grid = (grid["launches"]["fused_bounce_grid"]
+                == grid["launches"]["fused_bounce"])
+    emit(res)
+    if not (equal and finite and all_grid
+            and only_launched(grid["launches"], *kernels)):
+        raise RuntimeError(f"grid path failed its checks: {res}")
+    return grid["launches"]
+
+
+def phase_grid_path():
+    """The uniform grid (``geometry.grid_accel``, ``ops/grid_traverse.py``,
+    kernel 4's grid search): the grid closest-hit kernels against their
+    plain versions and against kernels 1 and 3 at 2^20 rays on disk18k and
+    the 36,000 triangles, float32 and float64; kernel 4 with the grid
+    against kernel 4 with the chunks at the ladder's three shapes on
+    disk18k, disk1m and the triangles; then fused applies at disk18k and
+    disk1m and unfused applies at disk18k and the triangles, each with the
+    grid and without, bit for bit. Returns (kernel results, launches by
+    path)."""
+    from viennaray_tpu_torch.geometry import grid_accel
+    from viennaray_tpu_torch.geometry.disk_geometry import DiskGeometry
+    from viennaray_tpu_torch.geometry.grid_accel import GridData
+    from viennaray_tpu_torch.geometry.triangle_geometry import TriangleGeometry
+    from viennaray_tpu_torch.io import fixtures
+
+    t_phase = time.perf_counter()
+    pts, nrm = fixtures.create_trench_grid_3d(**GRID_FINE)
+    disks = DiskGeometry.build(pts, nrm, GRID_FINE["grid_delta"])
+    disks_bbox = adjusted_bbox(disks)
+    verts, tris = fixtures.create_trench_mesh_3d(**GRID_FINE)
+    mesh = TriangleGeometry.build(verts, tris, GRID_FINE["grid_delta"])
+    mesh_bbox = adjusted_bbox(mesh)
+    p32 = disks.points.cpu().numpy()
+    r32 = disks.radii.cpu().numpy()
+    inv = disks.soa_inv_perm
+    emit({"phase": "grid_tables", "geometry": "disk18k",
+          "disks": disks.num_primitives, **grid_tables(lambda: (
+              GridData.build(grid_accel.build_disk_grid(p32, None, r32),
+                             *grid_accel.disk_boxes(p32, r32), inv, 3,
+                             disks.device)))})
+    emit({"phase": "grid_tables", "geometry": "trench_mesh_0.1",
+          "triangles": mesh.num_primitives, **grid_tables(lambda: (
+              GridData.build(grid_accel.build_triangle_grid(verts, tris),
+                             *grid_accel.triangle_boxes(verts, tris),
+                             mesh.soa_inv_perm, 3, mesh.device,
+                             exact=grid_accel.triangles_covered(verts,
+                                                                tris))))})
+
+    results = {}
+    for geo, box in ((disks, disks_bbox), (mesh, mesh_bbox)):
+        for dtype in (torch.float32, torch.float64):
+            g = geo.to(dtype)
+            for kind in ("source", "interior"):
+                res = check_grid_hit(g, box, 1 << 20, kind, reps=5)
+                results.setdefault((geo.kind, dtype, kind), res)
+        # rays at rims and edges (a quarter grazing), and straight down
+        # onto packed flat faces and shared edges: float32
+        check_grid_hit(geo, box, 65536, "rims", reps=2)
+        check_grid_hit(geo, box, 65536, "ties", reps=2)
+    flagship = bounce_settings()
+    bounce = {}
+    for n_rays, n_sub in GRID_BOUNCE_SHAPES:
+        bounce[("disk18k", n_rays, n_sub)] = check_grid_bounce(
+            disks, disks_bbox, n_rays, "interior", n_sub, flagship, reps=3)
+    bounce[("triangles", 1 << 20, 1)] = check_grid_bounce(
+        mesh, mesh_bbox, 1 << 20, "source", 1, flagship, reps=3)
+    check_grid_bounce(mesh, mesh_bbox, 512, "interior", 16, flagship, reps=3)
+
+    launches = {}
+    launches["disk18k"] = grid_apply_pair(
+        "disk18k", disks, GRID_RAYS_PER_POINT, True,
+        ("fused_bounce", "fused_bounce_grid", "flux_histogram"))
+    launches["disk18k_unfused"] = grid_apply_pair(
+        "disk18k_unfused", disks, GRID_RAYS_PER_POINT // 8, False,
+        ("disk_grid_nearest_hit", "flux_histogram"))
+    launches["triangles_unfused"] = grid_apply_pair(
+        "trench_mesh_0.1_unfused", mesh, 20, False,
+        ("triangle_grid_nearest_hit", "flux_histogram"))
+    del disks, mesh
+    t0 = time.perf_counter()
+    pts, nrm = fixtures.create_trench_grid_3d(**DISK1M)
+    fixture_seconds = time.perf_counter() - t0
+    big = DiskGeometry.build(pts, nrm, DISK1M["grid_delta"],
+                             pack_neighbors=False)
+    big_bbox = adjusted_bbox(big)
+    p32 = big.points.cpu().numpy()
+    r32 = big.radii.cpu().numpy()
+    emit({"phase": "grid_tables", "geometry": "disk1m",
+          "disks": big.num_primitives, "fixture_seconds": fixture_seconds,
+          **grid_tables(lambda: GridData.build(
+              grid_accel.build_disk_grid(p32, None, r32),
+              *grid_accel.disk_boxes(p32, r32), big.soa_inv_perm, 3,
+              big.device))})
+    big = big.with_neighbor_pack()
+    bounce[("disk1m", 1 << 20, 1)] = check_grid_bounce(
+        big, big_bbox, 1 << 20, "interior", 1, flagship, reps=2)
+    launches["disk1m"] = grid_apply_pair(
+        "disk1m", big, DISK1M_RAYS_PER_POINT, True,
+        ("fused_bounce", "fused_bounce_grid", "flux_histogram"))
+    del big
+    torch.cuda.empty_cache()
+    emit({"phase": "grid_path_seconds",
+          "seconds": time.perf_counter() - t_phase})
+    return results, bounce, launches
+
+
+def grid_kernel_entries(results, launches_by_path, keys):
+    """The kernels line's entries of the grid closest-hit kernels (their
+    float64 forms inside), timed on source rays at 2^20."""
+    entries = []
+    for kind in ("disk", "triangle"):
+        name = f"{kind}_grid_nearest_hit"
+        res = results[(kind, torch.float32, "source")]
+        res64 = results[(kind, torch.float64, "source")]
+        entries.append({
+            "name": name, "route": "cuda",
+            "source": "viennaray_tpu_torch/csrc/grid_traverse.cu",
+            "replaces": "viennaray_tpu/ops/grid_traverse.py:64",
+            "launches": sum(n[name] for n in launches_by_path.values()),
+            "launches_by_path": {path: n[name] for path, n in
+                                 launches_by_path.items() if n[name]},
+            **{k: res[k] for k in keys},
+            "chunk_kernel_ms": res["chunk_kernel_ms"],
+            "f64": {k: res64[k] for k in keys + ("chunk_kernel_ms",)},
+        })
+    return entries
+
 
 def main():
     if not torch.cuda.is_available():
@@ -2844,6 +3199,8 @@ def main():
             check_bounce(geom, box, 2048, rays, 16, True, settings, reps=3,
                          particle=particle, group=g, time_plain=False)
 
+    grid_hits, grid_bounce, grid_launches_by_path = phase_grid_path()
+
     torch.cuda.reset_peak_memory_stats()
     launches, unfused_launches, neighbor_norm = phase_disk_paths(pts, nrm)
     tri_launches, tri_unfused_launches = phase_triangle_paths(verts, tris)
@@ -2978,6 +3335,7 @@ def main():
             },
             **{k: line_hit_wide[k] for k in keys},
         },
+        *grid_kernel_entries(grid_hits, grid_launches_by_path, keys),
         {
             "name": "fused_bounce", "route": "cuda",
             "source": "viennaray_tpu_torch/csrc/bounce.cu",
@@ -3018,6 +3376,22 @@ def main():
             "lines": {k: line_bounce_wide[k] for k in keys},
             "ion": {k: ion_bounce_wide[k] for k in keys},
             "window": {k: window_bounce_wide[k] for k in keys},
+            # the grid search (kernel 4 walking the uniform grid): its
+            # launches on the grid paths, and its times beside the chunk
+            # search's on the same state
+            "grid": {
+                "launches": sum(n["fused_bounce_grid"]
+                                for n in grid_launches_by_path.values()),
+                "launches_by_path": {
+                    name: n["fused_bounce_grid"]
+                    for name, n in grid_launches_by_path.items()
+                    if n["fused_bounce_grid"]},
+                "ms": {f"{geo}_{r}x{k}": {
+                    "grid_ms": res[True]["grid_ms"],
+                    "chunk_ms": res[True]["chunk_ms"],
+                    "cells_a_search": res[True]["cells_a_search"]}
+                    for (geo, r, k), res in grid_bounce.items()},
+            },
             # the tail's launches, which the group mapping serves
             "narrow": {name: {k: res[k] for k in keys + ("group",)}
                        for name, res in (

@@ -2,6 +2,7 @@
 both packages, and a ``RayRNG`` that hands the port the JAX package's own
 uniforms, drawn with ``jax.random`` under the reference's key schedule."""
 
+import dataclasses
 import sys
 
 import jax
@@ -1119,11 +1120,12 @@ class Beam:
         return 1.0
 
 
-def f32_digest(name):
+def f32_digest(name, grid_min_prims=None):
     """sha256 of one of ``F32_DIGEST_TRACES``: a float32 ``trace_batch`` of
     4,096 rays (batch 1, seed 5) on the CPU, with roulette, periodic walls
     and the compaction ladder, through only what the tree before float64
-    tracing had."""
+    tracing had. ``grid_min_prims``: the config's, in place of its default
+    (0: the geometry's uniform grid is walked, where it has one)."""
     import hashlib
 
     import viennaray_tpu_torch as vrtt
@@ -1153,6 +1155,8 @@ def f32_digest(name):
         dim=dim, source_direction=face,
         boundary_conditions=(vrtt.BoundaryCondition.PERIODIC,) * 3,
         ray_batch_size=4096, rng_seed=5, use_random_seed=False)
+    if grid_min_prims is not None:
+        config = dataclasses.replace(config, grid_min_prims=grid_min_prims)
     rng = streams.GeneratorRNG(5, "cpu")
     rng.begin_batch(1)
     idx = torch.arange(4096, 8192)

@@ -39,7 +39,22 @@ _NEAREST_HIT = [
 ]
 # the float64 forms: every float pointer to doubles, t_near a double
 _NEAREST_HIT_F64 = _NEAREST_HIT[:8] + [ctypes.c_double] + _NEAREST_HIT[9:]
+# org dir prims perm | lanes k nx ny nz | gx gy gz cs | n_rays npad t_near |
+# t prim hit stream
+_GRID_HIT = (
+    [_ptr] * 5 + [ctypes.c_int] * 4 + [ctypes.c_float] * 4
+    + [ctypes.c_int] * 2 + [ctypes.c_float] + [_ptr] * 4
+)
+# the float64 forms: the corner, the cell size and t_near doubles
+_GRID_HIT_F64 = (
+    [_ptr] * 5 + [ctypes.c_int] * 4 + [ctypes.c_double] * 4
+    + [ctypes.c_int] * 2 + [ctypes.c_double] + [_ptr] * 4
+)
 _SIGNATURES = {
+    "vr_disk_grid_nearest_hit": _GRID_HIT,
+    "vr_tri_grid_nearest_hit": _GRID_HIT,
+    "vr_disk_grid_nearest_hit_f64": _GRID_HIT_F64,
+    "vr_tri_grid_nearest_hit_f64": _GRID_HIT_F64,
     "vr_disk_nearest_hit": _NEAREST_HIT,
     "vr_triangle_nearest_hit": _NEAREST_HIT,
     "vr_line_nearest_hit": _NEAREST_HIT,
@@ -75,11 +90,13 @@ _SIGNATURES = {
     # perm neighbors neighbor_pack walls stick_lanes | n_rays npad pt n_prims
     # k_nbrs n_sub kind dim first_dir second_dir ray_axis bc1 bc2 refl_kind
     # max_refl max_bdry roulette deposit | t_near sticking wthresh wrenew
-    # mean_free_path | group | org dir weight alive hfb n_refl n_bdry out |
-    # flux hit_prim wdep t_hit scratch stream
+    # mean_free_path | group | grid lanes, k nx ny nz, gx gy gz cs | org dir
+    # weight alive hfb n_refl n_bdry out | flux hit_prim wdep t_hit scratch
+    # stream
     "vr_fused_bounce": (
         [_ptr] * 16 + [ctypes.c_int] * 18 + [ctypes.c_float] * 5
-        + [ctypes.c_int] + [_ptr] * 7 + [_ptr] * 6
+        + [ctypes.c_int] + [_ptr] + [ctypes.c_int] * 4
+        + [ctypes.c_float] * 4 + [_ptr] * 7 + [_ptr] * 6
     ),
 }
 

@@ -14,7 +14,8 @@ Cells (each at seed 42, periodic walls, mega-batches of 2^20 rays):
 - ``tri3d``: the triangle flagship, ``create_trench_mesh_3d`` at the
   flagship's widths (5,760 triangles), 2,000 rays per triangle;
 - ``disk18k``: the trench at grid delta 0.1, 18,180 disks, 200 rays per
-  point;
+  point (above ``TraceConfig.grid_min_prims``: the trace walks its uniform
+  grid, ``trace/kernel.py:grid_for``);
 - ``disk1m``: the trench at grid delta 0.016, 704,250 disks, 4 rays per
   point, its geometry built with ``accel=False, pack_neighbors=False`` as
   the JAX sweep builds it (the apply gathers the neighbor records on the
@@ -32,7 +33,7 @@ synchronise: wall and process CPU seconds of each, rays/s of the median,
 peak device memory from before the build, the kernels' launches of one
 apply, the trace's counters (hits per ray, ``chunks_swept`` and
 ``tile_bounces`` of the bounce kernel's search, their ratio the chunks
-walked per search) and, where the repository holds a golden made for that
+walked per search, or the cells where the trace walks the grid) and, where the repository holds a golden made for that
 very configuration, the rel-L2 of the normalized flux against it (disk3d:
 ``bench_disk3d.npy`` and ``bench_disk3d_oracle.npy``; tri3d, ion, line2d:
 the oracle goldens of ``viennaray_tpu_torch/io/golden``), else null.

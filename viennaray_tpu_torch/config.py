@@ -90,6 +90,12 @@ class TraceConfig:
       t_near: ray epsilon offset (ref: rayUtil.hpp:230 -> 1e-4).
       use_wdist: 1/distance multi-hit weighting (ref: rayTraceKernel.hpp:
         258-296); the trace runs its unfused body with it.
+      grid_min_prims: the trace walks the geometry's uniform grid (the grid
+        DDA, ``ops/grid_traverse.py``) from this many primitives on, where
+        the geometry has one (an exact one: ``trace/kernel.py:grid_for``)
+        and the trace is not differentiable; below it, and for lines, the
+        chunk search (the JAX package's field and default,
+        viennaray_tpu/config.py:122).
       roulette: Russian roulette on/off.
       flux_model: disk multi-hit flux model. "neighbor" = the CPU reference
         contract (hit prim + neighbor-list re-test, rayTraceKernel.hpp:
@@ -118,6 +124,7 @@ class TraceConfig:
     renew_weight_frac: float = 0.3
     t_near: float = 1e-4
     use_wdist: bool = False
+    grid_min_prims: int = 8192
     roulette: bool = True
     flux_model: str = "neighbor"
 

@@ -8,6 +8,7 @@
 
 #include "disk_hit.cuh"
 #include "fixed_point.cuh"
+#include "grid_search.cuh"
 #include "line_hit.cuh"
 #include "prim_search.cuh"
 #include "tri_hit.cuh"
@@ -37,6 +38,8 @@ struct BounceArgs {
   const float* neighbor_pack;  // or the window list's records
   const float* walls;
   const float* stick_lanes;  // per sorted lane, or null: `sticking`
+  // the uniform grid's walk (grid_search.cuh); lanes null: the chunk search
+  GridWalk<float> grid;
   int n_rays, npad, pt, n_prims, k_nbrs, n_sub;
   int dim, first_dir, second_dir, ray_axis, bc1, bc2, refl_kind;
   int max_refl, max_bdry, roulette, deposit;
@@ -60,9 +63,11 @@ struct BounceArgs {
   unsigned long long* counts;
 };
 
-// Launches bounce_kernel<Kind, full, group> on `s` for a.n_rays rays; group
-// is one of the instantiated G values (launch_group); returns 0 or
-// cudaErrorInvalidValue. Defined by each kind's translation unit.
+// Launches bounce_kernel<Kind, full, group, grid> on `s` for a.n_rays rays,
+// grid = (a.grid.lanes != null); group is one of the instantiated G values
+// (launch_group), and 32 with a grid; returns 0 or cudaErrorInvalidValue
+// (also for a grid on lines, which have none). Defined by each kind's
+// translation unit.
 int launch_disks(bool full, int group, cudaStream_t s, const BounceArgs& a);
 int launch_window(bool full, int group, cudaStream_t s, const BounceArgs& a);
 int launch_tris(bool full, int group, cudaStream_t s, const BounceArgs& a);
@@ -188,9 +193,15 @@ __device__ __forceinline__ void normalize3(float& x, float& y, float& z) {
 // update with the same operations, so the group's threads agree bit for bit
 // without a broadcast; they split the search and the deposit gather, and
 // the group's first thread (the leader) writes the ray's outputs and counts.
-template <class Kind, bool kFull, int G>
+// kGrid: the search walks the uniform grid (grid_search_group; built at
+// G = 32 only, ops/bounce.py:GRID_GROUP) instead of sweeping the chunks; it
+// returns the same (t, lane), so nothing else changes but the search
+// counts: the cells the walks visited, and the searches they ran (one per
+// live ray and sub-bounce).
+template <class Kind, bool kFull, int G, bool kGrid>
 __global__ void __launch_bounds__(G == 1 ? kSearchBlock : kGroupBlock)
 bounce_kernel(const BounceArgs a) {
+  static_assert(!kGrid || G == 32, "the grid search runs a warp per ray");
   constexpr int kBlock = G == 1 ? kSearchBlock : kGroupBlock;
   __shared__ float4 s_prim[G == 1 ? Kind::kVec * kSearchTile : 1];
 
@@ -278,7 +289,11 @@ bounce_kernel(const BounceArgs a) {
     // ---- closest hit below the bound -----------------------------------
     float t_geo = tmin0;
     int lane, woken;
-    if constexpr (G == 1) {
+    if constexpr (kGrid) {
+      grid_search_group<Kind, G>(ox, oy, oz, dx, dy, dz, a.prims, a.npad,
+                                 a.grid, a.t_near, gl, t_geo, lane, woken);
+      c_swept += woken;
+    } else if constexpr (G == 1) {
       prim_search<Kind>(s_prim, ox, oy, oz, dx, dy, dz, a.prims, a.chunk_bbs,
                         a.npad, a.pt, a.t_near, alive, t_geo, lane, woken);
       if ((threadIdx.x & 31) == 0) c_swept += woken;
@@ -569,12 +584,12 @@ bounce_kernel(const BounceArgs a) {
   count_add(&a.counts[7], own * c_tiles);
 }
 
-template <class Kind, bool kFull, int G>
+template <class Kind, bool kFull, int G, bool kGrid>
 void launch_one(cudaStream_t s, const BounceArgs& a) {
   constexpr int kBlock = G == 1 ? kSearchBlock : kGroupBlock;
   const long long threads = (long long)a.n_rays * G;
   const int grid = (int)((threads + kBlock - 1) / kBlock);
-  bounce_kernel<Kind, kFull, G><<<grid, kBlock, 0, s>>>(a);
+  bounce_kernel<Kind, kFull, G, kGrid><<<grid, kBlock, 0, s>>>(a);
 }
 
 // The G values instantiated (ops/bounce.py:GROUPS), and the launch of one of
@@ -584,15 +599,30 @@ void launch_one(cudaStream_t s, const BounceArgs& a) {
 template <class Kind, bool kFull>
 int launch_group(int group, cudaStream_t s, const BounceArgs& a) {
   switch (group) {
-    case 1: launch_one<Kind, kFull, 1>(s, a); break;
-    case 32: launch_one<Kind, kFull, 32>(s, a); break;
+    case 1: launch_one<Kind, kFull, 1, false>(s, a); break;
+    case 32: launch_one<Kind, kFull, 32, false>(s, a); break;
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
   return 0;
 }
 
-template <class Kind>
+// kHasGrid: the kind can walk a grid (disks, triangles); lines cannot. The
+// grid search is built at G = 32 only: any other group is refused.
+template <class Kind, bool kHasGrid = true>
 int launch_kind(bool full, int group, cudaStream_t s, const BounceArgs& a) {
+  if (a.grid.lanes != nullptr) {
+    if constexpr (kHasGrid) {
+      if (group != 32) return static_cast<int>(cudaErrorInvalidValue);
+      if (full) {
+        launch_one<Kind, true, 32, true>(s, a);
+      } else {
+        launch_one<Kind, false, 32, true>(s, a);
+      }
+      return 0;
+    } else {
+      return static_cast<int>(cudaErrorInvalidValue);
+    }
+  }
   return full ? launch_group<Kind, true>(group, s, a)
               : launch_group<Kind, false>(group, s, a);
 }

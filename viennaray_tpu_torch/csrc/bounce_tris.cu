@@ -1,6 +1,7 @@
 // The bounce kernel's instantiations for triangles (TriKind of tri_hit.cuh):
-// both kFull values and every group size G that launch_group holds
-// (bounce_kernel.cuh, bounce.cu).
+// both kFull values and every group size G that launch_group holds, each
+// with the chunk search and with the grid search (bounce_kernel.cuh,
+// bounce.cu).
 #include "bounce_kernel.cuh"
 
 int vr_bounce::launch_tris(bool full, int group, cudaStream_t s,

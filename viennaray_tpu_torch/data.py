@@ -45,7 +45,10 @@ class TraceInfo:
     # pairs whose chunk the group walked, and the (search group, sub-bounce)
     # pairs it ran. A search group shares one chunk-skip decision: a warp of
     # 32 rays under one thread per ray, one ray under a group of threads. 0
-    # on the unfused body and on the CPU (the plain version sweeps no chunks)
+    # on the unfused body and on the CPU (the plain version sweeps no chunks).
+    # Where the trace walks the uniform grid (trace.kernel.grid_for), the
+    # cells the walks visited and the searches they ran (one per live ray
+    # and sub-bounce): chunks_swept / tile_bounces is then cells a search
     chunks_swept: int = 0
     # the reference's second sweep for deposits; always 0 here: the kernel
     # gathers the hit disk's neighbor or window list instead

@@ -6,8 +6,9 @@ on one device, with a padded neighbor matrix (for the disk multi-hit
 semantics and flux smoothing), the packed SoA tables of the nearest-hit
 kernel, and precomputed clipped areas. Built on the host (numpy) once per
 geometry via ``DiskGeometry.build``, the neighbor records gathered on the
-device. The uniform-grid field of the JAX geometry is not ported yet:
-``build`` takes ``accel`` and builds nothing for it.
+device. ``build(accel=True)`` (the default) also builds the uniform grid
+of the grid DDA (``grid``, ``geometry.grid_accel.GridData``), as the JAX
+geometry does.
 """
 
 from __future__ import annotations
@@ -22,7 +23,8 @@ from ..config import disk_factor
 from ..device import resolve_device
 from ..ops import vec
 from ..ops.nearest_hit import pack_disk_prims
-from . import disk_area, neighborhood
+from . import disk_area, grid_accel, neighborhood
+from .grid_accel import GridData
 from .mesh import DiskMesh, compute_bounding_box, with_dtype
 
 # field -> dtype of the tables handed across by ``from_reference_arrays``
@@ -56,6 +58,8 @@ class DiskGeometry:
       ``None`` until ``with_window_list`` builds it: (N, W) int32 padded -1,
       and (N, W*8) records in the SoA's layout [center(3) normal(3) r2 n.c]
       (a padding record is all zeros: its zero normal never passes).
+    grid: the uniform grid of the grid DDA (``grid_accel.GridData``), or
+      ``None`` (``build(..., accel=False)``, or no disks).
     """
 
     kind: ClassVar[str] = "disk"  # the primitive kind the kernels search
@@ -77,6 +81,7 @@ class DiskGeometry:
     disk_radius: float = 0.0
     window_ids: Optional[torch.Tensor] = None
     window_pack: Optional[torch.Tensor] = None
+    grid: Optional[GridData] = None
 
     @property
     def num_primitives(self) -> int:
@@ -112,6 +117,8 @@ class DiskGeometry:
         soa[6, lanes] = r * r
         soa[7, lanes] = vec.dot(geo.normals.detach(), geo.points.detach())
         geo = geo.replace(prims_soa=soa)
+        if geo.grid is not None:
+            geo = geo.replace(grid=geo.grid.to(dtype))
         if geo.window_ids is not None:
             columns = soa.T[lanes]
             ids = geo.window_ids.long()
@@ -130,11 +137,15 @@ class DiskGeometry:
         grid_delta: float,
         disk_radius: float,
         device,
+        grid=None,
     ) -> "DiskGeometry":
         """Geometry from the tables of a JAX-package ``DiskGeometry`` handed
         across as numpy arrays (all twelve array fields; ``neighbor_pack``
         may be None, as a JAX geometry built with ``pack_neighbors=False``
-        holds it), so that both packages can trace the very same tables."""
+        holds it), so that both packages can trace the very same tables.
+        ``grid``: its ``GridData`` as numpy arrays (``cells``, ``origin``,
+        ``cell_size``, ``dims``), or None for a geometry without one; the
+        walk's table is built from it and the disks' boxes."""
         missing = sorted(set(_FIELD_DTYPES) - set(fields))
         if missing:
             raise KeyError(f"missing geometry fields: {missing}")
@@ -143,9 +154,15 @@ class DiskGeometry:
             else torch.from_numpy(np.array(fields[name], dt)).to(device)
             for name, dt in _FIELD_DTYPES.items()
         }
+        if grid is not None:
+            grid = GridData.from_reference_arrays(
+                grid, *grid_accel.disk_boxes(
+                    np.asarray(fields["points"], np.float32),
+                    np.asarray(fields["radii"], np.float32)),
+                fields["soa_inv_perm"], int(dim), device)
         return cls(
             **tensors, dim=int(dim), grid_delta=float(grid_delta),
-            disk_radius=float(disk_radius),
+            disk_radius=float(disk_radius), grid=grid,
         )
 
     @classmethod
@@ -167,10 +184,10 @@ class DiskGeometry:
         The tables go to ``device``; ``None`` is the CUDA device, and without
         one this raises (``device="cpu"`` asks for the CPU).
 
-        ``accel`` is taken as the JAX package's ``build`` takes it and builds
-        nothing: its uniform grid (the grid DDA) is not ported yet, and the
-        port's search needs none at any size. The (N, K*8) neighbor records
-        are gathered on the device (``with_neighbor_pack``);
+        ``accel``: build the uniform grid of the grid DDA (``grid``), as the
+        JAX package's ``build`` does, wherever there are disks; the trace
+        walks it from ``TraceConfig.grid_min_prims`` disks on. The (N, K*8)
+        neighbor records are gathered on the device (``with_neighbor_pack``);
         ``pack_neighbors=False`` leaves them out (about 600 MB at 700,000
         disks). Unlike the JAX package's fused kernel, which sweeps the
         chunks a second time for its neighbor deposits, the port's bounce
@@ -220,6 +237,13 @@ class DiskGeometry:
         inv_perm = np.zeros((n,), np.int32)
         inv_perm[soa_perm[:n]] = np.arange(n, dtype=np.int32)
 
+        grid = None
+        if accel and n > 0:
+            grid = GridData.build(
+                grid_accel.build_disk_grid(points, normals, radii_arr,
+                                           dim=dim),
+                *grid_accel.disk_boxes(points, radii_arr), inv_perm, dim,
+                device)
         geometry = cls.from_reference_arrays(
             dict(
                 points=points, normals=normals, radii=radii_arr,
@@ -230,7 +254,7 @@ class DiskGeometry:
             ),
             dim=dim, grid_delta=grid_delta, disk_radius=disk_radius,
             device=device,
-        )
+        ).replace(grid=grid)
         return geometry.with_neighbor_pack() if pack_neighbors else geometry
 
     @classmethod

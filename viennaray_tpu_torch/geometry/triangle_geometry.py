@@ -5,20 +5,22 @@ Counterpart of ``viennaray_tpu/geometry/triangle_geometry.py``: the analog of
 as torch tensors on one device with per-triangle normals and areas and the
 packed SoA tables of the closest-hit kernel. 2D line meshes are extruded to
 triangle pairs up front (ref: rayTraceTriangle.hpp:76-81). Built on the host
-(numpy) once per geometry via ``TriangleGeometry.build``. The uniform-grid
-field of the JAX geometry is not ported: ``accel`` is accepted and unused.
+(numpy) once per geometry via ``TriangleGeometry.build``, with the uniform
+grid of the grid DDA (``grid``) under ``accel=True``, as the JAX geometry.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import ClassVar, Dict
+from typing import ClassVar, Dict, Optional
 
 import numpy as np
 import torch
 
 from ..device import resolve_device
 from ..ops.nearest_hit import pack_triangle_prims
+from . import grid_accel
+from .grid_accel import GridData
 from .mesh import (
     LineMesh, TriangleMesh, compute_bounding_box, lines_to_triangles,
     with_dtype,
@@ -43,6 +45,10 @@ class TriangleGeometry:
     prims_soa: (12, Npad) SoA packing [v0 e1 e2 n] for the closest-hit kernel;
     soa_perm maps sorted->original ids, soa_chunk_bbs carries per-chunk AABBs,
     soa_inv_perm maps original id -> sorted position.
+    grid: the uniform grid of the grid DDA (``grid_accel.GridData``), or
+    ``None`` (``build(..., accel=False)``, or no triangles); the trace walks
+    it only where every triangle lies in a plane x, y or z = const
+    (``grid.exact``, ``grid_accel.triangles_covered``).
     """
 
     kind: ClassVar[str] = "triangle"  # the primitive kind the kernels search
@@ -59,6 +65,7 @@ class TriangleGeometry:
     soa_inv_perm: torch.Tensor
     dim: int = 3
     grid_delta: float = 0.0
+    grid: Optional[GridData] = None
 
     @property
     def num_primitives(self) -> int:
@@ -94,7 +101,8 @@ class TriangleGeometry:
         v0 = v[tri[:, 0]]
         soa[3:6, :n] = (v[tri[:, 1]] - v0).T
         soa[6:9, :n] = (v[tri[:, 2]] - v0).T
-        return geo.replace(prims_soa=soa)
+        grid = None if geo.grid is None else geo.grid.to(dtype)
+        return geo.replace(prims_soa=soa, grid=grid)
 
     @classmethod
     def from_reference_arrays(
@@ -104,10 +112,13 @@ class TriangleGeometry:
         dim: int,
         grid_delta: float,
         device,
+        grid=None,
     ) -> "TriangleGeometry":
         """Geometry from the tables of a JAX-package ``TriangleGeometry``
         handed across as numpy arrays (all ten array fields), so that both
-        packages can trace the very same tables."""
+        packages can trace the very same tables. ``grid``: its ``GridData``
+        as numpy arrays (``cells``, ``origin``, ``cell_size``, ``dims``), or
+        None for a geometry without one."""
         missing = sorted(set(_FIELD_DTYPES) - set(fields))
         if missing:
             raise KeyError(f"missing geometry fields: {missing}")
@@ -115,7 +126,15 @@ class TriangleGeometry:
             name: torch.from_numpy(np.array(fields[name], dt)).to(device)
             for name, dt in _FIELD_DTYPES.items()
         }
-        return cls(**tensors, dim=int(dim), grid_delta=float(grid_delta))
+        if grid is not None:
+            verts = np.asarray(fields["vertices"], np.float32)
+            grid = GridData.from_reference_arrays(
+                grid, *grid_accel.triangle_boxes(verts, fields["triangles"]),
+                fields["soa_inv_perm"], int(dim), device,
+                exact=grid_accel.triangles_covered(verts,
+                                                   fields["triangles"]))
+        return cls(**tensors, dim=int(dim), grid_delta=float(grid_delta),
+                   grid=grid)
 
     @classmethod
     def build(
@@ -132,7 +151,9 @@ class TriangleGeometry:
         """Host-side construction (ref: rayGeometryTriangle.hpp:initGeometry).
 
         The tables go to ``device``; ``None`` is the CUDA device, and without
-        one this raises (``device="cpu"`` asks for the CPU).
+        one this raises (``device="cpu"`` asks for the CPU). ``accel``: build
+        the uniform grid of the grid DDA (``grid``), as the JAX package's
+        ``build`` does, wherever there are triangles.
         """
         device = resolve_device(device)
         vertices = np.asarray(vertices, np.float32).reshape(-1, 3)
@@ -177,6 +198,13 @@ class TriangleGeometry:
         inv_perm = np.zeros((n,), np.int32)
         inv_perm[soa_perm[:n]] = np.arange(n, dtype=np.int32)
 
+        grid = None
+        if accel and n > 0:
+            grid = GridData.build(
+                grid_accel.build_triangle_grid(vertices, triangles, dim=dim),
+                *grid_accel.triangle_boxes(vertices, triangles), inv_perm,
+                dim, device,
+                exact=grid_accel.triangles_covered(vertices, triangles))
         return cls.from_reference_arrays(
             dict(
                 vertices=vertices, triangles=triangles, normals=normals,
@@ -185,7 +213,7 @@ class TriangleGeometry:
                 soa_inv_perm=inv_perm,
             ),
             dim=dim, grid_delta=grid_delta, device=device,
-        )
+        ).replace(grid=grid)
 
     @classmethod
     def from_mesh(cls, mesh: TriangleMesh, dim: int = 3,

@@ -9,10 +9,10 @@
 // the tests' yardstick (geometry/neighborhood.py:build_neighborhood_numpy),
 // and both give the same table, counts and row order.
 //
-// Exposed via ctypes (viennaray_tpu_torch/utils/native.py); plain C ABI. Only
-// vr_build_neighborhood is bound there: vr_build_grid serves the uniform grid
-// of the grid DDA (viennaray_tpu/geometry/grid_accel.py), which the port has
-// not ported yet, and is bound when that is.
+// Exposed via ctypes (viennaray_tpu_torch/utils/native.py); plain C ABI:
+// vr_build_neighborhood (build_neighborhood_native) and vr_build_grid
+// (build_grid_native), the cell insertion of the uniform grid that the grid
+// DDA walks (viennaray_tpu_torch/geometry/grid_accel.py).
 
 #include <algorithm>
 #include <cmath>

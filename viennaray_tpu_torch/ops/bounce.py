@@ -68,7 +68,7 @@ import torch
 from .. import _build
 from ..config import BoundaryCondition, ReflectionKind, get_trace_settings
 from ..physics import reflection
-from . import intersect, vec
+from . import grid_traverse, intersect, vec
 from . import sampling
 from .nearest_hit import (
     BIG,
@@ -116,6 +116,9 @@ N_EVENTS = 5
 GROUPS = (1, 32)
 GROUP_ALL_WIDTHS_CHUNKS = 8  # from this many chunks on, every width: G = 32
 GROUP_BELOW_WIDTH = 65536  # below this width, every geometry: G = 32
+# the threads per ray of every launch with the grid search (one warp walks
+# each ray; the only G the card has run it at)
+GRID_GROUP = 32
 
 
 def group_for(n_rays: int, n_chunks: int) -> int:
@@ -733,9 +736,11 @@ def _check_inputs(state, uniforms, geometry, walls, settings, n_sub,
 
 def fused_bounce_ref(state: RayState, uniforms, geometry, walls, settings,
                      n_sub: int = 1, deposit_in_kernel: bool = True,
-                     stick_lanes=None):
+                     stick_lanes=None, grid=None):
     """Plain PyTorch version of ``fused_bounce``, on any device: ``n_sub``
-    applications of ``bounce_step``. Deposits in the kernel are summed in
+    applications of ``bounce_step``, whose search is the plain chunk search
+    or, given the geometry's ``grid``, the plain grid walk
+    (``grid_traverse``; the same hits). Deposits in the kernel are summed in
     float64 over all sub-bounces and rounded to float32 once, as the kernel's
     fixed-point bins are."""
     n_uni = settings.n_uni
@@ -746,6 +751,9 @@ def fused_bounce_ref(state: RayState, uniforms, geometry, walls, settings,
     )
     hit_prim = wdep = t_hit = None
     search = _KINDS[geometry.kind][2]
+    if grid is not None:
+        search = grid_traverse.with_grid(
+            grid_traverse.SEARCH_REF[geometry.kind], grid)
     for k in range(n_sub):
         org, dirn = state.org, state.dirn
         state, hit_prim, wdep, t_hit, step_counts = bounce_step(
@@ -767,7 +775,7 @@ def fused_bounce_ref(state: RayState, uniforms, geometry, walls, settings,
 
 def fused_bounce(state: RayState, uniforms, geometry, walls, settings,
                  n_sub: int = 1, deposit_in_kernel: bool = True,
-                 stick_lanes=None, group=None):
+                 stick_lanes=None, group=None, grid=None):
     """Advance every ray through ``n_sub`` whole bounces; any R.
 
     state: ``RayState``; uniforms (R, n_uni n_sub) float32 with the columns
@@ -790,19 +798,30 @@ def fused_bounce(state: RayState, uniforms, geometry, walls, settings,
     inputs give bitwise the same outputs on either device. ``group`` (one of
     ``GROUPS``; None: ``group_for``) forces the threads per ray, to
     compare two mappings: every G gives the same outputs bit for bit but the
-    two search counts. The trace never sets it.
+    two search counts. The trace never sets it. ``grid``: the geometry's
+    ``GridData`` (disks and triangles), for the grid search
+    (``csrc/grid_search.cuh``) in place of the chunk search, always a warp
+    per ray (``GRID_GROUP``); the same outputs bit for bit but the two
+    search counts, which then count the cells the walks visited and the
+    searches they ran.
     """
+    if grid is not None and geometry.kind not in grid_traverse.SEARCH:
+        raise ValueError(f"a {geometry.kind} geometry has no grid search")
     state = RayState(*state)
     s = settings
     _check_inputs(state, uniforms, geometry, walls, settings, n_sub,
                   deposit_in_kernel, stick_lanes)
     if group is not None and group not in GROUPS:
         raise ValueError(f"group must be one of {GROUPS}, got {group}")
+    if grid is not None:
+        grid_traverse.check_grid(grid, state.org)
+        if group not in (None, GRID_GROUP):
+            raise ValueError(f"the grid search runs at group {GRID_GROUP}")
     dev = state.org.device
     if dev.type == "cpu":
         return fused_bounce_ref(
             state, uniforms, geometry, walls, settings, n_sub,
-            deposit_in_kernel, stick_lanes,
+            deposit_in_kernel, stick_lanes, grid,
         )
     if dev.type != "cuda":
         raise RuntimeError(f"fused_bounce: unsupported device {dev}")
@@ -837,7 +856,10 @@ def fused_bounce(state: RayState, uniforms, geometry, walls, settings,
         outs = (None, hit_prim.data_ptr(), wdep.data_ptr(),
                 None if t_hit is None else t_hit.data_ptr())
     n_chunks = geometry.soa_chunk_bbs.shape[0]
-    g = group_for(R, n_chunks) if group is None else group
+    if grid is not None:
+        g = GRID_GROUP
+    else:
+        g = group_for(R, n_chunks) if group is None else group
     lib = _build.library()
     with torch.cuda.device(dev):
         err = lib.vr_fused_bounce(
@@ -857,7 +879,9 @@ def fused_bounce(state: RayState, uniforms, geometry, walls, settings,
             int(deposit_in_kernel),
             s.t_near, s.sticking, s.weight_threshold_frac,
             s.renew_weight_frac, max(s.mean_free_path, 0.0),
-            g, new.org.data_ptr(), new.dirn.data_ptr(), new.weight.data_ptr(),
+            g, *(grid_traverse.walk_args(grid) if grid is not None
+                 else (None, 0, 0, 0, 0, 0.0, 0.0, 0.0, 0.0)),
+            new.org.data_ptr(), new.dirn.data_ptr(), new.weight.data_ptr(),
             new.alive.data_ptr(), new.hfb.data_ptr(), new.n_refl.data_ptr(),
             new.n_bdry.data_ptr(), *outs, scratch.data_ptr(),
             torch.cuda.current_stream().cuda_stream,
@@ -865,6 +889,7 @@ def fused_bounce(state: RayState, uniforms, geometry, walls, settings,
     if err != 0:
         raise RuntimeError(f"vr_fused_bounce: CUDA error {err}")
     fused_bounce.launches += 1
+    fused_bounce.launches_grid += grid is not None
     fused_bounce.sub_bounces += n_sub
     fused_bounce.launches_by_group[g] += 1
     return BounceResult(new, scratch[n_prims + 1:], flux, hit_prim, wdep,
@@ -872,5 +897,6 @@ def fused_bounce(state: RayState, uniforms, geometry, walls, settings,
 
 
 fused_bounce.launches = 0  # kernel launches
+fused_bounce.launches_grid = 0  # of them, launches with the grid search
 fused_bounce.sub_bounces = 0  # bounces those launches ran, n_sub each
 fused_bounce.launches_by_group = dict.fromkeys(GROUPS, 0)  # launches by G

@@ -10,7 +10,9 @@ line search is a third instantiation of the one kernel template).
   helpers are the host-side (numpy) packing of a geometry into Morton-compact
   chunks of a struct-of-arrays, kept as copies.
 - ``disk_nearest_hit_ref`` / ``triangle_nearest_hit_ref`` /
-  ``line_nearest_hit_ref`` are the plain PyTorch versions.
+  ``line_nearest_hit_ref`` are the plain PyTorch versions; ``disk_test`` /
+  ``triangle_test`` their exact tests on broadcastable tensors, which the
+  grid walk's plain version (``ops/grid_traverse.py``) shares.
 - ``disk_nearest_hit`` / ``triangle_nearest_hit`` / ``line_nearest_hit`` are
   the wrappers around the CUDA kernels of ``csrc/nearest_hit.cu``: on a CUDA
   tensor they launch the kernel or raise, on a CPU tensor they run the plain
@@ -347,8 +349,7 @@ def disk_nearest_hit_ref(org, dirn, prims, perm, chunk_bbs=None, t_near=1e-4):
     org/dirn (R, 3) f32 or f64; prims (8, Npad) of the same type; perm
     (Npad,) sorted->original. ``chunk_bbs`` is accepted for the kernel's
     signature and never read: the result does not depend on chunk skipping.
-    Rays go through in blocks of a fixed number of (ray, disk) pairs,
-    through four reused buffers.
+    Rays go through in blocks of a fixed number of (ray, disk) pairs.
     Returns (t (R,) of org's type, prim (R,) int32 original numbering, hit
     (R,) bool).
     """
@@ -360,50 +361,23 @@ def disk_nearest_hit_ref(org, dirn, prims, perm, chunk_bbs=None, t_near=1e-4):
     t_out = torch.empty(R, dtype=org.dtype, device=dev)
     idx_out = torch.empty(R, dtype=torch.int32, device=dev)
     step = max(1, min(R, _REF_BLOCK_PAIRS[dev.type] // npad))
-    bufs = torch.empty((4, step, npad), dtype=org.dtype, device=dev)
     for lo in range(0, R, step):
         tt = disk_pair_times(org[lo:lo + step], dirn[lo:lo + step], prims,
-                             t_near, bufs)
+                             t_near)
         _pick_lowest(tt, lanes, t_out, idx_out, lo)
     return _finish(t_out, idx_out, perm, big)
 
 
-def disk_pair_times(o, d, prims, t_near, bufs=None):
+def disk_pair_times(o, d, prims, t_near):
     """The exact disk test of every (ray, lane) pair of a block of rays: (n,
-    Npad) of the rays' type, the hit's t where the pair hits, else ``BIG``.
-    ``bufs``: four (>= n, Npad) buffers of that type it may write (None:
-    fresh ones)."""
-    dev = o.device
-    n, npad = o.shape[0], prims.shape[1]
-    if bufs is None:
-        bufs = torch.empty((4, n, npad), dtype=o.dtype, device=dev)
-    cx, cy, cz, nx, ny, nz, r2, ndc = (prims[i][None, :] for i in range(8))
-    tiny = torch.tensor(1e-30, dtype=o.dtype, device=dev)
-    tn = torch.tensor(t_near, dtype=o.dtype, device=dev)
-    den, t, tmp, dist2 = (b[:n] for b in bufs)
-    ox, oy, oz = o[:, 0:1], o[:, 1:2], o[:, 2:3]
-    dx, dy, dz = d[:, 0:1], d[:, 1:2], d[:, 2:3]
-    # One op per operation, in the order of csrc/disk_hit.cuh:
-    # denom = (dx*nx + dy*ny) + dz*nz
-    torch.mul(dx, nx, out=den)
-    den.add_(torch.mul(dy, ny, out=tmp))
-    den.add_(torch.mul(dz, nz, out=tmp))
-    # t = (ndc - ((ox*nx + oy*ny) + oz*nz)) / dsafe
-    torch.mul(ox, nx, out=t)
-    t.add_(torch.mul(oy, ny, out=tmp))
-    t.add_(torch.mul(oz, nz, out=tmp))
-    torch.sub(ndc, t, out=t)
-    nonzero = den != 0.0
-    t.div_(torch.where(nonzero, den, tiny, out=den))
-    # dist2 = (hx*hx + hy*hy) + hz*hz with h = (o + t*d) - c
-    torch.mul(t, dx, out=dist2).add_(ox).sub_(cx)
-    dist2.mul_(dist2)
-    torch.mul(t, dy, out=tmp).add_(oy).sub_(cy)
-    dist2.add_(tmp.mul_(tmp))
-    torch.mul(t, dz, out=tmp).add_(oz).sub_(cz)
-    dist2.add_(tmp.mul_(tmp))
-    valid = nonzero & (t > tn) & (dist2 < r2)
-    return torch.where(valid, t, torch.tensor(BIG, device=dev))
+    Npad) of the rays' type, the hit's t where the pair hits, else
+    ``BIG``."""
+    t, valid = disk_test(
+        tuple(o[:, i:i + 1] for i in range(3)),
+        tuple(d[:, i:i + 1] for i in range(3)),
+        tuple(prims[i][None, :] for i in range(8)), t_near,
+    )
+    return torch.where(valid, t, torch.tensor(BIG, device=o.device))
 
 
 def _pick_lowest(tt, lanes, t_out, idx_out, lo):
@@ -453,18 +427,28 @@ def triangle_nearest_hit_ref(org, dirn, prims, perm, chunk_bbs=None,
 def triangle_pair_times(o, d, prims, t_near):
     """The exact triangle test of every (ray, lane) pair of a block of rays:
     (n, Npad) of the rays' type, the hit's t where the pair hits, else
-    ``BIG``. One tensor op per operation, in the order of csrc/tri_hit.cuh;
-    three products are summed as (a + b) + c."""
-    dev = o.device
-    ax, ay, az, e1x, e1y, e1z, e2x, e2y, e2z = (
-        prims[i][None, :] for i in range(9)
+    ``BIG``."""
+    t, valid = triangle_test(
+        tuple(o[:, i:i + 1] for i in range(3)),
+        tuple(d[:, i:i + 1] for i in range(3)),
+        tuple(prims[i][None, :] for i in range(9)), t_near,
     )
-    like = dict(dtype=o.dtype, device=dev)
+    return torch.where(valid, t, torch.tensor(BIG, device=o.device))
+
+
+def triangle_test(o, d, cols, t_near):
+    """The exact triangle test on broadcastable tensors: o and d three
+    coordinates each, cols the SoA's rows (v0, e1, e2 the first nine; the
+    normal's are not read). Returns (t, valid). One tensor op per
+    operation, in the order of csrc/tri_hit.cuh; three products are summed
+    as (a + b) + c."""
+    ox, oy, oz = o
+    dx, dy, dz = d
+    ax, ay, az, e1x, e1y, e1z, e2x, e2y, e2z = cols[:9]
+    like = dict(dtype=ox.dtype, device=ox.device)
     tiny = torch.tensor(1e-30, **like)
     eps = torch.tensor(float(TRI_EPS), **like)
     tn = torch.tensor(t_near, **like)
-    ox, oy, oz = o[:, 0:1], o[:, 1:2], o[:, 2:3]
-    dx, dy, dz = d[:, 0:1], d[:, 1:2], d[:, 2:3]
     # h = d x e2
     hx = dy * e2z - dz * e2y
     hy = dz * e2x - dx * e2z
@@ -485,7 +469,28 @@ def triangle_pair_times(o, d, prims, t_near):
     t = ((qx * e2x + qy * e2y) + qz * e2z) / dsafe
     del qx, qy, qz, dsafe
     valid = ok & (u >= 0.0) & (v >= 0.0) & (u + v <= 1.0) & (t > tn)
-    return torch.where(valid, t, torch.tensor(BIG, device=dev))
+    return t, valid
+
+
+def disk_test(o, d, cols, t_near):
+    """The exact disk test on broadcastable tensors: o and d three
+    coordinates each, cols the SoA's eight rows. Returns (t, valid). One
+    tensor op per operation, in the order of csrc/disk_hit.cuh."""
+    ox, oy, oz = o
+    dx, dy, dz = d
+    cx, cy, cz, nx, ny, nz, r2, ndc = cols
+    like = dict(dtype=ox.dtype, device=ox.device)
+    tiny = torch.tensor(1e-30, **like)
+    tn = torch.tensor(t_near, **like)
+    den = (dx * nx + dy * ny) + dz * nz
+    ndo = (ox * nx + oy * ny) + oz * nz
+    nonzero = den != 0.0
+    t = (ndc - ndo) / torch.where(nonzero, den, tiny)
+    hx = (t * dx + ox) - cx
+    hy = (t * dy + oy) - cy
+    hz = (t * dz + oz) - cz
+    dist2 = (hx * hx + hy * hy) + hz * hz
+    return t, nonzero & (t > tn) & (dist2 < r2)
 
 
 def line_nearest_hit_ref(org, dirn, prims, perm, chunk_bbs=None, t_near=1e-4):

@@ -15,7 +15,8 @@ through one of two bodies:
 - the unfused body (``fused=False``): every iteration finds all active rays'
   closest hit (the CUDA kernels behind ``ops.nearest_hit.disk_nearest_hit``,
   ``triangle_nearest_hit`` and ``line_nearest_hit``, by the geometry's
-  ``kind``),
+  ``kind``, or on the grid ``ops.grid_traverse.disk_grid_nearest_hit`` and
+  ``triangle_grid_nearest_hit``),
   resolves the bounce with the tensor code of ``ops.bounce.bounce_step``
   (which is also the arithmetic of the fused kernel's plain version) and
   deposits through ``ops.histogram.flux_histogram``. 1/distance weighting
@@ -24,6 +25,14 @@ through one of two bodies:
   reference's do (kernel.py:959-976): its fused kernel has no such deposit
   and no hook. ``init_dir_fn`` and ``log_fn`` run before the first bounce
   and keep the fused body.
+
+Both bodies search by the chunk search or, on the grid, by the grid DDA
+(``grid_for``: the geometry has a grid, the trace is not differentiable and
+the geometry has at least ``TraceConfig.grid_min_prims`` primitives, the
+JAX package's rule with the chunk search where its Pallas kernel stands;
+and the grid is exact, which a mesh with a tilted triangle's is not).
+The two find the same hits bit for bit, so the rule moves only the time and
+the search counters.
 
 A Python loop drives the launches; it reads the survivor count from the
 device once per launch to decide when to compact.
@@ -67,7 +76,8 @@ JAX package's are.
 Refused by name (``check_supported``), as in the reference: the window flux
 model together with 1/distance weighting or with a ``collision_fn``. The
 per-bounce coherence re-sort of the reference only engages from 8 geometry
-chunks on and is not ported yet; it changes the lane order, not the physics.
+chunks on and is not ported yet, the one part of the JAX package's trace
+that is not; it changes the lane order, not the physics.
 
 Determinism: every reduction on the path has a fixed order or is a sum of
 integers (stable sorts, the fixed-point bins of the histogram and bounce
@@ -96,6 +106,7 @@ from ..ops.bounce import (
     make_walls,
     sticking_lanes,
 )
+from ..ops import grid_traverse
 from ..ops.histogram import flux_histogram
 from ..ops.nearest_hit import (
     disk_nearest_hit,
@@ -126,6 +137,22 @@ _SEARCH = {
     "triangle": triangle_nearest_hit,
     "line": line_nearest_hit,
 }
+
+
+def grid_for(geometry, config: TraceConfig, differentiable=False):
+    """The grid the trace walks (the geometry's ``grid``), or None for the
+    chunk search: where the geometry has a grid, the trace is not
+    differentiable and the geometry has at least ``config.grid_min_prims``
+    primitives (the JAX package's ``use_grid``,
+    viennaray_tpu/trace/kernel.py:557-562), and the grid is ``exact``: the
+    walk gives the chunk search's hits bit for bit on every ray (a mesh with
+    a triangle outside the planes x, y, z = const is not;
+    ``geometry/grid_accel.py:walk_margin``)."""
+    grid = getattr(geometry, "grid", None)
+    if (grid is None or not grid.exact or differentiable
+            or geometry.num_primitives < config.grid_min_prims):
+        return None
+    return grid
 
 
 def hand_out_for(kind: str, n_chunks: int, refl_kind, n_sub: int) -> bool:
@@ -172,7 +199,10 @@ class BatchCounters(NamedTuple):
     fused kernel's search worked (``ops.bounce.COUNT_NAMES``): chunks woken
     and sub-bounces run by its search groups, summed over the batch's
     launches; 0 on the unfused body, and on the CPU, where the plain version
-    sweeps no chunks. ``chunks_deposited`` is always 0: the reference's
+    sweeps no chunks. On the grid (``grid_for``) the two count the cells
+    the walks visited and the searches they ran, so ``chunks_swept /
+    tile_bounces`` reads cells a search. ``chunks_deposited`` is always 0:
+    the reference's
     kernel sweeps the chunks a second time for its deposits, the port's
     gathers the hit disk's neighbor or window list instead."""
 
@@ -472,6 +502,10 @@ def trace_batch(
     deposit_kind = settings.deposit_kind(geometry)
     geometry = with_deposit_tables(geometry, config)
     wdist = config.use_wdist and deposit_kind == "disk"
+    grid = grid_for(geometry, config, differentiable)
+    search = (_SEARCH[geometry.kind] if grid is None else
+              grid_traverse.with_grid(grid_traverse.SEARCH[geometry.kind],
+                                      grid))
 
     dev = geometry.device
     if differentiable:
@@ -592,7 +626,7 @@ def trace_batch(
         reflect = (None if reflection_fn is None
                    else hook_reflect(it, u, aux, new_aux))
         new_state, hit_prim, wdep, t_hit, step_counts = bounce_step(
-            state, u, geometry, walls, settings, _SEARCH[geometry.kind],
+            state, u, geometry, walls, settings, search,
             stick_lanes, reflect=reflect, differentiable=differentiable,
         )
         if collision_fn is not None:
@@ -617,6 +651,7 @@ def trace_batch(
         res = fused_bounce(
             state, u.contiguous(), geometry, walls, settings, n_sub=k,
             deposit_in_kernel=not hand_out, stick_lanes=stick_lanes,
+            grid=grid,
         )
         if hand_out:
             flux = land(flux, state.org, state.dirn, res.hit_prim, res.wdep,

@@ -16,9 +16,12 @@ and the helper's loops gain little from the newer instructions. No fused
 multiply-adds, so its squared distances are the numpy path's, operation by
 operation.
 
-When ``g++`` is missing or the build fails, ``load`` logs one warning and
-returns None, and ``geometry.neighborhood.build_neighborhood`` takes the numpy
-path (``build_neighborhood_numpy``), which gives the same tables.
+Two entry points are bound: ``vr_build_neighborhood``
+(``build_neighborhood_native``) and ``vr_build_grid`` (``build_grid_native``,
+the cell insertion of ``geometry.grid_accel``). When ``g++`` is missing or
+the build fails, ``load`` logs one warning and returns None, and the callers
+take their numpy paths (``geometry.neighborhood.build_neighborhood_numpy``,
+``geometry.grid_accel.insert_prims_numpy``), which give the same tables.
 """
 
 from __future__ import annotations
@@ -90,7 +93,8 @@ def load(build_dir=None) -> Optional[ctypes.CDLL]:
     except (OSError, subprocess.SubprocessError) as err:
         detail = getattr(err, "stderr", None) or err
         logger.warning("the compiled host helper is not available (%s): "
-                       "geometry neighborhoods are built by numpy", detail)
+                       "geometry neighborhoods and grids are built by numpy",
+                       detail)
         lib = None
     else:
         lib.vr_build_neighborhood.restype = ctypes.c_int64
@@ -98,6 +102,13 @@ def load(build_dir=None) -> Optional[ctypes.CDLL]:
             ctypes.POINTER(ctypes.c_double), ctypes.c_int64, ctypes.c_int32,
             ctypes.c_double, ctypes.POINTER(ctypes.c_int32),
             ctypes.c_void_p, ctypes.c_int64,
+        ]
+        lib.vr_build_grid.restype = ctypes.c_int64
+        lib.vr_build_grid.argtypes = [
+            ctypes.POINTER(ctypes.c_double), ctypes.POINTER(ctypes.c_double),
+            ctypes.c_int64, ctypes.c_int32, ctypes.POINTER(ctypes.c_double),
+            ctypes.c_double, ctypes.POINTER(ctypes.c_int64),
+            ctypes.POINTER(ctypes.c_int32), ctypes.c_void_p, ctypes.c_int64,
         ]
     _libraries[key] = lib
     return lib
@@ -127,3 +138,34 @@ def build_neighborhood_native(points: np.ndarray, distance: float, dim: int,
         neighbors.ctypes.data_as(ctypes.c_void_p), k_max,
     )
     return neighbors, counts
+
+
+def build_grid_native(prim_lo, prim_hi, origin, cell_size, dims, dim: int):
+    """The uniform grid's cell table by the helper: (cells (C, K) int32
+    padded -1, counts (C,) int32), C = nx ny nz in x-major order, or None
+    when the library is not available. Every primitive goes into every cell
+    its box [prim_lo, prim_hi] (N, 3) overlaps, in ascending id order; in 2D
+    into z cell 0 only (the counterpart of
+    ``viennaray_tpu/utils/native.py:build_grid_native``)."""
+    lib = load()
+    if lib is None:
+        return None
+    lo = np.ascontiguousarray(prim_lo, np.float64)
+    hi = np.ascontiguousarray(prim_hi, np.float64)
+    org = np.ascontiguousarray(origin, np.float64)
+    dims_a = np.ascontiguousarray(dims, np.int64)
+    n = len(lo)
+    n_cells = int(dims_a.prod())
+    dptr = ctypes.POINTER(ctypes.c_double)
+    args = (lo.ctypes.data_as(dptr), hi.ctypes.data_as(dptr), n, dim,
+            org.ctypes.data_as(dptr), float(cell_size),
+            dims_a.ctypes.data_as(ctypes.POINTER(ctypes.c_int64)))
+    counts = np.zeros(n_cells, np.int32)
+    cptr = counts.ctypes.data_as(ctypes.POINTER(ctypes.c_int32))
+    # two passes: the first counts (and returns the fullest cell's count),
+    # the second fills the padded table
+    k_max = max(int(lib.vr_build_grid(*args, cptr, None, 0)), 1)
+    cells = np.full((n_cells, k_max), -1, np.int32)
+    lib.vr_build_grid(*args, cptr, cells.ctypes.data_as(ctypes.c_void_p),
+                      k_max)
+    return cells, counts
