@@ -6,7 +6,8 @@ Run from the repository root on a machine with one NVIDIA Hopper card:
     python3 chip_diagnose.py [--triangles | --lines | --ion | --window |
                               --disk1m]
                              [--unfused] [--profile FILE]
-    python3 chip_diagnose.py --groups | --paths | --grad | --f64 | --grid
+    python3 chip_diagnose.py --groups | --paths | --grad | --f64 | --grid |
+                             --resort
 
 It builds a tracer of ``chip_smoke.py`` (same geometry, particle, seed and
 batch; the default tracer, whose body is the fused bounce kernel): the
@@ -97,6 +98,19 @@ x 4 and 512 x 16 on one seeded state each: the measurement behind the path
 rule (``trace/kernel.py:grid_for``). Then disk1m (the sweep's cell, built
 with its grid) through ``TraceDisk`` with the grid and without, in turns:
 ``repeats`` and ``kernel_spans`` of each.
+
+``python3 chip_diagnose.py --resort`` weighs the per-bounce coherence
+resort (``trace/kernel.py:resort``) on the four geometries where its gate
+holds: the triangle flagship (11,520,000 rays), disk18k (200 rays per
+point, with its grid), disk1m (with its grid) and the 36,000-triangle trench
+(grid delta 0.1, 100 rays per triangle, with its grid), each through the
+default fused tracer with the resort (``bounce_sort=True``) and without, in
+turns, ``--repeats`` rounds (default 2) whose order alternates, one process.
+Per apply: wall and CPU seconds, the seconds in kernel 4's spans and the
+share of wall time outside every kernel's span, cells or chunks a search
+(``chunks_swept / tile_bounces``), the resort's calls and their seconds
+(key, sort and permutation between two events), and the permutation's
+and the key's other launches (source sort, compactions) and their seconds.
 
 It checks nothing: ``chip_smoke.py`` holds the kernels and the flux to their
 references.
@@ -626,6 +640,119 @@ def grid_disk1m(n):
                 tracers[mode], f"fused, {mode}")}), flush=True)
 
 
+# the geometries of ``--resort``: (name, primitive kind, grid delta of the
+# trench, rays per primitive)
+RESORT_GEOMETRIES = (
+    ("triangle flagship", "triangle", 0.25, cs.RAYS_PER_POINT),
+    ("disk18k", "disk", 0.1, cs.GRID_RAYS_PER_POINT),
+    ("disk1m", "disk", 0.016, cs.DISK1M_RAYS_PER_POINT),
+    ("trench_mesh_0.1", "triangle", 0.1, 100),
+)
+
+
+def resort_spans(tracer):
+    """One apply with CUDA events around the bounce and histogram kernels,
+    around every resort (``TK.resort``: key, sort and permutation) and around
+    the keys and permutations outside it (source sort, compactions); wall
+    and CPU seconds."""
+    from viennaray_tpu_torch.trace import kernel as TK
+
+    spans = {"fused_bounce": [], "flux_histogram": [], "resort": [],
+             "coherence_key": [], "permute_state": []}
+    inside = [False]
+
+    def timed(name, fn):
+        def wrapper(*args, **kwargs):
+            if name in ("coherence_key", "permute_state") and inside[0]:
+                return fn(*args, **kwargs)  # inside a resort's span
+            a = torch.cuda.Event(enable_timing=True)
+            b = torch.cuda.Event(enable_timing=True)
+            inside[0] = name == "resort"
+            a.record()
+            out = fn(*args, **kwargs)
+            b.record()
+            inside[0] = False
+            spans[name].append((a, b))
+            return out
+        return wrapper
+
+    real = {name: getattr(TK, name) for name in spans}
+    for name, fn in real.items():
+        setattr(TK, name, timed(name, fn))
+    try:
+        torch.cuda.synchronize()
+        t0, c0 = time.perf_counter(), time.process_time()
+        tracer.apply()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        cpu = time.process_time() - c0
+    finally:
+        for name, fn in real.items():
+            setattr(TK, name, fn)
+    seconds = {name: sum(a.elapsed_time(b) for a, b in evs) / 1e3
+               for name, evs in spans.items()}
+    info = tracer.get_ray_trace_info()
+    return {
+        "seconds": wall, "cpu_seconds": cpu,
+        "kernel4_span_seconds": seconds["fused_bounce"],
+        "share_outside_kernels": 1.0 - sum(seconds.values()) / wall,
+        "search_steps_a_search": info.chunks_swept
+        / max(info.tile_bounces, 1),
+        "resorts": len(spans["resort"]),
+        "resort_span_seconds": seconds["resort"],
+        "other_permutations": len(spans["permute_state"]),
+        "other_permutation_span_seconds": seconds["permute_state"],
+        "compaction_keys": len(spans["coherence_key"]),
+        "compaction_key_span_seconds": seconds["coherence_key"],
+        "histogram_span_seconds": seconds["flux_histogram"],
+    }
+
+
+def resort_ab(rounds):
+    """The resort's A/B on ``RESORT_GEOMETRIES``: two tracers per geometry
+    on one built geometry, with the resort and without, warmed up, then
+    ``rounds`` rounds of one apply each in alternating order (the two trace
+    the same rays in a round: each apply is a new run number on both)."""
+    import viennaray_tpu_torch as vrt
+    from viennaray_tpu_torch.geometry.disk_geometry import DiskGeometry
+    from viennaray_tpu_torch.geometry.triangle_geometry import TriangleGeometry
+    from viennaray_tpu_torch.io import fixtures
+    from viennaray_tpu_torch.trace.kernel import dirbins_for, grid_for
+
+    for name, kind, gd, rays in RESORT_GEOMETRIES:
+        trench = dict(FLAGSHIP, grid_delta=gd)
+        if kind == "triangle":
+            geo = TriangleGeometry.build(
+                *fixtures.create_trench_mesh_3d(**trench), gd)
+            cls = vrt.TraceTriangle
+        else:
+            geo = DiskGeometry.build(
+                *fixtures.create_trench_grid_3d(**trench), gd,
+                pack_neighbors=False).with_neighbor_pack()
+            cls = vrt.TraceDisk
+        tracers = {}
+        for mode in ("resort", "no_resort"):
+            tracer = cls(dim=3, bounce_sort=mode == "resort")
+            tracer.geometry = geo
+            tracers[mode] = cs.configure(tracer, rays)
+            tracers[mode].apply()  # warm-up
+        n_chunks = geo.soa_chunk_bbs.shape[0]
+        config = tracers["resort"]._make_config()
+        for r in range(rounds):
+            order = ("resort", "no_resort") if r % 2 == 0 else (
+                "no_resort", "resort")
+            for mode in order:
+                print(json.dumps({
+                    "phase": "resort_ab", "geometry": name, "mode": mode,
+                    "round": r, "primitives": geo.num_primitives,
+                    "chunks": n_chunks, "dirbins": dirbins_for(n_chunks),
+                    "grid": grid_for(geo, config) is not None,
+                    "num_rays": config.total_rays(geo.num_primitives),
+                    **resort_spans(tracers[mode])}), flush=True)
+        del tracers, geo
+        torch.cuda.empty_cache()
+
+
 def main(argv=None):
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument(
@@ -658,7 +785,14 @@ def main(argv=None):
         help="only time the chunk search against the grid walk at four "
              "sizes, and disk1m's applies and spans with and without grid",
     )
-    parser.add_argument("--repeats", type=int, default=5)
+    parser.add_argument(
+        "--resort", action="store_true",
+        help="only weigh the per-bounce resort: applies with it and without "
+             "in turns on the triangle flagship, disk18k, disk1m and the "
+             "36,000-triangle trench",
+    )
+    parser.add_argument("--repeats", type=int, default=None,
+                        help="applies or rounds (default 5; --resort 2)")
     parser.add_argument(
         "--unfused", action="store_true",
         help="also time the unfused body (fused=False) beside the fused one",
@@ -696,6 +830,8 @@ def main(argv=None):
              "of kernels and host operators to FILE",
     )
     args = parser.parse_args(argv)
+    if args.repeats is None:
+        args.repeats = 2 if args.resort else 5
     if not torch.cuda.is_available():
         print("chip_diagnose.py needs a CUDA device and found none",
               file=sys.stderr)
@@ -714,6 +850,9 @@ def main(argv=None):
         return 0
     if args.f64:
         f64_tails(args.repeats)
+        return 0
+    if args.resort:
+        resort_ab(args.repeats)
         return 0
     if args.grid:
         grid_crossover(args.repeats)

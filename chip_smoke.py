@@ -139,7 +139,24 @@ It imports only ``viennaray_tpu_torch`` and, in order:
     triangles, each with the geometry's grid (the trace walks it: above
     ``TraceConfig.grid_min_prims``) and without it, flux and event counters
     bit for bit, with seconds, cells or chunks a search, and the grid's host
-    build seconds and table bytes.
+    build seconds and table bytes; kernel 4's operations bounds count the
+    pairs the searches test (chunk counters; the plain walk's slots).
+16. right after the flagships' fused and unfused paths, the per-bounce
+    coherence resort (``phase_resort_path``; the tracers run it only when
+    asked, ``bounce_sort=True``): the resort's key (``vr_coherence_key``) at
+    8, 32 and 64 direction bins and the state's permutation
+    (``vr_permute_state``) with and without an aux of two columns, taking
+    2^20 and 2^19 lanes, each at 2^20 lanes against its plain version bit
+    for bit in float32 and float64, timed beside its bytes bound (the
+    permutation also beside ``index_select`` per array); the triangle
+    flagship with the resort against its oracle golden, same seed and one
+    thread per ray bit for bit, a key before every launch; the disk flagship
+    with the resort asked for launching what its default run launched (6
+    chunks); the triangle flagship in float64 with the resort (the float64
+    forms); disk18k with the resort on its grid and on the chunk search bit
+    for bit, and against the same seed without the resort within 1.45 times
+    two seeds' rel-L2. Every path of a batch of 2,048 rays or more launches
+    the permutation (source sort, compactions) and the key (compactions).
 
 Every path of the bounce kernel runs once more from a fresh tracer with
 every launch at one thread per ray (``fused_bounce``'s private ``group=1``),
@@ -217,11 +234,16 @@ def time_cuda(fn, reps):
     return start.elapsed_time(end) / reps
 
 
-def phase_card():
-    smi = subprocess.run(
+def card_name():
+    """The card's name and power limit, as ``nvidia-smi`` gives them."""
+    return subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         check=True, capture_output=True, text=True, timeout=60,
     ).stdout.strip().splitlines()[0]
+
+
+def phase_card():
+    smi = card_name()
     print(smi, flush=True)
     allow_tf32 = torch.backends.cuda.matmul.allow_tf32
     emit({
@@ -872,14 +894,15 @@ def check_bounce(geometry, bbox, n_rays, kind, n_sub, in_kernel, settings,
 
 def make_tracer(pts, nrm, rays_per_point=RAYS_PER_POINT, fused=True,
                 particle=None, flux_model="neighbor", use_wdist=False,
-                source=None):
+                source=None, bounce_sort=False):
     """The disk flagship through ``TraceDisk``, or with another particle,
-    the window flux model, 1/distance weighting, or ``source(tracer)`` (the
-    grid or the surface source of the flagship) in place of the random one."""
+    the window flux model, 1/distance weighting, ``source(tracer)`` (the
+    grid or the surface source of the flagship) in place of the random one,
+    or the per-bounce resort asked for."""
     import viennaray_tpu_torch as vrt
 
     # device=None: the CUDA device, or raises
-    tracer = vrt.TraceDisk(dim=3, fused=fused)
+    tracer = vrt.TraceDisk(dim=3, fused=fused, bounce_sort=bounce_sort)
     tracer.set_geometry(pts, nrm, FLAGSHIP["grid_delta"])
     tracer.set_flux_model(flux_model)
     tracer.set_use_wdist(use_wdist)
@@ -943,10 +966,11 @@ def make_ribbon_tracer(num_rays):
     return tracer
 
 
-def make_tri_tracer(verts, tris, rays_per_point=RAYS_PER_POINT, fused=True):
+def make_tri_tracer(verts, tris, rays_per_point=RAYS_PER_POINT, fused=True,
+                    bounce_sort=False):
     import viennaray_tpu_torch as vrt
 
-    tracer = vrt.TraceTriangle(dim=3, fused=fused)
+    tracer = vrt.TraceTriangle(dim=3, fused=fused, bounce_sort=bounce_sort)
     tracer.set_geometry(verts, tris, FLAGSHIP["grid_delta"])
     return configure(tracer, rays_per_point)
 
@@ -996,6 +1020,7 @@ def _kernel_wrappers():
     from viennaray_tpu_torch.ops import grid_traverse as GT
     from viennaray_tpu_torch.ops import histogram as H
     from viennaray_tpu_torch.ops import nearest_hit as NH
+    from viennaray_tpu_torch.ops import permute as PM
 
     return {
         "fused_bounce": B.fused_bounce,
@@ -1006,13 +1031,21 @@ def _kernel_wrappers():
         "line_nearest_hit": NH.line_nearest_hit,
         "flux_histogram": H.flux_histogram,
         "flux_histogram_grad": H.flux_histogram_grad,
+        "coherence_key": PM.coherence_key,
+        "permute_state": PM.permute_state,
     }
 
 
 # the wrappers that also launch a float64 form, counted in ``launches_f64``
 F64_KERNELS = ("disk_nearest_hit", "triangle_nearest_hit", "line_nearest_hit",
                "flux_histogram", "flux_histogram_grad",
-               "disk_grid_nearest_hit", "triangle_grid_nearest_hit")
+               "disk_grid_nearest_hit", "triangle_grid_nearest_hit",
+               "coherence_key", "permute_state")
+# what every trace of a batch of at least 2,048 rays launches besides its
+# bounce kernels: the state's permutation at the source sort and at every
+# compaction, and the coherence key at the compactions (and, where the
+# per-bounce resort is asked for and engages, before every launch)
+SORTS = ("permute_state", "coherence_key")
 
 
 def reset_launches():
@@ -1180,11 +1213,12 @@ def phase_disk_paths(pts, nrm):
     make = functools.partial(make_tracer, pts, nrm)
     _, launches, norm = run_path(
         {"body": "fused"}, make, disk_goldens(), GOLDEN_TOL,
-        ("fused_bounce", "flux_histogram"), same_seed=True)
+        ("fused_bounce", "flux_histogram", *SORTS), same_seed=True)
     _, unfused_launches, _ = run_path(
         {"body": "unfused"},
         functools.partial(make, rays_per_point=RAYS_PER_POINT // 4, fused=False),
-        disk_goldens(), 2.0 * GOLDEN_TOL, ("disk_nearest_hit", "flux_histogram"))
+        disk_goldens(), 2.0 * GOLDEN_TOL,
+        ("disk_nearest_hit", "flux_histogram", *SORTS))
     return launches, unfused_launches, norm
 
 
@@ -1200,12 +1234,13 @@ def phase_triangle_paths(verts, tris):
     make = functools.partial(make_tri_tracer, verts, tris)
     label = {"geometry": "triangles"}
     _, launches, _ = run_path(
-        {**label, "body": "fused"}, make, goldens, tol, ("fused_bounce",),
-        record, same_seed=True)
+        {**label, "body": "fused"}, make, goldens, tol,
+        ("fused_bounce", *SORTS), record, same_seed=True)
     _, unfused_launches, _ = run_path(
         {**label, "body": "unfused"},
         functools.partial(make, rays_per_point=RAYS_PER_POINT // 8, fused=False),
-        goldens, 3.0 * tol, ("triangle_nearest_hit", "flux_histogram"), record)
+        goldens, 3.0 * tol,
+        ("triangle_nearest_hit", "flux_histogram", *SORTS), record)
     return launches, unfused_launches
 
 
@@ -1226,12 +1261,13 @@ def phase_line_paths():
     label = {"geometry": "lines"}
     fields, launches, line_norm = run_path(
         {**label, "body": "fused"}, make_line_tracer, goldens, tol,
-        ("fused_bounce",), record, same_seed=True)
+        ("fused_bounce", *SORTS), record, same_seed=True)
     _, unfused_launches, _ = run_path(
         {**label, "body": "unfused"},
         functools.partial(make_line_tracer,
                           rays_per_point=RAYS_PER_POINT // 4, fused=False),
-        goldens, 2.0 * tol, ("line_nearest_hit", "flux_histogram"), record)
+        goldens, 2.0 * tol, ("line_nearest_hit", "flux_histogram", *SORTS),
+        record)
 
     def against_line_run(pair_fields, pair_norm):
         per_line = 0.5 * (pair_norm[0::2] + pair_norm[1::2])
@@ -1251,8 +1287,8 @@ def phase_line_paths():
     run_path(
         {"geometry": "lines as triangle pairs (2D)", "body": "fused"},
         functools.partial(make_ribbon_tracer, fields["num_rays"]),
-        {"rel_l2_oracle": np.repeat(golden, 2)}, 1.0, ("fused_bounce",),
-        extra=against_line_run)
+        {"rel_l2_oracle": np.repeat(golden, 2)}, 1.0,
+        ("fused_bounce", *SORTS), extra=against_line_run)
     return launches, unfused_launches
 
 
@@ -1268,12 +1304,13 @@ def phase_ion_paths(pts, nrm):
     make = functools.partial(make_tracer, pts, nrm, particle=ion_particle())
     label = {"geometry": "disks", "particle": "ion"}
     _, launches, _ = run_path(
-        {**label, "body": "fused"}, make, goldens, tol, ("fused_bounce",),
-        record, same_seed=True)
+        {**label, "body": "fused"}, make, goldens, tol,
+        ("fused_bounce", *SORTS), record, same_seed=True)
     _, unfused_launches, _ = run_path(
         {**label, "body": "unfused"},
         functools.partial(make, rays_per_point=RAYS_PER_POINT // 4, fused=False),
-        goldens, 2.0 * tol, ("disk_nearest_hit", "flux_histogram"), record)
+        goldens, 2.0 * tol, ("disk_nearest_hit", "flux_histogram", *SORTS),
+        record)
     return launches, unfused_launches
 
 
@@ -1302,7 +1339,8 @@ def phase_gas_path(pts, nrm):
                           rays_per_point=RAYS_PER_POINT // 10,
                           particle=gas_particle()),
         {"rel_l2_oracle": golden}, 2.0 * tol,
-        ("fused_bounce", "flux_histogram"), record, extra=scatter_events)
+        ("fused_bounce", "flux_histogram", *SORTS), record,
+        extra=scatter_events)
     return launches
 
 
@@ -1330,12 +1368,14 @@ def phase_window_paths(pts, nrm, neighbor_norm):
     make = functools.partial(make_tracer, pts, nrm, flux_model="window")
     label = {"geometry": "disks", "flux_model": "window"}
     _, launches, _ = run_path(
-        {**label, "body": "fused"}, make, goldens, tol, ("fused_bounce",),
-        record, same_seed=True, extra=against_neighbor)
+        {**label, "body": "fused"}, make, goldens, tol,
+        ("fused_bounce", *SORTS), record, same_seed=True,
+        extra=against_neighbor)
     _, unfused_launches, _ = run_path(
         {**label, "body": "unfused"},
         functools.partial(make, rays_per_point=RAYS_PER_POINT // 4, fused=False),
-        goldens, 2.0 * tol, ("disk_nearest_hit", "flux_histogram"), record)
+        goldens, 2.0 * tol, ("disk_nearest_hit", "flux_histogram", *SORTS),
+        record)
     return launches, unfused_launches
 
 
@@ -1350,7 +1390,8 @@ def phase_wdist_path(pts, nrm):
         functools.partial(make_tracer, pts, nrm, use_wdist=True,
                           rays_per_point=RAYS_PER_POINT // 4),
         {"rel_l2_oracle": golden}, 2.0 * tol,
-        ("disk_nearest_hit", "flux_histogram"), record, same_seed=True)
+        ("disk_nearest_hit", "flux_histogram", *SORTS), record,
+        same_seed=True)
     return launches
 
 
@@ -1387,12 +1428,13 @@ def phase_disk2d_paths():
     label = {"geometry": "disks (2D)"}
     _, launches, _ = run_path(
         {**label, "body": "fused"}, make_disk2d_tracer, goldens, tol,
-        ("fused_bounce",), record, same_seed=True)
+        ("fused_bounce", *SORTS), record, same_seed=True)
     _, unfused_launches, _ = run_path(
         {**label, "body": "unfused"},
         functools.partial(make_disk2d_tracer, fused=False,
                           rays=DISK2D["rays"] // 4),
-        goldens, 2.0 * tol, ("disk_nearest_hit", "flux_histogram"), record)
+        goldens, 2.0 * tol, ("disk_nearest_hit", "flux_histogram", *SORTS),
+        record)
     return launches, unfused_launches
 
 
@@ -1413,13 +1455,14 @@ def phase_source_paths(pts, nrm):
         {"geometry": "disks", "source": "grid", "body": "fused",
          "grid_points": make()._custom_source.num_points},
         make, {"rel_l2_golden": disk_goldens()["rel_l2_golden"]}, GOLDEN_TOL,
-        ("fused_bounce", "flux_histogram"), bench_record, same_seed=True)
+        ("fused_bounce", "flux_histogram", *SORTS), bench_record,
+        same_seed=True)
     golden, record, tol = oracle_golden("surface3d_trench_jax")
     _, surface_launches, _ = run_path(
         {"geometry": "disks", "source": "surface", "body": "fused"},
         functools.partial(make_tracer, pts, nrm, source=surface_source),
         {"rel_l2_jax_surface": golden}, tol,
-        ("fused_bounce", "flux_histogram"), record, same_seed=True)
+        ("fused_bounce", "flux_histogram", *SORTS), record, same_seed=True)
     return grid_launches, surface_launches
 
 
@@ -1432,8 +1475,9 @@ HOOK_LABELS = ("ionFlux", "energyFlux")
 def kernel_spans(kind):
     """CUDA events around every launch of a kernel wrapper while the block
     runs: the trace's own (the bounce kernel, the closest-hit search of the
-    geometry ``kind``, the histogram), the histogram the hooks call, and the
-    histogram's backward. Yields the list of (start, end) event pairs. The
+    geometry ``kind``, the histogram, the resort's key and the state's
+    permutation), the histogram the hooks call, and the histogram's
+    backward. Yields the list of (start, end) event pairs. The
     two histogram wrappers count their launches on their module's names,
     which are the timed wrappers inside the block: those take the counts
     and hand them back after."""
@@ -1454,12 +1498,14 @@ def kernel_spans(kind):
         return wrapper
 
     real = (TK.fused_bounce, TK._SEARCH[kind], TK.flux_histogram,
-            H.flux_histogram, H.flux_histogram_grad)
+            H.flux_histogram, H.flux_histogram_grad, TK.coherence_key,
+            TK.permute_state)
 
-    def install(bounce, search, trace_hist, hist, hist_grad):
+    def install(bounce, search, trace_hist, hist, hist_grad, key, permute):
         TK.fused_bounce, TK._SEARCH[kind] = bounce, search
         TK.flux_histogram, H.flux_histogram = trace_hist, hist
         H.flux_histogram_grad = hist_grad
+        TK.coherence_key, TK.permute_state = key, permute
 
     hist = timed(real[3])
     hist.launches = hist.launches_f64 = 0
@@ -1467,7 +1513,8 @@ def kernel_spans(kind):
     hist.launches_by_path_f64 = real[3].launches_by_path_f64
     hist_grad = timed(real[4])
     hist_grad.launches = hist_grad.launches_f64 = 0
-    install(timed(real[0]), timed(real[1]), hist, hist, hist_grad)
+    install(timed(real[0]), timed(real[1]), hist, hist, hist_grad,
+            timed(real[5]), timed(real[6]))
     try:
         yield spans
     finally:
@@ -1595,7 +1642,8 @@ def phase_hook_paths(pts, nrm, verts, tris):
         "rel_l2_both_channels": all(e < tol for e in errors),
         "energy_ratio_within_2_percent":
             abs(ratio / record["energy_ratio"] - 1.0) <= 0.02,
-    }, launches, ("disk_nearest_hit", "flux_histogram"), rerun=(plain, tracer))
+    }, launches, ("disk_nearest_hit", "flux_histogram", *SORTS),
+        rerun=(plain, tracer))
 
     # 2. hooks that reimplement the built-in deposit and diffuse reflection
     # on the disk flagship: the built-in unfused apply's bits
@@ -1610,7 +1658,8 @@ def phase_hook_paths(pts, nrm, verts, tris):
         "flux_bitwise_equal_builtin": bool(np.array_equal(flux, want)),
         "counters_equal_builtin": same_counters(
             tracer.get_ray_trace_info(), plain.get_ray_trace_info()),
-    }, launches, ("disk_nearest_hit", "flux_histogram"), rerun=(plain, tracer))
+    }, launches, ("disk_nearest_hit", "flux_histogram", *SORTS),
+        rerun=(plain, tracer))
 
     # 3. the energy-carrying ion (aux through the sort and the compactions)
     golden, record, tol = oracle_golden("stateful3d_trench_jax")
@@ -1633,7 +1682,8 @@ def phase_hook_paths(pts, nrm, verts, tris):
         "deposit_per_hit_within_2_percent":
             abs(per_hit / record["deposit_per_hit"] - 1.0) <= 0.02,
         "log_counts_every_ray": logged == info.num_rays,
-    }, launches, ("disk_nearest_hit", "flux_histogram"), rerun=(plain, tracer))
+    }, launches, ("disk_nearest_hit", "flux_histogram", *SORTS),
+        rerun=(plain, tracer))
 
     # 4. triangles and lines: the two-channel collision_fn with the
     # reimplemented reflection; channel 0 is the built-in apply's bits
@@ -1659,7 +1709,8 @@ def phase_hook_paths(pts, nrm, verts, tris):
                    "counters_equal_builtin": same_counters(
                        tracer.get_ray_trace_info(),
                        plain.get_ray_trace_info()),
-               }, launches, (search, "flux_histogram"), rerun=(plain, tracer))
+               }, launches, (search, "flux_histogram", *SORTS),
+               rerun=(plain, tracer))
 
     # 5. an all-zero init_dir_fn and a log_fn on the fused body (the
     # reference's tests/test_round2_features.py:85-119): the bounce kernel
@@ -1681,7 +1732,8 @@ def phase_hook_paths(pts, nrm, verts, tris):
         "flux_bitwise_equal_builtin": bool(np.array_equal(flux, want)),
         "log_counts_every_ray": first_log == fields["num_rays"],
         "log_adds_up": second_log == 2 * fields["num_rays"],
-    }, launches, ("fused_bounce", "flux_histogram"), rerun=(plain, tracer))
+    }, launches, ("fused_bounce", "flux_histogram", *SORTS),
+        rerun=(plain, tracer))
 
     # 6. two species through apply_particles (the JAX package's
     # examples/multi_species.py), each against its own apply on a fresh
@@ -1715,7 +1767,7 @@ def phase_hook_paths(pts, nrm, verts, tris):
             np.array_equal(flux[k], alone[k]) for k in range(2)),
         "channels": labels == ["ionFlux", "neutralFlux"],
         "finite": bool(np.isfinite(flux).all() and (flux.max(axis=1) > 0).all()),
-    }, launches, ("fused_bounce", "flux_histogram"))
+    }, launches, ("fused_bounce", "flux_histogram", *SORTS))
     return out
 
 
@@ -2145,14 +2197,15 @@ def phase_host_build():
 F64 = torch.float64
 
 
-def trace_unfused(tracer, dtype):
+def trace_unfused(tracer, dtype, bounce_sort=False):
     """The tracer's rays (its configuration, source, seed and batches)
     through ``trace_batch``'s unfused body in ``dtype``, on its geometry
     widened by ``to(dtype)``, its source cast alike, and a ``GeneratorRNG``
     of that type: the tracers are float32 only, so this is how a user traces
     a configuration in float64. Run after one apply of the tracer (which
-    builds the areas its normalization reads). Returns (raw flux (N,)
-    float64 numpy, counters dict, seconds)."""
+    builds the areas its normalization reads); ``bounce_sort`` asks for
+    the per-bounce resort. Returns (raw flux (N,) float64 numpy, counters
+    dict, seconds)."""
     from viennaray_tpu_torch.physics.source import RandomSource, source_box
     from viennaray_tpu_torch.rng import GeneratorRNG
     from viennaray_tpu_torch.trace.kernel import BatchCounters, trace_batch
@@ -2178,7 +2231,7 @@ def trace_unfused(tracer, dtype):
         rng.begin_batch(b)
         batch_flux, counters = trace_batch(
             geometry, source, tracer._particle, bbox, rng, b, idx,
-            idx < total, config, fused=False)
+            idx < total, config, fused=False, bounce_sort=bounce_sort)
         flux += batch_flux.double()
         totals += np.asarray(counters, np.int64)
     out = flux.cpu().numpy()
@@ -2336,7 +2389,8 @@ def phase_f64_paths(pts, nrm, verts, tris):
                                                     dtype=F64)
 
     launches = {}
-    disk_kernels = ("disk_nearest_hit_f64", "flux_histogram_f64")
+    disk_kernels = ("disk_nearest_hit_f64", "flux_histogram_f64",
+                    "permute_state_f64", "coherence_key_f64")
     launches["disks_f64"] = f64_flagship(
         {"geometry": "disks"},
         make_tracer(pts, nrm, rays_per_point=RAYS_PER_POINT // 4,
@@ -2349,13 +2403,15 @@ def phase_f64_paths(pts, nrm, verts, tris):
         make_tri_tracer(verts, tris, rays_per_point=RAYS_PER_POINT // 8,
                         fused=False),
         {"rel_l2_oracle": golden}, 3.0 * tol,
-        ("triangle_nearest_hit_f64", "flux_histogram_f64"), record)
+        ("triangle_nearest_hit_f64", "flux_histogram_f64",
+         "permute_state_f64", "coherence_key_f64"), record)
     golden, record, tol = oracle_golden("line2d_trench_oracle")
     launches["lines_f64"] = f64_flagship(
         {"geometry": "lines"},
         make_line_tracer(rays_per_point=RAYS_PER_POINT // 4, fused=False),
         {"rel_l2_oracle": golden}, 2.0 * tol,
-        ("line_nearest_hit_f64", "flux_histogram_f64"), record)
+        ("line_nearest_hit_f64", "flux_histogram_f64", "permute_state_f64",
+         "coherence_key_f64"), record)
 
     # grad_1e7 in float64: the warm-up run, then the timed run of the seed
     source, particle, box, config = grad_problem(geometry)
@@ -2633,7 +2689,7 @@ def phase_sharded_path(pts, nrm):
             "launches_by_sub_batch_equal",
             "extra_sub_batches_launch_nothing"))
     ok = ok and only_launched(launches["four_shards"], "fused_bounce",
-                              "flux_histogram")
+                              "flux_histogram", *SORTS)
     if not ok:
         raise RuntimeError(f"sharded path failed its checks: {res}")
     return launches["four_shards"], four["launches"]
@@ -2741,13 +2797,27 @@ def check_grid_bounce(geometry, bbox, n_rays, kind, n_sub, settings, reps):
     on the same seeded state, in the kernel's deposits (and handed out at
     one bounce): state, events, survivors and flux bit for bit, each timed.
     In grid mode the search counts are the cells the walks visited and the
-    searches they ran, one per live ray and sub-bounce."""
+    searches they ran, one per live ray and sub-bounce. The operations
+    bounds count the pairs the searches test: the chunk search's from its
+    counters (woken chunks x lanes a chunk), the grid's from the plain walk
+    of the first sub-bounce (``grid_walk_ref``: the slots of the cells it
+    visits), per search, times the searches the grid counted (exact at one
+    bounce a launch, an estimate at several)."""
     from viennaray_tpu_torch.ops import bounce as B
+    from viennaray_tpu_torch.ops import grid_traverse as GT
 
     walls = B.make_walls(bbox, geometry, settings)
     state, uniforms = make_state(geometry, bbox, n_rays, kind, n_sub,
                                  settings, seed=13)
     args = (state, uniforms, geometry, walls, settings)
+    live = state.alive
+    first_pairs = int(GT.grid_walk_ref(
+        state.org[live], state.dirn[live], geometry.grid, geometry.prims_soa,
+        GT.TEST[geometry.kind], settings.t_near)[3].sum())
+    pairs_a_search = first_pairs / max(int(live.sum()), 1)
+    lanes_a_chunk = (geometry.prims_soa.shape[1]
+                     // geometry.soa_chunk_bbs.shape[0])
+    op_s = OPS_PER_PAIR[geometry.kind] / F32_FLOPS
     out = {}
     for in_kernel in ((True, False) if n_sub == 1 else (True,)):
         kw = dict(n_sub=n_sub, deposit_in_kernel=in_kernel)
@@ -2770,6 +2840,8 @@ def check_grid_bounce(geometry, bbox, n_rays, kind, n_sub, settings, reps):
         grid_ms = time_cuda(
             lambda: B.fused_bounce(*args, **kw, grid=geometry.grid), reps)
         chunk_swept, chunk_tiles = chunk.counts[n_events:].tolist()
+        grid_bound_ms = searches * pairs_a_search * op_s * 1e3
+        chunk_bound_ms = chunk_swept * lanes_a_chunk * op_s * 1e3
         res = {
             "phase": "grid_bounce", "shape":
                 f"{geometry.kind}s N={geometry.num_primitives}, R={n_rays} "
@@ -2784,6 +2856,9 @@ def check_grid_bounce(geometry, bbox, n_rays, kind, n_sub, settings, reps):
             "cells_a_search": swept / max(searches, 1),
             "chunks_a_search_group": chunk_swept / max(chunk_tiles, 1),
             "search_counts_ok": counts_ok,
+            "pairs_a_search_first_bounce": pairs_a_search,
+            "grid_bound_ms": grid_bound_ms, "chunk_bound_ms": chunk_bound_ms,
+            "bound_by": "operations",
         }
         emit(res)
         if not (equal and counts_ok):
@@ -2916,13 +2991,13 @@ def phase_grid_path():
     launches = {}
     launches["disk18k"] = grid_apply_pair(
         "disk18k", disks, GRID_RAYS_PER_POINT, True,
-        ("fused_bounce", "fused_bounce_grid", "flux_histogram"))
+        ("fused_bounce", "fused_bounce_grid", "flux_histogram", *SORTS))
     launches["disk18k_unfused"] = grid_apply_pair(
         "disk18k_unfused", disks, GRID_RAYS_PER_POINT // 8, False,
-        ("disk_grid_nearest_hit", "flux_histogram"))
+        ("disk_grid_nearest_hit", "flux_histogram", *SORTS))
     launches["triangles_unfused"] = grid_apply_pair(
         "trench_mesh_0.1_unfused", mesh, 20, False,
-        ("triangle_grid_nearest_hit", "flux_histogram"))
+        ("triangle_grid_nearest_hit", "flux_histogram", *SORTS))
     del disks, mesh
     t0 = time.perf_counter()
     pts, nrm = fixtures.create_trench_grid_3d(**DISK1M)
@@ -2943,7 +3018,7 @@ def phase_grid_path():
         big, big_bbox, 1 << 20, "interior", 1, flagship, reps=2)
     launches["disk1m"] = grid_apply_pair(
         "disk1m", big, DISK1M_RAYS_PER_POINT, True,
-        ("fused_bounce", "fused_bounce_grid", "flux_histogram"))
+        ("fused_bounce", "fused_bounce_grid", "flux_histogram", *SORTS))
     del big
     torch.cuda.empty_cache()
     emit({"phase": "grid_path_seconds",
@@ -2969,6 +3044,326 @@ def grid_kernel_entries(results, launches_by_path, keys):
             **{k: res[k] for k in keys},
             "chunk_kernel_ms": res["chunk_kernel_ms"],
             "f64": {k: res64[k] for k in keys + ("chunk_kernel_ms",)},
+        })
+    return entries
+
+
+# ---- the per-bounce coherence resort ------------------------------------------
+RESORT_LANES = 1 << 20
+RESORT_AUX = 2  # an aux of two columns (an energy and a channel, say)
+RESORT_REPS = 20
+
+
+def resort_state(geometry, bbox, n, dtype, seed):
+    """A state of ``n`` lanes as the resort meets it: interior rays of the
+    geometry's box (``make_rays``), a tenth of them on the box's faces and
+    on the poles and the equator of the sphere, a third dead, weights,
+    flags and counts from the seed; and (n, 2) aux."""
+    from viennaray_tpu_torch.ops.bounce import RayState
+
+    org, dirn = make_rays(geometry, bbox, n, "interior", seed)
+    gen = torch.Generator(device=geometry.device)
+    gen.manual_seed(seed + 1)
+    u = torch.rand((4, n), generator=gen, device=geometry.device)
+    tenth = n // 10
+    org[:tenth // 2] = bbox[0]
+    org[tenth // 2:tenth] = bbox[1]
+    dirn[:tenth // 3] = torch.tensor([0.0, 0.0, 1.0], device=dirn.device)
+    dirn[tenth // 3:tenth] = torch.tensor([0.6, -0.6, 0.0],
+                                          device=dirn.device)
+    org, dirn = org.to(dtype).contiguous(), dirn.to(dtype).contiguous()
+    state = RayState(
+        org, dirn, u[0].to(dtype), u[1].to(dtype), u[2] > 1.0 / 3.0,
+        u[3] < 0.1, (u[3] * 7).to(torch.int32), (u[2] * 5).to(torch.int32))
+    aux = torch.rand((n, RESORT_AUX), generator=gen, device=geometry.device,
+                     dtype=dtype)
+    return state, aux
+
+
+def check_coherence_key(geometry, bbox, dtype, dirbins):
+    """The resort's key kernel against its plain version at 2^20 lanes, bit
+    for bit, timed; the bound is its bytes (org and dir read, alive read,
+    the key written)."""
+    from viennaray_tpu_torch.ops import permute as PM
+
+    state, _ = resort_state(geometry, bbox, RESORT_LANES, dtype, seed=31)
+    lo = bbox[0].to(dtype).contiguous()
+    ext = torch.clamp(bbox[1] - bbox[0], min=1e-6).to(dtype).contiguous()
+    args = (state.org, state.dirn, state.alive, lo, ext, dirbins)
+    got = PM.coherence_key(*args)
+    want = PM.coherence_key_ref(*args)
+    torch.cuda.synchronize()
+    equal = bool(torch.equal(got, want))
+    word = 8 if dtype == F64 else 4
+    n_bytes = RESORT_LANES * (6 * word + 1 + 4)
+    res = {
+        "phase": "kernel_check",
+        "kernel": "coherence_key" + ("_f64" if dtype == F64 else ""),
+        "shape": f"R={RESORT_LANES}, dirbins={dirbins}, "
+                 f"{geometry.kind}s' box",
+        "tolerance": "keys equal bit for bit",
+        "bitwise_equal": equal,
+        "max_abs_err": float((got - want).abs().max()),
+        "distinct_keys": int(torch.unique(got).numel()),
+        "ms": time_cuda(lambda: PM.coherence_key(*args), RESORT_REPS),
+        "plain_ms": time_cuda(lambda: PM.coherence_key_ref(*args),
+                              RESORT_REPS),
+        "bound_ms": n_bytes / HBM_BYTES_PER_S * 1e3, "bound_by": "bytes",
+        "library_ms": None,
+    }
+    emit(res)
+    if not equal:
+        raise RuntimeError(f"coherence_key disagrees: {res}")
+    return res
+
+
+def check_permute_state(geometry, bbox, dtype, n_take, with_aux):
+    """The permutation kernel against its plain version (one indexing op an
+    array) at 2^20 lanes, ``n_take`` of them taken (a permutation, or a
+    compaction's first half), with and without aux, bit for bit, timed
+    beside the ``index_select`` calls the one launch replaces; the bound is
+    its bytes (take, and each row read once and written once)."""
+    from viennaray_tpu_torch.ops import permute as PM
+
+    state, aux = resort_state(geometry, bbox, RESORT_LANES, dtype, seed=37)
+    aux = aux if with_aux else None
+    gen = torch.Generator(device=geometry.device)
+    gen.manual_seed(41)
+    take = torch.randperm(RESORT_LANES, generator=gen,
+                          device=geometry.device)[:n_take]
+    got, got_aux = PM.permute_state(take, state, aux)
+    want, want_aux = PM.permute_state_ref(take, state, aux)
+    torch.cuda.synchronize()
+    pairs = list(zip(got, want)) + ([(got_aux, want_aux)] if with_aux else [])
+    equal = all(bool(torch.equal(a, b)) for a, b in pairs)
+    arrays = list(state) + ([aux] if with_aux else [])
+
+    def index_select():
+        return [x.index_select(0, take) for x in arrays]
+
+    row = sum(x[0].numel() * x.element_size() for x in arrays)
+    n_bytes = n_take * (8 + 2 * row)
+    res = {
+        "phase": "kernel_check",
+        "kernel": "permute_state" + ("_f64" if dtype == F64 else ""),
+        "shape": f"R={RESORT_LANES}, take {n_take}, "
+                 f"aux {RESORT_AUX if with_aux else 0}, {row} bytes a row",
+        "tolerance": "every array equal bit for bit",
+        "bitwise_equal": equal,
+        "max_abs_err": max(float((a.double() - b.double()).abs().max())
+                           for a, b in pairs),
+        "ms": time_cuda(lambda: PM.permute_state(take, state, aux),
+                        RESORT_REPS),
+        "plain_ms": time_cuda(lambda: PM.permute_state_ref(take, state, aux),
+                              RESORT_REPS),
+        "bound_ms": n_bytes / HBM_BYTES_PER_S * 1e3, "bound_by": "bytes",
+        "library_ms": time_cuda(index_select, RESORT_REPS),
+    }
+    emit(res)
+    if not equal:
+        raise RuntimeError(f"permute_state disagrees: {res}")
+    return res
+
+
+def resort_apply(geometry, bounce_sort, seed):
+    """One apply of ``TraceDisk`` on ``geometry`` (disk18k's physics, 200
+    rays per point) with the resort asked for or not, after a warm-up apply
+    (so the timed one is run number 2), the launch counts set to 0 just
+    before and read just after: (normalized flux, fields, launches)."""
+    import dataclasses
+
+    import viennaray_tpu_torch as vrt
+    from viennaray_tpu_torch.trace.kernel import grid_for
+
+    tracer = vrt.TraceDisk(dim=3, bounce_sort=bounce_sort)
+    tracer.geometry = geometry
+    configure(tracer, GRID_RAYS_PER_POINT)
+    tracer.set_rng_seed(seed)
+    tracer.apply()
+    reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    flux = tracer.apply()
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    info = dataclasses.asdict(tracer.get_ray_trace_info())
+    launches = read_launches()
+    return np.asarray(tracer.normalize_flux(flux), np.float64), {
+        "bounce_sort": bounce_sort, "seed": seed, "seconds": seconds,
+        "search": "chunks" if grid_for(geometry, tracer._make_config())
+        is None else "grid",
+        "counters": {k: info[k] for k in INFO_COUNTERS},
+        "geometry_hits_per_ray": info["geometry_hits"] / info["num_rays"],
+        "search_steps_a_search": info["chunks_swept"]
+        / max(info["tile_bounces"], 1),
+        "launches": {k: v for k, v in launches.items() if v},
+    }, launches
+
+
+# the float64 resort run: the triangle flagship at this many rays per
+# triangle (184,320 rays, batches of 2^18)
+RESORT_F64_RAYS = 32
+
+
+def phase_resort_path(pts, nrm, verts, tris, disk_launches, tri_launches):
+    """The per-bounce coherence resort (``ops/permute.py``,
+    ``trace/kernel.py:resort``), which the tracers run only when asked
+    (``bounce_sort=True``; ``trace/kernel.py:BOUNCE_SORT``): its key and the
+    state's permutation against their plain versions at 2^20 lanes, bit for
+    bit, in float32 and float64 (the key at 8, 32 and 64 bins; the
+    permutation with and without aux, taking 2^20 and 2^19 lanes), each
+    timed beside its plain version and its bytes bound (the permutation also
+    beside ``index_select`` per array). Then the flagships with the resort
+    asked for: the triangle flagship (12 chunks: it resorts, a key before
+    every launch, where its default run, ``tri_launches``, keys only its
+    compactions) against its oracle golden and hits per ray, two same-seed
+    runs and the run at one thread per ray bit for bit (``run_path``); the
+    disk flagship (6 chunks: the gate is off) launching exactly what its
+    default run did (``disk_launches``), against its goldens; the triangle
+    flagship in float64 through ``trace_unfused`` with the resort (the
+    float64 forms launched, a key before every bounce; finite flux, hits per
+    ray within 2 % of the oracle's). Then disk18k (18,180 disks, 200 rays per point) with the
+    resort on its grid and on the chunk search, bit for bit, and without the
+    resort on the same seed and on another: the resort changes which lane
+    meets which uniform, so its flux is another sample, held to 1.45 times
+    the two seeds' rel-L2 (``PERF.md`` §2's rule), its hits per ray to 2 %.
+    Returns (kernel results, launches by path)."""
+    from viennaray_tpu_torch.geometry.disk_geometry import DiskGeometry
+    from viennaray_tpu_torch.geometry.triangle_geometry import TriangleGeometry
+    from viennaray_tpu_torch.io import fixtures
+
+    t_phase = time.perf_counter()
+    mesh = TriangleGeometry.build(verts, tris, FLAGSHIP["grid_delta"])
+    box = adjusted_bbox(mesh)
+    results = {}
+    for dtype in (torch.float32, F64):
+        for dirbins in (8, 32, 64):
+            results[("key", dtype, dirbins)] = check_coherence_key(
+                mesh, box, dtype, dirbins)
+        for n_take, with_aux in ((RESORT_LANES, False), (RESORT_LANES, True),
+                                 (RESORT_LANES // 2, True)):
+            results[("permute", dtype, n_take, with_aux)] = (
+                check_permute_state(mesh, box, dtype, n_take, with_aux))
+    del mesh
+
+    launches = {}
+    golden, record, tol = oracle_golden("tri3d_trench_oracle")
+    _, launches["triangles_resort"], _ = run_path(
+        {"geometry": "triangles", "body": "fused", "bounce_sort": True},
+        functools.partial(make_tri_tracer, verts, tris, bounce_sort=True),
+        {"rel_l2_oracle": golden}, tol, ("fused_bounce", *SORTS), record,
+        same_seed=True)
+    _, launches["disks_resort"], _ = run_path(
+        {"geometry": "disks", "body": "fused", "bounce_sort": True},
+        functools.partial(make_tracer, pts, nrm, bounce_sort=True),
+        disk_goldens(), GOLDEN_TOL, ("fused_bounce", "flux_histogram", *SORTS))
+
+    tracer64 = make_tri_tracer(verts, tris, rays_per_point=RESORT_F64_RAYS,
+                               fused=False, bounce_sort=True)
+    tracer64.apply()  # the areas
+    reset_launches()
+    flux64, counters64, seconds64 = trace_unfused(tracer64, F64,
+                                                  bounce_sort=True)
+    launches["triangles_f64_resort"] = read_launches()
+    hits64 = counters64["geometry_hits"] / tracer64._make_config().total_rays(
+        tracer64.geometry.num_primitives)
+    f64_run = {"num_rays": tracer64._make_config().total_rays(len(tris)),
+               "seconds": seconds64, "geometry_hits_per_ray": hits64,
+               "oracle_geometry_hits_per_ray": record["geometry_hits_per_ray"],
+               "launches": {k: v for k, v in
+                            launches["triangles_f64_resort"].items() if v}}
+
+    disks = DiskGeometry.build(*fixtures.create_trench_grid_3d(**GRID_FINE),
+                               GRID_FINE["grid_delta"])
+    sorted_norm, on, launches["disk18k_resort"] = resort_apply(
+        disks, True, SEED)
+    chunk_norm, on_chunks, launches["disk18k_chunks_resort"] = resort_apply(
+        disks.replace(grid=None), True, SEED)
+    plain_norm, off, launches["disk18k_no_resort"] = resort_apply(
+        disks, False, SEED)
+    other_norm, other, _ = resort_apply(disks, False, SEED + 7)
+    apart = rel_l2(sorted_norm, plain_norm)
+    noise = rel_l2(other_norm, plain_norm)
+    hits_apart = abs(on["geometry_hits_per_ray"]
+                     / off["geometry_hits_per_ray"] - 1)
+    grid_chunks_equal = bool(np.array_equal(sorted_norm, chunk_norm)
+                             and on["counters"] == on_chunks["counters"])
+    def resorted(run, launch="fused_bounce"):
+        """A key before every launch (the resort's) besides the
+        compactions'."""
+        return run["coherence_key"] >= run[launch] > 0
+
+    res = {
+        "phase": "resort_path", "nvidia_smi": card_name(),
+        "triangle_launches": {k: {"fused_bounce": n["fused_bounce"],
+                                  "coherence_key": n["coherence_key"]}
+                              for k, n in (("default", tri_launches), (
+                                  "resort", launches["triangles_resort"]))},
+        "disks_resort_launches_equal_default":
+            launches["disks_resort"] == disk_launches,
+        "triangles_f64": f64_run,
+        "disk18k": {"disks": disks.num_primitives, "resort": on,
+                    "resort_chunk_search": on_chunks, "no_resort": off,
+                    "no_resort_other_seed": other},
+        "grid_and_chunks_bitwise_equal_with_resort": grid_chunks_equal,
+        "rel_l2_resort_vs_no_resort": apart,
+        "rel_l2_two_seeds": noise, "rel_l2_bound": 1.45 * noise,
+        "hits_per_ray_apart": hits_apart,
+        "seconds": time.perf_counter() - t_phase,
+    }
+    emit(res)
+    f64_launched = launches["triangles_f64_resort"]
+    ok = (resorted(launches["triangles_resort"]) and not resorted(tri_launches)
+          and launches["disks_resort"] == disk_launches
+          and f64_launched["coherence_key_f64"]
+          >= f64_launched["triangle_nearest_hit_f64"] > 0
+          and only_launched(f64_launched, "triangle_nearest_hit_f64",
+                            "flux_histogram_f64", "permute_state_f64",
+                            "coherence_key_f64")
+          and np.isfinite(flux64).all() and flux64.max() > 0
+          and abs(hits64 / record["geometry_hits_per_ray"] - 1) <= 0.02
+          and resorted(launches["disk18k_resort"])
+          and not resorted(launches["disk18k_no_resort"])
+          and grid_chunks_equal
+          and np.isfinite(sorted_norm).all() and sorted_norm.max() > 0
+          and apart < 1.45 * noise and hits_apart <= 0.02)
+    if not ok:
+        raise RuntimeError(f"resort path failed its checks: {res}")
+    return results, launches
+
+
+def resort_kernel_entries(results, paths, keys):
+    """The ``kernels`` line's entries of the resort's key and the state's
+    permutation: launches by path over every main path (``paths``; the
+    float64 forms' from the float64 paths), times at 2^20 lanes (the key at
+    32 bins; the permutation of the whole state without aux, as the tracers
+    run it)."""
+    entries = []
+    for name, replaces, res, res64, more in (
+        ("coherence_key", "viennaray_tpu/trace/kernel.py:397",
+         results[("key", torch.float32, 32)], results[("key", F64, 32)],
+         {f"dirbins_{d}": results[("key", torch.float32, d)]
+          for d in (8, 64)}),
+        ("permute_state", "viennaray_tpu/trace/kernel.py:431",
+         results[("permute", torch.float32, RESORT_LANES, False)],
+         results[("permute", F64, RESORT_LANES, False)],
+         {"aux_2": results[("permute", torch.float32, RESORT_LANES, True)],
+          "take_half_aux_2": results[("permute", torch.float32,
+                                      RESORT_LANES // 2, True)]}),
+    ):
+        by_path = {p: n[name] for p, n in paths.items() if n.get(name)}
+        by_path64 = {p: n[name + "_f64"] for p, n in paths.items()
+                     if n.get(name + "_f64")}
+        entries.append({
+            "name": name, "route": "cuda",
+            "source": "viennaray_tpu_torch/csrc/permute.cu",
+            "replaces": replaces, "launches": sum(by_path.values()),
+            "launches_by_path": by_path,
+            **{k: res[k] for k in keys},
+            **{label: {k: r[k] for k in keys} for label, r in more.items()},
+            "f64": {**{k: res64[k] for k in keys},
+                    "launches": sum(by_path64.values()),
+                    "launches_by_path": by_path64},
         })
     return entries
 
@@ -3204,6 +3599,8 @@ def main():
     torch.cuda.reset_peak_memory_stats()
     launches, unfused_launches, neighbor_norm = phase_disk_paths(pts, nrm)
     tri_launches, tri_unfused_launches = phase_triangle_paths(verts, tris)
+    resort_results, resort_launches = phase_resort_path(
+        pts, nrm, verts, tris, launches, tri_launches)
     line_launches, line_unfused_launches = phase_line_paths()
     ion_launches, ion_unfused_launches = phase_ion_paths(pts, nrm)
     gas_launches = phase_gas_path(pts, nrm)
@@ -3221,6 +3618,20 @@ def main():
 
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
             "library_ms", "shape")
+    # every main path's launches, for the kernels that run on nearly all
+    main_paths = {
+        "disks": launches, "disks_unfused": unfused_launches,
+        "triangles": tri_launches, "triangles_unfused": tri_unfused_launches,
+        "lines": line_launches, "lines_unfused": line_unfused_launches,
+        "ion": ion_launches, "ion_unfused": ion_unfused_launches,
+        "gas": gas_launches, "window": window_launches,
+        "window_unfused": window_unfused_launches, "wdist": wdist_launches,
+        "grid_source": grid_launches, "surface": surface_launches,
+        "disk2d": disk2d_launches, "disk2d_unfused": disk2d_unfused_launches,
+        **hooks, "sharded": sharded_launches,
+        **{f"grid_{name}": n for name, n in grid_launches_by_path.items()},
+        **resort_launches,
+    }
     emit({"kernels": [
         {
             "name": "disk_nearest_hit", "route": "cuda",
@@ -3336,6 +3747,7 @@ def main():
             **{k: line_hit_wide[k] for k in keys},
         },
         *grid_kernel_entries(grid_hits, grid_launches_by_path, keys),
+        *resort_kernel_entries(resort_results, {**main_paths, **f64}, keys),
         {
             "name": "fused_bounce", "route": "cuda",
             "source": "viennaray_tpu_torch/csrc/bounce.cu",
@@ -3389,7 +3801,9 @@ def main():
                 "ms": {f"{geo}_{r}x{k}": {
                     "grid_ms": res[True]["grid_ms"],
                     "chunk_ms": res[True]["chunk_ms"],
-                    "cells_a_search": res[True]["cells_a_search"]}
+                    "cells_a_search": res[True]["cells_a_search"],
+                    "grid_bound_ms": res[True]["grid_bound_ms"],
+                    "chunk_bound_ms": res[True]["chunk_bound_ms"]}
                     for (geo, r, k), res in grid_bounce.items()},
             },
             # the tail's launches, which the group mapping serves

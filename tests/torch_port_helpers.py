@@ -32,6 +32,7 @@ GEOMETRY_FIELDS = (
 CLOUDS = {
     "trench_0.5": (lambda f: f.create_trench_grid_3d(grid_delta=0.5), 0.5),
     "trench_1.0": (lambda f: f.create_trench_grid_3d(grid_delta=1.0), 1.0),
+    "trench_0.22": (lambda f: f.create_trench_grid_3d(grid_delta=0.22), 0.22),
     "plane": (lambda f: f.create_plane_grid(0.5, 3.0, (0, 1, 2)), 0.5),
 }
 
@@ -453,14 +454,20 @@ def packed_geometries(geo_kind):
     rule (lowest original index) and the port's (lowest sorted lane)
     coincide: the 777-disk trench at grid delta 0.5 (periodic areas), the
     1,440-triangle trench mesh at 0.5, or the 72-segment 2D trench at 0.25
-    with two materials."""
+    with two materials; ``geo_kind`` "disk_0.22": the 3,818-disk trench at
+    grid delta 0.22 (8 chunks, so the per-bounce resort engages; below
+    ``grid_min_prims``, so neither package walks a grid). Not the 4,590
+    disks at 0.2: their packing is no fixed point (packing the packed
+    order rotates 91 disks by 3 lanes), so no order makes the two tie rules
+    coincide."""
     from viennaray_tpu.geometry.line_geometry import (
         LineGeometry as RefLineGeometry,
     )
     from viennaray_tpu_torch.config import TraceDirection, adjust_bounding_box
 
-    if geo_kind == "disk":
-        pts, nrm, grid_delta, first_build = reference_geometry("trench_0.5")
+    if geo_kind in ("disk", "disk_0.22"):
+        pts, nrm, grid_delta, first_build = reference_geometry(
+            "trench_0.5" if geo_kind == "disk" else "trench_0.22")
         order = np.asarray(first_build.soa_perm)[: len(pts)]
         pts, nrm = pts[order], nrm[order]
         ref_geo = vrt.DiskGeometry.build(pts, nrm, grid_delta, dim=3)
@@ -501,7 +508,8 @@ def lane_matched_batch(ref_particle, particle, ref_knobs, *, flux_model="neighbo
                        **port_kwargs):
     """One mega-batch of ``R`` rays through both packages' ``trace_batch`` on
     the same tables with the same uniforms (``JaxKeyedRNG``), on a geometry
-    of ``packed_geometries`` (``geo_kind`` "disk", "triangle" or "line").
+    of ``packed_geometries`` (``geo_kind`` "disk", "disk_0.22", "triangle" or
+    "line").
     ``source``: "random" (the +z face, or +y in 2D), "grid"
     (``create_source_grid`` on that face, 400 points) or "surface" (every
     disk along its normal, ``surface_source_of``); ``user_source(source)``
@@ -563,7 +571,8 @@ def lane_matched_batch(ref_particle, particle, ref_knobs, *, flux_model="neighbo
     ray_indices = np.arange(batch_index * R, (batch_index + 1) * R)
     valid = np.ones(R, bool)
     ref_trace = jax.jit(functools.partial(
-        ref_kernel.trace_batch, config=ref_config, geo_type=geo_kind,
+        ref_kernel.trace_batch, config=ref_config,
+        geo_type=geo_kind.split("_")[0],
         knobs=ref_knobs, **(ref_hooks or {}),
     ))
     ref_out = ref_trace(

@@ -86,6 +86,17 @@ _SIGNATURES = {
     "vr_flux_histogram_grad_f64": [
         _ptr, _ptr, ctypes.c_longlong, ctypes.c_int, _ptr, ctypes.c_int, _ptr,
     ],
+    # org dir alive bb_lo bb_ext | n dirbins | key stream
+    "vr_coherence_key": [_ptr] * 5 + [ctypes.c_longlong, ctypes.c_int]
+    + [_ptr] * 2,
+    "vr_coherence_key_f64": [_ptr] * 5 + [ctypes.c_longlong, ctypes.c_int]
+    + [_ptr] * 2,
+    # take n_out | org dir weight w0 alive hfb n_refl n_bdry aux n_aux |
+    # the same nine outputs | stream
+    "vr_permute_state": [_ptr, ctypes.c_longlong] + [_ptr] * 9
+    + [ctypes.c_int] + [_ptr] * 10,
+    "vr_permute_state_f64": [_ptr, ctypes.c_longlong] + [_ptr] * 9
+    + [ctypes.c_int] + [_ptr] * 10,
     # org dir weight w0 alive hfb n_refl n_bdry uniforms | prims chunk_bbs
     # perm neighbors neighbor_pack walls stick_lanes | n_rays npad pt n_prims
     # k_nbrs n_sub kind dim first_dir second_dir ray_axis bc1 bc2 refl_kind

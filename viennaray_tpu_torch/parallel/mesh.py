@@ -55,7 +55,7 @@ import torch
 import torch.distributed as dist
 
 from ..config import TraceConfig
-from ..trace.kernel import trace_batch, with_deposit_tables
+from ..trace.kernel import BOUNCE_SORT, trace_batch, with_deposit_tables
 
 BACKENDS = {"cuda": "nccl", "cpu": "gloo"}
 
@@ -230,13 +230,14 @@ class _Run:
     how the shards' results are gathered and summed."""
 
     def __init__(self, problem, rng, config, mesh, megabatches, fused,
-                 differentiable, num_bounces, acc_dtype):
+                 differentiable, num_bounces, acc_dtype, bounce_sort):
         self.problem = problem
         self.rng = rng
         self.config = config
         self.mesh = mesh
         self.megabatches = megabatches
         self.fused = fused
+        self.bounce_sort = bounce_sort
         self.differentiable = differentiable
         self.num_bounces = num_bounces
         self.acc_dtype = acc_dtype
@@ -253,6 +254,7 @@ class _Run:
             problem["bbox"], self.rng, g, ray_indices.to(self.home),
             valid.to(self.home), self.config, fused=self.fused,
             differentiable=self.differentiable, num_bounces=self.num_bounces,
+            bounce_sort=self.bounce_sort,
         )[:2]
 
     def reduce(self, local):
@@ -334,7 +336,7 @@ class _ShardedFlux(torch.autograd.Function):
 
 def _sharded(geometry, source, particle, bbox, rng, config, mesh,
              megabatches, fused, differentiable, num_bounces,
-             accumulate_f64):
+             accumulate_f64, bounce_sort):
     """(flux, counters as an int64 array in ``BatchCounters`` order) of the
     given mega-batches [(first global sub-batch, ray indices, valid)]."""
     acc_dtype = torch.float64 if accumulate_f64 else torch.float32
@@ -343,7 +345,7 @@ def _sharded(geometry, source, particle, bbox, rng, config, mesh,
     problem = dict(geometry=geometry, source=source, particle=particle,
                    bbox=bbox)
     run = _Run(problem, rng, config, mesh, megabatches, fused,
-               differentiable, num_bounces, acc_dtype)
+               differentiable, num_bounces, acc_dtype, bounce_sort)
     if differentiable:
         leaves = _grad_leaves(problem)
         flux = _ShardedFlux.apply(run, leaves, *(v for _, _, v in leaves))
@@ -372,13 +374,15 @@ def trace_batch_sharded(
     sub_batch_start: int = 0,
     fused: bool = True,
     accumulate_f64: bool = True,
+    bounce_sort: bool = BOUNCE_SORT,
 ):
     """Trace one global mega-batch sharded over the mesh.
 
     ``ray_indices`` / ``valid``: (R,) global ray indices and live lanes,
     R divisible by the mesh's shard count; every process passes the same.
     The other arguments are the port's ``trace_batch``'s (``rng`` a
-    ``RayRNG`` on this process's shard device; ``fused`` as there).
+    ``RayRNG`` on this process's shard device; ``fused`` and
+    ``bounce_sort``, the per-bounce resort, off by default, as there).
 
     RNG contract (``viennaray_tpu/parallel/mesh.py:66-72``): shard g runs
     ``rng.begin_batch(sub_batch_start + g)`` and ``trace_batch`` with that
@@ -395,7 +399,7 @@ def trace_batch_sharded(
     valid = torch.as_tensor(valid)
     return _sharded(geometry, source, particle, bbox, rng, config, mesh,
                     [(int(sub_batch_start), ray_indices, valid)], fused,
-                    differentiable, num_bounces, accumulate_f64)
+                    differentiable, num_bounces, accumulate_f64, bounce_sort)
 
 
 def trace_sharded(
@@ -411,6 +415,7 @@ def trace_sharded(
     num_bounces: Optional[int] = None,
     fused: bool = True,
     accumulate_f64: bool = True,
+    bounce_sort: bool = BOUNCE_SORT,
 ):
     """The whole sharded trace: mega-batches of ``config.ray_batch_size`` x
     the mesh's shard count rays, ``valid`` masking the last one. Mega-batch
@@ -435,7 +440,7 @@ def trace_sharded(
                             ray_indices < total_rays))
     return _sharded(geometry, source, particle, bbox, rng, config, mesh,
                     megabatches, fused, differentiable, num_bounces,
-                    accumulate_f64)
+                    accumulate_f64, bounce_sort)
 
 
 __all__ = [

@@ -74,10 +74,22 @@ by name. The tracers (``TraceDisk`` and the others) are float32 only, as the
 JAX package's are.
 
 Refused by name (``check_supported``), as in the reference: the window flux
-model together with 1/distance weighting or with a ``collision_fn``. The
-per-bounce coherence re-sort of the reference only engages from 8 geometry
-chunks on and is not ported yet, the one part of the JAX package's trace
-that is not; it changes the lane order, not the physics.
+model together with 1/distance weighting or with a ``collision_fn``.
+
+The per-bounce coherence resort (the JAX package's, kernel.py:352-530):
+asked for with ``bounce_sort=True`` (off by default on this port:
+``BOUNCE_SORT`` holds the card's measurement), and where ``resort_for``
+holds (a batch of at least 4,096 lanes, a geometry of at least 8 chunks,
+not differentiable: the JAX package's gate), the top of every body call,
+unfused or fused, before the launch's uniforms are drawn, orders the lanes
+by ``ops.permute.coherence_key`` (position cell and direction bin,
+``dirbins_for``) with a stable sort and moves the state and the hooks'
+``aux`` with ``ops.permute.permute_state``, every ``sort_every`` bounces.
+It changes which lane meets which uniform, so the per-seed bits on such
+geometries, not the physics. The compaction keys the lanes with
+``coherence_key`` at the 8 sign octants (the JAX package's compaction key),
+and it and the source sort move the state with ``permute_state``, whether
+the resort is asked for or not.
 
 Determinism: every reduction on the path has a fixed order or is a sum of
 integers (stable sorts, the fixed-point bins of the histogram and bounce
@@ -113,6 +125,7 @@ from ..ops.nearest_hit import (
     line_nearest_hit,
     triangle_nearest_hit,
 )
+from ..ops.permute import coherence_key, permute_state
 from ..physics.source import (
     GridSource,
     RandomSource,
@@ -130,6 +143,32 @@ N_SUB = (1, 4, 16)
 # a diffuse launch of one bounce on disks hands its deposits out from this
 # many geometry chunks on (the reference's choice, kernel.py:1049-1065)
 HAND_OUT_MIN_CHUNKS = 4
+
+# the per-bounce resort's gate (the JAX package's, kernel.py:367-378): a
+# batch of at least this many lanes, on a geometry of at least this many
+# chunks
+RESORT_MIN_LANES = 4096
+RESORT_MIN_CHUNKS = 8
+# the compaction's key: the coherence key at the 8 sign octants (the JAX
+# package's spatial compaction, kernel.py:1407-1422)
+COMPACT_DIRBINS = 8
+
+BOUNCE_SORT = False
+"""The default of ``bounce_sort`` (``trace_batch``, the tracers, the sharded
+trace): off, where the JAX package resorts by default (its
+``EnvKnobs.bounce_sort``). Measured on an NVIDIA H100 80GB HBM3 at a power
+limit of 700.00 W (``chip_diagnose.py --resort``, two rounds in turns, the
+same rays with the resort and without; ``PERF.md`` §6): the resort made
+kernel 4 4 to 11 % faster (neighbouring warps walk neighbouring cells and
+records) but cost more than that (its key, a stable sort and the
+permutation before each launch, 0.19 to 0.28 ms a launch on the triangle
+flagship), so every apply of every geometry where the JAX gate holds was
+slower with it, in both rounds: the 5,760-triangle flagship 0.6521 and 0.5638 s
+against 0.5736 and 0.5533, disk18k 0.2301 and 0.2122 against 0.2159 and
+0.2045, disk1m with its grid 0.4892 and 0.4249 against 0.4256 and 0.3981,
+the 36,000-triangle trench 0.1355 and 0.1312 against 0.1188 and 0.1172. So
+the port resorts only when asked; ``bounce_sort=True`` gives the JAX
+package's gate and lane order."""
 
 # the closest-hit kernel's wrapper of each geometry kind
 _SEARCH = {
@@ -153,6 +192,38 @@ def grid_for(geometry, config: TraceConfig, differentiable=False):
             or geometry.num_primitives < config.grid_min_prims):
         return None
     return grid
+
+
+def resort_for(R: int, geometry, differentiable: bool,
+               bounce_sort: bool) -> bool:
+    """Whether ``trace_batch`` resorts its lanes before every launch (the
+    JAX package's gate, viennaray_tpu/trace/kernel.py:367-378): asked for
+    (``bounce_sort``; ``BOUNCE_SORT`` by default), not differentiable, a
+    batch of ``R`` >= 4,096 lanes (the batch's width, not the stage's) and a
+    geometry of at least 8 chunks."""
+    return (bool(bounce_sort) and not differentiable
+            and R >= RESORT_MIN_LANES
+            and geometry.soa_chunk_bbs.shape[0] >= RESORT_MIN_CHUNKS)
+
+
+def dirbins_for(n_chunks: int, sort_dirbins="auto") -> int:
+    """The resort key's direction bins (the JAX package's rule,
+    viennaray_tpu/trace/kernel.py:386-395): "auto" gives 64 from 64 chunks
+    on, else 32; an integer is taken as given (below 32: the 8 sign
+    octants)."""
+    if sort_dirbins == "auto":
+        return 64 if n_chunks >= 64 else 32
+    return int(sort_dirbins)
+
+
+def resort(state: RayState, aux, bb_lo, bb_ext, dirbins: int):
+    """The lanes of ``state`` (and the rows of ``aux``) in the stable order
+    of their coherence key (``ops.permute.coherence_key``): the JAX
+    package's ``_resorted`` (kernel.py:481-518), which gives the lanes of a
+    stable argsort and a gather. Returns (RayState, aux), contiguous."""
+    key = coherence_key(state.org, state.dirn, state.alive, bb_lo, bb_ext,
+                        dirbins)
+    return permute_state(torch.sort(key, stable=True).indices, state, aux)
 
 
 def hand_out_for(kind: str, n_chunks: int, refl_kind, n_sub: int) -> bool:
@@ -265,21 +336,6 @@ def _flux_add(ids, weights, n_prims):
     return flux_histogram(ids, weights, n_prims)
 
 
-def _spatial_key(org, dirn, alive, bb_lo, bb_ext):
-    """Compaction sort key: position-major (16^3 cells of the bounding box),
-    direction-octant minor; dead lanes last."""
-    cell = torch.clamp(
-        ((org - bb_lo) / bb_ext * 16.0).to(torch.int32), 0, 15
-    )
-    octant = (
-        (dirn[:, 0] > 0).to(torch.int32)
-        + 2 * (dirn[:, 1] > 0).to(torch.int32)
-        + 4 * (dirn[:, 2] > 0).to(torch.int32)
-    )
-    key = ((cell[:, 0] * 16 + cell[:, 1]) * 16 + cell[:, 2]) * 8 + octant
-    return torch.where(alive, key, torch.full_like(key, 1 << 30))
-
-
 def _bounce_uniforms(rng, batch_index, it, n, n_sub, settings, dev,
                      dtype=torch.float32):
     """The (n, n_uni n_sub) uniforms of one launch starting at iteration
@@ -364,6 +420,9 @@ def trace_batch(
     log_fn=None,
     differentiable=False,
     num_bounces=None,
+    bounce_sort=BOUNCE_SORT,
+    sort_every=1,
+    sort_dirbins="auto",
 ):
     """Trace one mega-batch of rays to extinction; returns (flux, counters),
     or (flux, counters, logs) with a ``log_fn``.
@@ -389,6 +448,12 @@ def trace_batch(
     (``with_neighbor_pack``): ``with_deposit_tables``, which the tracers,
     the sharded trace and the gradient drivers call once before their
     batches.
+    bounce_sort, sort_every, sort_dirbins: the per-bounce coherence resort
+    (the JAX package's ``EnvKnobs`` fields of these names, as arguments;
+    ``bounce_sort`` off by default, ``BOUNCE_SORT``): where ``resort_for``
+    holds, the lanes are resorted (``resort``) before every launch that
+    starts at a bounce count divisible by ``sort_every``, with
+    ``dirbins_for(n_chunks, sort_dirbins)`` direction bins.
     Returns flux (n_prims,) on the device in the trace's type, or (L,
     n_prims) for a ``collision_fn`` and a particle of L > 1 ``data_labels``,
     and ``BatchCounters``.
@@ -544,6 +609,7 @@ def trace_batch(
             raise ValueError(
                 f"aux_init_fn must return (R, A) {dtype} with R = {R}, got "
                 f"{tuple(aux.shape)} {aux.dtype}")
+        aux = aux.contiguous()
     logs = None
     if log_fn is not None:
         logs = tuple(log_fn(
@@ -554,10 +620,15 @@ def trace_batch(
         ))
 
     weight = torch.where(valid, w0, torch.zeros_like(w0))
-    alive = valid
-    hfb = torch.zeros(R, dtype=torch.bool, device=dev)
-    n_refl = torch.zeros(R, dtype=torch.int32, device=dev)
-    n_bdry = torch.zeros(R, dtype=torch.int32, device=dev)
+    # contiguous from here on: the permutation and the fused kernel take
+    # them so, and give them so
+    state = RayState(
+        org.contiguous(), dirn.contiguous(), weight.contiguous(),
+        w0.contiguous(), valid.contiguous(),
+        torch.zeros(R, dtype=torch.bool, device=dev),
+        torch.zeros(R, dtype=torch.int32, device=dev),
+        torch.zeros(R, dtype=torch.int32, device=dev),
+    )
     # a collision_fn fills one channel per data label (ref: kernel.py:324-334)
     n_chan = len(particle.data_labels) if collision_fn is not None else 1
     flux_shape = (n_chan, n_prims) if n_chan > 1 else (n_prims,)
@@ -647,7 +718,6 @@ def trace_batch(
             settings.refl_kind, k,
         )
         u = _bounce_uniforms(rng, batch_index, it, width, k, settings, dev)
-        state = RayState(*(x.contiguous() for x in state))
         res = fused_bounce(
             state, u.contiguous(), geometry, walls, settings, n_sub=k,
             deposit_in_kernel=not hand_out, stick_lanes=stick_lanes,
@@ -670,6 +740,7 @@ def trace_batch(
     # order-independent sums, and each lane's uniforms remain i.i.d.).
     if R >= 2048 and not differentiable:
         nb = 6  # 64x64 source-plane cells
+        org = state.org
         one = torch.tensor(1e-30, dtype=dtype, device=dev)
         c1 = torch.clamp(
             ((org[:, first_dir] - lo1) / torch.maximum(hi1 - lo1, one)
@@ -688,11 +759,8 @@ def trace_batch(
                 key_m = key_m | (((c2 >> bit) & 1) << (2 * bit + 1))
         else:
             key_m = c1
-        take = torch.argsort(key_m, stable=True)
-        org, dirn = org[take], dirn[take]
-        weight, w0, alive = weight[take], w0[take], alive[take]
-        if aux is not None:
-            aux = aux[take]
+        state, aux = permute_state(torch.argsort(key_m, stable=True), state,
+                                   aux)
 
     # ---- staged execution with ray compaction ---------------------------
     # Roulette kills rays at different bounce counts, so a fixed-size
@@ -714,18 +782,27 @@ def trace_batch(
     if not differentiable:
         stage_caps.append(0)  # final stage: run to extinction
 
-    bb_lo = bbox[0]
-    bb_ext = torch.clamp(bbox[1] - bbox[0], min=1e-6)
+    # the box of the compaction's and the resort's key, in the trace's type
+    key_lo = bbox[0].to(device=dev, dtype=dtype).contiguous()
+    key_ext = torch.clamp(bbox[1] - bbox[0], min=1e-6).to(
+        device=dev, dtype=dtype).contiguous()
+    resorted = resort_for(R, geometry, differentiable, bounce_sort)
+    if resorted:
+        dirbins = dirbins_for(geometry.soa_chunk_bbs.shape[0], sort_dirbins)
+        sort_every = max(1, int(sort_every))
 
-    state = RayState(org, dirn, weight, w0, alive, hfb, n_refl, n_bdry)
     if differentiable:
         for it in range(32 if num_bounces is None else int(num_bounces)):
             flux, _, state, _, _ = body(it, flux, state, None)
     it = 0
-    n_alive = 0 if differentiable else int(alive.sum())
+    n_alive = 0 if differentiable else int(state.alive.sum())
     sorted_since_bounce = False
     for cap in stage_caps:
         while it < config.max_bounces and n_alive > cap:
+            if resorted and it % sort_every == 0:
+                # before the launch draws its uniforms (ref: kernel.py:523-531,
+                # 1075-1082), so lanes and uniforms pair as there
+                state, aux = resort(state, aux, key_lo, key_ext, dirbins)
             flux, alive_count, state, done, aux = body(it, flux, state, aux)
             it += done
             # the one host read per launch: the ladder needs the survivor
@@ -742,15 +819,12 @@ def trace_batch(
                 aux = aux[:cap]
         else:
             # spatial compaction: survivors sorted by origin cell and
-            # direction octant, so neighbouring lanes stay coherent after
-            # diffuse bounces decohere the source order
-            key_s = _spatial_key(
-                state.org, state.dirn, state.alive, bb_lo, bb_ext
-            )
-            take = torch.argsort(key_s, stable=True)[:cap]
-            state = RayState(*(x[take] for x in state))
-            if aux is not None:
-                aux = aux[take]
+            # direction octant (dead lanes last), so neighbouring lanes stay
+            # coherent after diffuse bounces decohere the source order
+            key_s = coherence_key(state.org, state.dirn, state.alive, key_lo,
+                                  key_ext, COMPACT_DIRBINS)
+            state, aux = permute_state(
+                torch.argsort(key_s, stable=True)[:cap], state, aux)
             sorted_since_bounce = True
 
     c = dict(zip(COUNT_NAMES, counts.tolist()))  # the one fetch per batch

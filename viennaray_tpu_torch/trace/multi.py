@@ -21,9 +21,10 @@ def apply_particles(tracer, particles: Sequence) -> Tuple[np.ndarray, List[Trace
     """Run ``tracer.apply()`` once per species.
 
     tracer: a ``TraceDisk``, ``TraceTriangle`` or ``TraceLine`` with its
-    geometry and settings configured. Returns (flux (S, N) float64, one
-    ``TraceInfo`` per species); each species' labelled channels also
-    accumulate into the tracer's ``TracingData``.
+    geometry and settings configured; each species runs the tracer's body
+    and per-bounce resort (its ``fused`` and ``bounce_sort``). Returns
+    (flux (S, N) float64, one ``TraceInfo`` per species); each species'
+    labelled channels also accumulate into the tracer's ``TracingData``.
     """
     fluxes = []
     infos = []

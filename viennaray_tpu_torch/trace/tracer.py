@@ -10,7 +10,10 @@ gpu/raygTrace.hpp:132-160).
 
 A tracer runs on a CUDA device unless the caller asks for the CPU, and
 through the fused bounce kernel unless the caller asks for the unfused body
-(``fused=False``).
+(``fused=False``). With ``bounce_sort=True`` it resorts its lanes before
+every launch on a geometry of 8 chunks or more (the JAX package's
+per-bounce coherence resort, ``trace.kernel.resort_for``); by default it
+does not (``trace.kernel.BOUNCE_SORT`` says why).
 """
 
 from __future__ import annotations
@@ -40,7 +43,8 @@ from ..physics.source import RandomSource, check_source, source_box
 from ..rng import GeneratorRNG
 from . import postprocess
 from .kernel import (
-    BatchCounters, check_supported, trace_batch, with_deposit_tables,
+    BOUNCE_SORT, BatchCounters, check_supported, trace_batch,
+    with_deposit_tables,
 )
 
 
@@ -48,7 +52,7 @@ class _TraceBase:
     """Shared setter surface (ref: rayTrace.hpp:15-180)."""
 
     def __init__(self, dim: int = 3, device=None, dtype=torch.float32,
-                 fused: bool = True):
+                 fused: bool = True, bounce_sort: bool = BOUNCE_SORT):
         if dtype != torch.float32:
             # as the JAX package's tracers (viennaray_tpu/trace/tracer.py)
             raise NotImplementedError(
@@ -58,6 +62,7 @@ class _TraceBase:
                 "to(torch.float64)")
         self._dim = dim
         self._fused = bool(fused)
+        self._bounce_sort = bool(bounce_sort)
         self._device = resolve_device(device)
         self._particle = None
         self._custom_source = None
@@ -287,7 +292,8 @@ class _TraceBase:
             rng.begin_batch(b)
             out = trace_batch(
                 geometry, source, self._particle, bbox_dev, rng, b,
-                ray_indices, valid, config, fused=self._fused, **self._hooks,
+                ray_indices, valid, config, fused=self._fused,
+                bounce_sort=self._bounce_sort, **self._hooks,
             )
             batch_flux, counters = out[:2]
             flux += batch_flux.to(acc_dtype)
@@ -517,8 +523,10 @@ class TraceLine(_TraceBase):
     triangle extrusion), flux is per segment, areas are segment lengths,
     smoothing is not implemented."""
 
-    def __init__(self, device=None, dtype=torch.float32, fused: bool = True):
-        super().__init__(dim=2, device=device, dtype=dtype, fused=fused)
+    def __init__(self, device=None, dtype=torch.float32, fused: bool = True,
+                 bounce_sort: bool = BOUNCE_SORT):
+        super().__init__(dim=2, device=device, dtype=dtype, fused=fused,
+                         bounce_sort=bounce_sort)
 
     def set_geometry(self, mesh: LineMesh, material_ids=None):
         self.geometry = LineGeometry.from_mesh(
