@@ -8,6 +8,7 @@ Run from the repository root on a machine with one NVIDIA Hopper card:
                              [--unfused] [--profile FILE]
     python3 chip_diagnose.py --groups | --paths | --grad | --f64 | --grid |
                              --resort
+    python3 chip_diagnose.py [--grid | --resort] --launch-times TREE ...
 
 It builds a tracer of ``chip_smoke.py`` (same geometry, particle, seed and
 batch; the default tracer, whose body is the fused bounce kernel): the
@@ -55,6 +56,18 @@ rays, on the 2,993 disks, the 5,760 triangles, the 782 segments and the
 bounce and at 512 rays x 16, and prints ``ptxas``' lines of its bounce and
 closest-hit kernels.
 
+With ``--grid``, ``--launch-times TREE [TREE ...]`` times each tree's grid
+walk instead (``GRID_TIMES``: the grid kernel at 2^20 source rays and kernel
+4's grid search at 2^20 x 1, 16,384 x 4 and 512 x 16 on the trench at
+9,216, 18,180, 72,360 and 704,250 disks, the float64 grid kernel at 18,180,
+the 36,000 triangles, then two applies of disk1m with its grid and its
+kernel spans); with ``--resort``, the state's permutation at the resort
+path's six shapes beside its plain version and the ``index_select`` calls,
+and the compaction's own takes at three widths (``PERMUTE_TIMES``), after
+``cuobjdump -sass`` of each tree's ``permute.cu``
+(``build/sass/permute_<n>.sass``, and the global loads and stores of its
+kernels).
+
 ``python3 chip_diagnose.py --grad`` times the differentiable trace
 (``viennaray_tpu_torch.diff``) as ``chip_smoke.py``'s ``phase_grad_paths``
 drives it: BASELINE config 5's d sum(flux) / d sticking (10^7 rays) and
@@ -90,8 +103,8 @@ weight), which say what the ladder's tail is spent on.
 
 ``python3 chip_diagnose.py --grid`` times the chunk search against the grid
 walk (``ops/grid_traverse.py``, kernel 4's grid search) on the trench at
-four sizes, 9,216, 18,180, 72,360 and 704,250 disks (grid delta 0.14, 0.1,
-0.05, 0.016), in ``--repeats`` rounds whose order of the two searches
+six sizes, 2,993 to 704,250 disks (grid delta 0.25, 0.18, 0.14, 0.1, 0.05,
+0.016), in ``--repeats`` rounds whose order of the two searches
 alternates, one process: the closest-hit kernel (kernel 1 against the grid
 kernel) at 2^20 source and interior rays, and kernel 4 at 2^20 x 1, 16,384
 x 4 and 512 x 16 on one seeded state each: the measurement behind the path
@@ -121,6 +134,7 @@ from __future__ import annotations
 import argparse
 import json
 import os
+import re
 import subprocess
 import sys
 import time
@@ -502,10 +516,225 @@ print(json.dumps(out), flush=True)
 """
 
 
-def launch_times(trees):
-    """One fresh process per tree, in the order given."""
+# run as ``python3 -c GRID_TIMES tree``: imports the
+# tree's own modules, calls only what every tree since the grid's port has
+GRID_TIMES = """
+import contextlib, io, json, os, sys
+root = os.path.abspath(sys.argv[1])
+sys.path.insert(0, root)
+os.chdir(root)
+import torch
+import chip_smoke as cs
+import chip_diagnose as cd
+from viennaray_tpu_torch import _build
+from viennaray_tpu_torch.bench import perf_sweep
+from viennaray_tpu_torch.geometry.disk_geometry import DiskGeometry
+from viennaray_tpu_torch.geometry.triangle_geometry import TriangleGeometry
+from viennaray_tpu_torch.io import fixtures
+from viennaray_tpu_torch.ops import bounce as B
+from viennaray_tpu_torch.ops import grid_traverse as GT
+_build.library()
+lines = [l.strip() for l in _build.build_log.splitlines()]
+names = ("bounce_kernel", "bounce_grid_kernel", "grid_hit_kernel")
+out = {"tree": sys.argv[1], "ptxas": [
+    l for i, l in enumerate(lines)
+    if any(n in l or any(n in p for p in lines[max(i - 2, 0):i]) for n in names)
+]}
+settings = cs.bounce_settings()
+F64 = torch.float64
+sizes = ((0.14, "disk9k"), (0.1, "disk18k"), (0.05, "disk72k"),
+         (0.016, "disk1m"))
+with contextlib.redirect_stdout(io.StringIO()):
+    for gd, name in sizes:
+        pts, nrm = (perf_sweep.fixture("disk1m") if name == "disk1m" else
+                    fixtures.create_trench_grid_3d(
+                        **dict(cs.FLAGSHIP, grid_delta=gd)))
+        geo = DiskGeometry.build(pts, nrm, gd, pack_neighbors=False)
+        geo = geo.with_neighbor_pack()
+        bbox = cs.adjusted_bbox(geo)
+        o, d = cs.make_rays(geo, bbox, 1 << 20, "source", seed=7)
+        out[name + "_grid_hit_ms"] = cs.time_cuda(
+            lambda: GT.disk_grid_nearest_hit(o, d, geo.prims_soa,
+                                             geo.soa_perm, geo.grid), 5)
+        if name == "disk18k":
+            g64 = geo.to(F64)
+            o64, d64 = o.to(F64), d.to(F64)
+            out[name + "_grid_hit_f64_ms"] = cs.time_cuda(
+                lambda: GT.disk_grid_nearest_hit(
+                    o64, d64, g64.prims_soa, g64.soa_perm, g64.grid), 5)
+            del g64
+        walls = B.make_walls(bbox, geo, settings)
+        for n, k in ((1 << 20, 1), (16384, 4), (512, 16)):
+            state, uni = cs.make_state(geo, bbox, n, "interior", k, settings,
+                                       seed=13)
+            out[f"{name}_kernel4_grid_{n}x{k}_ms"] = cs.time_cuda(
+                lambda: B.fused_bounce(state, uni, geo, walls, settings,
+                                       n_sub=k, grid=geo.grid),
+                3 if n > 65536 else 20)
+        if name == "disk1m":
+            tracer = perf_sweep.make_tracer("disk1m", None)
+            tracer.geometry = geo
+            tracer.apply()  # warm-up
+            out["disk1m_repeats"] = cd.repeats(tracer, 2, "fused, grid")
+            out["disk1m_kernel_spans"] = cd.kernel_spans(tracer,
+                                                         "fused, grid")
+            del tracer
+        del geo, walls, state, uni, o, d
+        torch.cuda.empty_cache()
+    mesh = TriangleGeometry.build(*fixtures.create_trench_mesh_3d(
+        **dict(cs.FLAGSHIP, grid_delta=0.1)), 0.1)
+    bbox = cs.adjusted_bbox(mesh)
+    o, d = cs.make_rays(mesh, bbox, 1 << 20, "source", seed=7)
+    out["triangles_grid_hit_ms"] = cs.time_cuda(
+        lambda: GT.triangle_grid_nearest_hit(o, d, mesh.prims_soa,
+                                             mesh.soa_perm, mesh.grid), 5)
+    m64 = mesh.to(F64)
+    o64, d64 = o.to(F64), d.to(F64)
+    out["triangles_grid_hit_f64_ms"] = cs.time_cuda(
+        lambda: GT.triangle_grid_nearest_hit(o64, d64, m64.prims_soa,
+                                             m64.soa_perm, m64.grid), 5)
+    walls = B.make_walls(bbox, mesh, settings)
+    state, uni = cs.make_state(mesh, bbox, 1 << 20, "source", 1, settings,
+                               seed=13)
+    out["triangles_kernel4_grid_1048576x1_ms"] = cs.time_cuda(
+        lambda: B.fused_bounce(state, uni, mesh, walls, settings, n_sub=1,
+                               grid=mesh.grid), 3)
+print(json.dumps(out), flush=True)
+"""
+
+# run as ``python3 -c PERMUTE_TIMES tree``: the state's permutation at the
+# shapes of ``chip_smoke.py``'s resort path, by the tree's own check; then
+# the compaction's own takes (the survivors of a state a third dead, by the
+# coherence key at 8 bins, the first half of the lanes) at three widths,
+# five samples of 200 launches each against the eight ``index_select`` in
+# turns: ``ms`` as the host launches them, ``device_ms`` with 50 launches
+# queued behind a sleep of the stream first, so that the events time the
+# device alone (at narrow widths launching takes the host longer than the
+# kernel takes the card)
+PERMUTE_TIMES = """
+import contextlib, io, json, os, sys
+root = os.path.abspath(sys.argv[1])
+sys.path.insert(0, root)
+os.chdir(root)
+import torch
+import chip_smoke as cs
+from viennaray_tpu_torch import _build
+from viennaray_tpu_torch.geometry.triangle_geometry import TriangleGeometry
+from viennaray_tpu_torch.io import fixtures
+from viennaray_tpu_torch.ops import permute as PM
+_build.library()
+
+
+def device_ms(fn, reps):
+    fn()
+    torch.cuda.synchronize()
+    a = torch.cuda.Event(enable_timing=True)
+    b = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(100_000_000)  # about 50 ms: longer than the launches
+    a.record()
+    for _ in range(reps):
+        fn()
+    b.record()
+    torch.cuda.synchronize()
+    return a.elapsed_time(b) / reps
+
+
+lines = [l.strip() for l in _build.build_log.splitlines()]
+out = {"tree": sys.argv[1], "ptxas": [
+    l for i, l in enumerate(lines) if "permute_state" in l
+    or any("permute_state" in p for p in lines[max(i - 2, 0):i])]}
+mesh = TriangleGeometry.build(*fixtures.create_trench_mesh_3d(**cs.FLAGSHIP),
+                              cs.FLAGSHIP["grid_delta"])
+box = cs.adjusted_bbox(mesh)
+n = cs.RESORT_LANES
+with contextlib.redirect_stdout(io.StringIO()):
+    for dtype in (torch.float32, torch.float64):
+        for take, aux in ((n, False), (n, True), (n // 2, True)):
+            res = cs.check_permute_state(mesh, box, dtype, take, aux)
+            out[f"{dtype}_take{take}_aux{int(aux)}"] = {
+                k: res[k] for k in ("ms", "plain_ms", "library_ms",
+                                    "bound_ms", "bitwise_equal")}
+    for dtype in (torch.float32, torch.float64):
+        for width in (1 << 20, 1 << 18, 1 << 16):
+            state, aux = cs.resort_state(mesh, box, width, dtype, seed=37)
+            lo = box[0].to(dtype).contiguous()
+            ext = torch.clamp(box[1] - box[0], min=1e-6).to(dtype).contiguous()
+            key = PM.coherence_key(state.org, state.dirn, state.alive, lo,
+                                   ext, 8)
+            take = torch.argsort(key, stable=True)[:width // 2]
+            arrays = list(state) + [aux]
+            got = PM.permute_state(take, state, aux)
+            want = PM.permute_state_ref(take, state, aux)
+            equal = all(bool(torch.equal(a, b)) for a, b in
+                        zip([*got[0], got[1]], [*want[0], want[1]]))
+            kernel = lambda: PM.permute_state(take, state, aux)
+            library = lambda: [x.index_select(0, take) for x in arrays]
+            res = {"ms": [], "library_ms": [], "device_ms": [],
+                   "library_device_ms": [], "bitwise_equal": equal}
+            for _ in range(5):
+                res["ms"].append(cs.time_cuda(kernel, 200))
+                res["library_ms"].append(cs.time_cuda(library, 200))
+                res["device_ms"].append(device_ms(kernel, 50))
+                res["library_device_ms"].append(device_ms(library, 50))
+            out[f"{dtype}_compaction{width}_aux2"] = res
+print(json.dumps(out), flush=True)
+"""
+
+
+def launch_times(trees, script=None, *args):
+    """One fresh process per tree, in the order given: ``script``
+    (``LAUNCH_TIMES`` by default) with the tree and ``args``."""
     for tree in trees:
-        subprocess.run([sys.executable, "-c", LAUNCH_TIMES, tree], check=True)
+        subprocess.run([sys.executable, "-c", script or LAUNCH_TIMES, tree,
+                        *args], check=True)
+
+
+def permute_sass(trees):
+    """What nvcc made of each tree's permutation: ``csrc/permute.cu``
+    compiled to a cubin with ``-Xptxas -v``, disassembled by
+    ``cuobjdump -sass`` into ``build/sass/permute_<n>.sass``; per kernel of
+    the state's permutation, its global loads and stores by width."""
+    from viennaray_tpu_torch import _build
+
+    out = os.path.join("build", "sass")
+    os.makedirs(out, exist_ok=True)
+    for n, tree in enumerate(trees):
+        src = os.path.join(tree, "viennaray_tpu_torch", "csrc", "permute.cu")
+        cubin = os.path.join(out, f"permute_{n}.cubin")
+        sass = os.path.join(out, f"permute_{n}.sass")
+        built = subprocess.run(
+            [_build._find_nvcc(), *_build.NVCC_FLAGS, "-cubin", src, "-o",
+             cubin], capture_output=True, text=True, check=True)
+        cuobjdump = os.path.join(os.path.dirname(_build._find_nvcc()),
+                                 "cuobjdump")
+        if not os.path.exists(cuobjdump):
+            print(json.dumps({"phase": "permute_sass", "tree": tree,
+                              "sass": "no cuobjdump in the toolkit",
+                              "ptxas": built.stderr.splitlines()}),
+                  flush=True)
+            continue
+        dump = subprocess.run([cuobjdump, "-sass", cubin],
+                              capture_output=True, text=True, check=True)
+        with open(sass, "w") as f:
+            f.write(dump.stdout)
+        kernels, name = {}, None
+        for line in dump.stdout.splitlines():
+            fn = re.search(r"Function : (\S+)", line)
+            if fn:
+                name = fn.group(1)
+                kernels[name] = {}
+                continue
+            op = re.search(r"\b((?:LDG|STG)\S*)", line)
+            if name and "permute_state" in name and op:
+                kernels[name][op.group(1)] = kernels[name].get(op.group(1),
+                                                               0) + 1
+        print(json.dumps({
+            "phase": "permute_sass", "tree": tree, "sass": sass,
+            "ptxas": [l.strip() for l in built.stderr.splitlines()
+                      if "permute_state" in l or "registers" in l
+                      or "spill" in l],
+            "global_ops_by_kernel": {k: v for k, v in kernels.items()
+                                     if "permute_state" in k}}), flush=True)
 
 
 def f64_tails(rounds):
@@ -563,8 +792,8 @@ def f64_tails(rounds):
 
 
 # the trench's grid deltas of the crossover (--grid), and their names
-GRID_SIZES = ((0.14, "disk9k"), (0.1, "disk18k"), (0.05, "disk72k"),
-              (0.016, "disk1m"))
+GRID_SIZES = ((0.25, "disk3k"), (0.18, "disk5k"), (0.14, "disk9k"),
+              (0.1, "disk18k"), (0.05, "disk72k"), (0.016, "disk1m"))
 
 
 def grid_crossover(rounds):
@@ -612,7 +841,7 @@ def grid_crossover(rounds):
             "disks": geo.num_primitives,
             "chunks": geo.soa_chunk_bbs.shape[0],
             "grid_cells": list(geo.grid.walk_dims),
-            "grid_slots": geo.grid.lanes.shape[1], "ms": ms}), flush=True)
+            "grid_slots": geo.grid.walk_slots, "ms": ms}), flush=True)
         del geo, runs, walls
         torch.cuda.empty_cache()
 
@@ -782,7 +1011,7 @@ def main(argv=None):
     )
     parser.add_argument(
         "--grid", action="store_true",
-        help="only time the chunk search against the grid walk at four "
+        help="only time the chunk search against the grid walk at six "
              "sizes, and disk1m's applies and spans with and without grid",
     )
     parser.add_argument(
@@ -843,7 +1072,13 @@ def main(argv=None):
         check=True, capture_output=True, text=True, timeout=60,
     ).stdout.strip().splitlines()[0], flush=True)
     if args.launch_times:
-        launch_times(args.launch_times)
+        if args.grid:
+            launch_times(args.launch_times, GRID_TIMES)
+        elif args.resort:
+            permute_sass(list(dict.fromkeys(args.launch_times)))
+            launch_times(args.launch_times, PERMUTE_TIMES)
+        else:
+            launch_times(args.launch_times)
         return 0
     if args.grad:
         grad_runs(args.repeats)

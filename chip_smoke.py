@@ -9,7 +9,9 @@ It imports only ``viennaray_tpu_torch`` and, in order:
 
 1. prints the card (``nvidia-smi`` name and power limit), the torch and CUDA
    versions, and asserts that TF32 matrix products are off;
-2. builds the CUDA kernels from ``viennaray_tpu_torch/csrc`` with ``nvcc``;
+2. builds the CUDA kernels from ``viennaray_tpu_torch/csrc`` with ``nvcc``,
+   prints the registers and spills of kernel 4's grid search, the grid
+   kernel and the permutation, and fails on a spill in any of them;
 3. holds each kernel against its plain PyTorch version on the card, at the
    shapes the configurations give it: 2,993 disks, 5,760 triangles and 782
    line segments (and at the 18,180-disk and 9,000-triangle trenches, and
@@ -133,14 +135,19 @@ It imports only ``viennaray_tpu_torch`` and, in order:
     36,000-triangle trench (grid delta 0.1), and on rim and tie rays; kernel
     4 with the grid search against kernel 4 with the chunk search on one
     state at 2^20 x 1, 16,384 x 4 and 512 x 16 on the disks, at 2^20 x 1 and
-    512 x 16 on the triangles, and at 2^20 x 1 on disk1m (704,250 disks);
+    512 x 16 on the triangles, and at 2^20 x 1 on disk1m (704,250 disks),
+    where the grid kernel runs too; the grid kernel's counts of cells and
+    pairs equal the plain walk's, and it prints the pairs it tested past
+    each walk's stopping cell;
     then fused applies of disk18k (200 rays per point) and disk1m (4 rays
     per point, 2,817,000 rays) and unfused applies of disk18k and the
     triangles, each with the geometry's grid (the trace walks it: above
     ``TraceConfig.grid_min_prims``) and without it, flux and event counters
     bit for bit, with seconds, cells or chunks a search, and the grid's host
-    build seconds and table bytes; kernel 4's operations bounds count the
-    pairs the searches test (chunk counters; the plain walk's slots).
+    build seconds and table bytes (padded and compact); kernel 4's
+    operations bounds count the pairs the searches test (chunk counters; the
+    plain walk's slots), the grid's bound is the larger of that and its
+    bytes.
 16. right after the flagships' fused and unfused paths, the per-bounce
     coherence resort (``phase_resort_path``; the tracers run it only when
     asked, ``bounce_sort=True``): the resort's key (``vr_coherence_key``) at
@@ -175,6 +182,7 @@ import contextlib
 import functools
 import json
 import os
+import re
 import subprocess
 import sys
 import time
@@ -254,10 +262,43 @@ def phase_card():
         raise RuntimeError("TF32 matrix products must be off")
 
 
+def ptxas_kernels(log):
+    """Each kernel's registers and spills from ``ptxas -v``'s lines in the
+    build's log: [{"entry", "registers", "spill_stores", "spill_loads"}]."""
+    kernels = []
+    for line in log.splitlines():
+        entry = re.search(r"Compiling entry function '([^']+)'", line)
+        if entry:
+            kernels.append({"entry": entry.group(1)})
+            continue
+        if not kernels:
+            continue
+        spill = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                          line)
+        if spill:
+            kernels[-1]["spill_stores"] = int(spill.group(1))
+            kernels[-1]["spill_loads"] = int(spill.group(2))
+        regs = re.search(r"Used (\d+) registers", line)
+        if regs:
+            kernels[-1]["registers"] = int(regs.group(1))
+    return kernels
+
+
+# the kernels whose registers and spills the build's line reports by name:
+# kernel 4 with the grid search, the grid kernel and the permutation
+WATCHED_KERNELS = {"kernel4_grid": ("bounce_grid_kernel",),
+                   "grid_hit": ("grid_hit_kernel",),
+                   "permute_state": ("permute_state_kernel",)}
+BUILD_REGISTERS = {}  # phase_build's report of WATCHED_KERNELS
+
+
 def phase_build():
     from viennaray_tpu_torch import _build
 
     _build.library()
+    kernels = ptxas_kernels(_build.build_log)
+    watched = {name: [k for k in kernels if all(p in k["entry"] for p in pat)]
+               for name, pat in WATCHED_KERNELS.items()}
     emit({
         "phase": "build", "nvcc_seconds": round(_build.build_seconds, 3),
         "sources": sorted(p.name for p in _build.CSRC.iterdir()),
@@ -266,6 +307,13 @@ def phase_build():
                   if "registers" in line or "spill" in line
                   or "Compiling entry" in line],
     })
+    BUILD_REGISTERS.update(watched)
+    emit({"phase": "registers", **watched})
+    spills = [e["entry"] for found in watched.values() for e in found
+              if e.get("spill_stores", 0) or e.get("spill_loads", 0)]
+    if spills or not all(watched.values()):
+        raise RuntimeError(f"spills in {spills}, or a watched kernel not "
+                           f"built: {watched}")
 
 
 def make_rays(geometry, bbox, n, kind, seed):
@@ -2709,15 +2757,18 @@ GRID_BOUNCE_SHAPES = ((1 << 20, 1), (16384, 4), (512, 16))
 def grid_tables(build):
     """The grid's build seconds (``build()``: the JAX package's table on
     the host, the walk's on the card), the bytes of the walk's table on the
-    card and of the JAX package's table on the host."""
+    card (compact, and what it would take padded) and of the JAX package's
+    table on the host."""
     t0 = time.perf_counter()
     grid = build()
     torch.cuda.synchronize()
     seconds = time.perf_counter() - t0
     return {"dims": list(grid.dims), "walk_dims": list(grid.walk_dims),
-            "slots": grid.cells.shape[1], "walk_slots": grid.lanes.shape[1],
+            "slots": grid.cells.shape[1], "walk_slots": grid.walk_slots,
             "exact": grid.exact, "host_build_seconds": seconds,
             "device_table_bytes": grid.device_bytes,
+            "padded_table_bytes": grid.padded_bytes,
+            "entries": grid.cell_lanes.numel(),
             "host_table_bytes": grid.cells.nbytes}
 
 
@@ -2741,12 +2792,19 @@ def check_grid_hit(geometry, bbox, n_rays, kind, reps):
                   geometry.soa_chunk_bbs)
     got = kernel(*args, t_near=1e-4)
     by_chunks = chunk(*chunk_args, t_near=1e-4)
+    walk_counts = torch.zeros(3, dtype=torch.int64, device=org.device)
+    kernel(*args, t_near=1e-4, walk_counts=walk_counts)
     torch.cuda.synchronize()
     t_p, lane_p, visited, tested = GT.grid_walk_ref(
         org, dirn, geometry.grid, geometry.prims_soa,
         GT.TEST[geometry.kind], 1e-4)
     plain = (t_p, geometry.soa_perm[torch.clamp(lane_p, min=0)], lane_p >= 0)
     plain_equal = all(bool(torch.equal(a, b)) for a, b in zip(got, plain))
+    # the kernel's counts of the cells visited and the pairs of those cells
+    # are the plain walk's
+    k_visited, k_tested, k_wasted = walk_counts.tolist()
+    counts_equal = (k_visited == int(visited.sum())
+                    and k_tested == int(tested.sum()))
     chunk_equal = all(bool(torch.equal(a, b)) for a, b in zip(got, by_chunks))
     hit = plain[2]
     max_abs_err = max(
@@ -2766,7 +2824,8 @@ def check_grid_hit(geometry, bbox, n_rays, kind, reps):
     op_ms = (pairs * OPS_PER_PAIR[geometry.kind]
              / (F64_FLOPS if f64 else F32_FLOPS) * 1e3)
     # rays in, (t, prim, hit) out, and the tables once: the SoA and its
-    # permutation (as kernel 1's bound counts them) and the walk's table
+    # permutation (as kernel 1's bound counts them) and the walk's compact
+    # table, which the kernel reads
     n_bytes = (n_rays * (6 * word + word + 5) + npad * (rows * word + 4)
                + geometry.grid.device_bytes)
     byte_ms = n_bytes / HBM_BYTES_PER_S * 1e3
@@ -2774,12 +2833,15 @@ def check_grid_hit(geometry, bbox, n_rays, kind, reps):
         "phase": "kernel_check", "kernel": name + ("_f64" if f64 else ""),
         "shape": f"R={n_rays} ({kind} rays), N={geometry.num_primitives}, "
                  f"cells {geometry.grid.walk_dims}, "
-                 f"K={geometry.grid.lanes.shape[1]}",
+                 f"K={geometry.grid.walk_slots}",
         "tolerance": "hit, prim and t equal bit for bit on every lane to the "
-                     "plain walk and to the chunk search's kernel",
+                     "plain walk and to the chunk search's kernel; the "
+                     "kernel's cells and pairs the plain walk's",
         "plain_equal": plain_equal, "chunk_kernel_equal": chunk_equal,
+        "walk_counts_equal": counts_equal,
         "hit_fraction": float(hit.float().mean()),
         "cells_a_ray": cells / n_rays, "pairs_a_ray": pairs / n_rays,
+        "wasted_pairs_a_ray": k_wasted / n_rays,
         "max_abs_err": max_abs_err, "ms": ms, "plain_ms": plain_ms,
         "chunk_kernel_ms": chunk_ms,
         "bound_ms": max(op_ms, byte_ms),
@@ -2787,7 +2849,8 @@ def check_grid_hit(geometry, bbox, n_rays, kind, reps):
         "library_ms": None,
     }
     emit(res)
-    if not (plain_equal and chunk_equal and max_abs_err == 0.0):
+    if not (plain_equal and chunk_equal and counts_equal
+            and max_abs_err == 0.0):
         raise RuntimeError(f"{name} disagrees: {res}")
     return res
 
@@ -2802,7 +2865,8 @@ def check_grid_bounce(geometry, bbox, n_rays, kind, n_sub, settings, reps):
     counters (woken chunks x lanes a chunk), the grid's from the plain walk
     of the first sub-bounce (``grid_walk_ref``: the slots of the cells it
     visits), per search, times the searches the grid counted (exact at one
-    bounce a launch, an estimate at several)."""
+    bounce a launch, an estimate at several); the grid's bound is the
+    larger of that and its bytes."""
     from viennaray_tpu_torch.ops import bounce as B
     from viennaray_tpu_torch.ops import grid_traverse as GT
 
@@ -2840,8 +2904,17 @@ def check_grid_bounce(geometry, bbox, n_rays, kind, n_sub, settings, reps):
         grid_ms = time_cuda(
             lambda: B.fused_bounce(*args, **kw, grid=geometry.grid), reps)
         chunk_swept, chunk_tiles = chunk.counts[n_events:].tolist()
-        grid_bound_ms = searches * pairs_a_search * op_s * 1e3
+        grid_ops_ms = searches * pairs_a_search * op_s * 1e3
         chunk_bound_ms = chunk_swept * lanes_a_chunk * op_s * 1e3
+        # bytes: the state read (42 bytes a ray) and written (38), its
+        # uniforms, the outputs, the SoA and the compact table once (the
+        # neighbor records that deposits gather are not counted)
+        out_bytes = (geometry.num_primitives * 4 if in_kernel
+                     else n_rays * 8)
+        grid_bytes_ms = (n_rays * 80 + uniforms.numel() * 4 + out_bytes
+                         + geometry.prims_soa.numel() * 4
+                         + geometry.grid.device_bytes) / HBM_BYTES_PER_S * 1e3
+        grid_bound_ms = max(grid_ops_ms, grid_bytes_ms)
         res = {
             "phase": "grid_bounce", "shape":
                 f"{geometry.kind}s N={geometry.num_primitives}, R={n_rays} "
@@ -2857,8 +2930,12 @@ def check_grid_bounce(geometry, bbox, n_rays, kind, n_sub, settings, reps):
             "chunks_a_search_group": chunk_swept / max(chunk_tiles, 1),
             "search_counts_ok": counts_ok,
             "pairs_a_search_first_bounce": pairs_a_search,
-            "grid_bound_ms": grid_bound_ms, "chunk_bound_ms": chunk_bound_ms,
-            "bound_by": "operations",
+            "grid_bound_ms": grid_bound_ms,
+            "grid_bound_by": ("operations" if grid_ops_ms >= grid_bytes_ms
+                              else "bytes"),
+            "grid_ops_bound_ms": grid_ops_ms,
+            "grid_bytes_bound_ms": grid_bytes_ms,
+            "chunk_bound_ms": chunk_bound_ms, "chunk_bound_by": "operations",
         }
         emit(res)
         if not (equal and counts_ok):
@@ -2946,6 +3023,9 @@ def phase_grid_path():
     from viennaray_tpu_torch.io import fixtures
 
     t_phase = time.perf_counter()
+    emit({"phase": "grid_registers", **{
+        name: BUILD_REGISTERS.get(name) for name in ("kernel4_grid",
+                                                     "grid_hit")}})
     pts, nrm = fixtures.create_trench_grid_3d(**GRID_FINE)
     disks = DiskGeometry.build(pts, nrm, GRID_FINE["grid_delta"])
     disks_bbox = adjusted_bbox(disks)
@@ -3014,6 +3094,10 @@ def phase_grid_path():
               *grid_accel.disk_boxes(p32, r32), big.soa_inv_perm, 3,
               big.device))})
     big = big.with_neighbor_pack()
+    # the grid kernel at 704,250 disks, its walk read from the compact
+    # table (the padded one, 299 MB, lies far past the L2)
+    results[("disk", torch.float32, "disk1m_source")] = check_grid_hit(
+        big, big_bbox, 1 << 20, "source", reps=3)
     bounce[("disk1m", 1 << 20, 1)] = check_grid_bounce(
         big, big_bbox, 1 << 20, "interior", 1, flagship, reps=2)
     launches["disk1m"] = grid_apply_pair(
@@ -3034,6 +3118,9 @@ def grid_kernel_entries(results, launches_by_path, keys):
         name = f"{kind}_grid_nearest_hit"
         res = results[(kind, torch.float32, "source")]
         res64 = results[(kind, torch.float64, "source")]
+        walk = ("cells_a_ray", "pairs_a_ray", "wasted_pairs_a_ray",
+                "chunk_kernel_ms")
+        big = results.get((kind, torch.float32, "disk1m_source"))
         entries.append({
             "name": name, "route": "cuda",
             "source": "viennaray_tpu_torch/csrc/grid_traverse.cu",
@@ -3041,9 +3128,9 @@ def grid_kernel_entries(results, launches_by_path, keys):
             "launches": sum(n[name] for n in launches_by_path.values()),
             "launches_by_path": {path: n[name] for path, n in
                                  launches_by_path.items() if n[name]},
-            **{k: res[k] for k in keys},
-            "chunk_kernel_ms": res["chunk_kernel_ms"],
-            "f64": {k: res64[k] for k in keys + ("chunk_kernel_ms",)},
+            **{k: res[k] for k in keys + walk},
+            "f64": {k: res64[k] for k in keys + walk},
+            **({"disk1m": {k: big[k] for k in keys + walk}} if big else {}),
         })
     return entries
 
@@ -3803,6 +3890,7 @@ def main():
                     "chunk_ms": res[True]["chunk_ms"],
                     "cells_a_search": res[True]["cells_a_search"],
                     "grid_bound_ms": res[True]["grid_bound_ms"],
+                    "grid_bound_by": res[True]["grid_bound_by"],
                     "chunk_bound_ms": res[True]["chunk_bound_ms"]}
                     for (geo, r, k), res in grid_bounce.items()},
             },

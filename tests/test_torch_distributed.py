@@ -182,7 +182,7 @@ def test_ranks_build_the_kernels_at_once_without_a_race(tmp_path):
     others wait on the lock and find the library; none fails, and no
     temporary directory is left. (Without the lock they shared one
     temporary directory, and the first to finish removed it under the
-    others' link.)"""
+    others' link.) The build's log lies beside the library."""
     bin_dir = tmp_path / "bin"
     bin_dir.mkdir()
     nvcc = bin_dir / "nvcc"
@@ -200,7 +200,7 @@ def test_ranks_build_the_kernels_at_once_without_a_race(tmp_path):
     assert sorted(o.split()[-1] for o in outs) == ["built"] + ["found"] * 5
     assert target.exists() and "-shared" in target.read_text()
     assert sorted(p.name for p in target.parent.iterdir()) == [
-        "kernels.lock", "libkernels.so"]
+        "kernels.lock", "libkernels.log", "libkernels.so"]
 
 
 @pytest.mark.cuda

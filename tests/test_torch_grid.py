@@ -468,7 +468,7 @@ def test_walk_under_a_bound_is_the_chunk_search_under_it():
     assert torch.equal(t, t_want)
     assert torch.equal(lane, lane_want)
     assert (lane >= 0).sum() > 300 and (lane < 0).sum() > 300
-    assert (tested <= visited * geo.grid.lanes.shape[1]).all()
+    assert (tested <= visited * geo.grid.walk_slots).all()
 
 
 # ---- (d) traces with the grid and without ------------------------------------------
@@ -549,26 +549,32 @@ def test_public_surface():
     g64 = geo.to(torch.float64)
     assert g64.grid.walk_origin.dtype == torch.float64
     assert g64.grid.cell_size.dtype == torch.float64
-    assert g64.grid.lanes is geo.grid.lanes
     # the JAX package's table stays on the host
     assert g64.grid.cells is geo.grid.cells
     assert isinstance(geo.grid.cells, np.ndarray)
     assert geo.grid.origin.dtype == np.float32
-    assert geo.grid.device_bytes == geo.grid.lanes.numel() * 4
+    # the walk's table, held compact, is shared
+    assert g64.grid.cell_start is geo.grid.cell_start
+    assert g64.grid.cell_lanes is geo.grid.cell_lanes
+    assert geo.grid.device_bytes == 4 * (
+        geo.grid.cell_start.numel() + geo.grid.cell_lanes.numel())
     assert geo.with_neighbor_pack().grid is geo.grid
     assert geo.with_window_list().grid is geo.grid
     assert TK.with_deposit_tables(
         geo, vrtt.TraceConfig(flux_model="window")).grid is geo.grid
     # the walk's lanes are the sorted lanes of the table's ids
     g = geo.grid
-    assert g.lanes.dtype == torch.int32 and g.cells.dtype == np.int32
+    assert g.cell_lanes.dtype == torch.int32 and g.cells.dtype == np.int32
     ids = torch.from_numpy(grid_accel.walk_table(
         grid_accel.build_disk_grid(geo.points.numpy(), None,
                                    geo.radii.numpy()),
         *grid_accel.disk_boxes(geo.points.numpy(), geo.radii.numpy()),
         3)[0]).long()
     want = torch.where(ids >= 0, geo.soa_inv_perm[ids.clamp(min=0)], -1)
-    assert torch.equal(g.lanes.long(), want)
+    start, entries = grid_accel.compact_table(want)
+    assert torch.equal(g.cell_start, start)
+    assert torch.equal(g.cell_lanes.long(), entries.long())
+    assert g.walk_slots == want.shape[1]
     verts, tris = fixtures.create_trench_mesh_3d(grid_delta=1.0)
     mesh = TriangleGeometry.build(verts, tris, 1.0, device="cpu")
     assert isinstance(mesh.grid, grid_accel.GridData)
@@ -600,7 +606,8 @@ def test_from_reference_arrays_carries_the_grid():
     own = DiskGeometry.build(*ref_fixtures.create_trench_grid_3d(
         grid_delta=0.5), 0.5, device="cpu")
     np.testing.assert_array_equal(own.grid.cells, geo.grid.cells)
-    assert torch.equal(own.grid.lanes, geo.grid.lanes)
+    assert torch.equal(own.grid.cell_start, geo.grid.cell_start)
+    assert torch.equal(own.grid.cell_lanes, geo.grid.cell_lanes)
 
 
 def test_path_rule():

@@ -39,16 +39,16 @@ _NEAREST_HIT = [
 ]
 # the float64 forms: every float pointer to doubles, t_near a double
 _NEAREST_HIT_F64 = _NEAREST_HIT[:8] + [ctypes.c_double] + _NEAREST_HIT[9:]
-# org dir prims perm | lanes k nx ny nz | gx gy gz cs | n_rays npad t_near |
-# t prim hit stream
+# org dir prims perm | start lanes nx ny nz | gx gy gz cs | n_rays npad
+# t_near | t prim hit walk_counts stream
 _GRID_HIT = (
-    [_ptr] * 5 + [ctypes.c_int] * 4 + [ctypes.c_float] * 4
-    + [ctypes.c_int] * 2 + [ctypes.c_float] + [_ptr] * 4
+    [_ptr] * 6 + [ctypes.c_int] * 3 + [ctypes.c_float] * 4
+    + [ctypes.c_int] * 2 + [ctypes.c_float] + [_ptr] * 5
 )
 # the float64 forms: the corner, the cell size and t_near doubles
 _GRID_HIT_F64 = (
-    [_ptr] * 5 + [ctypes.c_int] * 4 + [ctypes.c_double] * 4
-    + [ctypes.c_int] * 2 + [ctypes.c_double] + [_ptr] * 4
+    [_ptr] * 6 + [ctypes.c_int] * 3 + [ctypes.c_double] * 4
+    + [ctypes.c_int] * 2 + [ctypes.c_double] + [_ptr] * 5
 )
 _SIGNATURES = {
     "vr_disk_grid_nearest_hit": _GRID_HIT,
@@ -91,29 +91,31 @@ _SIGNATURES = {
     + [_ptr] * 2,
     "vr_coherence_key_f64": [_ptr] * 5 + [ctypes.c_longlong, ctypes.c_int]
     + [_ptr] * 2,
-    # take n_out | org dir weight w0 alive hfb n_refl n_bdry aux n_aux |
+    # take n_out n_in | org dir weight w0 alive hfb n_refl n_bdry aux n_aux |
     # the same nine outputs | stream
-    "vr_permute_state": [_ptr, ctypes.c_longlong] + [_ptr] * 9
-    + [ctypes.c_int] + [_ptr] * 10,
-    "vr_permute_state_f64": [_ptr, ctypes.c_longlong] + [_ptr] * 9
-    + [ctypes.c_int] + [_ptr] * 10,
+    "vr_permute_state": [_ptr, ctypes.c_longlong, ctypes.c_longlong]
+    + [_ptr] * 9 + [ctypes.c_int] + [_ptr] * 10,
+    "vr_permute_state_f64": [_ptr, ctypes.c_longlong, ctypes.c_longlong]
+    + [_ptr] * 9 + [ctypes.c_int] + [_ptr] * 10,
     # org dir weight w0 alive hfb n_refl n_bdry uniforms | prims chunk_bbs
     # perm neighbors neighbor_pack walls stick_lanes | n_rays npad pt n_prims
     # k_nbrs n_sub kind dim first_dir second_dir ray_axis bc1 bc2 refl_kind
     # max_refl max_bdry roulette deposit | t_near sticking wthresh wrenew
-    # mean_free_path | group | grid lanes, k nx ny nz, gx gy gz cs | org dir
+    # mean_free_path | group | grid start lanes, nx ny nz, gx gy gz cs | org dir
     # weight alive hfb n_refl n_bdry out | flux hit_prim wdep t_hit scratch
     # stream
     "vr_fused_bounce": (
         [_ptr] * 16 + [ctypes.c_int] * 18 + [ctypes.c_float] * 5
-        + [ctypes.c_int] + [_ptr] + [ctypes.c_int] * 4
+        + [ctypes.c_int] + [_ptr] * 2 + [ctypes.c_int] * 3
         + [ctypes.c_float] * 4 + [_ptr] * 7 + [_ptr] * 6
     ),
 }
 
 _library = None
 build_seconds = 0.0  # time the last build of this process spent in nvcc
-build_log = ""  # what nvcc printed then: ptxas' registers and spills per kernel
+# what nvcc printed when it built the library in use: ptxas' registers and
+# spills per kernel (kept beside the library, and read back from there)
+build_log = ""
 
 
 def _find_nvcc() -> str:
@@ -155,26 +157,32 @@ def _run_all(commands):
     return outputs
 
 
+def _log_path(target: Path) -> Path:
+    return target.with_suffix(".log")
+
+
 def _build(target: Path) -> None:
-    global build_seconds, build_log
+    global build_seconds
     nvcc = _find_nvcc()
     target.parent.mkdir(parents=True, exist_ok=True)
     with open(target.parent / "kernels.lock", "w") as lock:
         fcntl.flock(lock, fcntl.LOCK_EX)
-        if target.exists():  # another process built it while this one waited
-            return
+        if target.exists() and _log_path(target).exists():
+            return  # another process built it while this one waited
         work = Path(tempfile.mkdtemp(dir=target.parent, suffix=".tmp"))
         try:
             sources = sorted(CSRC.glob("*.cu"))
             objects = [work / (src.stem + ".o") for src in sources]
             t0 = time.perf_counter()
-            build_log = "\n".join(_run_all([
+            log = "\n".join(_run_all([
                 [nvcc, *NVCC_FLAGS, "-c", str(src), "-o", str(obj)]
                 for src, obj in zip(sources, objects)
             ]))
             linked = work / target.name
             _run_all([[nvcc, "-shared", "-o", str(linked),
                        *map(str, objects)]])
+            (work / "build.log").write_text(log)
+            os.replace(work / "build.log", _log_path(target))
             os.replace(linked, target)
             build_seconds = time.perf_counter() - t0
         finally:
@@ -182,12 +190,14 @@ def _build(target: Path) -> None:
 
 
 def library() -> ctypes.CDLL:
-    """The kernels' shared library, built first if its sources changed."""
-    global _library
+    """The kernels' shared library, built first if its sources changed (or
+    its build log is missing); ``build_log`` is its build's log."""
+    global _library, build_log
     if _library is None:
         target = BUILD_DIR / f"libviennaray_kernels_{_source_hash()}.so"
-        if not target.exists():
+        if not (target.exists() and _log_path(target).exists()):
             _build(target)
+        build_log = _log_path(target).read_text()
         lib = ctypes.CDLL(str(target))
         for name, argtypes in _SIGNATURES.items():
             fn = getattr(lib, name)

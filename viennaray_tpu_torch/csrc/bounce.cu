@@ -168,10 +168,11 @@ constexpr int kDiffuse = 0;
 // flux_out; else n_sub must be 1 and each ray's (hit primitive or -1, deposit
 // weight) goes to hit_prim_out / wdep_out, and under the window model its
 // hit time to thit_out (else null). group: the threads that search for one
-// ray, one of the instantiated G values (1, 32). grid_lanes: null for the
-// chunk search, or the uniform grid's walk table for the grid search of
-// disks and triangles (grid_search.cuh; (grid_nx grid_ny grid_nz, grid_k)
-// sorted lanes, the grid's corner and cell size), which finds the same hits;
+// ray, one of the instantiated G values (1, 32). grid_start: null for the
+// chunk search, or with grid_lanes the uniform grid's compact walk table for
+// the grid search of disks and triangles (grid_search.cuh; (grid_nx grid_ny
+// grid_nz + 1) starts and the cells' sorted lanes, the grid's corner and
+// cell size), which finds the same hits;
 // chunks_swept then counts the cells the walks visited and tile_bounces the
 // searches they ran. scratch:
 // n_prims + 9 64-bit words, which this call clears itself: the bins, the
@@ -192,9 +193,9 @@ extern "C" int vr_fused_bounce(
     int kind, int dim, int first_dir, int second_dir, int ray_axis, int bc1,
     int bc2, int refl_kind, int max_refl, int max_bdry, int roulette,
     int deposit, float t_near, float sticking, float wthresh, float wrenew,
-    float mfp, int group, const int* grid_lanes, int grid_k, int grid_nx,
-    int grid_ny, int grid_nz, float grid_ox, float grid_oy, float grid_oz,
-    float grid_cs, float* org_out,
+    float mfp, int group, const int* grid_start, const int* grid_lanes,
+    int grid_nx, int grid_ny, int grid_nz, float grid_ox, float grid_oy,
+    float grid_oz, float grid_cs, float* org_out,
     float* dir_out, float* weight_out, unsigned char* alive_out,
     unsigned char* hfb_out, int* n_refl_out, int* n_bdry_out, float* flux_out,
     int* hit_prim_out, float* wdep_out, float* thit_out,
@@ -237,8 +238,8 @@ extern "C" int vr_fused_bounce(
     a.prims = prims; a.chunk_bbs = chunk_bbs; a.perm = perm;
     a.neighbors = neighbors; a.neighbor_pack = neighbor_pack; a.walls = walls;
     a.stick_lanes = stick_lanes;
-    a.grid = GridWalk<float>{grid_lanes, grid_k, grid_nx, grid_ny, grid_nz,
-                             grid_ox, grid_oy, grid_oz, grid_cs};
+    a.grid = GridWalk<float>{grid_start, grid_lanes, grid_nx, grid_ny,
+                             grid_nz, grid_ox, grid_oy, grid_oz, grid_cs};
     a.n_rays = n_rays; a.npad = npad; a.pt = pt; a.n_prims = n_prims;
     a.k_nbrs = k_nbrs; a.n_sub = n_sub;
     a.dim = dim; a.first_dir = first_dir; a.second_dir = second_dir;

@@ -18,6 +18,11 @@ namespace vr_bounce {
 // threads of a block under the group mapping (G > 1): 128 threads, one warp
 // per scheduler of an SM, so that a narrow launch spreads over more SMs
 constexpr int kGroupBlock = 128;
+// the grid search's blocks (a warp per ray), and the blocks an SM must hold
+// (its launch bound: registers a thread at most 65,536 / (threads a block x
+// blocks)); chip_diagnose.py --grid-blocks A/B-tests them
+constexpr int kGridBlock = 128;
+constexpr int kGridMinBlocks = 5;
 
 struct BounceArgs {
   // state in
@@ -38,7 +43,7 @@ struct BounceArgs {
   const float* neighbor_pack;  // or the window list's records
   const float* walls;
   const float* stick_lanes;  // per sorted lane, or null: `sticking`
-  // the uniform grid's walk (grid_search.cuh); lanes null: the chunk search
+  // the uniform grid's walk (grid_search.cuh); start null: the chunk search
   GridWalk<float> grid;
   int n_rays, npad, pt, n_prims, k_nbrs, n_sub;
   int dim, first_dir, second_dir, ray_axis, bc1, bc2, refl_kind;
@@ -63,8 +68,8 @@ struct BounceArgs {
   unsigned long long* counts;
 };
 
-// Launches bounce_kernel<Kind, full, group, grid> on `s` for a.n_rays rays,
-// grid = (a.grid.lanes != null); group is one of the instantiated G values
+// Launches bounce_kernel<Kind, full, group> on `s` for a.n_rays rays, or
+// bounce_grid_kernel<Kind, full> where a.grid.start != null; group is one of the instantiated G values
 // (launch_group), and 32 with a grid; returns 0 or cudaErrorInvalidValue
 // (also for a grid on lines, which have none). Defined by each kind's
 // translation unit.
@@ -79,6 +84,8 @@ namespace {
 
 using vr_bounce::BounceArgs;
 using vr_bounce::kGroupBlock;
+using vr_bounce::kGridBlock;
+using vr_bounce::kGridMinBlocks;
 
 constexpr float kBig = 3.4e38f;
 constexpr float kTwoPi = 6.2831855f;  // float32 of 2 pi
@@ -197,12 +204,12 @@ __device__ __forceinline__ void normalize3(float& x, float& y, float& z) {
 // G = 32 only, ops/bounce.py:GRID_GROUP) instead of sweeping the chunks; it
 // returns the same (t, lane), so nothing else changes but the search
 // counts: the cells the walks visited, and the searches they ran (one per
-// live ray and sub-bounce).
+// live ray and sub-bounce). The body of both kernels below.
 template <class Kind, bool kFull, int G, bool kGrid>
-__global__ void __launch_bounds__(G == 1 ? kSearchBlock : kGroupBlock)
-bounce_kernel(const BounceArgs a) {
+__device__ __forceinline__ void bounce_body(const BounceArgs& a) {
   static_assert(!kGrid || G == 32, "the grid search runs a warp per ray");
-  constexpr int kBlock = G == 1 ? kSearchBlock : kGroupBlock;
+  constexpr int kBlock =
+      kGrid ? kGridBlock : (G == 1 ? kSearchBlock : kGroupBlock);
   __shared__ float4 s_prim[G == 1 ? Kind::kVec * kSearchTile : 1];
 
   const int r = (blockIdx.x * kBlock + (int)threadIdx.x) / G;
@@ -584,12 +591,37 @@ bounce_kernel(const BounceArgs a) {
   count_add(&a.counts[7], own * c_tiles);
 }
 
+// The bounce kernel with the chunk search, at G threads per ray.
+template <class Kind, bool kFull, int G>
+__global__ void __launch_bounds__(G == 1 ? kSearchBlock : kGroupBlock)
+bounce_kernel(const BounceArgs a) {
+  bounce_body<Kind, kFull, G, false>(a);
+}
+
+// The bounce kernel with the grid search, a warp per ray. Its bound asks
+// for 5 blocks of 128 threads an SM, so at most 102 registers a thread, and
+// ptxas fits every instantiation in 94 or 96 without a spill. Under the
+// chunk search's bound it held three of them (disks with kFull, the window
+// form) at 96 and spilled 24 to 40 bytes; asked for 4 blocks it took 101 to
+// 114 registers, 16 warps an SM in place of 20, and the walk, which waits
+// on its reads, ran a fifth slower (PERF.md).
+template <class Kind, bool kFull>
+__global__ void __launch_bounds__(kGridBlock, kGridMinBlocks)
+bounce_grid_kernel(const BounceArgs a) {
+  bounce_body<Kind, kFull, 32, true>(a);
+}
+
 template <class Kind, bool kFull, int G, bool kGrid>
 void launch_one(cudaStream_t s, const BounceArgs& a) {
-  constexpr int kBlock = G == 1 ? kSearchBlock : kGroupBlock;
+  constexpr int kBlock =
+      kGrid ? kGridBlock : (G == 1 ? kSearchBlock : kGroupBlock);
   const long long threads = (long long)a.n_rays * G;
   const int grid = (int)((threads + kBlock - 1) / kBlock);
-  bounce_kernel<Kind, kFull, G, kGrid><<<grid, kBlock, 0, s>>>(a);
+  if constexpr (kGrid) {
+    bounce_grid_kernel<Kind, kFull><<<grid, kBlock, 0, s>>>(a);
+  } else {
+    bounce_kernel<Kind, kFull, G><<<grid, kBlock, 0, s>>>(a);
+  }
 }
 
 // The G values instantiated (ops/bounce.py:GROUPS), and the launch of one of
@@ -610,7 +642,7 @@ int launch_group(int group, cudaStream_t s, const BounceArgs& a) {
 // grid search is built at G = 32 only: any other group is refused.
 template <class Kind, bool kHasGrid = true>
 int launch_kind(bool full, int group, cudaStream_t s, const BounceArgs& a) {
-  if (a.grid.lanes != nullptr) {
+  if (a.grid.start != nullptr) {
     if constexpr (kHasGrid) {
       if (group != 32) return static_cast<int>(cudaErrorInvalidValue);
       if (full) {

@@ -33,9 +33,23 @@
 // bytes; the permutation reads take (8 bytes) and one row of the state
 // (42 bytes in float32, 74 in float64, plus A floats) a lane and writes the
 // row. Its reads are a gather: each lane's row lies wherever take points,
-// so a warp's loads touch 32 sectors an array where a coalesced read
-// touches 4 to 12. At 2^20 lanes the state (44 MB in float32) stays in the
-// 50 MB L2 between the key, the sort and the gather.
+// so a lane's reads touch a 32-byte sector of every array where the bound
+// counts its 42 bytes, and they hit L2 only while the arrays gathered at
+// that time fit in it.
+//
+// The permutation's design. Gathering every array of a lane at once keeps
+// all of them in flight (44 MB in float32, 77 MB in float64 at 2^20 lanes,
+// the outputs streaming beside them), more than the 50 MB L2, and sends the
+// random sector reads to HBM; index_select, one array a launch, gathers
+// from an array that stays in L2, and a kernel that did the former lost to
+// eight index_select calls (PERF.md). So one launch runs four segments one
+// after another in block order, and the blocks resident at a time gather
+// from one segment's arrays: org, dir (three words a row), the six per-ray
+// scalars (a lane a thread, one read of take for the six), then aux (A
+// words a row, A specialised at 1 and 2). In every segment consecutive
+// threads write consecutive words, so each warp stores whole lines, and
+// each thread keeps kItems independent gathers in flight. Offsets are
+// 32-bit where R times the widest row fits.
 #include <cuda_runtime.h>
 
 #include "scalar.cuh"
@@ -89,38 +103,133 @@ coherence_key_kernel(const T* __restrict__ org, const T* __restrict__ dir,
   }
 }
 
+// the permutation's work: a block covers kTile words of one segment
+constexpr int kPermThreads = 256;
+constexpr int kItems = 4;
+constexpr int kTile = kPermThreads * kItems;
+constexpr int kSegments = 4;  // org, dir, the scalars, aux
+
 template <class T>
-__global__ void __launch_bounds__(kThreads)
-permute_state_kernel(const long long* __restrict__ take, long long n_out,
-                     const T* __restrict__ org, const T* __restrict__ dir,
-                     const T* __restrict__ weight, const T* __restrict__ w0,
-                     const unsigned char* __restrict__ alive,
-                     const unsigned char* __restrict__ hfb,
-                     const int* __restrict__ n_refl,
-                     const int* __restrict__ n_bdry, const T* __restrict__ aux,
-                     int n_aux, T* __restrict__ org2, T* __restrict__ dir2,
-                     T* __restrict__ weight2, T* __restrict__ w02,
-                     unsigned char* __restrict__ alive2,
-                     unsigned char* __restrict__ hfb2,
-                     int* __restrict__ n_refl2, int* __restrict__ n_bdry2,
-                     T* __restrict__ aux2) {
-  const long long stride = (long long)gridDim.x * kThreads;
-  for (long long i = (long long)blockIdx.x * kThreads + threadIdx.x;
-       i < n_out; i += stride) {
-    const long long j = take[i];
-    for (int a = 0; a < 3; ++a) {
-      org2[3 * i + a] = org[3 * j + a];
-      dir2[3 * i + a] = dir[3 * j + a];
+struct PermuteArgs {
+  const long long* take;
+  long long n_out;
+  const T* org;
+  const T* dir;
+  const T* weight;
+  const T* w0;
+  const unsigned char* alive;
+  const unsigned char* hfb;
+  const int* n_refl;
+  const int* n_bdry;
+  const T* aux;
+  int n_aux;
+  T* org2;
+  T* dir2;
+  T* weight2;
+  T* w02;
+  unsigned char* alive2;
+  unsigned char* hfb2;
+  int* n_refl2;
+  int* n_bdry2;
+  T* aux2;
+  int seg_end[kSegments];  // the first block past each segment
+};
+
+// dst[w] = src[take[w / W] W + w % W] for the kTile words of one block
+// from `base` (W at compile time, or `width` where W = 0), I the offsets'
+// type.
+template <class E, int W, class I>
+__device__ __forceinline__ void gather_words(const long long* __restrict__ take,
+                                             const E* __restrict__ src,
+                                             E* __restrict__ dst, I n_words,
+                                             I base, int width) {
+  const I w_n = W > 0 ? (I)W : (I)width;
+  I word[kItems];
+  I from[kItems];
+#pragma unroll
+  for (int k = 0; k < kItems; ++k) {
+    word[k] = base + (I)(k * kPermThreads + (int)threadIdx.x);
+    from[k] = 0;
+  }
+#pragma unroll
+  for (int k = 0; k < kItems; ++k) {
+    if (word[k] < n_words) {
+      const I lane = word[k] / w_n;
+      from[k] = (I)__ldg(take + lane) * w_n + (word[k] - lane * w_n);
     }
-    weight2[i] = weight[j];
-    w02[i] = w0[j];
-    alive2[i] = alive[j];
-    hfb2[i] = hfb[j];
-    n_refl2[i] = n_refl[j];
-    n_bdry2[i] = n_bdry[j];
-    for (int a = 0; a < n_aux; ++a) {
-      aux2[i * n_aux + a] = aux[j * n_aux + a];
+  }
+  E v[kItems];
+#pragma unroll
+  for (int k = 0; k < kItems; ++k) {
+    if (word[k] < n_words) v[k] = __ldg(src + from[k]);
+  }
+#pragma unroll
+  for (int k = 0; k < kItems; ++k) {
+    if (word[k] < n_words) dst[word[k]] = v[k];
+  }
+}
+
+// The six per-ray scalars of the kTile lanes of one block from `base`: one
+// read of take a lane.
+template <class T, class I>
+__device__ __forceinline__ void gather_scalars(const PermuteArgs<T>& a,
+                                               I base) {
+  const I n = (I)a.n_out;
+  I lane[kItems];
+  I from[kItems];
+#pragma unroll
+  for (int k = 0; k < kItems; ++k) {
+    lane[k] = base + (I)(k * kPermThreads + (int)threadIdx.x);
+    from[k] = lane[k] < n ? (I)__ldg(a.take + lane[k]) : (I)0;
+  }
+  T wt[kItems], w0[kItems];
+  int nr[kItems], nb[kItems];
+  unsigned char al[kItems], hf[kItems];
+#pragma unroll
+  for (int k = 0; k < kItems; ++k) {
+    if (lane[k] < n) {
+      wt[k] = __ldg(a.weight + from[k]);
+      w0[k] = __ldg(a.w0 + from[k]);
+      nr[k] = __ldg(a.n_refl + from[k]);
+      nb[k] = __ldg(a.n_bdry + from[k]);
+      al[k] = __ldg(a.alive + from[k]);
+      hf[k] = __ldg(a.hfb + from[k]);
     }
+  }
+#pragma unroll
+  for (int k = 0; k < kItems; ++k) {
+    if (lane[k] < n) {
+      a.weight2[lane[k]] = wt[k];
+      a.w02[lane[k]] = w0[k];
+      a.n_refl2[lane[k]] = nr[k];
+      a.n_bdry2[lane[k]] = nb[k];
+      a.alive2[lane[k]] = al[k];
+      a.hfb2[lane[k]] = hf[k];
+    }
+  }
+}
+
+// kAux: the aux width at compile time (0: none, 1, 2), or -1 for any other
+// (read from a.n_aux); I: int where R times the widest row fits, else
+// long long.
+template <class T, int kAux, class I>
+__global__ void __launch_bounds__(kPermThreads)
+permute_state_kernel(const PermuteArgs<T> a) {
+  const int b = blockIdx.x;
+  int seg = 0;
+  while (seg < kSegments - 1 && b >= a.seg_end[seg]) ++seg;
+  const int first = seg == 0 ? 0 : a.seg_end[seg - 1];
+  const I base = (I)(b - first) * (I)kTile;
+  const I n = (I)a.n_out;
+  if (seg == 0) {
+    gather_words<T, 3, I>(a.take, a.org, a.org2, n * 3, base, 3);
+  } else if (seg == 1) {
+    gather_words<T, 3, I>(a.take, a.dir, a.dir2, n * 3, base, 3);
+  } else if (seg == 2) {
+    gather_scalars<T, I>(a, base);
+  } else if constexpr (kAux != 0) {
+    gather_words<T, (kAux > 0 ? kAux : 0), I>(
+        a.take, a.aux, a.aux2, n * (I)a.n_aux, base, a.n_aux);
   }
 }
 
@@ -140,20 +249,53 @@ int launch_key(const T* org, const T* dir, const unsigned char* alive,
   return static_cast<int>(cudaGetLastError());
 }
 
+int tiles_for(long long words) { return (int)((words + kTile - 1) / kTile); }
+
+template <class T, class I>
+void launch_permute_as(const PermuteArgs<T>& a, int blocks, cudaStream_t s) {
+  switch (a.n_aux) {
+    case 0: permute_state_kernel<T, 0, I><<<blocks, kPermThreads, 0, s>>>(a);
+            break;
+    case 1: permute_state_kernel<T, 1, I><<<blocks, kPermThreads, 0, s>>>(a);
+            break;
+    case 2: permute_state_kernel<T, 2, I><<<blocks, kPermThreads, 0, s>>>(a);
+            break;
+    default:
+      permute_state_kernel<T, -1, I><<<blocks, kPermThreads, 0, s>>>(a);
+  }
+}
+
 template <class T>
-int launch_permute(const long long* take, long long n_out, const T* org,
-                   const T* dir, const T* weight, const T* w0,
+int launch_permute(const long long* take, long long n_out, long long n_in,
+                   const T* org, const T* dir, const T* weight, const T* w0,
                    const unsigned char* alive, const unsigned char* hfb,
                    const int* n_refl, const int* n_bdry, const T* aux,
                    int n_aux, T* org2, T* dir2, T* weight2, T* w02,
                    unsigned char* alive2, unsigned char* hfb2, int* n_refl2,
                    int* n_bdry2, T* aux2, void* stream) {
   if (n_out <= 0) return static_cast<int>(cudaGetLastError());
-  permute_state_kernel<T>
-      <<<blocks_for(n_out), kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-          take, n_out, org, dir, weight, w0, alive, hfb, n_refl, n_bdry, aux,
-          n_aux, org2, dir2, weight2, w02, alive2, hfb2, n_refl2, n_bdry2,
-          aux2);
+  if (n_out > n_in || n_aux < 0) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  PermuteArgs<T> a{take, n_out, org, dir, weight, w0, alive, hfb, n_refl,
+                   n_bdry, aux, n_aux, org2, dir2, weight2, w02, alive2,
+                   hfb2, n_refl2, n_bdry2, aux2, {0, 0, 0, 0}};
+  const long long tiles[kSegments] = {
+      tiles_for(3 * n_out), tiles_for(3 * n_out), tiles_for(n_out),
+      n_aux > 0 ? tiles_for(n_aux * n_out) : 0};
+  long long total = 0;
+  for (int k = 0; k < kSegments; ++k) {
+    total += tiles[k];
+    a.seg_end[k] = (int)total;
+  }
+  if (total >= (1LL << 31)) return static_cast<int>(cudaErrorInvalidValue);
+  const long long widest = n_aux > 3 ? n_aux : 3;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (n_in * widest < (1LL << 31) - kTile) {
+    launch_permute_as<T, int>(a, (int)total, s);
+  } else {
+    launch_permute_as<T, long long>(a, (int)total, s);
+  }
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -180,33 +322,33 @@ extern "C" int vr_coherence_key_f64(const double* org, const double* dir,
                             stream);
 }
 
-// out[i] = in[take[i]], i < n_out, for every per-ray array; take: (n_out,)
-// int64 in [0, R); aux and aux2 are read only where n_aux > 0. Launches on
-// `stream`, allocates nothing, does not synchronise; returns
-// cudaGetLastError().
+// out[i] = in[take[i]], i < n_out <= n_in, for every per-ray array of n_in
+// lanes; take: (n_out,) int64 in [0, n_in); aux and aux2 are read only where
+// n_aux > 0. Launches on `stream`, allocates nothing, does not synchronise;
+// returns cudaGetLastError().
 extern "C" int vr_permute_state(
-    const long long* take, long long n_out, const float* org,
+    const long long* take, long long n_out, long long n_in, const float* org,
     const float* dir, const float* weight, const float* w0,
     const unsigned char* alive, const unsigned char* hfb, const int* n_refl,
     const int* n_bdry, const float* aux, int n_aux, float* org2, float* dir2,
     float* weight2, float* w02, unsigned char* alive2, unsigned char* hfb2,
     int* n_refl2, int* n_bdry2, float* aux2, void* stream) {
-  return launch_permute<float>(take, n_out, org, dir, weight, w0, alive, hfb,
-                               n_refl, n_bdry, aux, n_aux, org2, dir2,
-                               weight2, w02, alive2, hfb2, n_refl2, n_bdry2,
-                               aux2, stream);
+  return launch_permute<float>(take, n_out, n_in, org, dir, weight, w0,
+                               alive, hfb, n_refl, n_bdry, aux, n_aux, org2,
+                               dir2, weight2, w02, alive2, hfb2, n_refl2,
+                               n_bdry2, aux2, stream);
 }
 
 extern "C" int vr_permute_state_f64(
-    const long long* take, long long n_out, const double* org,
+    const long long* take, long long n_out, long long n_in, const double* org,
     const double* dir, const double* weight, const double* w0,
     const unsigned char* alive, const unsigned char* hfb, const int* n_refl,
     const int* n_bdry, const double* aux, int n_aux, double* org2,
     double* dir2, double* weight2, double* w02, unsigned char* alive2,
     unsigned char* hfb2, int* n_refl2, int* n_bdry2, double* aux2,
     void* stream) {
-  return launch_permute<double>(take, n_out, org, dir, weight, w0, alive, hfb,
-                                n_refl, n_bdry, aux, n_aux, org2, dir2,
-                                weight2, w02, alive2, hfb2, n_refl2, n_bdry2,
-                                aux2, stream);
+  return launch_permute<double>(take, n_out, n_in, org, dir, weight, w0,
+                                alive, hfb, n_refl, n_bdry, aux, n_aux, org2,
+                                dir2, weight2, w02, alive2, hfb2, n_refl2,
+                                n_bdry2, aux2, stream);
 }

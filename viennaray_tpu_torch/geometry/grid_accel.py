@@ -14,8 +14,8 @@ overlaps. The insertion runs in the compiled host helper
 it is, on the host, and on the device the table the walk reads
 (``walk_table``), whose slots hold sorted SoA lanes on a grid one cell wider
 on every side, with every primitive's box widened by a margin that covers
-the rounding of the walk and of the hit tests. ``ops/grid_traverse.py``
-walks it.
+the rounding of the walk and of the hit tests, in compact form
+(``cell_start`` / ``cell_lanes``). ``ops/grid_traverse.py`` walks it.
 """
 
 from __future__ import annotations
@@ -314,6 +314,37 @@ def walk_table(grid: UniformGrid, prim_lo, prim_hi, dim: int):
     return cells, walk_origin, walk_dims
 
 
+def walk_lanes(grid: UniformGrid, prim_lo, prim_hi, inv_perm, dim: int,
+               device):
+    """``walk_table`` with each slot's sorted SoA lane on ``device``: (lanes
+    (C', K') int32 padded -1, walk_origin (3,) float32, walk_dims), the
+    padded form of the table that ``GridData`` holds compact."""
+    wcells, walk_origin, walk_dims = walk_table(grid, prim_lo, prim_hi, dim)
+    inv = (inv_perm if torch.is_tensor(inv_perm)
+           else torch.from_numpy(np.array(inv_perm))).to(device, torch.int32)
+    wc = torch.from_numpy(wcells).to(device)
+    lanes = torch.where(wc >= 0, inv[torch.clamp(wc, min=0).long()],
+                        torch.full_like(wc, -1))
+    return lanes, walk_origin, walk_dims
+
+
+def compact_table(lanes: torch.Tensor):
+    """The walk's padded table (C', K') int32, each row's lanes first and -1
+    after them, as (cell_start (C' + 1,), cell_lanes (entries,)) int32 on its
+    device: cell c's lanes are cell_lanes[cell_start[c]:cell_start[c + 1]],
+    in the row's slot order."""
+    counts = (lanes >= 0).sum(dim=1)
+    if int(counts.sum()) >= 2**31:
+        raise ValueError("the grid's table holds 2^31 entries or more")
+    cell_start = torch.zeros(lanes.shape[0] + 1, dtype=torch.int32,
+                             device=lanes.device)
+    cell_start[1:] = torch.cumsum(counts, dim=0).to(torch.int32)
+    # a boolean mask takes the entries in row-major order: each row's
+    # prefix, rows one after another
+    cell_lanes = lanes[lanes >= 0].to(torch.int32).contiguous()
+    return cell_start, cell_lanes
+
+
 @dataclasses.dataclass
 class GridData:
     """The uniform grid of a geometry (its ``grid`` field): the JAX
@@ -321,10 +352,17 @@ class GridData:
     on the host, and the walk's table on the device.
 
     On the host: cells (C, K) int32, the JAX package's table of original ids
-    padded -1; origin (3,) float32; dims (nx, ny, nz). On the device: lanes
-    (C', K') int32, the walk's table (``walk_table``) with each slot's
-    sorted SoA lane (-1 kept), on a grid of ``walk_dims`` cells from
-    ``walk_origin`` (3,); cell_size (); both in the geometry's dtype.
+    padded -1; origin (3,) float32; dims (nx, ny, nz). On the device: the
+    walk's table (``walk_lanes``: each slot's sorted SoA lane) on a grid of
+    ``walk_dims`` cells from ``walk_origin`` (3,); cell_size (); both in the
+    geometry's dtype. The table is held compact (``compact_table``): cell
+    c's lanes are cell_lanes[cell_start[c]:cell_start[c + 1]], each padded
+    row's non-negative prefix in its slot order; cell_start (C' + 1,)
+    int32, cell_lanes (entries,) int32; walk_slots K', the most lanes a
+    cell holds (the padded rows' width). At 704,250 disks the padded table
+    would be 299 MB on the card (K' = 42 slots a cell, most of them -1),
+    far past the 50 MB L2; the compact one is 14.8 MB (1,780,124 starts,
+    1,913,583 entries).
     exact: ``walk_margin``'s argument covers every primitive, so the walk
     finds the chunk search's hits on every ray: always for disks, for a
     mesh where ``triangles_covered``. The trace walks only an exact grid.
@@ -333,10 +371,12 @@ class GridData:
     cells: np.ndarray
     origin: np.ndarray
     dims: Tuple[int, int, int]
-    lanes: torch.Tensor
     walk_origin: torch.Tensor
     cell_size: torch.Tensor
     walk_dims: Tuple[int, int, int]
+    cell_start: torch.Tensor
+    cell_lanes: torch.Tensor
+    walk_slots: int
     exact: bool = True
 
     @classmethod
@@ -346,24 +386,22 @@ class GridData:
         ``prim_hi``, the geometry's ``soa_inv_perm`` original id -> sorted
         lane) with the walk's table on ``device``, its lanes gathered
         there."""
-        wcells, walk_origin, walk_dims = walk_table(grid, prim_lo, prim_hi,
-                                                    dim)
-        inv = (inv_perm if torch.is_tensor(inv_perm)
-               else torch.from_numpy(np.array(inv_perm))).to(device,
-                                                            torch.int32)
-        wc = torch.from_numpy(wcells).to(device)
-        lanes = torch.where(wc >= 0, inv[torch.clamp(wc, min=0).long()],
-                            torch.full_like(wc, -1))
-        del wc
+        lanes, walk_origin, walk_dims = walk_lanes(grid, prim_lo, prim_hi,
+                                                   inv_perm, dim, device)
+        cell_start, cell_lanes = compact_table(lanes)
+        walk_slots = lanes.shape[1]
+        del lanes
         return cls(
             cells=np.require(grid.cells, np.int32, ["C"]),
             origin=np.asarray(grid.origin, np.float32),
             dims=tuple(int(n) for n in grid.dims),
-            lanes=lanes,
             walk_origin=torch.from_numpy(walk_origin).to(device, dtype),
             cell_size=torch.tensor(float(np.float32(grid.cell_size)),
                                    dtype=dtype, device=device),
             walk_dims=walk_dims,
+            cell_start=cell_start,
+            cell_lanes=cell_lanes,
+            walk_slots=walk_slots,
             exact=bool(exact),
         )
 
@@ -393,5 +431,10 @@ class GridData:
 
     @property
     def device_bytes(self) -> int:
-        """Bytes of the walk's table on the device."""
-        return self.lanes.numel() * 4
+        """Bytes of the walk's table on the device (compact)."""
+        return (self.cell_start.numel() + self.cell_lanes.numel()) * 4
+
+    @property
+    def padded_bytes(self) -> int:
+        """Bytes the walk's table would take padded, (C', K') int32."""
+        return (self.cell_start.numel() - 1) * self.walk_slots * 4

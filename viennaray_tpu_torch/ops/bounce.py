@@ -880,7 +880,7 @@ def fused_bounce(state: RayState, uniforms, geometry, walls, settings,
             s.t_near, s.sticking, s.weight_threshold_frac,
             s.renew_weight_frac, max(s.mean_free_path, 0.0),
             g, *(grid_traverse.walk_args(grid) if grid is not None
-                 else (None, 0, 0, 0, 0, 0.0, 0.0, 0.0, 0.0)),
+                 else (None, None, 0, 0, 0, 0.0, 0.0, 0.0, 0.0)),
             new.org.data_ptr(), new.dirn.data_ptr(), new.weight.data_ptr(),
             new.alive.data_ptr(), new.hfb.data_ptr(), new.n_refl.data_ptr(),
             new.n_bdry.data_ptr(), *outs, scratch.data_ptr(),

@@ -3,7 +3,7 @@ grid DDA): plain versions and CUDA wrappers.
 
 Counterpart of ``viennaray_tpu/ops/grid_traverse.py``, which walks the grid
 in XLA. The port walks the table of ``geometry.grid_accel.GridData`` (its
-``lanes``: sorted SoA lanes) and tests each slot with the closest-hit
+compact table of sorted SoA lanes) and tests each slot with the closest-hit
 kernels' own exact test (``ops/nearest_hit.py:disk_test`` /
 ``triangle_test``; ``csrc/disk_hit.cuh``, ``csrc/tri_hit.cuh``), so that
 (t, prim, hit) are the chunk search's (``nearest_hit.disk_nearest_hit``)
@@ -11,7 +11,9 @@ bit for bit, not the JAX package's DDA test within a tolerance.
 
 - ``disk_grid_nearest_hit_ref`` / ``triangle_grid_nearest_hit_ref`` are the
   plain PyTorch versions (any device, float32 or float64), ``grid_walk_ref``
-  the walk they share.
+  the walk they share. ``grid_walk_window_ref`` is the kernels' round of W
+  cells in tensor ops: the tests hold it to
+  ``grid_walk_ref``, as the kernels are held to it on the card.
 - ``disk_grid_nearest_hit`` / ``triangle_grid_nearest_hit`` wrap the CUDA
   kernels of ``csrc/grid_traverse.cu`` (the search is
   ``csrc/grid_search.cuh``, which says how the walk goes and why it finds
@@ -39,13 +41,11 @@ from .nearest_hit import (
 )
 
 
-def grid_walk_ref(org, dirn, grid, prims, test, t_near, bound=None):
-    """The walk of ``csrc/grid_search.cuh:grid_search_group`` for every ray
-    at once: (t (R,), sorted lane (R,) int64, -1 without a hit, cells
-    visited (R,) int64, pairs tested (R,) int64: the lanes of the visited
-    cells). ``test(o, d, cols, t_near) -> (t, valid)`` is the
-    kind's exact test on broadcastable tensors; ``bound`` (R,) the search
-    bound (None: ``BIG``)."""
+def _walk_entry(org, dirn, grid):
+    """Where every ray's walk starts (``csrc/grid_search.cuh``): (dims (3,)
+    int64, inv (R, 3) the direction's safe reciprocal, active (R,) the ray
+    meets the grid, cell (R, 3) int64 its first cell, step (R, 3) int64 the
+    direction's signs, z's 0 on the 2D grid)."""
     R = org.shape[0]
     dt, dev = org.dtype, org.device
     like = dict(dtype=dt, device=dev)
@@ -54,17 +54,13 @@ def grid_walk_ref(org, dirn, grid, prims, test, t_near, bound=None):
     wo, cs = grid.walk_origin, grid.cell_size
     dims = torch.tensor(grid.walk_dims, dtype=torch.int64, device=dev)
     flat = grid.walk_dims[2] == 1
-    axes = 2 if flat else 3
-    lanes = grid.lanes
-    if bound is None:
-        bound = big.expand(R)
     inv = 1.0 / torch.where(dirn == 0, tiny, dirn)
     hi = wo + cs * dims.to(dt)
 
     # slab clip to the grid's box (csrc/grid_search.cuh:slab_clip)
     t_lo = (-big).expand(R)
     t_hi = big.expand(R)
-    for a in range(axes):
+    for a in range(2 if flat else 3):
         o, d, i = org[:, a], dirn[:, a], inv[:, a]
         t0 = (wo[a] - o) * i
         t1 = (hi[a] - o) * i
@@ -88,6 +84,43 @@ def grid_walk_ref(org, dirn, grid, prims, test, t_near, bound=None):
     if flat:
         cell[:, 2] = 0
         step[:, 2] = 0
+    return dims, inv, active, cell, step
+
+
+def _table(grid):
+    """The compact table for reading padded rows: (cell_start (C' + 1,)
+    int64, its entries int64 followed by K' -1s, slots arange(K'))."""
+    start = grid.cell_start.long()
+    k = max(grid.walk_slots, 1)
+    entries = torch.cat([grid.cell_lanes.long(),
+                         torch.full((k,), -1, device=start.device)])
+    return start, entries, torch.arange(k, device=start.device)
+
+
+def _rows(table, lin):
+    """Cells ``lin`` (any shape) as padded rows (..., K'): each cell's lanes
+    in slot order, then -1."""
+    start, entries, slots = table
+    first = start[lin][..., None]
+    has = slots < (start[lin + 1][..., None] - first)
+    return torch.where(has, entries[first + slots], -1)
+
+
+def grid_walk_ref(org, dirn, grid, prims, test, t_near, bound=None):
+    """The walk of ``csrc/grid_search.cuh:grid_search_group`` for every ray
+    at once: (t (R,), sorted lane (R,) int64, -1 without a hit, cells
+    visited (R,) int64, pairs tested (R,) int64: the lanes of the visited
+    cells). ``test(o, d, cols, t_near) -> (t, valid)`` is the
+    kind's exact test on broadcastable tensors; ``bound`` (R,) the search
+    bound (None: ``BIG``)."""
+    R = org.shape[0]
+    dt, dev = org.dtype, org.device
+    big = torch.tensor(float(BIG), dtype=dt, device=dev)
+    wo, cs = grid.walk_origin, grid.cell_size
+    table = _table(grid)
+    if bound is None:
+        bound = big.expand(R)
+    dims, inv, active, cell, step = _walk_entry(org, dirn, grid)
 
     t_best = bound.to(dt).clone()
     lane_best = torch.full((R,), -1, dtype=torch.int64, device=dev)
@@ -105,7 +138,7 @@ def grid_walk_ref(org, dirn, grid, prims, test, t_near, bound=None):
         face = wo + (c + (s > 0).to(torch.int64)).to(dt) * cs
         tm = torch.where(s == 0, big, (face - o) * inv[rays])
         visited[rays] += 1
-        row = lanes[(c * stride).sum(dim=1)].long()
+        row = _rows(table, (c * stride).sum(dim=1))
         cols = prims[:, torch.clamp(row, min=0)]
         t, valid = test(
             tuple(o[:, a:a + 1] for a in range(3)),
@@ -140,6 +173,154 @@ def grid_walk_ref(org, dirn, grid, prims, test, t_near, bound=None):
         cell[rays] = c
         active[rays] = ~(stop | out)
     return t_best, lane_best, visited, tested
+
+
+def _lexmin_cells(t, lane, valid):
+    """Per row of (n, M) candidates, the lexicographic minimum of (t, lane)
+    over the valid ones: (t (n,), lane (n,)); (inf, 2^40) where none."""
+    tc = torch.where(valid, t, torch.full_like(t, float("inf")))
+    t_min = tc.amin(dim=1)
+    cand = torch.where(valid & (tc == t_min[:, None]), lane,
+                       torch.full_like(lane, 1 << 40))
+    return t_min, cand.amin(dim=1)
+
+
+def grid_walk_window_ref(org, dirn, grid, prims, test, t_near, bound=None,
+                         cells=32):
+    """The walk of ``csrc/grid_search.cuh`` as the kernels run it, ``cells``
+    (W) cells a round, for every ray at once: (t (R,), sorted lane (R,)
+    int64 or -1, cells visited (R,), pairs of the visited cells (R,), pairs
+    tested past the stopping cell (R,)). Used by the tests only, which hold
+    its first four to ``grid_walk_ref``'s.
+
+    A round: the W cells from the round's first by the DDA's steps (face
+    times from the cell index, as ``grid_walk_ref``), the stop rule's fixed
+    part in each (t_exit at or past the bound or BIG, the next step leaving
+    the grid, the cap), the entries of the cells up to the first fixed stop,
+    every one of their pairs tested, the running minimum of (t, lane) after
+    each cell in walk order, and the first cell where the sequential rule
+    stops. The kernel tests the pairs 32 at a time and stops testing in the
+    batch that holds the stopping cell's last pair; the pairs it tested past
+    that cell are the third count."""
+    R = org.shape[0]
+    dt, dev = org.dtype, org.device
+    big = torch.tensor(float(BIG), dtype=dt, device=dev)
+    wo, cs = grid.walk_origin, grid.cell_size
+    table = _table(grid)
+    start = table[0]
+    if bound is None:
+        bound = big.expand(R)
+    bound = bound.to(dt)
+    dims, inv, active, base, step = _walk_entry(org, dirn, grid)
+    max_steps = int(dims.sum()) + 3
+
+    def face_times(c, s, o, i):
+        face = wo + (c + (s > 0).to(torch.int64)).to(dt) * cs
+        return torch.where(s == 0, big, (face - o) * i)
+
+    def dda_step(c, s, tm):
+        """The step after cells c (n, 3): the axis of the first crossing, x
+        before y before z on a tie; (next cells, that axis)."""
+        tx, ty, tz = tm[:, 0], tm[:, 1], tm[:, 2]
+        ax = torch.where((tx <= ty) & (tx <= tz), 0,
+                         torch.where(ty <= tz, 1, 2))
+        c = c.clone()
+        c.scatter_add_(1, ax[:, None], s.gather(1, ax[:, None]))
+        return c, ax
+
+    t_best = bound.clone()
+    lane_best = torch.full((R,), -1, dtype=torch.int64, device=dev)
+    visited = torch.zeros(R, dtype=torch.int64, device=dev)
+    tested = torch.zeros(R, dtype=torch.int64, device=dev)
+    wasted = torch.zeros(R, dtype=torch.int64, device=dev)
+    stride = torch.stack([dims[1] * dims[2], dims[2],
+                          torch.ones((), dtype=torch.int64, device=dev)])
+    n_rows = prims.shape[0]
+    for step0 in range(0, max_steps, cells):
+        rays = active.nonzero().squeeze(1)
+        if rays.numel() == 0:
+            break
+        n = rays.numel()
+        o, d, s, i = org[rays], dirn[rays], step[rays], inv[rays]
+        b_ray = bound[rays]
+        # 1. the round's cells, their exit times and the fixed stops
+        c = base[rays]
+        cell, t_exit, fixed = [], [], []
+        for k in range(cells):
+            if k:
+                c, _ = dda_step(c, s, tm)
+            tm = face_times(c, s, o, i)
+            t_ex = torch.minimum(torch.minimum(tm[:, 0], tm[:, 1]), tm[:, 2])
+            nxt, ax = dda_step(c, s, tm)
+            n_ax = nxt.gather(1, ax[:, None]).squeeze(1)
+            leaves = (n_ax < 0) | (n_ax >= dims[ax])
+            cell.append(c)
+            t_exit.append(t_ex)
+            fixed.append((t_ex >= b_ray) | (t_ex >= big)
+                         | (step0 + k + 1 >= max_steps) | leaves)
+        cell = torch.stack(cell, dim=1)  # (n, W, 3)
+        t_exit = torch.stack(t_exit, dim=1)
+        fixed = torch.stack(fixed, dim=1)
+        f = fixed.to(torch.int64)
+        reached = (torch.cumsum(f, dim=1) - f) == 0
+        # 2. the reached cells' entries
+        lin = (cell.clamp(min=0) * stride).sum(dim=2)
+        lin = torch.where(reached, lin, torch.zeros_like(lin))
+        count = torch.where(reached, start[lin + 1] - start[lin],
+                            torch.zeros_like(lin))
+        end = torch.cumsum(count, dim=1)
+        total = end[:, -1]
+        # 3. every pair of the reached cells
+        lane = torch.where(reached[:, :, None], _rows(table, lin),
+                           -1)  # (n, W, K')
+        has = (lane >= 0).reshape(n, -1)
+        lane = lane.reshape(n, -1)
+        cols = prims[:, lane.clamp(min=0)]
+        t, valid = test(tuple(o[:, a:a + 1] for a in range(3)),
+                        tuple(d[:, a:a + 1] for a in range(3)),
+                        tuple(cols[r] for r in range(n_rows)), t_near)
+        valid = valid & has & (t < b_ray[:, None])
+        t_c, l_c = _lexmin_cells(t.reshape(n * cells, -1),
+                                 lane.reshape(n * cells, -1),
+                                 valid.reshape(n * cells, -1))
+        t_c, l_c = t_c.reshape(n, cells), l_c.reshape(n, cells)
+        # 4. the running minimum after each cell, and the first stop
+        run_t, run_l = t_best[rays], lane_best[rays]
+        state_t, state_l = [], []
+        for k in range(cells):
+            take = (t_c[:, k] < run_t) | ((t_c[:, k] == run_t)
+                                         & (l_c[:, k] < run_l))
+            run_t = torch.where(take, t_c[:, k], run_t)
+            run_l = torch.where(take, l_c[:, k], run_l)
+            state_t.append(run_t)
+            state_l.append(run_l)
+        state_t = torch.stack(state_t, dim=1)
+        state_l = torch.stack(state_l, dim=1)
+        stop = reached & (fixed | (state_t < t_exit))
+        stops = stop.any(dim=1)
+        at = stop.to(torch.int64).argmax(dim=1)  # the first stop
+        pick = at[:, None]
+        end_at = end.gather(1, pick).squeeze(1)
+        # 5. finish the rays that stop; the others go on
+        done = torch.where(end_at == 0, torch.zeros_like(end_at),
+                           torch.minimum(total,
+                                         (end_at + 31) // 32 * 32))
+        fin = rays[stops]
+        t_best[fin] = state_t.gather(1, pick).squeeze(1)[stops]
+        lane_best[fin] = state_l.gather(1, pick).squeeze(1)[stops]
+        visited[fin] = step0 + at[stops] + 1
+        tested[fin] += end_at[stops]
+        wasted[fin] += (done - end_at)[stops]
+        on = rays[~stops]
+        t_best[on] = state_t[~stops, -1]
+        lane_best[on] = state_l[~stops, -1]
+        tested[on] += total[~stops]
+        last = cell[~stops, -1]
+        base[on], _ = dda_step(last, s[~stops],
+                               face_times(last, s[~stops], o[~stops],
+                                          i[~stops]))
+        active[fin] = False
+    return t_best, lane_best, visited, tested, wasted
 
 
 def _grid_ref(test, org, dirn, prims, perm, grid, t_near):
@@ -194,14 +375,16 @@ def _check_inputs(org, dirn, prims, perm, grid, rows):
 
 
 def check_grid(grid, org):
-    """The grid's walk tables as the kernels take them: lanes (C', K) int32,
-    corner and cell size of org's type, on org's device; raises
-    otherwise."""
+    """The grid's walk table as the kernels take it: cell_start
+    (C' + 1,) and cell_lanes (entries,) int32, corner and cell size of
+    org's type, on org's device; raises otherwise."""
     cells = grid.walk_dims[0] * grid.walk_dims[1] * grid.walk_dims[2]
-    if grid.lanes.ndim != 2 or grid.lanes.shape[0] != cells:
-        raise ValueError(f"the grid's lanes must be ({cells}, K)")
+    if grid.cell_start.shape != (cells + 1,) or grid.cell_lanes.ndim != 1:
+        raise ValueError(f"the grid's compact table must be cell_start "
+                         f"({cells + 1},) and cell_lanes (entries,)")
     for name, x, dt in (
-        ("grid lanes", grid.lanes, torch.int32),
+        ("grid cell_start", grid.cell_start, torch.int32),
+        ("grid cell_lanes", grid.cell_lanes, torch.int32),
         ("grid walk_origin", grid.walk_origin, org.dtype),
         ("grid cell_size", grid.cell_size, org.dtype),
     ):
@@ -214,14 +397,15 @@ def check_grid(grid, org):
 
 
 def walk_args(grid):
-    """The kernels' grid arguments: lanes, k, nx, ny, nz, corner (3), cell
-    size."""
+    """The kernels' grid arguments: the compact table's starts and lanes,
+    nx, ny, nz, corner (3), cell size."""
     wo = grid.walk_origin.tolist()
-    return (grid.lanes.data_ptr(), grid.lanes.shape[1], *grid.walk_dims,
-            *wo, float(grid.cell_size))
+    return (grid.cell_start.data_ptr(), grid.cell_lanes.data_ptr(),
+            *grid.walk_dims, *wo, float(grid.cell_size))
 
 
-def _launch(wrapper, entry, org, dirn, prims, perm, grid, t_near):
+def _launch(wrapper, entry, org, dirn, prims, perm, grid, t_near,
+            walk_counts):
     f64 = org.dtype == torch.float64
     if f64:
         entry += "_f64"
@@ -235,6 +419,7 @@ def _launch(wrapper, entry, org, dirn, prims, perm, grid, t_near):
             org.data_ptr(), dirn.data_ptr(), prims.data_ptr(),
             perm.data_ptr(), *walk_args(grid), R, prims.shape[1],
             float(t_near), t.data_ptr(), prim.data_ptr(), hit.data_ptr(),
+            None if walk_counts is None else walk_counts.data_ptr(),
             torch.cuda.current_stream().cuda_stream,
         )
     if err != 0:
@@ -246,7 +431,20 @@ def _launch(wrapper, entry, org, dirn, prims, perm, grid, t_near):
     return t, prim, hit
 
 
-def disk_grid_nearest_hit(org, dirn, prims, perm, grid, t_near=1e-4):
+def _check_walk_counts(walk_counts, org):
+    """``walk_counts``: None, or (3,) int64 on org's CUDA device."""
+    if walk_counts is None:
+        return
+    if org.device.type != "cuda":
+        raise ValueError("walk_counts are counted by the kernel: CUDA only")
+    if (walk_counts.shape != (3,) or walk_counts.dtype != torch.int64
+            or walk_counts.device != org.device
+            or not walk_counts.is_contiguous()):
+        raise ValueError("walk_counts must be (3,) int64 on org's device")
+
+
+def disk_grid_nearest_hit(org, dirn, prims, perm, grid, t_near=1e-4, *,
+                          walk_counts=None):
     """Closest disk hit by the grid walk; R up to ``MAX_RAYS``. On CUDA
     tensors launches the kernel of ``csrc/grid_traverse.cu`` (or raises); on
     CPU tensors runs the plain version.
@@ -255,25 +453,31 @@ def disk_grid_nearest_hit(org, dirn, prims, perm, grid, t_near=1e-4):
     (8, Npad) and perm (Npad,) int32 of the geometry; grid its
     ``GridData``. Returns (t (R,), prim (R,) int32 in ORIGINAL numbering,
     hit (R,) bool), ``nearest_hit.disk_nearest_hit``'s bit for bit.
+    ``walk_counts`` (CUDA only; the trace passes none): a (3,) int64 tensor
+    to which the launch adds the cells its walks visited, the pairs of those
+    cells, and the pairs tested past each walk's stopping cell.
     """
     _check_inputs(org, dirn, prims, perm, grid, PRIM_ROWS)
+    _check_walk_counts(walk_counts, org)
     if org.device.type == "cpu":
         return disk_grid_nearest_hit_ref(org, dirn, prims, perm, grid, t_near)
     if org.device.type != "cuda":
         raise RuntimeError(
             f"disk_grid_nearest_hit: unsupported device {org.device}")
     return _launch(disk_grid_nearest_hit, "vr_disk_grid_nearest_hit", org,
-                   dirn, prims, perm, grid, t_near)
+                   dirn, prims, perm, grid, t_near, walk_counts)
 
 
 disk_grid_nearest_hit.launches = 0
 disk_grid_nearest_hit.launches_f64 = 0
 
 
-def triangle_grid_nearest_hit(org, dirn, prims, perm, grid, t_near=1e-4):
+def triangle_grid_nearest_hit(org, dirn, prims, perm, grid, t_near=1e-4, *,
+                              walk_counts=None):
     """Closest triangle hit by the grid walk; the contract of
     ``disk_grid_nearest_hit`` with prims (12, Npad)."""
     _check_inputs(org, dirn, prims, perm, grid, TRI_ROWS)
+    _check_walk_counts(walk_counts, org)
     if org.device.type == "cpu":
         return triangle_grid_nearest_hit_ref(org, dirn, prims, perm, grid,
                                              t_near)
@@ -281,7 +485,7 @@ def triangle_grid_nearest_hit(org, dirn, prims, perm, grid, t_near=1e-4):
         raise RuntimeError(
             f"triangle_grid_nearest_hit: unsupported device {org.device}")
     return _launch(triangle_grid_nearest_hit, "vr_tri_grid_nearest_hit", org,
-                   dirn, prims, perm, grid, t_near)
+                   dirn, prims, perm, grid, t_near, walk_counts)
 
 
 triangle_grid_nearest_hit.launches = 0

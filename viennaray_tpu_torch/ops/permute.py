@@ -203,7 +203,8 @@ def permute_state(take, state: RayState, aux=None):
     lib = _build.library()
     with torch.cuda.device(org.device):
         err = getattr(lib, entry)(
-            take.data_ptr(), n, *(x.data_ptr() for x in state),
+            take.data_ptr(), n, org.shape[0],
+            *(x.data_ptr() for x in state),
             0 if aux is None else aux.data_ptr(), n_aux,
             *(x.data_ptr() for x in out),
             0 if aux_out is None else aux_out.data_ptr(),
