@@ -681,6 +681,174 @@ print(json.dumps(out), flush=True)
 """
 
 
+# run as ``python3 -c HIST_TIMES tree``: kernel 2's large path at the main
+# path's shapes on inputs made here (the same in every tree), timed on the
+# device alone (launches queued behind a sleep of the stream): the large
+# path, each of its branches the tree has, the one-block path where the bins
+# fit, and index_add_,
+# five samples each in turns; the digest of each output (the trees' bits
+# must agree) and whether every branch gives them; then the flagship's,
+# disk18k's and disk1m's applies (a warm-up and two timed), seconds and flux
+# digests; the host's time to launch a call. Arguments after the tree: the
+# shapes to run (and "applies"), by default all
+HIST_TIMES = """
+import contextlib, hashlib, inspect, io, json, os, sys, time
+root = os.path.abspath(sys.argv[1])
+sys.path.insert(0, root)
+os.chdir(root)
+import torch
+import chip_smoke as cs
+from viennaray_tpu_torch import _build
+from viennaray_tpu_torch.bench import perf_sweep
+from viennaray_tpu_torch.geometry.disk_geometry import DiskGeometry
+from viennaray_tpu_torch.io import fixtures
+from viennaray_tpu_torch.ops import histogram as H
+_build.library()
+lines = [l.strip() for l in _build.build_log.splitlines()]
+out = {"tree": sys.argv[1], "ptxas": [
+    l for i, l in enumerate(lines) if "histogram" in l
+    or any("histogram" in p for p in lines[max(i - 2, 0):i])]}
+dev = torch.device("cuda")
+branches = "branch" in inspect.signature(H.flux_histogram).parameters
+
+
+def device_ms(fn, reps):
+    fn()
+    torch.cuda.synchronize()
+    a = torch.cuda.Event(enable_timing=True)
+    b = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(100_000_000)  # about 50 ms: longer than the launches
+    a.record()
+    for _ in range(reps):
+        fn()
+    b.record()
+    torch.cuda.synchronize()
+    return a.elapsed_time(b) / reps
+
+
+def deposits(n_rays, n_bins, slots, seed, nbrs=None):
+    # chip_smoke.py:make_deposits, with the slots a ray as an argument
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed)
+    if nbrs is not None:
+        prim = torch.randint(n_bins, (n_rays,), generator=gen, device=dev)
+        ids = torch.cat([prim[:, None].to(torch.int32),
+                         torch.clamp(nbrs[prim], 0, n_bins - 1)], dim=1)
+    else:
+        ids = torch.randint(n_bins, (n_rays, slots), generator=gen,
+                            device=dev, dtype=torch.int32)
+    weight = 0.1 + 0.9 * torch.rand(n_rays, generator=gen, device=dev)
+    collide = torch.rand(n_rays, generator=gen, device=dev) < 0.5
+    mask = torch.rand((n_rays, slots), generator=gen, device=dev) < 0.25
+    mask[:, 0] = True
+    mask &= collide[:, None]
+    w = torch.where(mask, weight[:, None], torch.zeros((), device=dev))
+    return ids.reshape(-1).contiguous(), w.reshape(-1).contiguous()
+
+
+def digest(t):
+    return hashlib.sha256(t.cpu().numpy().tobytes()).hexdigest()[:16]
+
+
+pts, nrm = fixtures.create_trench_grid_3d(**cs.FLAGSHIP)
+geo = DiskGeometry.build(pts, nrm, cs.FLAGSHIP["grid_delta"])
+nbrs = geo.neighbors
+F64 = torch.float64
+shapes = {
+    "flagship": (1 << 20, 2993, 12, nbrs, None, torch.float32),
+    "E_1048576": (1 << 20, 2993, 12, nbrs, 1 << 20, torch.float32),
+    "E_65536": (1 << 20, 2993, 12, nbrs, 65536, torch.float32),
+    # the flagship's wide launches hand out R x 12 entries, R from 32,768
+    "R_32768": (1 << 15, 2993, 12, nbrs, None, torch.float32),
+    "R_131072": (1 << 17, 2993, 12, nbrs, None, torch.float32),
+    "R_524288": (1 << 19, 2993, 12, nbrs, None, torch.float32),
+    "disk18k": (1 << 20, 18180, 12, None, None, torch.float32),
+    "C16": (1 << 20, 300000, 12, None, None, torch.float32),
+    "disk1m": (1 << 20, 704250, 43, None, None, torch.float32),
+    "f64_flagship": (1 << 19, 2993, 12, nbrs, None, F64),
+    "f64_disk18k": (1 << 19, 18180, 12, None, None, F64),
+}
+only = sys.argv[2:]  # names of shapes (and "applies") to run; default all
+for name, (rays, n, slots, nb, cut, dtype) in shapes.items():
+    if only and name not in only:
+        continue
+    ids, w = deposits(rays, n, slots, 11, nb)
+    if cut is not None:
+        ids, w = ids[:cut].contiguous(), w[:cut].contiguous()
+    w = w.to(dtype)
+    ids64 = ids.long()
+    calls = {"large": lambda: H.flux_histogram(ids, w, n, path="large")}
+    if n <= H.small_max_bins(dtype):
+        calls["small"] = lambda: H.flux_histogram(ids, w, n, path="small")
+    if branches:
+        if H.cluster_for(n, dtype):
+            calls["cluster"] = lambda: H.flux_histogram(
+                ids, w, n, path="large", branch="cluster")
+        calls["global"] = lambda: H.flux_histogram(
+            ids, w, n, path="large", branch="global")
+    try:
+        want = calls["large"]()
+        ref = H.flux_histogram_ref(ids, w, n)
+        equal = {k: bool(torch.equal(f(), want)) for k, f in calls.items()}
+    except RuntimeError as err:  # a launch refused: say which, go on
+        out[name] = {"error": str(err)}
+        continue
+    tol = 0.0 if dtype == F64 else float(ref.abs().max()) * 2.0 ** -22
+    res = {"E": ids.numel(), "bins": n, "dtype": str(dtype),
+           "nonzero": float((w != 0).float().mean()), "digest": digest(want),
+           "max_abs_err": float((want - ref).abs().max()), "tolerance": tol,
+           "all_equal": all(equal.values()), "equal": equal,
+           "cluster_for": H.cluster_for(n, dtype) if branches else None,
+           "branch_for": H.branch_for(ids.numel(), n, dtype, H._sm_count(0))
+           if branches else None}
+    calls["index_add_"] = lambda: torch.zeros(
+        n, dtype=dtype, device=dev).index_add_(0, ids64, w)
+    reps = 20 if ids.numel() > 1 << 22 else 50
+    ms = {k: [] for k in calls}
+    for r in range(5):
+        for k in (list(calls) if r % 2 == 0 else list(calls)[::-1]):
+            ms[k].append(device_ms(calls[k], reps))
+    res["ms"] = ms
+    # the host's time to launch one call of the default path (the queue
+    # behind a sleep, so the device never holds the host back)
+    torch.cuda.synchronize()
+    torch.cuda._sleep(200_000_000)
+    t0 = time.perf_counter()
+    for _ in range(50):
+        calls["large"]()
+    res["host_ms"] = (time.perf_counter() - t0) / 50 * 1e3
+    torch.cuda.synchronize()
+    out[name] = res
+    del ids, w, ids64, want, ref
+    torch.cuda.empty_cache()
+makes = {} if only and "applies" not in only else {
+    "flagship": lambda: cs.make_tracer(pts, nrm),
+    "disk18k": lambda: perf_sweep.make_tracer("disk18k", None),
+    "disk1m": lambda: perf_sweep.make_tracer("disk1m", None),
+}
+with contextlib.redirect_stdout(io.StringIO()):
+    for name, make in makes.items():
+        tracer = make()
+        tracer.apply()  # warm-up
+        runs = []
+        for _ in range(2):
+            H.flux_histogram.launches_by_path.update(small=0, large=0)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            flux = tracer.apply()
+            torch.cuda.synchronize()
+            runs.append({"seconds": time.perf_counter() - t0,
+                         "flux_digest": hashlib.sha256(
+                             flux.tobytes()).hexdigest()[:16],
+                         "histogram_launches": dict(
+                             H.flux_histogram.launches_by_path)})
+        out["apply_" + name] = runs
+        del tracer
+        torch.cuda.empty_cache()
+print(json.dumps(out), flush=True)
+"""
+
+
 def launch_times(trees, script=None, *args):
     """One fresh process per tree, in the order given: ``script``
     (``LAUNCH_TIMES`` by default) with the tree and ``args``."""
@@ -689,26 +857,28 @@ def launch_times(trees, script=None, *args):
                         *args], check=True)
 
 
-def permute_sass(trees):
-    """What nvcc made of each tree's permutation: ``csrc/permute.cu``
-    compiled to a cubin with ``-Xptxas -v``, disassembled by
-    ``cuobjdump -sass`` into ``build/sass/permute_<n>.sass``; per kernel of
-    the state's permutation, its global loads and stores by width."""
+def kernel_sass(trees, source, kernel, ops):
+    """What nvcc made of each tree's ``csrc/<source>.cu``: compiled to a
+    cubin with ``-Xptxas -v``, disassembled by ``cuobjdump -sass`` into
+    ``build/sass/<source>_<n>.sass``; per kernel whose name holds
+    ``kernel``, its instructions matching the regular expression ``ops``
+    (memory operations by width, atomics by space) and their counts."""
     from viennaray_tpu_torch import _build
 
     out = os.path.join("build", "sass")
     os.makedirs(out, exist_ok=True)
     for n, tree in enumerate(trees):
-        src = os.path.join(tree, "viennaray_tpu_torch", "csrc", "permute.cu")
-        cubin = os.path.join(out, f"permute_{n}.cubin")
-        sass = os.path.join(out, f"permute_{n}.sass")
+        src = os.path.join(tree, "viennaray_tpu_torch", "csrc",
+                           source + ".cu")
+        cubin = os.path.join(out, f"{source}_{n}.cubin")
+        sass = os.path.join(out, f"{source}_{n}.sass")
         built = subprocess.run(
             [_build._find_nvcc(), *_build.NVCC_FLAGS, "-cubin", src, "-o",
              cubin], capture_output=True, text=True, check=True)
         cuobjdump = os.path.join(os.path.dirname(_build._find_nvcc()),
                                  "cuobjdump")
         if not os.path.exists(cuobjdump):
-            print(json.dumps({"phase": "permute_sass", "tree": tree,
+            print(json.dumps({"phase": "sass", "tree": tree,
                               "sass": "no cuobjdump in the toolkit",
                               "ptxas": built.stderr.splitlines()}),
                   flush=True)
@@ -724,17 +894,16 @@ def permute_sass(trees):
                 name = fn.group(1)
                 kernels[name] = {}
                 continue
-            op = re.search(r"\b((?:LDG|STG)\S*)", line)
-            if name and "permute_state" in name and op:
+            op = re.search(ops, line)
+            if name and kernel in name and op:
                 kernels[name][op.group(1)] = kernels[name].get(op.group(1),
                                                                0) + 1
         print(json.dumps({
-            "phase": "permute_sass", "tree": tree, "sass": sass,
+            "phase": "sass", "tree": tree, "sass": sass,
             "ptxas": [l.strip() for l in built.stderr.splitlines()
-                      if "permute_state" in l or "registers" in l
-                      or "spill" in l],
-            "global_ops_by_kernel": {k: v for k, v in kernels.items()
-                                     if "permute_state" in k}}), flush=True)
+                      if kernel in l or "registers" in l or "spill" in l],
+            "ops_by_kernel": {k: v for k, v in kernels.items()
+                              if kernel in k}}), flush=True)
 
 
 def f64_tails(rounds):
@@ -1074,8 +1243,14 @@ def main(argv=None):
     if args.launch_times:
         if args.grid:
             launch_times(args.launch_times, GRID_TIMES)
+        elif args.paths:
+            kernel_sass(list(dict.fromkeys(args.launch_times)),
+                        "flux_histogram", "histogram",
+                        r"\b((?:ATOM|RED|LDG|STG|LDS|STS|MATCH)\S*)")
+            launch_times(args.launch_times, HIST_TIMES)
         elif args.resort:
-            permute_sass(list(dict.fromkeys(args.launch_times)))
+            kernel_sass(list(dict.fromkeys(args.launch_times)), "permute",
+                        "permute_state", r"\b((?:LDG|STG)\S*)")
             launch_times(args.launch_times, PERMUTE_TIMES)
         else:
             launch_times(args.launch_times)

@@ -11,7 +11,8 @@ It imports only ``viennaray_tpu_torch`` and, in order:
    versions, and asserts that TF32 matrix products are off;
 2. builds the CUDA kernels from ``viennaray_tpu_torch/csrc`` with ``nvcc``,
    prints the registers and spills of kernel 4's grid search, the grid
-   kernel and the permutation, and fails on a spill in any of them;
+   kernel, the permutation and kernel 2's large path, and fails on a spill
+   in any of them;
 3. holds each kernel against its plain PyTorch version on the card, at the
    shapes the configurations give it: 2,993 disks, 5,760 triangles and 782
    line segments (and at the 18,180-disk and 9,000-triangle trenches, and
@@ -29,10 +30,14 @@ It imports only ``viennaray_tpu_torch`` and, in order:
    (aimed a hair inside and outside disk rims and triangle edges, a quarter
    grazing), hit, prim and t bit for bit, and past 2^27 rays (where the
    warp per ray's thread index passes 2^32) at both ends of the batch; the
-   histogram kernel's two paths bit for bit against each other (one entry
-   either side of the threshold too); and times kernel, plain version and,
-   for the histogram, one ``index_add_`` call (at 6,144, 65,536, 2^20 and
-   12,582,912 entries);
+   histogram kernel's one-block path and its large path's cluster and
+   global branches bit for bit against each other wherever the input admits
+   them (one entry either side of the paths' threshold too; 2,993, 18,180
+   and 300,000 bins, where the cluster takes 16 blocks, and disk1m's shape,
+   45,088,768 entries on 704,250 bins; float64 on 2,993 and 18,180 bins);
+   and times kernel (the histogram on the device alone, each branch),
+   plain version and, for the histogram, one ``index_add_`` call (at 6,144,
+   65,536, 2^20 and 12,582,912 entries);
 4. drives the flagship through the default ``TraceDisk`` (the fused bounce
    kernel): 2,993 disks, 2,000 rays per point, periodic walls, diffuse
    particle with sticking 0.1, seed 42, mega-batches of 2^20 rays; checks the
@@ -228,6 +233,24 @@ def emit(obj):
     print(json.dumps(obj), flush=True)
 
 
+def device_ms(fn, reps):
+    """Milliseconds per call of ``fn`` over ``reps`` calls, by CUDA events,
+    with the calls queued behind a sleep of the stream (about 50 ms) so that
+    the events time the device alone: issuing a narrow call can take the
+    host longer than its kernels take the card."""
+    fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(100_000_000)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
+
+
 def time_cuda(fn, reps):
     """Milliseconds per call of ``fn`` over ``reps`` calls, by CUDA events."""
     fn()
@@ -285,10 +308,12 @@ def ptxas_kernels(log):
 
 
 # the kernels whose registers and spills the build's line reports by name:
-# kernel 4 with the grid search, the grid kernel and the permutation
+# kernel 4 with the grid search, the grid kernel, the permutation and kernel
+# 2's large path
 WATCHED_KERNELS = {"kernel4_grid": ("bounce_grid_kernel",),
                    "grid_hit": ("grid_hit_kernel",),
-                   "permute_state": ("permute_state_kernel",)}
+                   "permute_state": ("permute_state_kernel",),
+                   "histogram_cluster": ("cluster_histogram_kernel",)}
 BUILD_REGISTERS = {}  # phase_build's report of WATCHED_KERNELS
 
 
@@ -547,19 +572,22 @@ def check_search_wide_index(geometry, bbox, edge=8192):
         raise RuntimeError(f"{name} disagrees past 2^27 rays: {res}")
 
 
-def make_deposits(geometry, n_rays, n_bins, seed):
+def make_deposits(geometry, n_rays, n_bins, seed, slots=None):
     """Seeded (ids, w) shaped like one bounce's deposits. Disks: per ray the
     hit disk and its K neighbour slots; about half the rays deposit, and a
     few of a depositing ray's neighbour slots carry its weight. Triangles:
-    per ray the hit triangle alone."""
+    per ray the hit triangle alone. ``slots``: that many entries a ray, on
+    bins drawn at random (disk1m's K + 1 = 43 on its 704,250 bins)."""
     dev = geometry.device
     gen = torch.Generator(device=dev)
     gen.manual_seed(seed)
     k = geometry.neighbors.shape[1] if geometry.kind == "disk" else 0
+    if slots is not None:
+        k = slots - 1
     if k == 0:
         ids = torch.randint(n_bins, (n_rays, 1), generator=gen, device=dev,
                             dtype=torch.int32)
-    elif n_bins == geometry.num_primitives:
+    elif n_bins == geometry.num_primitives and slots is None:
         prim = torch.randint(n_bins, (n_rays,), generator=gen, device=dev)
         nbrs = torch.clamp(geometry.neighbors[prim], 0, n_bins - 1)
         ids = torch.cat([prim[:, None].to(torch.int32), nbrs], dim=1)
@@ -578,40 +606,47 @@ def make_deposits(geometry, n_rays, n_bins, seed):
 
 
 def check_histogram(geometry, n_rays, n_bins, reps, n_entries=None,
-                    dtype=torch.float32):
+                    dtype=torch.float32, slots=None):
     """Kernel 2 on one bounce's worth of deposits (the first ``n_entries``
-    of them where given) against its plain version, on the path the wrapper
-    picks; the other path on the same input must give the same bits. Times
-    both paths, the plain version and one ``index_add_`` call. ``dtype``
+    of them where given; ``slots`` as ``make_deposits``) against its plain
+    version, on the path and branch the wrapper picks; every other branch
+    the input admits (the one-block path, the large path's cluster branch,
+    its global branch) must give the same bits. Times each on the device
+    alone, the plain version and one ``index_add_`` call. ``dtype``
     float64: the float64 form on the weights widened, held bit for bit to
     its plain version (the same integer sums)."""
     from viennaray_tpu_torch.ops import histogram as H
 
     f64 = dtype == torch.float64
-    ids, w = make_deposits(geometry, n_rays, n_bins, seed=11)
+    ids, w = make_deposits(geometry, n_rays, n_bins, seed=11, slots=slots)
     w = w.to(dtype)
     if n_entries is not None:
         ids, w = ids[:n_entries].contiguous(), w[:n_entries].contiguous()
     path = H.path_for(ids.numel(), n_bins, dtype)
-    paths = [path]
-    if n_bins <= H.small_max_bins(dtype):
-        paths.append("large" if path == "small" else "small")
-    outs = {p: H.flux_histogram(ids, w, n_bins, path=p) for p in paths}
+    cluster = H.cluster_for(n_bins, dtype)
+    branch = "small" if path == "small" else H.branch_for(
+        ids.numel(), n_bins, dtype, H._sm_count(w.get_device()))
+    calls = {"global": lambda: H.flux_histogram(ids, w, n_bins, path="large",
+                                                branch="global")}
+    if cluster:
+        calls["cluster"] = lambda: H.flux_histogram(
+            ids, w, n_bins, path="large", branch="cluster")
+    if n_bins <= H.small_max_bins(dtype) and ids.numel() < 2**31:
+        calls["small"] = lambda: H.flux_histogram(ids, w, n_bins,
+                                                  path="small")
+    outs = {b: call() for b, call in calls.items()}
     out_1 = H.flux_histogram(ids, w, n_bins)
     out_2 = H.flux_histogram(ids, w, n_bins)
     torch.cuda.synchronize()
     ref = H.flux_histogram_ref(ids, w, n_bins)
     bitwise = bool(torch.equal(out_1, out_2))
-    paths_equal = all(torch.equal(o, out_1) for o in outs.values())
+    branches_equal = all(torch.equal(o, out_1) for o in outs.values())
     max_abs_err = float((out_1 - ref).abs().max())
     tol = 0.0 if f64 else float(ref.abs().max()) * 2.0 ** -22
-    ms_by_path = {
-        p: time_cuda(lambda p=p: H.flux_histogram(ids, w, n_bins, path=p), reps)
-        for p in paths
-    }
-    plain_ms = time_cuda(lambda: H.flux_histogram_ref(ids, w, n_bins), reps)
+    ms_by_branch = {b: device_ms(call, reps) for b, call in calls.items()}
+    plain_ms = device_ms(lambda: H.flux_histogram_ref(ids, w, n_bins), reps)
     ids64 = ids.long()
-    library_ms = time_cuda(
+    library_ms = device_ms(
         lambda: torch.zeros(n_bins, dtype=dtype,
                             device=w.device).index_add_(0, ids64, w),
         reps,
@@ -626,24 +661,28 @@ def check_histogram(geometry, n_rays, n_bins, reps, n_entries=None,
         "kernel": "flux_histogram" + ("_f64" if f64 else ""),
         "shape": f"E={ids.numel()}, n={n_bins}, "
                  f"nonzero={float((w != 0).float().mean()):.3f}",
-        "path": path, "threshold": H.SMALL_ENTRIES,
+        "path": path, "branch": branch, "cluster": cluster,
+        "threshold": H.SMALL_ENTRIES,
         "tolerance": "bit for bit against the plain version (the same "
                      "integer sums of two fixed-point words an entry) and "
-                     "between the paths" if f64 else
+                     "between the branches" if f64 else
                      "|kernel - plain| <= 2^-22 * max|plain| (the plain "
                      "version sums in float64; both round once to float32); "
-                     "both paths bit for bit",
+                     "every branch bit for bit",
         "tolerance_abs": tol, "max_abs_err": max_abs_err,
-        "bitwise_repeatable": bitwise, "paths_bitwise_equal": paths_equal,
-        "ms": ms_by_path[path], "ms_by_path": ms_by_path,
+        "bitwise_repeatable": bitwise, "branches_bitwise_equal":
+            branches_equal,
+        "ms": ms_by_branch[branch], "ms_by_branch": ms_by_branch,
         "plain_ms": plain_ms,
         "bound_ms": max(op_ms, byte_ms),
         "bound_by": "operations" if op_ms > byte_ms else "bytes",
         "library_ms": library_ms,
     }
     emit(res)
-    if not (bitwise and paths_equal and max_abs_err <= tol):
+    if not (bitwise and branches_equal and max_abs_err <= tol):
         raise RuntimeError(f"flux_histogram fails its check: {res}")
+    del ids, w, ids64, ref
+    torch.cuda.empty_cache()
     return res
 
 
@@ -1106,7 +1145,9 @@ def reset_launches():
     wrappers["fused_bounce"].launches_grid = 0
     for table in (wrappers["fused_bounce"].launches_by_group,
                   wrappers["flux_histogram"].launches_by_path,
-                  wrappers["flux_histogram"].launches_by_path_f64):
+                  wrappers["flux_histogram"].launches_by_path_f64,
+                  wrappers["flux_histogram"].launches_by_branch,
+                  wrappers["flux_histogram"].launches_by_branch_f64):
         for key in table:
             table[key] = 0
 
@@ -1156,6 +1197,8 @@ def timed_apply(tracer, goldens, tol=GOLDEN_TOL):
             wrappers["fused_bounce"].launches_by_group.items() if n},
         "histogram_launches_by_path": dict(
             wrappers["flux_histogram"].launches_by_path),
+        "histogram_launches_by_branch": dict(
+            wrappers["flux_histogram"].launches_by_branch),
         "bounces": sub_bounces or launches["disk_nearest_hit"]
         or launches["triangle_nearest_hit"] or launches["line_nearest_hit"],
     }
@@ -1557,8 +1600,9 @@ def kernel_spans(kind):
 
     hist = timed(real[3])
     hist.launches = hist.launches_f64 = 0
-    hist.launches_by_path = real[3].launches_by_path
-    hist.launches_by_path_f64 = real[3].launches_by_path_f64
+    for table in ("launches_by_path", "launches_by_path_f64",
+                  "launches_by_branch", "launches_by_branch_f64"):
+        setattr(hist, table, getattr(real[3], table))
     hist_grad = timed(real[4])
     hist_grad.launches = hist_grad.launches_f64 = 0
     install(timed(real[0]), timed(real[1]), hist, hist, hist_grad,
@@ -2429,6 +2473,9 @@ def phase_f64_paths(pts, nrm, verts, tris):
     }
     kernels["histogram"] = check_histogram(geometry, 1 << 19, len(pts),
                                            reps=50, dtype=F64)
+    # disk18k's bins: the cluster branch at C = 2 in float64
+    kernels["histogram_18180"] = check_histogram(geometry, 1 << 19, 18180,
+                                                 reps=20, dtype=F64)
     narrow["histogram"] = check_histogram(geometry, 512, len(pts), reps=200,
                                           dtype=F64)
     kernels["histogram_grad"] = check_histogram_grad(geometry, 1 << 19,
@@ -2520,7 +2567,8 @@ def f64_kernel_entries(results, narrow, launches, keys):
     """The ``kernels`` line's entries of the float64 forms: each replaces the
     TPU kernel of its float32 form; launches from the float64 paths' timed
     runs (``phase_f64_paths``), times at 2^20 rays (kernel 2 at 2^19 x 12
-    entries) and, under ``narrow``, at 512 rays (6,144 entries)."""
+    entries, and on 18,180 bins) and, under ``narrow``, at 512 rays (6,144
+    entries)."""
     def count(name, *paths):
         by_path = {p: launches[p][name] for p in paths}
         return {"launches": sum(by_path.values()),
@@ -2548,6 +2596,9 @@ def f64_kernel_entries(results, narrow, launches, keys):
             **{k: results[key][k] for k in keys},
             "narrow": {k: narrow[key][k] for k in keys},
         })
+    # kernel 2's float64 form on disk18k's bins (its cluster branch, C = 2)
+    entries[3]["n_18180"] = {k: results["histogram_18180"][k]
+                             for k in keys + ("branch", "ms_by_branch")}
     return entries
 
 
@@ -3491,7 +3542,12 @@ def main():
     for n_entries in (SMALL_ENTRIES - 1, SMALL_ENTRIES + 1):
         check_histogram(geometry, 1 << 20, len(pts), reps=50,
                         n_entries=n_entries)
-    check_histogram(geometry, 1 << 20, 18180, reps=20)
+    hist_18k = check_histogram(geometry, 1 << 20, 18180, reps=20)
+    # the large path's cluster branch at C = 16 (300,000 bins, 18,750 a
+    # block), and disk1m's shape on the global branch: 2^20 rays x (K + 1)
+    # = 43 entries on 704,250 bins
+    hist_c16 = check_histogram(geometry, 1 << 20, 300_000, reps=20)
+    hist_1m = check_histogram(geometry, 1 << 20, 704_250, reps=10, slots=43)
     # the histogram's backward at the gradient path's shape: 2^19 rays x
     # (K + 1) = 12 entries
     hist_grad = check_histogram_grad(geometry, 1 << 19, reps=50)
@@ -3778,8 +3834,17 @@ def main():
             # below the threshold of entries, the whole card above it
             "paths": {"small": f"E < {SMALL_ENTRIES}", "large": "else"},
             **{k: hist_wide[k] for k in keys},
-            "E_6144": {k: hist_small[k] for k in keys + ("path", "ms_by_path")},
-            "E_65536": {k: hist_mid[k] for k in keys + ("path", "ms_by_path")},
+            # the large path's branches (ops/histogram.py:cluster_for): the
+            # bins in a cluster's shared memory where they fit, else global
+            "branches": {"cluster": "cluster_for(n) > 0", "global": "else"},
+            "ms_by_branch": hist_wide["ms_by_branch"],
+            **{name: {k: res[k] for k in keys + ("path", "branch",
+                                                "ms_by_branch")}
+               for name, res in (("E_6144", hist_small),
+                                 ("E_65536", hist_mid),
+                                 ("n_18180", hist_18k),
+                                 ("n_300000", hist_c16),
+                                 ("disk1m_shape", hist_1m))},
         },
         {
             # kernel 2's backward: the gradient of the weights, a gather. The

@@ -61,10 +61,11 @@ _SIGNATURES = {
     "vr_disk_nearest_hit_f64": _NEAREST_HIT_F64,
     "vr_triangle_nearest_hit_f64": _NEAREST_HIT_F64,
     "vr_line_nearest_hit_f64": _NEAREST_HIT_F64,
-    # ids w | n_entries n_bins | out scratch | sms | stream
+    # ids w | n_entries n_bins | out scratch scratch_words | sms branch |
+    # stream
     "vr_flux_histogram": [
-        _ptr, _ptr, ctypes.c_longlong, ctypes.c_int, _ptr, _ptr, ctypes.c_int,
-        _ptr,
+        _ptr, _ptr, ctypes.c_longlong, ctypes.c_int, _ptr, _ptr,
+        ctypes.c_longlong, ctypes.c_int, ctypes.c_int, _ptr,
     ],
     # ids w | n_entries n_bins | out stream
     "vr_flux_histogram_small": [
@@ -75,10 +76,10 @@ _SIGNATURES = {
         _ptr, _ptr, ctypes.c_longlong, ctypes.c_int, _ptr, ctypes.c_int, _ptr,
     ],
     # the float64 forms take the same arguments, w / out / grad_out / grad_w
-    # as doubles and a scratch of 2 n_bins + 1 words
+    # as doubles and two words a bin in the scratch
     "vr_flux_histogram_f64": [
-        _ptr, _ptr, ctypes.c_longlong, ctypes.c_int, _ptr, _ptr, ctypes.c_int,
-        _ptr,
+        _ptr, _ptr, ctypes.c_longlong, ctypes.c_int, _ptr, _ptr,
+        ctypes.c_longlong, ctypes.c_int, ctypes.c_int, _ptr,
     ],
     "vr_flux_histogram_small_f64": [
         _ptr, _ptr, ctypes.c_int, ctypes.c_int, _ptr, _ptr,

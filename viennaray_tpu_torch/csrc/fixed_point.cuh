@@ -93,22 +93,6 @@ __global__ void finalize_kernel(const unsigned long long* __restrict__ acc,
 // capped at 960 so that 2^-(k + L) stays a normal float64).
 constexpr int kMaxScaleExpF64 = 960;
 
-// Largest |w| of n doubles into *wmax_bits, which the caller has cleared:
-// non-negative doubles order like their bit patterns.
-__global__ void absmax_f64_kernel(const double* __restrict__ w, long long n,
-                                  unsigned long long* __restrict__ wmax_bits) {
-  unsigned long long m = 0;
-  const long long stride = (long long)gridDim.x * blockDim.x;
-  for (long long e = (long long)blockIdx.x * blockDim.x + threadIdx.x; e < n;
-       e += stride) {
-    m = max(m, (unsigned long long)__double_as_longlong(fabs(w[e])));
-  }
-  for (int o = 16; o > 0; o >>= 1) {
-    m = max(m, __shfl_xor_sync(0xffffffffu, m, o));
-  }
-  if ((threadIdx.x & 31) == 0 && m != 0) atomicMax(wmax_bits, m);
-}
-
 // k of a call: wmax_bits must not be 0
 __device__ __forceinline__ int scale_exponent_f64(unsigned long long wmax_bits,
                                                   long long n_entries) {

@@ -10,23 +10,51 @@
 // in, and float32-accurate. The scale comes from the largest |w| of the call
 // (a first pass) and the entry count E. The other deterministic design, a
 // stable sort by bin followed by a segmented sum, would spend most of its
-// time in a library sort of all E entries; this one reads each entry once.
+// time in a library sort of all E entries; this one reads each entry twice
+// (w) or once (ids).
 //
 // What bounds it on an H100: bytes, 8 per entry (ids and w read once); the
-// bins are a few KB. Entries with weight 0 (most neighbour slots) cost the
-// read and nothing else. To keep the atomics off the L2, each block sums
-// into its own bins in shared memory (64-bit integers, n * 8 bytes, up to
-// 200 KB) and flushes the bins it touched with one global atomic each; past
-// that size the entries go to the global bins directly.
+// bins are a few KB to a few MB. Entries with weight 0 (most neighbour slots)
+// cost the read and nothing else.
 //
-// Small calls: the four device operations above (clear, largest |w|, sum,
-// finalize) cost some 0.027 ms whatever E is, which is all the time of the
-// unfused body's narrow bounces (a few thousand entries). Below a threshold
-// of entries that the wrapper holds (ops/histogram.py:SMALL_ENTRIES), and
-// where the bins fit in shared memory, vr_flux_histogram_small does it all in
-// one launch of one block: the largest |w| with the same bits, its own
-// shared bins, the same scale, the same integer sums and the same final
-// conversion, so both paths give the same bits for the same input.
+// The large path (vr_flux_histogram): two launches a call, nothing cleared
+// by the host.
+// - Launch A (prepare_kernel) takes the largest |w| of each block's share of
+//   the entries with 16-byte loads into a partial maximum of its own (an
+//   atomic maximum would need a word cleared before the launch), and clears
+//   the global bins and the ticket.
+// - Launch B (cluster_histogram_kernel), A's programmatic dependent (its
+//   blocks start on the SMs A's blocks leave), reduces the partial maxima,
+//   so every block holds the call's scale, and accumulates. It reads the
+//   quads from the last, which A read last, so some are still in L2. Its
+//   blocks, 1,024 threads and one an SM, form clusters of C = 2^cshift
+//   blocks (a launch attribute). On the cluster branch the n bins are dealt
+//   to the C blocks of a cluster (csrc/histogram_cluster.cuh), each holding
+//   its slice in shared memory, and an entry's value goes to its owner's
+//   slice through the cluster's distributed shared memory (mapa and
+//   red.shared::cluster; at C = 1 as two native 32-bit atomics, since a
+//   64-bit shared atomic compiles to a compare-and-swap loop). After a cluster
+//   barrier each block adds its slice's nonzero words to the global bins:
+//   (clusters x n) global atomics where a private copy of all n bins a block
+//   would flush (blocks x n). C keeps a slice near 4,096 words where it can;
+//   up to 16 x 25,600 float32 bins stay on the chip. Past that, and where
+//   the entries are few beside the flush (ops/histogram.py:branch_for), the
+//   global branch sends the entries' values to the global bins directly;
+//   they stay in the 50 MB L2. Each warp queues its entries that carry
+//   weight and deposits them 32 at a time, summing first those that share a
+//   bin (warp_sum): one tree for 32 entries with weight, not for 32 entries
+//   of which most carry none. Each cluster then takes a ticket after a
+//   __threadfence(), and the last one converts the bins into out
+//   (finalize_kernel's conversion) and leaves the ticket at 0.
+//
+// Small calls: the large path's two launches cost some 0.006 ms whatever E
+// is, which is all the time of the unfused body's narrow bounces (a few
+// thousand entries). Below a threshold of entries that the wrapper holds
+// (ops/histogram.py:SMALL_ENTRIES), and where the bins fit in shared memory,
+// vr_flux_histogram_small does it all in one launch of one block: the
+// largest |w| with the same bits, its own shared bins, the same scale, the
+// same integer sums and the same final conversion, so both paths give the
+// same bits for the same input.
 //
 // Float64 weights (the float64 trace; vr_flux_histogram_f64,
 // vr_flux_histogram_small_f64): the same two paths with two fixed-point words
@@ -44,78 +72,535 @@
 // its one-hot contraction (viennaray_tpu/trace/kernel.py:161-163). Bound by
 // bytes, 8 per entry (ids read, grad_w written) plus the bins, which stay
 // in L2; one thread per entry, a grid-stride loop, exact (no arithmetic).
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 
 #include "fixed_point.cuh"
+#include "histogram_cluster.cuh"
+
+namespace cg = cooperative_groups;
 
 namespace {
 
-constexpr int kThreads = 512;
 constexpr size_t kMaxSharedBins = 200 * 1024;
 
-__global__ void __launch_bounds__(kThreads)
-accumulate_kernel(const int* __restrict__ ids, const float* __restrict__ w,
-                  long long n_entries, int n_bins,
-                  const unsigned int* __restrict__ wmax_bits,
-                  unsigned long long* __restrict__ acc, int use_shared) {
-  extern __shared__ unsigned long long s_bins[];
-  const unsigned int bits = *wmax_bits;
-  if (bits == 0) return;  // every weight is 0; uniform across the grid
-  const double scale = fixed_scale(bits, n_entries);
-
-  if (use_shared) {
-    for (int i = threadIdx.x; i < n_bins; i += kThreads) s_bins[i] = 0ull;
-    __syncthreads();
-  }
-  unsigned long long* bins = use_shared ? s_bins : acc;
-
-  const long long stride = (long long)gridDim.x * kThreads;
-  for (long long e = (long long)blockIdx.x * kThreads + threadIdx.x;
-       e < n_entries; e += stride) {
-    const float we = w[e];
-    if (we == 0.0f) continue;
-    const int id = ids[e];
-    if ((unsigned int)id >= (unsigned int)n_bins) continue;
-    atomicAdd(&bins[id], to_fixed(we, scale));
-  }
-
-  if (use_shared) {
-    __syncthreads();
-    for (int i = threadIdx.x; i < n_bins; i += kThreads) {
-      const unsigned long long v = s_bins[i];
-      if (v != 0ull) atomicAdd(&acc[i], v);
-    }
-  }
-}
-
-constexpr int kSmallThreads = 1024;
-
-// One entry per thread of a warp, every thread of the warp calling it
-// together (id -1 or weight 0: nothing to add). The threads whose entries
-// share a bin sum their fixed-point values first (a tree over the warp's
-// shuffles in the order of their lanes, after NVIDIA's reduce_peers) and the
-// lowest of them adds the sum with one shared atomic: a bin that many
-// entries hit (the tail's rays sit on a few disks) costs one atomic a warp
-// instead of one an entry. Integer sums: the same bits in any grouping.
-__device__ __forceinline__ void add_warp(unsigned long long* s_bins, int id,
-                                         float we, int n_bins,
-                                         double scale) {
+// The entries of a warp that share a bin summed: every thread of the warp
+// calls it together with its entry's key (the bin, or -1 for nothing to
+// add) and its N words; a tree over the warp's shuffles in the order of
+// their lanes (after NVIDIA's reduce_peers) leaves each key's sums on its
+// lowest lane, which gets true and adds them with one atomic a word: a bin
+// that many entries hit (the tail's rays sit on a few disks) costs one
+// atomic a warp instead of one an entry. Integer sums: the same bits in any
+// grouping.
+template <int N>
+__device__ __forceinline__ bool warp_sum(int key, unsigned long long (&v)[N]) {
   const int lane = threadIdx.x & 31;
-  const bool valid = we != 0.0f && (unsigned int)id < (unsigned int)n_bins;
-  const int key = valid ? id : -1;
-  unsigned long long v = valid ? to_fixed(we, scale) : 0ull;
   unsigned int peers = __match_any_sync(0xffffffffu, key);
   const int first = __ffs(peers) - 1;
   int rank = __popc(peers & ((1u << lane) - 1u));
   peers &= 0xfffffffeu << lane;  // the peers on higher lanes
   while (__any_sync(0xffffffffu, peers != 0u)) {
     const int next = __ffs(peers);  // 1 + the next peer's lane, or 0
-    const unsigned long long t = __shfl_sync(0xffffffffu, v, next - 1);
-    if (next) v += t;
+#pragma unroll
+    for (int i = 0; i < N; ++i) {
+      const unsigned long long t = __shfl_sync(0xffffffffu, v[i], next - 1);
+      if (next) v[i] += t;
+    }
     peers &= __ballot_sync(0xffffffffu, (rank & 1) == 0);
     rank >>= 1;
   }
-  if (valid && lane == first) atomicAdd(&s_bins[id], v);
+  return lane == first;
+}
+
+// ---- the large path ---------------------------------------------------------
+
+constexpr int kPrepThreads = 512;
+// launch A's blocks an SM at most, so its partial maxima
+// (ops/histogram.py:PREP_BLOCKS_PER_SM sizes the scratch for them)
+constexpr int kPrepBlocksPerSm = 4;
+// the global branch's cluster: its blocks share only the last conversion
+constexpr int kGlobalShift = 3;
+
+// the bits of |w|: non-negative floats order like their bit patterns
+__device__ __forceinline__ unsigned long long mag_bits(float x) {
+  return __float_as_uint(fabsf(x));
+}
+__device__ __forceinline__ unsigned long long mag_bits(double x) {
+  return (unsigned long long)__double_as_longlong(fabs(x));
+}
+
+// A 16-byte load; kLast: the last read of these bytes, streamed (first out
+// of L2, so that what launch A left there stays longer)
+template <bool kLast, typename T>
+__device__ __forceinline__ T load16(const T* p) {
+  if constexpr (kLast) {
+    return __ldcs(p);
+  } else {
+    return __ldg(p);
+  }
+}
+
+// the four weights of quad q by 16-byte loads (one float4, two double2)
+template <bool kLast>
+__device__ __forceinline__ void load_quad(const float* __restrict__ w,
+                                          long long q, float (&v)[4]) {
+  const float4 a = load16<kLast>(reinterpret_cast<const float4*>(w) + q);
+  v[0] = a.x;
+  v[1] = a.y;
+  v[2] = a.z;
+  v[3] = a.w;
+}
+template <bool kLast>
+__device__ __forceinline__ void load_quad(const double* __restrict__ w,
+                                          long long q, double (&v)[4]) {
+  const double2* p = reinterpret_cast<const double2*>(w) + 2 * q;
+  const double2 a = load16<kLast>(p), b = load16<kLast>(p + 1);
+  v[0] = a.x;
+  v[1] = a.y;
+  v[2] = b.x;
+  v[3] = b.y;
+}
+
+__device__ __forceinline__ unsigned long long warp_max(unsigned long long m) {
+  for (int o = 16; o > 0; o >>= 1) {
+    m = max(m, __shfl_xor_sync(0xffffffffu, m, o));
+  }
+  return m;
+}
+
+// quads a thread of launch A loads at a time
+constexpr int kPrepQuads = 2;
+
+// Launch A: the largest bits of |w| of this block's share of the entries
+// (grid-stride) into partial[blockIdx.x], the bins (n_words) and the ticket
+// cleared on the way. vec: the weights (and ids) 16-byte aligned, so read
+// as quads.
+template <typename W>
+__global__ void __launch_bounds__(kPrepThreads)
+prepare_kernel(const W* __restrict__ w, long long n_entries, int vec,
+               unsigned long long* __restrict__ bins, long long n_words,
+               unsigned long long* __restrict__ partial,
+               unsigned int* __restrict__ ticket) {
+  __shared__ unsigned long long s_max[kPrepThreads / 32];
+  // launch B may start on the SMs this grid leaves; it waits for this
+  // grid's writes before it reads them
+  asm volatile("griddepcontrol.launch_dependents;");
+  const long long t = (long long)blockIdx.x * kPrepThreads + threadIdx.x;
+  const long long T = (long long)gridDim.x * kPrepThreads;
+  for (long long i = t; i < n_words; i += T) bins[i] = 0ull;
+  if (t == 0) *ticket = 0u;
+  const long long n4 = vec ? n_entries / 4 : 0;  // entries [0, 4 n4) as quads
+  unsigned long long m = 0;
+  for (long long q = t; q < n4; q += kPrepQuads * T) {
+    W v[kPrepQuads][4];
+#pragma unroll
+    for (int i = 0; i < kPrepQuads; ++i) {
+      for (int j = 0; j < 4; ++j) v[i][j] = W(0);
+      if (q + i * T < n4) load_quad<false>(w, q + i * T, v[i]);
+    }
+#pragma unroll
+    for (int i = 0; i < kPrepQuads; ++i) {
+      for (int j = 0; j < 4; ++j) m = max(m, mag_bits(v[i][j]));
+    }
+  }
+  for (long long e = 4 * n4 + t; e < n_entries; e += T) {
+    m = max(m, mag_bits(w[e]));
+  }
+  m = warp_max(m);
+  if ((threadIdx.x & 31) == 0) s_max[threadIdx.x >> 5] = m;
+  __syncthreads();
+  if (threadIdx.x < 32) {
+    m = warp_max(threadIdx.x < kPrepThreads / 32 ? s_max[threadIdx.x] : 0ull);
+    if (threadIdx.x == 0) partial[blockIdx.x] = m;
+  }
+}
+
+// red.global: v added to the 64-bit word *p (fire and forget; atomicAdd may
+// compile to an atomic that returns the old value)
+__device__ __forceinline__ void red_add_global(unsigned long long* p,
+                                               unsigned long long v) {
+  asm volatile("red.relaxed.gpu.global.add.u64 [%0], %1;"
+               :: "l"(p), "l"(v) : "memory");
+}
+
+// red.shared::cluster: v added to the 64-bit word at `addr` (a shared::cta
+// address of this block) in block `rank` of the cluster
+__device__ __forceinline__ void red_add_cluster(unsigned int addr, int rank,
+                                                unsigned long long v) {
+  unsigned int remote;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;"
+               : "=r"(remote) : "r"(addr), "r"(rank));
+  asm volatile("red.relaxed.cluster.shared::cluster.add.u64 [%0], %1;"
+               :: "r"(remote), "l"(v) : "memory");
+}
+
+// Where launch B's aggregated values go: the cluster's slices (kShared) or
+// the global bins (word 0: the bins, word 1: the float64 form's low words)
+struct Sink {
+  unsigned long long* bins;
+  unsigned long long* slice;  // this block's slice: S words, then S more
+  unsigned int slice_addr;    // its shared::cta address
+  long long slice_words;      // S
+  int n_bins, cshift;
+};
+
+// v added to the 64-bit word *p of this block's shared memory by native
+// 32-bit atomics (a 64-bit one compiles to a loop of compare-and-swap): the
+// low halves' carries go to the high half, so the word holds the 64-bit sum
+// (mod 2^64) once every addition is in
+__device__ __forceinline__ void shared_add(unsigned long long* p,
+                                           unsigned long long v) {
+  unsigned int* half = reinterpret_cast<unsigned int*>(p);
+  const unsigned int lo = (unsigned int)v;
+  unsigned int carry = 0u;
+  if (lo != 0u) {
+    const unsigned int old = atomicAdd(half, lo);
+    carry = old + lo < old ? 1u : 0u;
+  }
+  const unsigned int hi = (unsigned int)(v >> 32) + carry;
+  if (hi != 0u) atomicAdd(half + 1, hi);
+}
+
+// Every addition to one word is of one size: 32-bit halves where the block
+// is its own cluster (C = 1), else 64-bit words through the cluster's
+// shared memory, the owner's own additions too (atomics of two sizes on one
+// word are not ordered against each other)
+template <bool kShared>
+__device__ __forceinline__ void sink_add(const Sink& k, int id, int word,
+                                         unsigned long long v) {
+  if constexpr (kShared) {
+    const long long at = word * k.slice_words + bin_local(id, k.cshift);
+    if (k.cshift == 0) {
+      shared_add(k.slice + at, v);
+    } else {
+      red_add_cluster(k.slice_addr + 8u * (unsigned int)at,
+                      bin_owner(id, k.cshift), v);
+    }
+  } else {
+    red_add_global(k.bins + (long long)word * k.n_bins + id, v);
+  }
+}
+
+// One entry a thread, the whole warp together (id -1 or weight 0: nothing)
+template <bool kShared>
+__device__ __forceinline__ void deposit(const Sink& k, int id, float we,
+                                        double scale, double) {
+  const bool valid = we != 0.0f && (unsigned int)id < (unsigned int)k.n_bins;
+  unsigned long long v[1] = {valid ? to_fixed(we, scale) : 0ull};
+  if (warp_sum(valid ? id : -1, v) && valid) sink_add<kShared>(k, id, 0, v[0]);
+}
+template <bool kShared>
+__device__ __forceinline__ void deposit(const Sink& k, int id, double we,
+                                        double scale, double scale_lo) {
+  const bool valid = we != 0.0 && (unsigned int)id < (unsigned int)k.n_bins;
+  unsigned long long v[2] = {0ull, 0ull};
+  if (valid) to_fixed_f64(we, scale, scale_lo, v[0], v[1]);
+  if (warp_sum(valid ? id : -1, v) && valid) {
+    sink_add<kShared>(k, id, 0, v[0]);
+    if (v[1] != 0ull) sink_add<kShared>(k, id, 1, v[1]);
+  }
+}
+
+// A warp's queue of the entries that carry weight, kQueue slots in shared
+// memory used as a ring: each step of the loops appends the warp's entries
+// with weight (a ballot places them), and whenever 32 are queued they are
+// deposited together. warp_sum then runs once for 32 entries with weight,
+// not once for 32 entries of which most (the neighbour slots that carry
+// nothing) have none.
+constexpr int kQueue = 64;
+
+template <typename W>
+struct Queue {
+  int* id;
+  W* w;
+  int head, queued;  // the same in every thread of the warp
+};
+
+template <bool kShared, typename W>
+__device__ __forceinline__ void push(const Sink& k, Queue<W>& q, int id,
+                                     W we, double scale, double scale_lo) {
+  const int lane = threadIdx.x & 31;
+  const bool valid = we != W(0) && (unsigned int)id < (unsigned int)k.n_bins;
+  const unsigned int mask = __ballot_sync(0xffffffffu, valid);
+  if (valid) {
+    const int at = (q.head + q.queued + __popc(mask & ((1u << lane) - 1u))) &
+                   (kQueue - 1);
+    q.id[at] = id;
+    q.w[at] = we;
+  }
+  q.queued += __popc(mask);
+  if (q.queued >= 32) {
+    __syncwarp();
+    const int at = (q.head + lane) & (kQueue - 1);
+    const int qi = q.id[at];
+    const W qw = q.w[at];
+    __syncwarp();  // read before the next pushes may fill these slots again
+    q.head = (q.head + 32) & (kQueue - 1);
+    q.queued -= 32;
+    deposit<kShared>(k, qi, qw, scale, scale_lo);
+  }
+}
+
+// the queue's last entries, fewer than 32
+template <bool kShared, typename W>
+__device__ __forceinline__ void drain(const Sink& k, Queue<W>& q,
+                                      double scale, double scale_lo) {
+  const int lane = threadIdx.x & 31;
+  __syncwarp();
+  const int at = (q.head + lane) & (kQueue - 1);
+  const bool in = lane < q.queued;
+  deposit<kShared>(k, in ? q.id[at] : -1, in ? q.w[at] : W(0), scale,
+                   scale_lo);
+}
+
+// Launch B. Every thread of a cluster reaches its barriers: the loops over
+// the entries keep whole warps in step and nothing returns early except on a
+// condition the whole grid shares (every weight 0).
+template <typename W, bool kShared>
+__global__ void __launch_bounds__(kClusterThreads, 1)
+cluster_histogram_kernel(const int* __restrict__ ids, const W* __restrict__ w,
+                         long long n_entries, int n_bins, int vec,
+                         const unsigned long long* __restrict__ partial,
+                         int n_partials, unsigned long long* __restrict__ bins,
+                         unsigned int* __restrict__ ticket,
+                         W* __restrict__ out, int cshift) {
+  extern __shared__ unsigned long long s_slice[];
+  __shared__ unsigned long long s_max[kClusterThreads / 32];
+  __shared__ int s_queue_id[kClusterThreads / 32][kQueue];
+  __shared__ W s_queue_w[kClusterThreads / 32][kQueue];
+  __shared__ int s_last;
+  cg::cluster_group cluster = cg::this_cluster();
+  const int rank = (int)cluster.block_rank();
+  const int lane = threadIdx.x & 31;
+  constexpr bool kF64 = sizeof(W) == 8;
+
+  // Launched as launch A's programmatic dependent: what does not read A's
+  // output (this block's slice cleared) runs while A's last blocks finish
+  const long long slice = slice_bins(n_bins, cshift);
+  if constexpr (kShared) {
+    for (long long i = threadIdx.x; i < (kF64 ? 2 : 1) * slice;
+         i += kClusterThreads) {
+      s_slice[i] = 0ull;
+    }
+    cluster.sync();  // every slice cleared before any block adds to another's
+  }
+  asm volatile("griddepcontrol.wait;" ::: "memory");  // A's writes are in
+
+  // the call's largest |w|, the same in every block
+  unsigned long long m = 0;
+  for (int i = threadIdx.x; i < n_partials; i += kClusterThreads) {
+    m = max(m, __ldcg(partial + i));
+  }
+  m = warp_max(m);
+  if (lane == 0) s_max[threadIdx.x >> 5] = m;
+  __syncthreads();
+  const unsigned long long bits = warp_max(s_max[lane]);
+  if (bits == 0) {  // every weight 0, or no entry: out = 0 (every block
+                    // returns here, none waits at a barrier)
+    for (long long i = (long long)blockIdx.x * kClusterThreads + threadIdx.x;
+         i < n_bins; i += (long long)gridDim.x * kClusterThreads) {
+      out[i] = W(0);
+    }
+    return;
+  }
+  double scale, scale_lo = 0.0, inv = 0.0;
+  if constexpr (kF64) {
+    scale = scalbn(1.0, scale_exponent_f64(bits, n_entries));
+    scale_lo = scalbn(1.0, low_exponent_f64(n_entries));
+  } else {
+    scale = fixed_scale((unsigned int)bits, n_entries);
+    inv = scalbn(1.0, -scale_exponent((unsigned int)bits, n_entries));
+  }
+
+  const Sink k{bins, s_slice,
+               (unsigned int)__cvta_generic_to_shared(s_slice), slice,
+               n_bins, cshift};
+
+  // warp-uniform trip counts: push takes the whole warp. A warp reads 64
+  // quads a step, two a thread.
+  Queue<W> queue{s_queue_id[threadIdx.x >> 5], s_queue_w[threadIdx.x >> 5],
+                 0, 0};
+  const long long n4 = vec ? n_entries / 4 : 0;
+  const long long warp =
+      ((long long)blockIdx.x * kClusterThreads + threadIdx.x) >> 5;
+  const long long n_warps = (long long)gridDim.x * (kClusterThreads / 32);
+  const int4* ids4 = reinterpret_cast<const int4*>(ids);
+  // Quad q is read from n4 - 1 - q: launch A read the weights from first
+  // to last, so the last of them are still in L2 when this launch starts;
+  // this launch's own loads are the bytes' last use, streamed.
+  for (long long base = warp * 64; base < n4; base += n_warps * 64) {
+    const long long q0 = base + lane, q1 = q0 + 32;
+    W a[4] = {W(0), W(0), W(0), W(0)}, b[4] = {W(0), W(0), W(0), W(0)};
+    int4 ia = make_int4(-1, -1, -1, -1), ib = ia;
+    if (q0 < n4) {
+      load_quad<true>(w, n4 - 1 - q0, a);
+      ia = load16<true>(ids4 + n4 - 1 - q0);
+    }
+    if (q1 < n4) {
+      load_quad<true>(w, n4 - 1 - q1, b);
+      ib = load16<true>(ids4 + n4 - 1 - q1);
+    }
+    push<kShared>(k, queue, ia.x, a[0], scale, scale_lo);
+    push<kShared>(k, queue, ia.y, a[1], scale, scale_lo);
+    push<kShared>(k, queue, ia.z, a[2], scale, scale_lo);
+    push<kShared>(k, queue, ia.w, a[3], scale, scale_lo);
+    push<kShared>(k, queue, ib.x, b[0], scale, scale_lo);
+    push<kShared>(k, queue, ib.y, b[1], scale, scale_lo);
+    push<kShared>(k, queue, ib.z, b[2], scale, scale_lo);
+    push<kShared>(k, queue, ib.w, b[3], scale, scale_lo);
+  }
+  for (long long base = 4 * n4 + warp * 32; base < n_entries;
+       base += n_warps * 32) {
+    const long long e = base + lane;
+    const bool in = e < n_entries;
+    push<kShared>(k, queue, in ? __ldg(ids + e) : -1,
+                  in ? __ldg(w + e) : W(0), scale, scale_lo);
+  }
+  drain<kShared>(k, queue, scale, scale_lo);
+
+  if constexpr (kShared) {
+    cluster.sync();  // every block's additions to this slice are in
+    // the flush: this slice's nonzero bins into the global bins
+    for (long long i = threadIdx.x; i < slice; i += kClusterThreads) {
+      const long long b = bin_of(i, rank, cshift);
+      if (b >= n_bins) break;
+      const unsigned long long v = s_slice[i];
+      if (v != 0ull) red_add_global(bins + b, v);
+      if constexpr (kF64) {
+        const unsigned long long lo = s_slice[slice + i];
+        if (lo != 0ull) red_add_global(bins + n_bins + b, lo);
+      }
+    }
+  }
+  // the cluster's ticket, taken after its blocks' global additions; the
+  // cluster that takes the last one converts the bins
+  __threadfence();
+  cluster.sync();
+  if (rank == 0 && threadIdx.x == 0) {
+    const unsigned int n_clusters = gridDim.x >> cshift;
+    const int last = atomicAdd(ticket, 1u) == n_clusters - 1u;
+    if (last) *ticket = 0u;
+    for (int r = 0; r < (1 << cshift); ++r) {
+      *cluster.map_shared_rank(&s_last, r) = last;
+    }
+  }
+  cluster.sync();  // no block reads another's shared memory after this
+  if (!s_last) return;
+  __threadfence();
+  for (long long i = (long long)rank * kClusterThreads + threadIdx.x;
+       i < n_bins; i += (long long)kClusterThreads << cshift) {
+    if constexpr (kF64) {
+      out[i] = from_fixed_f64(__ldcg(bins + i), __ldcg(bins + n_bins + i),
+                              bits, n_entries);
+    } else {  // finalize_kernel's conversion
+      out[i] = (float)((double)(long long)__ldcg(bins + i) * inv);
+    }
+  }
+}
+
+// branch: 1 the cluster branch (at cluster_shift's C), 2 the global branch
+// (the caller's rule, ops/histogram.py:branch_for)
+template <typename W>
+int histogram_large(const int* ids, const W* w, long long n_entries,
+                    int n_bins, W* out, unsigned long long* scratch,
+                    long long scratch_words, int sms, int branch,
+                    cudaStream_t s) {
+  constexpr int kWords = sizeof(W) == 8 ? 2 : 1;
+  if (n_bins <= 0) return static_cast<int>(cudaGetLastError());
+  const long long bin_words = (long long)kWords * n_bins;
+  const int max_partials = kPrepBlocksPerSm * sms;
+  const bool shared = branch == 1;
+  const int cshift = shared ? cluster_shift(n_bins, kWords) : kGlobalShift;
+  if (scratch_words < bin_words + 1 + max_partials || branch < 1 ||
+      branch > 2 || cshift < 0) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  unsigned long long* bins = scratch;
+  unsigned int* ticket = reinterpret_cast<unsigned int*>(scratch + bin_words);
+  unsigned long long* partial = scratch + bin_words + 1;
+  const int vec = ((reinterpret_cast<size_t>(ids) |
+                    reinterpret_cast<size_t>(w)) & 15) == 0;
+
+  // launch A: enough blocks for the entries' quads and the bins' words, one
+  // wave (at most kPrepBlocksPerSm an SM)
+  const long long work = (n_entries / 4 > bin_words ? n_entries / 4
+                                                    : bin_words);
+  const long long per_block_a = (long long)kPrepQuads * kPrepThreads;
+  const long long want_a = (work + per_block_a - 1) / per_block_a;
+  const int grid_a = (int)(want_a < 1 ? 1 : (want_a < max_partials
+                                                 ? want_a : max_partials));
+  prepare_kernel<W><<<grid_a, kPrepThreads, 0, s>>>(
+      w, n_entries, vec, bins, bin_words, partial, ticket);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+
+  // launch B
+  const size_t smem =
+      shared ? (size_t)(slice_bins(n_bins, cshift) * kWords * 8) : 0;
+  const void* fn = reinterpret_cast<const void*>(
+      shared ? cluster_histogram_kernel<W, true>
+             : cluster_histogram_kernel<W, false>);
+  // the slice and the static queues may pass 48 KB together
+  err = cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             (int)smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  if (cshift > 3) {
+    err = cudaFuncSetAttribute(
+        fn, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
+  cudaLaunchAttribute attr[2];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = 1u << cshift;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  attr[1].id = cudaLaunchAttributeProgrammaticStreamSerialization;
+  attr[1].val.programmaticStreamSerializationAllowed = 1;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(1u << cshift);
+  cfg.blockDim = dim3(kClusterThreads);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = s;
+  cfg.attrs = attr;
+  cfg.numAttrs = 2;
+  int active = 0;
+  err = cudaOccupancyMaxActiveClusters(&active, fn, &cfg);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  if (active < 1) return static_cast<int>(cudaErrorInvalidConfiguration);
+  // as many clusters as the card holds at once (a persistent grid), fewer
+  // where the entries are few: a step (two quads) a thread at least
+  const long long per_block = (long long)kClusterThreads * 8;
+  const long long want_b = ((n_entries + per_block - 1) / per_block +
+                            (1 << cshift) - 1) >> cshift;
+  const int clusters =
+      (int)(want_b < 1 ? 1 : (want_b < active ? want_b : active));
+  cfg.gridDim = dim3((unsigned int)clusters << cshift);
+  if (shared) {
+    err = cudaLaunchKernelEx(&cfg, cluster_histogram_kernel<W, true>, ids, w,
+                             n_entries, n_bins, vec, partial, grid_a, bins,
+                             ticket, out, cshift);
+  } else {
+    err = cudaLaunchKernelEx(&cfg, cluster_histogram_kernel<W, false>, ids,
+                             w, n_entries, n_bins, vec, partial, grid_a, bins,
+                             ticket, out, cshift);
+  }
+  if (err != cudaSuccess) return static_cast<int>(err);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// ---- the one-block path -----------------------------------------------------
+
+constexpr int kSmallThreads = 1024;
+
+// One entry per thread of a warp, every thread of the warp calling it
+// together (id -1 or weight 0: nothing to add): warp_sum, then one shared
+// atomic a bin.
+__device__ __forceinline__ void add_warp(unsigned long long* s_bins, int id,
+                                         float we, int n_bins,
+                                         double scale) {
+  const bool valid = we != 0.0f && (unsigned int)id < (unsigned int)n_bins;
+  unsigned long long v[1] = {valid ? to_fixed(we, scale) : 0ull};
+  if (warp_sum(valid ? id : -1, v) && valid) atomicAdd(&s_bins[id], v[0]);
 }
 
 // the largest bits of |w| of four entries
@@ -124,9 +609,9 @@ __device__ __forceinline__ unsigned int abs_bits(float4 v) {
              max(__float_as_uint(fabsf(v.z)), __float_as_uint(fabsf(v.w))));
 }
 
-// The whole histogram in one block: absmax_kernel's largest |w| (bits of
-// |w|, integer maximum), the bins cleared in shared memory, accumulate's
-// integer sums at fixed_scale(bits, E), finalize_kernel's conversion. One SM
+// The whole histogram in one block: the large path's largest |w| (bits of
+// |w|, integer maximum), the bins cleared in shared memory, its integer sums
+// at fixed_scale(bits, E), finalize_kernel's conversion. One SM
 // reads every entry, so it keeps many loads in flight: 16-byte loads of four
 // entries (where both arrays are 16-byte aligned), two per thread at a time.
 __global__ void __launch_bounds__(kSmallThreads)
@@ -218,93 +703,22 @@ gather_grad_kernel(const float* __restrict__ grad_out,
 
 // ---- float64 weights ------------------------------------------------------
 
-__global__ void __launch_bounds__(kThreads)
-accumulate_f64_kernel(const int* __restrict__ ids,
-                      const double* __restrict__ w, long long n_entries,
-                      int n_bins,
-                      const unsigned long long* __restrict__ wmax_bits,
-                      unsigned long long* __restrict__ acc, int use_shared) {
-  extern __shared__ unsigned long long s_bins[];
-  const unsigned long long bits = *wmax_bits;
-  if (bits == 0) return;  // every weight is 0; uniform across the grid
-  const double scale = scalbn(1.0, scale_exponent_f64(bits, n_entries));
-  const double scale_lo = scalbn(1.0, low_exponent_f64(n_entries));
-
-  // the bins' high words, then their low words
-  if (use_shared) {
-    for (int i = threadIdx.x; i < 2 * n_bins; i += kThreads) s_bins[i] = 0ull;
-    __syncthreads();
-  }
-  unsigned long long* bins = use_shared ? s_bins : acc;
-
-  const long long stride = (long long)gridDim.x * kThreads;
-  for (long long e = (long long)blockIdx.x * kThreads + threadIdx.x;
-       e < n_entries; e += stride) {
-    const double we = w[e];
-    if (we == 0.0) continue;
-    const int id = ids[e];
-    if ((unsigned int)id >= (unsigned int)n_bins) continue;
-    unsigned long long hi, lo;
-    to_fixed_f64(we, scale, scale_lo, hi, lo);
-    atomicAdd(&bins[id], hi);
-    if (lo != 0ull) atomicAdd(&bins[n_bins + id], lo);
-  }
-
-  if (use_shared) {
-    __syncthreads();
-    for (int i = threadIdx.x; i < 2 * n_bins; i += kThreads) {
-      const unsigned long long v = s_bins[i];
-      if (v != 0ull) atomicAdd(&acc[i], v);
-    }
-  }
-}
-
-// out[i] from the bins' two words
-__global__ void finalize_f64_kernel(
-    const unsigned long long* __restrict__ acc,
-    const unsigned long long* __restrict__ wmax_bits, long long n_entries,
-    int n_bins, double* __restrict__ out) {
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= n_bins) return;
-  const unsigned long long bits = *wmax_bits;
-  out[i] = bits == 0 ? 0.0
-                     : from_fixed_f64(acc[i], acc[n_bins + i], bits,
-                                      n_entries);
-}
-
 // The whole float64 histogram in one block: the largest |w| (bits, integer
 // maximum), the two words of each entry added with shared atomics, the bins
-// read back as finalize_f64_kernel does. One entry per thread at a time,
-// whole warps in step: the threads whose entries share a bin sum their
-// words first (add_warp's tree, once for each word), so a bin that many
-// entries hit costs one atomic a warp and word.
+// read back as the large path does. One entry per thread at a time, whole
+// warps in step: the threads whose entries share a bin sum their words
+// first (warp_sum), so a bin that many entries hit costs one atomic a warp
+// and word.
 __device__ __forceinline__ void add_warp_f64(unsigned long long* s_hi,
                                              unsigned long long* s_lo, int id,
                                              double we, int n_bins,
                                              double scale, double scale_lo) {
-  const int lane = threadIdx.x & 31;
   const bool valid = we != 0.0 && (unsigned int)id < (unsigned int)n_bins;
-  const int key = valid ? id : -1;
-  unsigned long long vh = 0ull, vl = 0ull;
-  if (valid) to_fixed_f64(we, scale, scale_lo, vh, vl);
-  unsigned int peers = __match_any_sync(0xffffffffu, key);
-  const int first = __ffs(peers) - 1;
-  int rank = __popc(peers & ((1u << lane) - 1u));
-  peers &= 0xfffffffeu << lane;  // the peers on higher lanes
-  while (__any_sync(0xffffffffu, peers != 0u)) {
-    const int next = __ffs(peers);  // 1 + the next peer's lane, or 0
-    const unsigned long long th = __shfl_sync(0xffffffffu, vh, next - 1);
-    const unsigned long long tl = __shfl_sync(0xffffffffu, vl, next - 1);
-    if (next) {
-      vh += th;
-      vl += tl;
-    }
-    peers &= __ballot_sync(0xffffffffu, (rank & 1) == 0);
-    rank >>= 1;
-  }
-  if (valid && lane == first) {
-    atomicAdd(&s_hi[id], vh);
-    if (vl != 0ull) atomicAdd(&s_lo[id], vl);
+  unsigned long long v[2] = {0ull, 0ull};
+  if (valid) to_fixed_f64(we, scale, scale_lo, v[0], v[1]);
+  if (warp_sum(valid ? id : -1, v) && valid) {
+    atomicAdd(&s_hi[id], v[0]);
+    if (v[1] != 0ull) atomicAdd(&s_lo[id], v[1]);
   }
 }
 
@@ -366,49 +780,20 @@ gather_grad_f64_kernel(const double* __restrict__ grad_out,
 }  // namespace
 
 // ids: (n_entries,) int32 in [0, n_bins); w: (n_entries,) float32;
-// out: (n_bins,) float32; scratch: n_bins + 1 64-bit words, which this call
-// clears itself; sms: the device's SM count (the caller keeps it). Launches
-// on `stream`, allocates nothing, does not synchronise; returns the first
-// CUDA error, else cudaGetLastError().
+// out: (n_bins,) float32; scratch: scratch_words 64-bit words, at least
+// n_bins + 1 + 4 sms (the bins, the ticket, launch A's partial maxima),
+// which the call clears itself; sms: the device's SM count (the caller
+// keeps it); branch: histogram_large's. Launches on `stream`,
+// allocates nothing, does not synchronise; returns the first CUDA error,
+// else cudaGetLastError().
 extern "C" int vr_flux_histogram(const int* ids, const float* w,
                                  long long n_entries, int n_bins, float* out,
-                                 unsigned long long* scratch, int sms,
+                                 unsigned long long* scratch,
+                                 long long scratch_words, int sms, int branch,
                                  void* stream) {
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (n_bins <= 0) return static_cast<int>(cudaGetLastError());
-  cudaError_t err =
-      cudaMemsetAsync(scratch, 0, sizeof(unsigned long long) * (n_bins + 1), s);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  unsigned int* wmax_bits = reinterpret_cast<unsigned int*>(scratch + n_bins);
-
-  if (n_entries > 0) {
-    const long long per_block = (long long)kThreads * 8;
-    const long long want = (n_entries + per_block - 1) / per_block;
-    const int grid_max = (int)(want < (long long)sms * 8 ? want : sms * 8);
-    absmax_kernel<<<grid_max, kThreads, 0, s>>>(w, n_entries, wmax_bits);
-
-    const size_t smem = sizeof(unsigned long long) * (size_t)n_bins;
-    const int use_shared = smem <= kMaxSharedBins ? 1 : 0;
-    int grid = grid_max;
-    if (use_shared) {
-      // one flush per block: keep to as many blocks as fit on the card at once
-      const long long fit = (long long)(kMaxSharedBins / smem);
-      const long long per_sm = fit < 1 ? 1 : (fit > 4 ? 4 : fit);
-      const long long cap = per_sm * sms;
-      grid = (int)(want < cap ? want : cap);
-      if (smem > 48 * 1024) {
-        err = cudaFuncSetAttribute(accumulate_kernel,
-                                   cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                   (int)smem);
-        if (err != cudaSuccess) return static_cast<int>(err);
-      }
-    }
-    accumulate_kernel<<<grid, kThreads, use_shared ? smem : 0, s>>>(
-        ids, w, n_entries, n_bins, wmax_bits, scratch, use_shared);
-  }
-  finalize_kernel<<<(n_bins + 255) / 256, 256, 0, s>>>(
-      scratch, wmax_bits, n_entries, n_bins, out);
-  return static_cast<int>(cudaGetLastError());
+  return histogram_large(ids, w, n_entries, n_bins, out, scratch,
+                         scratch_words, sms, branch,
+                         static_cast<cudaStream_t>(stream));
 }
 
 // The same histogram in one launch of one block, for n_entries < 2^31 and
@@ -450,47 +835,18 @@ extern "C" int vr_flux_histogram_grad(const float* grad_out, const int* ids,
 }
 
 // The float64 forms: w, out, grad_out and grad_w doubles; the large path's
-// scratch holds 2 n_bins + 1 64-bit words (the bins' high words, their low
-// words, the largest |w|), which this call clears itself; the one-block path
-// takes n_bins * 16 <= 200 KB. Launch, allocation and errors as above.
+// scratch holds at least 2 n_bins + 1 + 4 sms 64-bit words (the bins' high
+// words, their low words, the ticket, the partial maxima), which the call
+// clears itself; the one-block path takes n_bins * 16 <= 200 KB. Launch,
+// allocation and errors as above.
 extern "C" int vr_flux_histogram_f64(const int* ids, const double* w,
                                      long long n_entries, int n_bins,
                                      double* out, unsigned long long* scratch,
-                                     int sms, void* stream) {
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (n_bins <= 0) return static_cast<int>(cudaGetLastError());
-  cudaError_t err = cudaMemsetAsync(
-      scratch, 0, sizeof(unsigned long long) * (2 * (size_t)n_bins + 1), s);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  unsigned long long* wmax_bits = scratch + 2 * (size_t)n_bins;
-
-  if (n_entries > 0) {
-    const long long per_block = (long long)kThreads * 8;
-    const long long want = (n_entries + per_block - 1) / per_block;
-    const int grid_max = (int)(want < (long long)sms * 8 ? want : sms * 8);
-    absmax_f64_kernel<<<grid_max, kThreads, 0, s>>>(w, n_entries, wmax_bits);
-
-    const size_t smem = 2 * sizeof(unsigned long long) * (size_t)n_bins;
-    const int use_shared = smem <= kMaxSharedBins ? 1 : 0;
-    int grid = grid_max;
-    if (use_shared) {
-      const long long fit = (long long)(kMaxSharedBins / smem);
-      const long long per_sm = fit < 1 ? 1 : (fit > 4 ? 4 : fit);
-      const long long cap = per_sm * sms;
-      grid = (int)(want < cap ? want : cap);
-      if (smem > 48 * 1024) {
-        err = cudaFuncSetAttribute(accumulate_f64_kernel,
-                                   cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                   (int)smem);
-        if (err != cudaSuccess) return static_cast<int>(err);
-      }
-    }
-    accumulate_f64_kernel<<<grid, kThreads, use_shared ? smem : 0, s>>>(
-        ids, w, n_entries, n_bins, wmax_bits, scratch, use_shared);
-  }
-  finalize_f64_kernel<<<(n_bins + 255) / 256, 256, 0, s>>>(
-      scratch, wmax_bits, n_entries, n_bins, out);
-  return static_cast<int>(cudaGetLastError());
+                                     long long scratch_words, int sms,
+                                     int branch, void* stream) {
+  return histogram_large(ids, w, n_entries, n_bins, out, scratch,
+                         scratch_words, sms, branch,
+                         static_cast<cudaStream_t>(stream));
 }
 
 extern "C" int vr_flux_histogram_small_f64(const int* ids, const double* w,

@@ -8,8 +8,14 @@ on a CPU tensor it runs the plain version.
 
 The kernel has two paths with the same bits: below ``SMALL_ENTRIES`` entries,
 where the bins fit in one block's shared memory, one launch of one block
-(``vr_flux_histogram_small``); else four device operations over the whole
-card (``vr_flux_histogram``). ``path_for`` holds the rule.
+(``vr_flux_histogram_small``); else two launches over the whole card
+(``vr_flux_histogram``). ``path_for`` holds the rule. The large path has two
+branches with the same bits: each block of a thread-block cluster of
+``cluster_for`` blocks holds a slice of the bins in shared memory (the
+cluster branch), or the entries go to global bins (the global branch).
+``branch_for`` picks one: the cluster branch where the bins fit and the
+entries are many beside the slices the blocks flush. ``branch`` asks for
+either, to compare the two.
 
 Gradients: where ``w`` requires one, ``flux_histogram`` runs through
 ``FluxHistogramFn``, whose backward is the gather ``flux_histogram_grad``
@@ -44,15 +50,33 @@ from .. import _build
 
 # Entries below which a call takes the one-block path: its time grows with E
 # on one SM (0.0117 to 0.0133 ms at 6,144 entries, 0.0174 to 0.0179 at
-# 16,384, 0.0303 to 0.0305 at 32,768), the other path's is about a fixed
-# 0.023 to 0.031 ms of four device operations (H100, ``chip_diagnose.py
-# --paths``; PERF.md)
+# 16,384, 0.0303 to 0.0305 at 32,768), the large path's first design took
+# about a fixed 0.023 to 0.031 ms of four device operations (H100,
+# ``chip_diagnose.py --paths``; PERF.md). The large path's two launches now
+# take about 0.012 ms there, so the threshold is due to fall (PERF.md §7)
 SMALL_ENTRIES = 24576
 # the bins of one block's shared memory: 200 KB of 64-bit integers
 SMALL_MAX_BINS = 200 * 1024 // 8
 # float64 weights take two 64-bit words a bin (the same threshold of
 # entries: not measured apart)
 SMALL_MAX_BINS_F64 = SMALL_MAX_BINS // 2
+# the large path (csrc/histogram_cluster.cuh): a block's slice of bins in
+# shared memory, the largest cluster C = 2^s, and the words of a slice that
+# C keeps to where it can (each block flushes its slice's words)
+SLICE_BYTES = 200 * 1024
+MAX_CLUSTER_SHIFT = 4
+FLUSH_WORDS = 4096
+# the cluster branch where the entries are at least this many times the
+# words the blocks flush (an SM's block a slice): below it the global
+# branch is faster (2,993 bins, ms global against cluster: 0.01205 against
+# 0.01347 at 393,216 entries, 0.0160 against 0.0151 at 2^20; H100,
+# ``chip_diagnose.py --paths --launch-times``; PERF.md)
+FLUSH_ENTRIES = 2
+# its first launch's blocks an SM at most, each writing one partial maximum
+# into the scratch (csrc/flux_histogram.cu:kPrepBlocksPerSm)
+PREP_BLOCKS_PER_SM = 4
+# the large path's branches as the kernel's entry takes them
+BRANCHES = {"cluster": 1, "global": 2}
 # the float64 form's largest scale exponent, so that 2^-(k + L) stays a
 # normal float64 (``fixed_point_f64``); it binds only where the largest
 # weight is below 2^-(898 + log2 E)
@@ -70,6 +94,33 @@ def path_for(n_entries: int, n_prims: int, dtype=torch.float32) -> str:
     if n_entries < SMALL_ENTRIES and n_prims <= small_max_bins(dtype):
         return "small"
     return "large"
+
+
+def cluster_for(n_prims: int, dtype=torch.float32) -> int:
+    """The large path's cluster size C for ``n_prims`` bins: the smallest C
+    = 2^s whose slices of ceil(n / C) bins (one 64-bit word a bin, two for
+    float64 weights) hold at most ``FLUSH_WORDS`` words, else
+    2^``MAX_CLUSTER_SHIFT``; 0 where that slice passes ``SLICE_BYTES`` (the
+    global branch). Bin b lives in block b mod C of a cluster, at word
+    b // C of its slice (``csrc/histogram_cluster.cuh:cluster_shift``)."""
+    words = 1 if dtype == torch.float32 else 2
+    s = 0
+    while s < MAX_CLUSTER_SHIFT and -(-n_prims >> s) * words > FLUSH_WORDS:
+        s += 1
+    return 1 << s if -(-n_prims >> s) * words * 8 <= SLICE_BYTES else 0
+
+
+def branch_for(n_entries: int, n_prims: int, dtype=torch.float32,
+               sms: int = 132) -> str:
+    """The large path's branch for a call on a card of ``sms`` SMs:
+    "cluster" where ``cluster_for`` finds a C and the entries number at
+    least ``FLUSH_ENTRIES`` times the words the flush adds (sms blocks, a
+    slice of ceil(n / C) bins each), else "global"."""
+    cluster = cluster_for(n_prims, dtype)
+    if not cluster:
+        return "global"
+    words = (1 if dtype == torch.float32 else 2) * -(-n_prims // cluster)
+    return "cluster" if n_entries >= FLUSH_ENTRIES * sms * words else "global"
 
 
 def fixed_point_f64(wmax: float, n_entries: int):
@@ -124,16 +175,18 @@ def _histogram_f64_ref(ids, w, n_prims):
             + lo_sum.double() * math.ldexp(1.0, -(k + low)))
 
 
-def flux_histogram(ids, w, n_prims: int, path=None):
+def flux_histogram(ids, w, n_prims: int, path=None, branch=None):
     """sum_e w[e] into bin ids[e]; returns (n_prims,) of w's type.
 
     ids (E,) int32 in [0, n_prims); w (E,) f32, finite; or w f64, finite and
     of largest magnitude below 2^900, which takes the float64 form (counted
     in ``launches_f64`` and ``launches_by_path_f64``). Two calls on the same
     inputs give bitwise the same output on either device, and so do the
-    kernel's two paths. ``path`` ("small" or "large", default ``path_for``)
-    forces one of them, to compare the two; the trace never sets it. Where
-    ``w`` requires a gradient, the output carries one (``FluxHistogramFn``).
+    kernel's two paths and the large path's two branches. ``path`` ("small"
+    or "large", default ``path_for``) forces one of the paths, ``branch``
+    ("cluster" or "global", default ``branch_for``) one of the large path's
+    branches, to compare them; the trace sets neither. Where ``w`` requires
+    a gradient, the output carries one (``FluxHistogramFn``).
     """
     # the unfused body calls this once a bounce, mostly on a few thousand
     # entries, where the host's work per call is the call's time: the
@@ -158,12 +211,19 @@ def flux_histogram(ids, w, n_prims: int, path=None):
         raise ValueError("the one-block path takes up to SMALL_MAX_BINS bins "
                          "(SMALL_MAX_BINS_F64 for float64 weights) and fewer "
                          "than 2^31 entries")
+    if branch is not None and branch not in BRANCHES:
+        raise ValueError(f"no such branch {branch!r}")
+    if branch is not None and path != "large":
+        raise ValueError("branch picks a branch of the large path")
+    if branch == "cluster" and not cluster_for(n_prims, w.dtype):
+        raise ValueError(f"{n_prims} bins do not fit in a cluster's shared "
+                         "memory: the large path takes the global branch")
     if w.requires_grad and torch.is_grad_enabled():
-        return FluxHistogramFn.apply(ids, w, n_prims, path)
-    return _histogram(ids, w, n_prims, path)
+        return FluxHistogramFn.apply(ids, w, n_prims, path, branch)
+    return _histogram(ids, w, n_prims, path, branch)
 
 
-def _histogram(ids, w, n_prims, path):
+def _histogram(ids, w, n_prims, path, branch=None):
     """The checked call of ``flux_histogram``: the plain version on the CPU,
     the kernel on a CUDA device."""
     if not w.is_cuda:
@@ -188,14 +248,19 @@ def _histogram(ids, w, n_prims, path):
                 out.data_ptr(), stream,
             )
         else:
-            # the accumulators (one word a bin, two for float64 weights)
-            # and the largest |w|, cleared by the kernel's entry
-            words = 2 * n_prims if f64 else n_prims
-            scratch = torch.empty(words + 1, dtype=torch.int64,
-                                  device=w.device)
+            # the bins (one word each, two for float64 weights), the ticket
+            # and the first launch's partial maxima, all written by the
+            # kernels before they are read: per call, never shared
+            sms = _sm_count(index)
+            if branch is None:
+                branch = branch_for(n_entries, n_prims, w.dtype, sms)
+            words = ((2 if f64 else 1) * n_prims + 1
+                     + PREP_BLOCKS_PER_SM * sms)
+            scratch = torch.empty(words, dtype=torch.int64, device=w.device)
             err = getattr(lib, "vr_flux_histogram" + suffix)(
                 ids.data_ptr(), w.data_ptr(), n_entries, n_prims,
-                out.data_ptr(), scratch.data_ptr(), _sm_count(index), stream,
+                out.data_ptr(), scratch.data_ptr(), words, sms,
+                BRANCHES[branch], stream,
             )
     if err != 0:
         raise RuntimeError(
@@ -206,6 +271,9 @@ def _histogram(ids, w, n_prims, path):
     else:
         flux_histogram.launches += 1
         flux_histogram.launches_by_path[path] += 1
+    if path == "large":
+        (flux_histogram.launches_by_branch_f64 if f64
+         else flux_histogram.launches_by_branch)[branch] += 1
     return out
 
 
@@ -213,6 +281,9 @@ flux_histogram.launches = 0
 flux_histogram.launches_by_path = {"small": 0, "large": 0}
 flux_histogram.launches_f64 = 0
 flux_histogram.launches_by_path_f64 = {"small": 0, "large": 0}
+# the large path's launches by branch
+flux_histogram.launches_by_branch = {"cluster": 0, "global": 0}
+flux_histogram.launches_by_branch_f64 = {"cluster": 0, "global": 0}
 
 
 class FluxHistogramFn(torch.autograd.Function):
@@ -223,14 +294,15 @@ class FluxHistogramFn(torch.autograd.Function):
     gradient."""
 
     @staticmethod
-    def forward(ctx, ids, w, n_prims, path):
+    def forward(ctx, ids, w, n_prims, path, branch):
         ctx.save_for_backward(ids)
-        return _histogram(ids, w, n_prims, path)
+        return _histogram(ids, w, n_prims, path, branch)
 
     @staticmethod
     def backward(ctx, grad_out):
         (ids,) = ctx.saved_tensors
-        return None, flux_histogram_grad(grad_out.contiguous(), ids), None, None
+        return (None, flux_histogram_grad(grad_out.contiguous(), ids), None,
+                None, None)
 
 
 def flux_histogram_grad_ref(grad_out, ids):
