@@ -7,8 +7,9 @@ Run from the repository root on a machine with one NVIDIA Hopper card:
                               --disk1m]
                              [--unfused] [--profile FILE]
     python3 chip_diagnose.py --groups | --paths | --grad | --f64 | --grid |
-                             --resort
-    python3 chip_diagnose.py [--grid | --resort] --launch-times TREE ...
+                             --resort | --small-sweep
+    python3 chip_diagnose.py [--grid | --resort | --paths] --launch-times
+                             TREE ...
 
 It builds a tracer of ``chip_smoke.py`` (same geometry, particle, seed and
 batch; the default tracer, whose body is the fused bounce kernel): the
@@ -63,10 +64,16 @@ walk instead (``GRID_TIMES``: the grid kernel at 2^20 source rays and kernel
 the 36,000 triangles, then two applies of disk1m with its grid and its
 kernel spans); with ``--resort``, the state's permutation at the resort
 path's six shapes beside its plain version and the ``index_select`` calls,
-and the compaction's own takes at three widths (``PERMUTE_TIMES``), after
-``cuobjdump -sass`` of each tree's ``permute.cu``
-(``build/sass/permute_<n>.sass``, and the global loads and stores of its
-kernels).
+the compaction's own takes at three widths, and the coherence key at the
+same widths (2^20, 2^18 and 2^16 lanes, 8 and 32 bins) on the device alone
+and as the host issues it (``PERMUTE_TIMES``), after ``cuobjdump -sass`` of
+each tree's ``permute.cu`` (``build/sass/permute_<n>.sass``, and the global
+loads and stores of its kernels); with ``--paths``, kernel 2 (``HIST_TIMES``:
+every path and branch of each tree at the main path's shapes, the small
+path's shapes in both types and the entries around ``SMALL_ENTRIES`` up to
+196,608, on the device alone beside ``index_add_``, with the host's time to
+issue a call of each path; then six applies' flux digests), after the
+SASS of each tree's ``flux_histogram.cu``.
 
 ``python3 chip_diagnose.py --grad`` times the differentiable trace
 (``viennaray_tpu_torch.diff``) as ``chip_smoke.py``'s ``phase_grad_paths``
@@ -85,8 +92,12 @@ flagship, the line configuration and the 18,180-disk trench, in two rounds of
 alternating order, one process: the measurement behind
 ``ops/bounce.py:group_for``. ``--paths`` times the histogram kernel's
 two paths beside one ``index_add_`` call at numbers of entries from 2,048 to
-2^20 on the flagship's 2,993 bins: the measurement behind
-``ops/histogram.py:SMALL_ENTRIES``.
+2^20 on the flagship's 2,993 bins, as the host issues them.
+``--small-sweep`` times the small path at every cluster size C = 1 to 16 on
+copies of this tree (``build/small_sweep/c<C>``, each whose rule takes its
+C), at 512 to 24,575 entries on 2,993 and 18,180 bins in float32 and
+float64, beside ``index_add_``: the measurement behind
+``csrc/histogram_cluster.cuh:small_cluster_shift``.
 
 In the default mode the fused body's ``kernel_spans`` run twice more on fresh
 tracers (so on the same rays as each other), with every launch of the bounce
@@ -602,26 +613,20 @@ with contextlib.redirect_stdout(io.StringIO()):
 print(json.dumps(out), flush=True)
 """
 
-# run as ``python3 -c PERMUTE_TIMES tree``: the state's permutation at the
-# shapes of ``chip_smoke.py``'s resort path, by the tree's own check; then
-# the compaction's own takes (the survivors of a state a third dead, by the
-# coherence key at 8 bins, the first half of the lanes) at three widths,
-# five samples of 200 launches each against the eight ``index_select`` in
-# turns: ``ms`` as the host launches them, ``device_ms`` with 50 launches
-# queued behind a sleep of the stream first, so that the events time the
-# device alone (at narrow widths launching takes the host longer than the
-# kernel takes the card)
-PERMUTE_TIMES = """
-import contextlib, io, json, os, sys
+# the head of the tree scripts below: the tree's own modules first on the
+# path, its kernels built, and ``device_ms``, which times calls on the device
+# alone (the launches queued behind a sleep of the stream, about 50 ms:
+# issuing a narrow call can take the host longer than its kernels take the
+# card). A tree script runs on any tree, the parent's too, which may lack a
+# helper of this file, so the helper travels in the script.
+TREE_PREAMBLE = """
+import contextlib, hashlib, inspect, io, json, os, sys, time
 root = os.path.abspath(sys.argv[1])
 sys.path.insert(0, root)
 os.chdir(root)
 import torch
 import chip_smoke as cs
 from viennaray_tpu_torch import _build
-from viennaray_tpu_torch.geometry.triangle_geometry import TriangleGeometry
-from viennaray_tpu_torch.io import fixtures
-from viennaray_tpu_torch.ops import permute as PM
 _build.library()
 
 
@@ -639,10 +644,29 @@ def device_ms(fn, reps):
     return a.elapsed_time(b) / reps
 
 
-lines = [l.strip() for l in _build.build_log.splitlines()]
-out = {"tree": sys.argv[1], "ptxas": [
-    l for i, l in enumerate(lines) if "permute_state" in l
-    or any("permute_state" in p for p in lines[max(i - 2, 0):i])]}
+def ptxas(name):
+    lines = [l.strip() for l in _build.build_log.splitlines()]
+    return [l for i, l in enumerate(lines) if name in l
+            or any(name in p for p in lines[max(i - 2, 0):i])]
+"""
+
+# run as ``python3 -c PERMUTE_TIMES tree``: the state's permutation at the
+# shapes of ``chip_smoke.py``'s resort path, by the tree's own check; then
+# the compaction's own takes (the survivors of a state a third dead, by the
+# coherence key at 8 bins, the first half of the lanes) at three widths,
+# five samples of 200 launches each against the eight ``index_select`` in
+# turns: ``ms`` as the host launches them, ``device_ms`` with 50 launches
+# on the device alone; then the coherence key at the same three widths, 8
+# and 32 bins (float64 at 2^20 lanes), five samples each on the device
+# alone and as the host issues it, and the keys' digests (the trees must
+# agree)
+PERMUTE_TIMES = TREE_PREAMBLE + """
+from viennaray_tpu_torch.geometry.triangle_geometry import TriangleGeometry
+from viennaray_tpu_torch.io import fixtures
+from viennaray_tpu_torch.ops import permute as PM
+
+out = {"tree": sys.argv[1], "ptxas": ptxas("permute_state")
+       + ptxas("coherence_key")}
 mesh = TriangleGeometry.build(*fixtures.create_trench_mesh_3d(**cs.FLAGSHIP),
                               cs.FLAGSHIP["grid_delta"])
 box = cs.adjusted_bbox(mesh)
@@ -677,56 +701,43 @@ with contextlib.redirect_stdout(io.StringIO()):
                 res["device_ms"].append(device_ms(kernel, 50))
                 res["library_device_ms"].append(device_ms(library, 50))
             out[f"{dtype}_compaction{width}_aux2"] = res
+            for dirbins in (8, 32):
+                if dtype == torch.float64 and (width < n or dirbins == 8):
+                    continue
+                args = (state.org, state.dirn, state.alive, lo, ext, dirbins)
+                keyed = PM.coherence_key(*args)
+                call = lambda: PM.coherence_key(*args)
+                res = {"device_ms": [device_ms(call, 50) for _ in range(5)],
+                       "issued_ms": [cs.time_cuda(call, 200)
+                                     for _ in range(5)],
+                       "equal_plain": bool(torch.equal(
+                           keyed, PM.coherence_key_ref(*args))),
+                       "digest": hashlib.sha256(keyed.cpu().numpy()
+                                                .tobytes()).hexdigest()[:16],
+                       "bound_ms": width * (6 * (8 if dtype == torch.float64
+                                                 else 4) + 5) / 3.35e9}
+                out[f"{dtype}_key{width}_dirbins{dirbins}"] = res
 print(json.dumps(out), flush=True)
 """
 
 
-# run as ``python3 -c HIST_TIMES tree``: kernel 2's large path at the main
-# path's shapes on inputs made here (the same in every tree), timed on the
-# device alone (launches queued behind a sleep of the stream): the large
-# path, each of its branches the tree has, the one-block path where the bins
-# fit, and index_add_,
-# five samples each in turns; the digest of each output (the trees' bits
-# must agree) and whether every branch gives them; then the flagship's,
-# disk18k's and disk1m's applies (a warm-up and two timed), seconds and flux
-# digests; the host's time to launch a call. Arguments after the tree: the
-# shapes to run (and "applies"), by default all
-HIST_TIMES = """
-import contextlib, hashlib, inspect, io, json, os, sys, time
-root = os.path.abspath(sys.argv[1])
-sys.path.insert(0, root)
-os.chdir(root)
-import torch
-import chip_smoke as cs
-from viennaray_tpu_torch import _build
-from viennaray_tpu_torch.bench import perf_sweep
-from viennaray_tpu_torch.geometry.disk_geometry import DiskGeometry
-from viennaray_tpu_torch.io import fixtures
-from viennaray_tpu_torch.ops import histogram as H
-_build.library()
-lines = [l.strip() for l in _build.build_log.splitlines()]
-out = {"tree": sys.argv[1], "ptxas": [
-    l for i, l in enumerate(lines) if "histogram" in l
-    or any("histogram" in p for p in lines[max(i - 2, 0):i])]}
+# the small path's shapes: E entries on n bins (the sweep of C, and the
+# threshold of entries between the two paths)
+SMALL_SHAPES = tuple((e, n) for n in (2993, 18180)
+                     for e in (512, 6144, 12288, 24575))
+THRESHOLD_ENTRIES = (24575, 32768, 49152, 65536, 98304, 114688, 131072,
+                     196608)
+
+# kernel 2's inputs in the tree scripts: one bounce's deposits as
+# chip_smoke.py:make_deposits makes them, the slots a ray an argument (the
+# flagship's neighbours where given), the same in every tree
+DEPOSITS = f"""
+SMALL_SHAPES = {SMALL_SHAPES!r}
+THRESHOLD_ENTRIES = {THRESHOLD_ENTRIES!r}
 dev = torch.device("cuda")
-branches = "branch" in inspect.signature(H.flux_histogram).parameters
 
 
-def device_ms(fn, reps):
-    fn()
-    torch.cuda.synchronize()
-    a = torch.cuda.Event(enable_timing=True)
-    b = torch.cuda.Event(enable_timing=True)
-    torch.cuda._sleep(100_000_000)  # about 50 ms: longer than the launches
-    a.record()
-    for _ in range(reps):
-        fn()
-    b.record()
-    torch.cuda.synchronize()
-    return a.elapsed_time(b) / reps
-
-
-def deposits(n_rays, n_bins, slots, seed, nbrs=None):
+""" + """def deposits(n_rays, n_bins, slots, seed, nbrs=None):
     # chip_smoke.py:make_deposits, with the slots a ray as an argument
     gen = torch.Generator(device=dev)
     gen.manual_seed(seed)
@@ -750,6 +761,29 @@ def digest(t):
     return hashlib.sha256(t.cpu().numpy().tobytes()).hexdigest()[:16]
 
 
+"""
+
+# run as ``python3 -c HIST_TIMES tree``: kernel 2 at the main path's shapes
+# on inputs made here (the same in every tree), timed on the device alone:
+# the large path, each of its branches the tree has, the small path where
+# the bins fit, and index_add_, five samples each in turns; the digest of
+# each output (the trees' bits must agree) and whether every branch gives
+# them; the host's time to issue one call of either path (the queue behind
+# a sleep, so the device never holds the host back) and the calls' time as
+# the host issues them back to back; then the flagship's, disk18k's and
+# disk1m's applies and the unfused disk, triangle and float64 disk traces (a
+# warm-up and two timed), seconds, flux digests and kernel 2's launches by
+# path.
+# Arguments after the tree: the shapes to run (and "applies"), by default
+# all
+HIST_TIMES = TREE_PREAMBLE + DEPOSITS + """
+from viennaray_tpu_torch.bench import perf_sweep
+from viennaray_tpu_torch.geometry.disk_geometry import DiskGeometry
+from viennaray_tpu_torch.io import fixtures
+from viennaray_tpu_torch.ops import histogram as H
+
+out = {"tree": sys.argv[1], "ptxas": ptxas("histogram")}
+branches = "branch" in inspect.signature(H.flux_histogram).parameters
 pts, nrm = fixtures.create_trench_grid_3d(**cs.FLAGSHIP)
 geo = DiskGeometry.build(pts, nrm, cs.FLAGSHIP["grid_delta"])
 nbrs = geo.neighbors
@@ -768,9 +802,17 @@ shapes = {
     "f64_flagship": (1 << 19, 2993, 12, nbrs, None, F64),
     "f64_disk18k": (1 << 19, 18180, 12, None, None, F64),
 }
+# the small path's shapes in both types, and the threshold's on 2,993 bins
+for dtype, tag in ((torch.float32, ""), (F64, "f64_")):
+    for e, n in SMALL_SHAPES:
+        shapes[f"{tag}small_E{e}_n{n}"] = (
+            -(-e // 12), n, 12, nbrs if n == 2993 else None, e, dtype)
+for e in THRESHOLD_ENTRIES:
+    shapes[f"threshold_E{e}"] = (-(-e // 12), 2993, 12, nbrs, e,
+                                 torch.float32)
 only = sys.argv[2:]  # names of shapes (and "applies") to run; default all
 for name, (rays, n, slots, nb, cut, dtype) in shapes.items():
-    if only and name not in only:
+    if only and not any(name.startswith(o) for o in only):
         continue
     ids, w = deposits(rays, n, slots, 11, nb)
     if cut is not None:
@@ -798,6 +840,9 @@ for name, (rays, n, slots, nb, cut, dtype) in shapes.items():
            "nonzero": float((w != 0).float().mean()), "digest": digest(want),
            "max_abs_err": float((want - ref).abs().max()), "tolerance": tol,
            "all_equal": all(equal.values()), "equal": equal,
+           "path_for": H.path_for(ids.numel(), n, dtype),
+           "small_cluster_for": H.small_cluster_for(n, dtype)
+           if hasattr(H, "small_cluster_for") else None,
            "cluster_for": H.cluster_for(n, dtype) if branches else None,
            "branch_for": H.branch_for(ids.numel(), n, dtype, H._sm_count(0))
            if branches else None}
@@ -809,44 +854,147 @@ for name, (rays, n, slots, nb, cut, dtype) in shapes.items():
         for k in (list(calls) if r % 2 == 0 else list(calls)[::-1]):
             ms[k].append(device_ms(calls[k], reps))
     res["ms"] = ms
-    # the host's time to launch one call of the default path (the queue
-    # behind a sleep, so the device never holds the host back)
-    torch.cuda.synchronize()
-    torch.cuda._sleep(200_000_000)
-    t0 = time.perf_counter()
-    for _ in range(50):
-        calls["large"]()
-    res["host_ms"] = (time.perf_counter() - t0) / 50 * 1e3
-    torch.cuda.synchronize()
+    res["host_ms"], res["issued_ms"] = {}, {}
+    for k in ("small", "large"):
+        if k not in calls:
+            continue
+        torch.cuda.synchronize()
+        torch.cuda._sleep(200_000_000)
+        t0 = time.perf_counter()
+        for _ in range(50):
+            calls[k]()
+        res["host_ms"][k] = (time.perf_counter() - t0) / 50 * 1e3
+        torch.cuda.synchronize()
+        res["issued_ms"][k] = [cs.time_cuda(calls[k], 200) for _ in range(3)]
     out[name] = res
     del ids, w, ids64, want, ref
     torch.cuda.empty_cache()
+verts, tris = fixtures.create_trench_mesh_3d(**cs.FLAGSHIP)
+# (make the tracer, the float64 trace through trace_batch's unfused body or
+# None for the tracer's apply): the fused flagships, and the unfused bodies
+# at chip_smoke.py's rays, whose narrow bounces take the small path
 makes = {} if only and "applies" not in only else {
-    "flagship": lambda: cs.make_tracer(pts, nrm),
-    "disk18k": lambda: perf_sweep.make_tracer("disk18k", None),
-    "disk1m": lambda: perf_sweep.make_tracer("disk1m", None),
+    "flagship": (lambda: cs.make_tracer(pts, nrm), None),
+    "disk18k": (lambda: perf_sweep.make_tracer("disk18k", None), None),
+    "disk1m": (lambda: perf_sweep.make_tracer("disk1m", None), None),
+    "flagship_unfused": (lambda: cs.make_tracer(
+        pts, nrm, rays_per_point=500, fused=False), None),
+    "triangles_unfused": (lambda: cs.make_tri_tracer(
+        verts, tris, rays_per_point=250, fused=False), None),
+    "flagship_unfused_f64": (lambda: cs.make_tracer(
+        pts, nrm, rays_per_point=500, fused=False), F64),
 }
 with contextlib.redirect_stdout(io.StringIO()):
-    for name, make in makes.items():
+    for name, (make, dtype) in makes.items():
         tracer = make()
         tracer.apply()  # warm-up
         runs = []
         for _ in range(2):
-            H.flux_histogram.launches_by_path.update(small=0, large=0)
+            for counts in (H.flux_histogram.launches_by_path,
+                           H.flux_histogram.launches_by_path_f64):
+                counts.update(small=0, large=0)
             torch.cuda.synchronize()
             t0 = time.perf_counter()
-            flux = tracer.apply()
+            if dtype is None:
+                flux = tracer.apply()
+            else:
+                flux = cs.trace_unfused(tracer, dtype)[0]
             torch.cuda.synchronize()
             runs.append({"seconds": time.perf_counter() - t0,
                          "flux_digest": hashlib.sha256(
                              flux.tobytes()).hexdigest()[:16],
                          "histogram_launches": dict(
-                             H.flux_histogram.launches_by_path)})
+                             H.flux_histogram.launches_by_path),
+                         "histogram_launches_f64": dict(
+                             H.flux_histogram.launches_by_path_f64)})
         out["apply_" + name] = runs
         del tracer
         torch.cuda.empty_cache()
 print(json.dumps(out), flush=True)
 """
+
+
+# run as ``python3 -c SMALL_SWEEP tree``: the small path alone at
+# ``SMALL_SHAPES`` in float32 and float64, on the tree's C, five samples on
+# the device alone in turns with index_add_; each output's digest (every C
+# must give the same bits) and whether it keeps the plain version's
+# tolerance
+SMALL_SWEEP = TREE_PREAMBLE + DEPOSITS + """
+from viennaray_tpu_torch.geometry.disk_geometry import DiskGeometry
+from viennaray_tpu_torch.io import fixtures
+from viennaray_tpu_torch.ops import histogram as H
+
+out = {"tree": sys.argv[1], "ptxas": ptxas("small_cluster")}
+nbrs = DiskGeometry.build(*fixtures.create_trench_grid_3d(**cs.FLAGSHIP),
+                          cs.FLAGSHIP["grid_delta"]).neighbors
+for dtype in (torch.float32, torch.float64):
+    for e, n in SMALL_SHAPES:
+        ids, w = deposits(-(-e // 12), n, 12, 11, nbrs if n == 2993 else None)
+        ids, w = ids[:e].contiguous(), w[:e].to(dtype).contiguous()
+        ids64 = ids.long()
+        calls = {
+            "small": lambda: H.flux_histogram(ids, w, n, path="small"),
+            "index_add_": lambda: torch.zeros(
+                n, dtype=dtype, device=dev).index_add_(0, ids64, w)}
+        got = calls["small"]()
+        ref = H.flux_histogram_ref(ids, w, n)
+        tol = 0.0 if dtype == torch.float64 else float(
+            ref.abs().max()) * 2.0 ** -22
+        ms = {k: [] for k in calls}
+        for r in range(5):
+            for k in (list(calls) if r % 2 == 0 else list(calls)[::-1]):
+                ms[k].append(device_ms(calls[k], 50))
+        out[f"{str(dtype)[6:]}_E{e}_n{n}"] = {
+            "digest": digest(got), "within_tolerance":
+                float((got - ref).abs().max()) <= tol, "ms": ms}
+print(json.dumps(out), flush=True)
+"""
+
+
+def small_sweep(rounds=2):
+    """The small path's C swept: for each C = 2^s, a copy of this tree in
+    ``build/small_sweep/c<C>`` whose ``small_cluster_shift`` takes that C
+    (or the smallest above it whose slices fit), all built at once, then
+    ``SMALL_SWEEP`` on each copy, one process each, ``rounds`` rounds whose
+    order alternates: the measurement behind
+    ``csrc/histogram_cluster.cuh:small_cluster_shift``. The copies hold no
+    switch: each is its own tree."""
+    import shutil
+
+    here = os.path.dirname(os.path.abspath(__file__))
+    trees = []
+    for s in range(5):
+        tree = os.path.join(here, "build", "small_sweep", f"c{1 << s}")
+        shutil.rmtree(tree, ignore_errors=True)
+        os.makedirs(tree)
+        for name in ("chip_smoke.py", "chip_diagnose.py"):
+            shutil.copy(os.path.join(here, name), tree)
+        shutil.copytree(os.path.join(here, "viennaray_tpu_torch"),
+                        os.path.join(tree, "viennaray_tpu_torch"),
+                        ignore=shutil.ignore_patterns("__pycache__"))
+        header = os.path.join(tree, "viennaray_tpu_torch", "csrc",
+                              "histogram_cluster.cuh")
+        with open(header) as f:
+            text = f.read()
+        rule = re.compile(r"(inline int small_cluster_shift\([^)]*\) \{)"
+                          r".*?(\n  return )", re.S)
+        text, found = rule.subn(
+            r"\1\n  int c = " + str(s) + r";\n  while (c < kMaxClusterShift"
+            r" && slice_bins(n_bins, c) * words * 8 > kSliceBytes) ++c;\2",
+            text)
+        if found != 1:
+            raise RuntimeError("small_cluster_shift not found in " + header)
+        with open(header, "w") as f:
+            f.write(text)
+        trees.append(tree)
+    build = "import sys; sys.path.insert(0, sys.argv[1]); " \
+            "from viennaray_tpu_torch import _build; _build.library()"
+    procs = [subprocess.Popen([sys.executable, "-c", build, tree])
+             for tree in trees]
+    if any(p.wait() for p in procs):
+        raise RuntimeError("a copy's kernels did not build")
+    for r in range(rounds):
+        launch_times(trees if r % 2 == 0 else trees[::-1], SMALL_SWEEP)
 
 
 def launch_times(trees, script=None, *args):
@@ -1170,6 +1318,11 @@ def main(argv=None):
              "number of entries",
     )
     parser.add_argument(
+        "--small-sweep", action="store_true",
+        help="with --paths: time the small path at every cluster size C on "
+             "copies of this tree, each built with its C",
+    )
+    parser.add_argument(
         "--grad", action="store_true",
         help="only time and profile the gradient paths",
     )
@@ -1267,6 +1420,9 @@ def main(argv=None):
     if args.grid:
         grid_crossover(args.repeats)
         grid_disk1m(args.repeats)
+        return 0
+    if args.small_sweep:
+        small_sweep()
         return 0
     if args.groups or args.paths:
         if args.groups:

@@ -11,8 +11,8 @@ It imports only ``viennaray_tpu_torch`` and, in order:
    versions, and asserts that TF32 matrix products are off;
 2. builds the CUDA kernels from ``viennaray_tpu_torch/csrc`` with ``nvcc``,
    prints the registers and spills of kernel 4's grid search, the grid
-   kernel, the permutation and kernel 2's large path, and fails on a spill
-   in any of them;
+   kernel, the permutation, the resort's key and kernel 2's two paths, and
+   fails on a spill in any of them;
 3. holds each kernel against its plain PyTorch version on the card, at the
    shapes the configurations give it: 2,993 disks, 5,760 triangles and 782
    line segments (and at the 18,180-disk and 9,000-triangle trenches, and
@@ -30,14 +30,16 @@ It imports only ``viennaray_tpu_torch`` and, in order:
    (aimed a hair inside and outside disk rims and triangle edges, a quarter
    grazing), hit, prim and t bit for bit, and past 2^27 rays (where the
    warp per ray's thread index passes 2^32) at both ends of the batch; the
-   histogram kernel's one-block path and its large path's cluster and
-   global branches bit for bit against each other wherever the input admits
-   them (one entry either side of the paths' threshold too; 2,993, 18,180
-   and 300,000 bins, where the cluster takes 16 blocks, and disk1m's shape,
-   45,088,768 entries on 704,250 bins; float64 on 2,993 and 18,180 bins);
-   and times kernel (the histogram on the device alone, each branch),
-   plain version and, for the histogram, one ``index_add_`` call (at 6,144,
-   65,536, 2^20 and 12,582,912 entries);
+   histogram kernel's small path (one launch of one thread-block cluster)
+   and its large path's cluster and global branches bit for bit against
+   each other wherever the input admits them (one entry either side of the
+   paths' threshold too; 2,993, 18,180 and 300,000 bins, where the cluster
+   takes 16 blocks, and disk1m's shape, 45,088,768 entries on 704,250 bins;
+   the small path's shapes, 6,144 entries and one below the threshold, on
+   2,993 and 18,180 bins; float64 on 2,993 and 18,180 bins); and times
+   kernel (the histogram on the device alone, each branch), plain version
+   and, for the histogram, one ``index_add_`` call (at 6,144, 65,536, 2^20
+   and 12,582,912 entries);
 4. drives the flagship through the default ``TraceDisk`` (the fused bounce
    kernel): 2,993 disks, 2,000 rays per point, periodic walls, diffuse
    particle with sticking 0.1, seed 42, mega-batches of 2^20 rays; checks the
@@ -156,7 +158,9 @@ It imports only ``viennaray_tpu_torch`` and, in order:
 16. right after the flagships' fused and unfused paths, the per-bounce
     coherence resort (``phase_resort_path``; the tracers run it only when
     asked, ``bounce_sort=True``): the resort's key (``vr_coherence_key``) at
-    8, 32 and 64 direction bins and the state's permutation
+    8, 32 and 64 direction bins (also at 2^20 - 3 lanes, past the last quad
+    of four, and on a state viewed at an offset of one lane, whose arrays
+    are not aligned for the quads) and the state's permutation
     (``vr_permute_state``) with and without an aux of two columns, taking
     2^20 and 2^19 lanes, each at 2^20 lanes against its plain version bit
     for bit in float32 and float64, timed beside its bytes bound (the
@@ -308,12 +312,15 @@ def ptxas_kernels(log):
 
 
 # the kernels whose registers and spills the build's line reports by name:
-# kernel 4 with the grid search, the grid kernel, the permutation and kernel
-# 2's large path
+# kernel 4 with the grid search, the grid kernel, the permutation, the
+# resort's key and kernel 2's two paths (the large path's launch B, the
+# small path's one cluster)
 WATCHED_KERNELS = {"kernel4_grid": ("bounce_grid_kernel",),
                    "grid_hit": ("grid_hit_kernel",),
                    "permute_state": ("permute_state_kernel",),
-                   "histogram_cluster": ("cluster_histogram_kernel",)}
+                   "coherence_key": ("coherence_key_kernel",),
+                   "histogram_cluster": ("cluster_histogram_kernel",),
+                   "histogram_small": ("small_cluster_histogram_kernel",)}
 BUILD_REGISTERS = {}  # phase_build's report of WATCHED_KERNELS
 
 
@@ -610,8 +617,8 @@ def check_histogram(geometry, n_rays, n_bins, reps, n_entries=None,
     """Kernel 2 on one bounce's worth of deposits (the first ``n_entries``
     of them where given; ``slots`` as ``make_deposits``) against its plain
     version, on the path and branch the wrapper picks; every other branch
-    the input admits (the one-block path, the large path's cluster branch,
-    its global branch) must give the same bits. Times each on the device
+    the input admits (the small path, the large path's cluster branch, its
+    global branch) must give the same bits. Times each on the device
     alone, the plain version and one ``index_add_`` call. ``dtype``
     float64: the float64 form on the weights widened, held bit for bit to
     its plain version (the same integer sums)."""
@@ -662,6 +669,7 @@ def check_histogram(geometry, n_rays, n_bins, reps, n_entries=None,
         "shape": f"E={ids.numel()}, n={n_bins}, "
                  f"nonzero={float((w != 0).float().mean()):.3f}",
         "path": path, "branch": branch, "cluster": cluster,
+        "small_cluster": H.small_cluster_for(n_bins, dtype),
         "threshold": H.SMALL_ENTRIES,
         "tolerance": "bit for bit against the plain version (the same "
                      "integer sums of two fixed-point words an entry) and "
@@ -2441,14 +2449,17 @@ def phase_f64_paths(pts, nrm, verts, tris):
     """Float64 tracing: the float64 forms of kernels 1, 3, the line search,
     kernel 2 (both paths) and its backward against their plain versions bit
     for bit at 2^20 source rays and 512 (kernel 2 at 2^19 x 12 and 6,144
-    entries); the disk flagship (500 rays per point), the triangle flagship
-    (250 per triangle) and the lines (500 per segment) through
-    ``trace_batch``'s unfused body in float64 beside float32; ``grad_1e7``
-    in float64 against ``grad3d_trench_jax``; the normals' finite
-    differences at full width. Returns (kernel results, launches by path)."""
+    entries, and on the small path one entry below its threshold and 6,144
+    entries on 18,180 bins); the disk flagship (500 rays per point), the
+    triangle flagship (250 per triangle) and the lines (500 per segment)
+    through ``trace_batch``'s unfused body in float64 beside float32;
+    ``grad_1e7`` in float64 against ``grad3d_trench_jax``; the normals'
+    finite differences at full width. Returns (kernel results, launches by
+    path)."""
     from viennaray_tpu_torch.geometry.disk_geometry import DiskGeometry
     from viennaray_tpu_torch.geometry.line_geometry import LineGeometry
     from viennaray_tpu_torch.geometry.triangle_geometry import TriangleGeometry
+    from viennaray_tpu_torch.ops import histogram as H
 
     geometry = DiskGeometry.build(pts, nrm, FLAGSHIP["grid_delta"])
     bbox = adjusted_bbox(geometry)
@@ -2473,11 +2484,18 @@ def phase_f64_paths(pts, nrm, verts, tris):
     }
     kernels["histogram"] = check_histogram(geometry, 1 << 19, len(pts),
                                            reps=50, dtype=F64)
-    # disk18k's bins: the cluster branch at C = 2 in float64
+    # disk18k's bins: the cluster branch at C = 16 in float64
     kernels["histogram_18180"] = check_histogram(geometry, 1 << 19, 18180,
                                                  reps=20, dtype=F64)
     narrow["histogram"] = check_histogram(geometry, 512, len(pts), reps=200,
                                           dtype=F64)
+    # the small path's other shapes in float64: one entry below the
+    # threshold, and 6,144 entries on disk18k's bins
+    narrow["histogram_threshold"] = check_histogram(
+        geometry, 1 << 19, len(pts), reps=100, dtype=F64,
+        n_entries=H.SMALL_ENTRIES - 1)
+    narrow["histogram_18180"] = check_histogram(geometry, 512, 18180,
+                                                reps=200, dtype=F64)
     kernels["histogram_grad"] = check_histogram_grad(geometry, 1 << 19,
                                                      reps=50, dtype=F64)
     narrow["histogram_grad"] = check_histogram_grad(geometry, 512, reps=200,
@@ -2596,9 +2614,14 @@ def f64_kernel_entries(results, narrow, launches, keys):
             **{k: results[key][k] for k in keys},
             "narrow": {k: narrow[key][k] for k in keys},
         })
-    # kernel 2's float64 form on disk18k's bins (its cluster branch, C = 2)
+    # kernel 2's float64 form on disk18k's bins (its cluster branch, C = 16),
+    # and its small path's other shapes
     entries[3]["n_18180"] = {k: results["histogram_18180"][k]
                              for k in keys + ("branch", "ms_by_branch")}
+    for name in ("histogram_threshold", "histogram_18180"):
+        entries[3]["narrow_" + name] = {
+            k: narrow[name][k] for k in keys + ("path", "small_cluster",
+                                                "ms_by_branch")}
     return entries
 
 
@@ -3218,32 +3241,38 @@ def resort_state(geometry, bbox, n, dtype, seed):
     return state, aux
 
 
-def check_coherence_key(geometry, bbox, dtype, dirbins):
-    """The resort's key kernel against its plain version at 2^20 lanes, bit
-    for bit, timed; the bound is its bytes (org and dir read, alive read,
-    the key written)."""
+def check_coherence_key(geometry, bbox, dtype, dirbins, lanes=RESORT_LANES,
+                        offset=0):
+    """The resort's key kernel against its plain version on ``lanes`` lanes
+    (2^20 by default), bit for bit, timed on the device alone (``ms``) and
+    as the host issues it (``issued_ms``); the bound is its bytes (org and
+    dir read, alive read, the key written). ``offset``: the state made
+    ``offset`` lanes longer and viewed from that lane on, so that its arrays
+    are not aligned for the kernel's quads of lanes."""
     from viennaray_tpu_torch.ops import permute as PM
 
-    state, _ = resort_state(geometry, bbox, RESORT_LANES, dtype, seed=31)
+    state, _ = resort_state(geometry, bbox, lanes + offset, dtype, seed=31)
     lo = bbox[0].to(dtype).contiguous()
     ext = torch.clamp(bbox[1] - bbox[0], min=1e-6).to(dtype).contiguous()
-    args = (state.org, state.dirn, state.alive, lo, ext, dirbins)
+    args = (state.org[offset:], state.dirn[offset:], state.alive[offset:],
+            lo, ext, dirbins)
     got = PM.coherence_key(*args)
     want = PM.coherence_key_ref(*args)
     torch.cuda.synchronize()
     equal = bool(torch.equal(got, want))
     word = 8 if dtype == F64 else 4
-    n_bytes = RESORT_LANES * (6 * word + 1 + 4)
+    n_bytes = lanes * (6 * word + 1 + 4)
     res = {
         "phase": "kernel_check",
         "kernel": "coherence_key" + ("_f64" if dtype == F64 else ""),
-        "shape": f"R={RESORT_LANES}, dirbins={dirbins}, "
+        "shape": f"R={lanes}, offset={offset}, dirbins={dirbins}, "
                  f"{geometry.kind}s' box",
         "tolerance": "keys equal bit for bit",
         "bitwise_equal": equal,
         "max_abs_err": float((got - want).abs().max()),
         "distinct_keys": int(torch.unique(got).numel()),
-        "ms": time_cuda(lambda: PM.coherence_key(*args), RESORT_REPS),
+        "ms": device_ms(lambda: PM.coherence_key(*args), RESORT_REPS),
+        "issued_ms": time_cuda(lambda: PM.coherence_key(*args), RESORT_REPS),
         "plain_ms": time_cuda(lambda: PM.coherence_key_ref(*args),
                               RESORT_REPS),
         "bound_ms": n_bytes / HBM_BYTES_PER_S * 1e3, "bound_by": "bytes",
@@ -3378,6 +3407,11 @@ def phase_resort_path(pts, nrm, verts, tris, disk_launches, tri_launches):
         for dirbins in (8, 32, 64):
             results[("key", dtype, dirbins)] = check_coherence_key(
                 mesh, box, dtype, dirbins)
+            # lanes past the last quad of four; a view at an offset
+            results[("key_tail", dtype, dirbins)] = check_coherence_key(
+                mesh, box, dtype, dirbins, lanes=RESORT_LANES - 3)
+            results[("key_offset", dtype, dirbins)] = check_coherence_key(
+                mesh, box, dtype, dirbins, offset=1)
         for n_take, with_aux in ((RESORT_LANES, False), (RESORT_LANES, True),
                                  (RESORT_LANES // 2, True)):
             results[("permute", dtype, n_take, with_aux)] = (
@@ -3480,8 +3514,10 @@ def resort_kernel_entries(results, paths, keys):
     for name, replaces, res, res64, more in (
         ("coherence_key", "viennaray_tpu/trace/kernel.py:397",
          results[("key", torch.float32, 32)], results[("key", F64, 32)],
-         {f"dirbins_{d}": results[("key", torch.float32, d)]
-          for d in (8, 64)}),
+         {**{f"dirbins_{d}": results[("key", torch.float32, d)]
+             for d in (8, 64)},
+          "tail": results[("key_tail", torch.float32, 32)],
+          "offset": results[("key_offset", torch.float32, 32)]}),
         ("permute_state", "viennaray_tpu/trace/kernel.py:431",
          results[("permute", torch.float32, RESORT_LANES, False)],
          results[("permute", F64, RESORT_LANES, False)],
@@ -3539,10 +3575,15 @@ def main():
     hist_mid = check_histogram(geometry, 1 << 20, len(pts), reps=200,
                                n_entries=65536)
     check_histogram(geometry, 1 << 20, len(pts), reps=100, n_entries=1 << 20)
-    for n_entries in (SMALL_ENTRIES - 1, SMALL_ENTRIES + 1):
-        check_histogram(geometry, 1 << 20, len(pts), reps=50,
-                        n_entries=n_entries)
+    hist_edge = {n_entries: check_histogram(geometry, 1 << 20, len(pts),
+                                            reps=50, n_entries=n_entries)
+                 for n_entries in (SMALL_ENTRIES - 1, SMALL_ENTRIES + 1)}
     hist_18k = check_histogram(geometry, 1 << 20, 18180, reps=20)
+    # the small path on disk18k's bins (the unfused body's narrow bounces
+    # there), at 6,144 entries and one below the threshold
+    hist_small_18k = check_histogram(geometry, 512, 18180, reps=200)
+    hist_edge_18k = check_histogram(geometry, 1 << 20, 18180, reps=50,
+                                    n_entries=SMALL_ENTRIES - 1)
     # the large path's cluster branch at C = 16 (300,000 bins, 18,750 a
     # block), and disk1m's shape on the global branch: 2^20 rays x (K + 1)
     # = 43 entries on 704,250 bins
@@ -3830,8 +3871,8 @@ def main():
                 "sharded": sharded_launches["flux_histogram"],
                 "sharded_grad": sharded_grad_launches["flux_histogram"],
             },
-            # two paths of one kernel (ops/histogram.py:path_for): one block
-            # below the threshold of entries, the whole card above it
+            # two paths of one kernel (ops/histogram.py:path_for): one
+            # cluster below the threshold of entries, the whole card above
             "paths": {"small": f"E < {SMALL_ENTRIES}", "large": "else"},
             **{k: hist_wide[k] for k in keys},
             # the large path's branches (ops/histogram.py:cluster_for): the
@@ -3839,8 +3880,16 @@ def main():
             "branches": {"cluster": "cluster_for(n) > 0", "global": "else"},
             "ms_by_branch": hist_wide["ms_by_branch"],
             **{name: {k: res[k] for k in keys + ("path", "branch",
+                                                "small_cluster",
                                                 "ms_by_branch")}
                for name, res in (("E_6144", hist_small),
+                                 (f"E_{SMALL_ENTRIES - 1}",
+                                  hist_edge[SMALL_ENTRIES - 1]),
+                                 (f"E_{SMALL_ENTRIES + 1}",
+                                  hist_edge[SMALL_ENTRIES + 1]),
+                                 ("E_6144_n_18180", hist_small_18k),
+                                 (f"E_{SMALL_ENTRIES - 1}_n_18180",
+                                  hist_edge_18k),
                                  ("E_65536", hist_mid),
                                  ("n_18180", hist_18k),
                                  ("n_300000", hist_c16),

@@ -296,7 +296,7 @@ def test_branch_for():
 def test_the_branch_argument():
     """``branch`` forces a branch of the large path, is checked, and on the
     CPU runs the plain version (the same bits)."""
-    ids, w = _deposits(30_000, 2993, seed=9)
+    ids, w = _deposits(H.SMALL_ENTRIES + 5000, 2993, seed=9)
     ref = H.flux_histogram_ref(ids, w, 2993)
     for branch in ("cluster", "global"):
         assert torch.equal(H.flux_histogram(ids, w, 2993, branch=branch), ref)

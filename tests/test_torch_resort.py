@@ -7,11 +7,12 @@ package's, on the CPU.
     so both resort), at 8, 32 and 64 direction bins, every bounce and every
     second one, and with a stateful hook whose aux must move with its lanes;
     the port without the resort must fail the same bound. (b) The key
-    against a numpy transcription of the JAX package's ``_coherence_key``,
-    and the permutation against per-array indexing. (c) The gate and the
-    direction bins. (d) The recorded digests and draw logs keep guarding the
-    path without the resort. (e) Same-seed applies and the sharded trace
-    with the resort on.
+    against a numpy transcription of the JAX package's ``_coherence_key``
+    and against that function itself past the kernel's quads of lanes and
+    on views at an offset, and the permutation against per-array indexing.
+    (c) The gate and the direction bins. (d) The recorded digests and draw
+    logs keep guarding the path without the resort. (e) Same-seed applies
+    and the sharded trace with the resort on.
 
 On the CPU the wrappers run their plain versions; the CUDA kernels
 (``csrc/permute.cu``) are held to them on the card by ``chip_smoke.py``.
@@ -20,6 +21,7 @@ On the CPU the wrappers run their plain versions; the CUDA kernels
 import dataclasses
 import types
 
+import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
@@ -202,6 +204,54 @@ def test_key_against_numpy_transcription(lanes, np_dtype, dirbins):
     assert got.dtype == torch.int32
     np.testing.assert_array_equal(got.numpy(), want)
     np.testing.assert_array_equal(P.coherence_key(*args).numpy(), want)
+
+
+def jax_coherence_key(lo, ext, dirbins):
+    """The JAX package's own ``_coherence_key`` (a closure of
+    ``trace_batch``, viennaray_tpu/trace/kernel.py:397-426), made from its
+    code object with this box and number of direction bins in its cells."""
+    code = next(c for c in ref_kernel.trace_batch.__code__.co_consts
+                if isinstance(c, types.CodeType)
+                and c.co_name == "_coherence_key")
+    cells = {"bbs_lo": jnp.asarray(lo), "bbs_ext": jnp.asarray(ext),
+             "dirbins": dirbins}
+    return types.FunctionType(
+        code, ref_kernel.__dict__, code.co_name, None,
+        tuple(types.CellType(cells[name]) for name in code.co_freevars))
+
+
+@pytest.mark.parametrize("dirbins", [8, 32, 64])
+@pytest.mark.parametrize("lanes, offset", [(4097, 0), (4098, 0), (4099, 0),
+                                           (4096, 1), (4099, 3)])
+def test_key_past_the_quads_and_at_an_offset(lanes, offset, dirbins):
+    """The key at R mod 4 = 1, 2, 3 (the kernel's lanes past its last quad
+    of four) and on a state viewed from lane 1 or 3 on (arrays not aligned
+    for the quads), against the JAX package's ``_coherence_key`` in
+    float32, bit for bit: the wrapper takes the views as they are."""
+    gen = np.random.default_rng(lanes + offset)
+    n = lanes + offset
+    lo = np.asarray(LO, np.float32)
+    ext = np.asarray(EXT, np.float32)
+    frac = gen.uniform(-0.05, 1.05, (n, 3)).astype(np.float32)
+    frac[::7] = np.asarray(FRACTIONS, np.float32)[gen.integers(0, 8, (
+        len(frac[::7]), 3))]
+    org = (lo + frac * ext).astype(np.float32)
+    dirn = gen.normal(size=(n, 3)).astype(np.float32)
+    dirn /= np.linalg.norm(dirn, axis=1, keepdims=True)
+    dirn[::5] = np.asarray(COMPONENTS, np.float32)[gen.integers(0, 8, (
+        len(dirn[::5]), 3))]
+    alive = gen.random(n) < 0.7
+    view = (torch.from_numpy(org)[offset:], torch.from_numpy(dirn)[offset:],
+            torch.from_numpy(alive)[offset:])
+    assert all(x.is_contiguous() and x.storage_offset() == offset * (
+        3 if x.ndim == 2 else 1) for x in view)
+    got = P.coherence_key(*view, torch.from_numpy(lo), torch.from_numpy(ext),
+                          dirbins)
+    want = jax_coherence_key(lo, ext, dirbins)(
+        jnp.asarray(org[offset:]), jnp.asarray(dirn[offset:]),
+        jnp.asarray(alive[offset:]))
+    assert got.shape == (lanes,)
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want))
 
 
 def _state(n, dtype, seed):

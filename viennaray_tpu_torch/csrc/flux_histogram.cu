@@ -47,24 +47,35 @@
 //   __threadfence(), and the last one converts the bins into out
 //   (finalize_kernel's conversion) and leaves the ticket at 0.
 //
-// Small calls: the large path's two launches cost some 0.006 ms whatever E
-// is, which is all the time of the unfused body's narrow bounces (a few
-// thousand entries). Below a threshold of entries that the wrapper holds
-// (ops/histogram.py:SMALL_ENTRIES), and where the bins fit in shared memory,
-// vr_flux_histogram_small does it all in one launch of one block: the
-// largest |w| with the same bits, its own shared bins, the same scale, the
-// same integer sums and the same final conversion, so both paths give the
-// same bits for the same input.
+// Small calls (vr_flux_histogram_small): the large path's two launches cost
+// some 0.011 ms whatever E is, about all the time of the unfused body's
+// narrow bounces (a few thousand entries). Below a threshold of entries
+// that the wrapper holds (ops/histogram.py:SMALL_ENTRIES), and where the
+// bins fit in a cluster's shared memory, one launch of one thread-block
+// cluster does it all, with no scratch, no memset, no global atomic and no
+// ticket (small_cluster_histogram_kernel). Its C = 2^s blocks
+// (histogram_cluster.cuh:small_cluster_shift) each clear their slice of the
+// bins (dealt as on the large path's cluster branch), take the largest |w|
+// bits of their share of the entries into their own shared memory, and
+// after a cluster barrier read the C values through the cluster's
+// distributed shared memory, so every block holds the call's bits and
+// scale. Then launch B's entry path (warp queues, warp_sum, the additions
+// to the owner's slice) and, after a second barrier, each block converts
+// its own slice straight into out. The same largest |w|, scale, integer
+// sums and conversion as the large path: both paths give the same bits for
+// the same input. The cluster spreads the clearing and conversion of the
+// bins and the entries over C SMs; at these sizes a call's time is mostly
+// the launch and the two barriers, whatever E is (PERF.md).
 //
 // Float64 weights (the float64 trace; vr_flux_histogram_f64,
 // vr_flux_histogram_small_f64): the same two paths with two fixed-point words
 // an entry (fixed_point.cuh, "float64 weights"), summed in two 64-bit bins
-// each (16 bytes a bin in shared memory: the one-block path takes up to
-// 12,800 bins). Bound by bytes: 12 an entry (ids and w read once) and two
-// words a bin. The plain version does the same integer sums with index_add_
-// on int64 tensors, so kernel, plain version and both paths give the same
-// bits. The library call beside it, index_add_ on float64, adds floats with
-// atomics in an order that changes from run to run on a card.
+// each (16 bytes a bin in shared memory). Bound by bytes: 12 an entry (ids
+// and w read once) and two words a bin. The plain version does the same
+// integer sums with index_add_ on int64 tensors, so kernel, plain version
+// and both paths give the same bits. The library call beside it, index_add_
+// on float64, adds floats with atomics in an order that changes from run to
+// run on a card.
 //
 // The backward (vr_flux_histogram_grad): d out[b] / d w[e] is 1 where
 // ids[e] == b, so the gradient of the weights is a gather, grad_w[e] =
@@ -81,8 +92,6 @@
 namespace cg = cooperative_groups;
 
 namespace {
-
-constexpr size_t kMaxSharedBins = 200 * 1024;
 
 // The entries of a warp that share a bin summed: every thread of the warp
 // calls it together with its entry's key (the bin, or -1 for nothing to
@@ -168,13 +177,52 @@ __device__ __forceinline__ unsigned long long warp_max(unsigned long long m) {
   return m;
 }
 
-// quads a thread of launch A loads at a time
-constexpr int kPrepQuads = 2;
+// The largest of every thread's m, in every thread of the block (s_max: a
+// word a warp)
+template <int kThreads>
+__device__ __forceinline__ unsigned long long block_max(
+    unsigned long long m, unsigned long long* s_max) {
+  m = warp_max(m);
+  if ((threadIdx.x & 31) == 0) s_max[threadIdx.x >> 5] = m;
+  __syncthreads();
+  const int lane = threadIdx.x & 31;
+  return warp_max(lane < kThreads / 32 ? s_max[lane] : 0ull);
+}
+
+// quads a thread loads at a time while it takes the largest |w|
+constexpr int kMaxQuads = 2;
+
+// The largest bits of |w| of thread t's share of the entries, T threads in
+// all: quads t, t + T, ... (kMaxQuads at a time) where vec (the weights and
+// ids 16-byte aligned), then the entries past the last quad from 4 n4 + t,
+// stepping T
+template <typename W>
+__device__ __forceinline__ unsigned long long share_max(
+    const W* __restrict__ w, long long n_entries, int vec, long long t,
+    long long T) {
+  const long long n4 = vec ? n_entries / 4 : 0;  // entries [0, 4 n4) as quads
+  unsigned long long m = 0;
+  for (long long q = t; q < n4; q += kMaxQuads * T) {
+    W v[kMaxQuads][4];
+#pragma unroll
+    for (int i = 0; i < kMaxQuads; ++i) {
+      for (int j = 0; j < 4; ++j) v[i][j] = W(0);
+      if (q + i * T < n4) load_quad<false>(w, q + i * T, v[i]);
+    }
+#pragma unroll
+    for (int i = 0; i < kMaxQuads; ++i) {
+      for (int j = 0; j < 4; ++j) m = max(m, mag_bits(v[i][j]));
+    }
+  }
+  for (long long e = 4 * n4 + t; e < n_entries; e += T) {
+    m = max(m, mag_bits(w[e]));
+  }
+  return m;
+}
 
 // Launch A: the largest bits of |w| of this block's share of the entries
 // (grid-stride) into partial[blockIdx.x], the bins (n_words) and the ticket
-// cleared on the way. vec: the weights (and ids) 16-byte aligned, so read
-// as quads.
+// cleared on the way.
 template <typename W>
 __global__ void __launch_bounds__(kPrepThreads)
 prepare_kernel(const W* __restrict__ w, long long n_entries, int vec,
@@ -189,30 +237,9 @@ prepare_kernel(const W* __restrict__ w, long long n_entries, int vec,
   const long long T = (long long)gridDim.x * kPrepThreads;
   for (long long i = t; i < n_words; i += T) bins[i] = 0ull;
   if (t == 0) *ticket = 0u;
-  const long long n4 = vec ? n_entries / 4 : 0;  // entries [0, 4 n4) as quads
-  unsigned long long m = 0;
-  for (long long q = t; q < n4; q += kPrepQuads * T) {
-    W v[kPrepQuads][4];
-#pragma unroll
-    for (int i = 0; i < kPrepQuads; ++i) {
-      for (int j = 0; j < 4; ++j) v[i][j] = W(0);
-      if (q + i * T < n4) load_quad<false>(w, q + i * T, v[i]);
-    }
-#pragma unroll
-    for (int i = 0; i < kPrepQuads; ++i) {
-      for (int j = 0; j < 4; ++j) m = max(m, mag_bits(v[i][j]));
-    }
-  }
-  for (long long e = 4 * n4 + t; e < n_entries; e += T) {
-    m = max(m, mag_bits(w[e]));
-  }
-  m = warp_max(m);
-  if ((threadIdx.x & 31) == 0) s_max[threadIdx.x >> 5] = m;
-  __syncthreads();
-  if (threadIdx.x < 32) {
-    m = warp_max(threadIdx.x < kPrepThreads / 32 ? s_max[threadIdx.x] : 0ull);
-    if (threadIdx.x == 0) partial[blockIdx.x] = m;
-  }
+  const unsigned long long m =
+      block_max<kPrepThreads>(share_max(w, n_entries, vec, t, T), s_max);
+  if (threadIdx.x == 0) partial[blockIdx.x] = m;
 }
 
 // red.global: v added to the 64-bit word *p (fire and forget; atomicAdd may
@@ -353,6 +380,109 @@ __device__ __forceinline__ void drain(const Sink& k, Queue<W>& q,
                    scale_lo);
 }
 
+// One step of a warp over the entries: 64 quads, two a lane (quads base +
+// lane and base + 32 + lane, counted from the last quad: launch A read the
+// weights from first to last, so the last of them are still in L2 when
+// launch B starts; these loads are the bytes' last use, streamed), then,
+// in a step of the entries past the last quad, one entry a lane
+template <typename W>
+struct Step {
+  int id[9];
+  W w[9];
+};
+
+template <typename W>
+__device__ __forceinline__ Step<W> load_quads(const int* __restrict__ ids,
+                                              const W* __restrict__ w,
+                                              long long n4, long long base) {
+  const int lane = threadIdx.x & 31;
+  Step<W> st;
+#pragma unroll
+  for (int j = 0; j < 9; ++j) {
+    st.id[j] = -1;
+    st.w[j] = W(0);
+  }
+  const int4* ids4 = reinterpret_cast<const int4*>(ids);
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const long long q = base + lane + 32 * h;
+    if (q < n4) {
+      W v[4];
+      load_quad<true>(w, n4 - 1 - q, v);
+      const int4 i4 = load16<true>(ids4 + n4 - 1 - q);
+      const int iv[4] = {i4.x, i4.y, i4.z, i4.w};
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        st.id[4 * h + j] = iv[j];
+        st.w[4 * h + j] = v[j];
+      }
+    }
+  }
+  return st;
+}
+
+template <typename W>
+__device__ __forceinline__ void load_tail(const int* __restrict__ ids,
+                                          const W* __restrict__ w,
+                                          long long n_entries, long long base,
+                                          Step<W>& st) {
+  const long long e = base + (threadIdx.x & 31);
+  if (e < n_entries) {
+    st.id[8] = __ldg(ids + e);
+    st.w[8] = __ldg(w + e);
+  }
+}
+
+// entries [kFrom, kTo) of a step pushed, the whole warp together
+template <bool kShared, int kFrom, int kTo, typename W>
+__device__ __forceinline__ void push_step(const Sink& k, Queue<W>& queue,
+                                          const Step<W>& st, double scale,
+                                          double scale_lo) {
+#pragma unroll
+  for (int j = kFrom; j < kTo; ++j) {
+    push<kShared>(k, queue, st.id[j], st.w[j], scale, scale_lo);
+  }
+}
+
+// The entries into k by the warps of a grid, warp `warp` of n_warps, step
+// by step: warp-uniform trip counts, since push takes the whole warp.
+template <bool kShared, typename W>
+__device__ __forceinline__ void accumulate(
+    const Sink& k, Queue<W>& queue, const int* __restrict__ ids,
+    const W* __restrict__ w, long long n_entries, int vec, long long warp,
+    long long n_warps, double scale, double scale_lo) {
+  const long long n4 = vec ? n_entries / 4 : 0;
+  for (long long base = warp * 64; base < n4; base += n_warps * 64) {
+    push_step<kShared, 0, 8>(k, queue, load_quads(ids, w, n4, base), scale,
+                             scale_lo);
+  }
+  for (long long base = 4 * n4 + warp * 32; base < n_entries;
+       base += n_warps * 32) {
+    Step<W> st;
+    st.id[8] = -1;
+    st.w[8] = W(0);
+    load_tail(ids, w, n_entries, base, st);
+    push_step<kShared, 8, 9>(k, queue, st, scale, scale_lo);
+  }
+  drain<kShared>(k, queue, scale, scale_lo);
+}
+
+// The scales of a call whose largest |w| has these bits (not 0): the float32
+// form's and its inverse, or the float64 form's two
+template <typename W>
+__device__ __forceinline__ void call_scales(unsigned long long bits,
+                                            long long n_entries,
+                                            double& scale, double& scale_lo,
+                                            double& inv) {
+  if constexpr (sizeof(W) == 8) {
+    scale = scalbn(1.0, scale_exponent_f64(bits, n_entries));
+    scale_lo = scalbn(1.0, low_exponent_f64(n_entries));
+  } else {
+    scale = fixed_scale((unsigned int)bits, n_entries);
+    inv = scalbn(1.0, -scale_exponent((unsigned int)bits, n_entries));
+  }
+}
+
 // Launch B. Every thread of a cluster reaches its barriers: the loops over
 // the entries keep whole warps in step and nothing returns early except on a
 // condition the whole grid shares (every weight 0).
@@ -371,7 +501,6 @@ cluster_histogram_kernel(const int* __restrict__ ids, const W* __restrict__ w,
   __shared__ int s_last;
   cg::cluster_group cluster = cg::this_cluster();
   const int rank = (int)cluster.block_rank();
-  const int lane = threadIdx.x & 31;
   constexpr bool kF64 = sizeof(W) == 8;
 
   // Launched as launch A's programmatic dependent: what does not read A's
@@ -391,10 +520,7 @@ cluster_histogram_kernel(const int* __restrict__ ids, const W* __restrict__ w,
   for (int i = threadIdx.x; i < n_partials; i += kClusterThreads) {
     m = max(m, __ldcg(partial + i));
   }
-  m = warp_max(m);
-  if (lane == 0) s_max[threadIdx.x >> 5] = m;
-  __syncthreads();
-  const unsigned long long bits = warp_max(s_max[lane]);
+  const unsigned long long bits = block_max<kClusterThreads>(m, s_max);
   if (bits == 0) {  // every weight 0, or no entry: out = 0 (every block
                     // returns here, none waits at a barrier)
     for (long long i = (long long)blockIdx.x * kClusterThreads + threadIdx.x;
@@ -404,59 +530,17 @@ cluster_histogram_kernel(const int* __restrict__ ids, const W* __restrict__ w,
     return;
   }
   double scale, scale_lo = 0.0, inv = 0.0;
-  if constexpr (kF64) {
-    scale = scalbn(1.0, scale_exponent_f64(bits, n_entries));
-    scale_lo = scalbn(1.0, low_exponent_f64(n_entries));
-  } else {
-    scale = fixed_scale((unsigned int)bits, n_entries);
-    inv = scalbn(1.0, -scale_exponent((unsigned int)bits, n_entries));
-  }
+  call_scales<W>(bits, n_entries, scale, scale_lo, inv);
 
   const Sink k{bins, s_slice,
                (unsigned int)__cvta_generic_to_shared(s_slice), slice,
                n_bins, cshift};
-
-  // warp-uniform trip counts: push takes the whole warp. A warp reads 64
-  // quads a step, two a thread.
   Queue<W> queue{s_queue_id[threadIdx.x >> 5], s_queue_w[threadIdx.x >> 5],
                  0, 0};
-  const long long n4 = vec ? n_entries / 4 : 0;
-  const long long warp =
-      ((long long)blockIdx.x * kClusterThreads + threadIdx.x) >> 5;
-  const long long n_warps = (long long)gridDim.x * (kClusterThreads / 32);
-  const int4* ids4 = reinterpret_cast<const int4*>(ids);
-  // Quad q is read from n4 - 1 - q: launch A read the weights from first
-  // to last, so the last of them are still in L2 when this launch starts;
-  // this launch's own loads are the bytes' last use, streamed.
-  for (long long base = warp * 64; base < n4; base += n_warps * 64) {
-    const long long q0 = base + lane, q1 = q0 + 32;
-    W a[4] = {W(0), W(0), W(0), W(0)}, b[4] = {W(0), W(0), W(0), W(0)};
-    int4 ia = make_int4(-1, -1, -1, -1), ib = ia;
-    if (q0 < n4) {
-      load_quad<true>(w, n4 - 1 - q0, a);
-      ia = load16<true>(ids4 + n4 - 1 - q0);
-    }
-    if (q1 < n4) {
-      load_quad<true>(w, n4 - 1 - q1, b);
-      ib = load16<true>(ids4 + n4 - 1 - q1);
-    }
-    push<kShared>(k, queue, ia.x, a[0], scale, scale_lo);
-    push<kShared>(k, queue, ia.y, a[1], scale, scale_lo);
-    push<kShared>(k, queue, ia.z, a[2], scale, scale_lo);
-    push<kShared>(k, queue, ia.w, a[3], scale, scale_lo);
-    push<kShared>(k, queue, ib.x, b[0], scale, scale_lo);
-    push<kShared>(k, queue, ib.y, b[1], scale, scale_lo);
-    push<kShared>(k, queue, ib.z, b[2], scale, scale_lo);
-    push<kShared>(k, queue, ib.w, b[3], scale, scale_lo);
-  }
-  for (long long base = 4 * n4 + warp * 32; base < n_entries;
-       base += n_warps * 32) {
-    const long long e = base + lane;
-    const bool in = e < n_entries;
-    push<kShared>(k, queue, in ? __ldg(ids + e) : -1,
-                  in ? __ldg(w + e) : W(0), scale, scale_lo);
-  }
-  drain<kShared>(k, queue, scale, scale_lo);
+  accumulate<kShared>(
+      k, queue, ids, w, n_entries, vec,
+      ((long long)blockIdx.x * kClusterThreads + threadIdx.x) >> 5,
+      (long long)gridDim.x * (kClusterThreads / 32), scale, scale_lo);
 
   if constexpr (kShared) {
     cluster.sync();  // every block's additions to this slice are in
@@ -525,7 +609,7 @@ int histogram_large(const int* ids, const W* w, long long n_entries,
   // wave (at most kPrepBlocksPerSm an SM)
   const long long work = (n_entries / 4 > bin_words ? n_entries / 4
                                                     : bin_words);
-  const long long per_block_a = (long long)kPrepQuads * kPrepThreads;
+  const long long per_block_a = (long long)kMaxQuads * kPrepThreads;
   const long long want_a = (work + per_block_a - 1) / per_block_a;
   const int grid_a = (int)(want_a < 1 ? 1 : (want_a < max_partials
                                                  ? want_a : max_partials));
@@ -588,101 +672,153 @@ int histogram_large(const int* ids, const W* w, long long n_entries,
   return static_cast<int>(cudaGetLastError());
 }
 
-// ---- the one-block path -----------------------------------------------------
+// ---- the small path: one thread-block cluster, one launch -----------------
 
-constexpr int kSmallThreads = 1024;
+// the threads of a block of the small path: fewer took less time at every
+// small shape down to 256 (1,024, 512, 256: 0.00807, 0.00679, 0.00628 ms at
+// 6,144 entries on 2,993 bins in one call; 128 no faster; H100, PERF.md)
+constexpr int kSmallThreads = 256;
 
-// One entry per thread of a warp, every thread of the warp calling it
-// together (id -1 or weight 0: nothing to add): warp_sum, then one shared
-// atomic a bin.
-__device__ __forceinline__ void add_warp(unsigned long long* s_bins, int id,
-                                         float we, int n_bins,
-                                         double scale) {
-  const bool valid = we != 0.0f && (unsigned int)id < (unsigned int)n_bins;
-  unsigned long long v[1] = {valid ? to_fixed(we, scale) : 0ull};
-  if (warp_sum(valid ? id : -1, v) && valid) atomicAdd(&s_bins[id], v[0]);
-}
+// The whole histogram in one launch of one cluster of C = 2^cshift blocks.
+// Every block clears its slice of the bins, takes the largest |w| bits of
+// its share of the entries (those its warps deposit; past one step of them,
+// the quads and entries r T + t, stepping C T) into s_block_max; after a
+// cluster barrier every block reads
+// the C values from the cluster's shared memory, so each holds the call's
+// bits and scale. Then the warps of the cluster deposit the entries into
+// the owners' slices (launch B's accumulate, on the cluster branch), and
+// after a second barrier each block converts its own slice into out.
+// Every thread reaches both barriers: nothing returns early.
+template <typename W>
+__global__ void __launch_bounds__(kSmallThreads, 1)
+small_cluster_histogram_kernel(const int* __restrict__ ids,
+                               const W* __restrict__ w, int n_entries,
+                               int n_bins, int vec, W* __restrict__ out,
+                               int cshift) {
+  extern __shared__ unsigned long long s_slice[];
+  __shared__ unsigned long long s_max[kSmallThreads / 32];
+  __shared__ unsigned long long s_block_max, s_bits;
+  __shared__ int s_queue_id[kSmallThreads / 32][kQueue];
+  __shared__ W s_queue_w[kSmallThreads / 32][kQueue];
+  cg::cluster_group cluster = cg::this_cluster();
+  const int rank = (int)cluster.block_rank();
+  constexpr bool kF64 = sizeof(W) == 8;
 
-// the largest bits of |w| of four entries
-__device__ __forceinline__ unsigned int abs_bits(float4 v) {
-  return max(max(__float_as_uint(fabsf(v.x)), __float_as_uint(fabsf(v.y))),
-             max(__float_as_uint(fabsf(v.z)), __float_as_uint(fabsf(v.w))));
-}
-
-// The whole histogram in one block: the large path's largest |w| (bits of
-// |w|, integer maximum), the bins cleared in shared memory, its integer sums
-// at fixed_scale(bits, E), finalize_kernel's conversion. One SM
-// reads every entry, so it keeps many loads in flight: 16-byte loads of four
-// entries (where both arrays are 16-byte aligned), two per thread at a time.
-__global__ void __launch_bounds__(kSmallThreads)
-small_histogram_kernel(const int* __restrict__ ids,
-                       const float* __restrict__ w, int n_entries, int n_bins,
-                       float* __restrict__ out) {
-  extern __shared__ unsigned long long s_bins[];
-  __shared__ unsigned int s_max;
-  if (threadIdx.x == 0) s_max = 0u;
-  for (int i = threadIdx.x; i < n_bins; i += kSmallThreads) s_bins[i] = 0ull;
-  const bool vec = ((reinterpret_cast<size_t>(ids) |
-                     reinterpret_cast<size_t>(w)) & 15) == 0;
-  const int n4 = vec ? n_entries / 4 : 0;  // entries [0, 4 n4) as quads
-  const float4* w4 = reinterpret_cast<const float4*>(w);
-  const int4* ids4 = reinterpret_cast<const int4*>(ids);
-
-  unsigned int m = 0;
-  for (int q = threadIdx.x; q < n4; q += 2 * kSmallThreads) {
-    const float4 a = w4[q];
-    const float4 b = q + kSmallThreads < n4 ? w4[q + kSmallThreads]
-                                            : make_float4(0.f, 0.f, 0.f, 0.f);
-    m = max(m, max(abs_bits(a), abs_bits(b)));
+  const long long slice = slice_bins(n_bins, cshift);
+  for (long long i = threadIdx.x; i < (kF64 ? 2 : 1) * slice;
+       i += kSmallThreads) {
+    s_slice[i] = 0ull;
   }
-  for (int e = 4 * n4 + threadIdx.x; e < n_entries; e += kSmallThreads) {
-    m = max(m, __float_as_uint(fabsf(w[e])));
+  const long long t = (long long)rank * kSmallThreads + threadIdx.x;
+  const long long T = (long long)kSmallThreads << cshift;
+  const long long warp = t >> 5, n_warps = T >> 5;
+  // where every warp takes one step of quads at most and one of the
+  // entries past them (up to 8 x 256 x 16 = 32,768 aligned entries), each
+  // thread keeps its entries in registers from the maximum to the deposit;
+  // else they are read twice
+  const long long n4 = vec ? n_entries / 4 : 0;
+  const bool held = n4 <= 64 * n_warps && n_entries - 4 * n4 <= 32 * n_warps;
+  Step<W> st;
+  unsigned long long m = 0;
+  if (held) {
+    st = load_quads(ids, w, n4, warp * 64);
+    load_tail(ids, w, n_entries, 4 * n4 + warp * 32, st);
+#pragma unroll
+    for (int j = 0; j < 9; ++j) m = max(m, mag_bits(st.w[j]));
+  } else {
+    m = share_max(w, n_entries, vec, t, T);
   }
-  for (int o = 16; o > 0; o >>= 1) {
-    m = max(m, __shfl_xor_sync(0xffffffffu, m, o));
-  }
-  __syncthreads();  // s_max and the bins are cleared
-  if ((threadIdx.x & 31) == 0 && m != 0) atomicMax(&s_max, m);
-  __syncthreads();
-  const unsigned int bits = s_max;
-  if (bits != 0) {
-    // warp-uniform trip counts: add_warp takes the whole warp
-    const double scale = fixed_scale(bits, n_entries);
-    const int lane = threadIdx.x & 31;
-    const int warp0 = (threadIdx.x & ~31) * 2;  // two quads a thread
-    for (int base = warp0; base < n4; base += 2 * kSmallThreads) {
-      const int q0 = base + lane, q1 = base + 32 + lane;
-      const float4 zero4 = make_float4(0.f, 0.f, 0.f, 0.f);
-      const int4 none4 = make_int4(-1, -1, -1, -1);
-      const float4 a = q0 < n4 ? w4[q0] : zero4;
-      const int4 ia = q0 < n4 ? ids4[q0] : none4;
-      const float4 b = q1 < n4 ? w4[q1] : zero4;
-      const int4 ib = q1 < n4 ? ids4[q1] : none4;
-      add_warp(s_bins, ia.x, a.x, n_bins, scale);
-      add_warp(s_bins, ia.y, a.y, n_bins, scale);
-      add_warp(s_bins, ia.z, a.z, n_bins, scale);
-      add_warp(s_bins, ia.w, a.w, n_bins, scale);
-      add_warp(s_bins, ib.x, b.x, n_bins, scale);
-      add_warp(s_bins, ib.y, b.y, n_bins, scale);
-      add_warp(s_bins, ib.z, b.z, n_bins, scale);
-      add_warp(s_bins, ib.w, b.w, n_bins, scale);
-    }
-    for (int base = 4 * n4 + (threadIdx.x & ~31); base < n_entries;
-         base += kSmallThreads) {
-      const int e = base + lane;
-      const bool in = e < n_entries;
-      add_warp(s_bins, in ? ids[e] : -1, in ? w[e] : 0.0f, n_bins, scale);
-    }
+  m = block_max<kSmallThreads>(m, s_max);
+  if (threadIdx.x == 0) s_block_max = m;
+  cluster.sync();  // every slice cleared, every block's maximum written
+  if (threadIdx.x < 32) {
+    const int lane = threadIdx.x;
+    const unsigned long long c =
+        lane < (1 << cshift) ? *cluster.map_shared_rank(&s_block_max, lane)
+                             : 0ull;
+    const unsigned long long bits = warp_max(c);
+    if (lane == 0) s_bits = bits;
   }
   __syncthreads();
-  if (bits == 0) {
-    for (int i = threadIdx.x; i < n_bins; i += kSmallThreads) out[i] = 0.0f;
-    return;
+  const unsigned long long bits = s_bits;  // the same in every block
+
+  double scale = 0.0, scale_lo = 0.0, inv = 0.0;
+  if (bits != 0) {  // else every weight 0, or no entry: out = 0
+    call_scales<W>(bits, n_entries, scale, scale_lo, inv);
+    const Sink k{nullptr, s_slice,
+                 (unsigned int)__cvta_generic_to_shared(s_slice), slice,
+                 n_bins, cshift};
+    Queue<W> queue{s_queue_id[threadIdx.x >> 5],
+                   s_queue_w[threadIdx.x >> 5], 0, 0};
+    if (held) {  // accumulate's order: the quads, then the rest
+      push_step<true, 0, 8>(k, queue, st, scale, scale_lo);
+      if (4 * n4 + warp * 32 < n_entries) {
+        push_step<true, 8, 9>(k, queue, st, scale, scale_lo);
+      }
+      drain<true>(k, queue, scale, scale_lo);
+    } else {
+      accumulate<true>(k, queue, ids, w, n_entries, vec, warp, n_warps,
+                       scale, scale_lo);
+    }
   }
-  const double inv = scalbn(1.0, -scale_exponent(bits, n_entries));
-  for (int i = threadIdx.x; i < n_bins; i += kSmallThreads) {
-    out[i] = (float)((double)(long long)s_bins[i] * inv);
+  cluster.sync();  // every addition to this slice is in, and no block reads
+                   // another's shared memory after this
+  for (long long i = threadIdx.x; i < slice; i += kSmallThreads) {
+    const long long b = bin_of(i, rank, cshift);
+    if (b >= n_bins) break;
+    if (bits == 0) {
+      out[b] = W(0);
+    } else if constexpr (kF64) {
+      out[b] = from_fixed_f64(s_slice[i], s_slice[slice + i], bits,
+                              n_entries);
+    } else {  // finalize_kernel's conversion
+      out[b] = (float)((double)(long long)s_slice[i] * inv);
+    }
   }
+}
+
+template <typename W>
+int histogram_small(const int* ids, const W* w, int n_entries, int n_bins,
+                    W* out, cudaStream_t s) {
+  constexpr int kWords = sizeof(W) == 8 ? 2 : 1;
+  if (n_bins <= 0) return static_cast<int>(cudaGetLastError());
+  const int cshift = small_cluster_shift(n_bins, kWords);
+  if (n_entries < 0 || cshift < 0) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const size_t smem = (size_t)(slice_bins(n_bins, cshift) * kWords * 8);
+  const int vec = ((reinterpret_cast<size_t>(ids) |
+                    reinterpret_cast<size_t>(w)) & 15) == 0;
+  const void* fn =
+      reinterpret_cast<const void*>(small_cluster_histogram_kernel<W>);
+  // the slice and the static queues (4 to 7 KB) may pass 48 KB together
+  cudaError_t err = cudaSuccess;
+  if (smem > 40 * 1024) {
+    err = cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               (int)smem);
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
+  if (cshift > 3) {
+    err = cudaFuncSetAttribute(
+        fn, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = 1u << cshift;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(1u << cshift);
+  cfg.blockDim = dim3(kSmallThreads);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = s;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  err = cudaLaunchKernelEx(&cfg, small_cluster_histogram_kernel<W>, ids, w,
+                           n_entries, n_bins, vec, out, cshift);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  return static_cast<int>(cudaGetLastError());
 }
 
 constexpr int kGradThreads = 256;
@@ -702,67 +838,6 @@ gather_grad_kernel(const float* __restrict__ grad_out,
 }
 
 // ---- float64 weights ------------------------------------------------------
-
-// The whole float64 histogram in one block: the largest |w| (bits, integer
-// maximum), the two words of each entry added with shared atomics, the bins
-// read back as the large path does. One entry per thread at a time, whole
-// warps in step: the threads whose entries share a bin sum their words
-// first (warp_sum), so a bin that many entries hit costs one atomic a warp
-// and word.
-__device__ __forceinline__ void add_warp_f64(unsigned long long* s_hi,
-                                             unsigned long long* s_lo, int id,
-                                             double we, int n_bins,
-                                             double scale, double scale_lo) {
-  const bool valid = we != 0.0 && (unsigned int)id < (unsigned int)n_bins;
-  unsigned long long v[2] = {0ull, 0ull};
-  if (valid) to_fixed_f64(we, scale, scale_lo, v[0], v[1]);
-  if (warp_sum(valid ? id : -1, v) && valid) {
-    atomicAdd(&s_hi[id], v[0]);
-    if (v[1] != 0ull) atomicAdd(&s_lo[id], v[1]);
-  }
-}
-
-__global__ void __launch_bounds__(kSmallThreads)
-small_histogram_f64_kernel(const int* __restrict__ ids,
-                           const double* __restrict__ w, int n_entries,
-                           int n_bins, double* __restrict__ out) {
-  extern __shared__ unsigned long long s_bins[];
-  __shared__ unsigned long long s_max;
-  if (threadIdx.x == 0) s_max = 0ull;
-  for (int i = threadIdx.x; i < 2 * n_bins; i += kSmallThreads) {
-    s_bins[i] = 0ull;
-  }
-  unsigned long long m = 0;
-  for (int e = threadIdx.x; e < n_entries; e += kSmallThreads) {
-    m = max(m, (unsigned long long)__double_as_longlong(fabs(w[e])));
-  }
-  for (int o = 16; o > 0; o >>= 1) {
-    m = max(m, __shfl_xor_sync(0xffffffffu, m, o));
-  }
-  __syncthreads();  // s_max and the bins are cleared
-  if ((threadIdx.x & 31) == 0 && m != 0) atomicMax(&s_max, m);
-  __syncthreads();
-  const unsigned long long bits = s_max;
-  if (bits != 0) {
-    const double scale = scalbn(1.0, scale_exponent_f64(bits, n_entries));
-    const double scale_lo = scalbn(1.0, low_exponent_f64(n_entries));
-    const int lane = threadIdx.x & 31;
-    // warp-uniform trip counts: add_warp_f64 takes the whole warp
-    for (int base = threadIdx.x & ~31; base < n_entries;
-         base += kSmallThreads) {
-      const int e = base + lane;
-      const bool in = e < n_entries;
-      add_warp_f64(s_bins, s_bins + n_bins, in ? ids[e] : -1,
-                   in ? w[e] : 0.0, n_bins, scale, scale_lo);
-    }
-  }
-  __syncthreads();
-  for (int i = threadIdx.x; i < n_bins; i += kSmallThreads) {
-    out[i] = bits == 0 ? 0.0
-                       : from_fixed_f64(s_bins[i], s_bins[n_bins + i], bits,
-                                        n_entries);
-  }
-}
 
 __global__ void __launch_bounds__(kGradThreads)
 gather_grad_f64_kernel(const double* __restrict__ grad_out,
@@ -796,26 +871,16 @@ extern "C" int vr_flux_histogram(const int* ids, const float* w,
                          static_cast<cudaStream_t>(stream));
 }
 
-// The same histogram in one launch of one block, for n_entries < 2^31 and
-// n_bins * 8 <= 200 KB (the caller's choice of path); no scratch. Launches
-// on `stream`, allocates nothing, does not synchronise; returns
-// cudaGetLastError().
+// The same histogram in one launch of one thread-block cluster, for
+// n_entries < 2^31 and n_bins whose slices fit at small_cluster_shift's C
+// (the caller's choice of path; else cudaErrorInvalidValue); no scratch.
+// Launches on `stream`, allocates nothing, does not synchronise; returns
+// the first CUDA error, else cudaGetLastError().
 extern "C" int vr_flux_histogram_small(const int* ids, const float* w,
                                        int n_entries, int n_bins, float* out,
                                        void* stream) {
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (n_bins <= 0) return static_cast<int>(cudaGetLastError());
-  const size_t smem = sizeof(unsigned long long) * (size_t)n_bins;
-  if (smem > kMaxSharedBins) return static_cast<int>(cudaErrorInvalidValue);
-  if (smem > 48 * 1024) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        small_histogram_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        (int)smem);
-    if (err != cudaSuccess) return static_cast<int>(err);
-  }
-  small_histogram_kernel<<<1, kSmallThreads, smem, s>>>(ids, w, n_entries,
-                                                        n_bins, out);
-  return static_cast<int>(cudaGetLastError());
+  return histogram_small(ids, w, n_entries, n_bins, out,
+                         static_cast<cudaStream_t>(stream));
 }
 
 // The histogram's backward: grad_w[e] = grad_out[ids[e]] (0 for an id outside
@@ -837,7 +902,7 @@ extern "C" int vr_flux_histogram_grad(const float* grad_out, const int* ids,
 // The float64 forms: w, out, grad_out and grad_w doubles; the large path's
 // scratch holds at least 2 n_bins + 1 + 4 sms 64-bit words (the bins' high
 // words, their low words, the ticket, the partial maxima), which the call
-// clears itself; the one-block path takes n_bins * 16 <= 200 KB. Launch,
+// clears itself; the small path two words a bin in its slices. Launch,
 // allocation and errors as above.
 extern "C" int vr_flux_histogram_f64(const int* ids, const double* w,
                                      long long n_entries, int n_bins,
@@ -852,19 +917,8 @@ extern "C" int vr_flux_histogram_f64(const int* ids, const double* w,
 extern "C" int vr_flux_histogram_small_f64(const int* ids, const double* w,
                                            int n_entries, int n_bins,
                                            double* out, void* stream) {
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (n_bins <= 0) return static_cast<int>(cudaGetLastError());
-  const size_t smem = 2 * sizeof(unsigned long long) * (size_t)n_bins;
-  if (smem > kMaxSharedBins) return static_cast<int>(cudaErrorInvalidValue);
-  if (smem > 48 * 1024) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        small_histogram_f64_kernel,
-        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (err != cudaSuccess) return static_cast<int>(err);
-  }
-  small_histogram_f64_kernel<<<1, kSmallThreads, smem, s>>>(ids, w, n_entries,
-                                                            n_bins, out);
-  return static_cast<int>(cudaGetLastError());
+  return histogram_small(ids, w, n_entries, n_bins, out,
+                         static_cast<cudaStream_t>(stream));
 }
 
 extern "C" int vr_flux_histogram_grad_f64(const double* grad_out,

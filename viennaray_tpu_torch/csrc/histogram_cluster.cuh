@@ -1,8 +1,9 @@
-// The large path's bins over a thread-block cluster (flux_histogram.cu):
-// which block of a cluster of C = 2^cshift blocks holds a bin, where in its
-// shared memory, and which C a call takes. Plain host and device code, so
-// that tests/test_torch_histogram_cluster.py builds it with g++ and holds it
-// to ops/histogram.py:cluster_for.
+// Kernel 2's bins over a thread-block cluster (flux_histogram.cu): which
+// block of a cluster of C = 2^cshift blocks holds a bin, where in its
+// shared memory, and which C a call takes on either path. Plain host and
+// device code, so that tests/test_torch_histogram_cluster.py and
+// tests/test_torch_histogram_small.py build it with g++ and hold it to
+// ops/histogram.py:cluster_for and small_cluster_for.
 //
 // Bin b lives in block b & (C - 1) of the cluster (its owner), at word
 // b >> cshift of that block's slice: the bins are dealt to the C blocks in
@@ -52,6 +53,16 @@ VR_HOST_DEVICE inline int cluster_shift(long long n_bins, int words) {
   while (c < kMaxClusterShift && slice_bins(n_bins, c) * words > kFlushWords) {
     ++c;
   }
+  return slice_bins(n_bins, c) * words * 8 <= kSliceBytes ? c : -1;
+}
+
+// The small path's cshift for n_bins bins of `words` words each: the
+// largest cluster (a sweep of C = 1 to 16 at 512 to 24,575 entries on 2,993
+// and 18,180 bins found it within 2 % of the fastest C at every shape, and
+// up to 4.4x faster than C = 1; chip_diagnose.py --small-sweep, PERF.md),
+// or -1 where its slices do not fit in kSliceBytes (the large path then)
+VR_HOST_DEVICE inline int small_cluster_shift(long long n_bins, int words) {
+  const int c = kMaxClusterShift;
   return slice_bins(n_bins, c) * words * 8 <= kSliceBytes ? c : -1;
 }
 

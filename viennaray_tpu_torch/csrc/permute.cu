@@ -1,6 +1,6 @@
 // The per-bounce coherence resort's key, and the permutation of the per-ray
 // state that the resort, the source sort and the compaction share: one
-// kernel each, one thread a lane, in float32 and float64.
+// kernel each, in float32 and float64.
 //
 // Replaces no Pallas kernel: the JAX package computes both in XLA
 // (viennaray_tpu/trace/kernel.py:397-426 _coherence_key, :431-458
@@ -23,6 +23,7 @@
 // keys are the plain version's bit for bit; trunc is __float2int_rz /
 // __double2int_rz, the cast of the plain version for every finite value
 // below 2^31 (a live lane's cell value lies within a few cells of [0, 16)).
+// Four lanes a thread on wide states (the key's design, below).
 //
 // vr_permute_state: out[i] = in[take[i]] for every per-ray array (org and
 // dir (R, 3), weight and w0, alive and hfb as bytes, n_refl and n_bdry
@@ -56,9 +57,6 @@
 
 namespace {
 
-constexpr int kThreads = 256;
-constexpr long long kMaxBlocks = 1 << 20;
-
 __device__ __forceinline__ int trunc_int(float x) { return __float2int_rz(x); }
 __device__ __forceinline__ int trunc_int(double x) {
   return __double2int_rz(x);
@@ -67,39 +65,112 @@ __device__ __forceinline__ int clamp_int(int x, int lo, int hi) {
   return x < lo ? lo : (x > hi ? hi : x);
 }
 
+// ---- the key ---------------------------------------------------------------
+//
+// Bound by bytes, so the design is about loads in flight. Each thread takes
+// a quad of lanes: the quad's org and dir rows are 12 words each, read as
+// three 16-byte loads in float32 (six in float64), its four alive bytes one
+// 32-bit load, its four keys one 16-byte store; a warp's loads cover whole
+// lines once. One wave of blocks over the card, a grid-stride loop beyond.
+// Every lane computes its key and a dead lane's is then replaced, so no
+// branch splits a warp. The lanes past the last quad, every lane of a state
+// whose arrays are not aligned for the quads (a view at an offset), and
+// every lane of a state too narrow to give each thread of the wave a quad
+// take the same arithmetic one lane a thread: there the card holds few
+// warps, and a thread's four lanes of dependent arithmetic took longer
+// than four warps' one (2^18 lanes: 0.0052 ms by quads, 0.0039 a lane a
+// thread; at 2^20 the quads 0.0074 against 0.0081 at an offset; H100,
+// PERF.md). The loads keep the default cache policy: the permutation that
+// follows the sort gathers the same org and dir.
+
+constexpr int kKeyThreads = 256;
+constexpr int kKeyBlocksPerSm = 4;
+
+// The key of one lane: the cell of its origin and the bin of its direction,
+// 1 << 30 for a dead lane
 template <class T>
-__global__ void __launch_bounds__(kThreads)
+__device__ __forceinline__ int lane_key(const T (&o)[3], const T (&d)[3],
+                                        bool alive, const T (&lo)[3],
+                                        const T (&ext)[3], int dirbins) {
+  int cell[3];
+#pragma unroll
+  for (int a = 0; a < 3; ++a) {
+    const T x = mul_rn(div_rn(sub_rn(o[a], lo[a]), ext[a]), T(16));
+    cell[a] = clamp_int(trunc_int(x), 0, 15);
+  }
+  int dbin, nb_d;
+  if (dirbins >= 32) {
+    const int nb_pol = dirbins >= 64 ? 8 : 4;
+    const T band = mul_rn(add_rn(d[2], T(1)), T(nb_pol / 2));
+    dbin = (d[0] > T(0)) + 2 * (d[1] > T(0)) +
+           4 * (vabs(d[0]) > vabs(d[1])) +
+           8 * clamp_int(trunc_int(band), 0, nb_pol - 1);
+    nb_d = 8 * nb_pol;
+  } else {
+    dbin = (d[0] > T(0)) + 2 * (d[1] > T(0)) + 4 * (d[2] > T(0));
+    nb_d = 8;
+  }
+  const int key = ((cell[0] * 16 + cell[1]) * 16 + cell[2]) * nb_d + dbin;
+  return alive ? key : 1 << 30;
+}
+
+// the 12 words of rows 4q to 4q + 3 of an (n, 3) array, by 16-byte loads
+__device__ __forceinline__ void load_rows(const float* __restrict__ p,
+                                          long long q, float (&v)[12]) {
+  const float4* p4 = reinterpret_cast<const float4*>(p) + 3 * q;
+#pragma unroll
+  for (int i = 0; i < 3; ++i) {
+    const float4 a = __ldg(p4 + i);
+    v[4 * i] = a.x;
+    v[4 * i + 1] = a.y;
+    v[4 * i + 2] = a.z;
+    v[4 * i + 3] = a.w;
+  }
+}
+__device__ __forceinline__ void load_rows(const double* __restrict__ p,
+                                          long long q, double (&v)[12]) {
+  const double2* p2 = reinterpret_cast<const double2*>(p) + 6 * q;
+#pragma unroll
+  for (int i = 0; i < 6; ++i) {
+    const double2 a = __ldg(p2 + i);
+    v[2 * i] = a.x;
+    v[2 * i + 1] = a.y;
+  }
+}
+
+// vec: org, dir and key 16-byte aligned, alive 4-byte aligned, and enough
+// lanes, so the lanes [0, 4 (n / 4)) go by quads
+template <class T>
+__global__ void __launch_bounds__(kKeyThreads)
 coherence_key_kernel(const T* __restrict__ org, const T* __restrict__ dir,
                      const unsigned char* __restrict__ alive,
                      const T* __restrict__ bb_lo, const T* __restrict__ bb_ext,
-                     long long n, int dirbins, int* __restrict__ key) {
+                     long long n, int dirbins, int vec, int* __restrict__ key) {
   const T lo[3] = {bb_lo[0], bb_lo[1], bb_lo[2]};
   const T ext[3] = {bb_ext[0], bb_ext[1], bb_ext[2]};
-  const long long stride = (long long)gridDim.x * kThreads;
-  for (long long i = (long long)blockIdx.x * kThreads + threadIdx.x; i < n;
-       i += stride) {
-    if (!alive[i]) {
-      key[i] = 1 << 30;
-      continue;
+  const long long t = (long long)blockIdx.x * kKeyThreads + threadIdx.x;
+  const long long stride = (long long)gridDim.x * kKeyThreads;
+  const long long n4 = vec ? n / 4 : 0;
+  for (long long q = t; q < n4; q += stride) {
+    T o[12], d[12];
+    load_rows(org, q, o);
+    load_rows(dir, q, d);
+    const unsigned int al =
+        __ldg(reinterpret_cast<const unsigned int*>(alive) + q);
+    int k[4];
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const T oj[3] = {o[3 * j], o[3 * j + 1], o[3 * j + 2]};
+      const T dj[3] = {d[3 * j], d[3 * j + 1], d[3 * j + 2]};
+      k[j] = lane_key(oj, dj, ((al >> (8 * j)) & 0xffu) != 0u, lo, ext,
+                      dirbins);
     }
-    int cell[3];
-    for (int a = 0; a < 3; ++a) {
-      const T x = mul_rn(div_rn(sub_rn(org[3 * i + a], lo[a]), ext[a]), T(16));
-      cell[a] = clamp_int(trunc_int(x), 0, 15);
-    }
-    const T dx = dir[3 * i + 0], dy = dir[3 * i + 1], dz = dir[3 * i + 2];
-    int dbin, nb_d;
-    if (dirbins >= 32) {
-      const int nb_pol = dirbins >= 64 ? 8 : 4;
-      const T band = mul_rn(add_rn(dz, T(1)), T(nb_pol / 2));
-      dbin = (dx > T(0)) + 2 * (dy > T(0)) + 4 * (vabs(dx) > vabs(dy)) +
-             8 * clamp_int(trunc_int(band), 0, nb_pol - 1);
-      nb_d = 8 * nb_pol;
-    } else {
-      dbin = (dx > T(0)) + 2 * (dy > T(0)) + 4 * (dz > T(0));
-      nb_d = 8;
-    }
-    key[i] = ((cell[0] * 16 + cell[1]) * 16 + cell[2]) * nb_d + dbin;
+    reinterpret_cast<int4*>(key)[q] = make_int4(k[0], k[1], k[2], k[3]);
+  }
+  for (long long i = 4 * n4 + t; i < n; i += stride) {
+    const T oi[3] = {org[3 * i], org[3 * i + 1], org[3 * i + 2]};
+    const T di[3] = {dir[3 * i], dir[3 * i + 1], dir[3 * i + 2]};
+    key[i] = lane_key(oi, di, alive[i] != 0, lo, ext, dirbins);
   }
 }
 
@@ -233,19 +304,31 @@ permute_state_kernel(const PermuteArgs<T> a) {
   }
 }
 
-int blocks_for(long long n) {
-  const long long want = (n + kThreads - 1) / kThreads;
-  return (int)(want < kMaxBlocks ? want : kMaxBlocks);
-}
-
 template <class T>
 int launch_key(const T* org, const T* dir, const unsigned char* alive,
                const T* bb_lo, const T* bb_ext, long long n, int dirbins,
                int* key, void* stream) {
   if (n <= 0) return static_cast<int>(cudaGetLastError());
+  int device = 0, sms = 0;
+  cudaError_t err = cudaGetDevice(&device);
+  if (err == cudaSuccess) {
+    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount,
+                                 device);
+  }
+  if (err != cudaSuccess) return static_cast<int>(err);
+  // a thread a quad (a lane where not vec), one wave at most
+  const long long wave = (long long)sms * kKeyBlocksPerSm;
+  const int vec = ((reinterpret_cast<size_t>(org) |
+                    reinterpret_cast<size_t>(dir) |
+                    reinterpret_cast<size_t>(key)) & 15) == 0 &&
+                  (reinterpret_cast<size_t>(alive) & 3) == 0 &&
+                  n >= 4 * wave * kKeyThreads;
+  const long long work = vec ? (n + 3) / 4 : n;
+  const long long want = (work + kKeyThreads - 1) / kKeyThreads;
   coherence_key_kernel<T>
-      <<<blocks_for(n), kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-          org, dir, alive, bb_lo, bb_ext, n, dirbins, key);
+      <<<(int)(want < wave ? want : wave), kKeyThreads, 0,
+         static_cast<cudaStream_t>(stream)>>>(org, dir, alive, bb_lo, bb_ext,
+                                              n, dirbins, vec, key);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -303,8 +386,8 @@ int launch_permute(const long long* take, long long n_out, long long n_in,
 
 // The coherence key of n lanes. org, dir: (n, 3); alive: (n,) bytes; bb_lo,
 // bb_ext: 3 values each on the device; key: (n,) int32. Launches on
-// `stream`, allocates nothing, does not synchronise; returns
-// cudaGetLastError().
+// `stream` (on the current device), allocates nothing, does not
+// synchronise; returns the first CUDA error, else cudaGetLastError().
 extern "C" int vr_coherence_key(const float* org, const float* dir,
                                 const unsigned char* alive, const float* bb_lo,
                                 const float* bb_ext, long long n, int dirbins,

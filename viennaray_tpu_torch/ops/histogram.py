@@ -7,9 +7,10 @@ PyTorch version. On a CUDA tensor the wrapper launches the kernel or raises;
 on a CPU tensor it runs the plain version.
 
 The kernel has two paths with the same bits: below ``SMALL_ENTRIES`` entries,
-where the bins fit in one block's shared memory, one launch of one block
-(``vr_flux_histogram_small``); else two launches over the whole card
-(``vr_flux_histogram``). ``path_for`` holds the rule. The large path has two
+where the bins fit in the shared memory of a thread-block cluster, one launch
+of one cluster of ``small_cluster_for`` blocks (``vr_flux_histogram_small``);
+else two launches over the whole card (``vr_flux_histogram``). ``path_for``
+holds the rule. The large path has two
 branches with the same bits: each block of a thread-block cluster of
 ``cluster_for`` blocks holds a slice of the bins in shared memory (the
 cluster branch), or the entries go to global bins (the global branch).
@@ -48,24 +49,23 @@ import torch
 
 from .. import _build
 
-# Entries below which a call takes the one-block path: its time grows with E
-# on one SM (0.0117 to 0.0133 ms at 6,144 entries, 0.0174 to 0.0179 at
-# 16,384, 0.0303 to 0.0305 at 32,768), the large path's first design took
-# about a fixed 0.023 to 0.031 ms of four device operations (H100,
-# ``chip_diagnose.py --paths``; PERF.md). The large path's two launches now
-# take about 0.012 ms there, so the threshold is due to fall (PERF.md §7)
-SMALL_ENTRIES = 24576
-# the bins of one block's shared memory: 200 KB of 64-bit integers
-SMALL_MAX_BINS = 200 * 1024 // 8
-# float64 weights take two 64-bit words a bin (the same threshold of
-# entries: not measured apart)
-SMALL_MAX_BINS_F64 = SMALL_MAX_BINS // 2
+# Entries below which a call takes the small path (one launch of one
+# cluster): it beats the large path's two launches on the device alone up
+# to 98,304 entries on 2,993 bins (0.01058 ms against 0.0118) and loses from
+# 114,688 (0.01246 against 0.01169); as the host issues them it wins at
+# every E measured up to 196,608 (0.0216 against 0.0369) (H100,
+# ``chip_diagnose.py --paths --launch-times``; PERF.md). The one-block path
+# before it stopped at 24,576
+SMALL_ENTRIES = 114688
 # the large path (csrc/histogram_cluster.cuh): a block's slice of bins in
 # shared memory, the largest cluster C = 2^s, and the words of a slice that
 # C keeps to where it can (each block flushes its slice's words)
 SLICE_BYTES = 200 * 1024
 MAX_CLUSTER_SHIFT = 4
 FLUSH_WORDS = 4096
+# the float32 bins the small path takes: what the slices of the largest
+# cluster hold (half as many float64 bins, two words each)
+SMALL_MAX_BINS = (SLICE_BYTES // 8) << MAX_CLUSTER_SHIFT
 # the cluster branch where the entries are at least this many times the
 # words the blocks flush (an SM's block a slice): below it the global
 # branch is faster (2,993 bins, ms global against cluster: 0.01205 against
@@ -84,12 +84,22 @@ F64_MAX_SCALE_EXP = 960
 
 
 def small_max_bins(dtype) -> int:
-    """The most bins the one-block path takes for weights of ``dtype``."""
-    return SMALL_MAX_BINS if dtype == torch.float32 else SMALL_MAX_BINS_F64
+    """The most bins the small path takes for weights of ``dtype``: what
+    the slices of a cluster of 2^``MAX_CLUSTER_SHIFT`` blocks hold."""
+    return SMALL_MAX_BINS if dtype == torch.float32 else SMALL_MAX_BINS // 2
+
+
+def small_cluster_for(n_prims: int, dtype=torch.float32) -> int:
+    """The small path's cluster size C for ``n_prims`` bins: the largest,
+    2^``MAX_CLUSTER_SHIFT`` blocks, as fast as any smaller C at every shape
+    measured (``chip_diagnose.py --small-sweep``; PERF.md), where its slices
+    hold the bins (``small_max_bins``), else 0 (the large path then)
+    (``csrc/histogram_cluster.cuh:small_cluster_shift``)."""
+    return 1 << MAX_CLUSTER_SHIFT if n_prims <= small_max_bins(dtype) else 0
 
 
 def path_for(n_entries: int, n_prims: int, dtype=torch.float32) -> str:
-    """The kernel's path for a call: "small" (one launch of one block) or
+    """The kernel's path for a call: "small" (one launch of one cluster) or
     "large"."""
     if n_entries < SMALL_ENTRIES and n_prims <= small_max_bins(dtype):
         return "small"
@@ -208,9 +218,9 @@ def flux_histogram(ids, w, n_prims: int, path=None, branch=None):
         raise ValueError(f"no such path {path!r}")
     elif path == "small" and (n_prims > small_max_bins(w.dtype)
                               or n_entries >= 2**31):
-        raise ValueError("the one-block path takes up to SMALL_MAX_BINS bins "
-                         "(SMALL_MAX_BINS_F64 for float64 weights) and fewer "
-                         "than 2^31 entries")
+        raise ValueError("the small path takes up to SMALL_MAX_BINS bins "
+                         "(half as many for float64 weights) and fewer than "
+                         "2^31 entries")
     if branch is not None and branch not in BRANCHES:
         raise ValueError(f"no such branch {branch!r}")
     if branch is not None and path != "large":
