@@ -23,6 +23,7 @@ from ..config import disk_factor
 from ..device import resolve_device
 from ..ops import vec
 from ..ops.nearest_hit import pack_disk_prims
+from ..utils import telemetry
 from . import disk_area, grid_accel, neighborhood
 from .grid_accel import GridData
 from .mesh import DiskMesh, compute_bounding_box, with_dtype
@@ -226,36 +227,48 @@ class DiskGeometry:
         if dim == 2:
             bbox[:, 2] = 0.0
 
-        nbrs, _ = neighborhood.build_neighborhood(
-            points, 2.0 * disk_radius, dim=dim
-        )
+        with telemetry.span("geometry.neighborhood") as sp:
+            nbrs, _ = neighborhood.build_neighborhood(
+                points, 2.0 * disk_radius, dim=dim
+            )
+            sp.set(K=nbrs.shape[1])
 
-        sort_axis = 2 if dim == 3 else 1
-        soa, soa_perm, soa_bbs = pack_disk_prims(
-            points, normals, radii_arr, sort_axis=sort_axis
-        )
-        inv_perm = np.zeros((n,), np.int32)
-        inv_perm[soa_perm[:n]] = np.arange(n, dtype=np.int32)
+        # ``geometry.pack``: the SoA on the host, then, after the grid (whose
+        # build on the device peaks before the tables take the card's
+        # memory), the tables' copies to the device and the neighbor records
+        with telemetry.span("geometry.pack"):
+            sort_axis = 2 if dim == 3 else 1
+            soa, soa_perm, soa_bbs = pack_disk_prims(
+                points, normals, radii_arr, sort_axis=sort_axis
+            )
+            inv_perm = np.zeros((n,), np.int32)
+            inv_perm[soa_perm[:n]] = np.arange(n, dtype=np.int32)
 
         grid = None
         if accel and n > 0:
-            grid = GridData.build(
-                grid_accel.build_disk_grid(points, normals, radii_arr,
-                                           dim=dim),
-                *grid_accel.disk_boxes(points, radii_arr), inv_perm, dim,
-                device)
-        geometry = cls.from_reference_arrays(
-            dict(
+            with telemetry.span("geometry.grid") as sp:
+                grid = GridData.build(
+                    grid_accel.build_disk_grid(points, normals, radii_arr,
+                                               dim=dim),
+                    *grid_accel.disk_boxes(points, radii_arr), inv_perm, dim,
+                    device)
+                sp.set(cells=int(np.prod(grid.dims)))
+        with telemetry.span("geometry.pack") as sp:
+            fields = dict(
                 points=points, normals=normals, radii=radii_arr,
                 material_ids=mat, neighbors=nbrs,
                 areas=np.zeros((n,), np.float32), bbox=bbox, prims_soa=soa,
                 soa_perm=soa_perm, soa_chunk_bbs=soa_bbs,
                 soa_inv_perm=inv_perm, neighbor_pack=None,
-            ),
-            dim=dim, grid_delta=grid_delta, disk_radius=disk_radius,
-            device=device,
-        ).replace(grid=grid)
-        return geometry.with_neighbor_pack() if pack_neighbors else geometry
+            )
+            sp.set(bytes=sum(a.nbytes for a in fields.values()
+                             if a is not None))
+            geometry = cls.from_reference_arrays(
+                fields, dim=dim, grid_delta=grid_delta,
+                disk_radius=disk_radius, device=device,
+            ).replace(grid=grid)
+            return (geometry.with_neighbor_pack() if pack_neighbors
+                    else geometry)
 
     @classmethod
     def from_mesh(cls, mesh: DiskMesh, dim: int = 3,

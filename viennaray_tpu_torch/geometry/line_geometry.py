@@ -19,6 +19,7 @@ import torch
 
 from ..device import resolve_device
 from ..ops.nearest_hit import pack_line_prims
+from ..utils import telemetry
 from .mesh import LineMesh, compute_bounding_box, with_dtype
 
 # field -> dtype of the tables handed across by ``from_reference_arrays``
@@ -134,15 +135,17 @@ class LineGeometry:
         bbox = compute_bounding_box(np.concatenate([p0, p1]))
         bbox[:, 2] = 0.0
 
-        soa, soa_perm, soa_bbs = pack_line_prims(p0, p1, mesh.normals)
-        inv_perm = np.zeros((n,), np.int32)
-        inv_perm[soa_perm[:n]] = np.arange(n, dtype=np.int32)
-        return cls.from_reference_arrays(
-            dict(
+        # the SoA and the tables' copies to the device
+        with telemetry.span("geometry.pack") as sp:
+            soa, soa_perm, soa_bbs = pack_line_prims(p0, p1, mesh.normals)
+            inv_perm = np.zeros((n,), np.int32)
+            inv_perm[soa_perm[:n]] = np.arange(n, dtype=np.int32)
+            fields = dict(
                 p0=p0, p1=p1, normals=mesh.normals, areas=lengths,
                 material_ids=mat, bbox=bbox, prims_soa=soa,
                 soa_perm=soa_perm, soa_chunk_bbs=soa_bbs,
                 soa_inv_perm=inv_perm,
-            ),
-            grid_delta=mesh.grid_delta, device=device,
-        )
+            )
+            sp.set(bytes=sum(np.asarray(a).nbytes for a in fields.values()))
+            return cls.from_reference_arrays(
+                fields, grid_delta=mesh.grid_delta, device=device)

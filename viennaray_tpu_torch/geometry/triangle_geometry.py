@@ -19,6 +19,7 @@ import torch
 
 from ..device import resolve_device
 from ..ops.nearest_hit import pack_triangle_prims
+from ..utils import telemetry
 from . import grid_accel
 from .grid_accel import GridData
 from .mesh import (
@@ -191,29 +192,37 @@ class TriangleGeometry:
         )
         bbox = compute_bounding_box(vertices)
 
-        sort_axis = 2 if dim == 3 else 1
-        soa, soa_perm, soa_bbs = pack_triangle_prims(
-            vertices, triangles, normals=normals, sort_axis=sort_axis
-        )
-        inv_perm = np.zeros((n,), np.int32)
-        inv_perm[soa_perm[:n]] = np.arange(n, dtype=np.int32)
+        # ``geometry.pack``: the SoA on the host, then (after the grid) the
+        # tables' copies to the device
+        with telemetry.span("geometry.pack"):
+            sort_axis = 2 if dim == 3 else 1
+            soa, soa_perm, soa_bbs = pack_triangle_prims(
+                vertices, triangles, normals=normals, sort_axis=sort_axis
+            )
+            inv_perm = np.zeros((n,), np.int32)
+            inv_perm[soa_perm[:n]] = np.arange(n, dtype=np.int32)
 
         grid = None
         if accel and n > 0:
-            grid = GridData.build(
-                grid_accel.build_triangle_grid(vertices, triangles, dim=dim),
-                *grid_accel.triangle_boxes(vertices, triangles), inv_perm,
-                dim, device,
-                exact=grid_accel.triangles_covered(vertices, triangles))
-        return cls.from_reference_arrays(
-            dict(
+            with telemetry.span("geometry.grid") as sp:
+                grid = GridData.build(
+                    grid_accel.build_triangle_grid(vertices, triangles,
+                                                   dim=dim),
+                    *grid_accel.triangle_boxes(vertices, triangles), inv_perm,
+                    dim, device,
+                    exact=grid_accel.triangles_covered(vertices, triangles))
+                sp.set(cells=int(np.prod(grid.dims)))
+        with telemetry.span("geometry.pack") as sp:
+            fields = dict(
                 vertices=vertices, triangles=triangles, normals=normals,
                 areas=areas, material_ids=mat, bbox=bbox, prims_soa=soa,
                 soa_perm=soa_perm, soa_chunk_bbs=soa_bbs,
                 soa_inv_perm=inv_perm,
-            ),
-            dim=dim, grid_delta=grid_delta, device=device,
-        ).replace(grid=grid)
+            )
+            sp.set(bytes=sum(np.asarray(a).nbytes for a in fields.values()))
+            return cls.from_reference_arrays(
+                fields, dim=dim, grid_delta=grid_delta, device=device,
+            ).replace(grid=grid)
 
     @classmethod
     def from_mesh(cls, mesh: TriangleMesh, dim: int = 3,

@@ -817,6 +817,7 @@ def fused_bounce(state: RayState, uniforms, geometry, walls, settings,
         grid_traverse.check_grid(grid, state.org)
         if group not in (None, GRID_GROUP):
             raise ValueError(f"the grid search runs at group {GRID_GROUP}")
+    fused_bounce.hand_outs += not deposit_in_kernel
     dev = state.org.device
     if dev.type == "cpu":
         return fused_bounce_ref(
@@ -900,3 +901,5 @@ fused_bounce.launches = 0  # kernel launches
 fused_bounce.launches_grid = 0  # of them, launches with the grid search
 fused_bounce.sub_bounces = 0  # bounces those launches ran, n_sub each
 fused_bounce.launches_by_group = dict.fromkeys(GROUPS, 0)  # launches by G
+# calls that hand their deposits out (deposit_in_kernel=False), on the CPU too
+fused_bounce.hand_outs = 0

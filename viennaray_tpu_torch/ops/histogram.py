@@ -236,6 +236,11 @@ def flux_histogram(ids, w, n_prims: int, path=None, branch=None):
 def _histogram(ids, w, n_prims, path, branch=None):
     """The checked call of ``flux_histogram``: the plain version on the CPU,
     the kernel on a CUDA device."""
+    # the entries handed in, on either device
+    if w.dtype is torch.float64:
+        flux_histogram.entries_f64 += ids.size(0)
+    else:
+        flux_histogram.entries += ids.size(0)
     if not w.is_cuda:
         if w.device.type == "cpu":
             return flux_histogram_ref(ids, w, n_prims)
@@ -294,6 +299,10 @@ flux_histogram.launches_by_path_f64 = {"small": 0, "large": 0}
 # the large path's launches by branch
 flux_histogram.launches_by_branch = {"cluster": 0, "global": 0}
 flux_histogram.launches_by_branch_f64 = {"cluster": 0, "global": 0}
+# the entries of every call, on the CPU too (kernel 2's roofline counts each
+# entry's id and weight read once)
+flux_histogram.entries = 0
+flux_histogram.entries_f64 = 0
 
 
 class FluxHistogramFn(torch.autograd.Function):

@@ -35,7 +35,10 @@ The two find the same hits bit for bit, so the rule moves only the time and
 the search counters.
 
 A Python loop drives the launches; it reads the survivor count from the
-device once per launch to decide when to compact.
+device once per launch to decide when to compact. Under a request of
+``utils.telemetry`` that records, each batch's parts are spans: ``source``,
+every ``launch`` and its ``deposit``, every blocking ``read``, ``compact``
+and ``resort``; ``counters`` holds the counts the request carries.
 
 Event semantics mirrored 1:1 from rayTraceKernel.hpp:
 - miss (escape through the source-axis faces) -> nonGeometryHits (:172-176)
@@ -133,6 +136,7 @@ from ..physics.source import (
     check_sample,
     check_source,
 )
+from ..utils import telemetry
 
 # ray-compaction ladder: halve the width per stage, floored at MIN_STAGE
 MIN_STAGE = 512
@@ -169,6 +173,11 @@ against 0.5736 and 0.5533, disk18k 0.2301 and 0.2122 against 0.2159 and
 the 36,000-triangle trench 0.1355 and 0.1312 against 0.1188 and 0.1172. So
 the port resorts only when asked; ``bounce_sort=True`` gives the JAX
 package's gate and lane order."""
+
+# what a ``read`` span read from the device (its attribute ``what``): the
+# survivors before the ladder, a launch's survivor count, the batch's
+# counters, the apply's flux
+READ_ALIVE, READ_SURVIVORS, READ_COUNTS, READ_FLUX = range(4)
 
 # the closest-hit kernel's wrapper of each geometry kind
 _SEARCH = {
@@ -224,6 +233,36 @@ def resort(state: RayState, aux, bb_lo, bb_ext, dirbins: int):
     key = coherence_key(state.org, state.dirn, state.alive, bb_lo, bb_ext,
                         dirbins)
     return permute_state(torch.sort(key, stable=True).indices, state, aux)
+
+
+def _source_sorted(state: RayState, aux, walls, settings, dim: int):
+    """The source-coherence sort: random source origins scatter
+    neighbouring lanes over the whole domain. Sorting the batch by
+    source-plane Morton cell makes blocks of lanes spatially compact
+    (deterministic per seed; deposits are order-independent sums, and each
+    lane's uniforms remain i.i.d.). Returns (RayState, aux)."""
+    nb = 6  # 64x64 source-plane cells
+    org = state.org
+    lo1, hi1, lo2, hi2 = (walls[i] for i in range(4))
+    one = torch.tensor(1e-30, dtype=org.dtype, device=org.device)
+    c1 = torch.clamp(
+        ((org[:, settings.first_dir] - lo1) / torch.maximum(hi1 - lo1, one)
+         * (1 << nb)).to(torch.int32),
+        0, (1 << nb) - 1,
+    )
+    if dim == 3:
+        c2 = torch.clamp(
+            ((org[:, settings.second_dir] - lo2)
+             / torch.maximum(hi2 - lo2, one) * (1 << nb)).to(torch.int32),
+            0, (1 << nb) - 1,
+        )
+        key_m = torch.zeros_like(c1)
+        for bit in range(nb):
+            key_m = key_m | (((c1 >> bit) & 1) << (2 * bit))
+            key_m = key_m | (((c2 >> bit) & 1) << (2 * bit + 1))
+    else:
+        key_m = c1
+    return permute_state(torch.argsort(key_m, stable=True), state, aux)
 
 
 def hand_out_for(kind: str, n_chunks: int, refl_kind, n_sub: int) -> bool:
@@ -325,6 +364,33 @@ def check_supported(config: TraceConfig, particle, source,
         raise NotImplementedError(
             f"the source samples {source.dtype} but the trace is {dtype}: "
             "cast the source with to(dtype), as the geometry")
+
+
+def host_read(what: int):
+    """The span of one blocking read from the device to the host (``what``:
+    ``READ_ALIVE`` ... ``READ_FLUX``), counted in ``trace_batch.host_reads``
+    (the tracers' copy of the flux too)."""
+    trace_batch.host_reads += 1
+    return telemetry.span("read", what=what)
+
+
+def counters() -> dict:
+    """The always-on counters of the trace's work, by the name an ``apply``
+    span carries the change of each under: the host reads, ladder steps and
+    resorts of ``trace_batch``, the bounce kernel's launches and of them
+    those that hand their deposits out, and the histogram's entries and
+    launches (float32 and float64 weights)."""
+    return dict(
+        host_reads=trace_batch.host_reads,
+        compactions=trace_batch.compactions,
+        resorts=trace_batch.resorts,
+        bounce_launches=fused_bounce.launches,
+        hand_outs=fused_bounce.hand_outs,
+        histogram_entries=flux_histogram.entries,
+        histogram_entries_f64=flux_histogram.entries_f64,
+        histogram_launches=flux_histogram.launches,
+        histogram_launches_f64=flux_histogram.launches_f64,
+    )
 
 
 def _flux_add(ids, weights, n_prims):
@@ -563,7 +629,6 @@ def trace_batch(
                 "the differentiable trace takes no " + ", ".join(given))
     dim = config.dim
     settings = BounceSettings.from_config(config, particle, fused=fused)
-    first_dir, second_dir = settings.first_dir, settings.second_dir
     deposit_kind = settings.deposit_kind(geometry)
     geometry = with_deposit_tables(geometry, config)
     wdist = config.use_wdist and deposit_kind == "disk"
@@ -583,52 +648,55 @@ def trace_batch(
     n_prims = geometry.num_primitives
     walls = make_walls(bbox, geometry, settings)
     stick_lanes = sticking_lanes(particle, geometry)
-    lo1, hi1, lo2, hi2 = (walls[i] for i in range(4))
 
-    # ---- source sampling -------------------------------------------------
-    org, dirn, w0 = source.sample(rng, batch_index, R, ray_indices)
-    if not isinstance(source, SOURCES):
-        check_sample(org, dirn, w0, R, dev, dtype)
+    # ---- source sampling and the source-coherence sort ------------------
+    with telemetry.span("source"):
+        org, dirn, w0 = source.sample(rng, batch_index, R, ray_indices)
+        if not isinstance(source, SOURCES):
+            check_sample(org, dirn, w0, R, dev, dtype)
 
-    # particle-controlled initial direction (ref: initNewWithDirection,
-    # rayParticle.hpp:31,92; the zero vector means "use the source's")
-    if particle.direction is not None:
-        dirn = _use_dir(torch.tensor(particle.direction, device=dev).expand(
-            R, 3), dirn, dim)
-    if init_dir_fn is not None:
-        dirn = _use_dir(
-            init_dir_fn(HookRNG(rng, rng_streams.HOOK_INIT_DIR, batch_index),
-                        ray_indices),
-            dirn, dim,
+        # particle-controlled initial direction (ref: initNewWithDirection,
+        # rayParticle.hpp:31,92; the zero vector means "use the source's")
+        if particle.direction is not None:
+            dirn = _use_dir(torch.tensor(
+                particle.direction, device=dev).expand(R, 3), dirn, dim)
+        if init_dir_fn is not None:
+            dirn = _use_dir(
+                init_dir_fn(HookRNG(rng, rng_streams.HOOK_INIT_DIR,
+                                    batch_index), ray_indices),
+                dirn, dim,
+            )
+        aux = None
+        if aux_init_fn is not None:
+            aux = aux_init_fn(HookRNG(rng, rng_streams.HOOK_AUX_INIT,
+                                      batch_index), ray_indices)
+            if aux.ndim != 2 or aux.shape[0] != R or aux.dtype != dtype:
+                raise ValueError(
+                    f"aux_init_fn must return (R, A) {dtype} with R = {R}, "
+                    f"got {tuple(aux.shape)} {aux.dtype}")
+            aux = aux.contiguous()
+        logs = None
+        if log_fn is not None:
+            logs = tuple(log_fn(
+                HookRNG(rng, rng_streams.HOOK_LOG, batch_index),
+                aux if aux is not None
+                else torch.zeros((R, 1), dtype=dtype, device=dev),
+                ray_indices, valid,
+            ))
+
+        weight = torch.where(valid, w0, torch.zeros_like(w0))
+        # contiguous from here on: the permutation and the fused kernel take
+        # them so, and give them so
+        state = RayState(
+            org.contiguous(), dirn.contiguous(), weight.contiguous(),
+            w0.contiguous(), valid.contiguous(),
+            torch.zeros(R, dtype=torch.bool, device=dev),
+            torch.zeros(R, dtype=torch.int32, device=dev),
+            torch.zeros(R, dtype=torch.int32, device=dev),
         )
-    aux = None
-    if aux_init_fn is not None:
-        aux = aux_init_fn(HookRNG(rng, rng_streams.HOOK_AUX_INIT, batch_index),
-                          ray_indices)
-        if aux.ndim != 2 or aux.shape[0] != R or aux.dtype != dtype:
-            raise ValueError(
-                f"aux_init_fn must return (R, A) {dtype} with R = {R}, got "
-                f"{tuple(aux.shape)} {aux.dtype}")
-        aux = aux.contiguous()
-    logs = None
-    if log_fn is not None:
-        logs = tuple(log_fn(
-            HookRNG(rng, rng_streams.HOOK_LOG, batch_index),
-            aux if aux is not None
-            else torch.zeros((R, 1), dtype=dtype, device=dev),
-            ray_indices, valid,
-        ))
+        if R >= 2048 and not differentiable:
+            state, aux = _source_sorted(state, aux, walls, settings, dim)
 
-    weight = torch.where(valid, w0, torch.zeros_like(w0))
-    # contiguous from here on: the permutation and the fused kernel take
-    # them so, and give them so
-    state = RayState(
-        org.contiguous(), dirn.contiguous(), weight.contiguous(),
-        w0.contiguous(), valid.contiguous(),
-        torch.zeros(R, dtype=torch.bool, device=dev),
-        torch.zeros(R, dtype=torch.int32, device=dev),
-        torch.zeros(R, dtype=torch.int32, device=dev),
-    )
     # a collision_fn fills one channel per data label (ref: kernel.py:324-334)
     n_chan = len(particle.data_labels) if collision_fn is not None else 1
     flux_shape = (n_chan, n_prims) if n_chan > 1 else (n_prims,)
@@ -643,10 +711,12 @@ def trace_batch(
         re-test take the weight (with ``use_wdist`` weighted by 1/distance),
         or under the window model every window-list disk within tau past the
         hit; of triangles and lines, the single closest hit."""
-        ids, w = deposit_entries(org, dirn, hit_prim, wdep, geometry, t_hit,
-                                 settings, use_wdist=wdist,
-                                 differentiable=differentiable)
-        return flux + _flux_add(ids, w, n_prims)
+        with telemetry.span("deposit", device=dev) as sp:
+            ids, w = deposit_entries(org, dirn, hit_prim, wdep, geometry,
+                                     t_hit, settings, use_wdist=wdist,
+                                     differentiable=differentiable)
+            sp.set(entries=ids.shape[0])
+            return flux + _flux_add(ids, w, n_prims)
 
     def with_aux(args, aux):
         return args if aux is None else args + (aux,)
@@ -671,15 +741,17 @@ def trace_batch(
     def hook_collide(it, flux, org, dirn, hit_prim, wdep, t_hit, aux):
         """The bounce's deposits through the collision_fn, ids and weights
         (R, K + 1) or (R, 1)."""
-        ids, w = deposit_entries(org, dirn, hit_prim, wdep, geometry, t_hit,
-                                 settings, use_wdist=wdist)
-        width = org.shape[0]
-        prim_c = torch.clamp(hit_prim, min=0).long()
-        out = collision_fn(*with_aux((
-            flux, ids.view(width, -1), w.view(width, -1), dirn,
-            geometry.normals[prim_c], geometry.material_ids[prim_c],
-            HookRNG(rng, rng_streams.HOOK_COLLISION, batch_index, it),
-        ), aux))
+        with telemetry.span("deposit", device=dev) as sp:
+            ids, w = deposit_entries(org, dirn, hit_prim, wdep, geometry,
+                                     t_hit, settings, use_wdist=wdist)
+            sp.set(entries=ids.shape[0])
+            width = org.shape[0]
+            prim_c = torch.clamp(hit_prim, min=0).long()
+            out = collision_fn(*with_aux((
+                flux, ids.view(width, -1), w.view(width, -1), dirn,
+                geometry.normals[prim_c], geometry.material_ids[prim_c],
+                HookRNG(rng, rng_streams.HOOK_COLLISION, batch_index, it),
+            ), aux))
         if out.shape != flux.shape or out.dtype != flux.dtype:
             raise ValueError(
                 f"collision_fn must return the flux {tuple(flux.shape)} "
@@ -690,23 +762,26 @@ def trace_batch(
         """One bounce of the whole stage by tensor ops around the closest-hit
         and histogram kernels; returns (flux, survivor count, new state,
         iterations done, new aux)."""
-        u = _bounce_uniforms(
-            rng, batch_index, it, state.org.shape[0], 1, settings, dev, dtype
-        )
-        new_aux = [aux]
-        reflect = (None if reflection_fn is None
-                   else hook_reflect(it, u, aux, new_aux))
-        new_state, hit_prim, wdep, t_hit, step_counts = bounce_step(
-            state, u, geometry, walls, settings, search,
-            stick_lanes, reflect=reflect, differentiable=differentiable,
-        )
-        if collision_fn is not None:
-            flux = hook_collide(it, flux, state.org, state.dirn, hit_prim,
-                                wdep, t_hit, aux)
-        else:
-            flux = land(flux, state.org, state.dirn, hit_prim, wdep, t_hit)
-        counts[:N_EVENTS].add_(step_counts)
-        return flux, new_state.alive.sum(), new_state, 1, new_aux[0]
+        width = state.org.shape[0]
+        with telemetry.span("launch", device=dev, width=width, n_sub=1,
+                            hand_out=1):
+            u = _bounce_uniforms(rng, batch_index, it, width, 1, settings,
+                                 dev, dtype)
+            new_aux = [aux]
+            reflect = (None if reflection_fn is None
+                       else hook_reflect(it, u, aux, new_aux))
+            new_state, hit_prim, wdep, t_hit, step_counts = bounce_step(
+                state, u, geometry, walls, settings, search,
+                stick_lanes, reflect=reflect, differentiable=differentiable,
+            )
+            if collision_fn is not None:
+                flux = hook_collide(it, flux, state.org, state.dirn, hit_prim,
+                                    wdep, t_hit, aux)
+            else:
+                flux = land(flux, state.org, state.dirn, hit_prim, wdep,
+                            t_hit)
+            counts[:N_EVENTS].add_(step_counts)
+            return flux, new_state.alive.sum(), new_state, 1, new_aux[0]
 
     def fused_body(it, flux, state, aux):
         """One launch of the bounce kernel: ``n_sub`` bounces of the whole
@@ -717,50 +792,24 @@ def trace_batch(
             deposit_kind, geometry.soa_chunk_bbs.shape[0],
             settings.refl_kind, k,
         )
-        u = _bounce_uniforms(rng, batch_index, it, width, k, settings, dev)
-        res = fused_bounce(
-            state, u.contiguous(), geometry, walls, settings, n_sub=k,
-            deposit_in_kernel=not hand_out, stick_lanes=stick_lanes,
-            grid=grid,
-        )
-        if hand_out:
-            flux = land(flux, state.org, state.dirn, res.hit_prim, res.wdep,
-                        res.t_hit)
-        else:
-            flux = flux + res.flux
-        counts.add_(res.counts)
-        return flux, res.counts[N_EVENTS], res.state, k, aux
+        with telemetry.span("launch", device=dev, width=width, n_sub=k,
+                            hand_out=int(hand_out)):
+            u = _bounce_uniforms(rng, batch_index, it, width, k, settings,
+                                 dev)
+            res = fused_bounce(
+                state, u.contiguous(), geometry, walls, settings, n_sub=k,
+                deposit_in_kernel=not hand_out, stick_lanes=stick_lanes,
+                grid=grid,
+            )
+            if hand_out:
+                flux = land(flux, state.org, state.dirn, res.hit_prim,
+                            res.wdep, res.t_hit)
+            else:
+                flux = flux + res.flux
+            counts.add_(res.counts)
+            return flux, res.counts[N_EVENTS], res.state, k, aux
 
     body = fused_body if fused else unfused_body
-
-    # ---- source-coherence sort -------------------------------------------
-    # Random source origins scatter neighbouring lanes over the whole domain.
-    # Sorting the batch by source-plane Morton cell makes blocks of lanes
-    # spatially compact (deterministic per seed; deposits are
-    # order-independent sums, and each lane's uniforms remain i.i.d.).
-    if R >= 2048 and not differentiable:
-        nb = 6  # 64x64 source-plane cells
-        org = state.org
-        one = torch.tensor(1e-30, dtype=dtype, device=dev)
-        c1 = torch.clamp(
-            ((org[:, first_dir] - lo1) / torch.maximum(hi1 - lo1, one)
-             * (1 << nb)).to(torch.int32),
-            0, (1 << nb) - 1,
-        )
-        if dim == 3:
-            c2 = torch.clamp(
-                ((org[:, second_dir] - lo2) / torch.maximum(hi2 - lo2, one)
-                 * (1 << nb)).to(torch.int32),
-                0, (1 << nb) - 1,
-            )
-            key_m = torch.zeros_like(c1)
-            for bit in range(nb):
-                key_m = key_m | (((c1 >> bit) & 1) << (2 * bit))
-                key_m = key_m | (((c2 >> bit) & 1) << (2 * bit + 1))
-        else:
-            key_m = c1
-        state, aux = permute_state(torch.argsort(key_m, stable=True), state,
-                                   aux)
 
     # ---- staged execution with ray compaction ---------------------------
     # Roulette kills rays at different bounce counts, so a fixed-size
@@ -795,39 +844,49 @@ def trace_batch(
         for it in range(32 if num_bounces is None else int(num_bounces)):
             flux, _, state, _, _ = body(it, flux, state, None)
     it = 0
-    n_alive = 0 if differentiable else int(state.alive.sum())
+    n_alive = 0
+    if not differentiable:
+        with host_read(READ_ALIVE):
+            n_alive = int(state.alive.sum())
     sorted_since_bounce = False
     for cap in stage_caps:
         while it < config.max_bounces and n_alive > cap:
             if resorted and it % sort_every == 0:
                 # before the launch draws its uniforms (ref: kernel.py:523-531,
                 # 1075-1082), so lanes and uniforms pair as there
-                state, aux = resort(state, aux, key_lo, key_ext, dirbins)
+                trace_batch.resorts += 1
+                with telemetry.span("resort"):
+                    state, aux = resort(state, aux, key_lo, key_ext, dirbins)
             flux, alive_count, state, done, aux = body(it, flux, state, aux)
             it += done
             # the one host read per launch: the ladder needs the survivor
             # count
-            n_alive = int(alive_count)
+            with host_read(READ_SURVIVORS):
+                n_alive = int(alive_count)
             sorted_since_bounce = False
         if cap == 0:
             break
-        if sorted_since_bounce:
-            # no bounce since the last compaction: the lanes are still in
-            # key order, so the stable sort would be the identity
-            state = RayState(*(x[:cap] for x in state))
-            if aux is not None:
-                aux = aux[:cap]
-        else:
-            # spatial compaction: survivors sorted by origin cell and
-            # direction octant (dead lanes last), so neighbouring lanes stay
-            # coherent after diffuse bounces decohere the source order
-            key_s = coherence_key(state.org, state.dirn, state.alive, key_lo,
-                                  key_ext, COMPACT_DIRBINS)
-            state, aux = permute_state(
-                torch.argsort(key_s, stable=True)[:cap], state, aux)
-            sorted_since_bounce = True
+        trace_batch.compactions += 1
+        with telemetry.span("compact", before=state.org.shape[0], after=cap):
+            if sorted_since_bounce:
+                # no bounce since the last compaction: the lanes are still
+                # in key order, so the stable sort would be the identity
+                state = RayState(*(x[:cap] for x in state))
+                if aux is not None:
+                    aux = aux[:cap]
+            else:
+                # spatial compaction: survivors sorted by origin cell and
+                # direction octant (dead lanes last), so neighbouring lanes
+                # stay coherent after diffuse bounces decohere the source
+                # order
+                key_s = coherence_key(state.org, state.dirn, state.alive,
+                                      key_lo, key_ext, COMPACT_DIRBINS)
+                state, aux = permute_state(
+                    torch.argsort(key_s, stable=True)[:cap], state, aux)
+                sorted_since_bounce = True
 
-    c = dict(zip(COUNT_NAMES, counts.tolist()))  # the one fetch per batch
+    with host_read(READ_COUNTS):  # the one fetch per batch
+        c = dict(zip(COUNT_NAMES, counts.tolist()))
     counters = BatchCounters(
         total_traces=c["traces"], non_geometry_hits=c["exit"],
         geometry_hits=c["collide"], particle_hits=c["scatter"],
@@ -837,3 +896,10 @@ def trace_batch(
     if log_fn is not None:
         return flux, counters, logs
     return flux, counters
+
+
+# the host's side of every trace, always counted (``counters``): blocking
+# reads from the device, ladder steps (a compaction or a cut) and resorts
+trace_batch.host_reads = 0
+trace_batch.compactions = 0
+trace_batch.resorts = 0

@@ -14,10 +14,16 @@ through the fused bounce kernel unless the caller asks for the unfused body
 every launch on a geometry of 8 chunks or more (the JAX package's
 per-bounce coherence resort, ``trace.kernel.resort_for``); by default it
 does not (``trace.kernel.BOUNCE_SORT`` says why).
+
+``apply``, ``set_geometry``, ``normalize_flux`` and ``smooth_flux`` are the
+requests of ``utils.telemetry``: under a ``torch.profiler`` session each
+records its spans (an apply's carry the change of
+``trace.kernel.counters``).
 """
 
 from __future__ import annotations
 
+import functools
 import os
 import time
 from typing import Sequence
@@ -41,11 +47,23 @@ from ..geometry.neighborhood import build_neighborhood
 from ..geometry.triangle_geometry import TriangleGeometry
 from ..physics.source import RandomSource, check_source, source_box
 from ..rng import GeneratorRNG
+from ..utils import telemetry
 from . import postprocess
 from .kernel import (
-    BOUNCE_SORT, BatchCounters, check_supported, trace_batch,
-    with_deposit_tables,
+    BOUNCE_SORT, READ_FLUX, BatchCounters, check_supported, counters,
+    host_read, trace_batch, with_deposit_tables,
 )
+
+
+def _request(name):
+    """The method as a request of ``utils.telemetry`` named ``name``."""
+    def wrap(method):
+        @functools.wraps(method)
+        def run(self, *args, **kwargs):
+            with telemetry.request(name):
+                return method(self, *args, **kwargs)
+        return run
+    return wrap
 
 
 class _TraceBase:
@@ -243,7 +261,10 @@ class _TraceBase:
         # (ref: rayTraceKernel.hpp:100 seed = runNumber + rngSeed)
         return (self._rng_seed + self._run_number) & 0xFFFFFFFF
 
-    def _run_trace(self, geometry):
+    def _run_trace(self, geometry, request):
+        """The apply's mega-batches; ``request``: the apply's span, which
+        takes the rays, the batches, the primitives and the change of every
+        counter of ``trace.kernel.counters`` as attributes."""
         config = self._make_config()
         n_prims = geometry.num_primitives
         total_rays = config.total_rays(n_prims)
@@ -282,32 +303,40 @@ class _TraceBase:
         flux_shape = (n_chan, n_prims) if n_chan > 1 else (n_prims,)
         flux = torch.zeros(flux_shape, dtype=acc_dtype, device=dev)
         totals = np.zeros(len(BatchCounters._fields), np.int64)
+        before = counters() if request.on else None
 
         t0 = time.perf_counter()
         for b in range(num_batches):
-            ray_indices = torch.arange(
-                b * batch, (b + 1) * batch, dtype=torch.int64, device=dev
-            )
-            valid = ray_indices < total_rays
-            rng.begin_batch(b)
-            out = trace_batch(
-                geometry, source, self._particle, bbox_dev, rng, b,
-                ray_indices, valid, config, fused=self._fused,
-                bounce_sort=self._bounce_sort, **self._hooks,
-            )
-            batch_flux, counters = out[:2]
-            flux += batch_flux.to(acc_dtype)
-            totals += np.asarray(counters, np.int64)
-            if len(out) == 3:
-                self._add_logs(out[2])
+            with telemetry.span("batch", index=b, width=batch):
+                ray_indices = torch.arange(
+                    b * batch, (b + 1) * batch, dtype=torch.int64, device=dev
+                )
+                valid = ray_indices < total_rays
+                rng.begin_batch(b)
+                out = trace_batch(
+                    geometry, source, self._particle, bbox_dev, rng, b,
+                    ray_indices, valid, config, fused=self._fused,
+                    bounce_sort=self._bounce_sort, **self._hooks,
+                )
+                batch_flux, batch_counters = out[:2]
+                flux += batch_flux.to(acc_dtype)
+                totals += np.asarray(batch_counters, np.int64)
+                if len(out) == 3:
+                    self._add_logs(out[2])
             if self._print_progress:
                 print(
                     f"viennaray-tpu-torch: batch {b + 1}/{num_batches} "
                     f"({min((b + 1) * batch, total_rays)}/{total_rays} rays)",
                     flush=True,
                 )
-        out = flux.double().cpu().numpy()  # waits for the device
+        with host_read(READ_FLUX):  # waits for the device
+            out = flux.double().cpu().numpy()
         elapsed = time.perf_counter() - t0
+        if request.on:
+            after = counters()
+            request.set(rays=total_rays, batches=num_batches, prims=n_prims,
+                        run=self._run_number,
+                        **{k: after[k] - before[k] for k in after})
 
         c = BatchCounters(*(int(v) for v in totals))
         self._info = TraceInfo(
@@ -364,15 +393,17 @@ class TraceDisk(_TraceBase):
 
     def set_geometry(self, points, normals=None, grid_delta=None,
                      disk_radius=None):
-        if isinstance(points, DiskMesh):
-            self.geometry = DiskGeometry.from_mesh(
-                points, dim=self._dim, device=self._device
-            )
-        else:
-            self.geometry = DiskGeometry.build(
-                points, normals, grid_delta, dim=self._dim,
-                disk_radius=disk_radius, device=self._device,
-            )
+        with telemetry.request("set_geometry") as req:
+            if isinstance(points, DiskMesh):
+                self.geometry = DiskGeometry.from_mesh(
+                    points, dim=self._dim, device=self._device
+                )
+            else:
+                self.geometry = DiskGeometry.build(
+                    points, normals, grid_delta, dim=self._dim,
+                    disk_radius=disk_radius, device=self._device,
+                )
+            req.set(primitives=self.geometry.num_primitives)
 
     def set_material_ids(self, material_ids):
         self.geometry = self.geometry.replace(
@@ -385,18 +416,21 @@ class TraceDisk(_TraceBase):
         """Run the trace (ref: rayTraceDisk.hpp:19-57); returns the raw flux
         per disk as a float64 numpy array, (L, N) for a ``collision_fn`` and
         a particle of L > 1 data labels."""
-        self._check_settings()
-        settings = get_trace_settings(self._source_direction)
-        boundary_dirs = (settings[1], settings[2])
-        self.geometry = self.geometry.with_areas(
-            boundary_dirs, self._boundary_conditions
-        )
-        self.geometry = with_deposit_tables(self.geometry,
-                                            self._make_config())
-        flux = self._run_trace(self.geometry)
-        self._store_local_data(flux)
+        with telemetry.request("apply") as req:
+            self._check_settings()
+            settings = get_trace_settings(self._source_direction)
+            boundary_dirs = (settings[1], settings[2])
+            with telemetry.span("areas"):
+                self.geometry = self.geometry.with_areas(
+                    boundary_dirs, self._boundary_conditions
+                )
+                self.geometry = with_deposit_tables(self.geometry,
+                                                    self._make_config())
+            flux = self._run_trace(self.geometry, req)
+            self._store_local_data(flux)
         return flux
 
+    @_request("normalize")
     def normalize_flux(self, flux, norm: NormalizationType = NormalizationType.SOURCE):
         """(ref: rayTraceDisk.hpp:103-142)"""
         flux = torch.as_tensor(
@@ -415,6 +449,7 @@ class TraceDisk(_TraceBase):
             )
         return out.cpu().numpy()
 
+    @_request("smooth")
     def smooth_flux(self, flux, num_neighbors: int = 1):
         """(ref: rayTraceDisk.hpp:146-193)"""
         if num_neighbors < 1:
@@ -454,21 +489,23 @@ class TraceTriangle(_TraceBase):
     """Triangle-mesh tracer (ref: rayTraceTriangle.hpp)."""
 
     def set_geometry(self, mesh_or_points, triangles=None, grid_delta=None):
-        if isinstance(mesh_or_points, TriangleMesh):
-            self.geometry = TriangleGeometry.from_mesh(
-                mesh_or_points, dim=self._dim, device=self._device
-            )
-        elif isinstance(mesh_or_points, LineMesh):
-            if self._dim != 2:
-                raise ValueError("Line geometry is only supported in 2D")
-            self.geometry = TriangleGeometry.from_line_mesh(
-                mesh_or_points, device=self._device
-            )
-        else:
-            self.geometry = TriangleGeometry.build(
-                mesh_or_points, triangles, grid_delta, dim=self._dim,
-                device=self._device,
-            )
+        if isinstance(mesh_or_points, LineMesh) and self._dim != 2:
+            raise ValueError("Line geometry is only supported in 2D")
+        with telemetry.request("set_geometry") as req:
+            if isinstance(mesh_or_points, TriangleMesh):
+                self.geometry = TriangleGeometry.from_mesh(
+                    mesh_or_points, dim=self._dim, device=self._device
+                )
+            elif isinstance(mesh_or_points, LineMesh):
+                self.geometry = TriangleGeometry.from_line_mesh(
+                    mesh_or_points, device=self._device
+                )
+            else:
+                self.geometry = TriangleGeometry.build(
+                    mesh_or_points, triangles, grid_delta, dim=self._dim,
+                    device=self._device,
+                )
+            req.set(primitives=self.geometry.num_primitives)
 
     def set_material_ids(self, material_ids):
         self.geometry = self.geometry.replace(
@@ -492,10 +529,12 @@ class TraceTriangle(_TraceBase):
                 f"geometry is on {self.geometry.device}, the tracer on "
                 f"{self._device}"
             )
-        flux = self._run_trace(self.geometry)
-        self._store_local_data(flux)
+        with telemetry.request("apply") as req:
+            flux = self._run_trace(self.geometry, req)
+            self._store_local_data(flux)
         return flux
 
+    @_request("normalize")
     def normalize_flux(self, flux, norm: NormalizationType = NormalizationType.SOURCE):
         """(ref: rayTraceTriangle.hpp:92-130)"""
         flux = torch.as_tensor(
@@ -512,6 +551,7 @@ class TraceTriangle(_TraceBase):
             )
         return out.cpu().numpy()
 
+    @_request("smooth")
     def smooth_flux(self, flux, num_neighbors: int = 1):
         """No-op for element meshes (ref: rayTraceTriangle.hpp:134-136)."""
         return np.asarray(flux)
@@ -529,9 +569,11 @@ class TraceLine(_TraceBase):
                          bounce_sort=bounce_sort)
 
     def set_geometry(self, mesh: LineMesh, material_ids=None):
-        self.geometry = LineGeometry.from_mesh(
-            mesh, material_ids=material_ids, device=self._device
-        )
+        with telemetry.request("set_geometry") as req:
+            self.geometry = LineGeometry.from_mesh(
+                mesh, material_ids=material_ids, device=self._device
+            )
+            req.set(primitives=self.geometry.num_primitives)
 
     def set_material_ids(self, material_ids):
         self.geometry = self.geometry.replace(
@@ -555,10 +597,12 @@ class TraceLine(_TraceBase):
                 f"geometry is on {self.geometry.device}, the tracer on "
                 f"{self._device}"
             )
-        flux = self._run_trace(self.geometry)
-        self._store_local_data(flux)
+        with telemetry.request("apply") as req:
+            flux = self._run_trace(self.geometry, req)
+            self._store_local_data(flux)
         return flux
 
+    @_request("normalize")
     def normalize_flux(self, flux, norm: NormalizationType = NormalizationType.SOURCE):
         """flux *= sourceArea/(length * numRays)
         (ref: gpu/raygTraceLine.hpp:29-58, normKernels.cu line variant)."""
@@ -576,6 +620,7 @@ class TraceLine(_TraceBase):
             )
         return out.cpu().numpy()
 
+    @_request("smooth")
     def smooth_flux(self, flux, num_neighbors: int = 1):
         """Not implemented for line geometry (ref: raygTraceLine.hpp:26-28)."""
         return np.asarray(flux)
