@@ -4,7 +4,11 @@ Counterpart of ``viennaray_tpu/geometry/disk_area.py`` (kept as a copy).
 
 Port of ``DiskBoundingBoxXYIntersector`` (rayDiskBoundingBoxIntersector.hpp)
 and ``GeometryDisk::computeDiskAreas`` (rayGeometryDisk.hpp:266-354). This
-runs once per geometry on the host; the result feeds flux normalization.
+runs on the host once per geometry and wall setting: ``DiskGeometry
+.with_areas`` keeps the walls and dimension its areas were computed for and
+returns itself for the same ones, and a ``replace`` of the points, normals,
+radii, bounding box, dimension or areas drops that key. The result feeds
+flux normalization.
 
 The area of a 3D oriented disk inside an x/y-bounded box is computed by
 canonicalizing each of the four walls into "the high-x wall" via swap/reflect

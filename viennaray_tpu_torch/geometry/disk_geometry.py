@@ -28,6 +28,11 @@ from . import disk_area, grid_accel, neighborhood
 from .grid_accel import GridData
 from .mesh import DiskMesh, compute_bounding_box, with_dtype
 
+# the fields ``with_areas`` reads: a ``replace`` that changes one drops the
+# key the areas were computed for
+_AREAS_INPUTS = frozenset(("points", "normals", "radii", "bbox", "dim",
+                           "areas"))
+
 # field -> dtype of the tables handed across by ``from_reference_arrays``
 _FIELD_DTYPES = {
     "points": np.float32, "normals": np.float32, "radii": np.float32,
@@ -61,6 +66,9 @@ class DiskGeometry:
       (a padding record is all zeros: its zero normal never passes).
     grid: the uniform grid of the grid DDA (``grid_accel.GridData``), or
       ``None`` (``build(..., accel=False)``, or no disks).
+    areas_key: what ``areas`` were computed for by ``with_areas``,
+      (dim, boundary_dirs, boundary_conds) as tuples of ints, or ``None``
+      for the placeholder or handed-across areas of a new geometry.
     """
 
     kind: ClassVar[str] = "disk"  # the primitive kind the kernels search
@@ -83,6 +91,7 @@ class DiskGeometry:
     window_ids: Optional[torch.Tensor] = None
     window_pack: Optional[torch.Tensor] = None
     grid: Optional[GridData] = None
+    areas_key: Optional[tuple] = None
 
     @property
     def num_primitives(self) -> int:
@@ -93,6 +102,12 @@ class DiskGeometry:
         return self.points.device
 
     def replace(self, **changes) -> "DiskGeometry":
+        """A copy with ``changes``; one to a field the areas are computed
+        from (or to ``areas``) drops ``areas_key``, so that ``with_areas``
+        computes them again."""
+        if "areas_key" not in changes and not _AREAS_INPUTS.isdisjoint(
+                changes):
+            changes["areas_key"] = None
         return dataclasses.replace(self, **changes)
 
     @property
@@ -335,26 +350,41 @@ class DiskGeometry:
         return (self.window_tau + 2.0 * r_max) * (1.0 + 1e-4)
 
     def with_areas(self, boundary_dirs, boundary_conds) -> "DiskGeometry":
-        """Compute boundary-clipped disk areas against the geometry's own
-        bounding box (ref: rayGeometryDisk.hpp:computeDiskAreas uses
-        ``this->getBoundingBox()``, i.e. the raw extents, not the
-        source-adjusted box). Runs in float64 numpy on the host."""
-        pts = self.points.cpu().numpy().astype(np.float64)
-        nrm = self.normals.cpu().numpy().astype(np.float64)
-        rad = self.radii.cpu().numpy().astype(np.float64)
-        bbox = self.bbox.cpu().numpy().astype(np.float64)
-        if self.dim == 3:
-            areas = disk_area.disk_areas_3d(
-                pts, nrm, rad, bbox, boundary_dirs, boundary_conds
+        """The geometry with its boundary-clipped disk areas for these walls:
+        itself when its ``areas_key`` says they were computed for them, so
+        that they are computed once per geometry and wall setting (a
+        ``replace`` of the points, normals, radii, bounding box, ``dim`` or
+        areas drops the key, as does ``to``). Else they are computed against
+        the geometry's own bounding box (ref: rayGeometryDisk.hpp
+        :computeDiskAreas uses ``this->getBoundingBox()``, i.e. the raw
+        extents, not the source-adjusted box), in float64 numpy on the host,
+        inside the span ``areas``, and counted in ``with_areas.computed``."""
+        key = (int(self.dim), tuple(int(d) for d in boundary_dirs),
+               tuple(int(c) for c in boundary_conds))
+        if key == self.areas_key:
+            return self
+        DiskGeometry.with_areas.computed += 1
+        with telemetry.span("areas"):
+            pts = self.points.cpu().numpy().astype(np.float64)
+            nrm = self.normals.cpu().numpy().astype(np.float64)
+            rad = self.radii.cpu().numpy().astype(np.float64)
+            bbox = self.bbox.cpu().numpy().astype(np.float64)
+            if self.dim == 3:
+                areas = disk_area.disk_areas_3d(
+                    pts, nrm, rad, bbox, boundary_dirs, boundary_conds
+                )
+            else:
+                areas = disk_area.disk_areas_2d(
+                    pts, nrm, rad, bbox, boundary_dirs, boundary_conds
+                )
+            return self.replace(
+                areas=torch.from_numpy(np.asarray(areas, np.float32)).to(
+                    self.device, self.dtype),
+                areas_key=key,
             )
-        else:
-            areas = disk_area.disk_areas_2d(
-                pts, nrm, rad, bbox, boundary_dirs, boundary_conds
-            )
-        return self.replace(
-            areas=torch.from_numpy(np.asarray(areas, np.float32)).to(
-                self.device, self.dtype)
-        )
+
+
+DiskGeometry.with_areas.computed = 0  # areas computed, always counted
 
 
 def window_tables(points, prims_soa, inv_perm, radius, dim):

@@ -110,6 +110,7 @@ import torch
 from .. import rng as rng_streams
 from ..rng import HookRNG
 from ..config import ReflectionKind, TraceConfig
+from ..geometry.disk_geometry import DiskGeometry
 from ..ops.bounce import (
     COUNT_NAMES,
     N_EVENTS,
@@ -378,8 +379,9 @@ def counters() -> dict:
     """The always-on counters of the trace's work, by the name an ``apply``
     span carries the change of each under: the host reads, ladder steps and
     resorts of ``trace_batch``, the bounce kernel's launches and of them
-    those that hand their deposits out, and the histogram's entries and
-    launches (float32 and float64 weights)."""
+    those that hand their deposits out, the histogram's entries and
+    launches (float32 and float64 weights), and the computations of a disk
+    geometry's clipped areas (``DiskGeometry.with_areas``)."""
     return dict(
         host_reads=trace_batch.host_reads,
         compactions=trace_batch.compactions,
@@ -390,6 +392,7 @@ def counters() -> dict:
         histogram_entries_f64=flux_histogram.entries_f64,
         histogram_launches=flux_histogram.launches,
         histogram_launches_f64=flux_histogram.launches_f64,
+        areas_computed=DiskGeometry.with_areas.computed,
     )
 
 

@@ -261,10 +261,12 @@ class _TraceBase:
         # (ref: rayTraceKernel.hpp:100 seed = runNumber + rngSeed)
         return (self._rng_seed + self._run_number) & 0xFFFFFFFF
 
-    def _run_trace(self, geometry, request):
+    def _run_trace(self, geometry, request, before=None):
         """The apply's mega-batches; ``request``: the apply's span, which
         takes the rays, the batches, the primitives and the change of every
-        counter of ``trace.kernel.counters`` as attributes."""
+        counter of ``trace.kernel.counters`` as attributes, from ``before``
+        (the counters at the apply's entry, where it worked before the
+        trace) or from here."""
         config = self._make_config()
         n_prims = geometry.num_primitives
         total_rays = config.total_rays(n_prims)
@@ -303,7 +305,8 @@ class _TraceBase:
         flux_shape = (n_chan, n_prims) if n_chan > 1 else (n_prims,)
         flux = torch.zeros(flux_shape, dtype=acc_dtype, device=dev)
         totals = np.zeros(len(BatchCounters._fields), np.int64)
-        before = counters() if request.on else None
+        if before is None and request.on:
+            before = counters()
 
         t0 = time.perf_counter()
         for b in range(num_batches):
@@ -418,15 +421,16 @@ class TraceDisk(_TraceBase):
         a particle of L > 1 data labels."""
         with telemetry.request("apply") as req:
             self._check_settings()
+            before = counters() if req.on else None
             settings = get_trace_settings(self._source_direction)
-            boundary_dirs = (settings[1], settings[2])
-            with telemetry.span("areas"):
-                self.geometry = self.geometry.with_areas(
-                    boundary_dirs, self._boundary_conditions
-                )
-                self.geometry = with_deposit_tables(self.geometry,
-                                                    self._make_config())
-            flux = self._run_trace(self.geometry, req)
+            # the areas are computed on the first apply after a change of
+            # the geometry or the walls, and reused on the others
+            self.geometry = self.geometry.with_areas(
+                (settings[1], settings[2]), self._boundary_conditions
+            )
+            self.geometry = with_deposit_tables(self.geometry,
+                                                self._make_config())
+            flux = self._run_trace(self.geometry, req, before)
             self._store_local_data(flux)
         return flux
 
