@@ -320,7 +320,8 @@ WATCHED_KERNELS = {"kernel4_grid": ("bounce_grid_kernel",),
                    "permute_state": ("permute_state_kernel",),
                    "coherence_key": ("coherence_key_kernel",),
                    "histogram_cluster": ("cluster_histogram_kernel",),
-                   "histogram_small": ("small_cluster_histogram_kernel",)}
+                   "histogram_small": ("small_cluster_histogram_kernel",),
+                   "neighborhood_rows": ("rows_kernel",)}
 BUILD_REGISTERS = {}  # phase_build's report of WATCHED_KERNELS
 
 
@@ -1577,9 +1578,9 @@ def kernel_spans(kind):
     geometry ``kind``, the histogram, the resort's key and the state's
     permutation), the histogram the hooks call, and the histogram's
     backward. Yields the list of (start, end) event pairs. The
-    two histogram wrappers count their launches on their module's names,
-    which are the timed wrappers inside the block: those take the counts
-    and hand them back after."""
+    two histogram wrappers count their launches (and the histogram its
+    entries) on their module's names, which are the timed wrappers inside
+    the block: those take the counts and hand them back after."""
     from viennaray_tpu_torch.ops import histogram as H
     from viennaray_tpu_torch.trace import kernel as TK
 
@@ -1608,6 +1609,7 @@ def kernel_spans(kind):
 
     hist = timed(real[3])
     hist.launches = hist.launches_f64 = 0
+    hist.entries = hist.entries_f64 = 0
     for table in ("launches_by_path", "launches_by_path_f64",
                   "launches_by_branch", "launches_by_branch_f64"):
         setattr(hist, table, getattr(real[3], table))
@@ -1622,6 +1624,8 @@ def kernel_spans(kind):
         for wrapper, counted in ((real[3], hist), (real[4], hist_grad)):
             wrapper.launches += counted.launches
             wrapper.launches_f64 += counted.launches_f64
+        real[3].entries += hist.entries
+        real[3].entries_f64 += hist.entries_f64
 
 
 def span_apply(tracer):
@@ -2201,13 +2205,28 @@ HOST_BUILD_DELTAS = (0.25, 0.1)  # the flagship's 2,993 disks and 18,180
 
 
 @contextlib.contextmanager
-def numpy_neighborhood():
-    """``geometry.neighborhood.build_neighborhood`` replaced by its numpy path
-    while the block runs (every caller reads it through the module)."""
+def neighborhood_path(mode):
+    """``geometry.neighborhood.build_neighborhood`` held to one path while
+    the block runs (every caller reads it through the module): "numpy" the
+    numpy path and "helper" the compiled host helper, both on the points
+    copied to the host (a CUDA build hands its points on the card), their
+    tables copied back where the points were; "card" the default, which
+    builds on the card for CUDA points."""
     from viennaray_tpu_torch.geometry import neighborhood
 
     saved = neighborhood.build_neighborhood
-    neighborhood.build_neighborhood = neighborhood.build_neighborhood_numpy
+    host_fn = {"numpy": neighborhood.build_neighborhood_numpy,
+               "helper": saved, "card": None}[mode]
+
+    def on_host(points, distance, dim=3):
+        on_card = isinstance(points, torch.Tensor)
+        got = host_fn(points.cpu().numpy() if on_card else points, distance,
+                      dim)
+        return (tuple(torch.from_numpy(t).to(points.device) for t in got)
+                if on_card else got)
+
+    if host_fn is not None:
+        neighborhood.build_neighborhood = on_host
     try:
         yield
     finally:
@@ -2215,12 +2234,17 @@ def numpy_neighborhood():
 
 
 def phase_host_build():
-    """The compiled host helper (``native/host_accel.cpp``): it must load on
-    this machine. At 2,993 and 18,180 disks, ``DiskGeometry.build`` and
-    ``with_window_list`` by the helper and by the numpy path, in turns
-    (numpy, helper, helper, numpy), their seconds printed, and every table
-    (neighbors, neighbor records, window ids and records) equal; beside them
-    the neighborhood alone (``build_neighborhood`` at the disk diameter)."""
+    """The geometry build's neighbor tables by the compiled host helper
+    (``native/host_accel.cpp``; it must load on this machine), by the numpy
+    path and by the card (``csrc/neighborhood.cu``, the default on CUDA).
+    At 2,993 and 18,180 disks, ``DiskGeometry.build`` and
+    ``with_window_list`` by each path, in turns (numpy, helper, card, card,
+    helper, numpy), their seconds printed, and every table (neighbors,
+    neighbor records, window ids and records) equal; beside them the
+    neighborhood alone (``build_neighborhood`` at the disk diameter, the
+    card's ending in a synchronise)."""
+    from viennaray_tpu_torch.config import disk_factor
+    from viennaray_tpu_torch.geometry import neighborhood
     from viennaray_tpu_torch.geometry.disk_geometry import DiskGeometry
     from viennaray_tpu_torch.io import fixtures
     from viennaray_tpu_torch.utils import native
@@ -2230,67 +2254,174 @@ def phase_host_build():
     load_seconds = time.perf_counter() - t0
     if lib is None:
         raise RuntimeError("the compiled host helper did not load")
+    modes = ("numpy", "helper", "card", "card", "helper", "numpy")
     for delta in HOST_BUILD_DELTAS:
         pts, nrm = fixtures.create_trench_grid_3d(**dict(FLAGSHIP,
                                                           grid_delta=delta))
+        pts_card = torch.from_numpy(pts).cuda()
 
         def build():
             t0 = time.perf_counter()
             geometry = DiskGeometry.build(pts, nrm, delta)
+            torch.cuda.synchronize()
             t1 = time.perf_counter()
             windowed = geometry.with_window_list()
             torch.cuda.synchronize()
             return windowed, t1 - t0, time.perf_counter() - t1
 
         # the neighborhood alone (the disk table's: pairs within the disk
-        # diameter), each path twice
-        from viennaray_tpu_torch.config import disk_factor
-        from viennaray_tpu_torch.geometry import neighborhood
-
+        # diameter)
         radius = 2.0 * delta * disk_factor(3)
-        nbr_seconds = {"numpy": [], "native": []}
+        nbr_seconds = {m: [] for m in modes}
         nbr_tables = {}
-        for mode, fn in (("numpy", neighborhood.build_neighborhood_numpy),
-                         ("native", neighborhood.build_neighborhood),
-                         ("native", neighborhood.build_neighborhood),
-                         ("numpy", neighborhood.build_neighborhood_numpy)):
+        for mode in modes:
             t0 = time.perf_counter()
-            nbr_tables[mode] = fn(pts, radius, dim=3)
+            if mode == "numpy":
+                got = neighborhood.build_neighborhood_numpy(pts, radius, 3)
+            elif mode == "helper":
+                got = neighborhood.build_neighborhood(pts, radius, 3)
+            else:
+                got = neighborhood.build_neighborhood(pts_card, radius, 3)
+                torch.cuda.synchronize()
+                got = tuple(t.cpu().numpy() for t in got)
             nbr_seconds[mode].append(time.perf_counter() - t0)
-        nbr_equal = all(np.array_equal(a, b) for a, b in zip(
-            nbr_tables["numpy"], nbr_tables["native"]))
-        runs = {"numpy": [], "native": []}
+            nbr_tables[mode] = got
+        nbr_equal = all(np.array_equal(a, b) for m in ("helper", "card")
+                        for a, b in zip(nbr_tables["numpy"], nbr_tables[m]))
+        runs = {m: [] for m in modes}
         tables = {}
-        for mode in ("numpy", "native", "native", "numpy"):
-            with (numpy_neighborhood() if mode == "numpy"
-                  else contextlib.nullcontext()):
+        for mode in modes:
+            with neighborhood_path(mode):
                 geometry, build_s, window_s = build()
             runs[mode].append((build_s, window_s))
             tables[mode] = geometry
-        a, b = tables["native"], tables["numpy"]
-        equal = all(torch.equal(getattr(a, f), getattr(b, f)) for f in (
+        equal = all(torch.equal(getattr(tables[m], f), getattr(
+            tables["numpy"], f)) for m in ("helper", "card") for f in (
             "neighbors", "neighbor_pack", "window_ids", "window_pack"))
         best = {m: (min(r[0] for r in v), min(r[1] for r in v))
                 for m, v in runs.items()}
+        a = tables["card"]
         res = {
             "phase": "host_build", "disks": a.num_primitives,
             "neighborhood_seconds": nbr_seconds,
-            "neighborhood_speedup": min(nbr_seconds["numpy"])
-            / min(nbr_seconds["native"]),
+            "neighborhood_speedup_helper": min(nbr_seconds["numpy"])
+            / min(nbr_seconds["helper"]),
+            "neighborhood_speedup_card": min(nbr_seconds["helper"])
+            / min(nbr_seconds["card"]),
             "neighbors_k": a.neighbors.shape[1],
             "window_w": a.window_ids.shape[1],
             "build_seconds": {m: [r[0] for r in v] for m, v in runs.items()},
             "window_list_seconds": {m: [r[1] for r in v]
                                     for m, v in runs.items()},
-            "build_speedup": best["numpy"][0] / best["native"][0],
-            "window_list_speedup": best["numpy"][1] / best["native"][1],
+            "build_speedup_card": best["helper"][0] / best["card"][0],
+            "window_list_speedup": best["numpy"][1] / best["helper"][1],
             "tables_equal": equal and nbr_equal,
             "helper_load_seconds": load_seconds,
             "helper_gxx_seconds": native.build_seconds,
         }
         emit(res)
         if not (equal and nbr_equal):
-            raise RuntimeError(f"the helper's tables differ: {res}")
+            raise RuntimeError(f"the neighbor tables differ: {res}")
+
+
+def neighborhood_launches(reset=False):
+    """The card's neighbor-table launches (``build_neighborhood_cuda``),
+    float32 and float64 points, set to 0 first if ``reset``."""
+    from viennaray_tpu_torch.geometry import neighborhood
+
+    counted = neighborhood.build_neighborhood_cuda
+    if reset:
+        counted.launches = counted.launches_f64 = 0
+    return {"neighborhood": counted.launches,
+            "neighborhood_f64": counted.launches_f64}
+
+
+def neighborhood_pair_tests(pts, distance, dim):
+    """The pair tests one pass of ``vr_neighborhood_rows`` makes, from its
+    inputs: for every point, the members of each cell at a deduplicated
+    offset from its own (inside the grid), itself left out."""
+    import itertools
+
+    p = np.asarray(pts, np.float64)[:, :dim]
+    cx = np.floor((p - p.min(0)) * (1.0 / distance)).astype(np.int64)
+    span = cx.max(0) + 1
+    strides = np.ones(dim, np.int64)
+    for d in range(dim - 2, -1, -1):
+        strides[d] = strides[d + 1] * span[d + 1]
+    ids = cx @ strides
+    cells, members = np.unique(ids, return_counts=True)
+    offsets = np.unique(np.array(list(itertools.product((-1, 0, 1),
+                                                        repeat=dim))) @ strides)
+    tests = -len(p)
+    for off in offsets:
+        cj = ids + off
+        at = np.minimum(np.searchsorted(cells, cj), len(cells) - 1)
+        found = (cj >= 0) & (cj < int(np.prod(span))) & (cells[at] == cj)
+        tests += int(members[at][found].sum())
+    return tests
+
+
+def phase_neighborhood():
+    """The neighbor table on the card at the 704,250-disk trench (the
+    benchmark's disk1m cloud): ``DiskGeometry.build`` on CUDA, its launch
+    counts set to 0 just before and read just after (four: the cells, the
+    ids, the rows counted and filled), its table held to the host helper's
+    bit for bit; ``build_neighborhood_cuda`` alone timed by CUDA events (its
+    one read included) beside the helper on the host clock; the bound from
+    the run's inputs: its bytes (points read, table and counts written) and
+    its float64 operations (two passes of pair tests, each at least the
+    first axis's difference: the tests end early, so no more is certain)."""
+    from viennaray_tpu_torch.config import disk_factor
+    from viennaray_tpu_torch.geometry import neighborhood
+    from viennaray_tpu_torch.geometry.disk_geometry import DiskGeometry
+    from viennaray_tpu_torch.io import fixtures
+
+    pts, nrm = fixtures.create_trench_grid_3d(**DISK1M)
+    distance = 2.0 * DISK1M["grid_delta"] * disk_factor(3)
+    neighborhood_launches(reset=True)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    geometry = DiskGeometry.build(pts, nrm, DISK1M["grid_delta"])
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    launches = neighborhood_launches()
+    card = geometry.neighbors.cpu().numpy()
+    del geometry
+    helper_s = []
+    for _ in range(2):
+        t0 = time.perf_counter()
+        want, counts = neighborhood.build_neighborhood(pts, distance, 3)
+        helper_s.append(time.perf_counter() - t0)
+    equal = card.shape == want.shape and np.array_equal(card, want)
+    points = torch.from_numpy(pts).cuda()
+    got = neighborhood.build_neighborhood_cuda(points, distance, 3)
+    equal = equal and all(np.array_equal(a.cpu().numpy(), b)
+                          for a, b in zip(got, (want, counts)))
+    ms = time_cuda(lambda: neighborhood.build_neighborhood_cuda(
+        points, distance, 3), 20)
+    n, k = want.shape
+    tests = neighborhood_pair_tests(pts, distance, 3)
+    op_ms = 2 * tests / F64_FLOPS * 1e3
+    n_bytes = pts.nbytes + n * k * 4 + n * 4
+    byte_ms = n_bytes / HBM_BYTES_PER_S * 1e3
+    res = {
+        "phase": "kernel_check", "kernel": "neighborhood",
+        "shape": f"N={n}, K={k}, distance={distance}, the disk1m trench",
+        "tolerance": "table and counts equal the host helper's bit for bit",
+        "bitwise_equal": bool(equal), "max_abs_err": 0.0 if equal else None,
+        "launches": launches, "build_s": build_s,
+        "pair_tests_a_pass": tests, "bytes": n_bytes,
+        "ms": ms, "plain_ms": min(helper_s) * 1e3,
+        "bound_ms": max(op_ms, byte_ms),
+        "bound_by": "operations" if op_ms > byte_ms else "bytes",
+        "ops_bound_ms": op_ms, "bytes_bound_ms": byte_ms,
+        "library_ms": None,
+    }
+    emit(res)
+    if not equal or launches != {"neighborhood": 4, "neighborhood_f64": 0}:
+        raise RuntimeError(f"the card's neighbor table failed its checks: "
+                           f"{res}")
+    return res
 
 
 # ---- float64 tracing -------------------------------------------------------
@@ -3557,10 +3688,15 @@ def main():
     phase_card()
     phase_build()
     phase_host_build()
+    nbr = phase_neighborhood()
 
     pts, nrm = fixtures.create_trench_grid_3d(**FLAGSHIP)
     # no device named: the CUDA device, as a user's call would get it
+    neighborhood_launches(reset=True)
     geometry = DiskGeometry.build(pts, nrm, FLAGSHIP["grid_delta"])
+    nbr_flagship = neighborhood_launches()
+    if nbr_flagship != {"neighborhood": 4, "neighborhood_f64": 0}:
+        raise RuntimeError(f"the flagship's build launched {nbr_flagship}")
     bbox = adjusted_bbox(geometry)
 
     hit_wide = check_nearest_hit(geometry, bbox, 1 << 20, "source", reps=10)
@@ -3949,6 +4085,21 @@ def main():
         },
         *grid_kernel_entries(grid_hits, grid_launches_by_path, keys),
         *resort_kernel_entries(resort_results, {**main_paths, **f64}, keys),
+        {
+            # the disk neighbor table: the JAX package builds it on the host
+            # (its compiled helper); a CUDA DiskGeometry.build builds it here
+            "name": "neighborhood", "route": "cuda",
+            "source": "viennaray_tpu_torch/csrc/neighborhood.cu",
+            "replaces": "viennaray_tpu/geometry/neighborhood.py:16",
+            "launches": nbr["launches"]["neighborhood"]
+            + nbr_flagship["neighborhood"],
+            "launches_by_path": {"disk1m_build": nbr["launches"],
+                                 "flagship_build": nbr_flagship},
+            **{k: nbr[k] for k in keys},
+            "plain": "the host helper (native/host_accel.cpp), host clock",
+            "ops_bound_ms": nbr["ops_bound_ms"],
+            "bytes_bound_ms": nbr["bytes_bound_ms"],
+        },
         {
             "name": "fused_bounce", "route": "cuda",
             "source": "viennaray_tpu_torch/csrc/bounce.cu",

@@ -50,6 +50,12 @@ _GRID_HIT_F64 = (
     [_ptr] * 6 + [ctypes.c_int] * 3 + [ctypes.c_double] * 4
     + [ctypes.c_int] * 2 + [ctypes.c_double] + [_ptr] * 5
 )
+_NBR_CELLS = [_ptr, ctypes.c_longlong, ctypes.c_int, ctypes.c_int, _ptr,
+              ctypes.c_double, _ptr, _ptr]
+_NBR_ROWS = (
+    [_ptr, ctypes.c_longlong, ctypes.c_int, ctypes.c_int] + [_ptr] * 4
+    + [ctypes.c_double] * 2 + [_ptr] * 2 + [ctypes.c_int, _ptr]
+)
 _SIGNATURES = {
     "vr_disk_grid_nearest_hit": _GRID_HIT,
     "vr_tri_grid_nearest_hit": _GRID_HIT,
@@ -98,6 +104,16 @@ _SIGNATURES = {
     + [_ptr] * 9 + [ctypes.c_int] + [_ptr] * 10,
     "vr_permute_state_f64": [_ptr, ctypes.c_longlong, ctypes.c_longlong]
     + [_ptr] * 9 + [ctypes.c_int] + [_ptr] * 10,
+    # pts n cols dim lo inv_cell cx stream
+    "vr_neighborhood_cells": _NBR_CELLS,
+    "vr_neighborhood_cells_f64": _NBR_CELLS,
+    # cx n dim maxc ids grid stream
+    "vr_neighborhood_ids": [_ptr, ctypes.c_longlong, ctypes.c_int]
+    + [_ptr] * 4,
+    # pts n cols dim cx ids order grid distance dist2 counts neighbors k
+    # stream
+    "vr_neighborhood_rows": _NBR_ROWS,
+    "vr_neighborhood_rows_f64": _NBR_ROWS,
     # org dir weight w0 alive hfb n_refl n_bdry uniforms | prims chunk_bbs
     # perm neighbors neighbor_pack walls stick_lanes | n_rays npad pt n_prims
     # k_nbrs n_sub kind dim first_dir second_dir ray_axis bc1 bc2 refl_kind

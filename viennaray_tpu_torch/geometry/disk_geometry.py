@@ -4,9 +4,11 @@ Counterpart of ``viennaray_tpu/geometry/disk_geometry.py``: the analog of
 ``GeometryDisk`` (rayGeometryDisk.hpp). The point cloud lives as torch tensors
 on one device, with a padded neighbor matrix (for the disk multi-hit
 semantics and flux smoothing), the packed SoA tables of the nearest-hit
-kernel, and precomputed clipped areas. Built on the host (numpy) once per
-geometry via ``DiskGeometry.build``, the neighbor records gathered on the
-device. ``build(accel=True)`` (the default) also builds the uniform grid
+kernel, and precomputed clipped areas. Built once per geometry via
+``DiskGeometry.build``: on the host (numpy), but for the neighbor table,
+which is built on the card where the device is CUDA
+(``neighborhood.build_neighborhood``), and the neighbor records, gathered
+on the device. ``build(accel=True)`` (the default) also builds the uniform grid
 of the grid DDA (``grid``, ``geometry.grid_accel.GridData``), as the JAX
 geometry does.
 """
@@ -41,6 +43,24 @@ _FIELD_DTYPES = {
     "soa_chunk_bbs": np.float32, "soa_inv_perm": np.int32,
     "neighbor_pack": np.float32,
 }
+# the same as torch dtypes, for a field handed as a tensor
+_TORCH_DTYPES = {np.float32: torch.float32, np.int32: torch.int32}
+
+
+def _on_device(value, dtype, device):
+    """A field of ``from_reference_arrays`` on ``device``: None as it is, a
+    tensor already there of the field's dtype as it is, else a copy."""
+    if value is None:
+        return None
+    if not isinstance(value, torch.Tensor):
+        return torch.from_numpy(np.array(value, dtype)).to(device)
+    device = torch.device(device)
+    if (value.dtype != _TORCH_DTYPES[dtype]
+            or value.device.type != device.type
+            or device.index not in (None, value.device.index)):
+        raise ValueError(f"a {value.dtype} tensor on {value.device} handed as "
+                         f"a {np.dtype(dtype)} field on {device}")
+    return value
 
 
 @dataclasses.dataclass
@@ -159,6 +179,9 @@ class DiskGeometry:
         across as numpy arrays (all twelve array fields; ``neighbor_pack``
         may be None, as a JAX geometry built with ``pack_neighbors=False``
         holds it), so that both packages can trace the very same tables.
+        A field may also be a tensor on ``device`` of the field's dtype,
+        taken as it is (``build`` hands its points and neighbor table so
+        where it built the table on the card).
         ``grid``: its ``GridData`` as numpy arrays (``cells``, ``origin``,
         ``cell_size``, ``dims``), or None for a geometry without one; the
         walk's table is built from it and the disks' boxes."""
@@ -166,8 +189,7 @@ class DiskGeometry:
         if missing:
             raise KeyError(f"missing geometry fields: {missing}")
         tensors = {
-            name: None if fields[name] is None
-            else torch.from_numpy(np.array(fields[name], dt)).to(device)
+            name: _on_device(fields[name], dt, device)
             for name, dt in _FIELD_DTYPES.items()
         }
         if grid is not None:
@@ -198,7 +220,10 @@ class DiskGeometry:
         """Host-side construction (ref: rayGeometryDisk.hpp:initGeometry).
 
         The tables go to ``device``; ``None`` is the CUDA device, and without
-        one this raises (``device="cpu"`` asks for the CPU).
+        one this raises (``device="cpu"`` asks for the CPU). On a CUDA
+        device the neighbor table is built there from the points' copy
+        (``neighborhood.build_neighborhood_cuda``), which the geometry
+        keeps; elsewhere by the host helper. The tables are the same.
 
         ``accel``: build the uniform grid of the grid DDA (``grid``), as the
         JAX package's ``build`` does, wherever there are disks; the trace
@@ -242,11 +267,17 @@ class DiskGeometry:
         if dim == 2:
             bbox[:, 2] = 0.0
 
+        # on a CUDA device the table is built there, from the points' copy
+        # that the geometry keeps (no synchronise: the table's size is the
+        # build's one read, and its fill is queued behind it)
+        on_device = device.type == "cuda"
         with telemetry.span("geometry.neighborhood") as sp:
+            nbr_points = (torch.from_numpy(points).to(device) if on_device
+                          else points)
             nbrs, _ = neighborhood.build_neighborhood(
-                points, 2.0 * disk_radius, dim=dim
+                nbr_points, 2.0 * disk_radius, dim=dim
             )
-            sp.set(K=nbrs.shape[1])
+            sp.set(K=nbrs.shape[1], on_device=int(on_device))
 
         # ``geometry.pack``: the SoA on the host, then, after the grid (whose
         # build on the device peaks before the tables take the card's
@@ -270,14 +301,14 @@ class DiskGeometry:
                 sp.set(cells=int(np.prod(grid.dims)))
         with telemetry.span("geometry.pack") as sp:
             fields = dict(
-                points=points, normals=normals, radii=radii_arr,
+                points=nbr_points, normals=normals, radii=radii_arr,
                 material_ids=mat, neighbors=nbrs,
                 areas=np.zeros((n,), np.float32), bbox=bbox, prims_soa=soa,
                 soa_perm=soa_perm, soa_chunk_bbs=soa_bbs,
                 soa_inv_perm=inv_perm, neighbor_pack=None,
             )
             sp.set(bytes=sum(a.nbytes for a in fields.values()
-                             if a is not None))
+                             if isinstance(a, np.ndarray)))
             geometry = cls.from_reference_arrays(
                 fields, dim=dim, grid_delta=grid_delta,
                 disk_radius=disk_radius, device=device,

@@ -7,7 +7,12 @@
 // dominates geometry setup for large level-set clouds, so like the reference
 // it runs in native code; the numpy implementation stays as the fallback and
 // the tests' yardstick (geometry/neighborhood.py:build_neighborhood_numpy),
-// and both give the same table, counts and row order.
+// and both give the same table, counts and row order. It runs for points on
+// the host (a geometry built on the CPU, the window list); a geometry built
+// on a CUDA device builds its table on the card instead
+// (csrc/neighborhood.cu, geometry/neighborhood.py:build_neighborhood_cuda),
+// which repeats this pass's arithmetic and order, so its table is this one
+// bit for bit.
 //
 // Exposed via ctypes (viennaray_tpu_torch/utils/native.py); plain C ABI:
 // vr_build_neighborhood (build_neighborhood_native) and vr_build_grid

@@ -468,12 +468,13 @@ class TraceDisk(_TraceBase):
         if num_neighbors == 1:
             neighbors = self.geometry.neighbors
         else:
+            # on the geometry's device: on the card where it is CUDA
             nbrs, _ = build_neighborhood(
-                self.geometry.points.cpu().numpy(),
+                self.geometry.points,
                 num_neighbors * 2.0 * self.geometry.disk_radius,
                 dim=3,  # (ref: rayTraceDisk.hpp:169 always inits 3D here)
             )
-            neighbors = torch.from_numpy(nbrs).to(self._device)
+            neighbors = torch.as_tensor(nbrs, device=self._device)
         out = postprocess.smooth_flux(
             torch.as_tensor(np.asarray(flux, np.float32), device=self._device),
             self.geometry.normals, neighbors,

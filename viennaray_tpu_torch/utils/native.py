@@ -18,7 +18,13 @@ operation.
 
 Two entry points are bound: ``vr_build_neighborhood``
 (``build_neighborhood_native``) and ``vr_build_grid`` (``build_grid_native``,
-the cell insertion of ``geometry.grid_accel``). When ``g++`` is missing or
+the cell insertion of ``geometry.grid_accel``). The neighborhood runs here
+for points on the host: a numpy array or a CPU tensor handed to
+``geometry.neighborhood.build_neighborhood`` (a geometry built on the CPU,
+the window list). Points on a CUDA device, as ``DiskGeometry.build`` on a
+CUDA device hands them, go to the card instead
+(``build_neighborhood_cuda``, ``csrc/neighborhood.cu``), which gives this
+helper's table bit for bit. When ``g++`` is missing or
 the build fails, ``load`` logs one warning and returns None, and the callers
 take their numpy paths (``geometry.neighborhood.build_neighborhood_numpy``,
 ``geometry.grid_accel.insert_prims_numpy``), which give the same tables.
