@@ -161,28 +161,28 @@ from chip_smoke import (
     make_line_tracer,
     make_tracer,
     make_tri_tracer,
-    read_launches,
-    reset_launches,
+    launches_since,
 )
 from viennaray_tpu_torch.ops import bounce as B
+from viennaray_tpu_torch.utils import telemetry
 
 
 def repeats(tracer, n, body):
     seconds, cpu_seconds, bounces, launches = [], [], [], []
     for _ in range(n):
-        reset_launches()
+        before = dict(telemetry.COUNTS)
         torch.cuda.synchronize()
         t0, c0 = time.perf_counter(), time.process_time()
         tracer.apply()
         torch.cuda.synchronize()
         seconds.append(time.perf_counter() - t0)
         cpu_seconds.append(time.process_time() - c0)
-        counts = read_launches()
-        launches.append(counts)
+        counts = telemetry.since(before)
+        launches.append(launches_since(before))
         # the unfused body launches the closest-hit kernel once per bounce
         bounces.append(
-            B.fused_bounce.sub_bounces or counts["disk_nearest_hit"]
-            or counts["triangle_nearest_hit"] or counts["line_nearest_hit"]
+            counts["fused_bounce.sub_bounces"]
+            or counts[cs.DISK] or counts[cs.TRI] or counts[cs.LINE]
         )
     allocator = torch.cuda.memory_stats()
     return {
@@ -292,14 +292,14 @@ def deposit_policy(make, n):
         for i in range(-1, n):  # round -1 warms both tracers up
             for name in list(rules)[::-1] if i % 2 else list(rules):
                 TK.hand_out_for = rules[name]
-                reset_launches()
+                before = dict(telemetry.COUNTS)
                 torch.cuda.synchronize()
                 t0 = time.perf_counter()
                 tracers[name].apply()
                 torch.cuda.synchronize()
                 if i >= 0:
                     seconds[name].append(time.perf_counter() - t0)
-                    launches[name].append(read_launches())
+                    launches[name].append(launches_since(before))
     finally:
         TK.hand_out_for = rules["in_kernel"]
     return {"phase": "deposit_policy", "seconds": seconds,
@@ -781,6 +781,7 @@ from viennaray_tpu_torch.bench import perf_sweep
 from viennaray_tpu_torch.geometry.disk_geometry import DiskGeometry
 from viennaray_tpu_torch.io import fixtures
 from viennaray_tpu_torch.ops import histogram as H
+from viennaray_tpu_torch.utils import telemetry
 
 out = {"tree": sys.argv[1], "ptxas": ptxas("histogram")}
 branches = "branch" in inspect.signature(H.flux_histogram).parameters
@@ -890,9 +891,7 @@ with contextlib.redirect_stdout(io.StringIO()):
         tracer.apply()  # warm-up
         runs = []
         for _ in range(2):
-            for counts in (H.flux_histogram.launches_by_path,
-                           H.flux_histogram.launches_by_path_f64):
-                counts.update(small=0, large=0)
+            before = dict(telemetry.COUNTS)
             torch.cuda.synchronize()
             t0 = time.perf_counter()
             if dtype is None:
@@ -903,10 +902,9 @@ with contextlib.redirect_stdout(io.StringIO()):
             runs.append({"seconds": time.perf_counter() - t0,
                          "flux_digest": hashlib.sha256(
                              flux.tobytes()).hexdigest()[:16],
-                         "histogram_launches": dict(
-                             H.flux_histogram.launches_by_path),
-                         "histogram_launches_f64": dict(
-                             H.flux_histogram.launches_by_path_f64)})
+                         "histogram_launches_by_path": {
+                             k: n for k, n in telemetry.since(before).items()
+                             if ".launches_by_path" in k}})
         out["apply_" + name] = runs
         del tracer
         torch.cuda.empty_cache()
@@ -1094,9 +1092,9 @@ def f64_tails(rounds):
                          else (torch.float64, torch.float32))
                 for dtype in order:
                     tail.clear()
-                    reset_launches()
+                    before = dict(telemetry.COUNTS)
                     _, counters, seconds = cs.trace_unfused(tracer, dtype)
-                    launches = read_launches()
+                    launches = launches_since(before)
                     print(json.dumps({
                         "phase": "f64_tail", "geometry": name,
                         "dtype": str(dtype), "round": r, "seconds": seconds,

@@ -199,6 +199,8 @@ import time
 import numpy as np
 import torch
 
+from viennaray_tpu_torch.utils import telemetry
+
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
 F32_FLOPS = 67e12  # H100 SXM data sheet, float32 outside the tensor cores
 F64_FLOPS = 34e12  # H100 SXM data sheet, float64 outside the tensor cores
@@ -1111,80 +1113,44 @@ def oracle_golden(name):
     return golden, record, tol
 
 
-def _kernel_wrappers():
-    from viennaray_tpu_torch.ops import bounce as B
-    from viennaray_tpu_torch.ops import grid_traverse as GT
-    from viennaray_tpu_torch.ops import histogram as H
-    from viennaray_tpu_torch.ops import nearest_hit as NH
-    from viennaray_tpu_torch.ops import permute as PM
-
-    return {
-        "fused_bounce": B.fused_bounce,
-        "disk_nearest_hit": NH.disk_nearest_hit,
-        "disk_grid_nearest_hit": GT.disk_grid_nearest_hit,
-        "triangle_grid_nearest_hit": GT.triangle_grid_nearest_hit,
-        "triangle_nearest_hit": NH.triangle_nearest_hit,
-        "line_nearest_hit": NH.line_nearest_hit,
-        "flux_histogram": H.flux_histogram,
-        "flux_histogram_grad": H.flux_histogram_grad,
-        "coherence_key": PM.coherence_key,
-        "permute_state": PM.permute_state,
-    }
-
-
-# the wrappers that also launch a float64 form, counted in ``launches_f64``
-F64_KERNELS = ("disk_nearest_hit", "triangle_nearest_hit", "line_nearest_hit",
-               "flux_histogram", "flux_histogram_grad",
-               "disk_grid_nearest_hit", "triangle_grid_nearest_hit",
-               "coherence_key", "permute_state")
+# the registry's counts of kernel launches (``utils.telemetry``): the bounce
+# and histogram kernels' under the names an apply span carries, every other
+# kernel's as ``<wrapper>.launches`` and ``<wrapper>.launches_f64``, and the
+# bounce kernel's launches with the grid search
+LAUNCHES = re.compile(
+    r"(bounce|histogram)_launches(_f64)?|\w+\.launches(_f64|_grid)?")
 # what every trace of a batch of at least 2,048 rays launches besides its
 # bounce kernels: the state's permutation at the source sort and at every
 # compaction, and the coherence key at the compactions (and, where the
 # per-bounce resort is asked for and engages, before every launch)
-SORTS = ("permute_state", "coherence_key")
+SORTS = ("permute_state.launches", "coherence_key.launches")
+# the registry's names of the launches the checks and the kernels line read
+BOUNCE, GRID, HIST, HIST_GRAD = (
+    "bounce_launches", "fused_bounce.launches_grid", "histogram_launches",
+    "flux_histogram_grad.launches")
+DISK, TRI, LINE = (f"{kind}_nearest_hit.launches"
+                   for kind in ("disk", "triangle", "line"))
 
 
-def reset_launches():
-    wrappers = _kernel_wrappers()
-    for name, wrapper in wrappers.items():
-        wrapper.launches = 0
-        if name in F64_KERNELS:
-            wrapper.launches_f64 = 0
-    wrappers["fused_bounce"].sub_bounces = 0
-    wrappers["fused_bounce"].launches_grid = 0
-    for table in (wrappers["fused_bounce"].launches_by_group,
-                  wrappers["flux_histogram"].launches_by_path,
-                  wrappers["flux_histogram"].launches_by_path_f64,
-                  wrappers["flux_histogram"].launches_by_branch,
-                  wrappers["flux_histogram"].launches_by_branch_f64):
-        for key in table:
-            table[key] = 0
-
-
-def read_launches():
-    """Every kernel's launches: the float32 forms by the wrapper's name, the
-    float64 forms as ``<name>_f64``."""
-    wrappers = _kernel_wrappers()
-    out = {name: w.launches for name, w in wrappers.items()}
-    out.update({f"{name}_f64": wrappers[name].launches_f64
-                for name in F64_KERNELS})
-    out["fused_bounce_grid"] = wrappers["fused_bounce"].launches_grid
-    return out
+def launches_since(before):
+    """The kernels' launches (``LAUNCHES``) since ``before``, a snapshot
+    ``dict(telemetry.COUNTS)``, by the registry's names."""
+    return {name: n for name, n in telemetry.since(before).items()
+            if LAUNCHES.fullmatch(name)}
 
 
 def timed_apply(tracer, goldens, tol=GOLDEN_TOL):
-    """One apply with the launch counts set to 0 just before and read just
+    """One apply with the registry's counts read just before and just
     after, its normalized flux held to ``goldens`` (result key -> array) with
     rel-L2 < ``tol``; returns (result fields, ok, launches)."""
-    reset_launches()
+    before = dict(telemetry.COUNTS)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     flux = tracer.apply()
     torch.cuda.synchronize()
     seconds = time.perf_counter() - t0
-    launches = read_launches()
-    wrappers = _kernel_wrappers()
-    sub_bounces = wrappers["fused_bounce"].sub_bounces
+    launches = launches_since(before)
+    counts = telemetry.since(before)
     info = tracer.get_ray_trace_info()
     norm = np.asarray(tracer.normalize_flux(flux), np.float64)
     n_prims = tracer.geometry.num_primitives
@@ -1201,15 +1167,9 @@ def timed_apply(tracer, goldens, tol=GOLDEN_TOL):
         "geometry_hits_per_ray": info.geometry_hits / info.num_rays,
         **errors, "rel_l2_bound": tol,
         "launches": launches,
-        "bounce_launches_by_group": {
-            str(g): n for g, n in
-            wrappers["fused_bounce"].launches_by_group.items() if n},
-        "histogram_launches_by_path": dict(
-            wrappers["flux_histogram"].launches_by_path),
-        "histogram_launches_by_branch": dict(
-            wrappers["flux_histogram"].launches_by_branch),
-        "bounces": sub_bounces or launches["disk_nearest_hit"]
-        or launches["triangle_nearest_hit"] or launches["line_nearest_hit"],
+        "counts": {k: n for k, n in counts.items() if n},
+        "bounces": counts["fused_bounce.sub_bounces"] or launches[DISK]
+        or launches[TRI] or launches[LINE],
     }
     ok = (
         np.isfinite(norm).all() and norm.shape == (n_prims,)
@@ -1281,7 +1241,7 @@ def run_path(label, make, goldens, tol, kernels, record=None, same_seed=False,
         bitwise = bool(np.array_equal(first, make().apply()))
         res["same_seed_bitwise_equal"] = bitwise
         ok = ok and bitwise
-    if launches["fused_bounce"]:
+    if launches[BOUNCE]:
         one, one_info = apply_with_group_one(make())
         one_info = dataclasses.asdict(one_info)
         equal = bool(np.array_equal(first, one)) and all(
@@ -1313,12 +1273,12 @@ def phase_disk_paths(pts, nrm):
     make = functools.partial(make_tracer, pts, nrm)
     _, launches, norm = run_path(
         {"body": "fused"}, make, disk_goldens(), GOLDEN_TOL,
-        ("fused_bounce", "flux_histogram", *SORTS), same_seed=True)
+        (BOUNCE, HIST, *SORTS), same_seed=True)
     _, unfused_launches, _ = run_path(
         {"body": "unfused"},
         functools.partial(make, rays_per_point=RAYS_PER_POINT // 4, fused=False),
         disk_goldens(), 2.0 * GOLDEN_TOL,
-        ("disk_nearest_hit", "flux_histogram", *SORTS))
+        (DISK, HIST, *SORTS))
     return launches, unfused_launches, norm
 
 
@@ -1335,12 +1295,12 @@ def phase_triangle_paths(verts, tris):
     label = {"geometry": "triangles"}
     _, launches, _ = run_path(
         {**label, "body": "fused"}, make, goldens, tol,
-        ("fused_bounce", *SORTS), record, same_seed=True)
+        (BOUNCE, *SORTS), record, same_seed=True)
     _, unfused_launches, _ = run_path(
         {**label, "body": "unfused"},
         functools.partial(make, rays_per_point=RAYS_PER_POINT // 8, fused=False),
         goldens, 3.0 * tol,
-        ("triangle_nearest_hit", "flux_histogram", *SORTS), record)
+        (TRI, HIST, *SORTS), record)
     return launches, unfused_launches
 
 
@@ -1361,12 +1321,12 @@ def phase_line_paths():
     label = {"geometry": "lines"}
     fields, launches, line_norm = run_path(
         {**label, "body": "fused"}, make_line_tracer, goldens, tol,
-        ("fused_bounce", *SORTS), record, same_seed=True)
+        (BOUNCE, *SORTS), record, same_seed=True)
     _, unfused_launches, _ = run_path(
         {**label, "body": "unfused"},
         functools.partial(make_line_tracer,
                           rays_per_point=RAYS_PER_POINT // 4, fused=False),
-        goldens, 2.0 * tol, ("line_nearest_hit", "flux_histogram", *SORTS),
+        goldens, 2.0 * tol, (LINE, HIST, *SORTS),
         record)
 
     def against_line_run(pair_fields, pair_norm):
@@ -1388,7 +1348,7 @@ def phase_line_paths():
         {"geometry": "lines as triangle pairs (2D)", "body": "fused"},
         functools.partial(make_ribbon_tracer, fields["num_rays"]),
         {"rel_l2_oracle": np.repeat(golden, 2)}, 1.0,
-        ("fused_bounce", *SORTS), extra=against_line_run)
+        (BOUNCE, *SORTS), extra=against_line_run)
     return launches, unfused_launches
 
 
@@ -1405,11 +1365,11 @@ def phase_ion_paths(pts, nrm):
     label = {"geometry": "disks", "particle": "ion"}
     _, launches, _ = run_path(
         {**label, "body": "fused"}, make, goldens, tol,
-        ("fused_bounce", *SORTS), record, same_seed=True)
+        (BOUNCE, *SORTS), record, same_seed=True)
     _, unfused_launches, _ = run_path(
         {**label, "body": "unfused"},
         functools.partial(make, rays_per_point=RAYS_PER_POINT // 4, fused=False),
-        goldens, 2.0 * tol, ("disk_nearest_hit", "flux_histogram", *SORTS),
+        goldens, 2.0 * tol, (DISK, HIST, *SORTS),
         record)
     return launches, unfused_launches
 
@@ -1439,7 +1399,7 @@ def phase_gas_path(pts, nrm):
                           rays_per_point=RAYS_PER_POINT // 10,
                           particle=gas_particle()),
         {"rel_l2_oracle": golden}, 2.0 * tol,
-        ("fused_bounce", "flux_histogram", *SORTS), record,
+        (BOUNCE, HIST, *SORTS), record,
         extra=scatter_events)
     return launches
 
@@ -1469,12 +1429,12 @@ def phase_window_paths(pts, nrm, neighbor_norm):
     label = {"geometry": "disks", "flux_model": "window"}
     _, launches, _ = run_path(
         {**label, "body": "fused"}, make, goldens, tol,
-        ("fused_bounce", *SORTS), record, same_seed=True,
+        (BOUNCE, *SORTS), record, same_seed=True,
         extra=against_neighbor)
     _, unfused_launches, _ = run_path(
         {**label, "body": "unfused"},
         functools.partial(make, rays_per_point=RAYS_PER_POINT // 4, fused=False),
-        goldens, 2.0 * tol, ("disk_nearest_hit", "flux_histogram", *SORTS),
+        goldens, 2.0 * tol, (DISK, HIST, *SORTS),
         record)
     return launches, unfused_launches
 
@@ -1490,7 +1450,7 @@ def phase_wdist_path(pts, nrm):
         functools.partial(make_tracer, pts, nrm, use_wdist=True,
                           rays_per_point=RAYS_PER_POINT // 4),
         {"rel_l2_oracle": golden}, 2.0 * tol,
-        ("disk_nearest_hit", "flux_histogram", *SORTS), record,
+        (DISK, HIST, *SORTS), record,
         same_seed=True)
     return launches
 
@@ -1528,12 +1488,12 @@ def phase_disk2d_paths():
     label = {"geometry": "disks (2D)"}
     _, launches, _ = run_path(
         {**label, "body": "fused"}, make_disk2d_tracer, goldens, tol,
-        ("fused_bounce", *SORTS), record, same_seed=True)
+        (BOUNCE, *SORTS), record, same_seed=True)
     _, unfused_launches, _ = run_path(
         {**label, "body": "unfused"},
         functools.partial(make_disk2d_tracer, fused=False,
                           rays=DISK2D["rays"] // 4),
-        goldens, 2.0 * tol, ("disk_nearest_hit", "flux_histogram", *SORTS),
+        goldens, 2.0 * tol, (DISK, HIST, *SORTS),
         record)
     return launches, unfused_launches
 
@@ -1555,14 +1515,14 @@ def phase_source_paths(pts, nrm):
         {"geometry": "disks", "source": "grid", "body": "fused",
          "grid_points": make()._custom_source.num_points},
         make, {"rel_l2_golden": disk_goldens()["rel_l2_golden"]}, GOLDEN_TOL,
-        ("fused_bounce", "flux_histogram", *SORTS), bench_record,
+        (BOUNCE, HIST, *SORTS), bench_record,
         same_seed=True)
     golden, record, tol = oracle_golden("surface3d_trench_jax")
     _, surface_launches, _ = run_path(
         {"geometry": "disks", "source": "surface", "body": "fused"},
         functools.partial(make_tracer, pts, nrm, source=surface_source),
         {"rel_l2_jax_surface": golden}, tol,
-        ("fused_bounce", "flux_histogram", *SORTS), record, same_seed=True)
+        (BOUNCE, HIST, *SORTS), record, same_seed=True)
     return grid_launches, surface_launches
 
 
@@ -1577,10 +1537,7 @@ def kernel_spans(kind):
     runs: the trace's own (the bounce kernel, the closest-hit search of the
     geometry ``kind``, the histogram, the resort's key and the state's
     permutation), the histogram the hooks call, and the histogram's
-    backward. Yields the list of (start, end) event pairs. The
-    two histogram wrappers count their launches (and the histogram its
-    entries) on their module's names, which are the timed wrappers inside
-    the block: those take the counts and hand them back after."""
+    backward. Yields the list of (start, end) event pairs."""
     from viennaray_tpu_torch.ops import histogram as H
     from viennaray_tpu_torch.trace import kernel as TK
 
@@ -1608,39 +1565,27 @@ def kernel_spans(kind):
         TK.coherence_key, TK.permute_state = key, permute
 
     hist = timed(real[3])
-    hist.launches = hist.launches_f64 = 0
-    hist.entries = hist.entries_f64 = 0
-    for table in ("launches_by_path", "launches_by_path_f64",
-                  "launches_by_branch", "launches_by_branch_f64"):
-        setattr(hist, table, getattr(real[3], table))
-    hist_grad = timed(real[4])
-    hist_grad.launches = hist_grad.launches_f64 = 0
-    install(timed(real[0]), timed(real[1]), hist, hist, hist_grad,
+    install(timed(real[0]), timed(real[1]), hist, hist, timed(real[4]),
             timed(real[5]), timed(real[6]))
     try:
         yield spans
     finally:
         install(*real)
-        for wrapper, counted in ((real[3], hist), (real[4], hist_grad)):
-            wrapper.launches += counted.launches
-            wrapper.launches_f64 += counted.launches_f64
-        real[3].entries += hist.entries
-        real[3].entries_f64 += hist.entries_f64
 
 
 def span_apply(tracer):
-    """One apply with the launch counts set to 0 just before and read just
+    """One apply with the registry's counts read just before and just
     after, inside ``kernel_spans``. Returns (flux, fields, launches);
     ``share_outside_kernels`` is 1 minus the events' spans over the apply's
     wall time."""
-    reset_launches()
+    before = dict(telemetry.COUNTS)
     with kernel_spans(tracer.geometry.kind) as spans:
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         flux = tracer.apply()
         torch.cuda.synchronize()
         seconds = time.perf_counter() - t0
-    launches = read_launches()
+    launches = launches_since(before)
     info = tracer.get_ray_trace_info()
     in_kernels = sum(a.elapsed_time(b) for a, b in spans) / 1e3
     fields = {
@@ -1746,7 +1691,7 @@ def phase_hook_paths(pts, nrm, verts, tris):
         "rel_l2_both_channels": all(e < tol for e in errors),
         "energy_ratio_within_2_percent":
             abs(ratio / record["energy_ratio"] - 1.0) <= 0.02,
-    }, launches, ("disk_nearest_hit", "flux_histogram", *SORTS),
+    }, launches, (DISK, HIST, *SORTS),
         rerun=(plain, tracer))
 
     # 2. hooks that reimplement the built-in deposit and diffuse reflection
@@ -1762,7 +1707,7 @@ def phase_hook_paths(pts, nrm, verts, tris):
         "flux_bitwise_equal_builtin": bool(np.array_equal(flux, want)),
         "counters_equal_builtin": same_counters(
             tracer.get_ray_trace_info(), plain.get_ray_trace_info()),
-    }, launches, ("disk_nearest_hit", "flux_histogram", *SORTS),
+    }, launches, (DISK, HIST, *SORTS),
         rerun=(plain, tracer))
 
     # 3. the energy-carrying ion (aux through the sort and the compactions)
@@ -1786,15 +1731,15 @@ def phase_hook_paths(pts, nrm, verts, tris):
         "deposit_per_hit_within_2_percent":
             abs(per_hit / record["deposit_per_hit"] - 1.0) <= 0.02,
         "log_counts_every_ray": logged == info.num_rays,
-    }, launches, ("disk_nearest_hit", "flux_histogram", *SORTS),
+    }, launches, (DISK, HIST, *SORTS),
         rerun=(plain, tracer))
 
     # 4. triangles and lines: the two-channel collision_fn with the
     # reimplemented reflection; channel 0 is the built-in apply's bits
     for name, make, rays, search, dim in (
         ("triangles", functools.partial(make_tri_tracer, verts, tris),
-         RAYS_PER_POINT // 8, "triangle_nearest_hit", 3),
-        ("lines", make_line_tracer, HOOK_RAYS, "line_nearest_hit", 2),
+         RAYS_PER_POINT // 8, TRI, 3),
+        ("lines", make_line_tracer, HOOK_RAYS, LINE, 2),
     ):
         plain = make(rays_per_point=rays, fused=False)
         want, plain_fields, _ = span_apply(plain)
@@ -1813,7 +1758,7 @@ def phase_hook_paths(pts, nrm, verts, tris):
                    "counters_equal_builtin": same_counters(
                        tracer.get_ray_trace_info(),
                        plain.get_ray_trace_info()),
-               }, launches, (search, "flux_histogram", *SORTS),
+               }, launches, (search, HIST, *SORTS),
                rerun=(plain, tracer))
 
     # 5. an all-zero init_dir_fn and a log_fn on the fused body (the
@@ -1836,20 +1781,20 @@ def phase_hook_paths(pts, nrm, verts, tris):
         "flux_bitwise_equal_builtin": bool(np.array_equal(flux, want)),
         "log_counts_every_ray": first_log == fields["num_rays"],
         "log_adds_up": second_log == 2 * fields["num_rays"],
-    }, launches, ("fused_bounce", "flux_histogram", *SORTS),
+    }, launches, (BOUNCE, HIST, *SORTS),
         rerun=(plain, tracer))
 
     # 6. two species through apply_particles (the JAX package's
     # examples/multi_species.py), each against its own apply on a fresh
     # tracer at the same run number
     tracer = multi_species.make_tracer(HOOK_RAYS)
-    reset_launches()
+    before = dict(telemetry.COUNTS)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     flux, infos = vrt.apply_particles(tracer, multi_species.species())
     torch.cuda.synchronize()
     seconds = time.perf_counter() - t0
-    launches = read_launches()
+    launches = launches_since(before)
     alone, alone_seconds = [], []
     for k, particle in enumerate(multi_species.species()):
         fresh = multi_species.make_tracer(HOOK_RAYS, seed=3 + k)
@@ -1871,7 +1816,7 @@ def phase_hook_paths(pts, nrm, verts, tris):
             np.array_equal(flux[k], alone[k]) for k in range(2)),
         "channels": labels == ["ionFlux", "neutralFlux"],
         "finite": bool(np.isfinite(flux).all() and (flux.max(axis=1) > 0).all()),
-    }, launches, ("fused_bounce", "flux_histogram", *SORTS))
+    }, launches, (BOUNCE, HIST, *SORTS))
     return out
 
 
@@ -2044,10 +1989,10 @@ def against_plain(geometry, run):
 
 
 def timed_grad(geometry, run):
-    """``run()`` with the launch counts set to 0 just before and read just
+    """``run()`` with the registry's counts read just before and just
     after, inside ``kernel_spans``, on a fresh peak of device memory.
     Returns (result, fields, launches)."""
-    reset_launches()
+    before = dict(telemetry.COUNTS)
     torch.cuda.reset_peak_memory_stats()
     with kernel_spans(geometry.kind) as spans:
         torch.cuda.synchronize()
@@ -2055,7 +2000,7 @@ def timed_grad(geometry, run):
         out = run()
         torch.cuda.synchronize()
         seconds = time.perf_counter() - t0
-    launches = read_launches()
+    launches = launches_since(before)
     in_kernels = sum(a.elapsed_time(b) for a, b in spans) / 1e3
     return out, {
         "seconds": seconds, "seconds_in_kernels": in_kernels,
@@ -2100,11 +2045,10 @@ def phase_grad_paths(pts, nrm, verts, tris):
     # the sticking: its histogram has no backward
     want_backward = (GRAD["bounces"] - 1) * n_batches
     launches_ok = (
-        launches["disk_nearest_hit"] == want
-        and launches["flux_histogram"] == want
-        and launches["flux_histogram_grad"] == want_backward
-        and only_launched(launches, "disk_nearest_hit", "flux_histogram",
-                          "flux_histogram_grad"))
+        launches[DISK] == want
+        and launches[HIST] == want
+        and launches[HIST_GRAD] == want_backward
+        and only_launched(launches, DISK, HIST, HIST_GRAD))
     # (b) per ray against the JAX package's golden
     golden, record, tol = oracle_golden("grad3d_trench_jax")
     per_ray = flux / rays
@@ -2173,8 +2117,7 @@ def phase_grad_paths(pts, nrm, verts, tris):
                "grad_nonzero_rows": int((np.abs(grad_f).sum(1) > 0).sum())}
         emit(res)
         if not (res["finite"] and res["grad_abs_max"] > 0
-                and only_launched(launches, "disk_nearest_hit",
-                                  "flux_histogram", "flux_histogram_grad")):
+                and only_launched(launches, DISK, HIST, HIST_GRAD)):
             raise RuntimeError(f"grad path failed its checks: {res}")
 
     # (g) triangles (kernel 3)
@@ -2194,8 +2137,7 @@ def phase_grad_paths(pts, nrm, verts, tris):
            **fd_fields, "one_batch_bitwise_equal_plain": tri_equal}
     emit(res)
     if not (res["finite"] and fd_ok and tri_equal
-            and only_launched(launches, "triangle_nearest_hit",
-                              "flux_histogram", "flux_histogram_grad")):
+            and only_launched(launches, TRI, HIST, HIST_GRAD)):
         raise RuntimeError(f"grad path failed its checks: {res}")
     return out
 
@@ -2324,18 +2266,6 @@ def phase_host_build():
             raise RuntimeError(f"the neighbor tables differ: {res}")
 
 
-def neighborhood_launches(reset=False):
-    """The card's neighbor-table launches (``build_neighborhood_cuda``),
-    float32 and float64 points, set to 0 first if ``reset``."""
-    from viennaray_tpu_torch.geometry import neighborhood
-
-    counted = neighborhood.build_neighborhood_cuda
-    if reset:
-        counted.launches = counted.launches_f64 = 0
-    return {"neighborhood": counted.launches,
-            "neighborhood_f64": counted.launches_f64}
-
-
 def neighborhood_pair_tests(pts, distance, dim):
     """The pair tests one pass of ``vr_neighborhood_rows`` makes, from its
     inputs: for every point, the members of each cell at a deduplicated
@@ -2363,8 +2293,8 @@ def neighborhood_pair_tests(pts, distance, dim):
 
 def phase_neighborhood():
     """The neighbor table on the card at the 704,250-disk trench (the
-    benchmark's disk1m cloud): ``DiskGeometry.build`` on CUDA, its launch
-    counts set to 0 just before and read just after (four: the cells, the
+    benchmark's disk1m cloud): ``DiskGeometry.build`` on CUDA, its launches
+    read from the registry just before and just after (four: the cells, the
     ids, the rows counted and filled), its table held to the host helper's
     bit for bit; ``build_neighborhood_cuda`` alone timed by CUDA events (its
     one read included) beside the helper on the host clock; the bound from
@@ -2378,13 +2308,13 @@ def phase_neighborhood():
 
     pts, nrm = fixtures.create_trench_grid_3d(**DISK1M)
     distance = 2.0 * DISK1M["grid_delta"] * disk_factor(3)
-    neighborhood_launches(reset=True)
+    before = dict(telemetry.COUNTS)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     geometry = DiskGeometry.build(pts, nrm, DISK1M["grid_delta"])
     torch.cuda.synchronize()
     build_s = time.perf_counter() - t0
-    launches = neighborhood_launches()
+    launches = launches_since(before)
     card = geometry.neighbors.cpu().numpy()
     del geometry
     helper_s = []
@@ -2418,7 +2348,8 @@ def phase_neighborhood():
         "library_ms": None,
     }
     emit(res)
-    if not equal or launches != {"neighborhood": 4, "neighborhood_f64": 0}:
+    if not equal or (launches["build_neighborhood_cuda.launches"], launches[
+            "build_neighborhood_cuda.launches_f64"]) != (4, 0):
         raise RuntimeError(f"the card's neighbor table failed its checks: "
                            f"{res}")
     return res
@@ -2473,7 +2404,7 @@ def trace_unfused(tracer, dtype, bounce_sort=False):
 def f64_flagship(label, tracer, goldens, tol, kernels, record):
     """One flagship in float64 through ``trace_unfused`` beside the float32
     run of the same rays through the same loop, in turns (float32,
-    float64, float64, float32), the launch counts read around the second
+    float64, float64, float32), the registry's counts read around the second
     float64 run; the float32 loop must give the tracer's own unfused
     apply bit for bit. Holds the float64 flux to ``goldens`` (rel-L2 <
     ``tol``), its hits per ray to the oracle ``record``'s (2 %), the launches
@@ -2481,9 +2412,9 @@ def f64_flagship(label, tracer, goldens, tol, kernels, record):
     applied = tracer.apply()  # the areas; the float32 unfused apply
     flux32, cnt32, s32a = trace_unfused(tracer, torch.float32)
     flux64, cnt64, s64a = trace_unfused(tracer, F64)
-    reset_launches()
+    before = dict(telemetry.COUNTS)
     again, cnt_again, s64b = trace_unfused(tracer, F64)
-    launches = read_launches()
+    launches = launches_since(before)
     _, _, s32b = trace_unfused(tracer, torch.float32)
     norm = np.asarray(tracer.normalize_flux(flux64), np.float64)
     errors = {key: rel_l2(norm, g) for key, g in goldens.items()}
@@ -2633,8 +2564,8 @@ def phase_f64_paths(pts, nrm, verts, tris):
                                                     dtype=F64)
 
     launches = {}
-    disk_kernels = ("disk_nearest_hit_f64", "flux_histogram_f64",
-                    "permute_state_f64", "coherence_key_f64")
+    disk_kernels = ("disk_nearest_hit.launches_f64", "histogram_launches_f64",
+                    "permute_state.launches_f64", "coherence_key.launches_f64")
     launches["disks_f64"] = f64_flagship(
         {"geometry": "disks"},
         make_tracer(pts, nrm, rays_per_point=RAYS_PER_POINT // 4,
@@ -2647,15 +2578,15 @@ def phase_f64_paths(pts, nrm, verts, tris):
         make_tri_tracer(verts, tris, rays_per_point=RAYS_PER_POINT // 8,
                         fused=False),
         {"rel_l2_oracle": golden}, 3.0 * tol,
-        ("triangle_nearest_hit_f64", "flux_histogram_f64",
-         "permute_state_f64", "coherence_key_f64"), record)
+        ("triangle_nearest_hit.launches_f64", "histogram_launches_f64",
+         "permute_state.launches_f64", "coherence_key.launches_f64"), record)
     golden, record, tol = oracle_golden("line2d_trench_oracle")
     launches["lines_f64"] = f64_flagship(
         {"geometry": "lines"},
         make_line_tracer(rays_per_point=RAYS_PER_POINT // 4, fused=False),
         {"rel_l2_oracle": golden}, 2.0 * tol,
-        ("line_nearest_hit_f64", "flux_histogram_f64", "permute_state_f64",
-         "coherence_key_f64"), record)
+        ("line_nearest_hit.launches_f64", "histogram_launches_f64",
+         "permute_state.launches_f64", "coherence_key.launches_f64"), record)
 
     # grad_1e7 in float64: the warm-up run, then the timed run of the seed
     source, particle, box, config = grad_problem(geometry)
@@ -2683,12 +2614,13 @@ def phase_f64_paths(pts, nrm, verts, tris):
                    GRAD_TOL_FLOOR)
     want = GRAD["bounces"] * n_batches
     launches_ok = (
-        grad_launches["disk_nearest_hit_f64"] == want
-        and grad_launches["flux_histogram_f64"] == want
-        and grad_launches["flux_histogram_grad_f64"]
+        grad_launches["disk_nearest_hit.launches_f64"] == want
+        and grad_launches["histogram_launches_f64"] == want
+        and grad_launches["flux_histogram_grad.launches_f64"]
         == (GRAD["bounces"] - 1) * n_batches
-        and only_launched(grad_launches, "disk_nearest_hit_f64",
-                          "flux_histogram_f64", "flux_histogram_grad_f64"))
+        and only_launched(grad_launches, "disk_nearest_hit.launches_f64",
+                          "histogram_launches_f64",
+                          "flux_histogram_grad.launches_f64"))
     res = {"phase": "f64_path", "config": "grad_1e7 (BASELINE config 5)",
            "dtype": "float64", "num_rays": rays, **fields,
            "rays_per_s_fwd_bwd": rays / fields["seconds"],
@@ -2718,30 +2650,33 @@ def f64_kernel_entries(results, narrow, launches, keys):
     runs (``phase_f64_paths``), times at 2^20 rays (kernel 2 at 2^19 x 12
     entries, and on 18,180 bins) and, under ``narrow``, at 512 rays (6,144
     entries)."""
-    def count(name, *paths):
-        by_path = {p: launches[p][name] for p in paths}
+    def count(counted, *paths):
+        by_path = {p: launches[p][counted] for p in paths}
         return {"launches": sum(by_path.values()),
                 "launches_by_path": by_path}
 
     entries = []
-    for name, key, source, replaces, paths in (
-        ("disk_nearest_hit_f64", "disk", "nearest_hit.cu",
-         "viennaray_tpu/ops/pallas_intersect.py:166",
+    for name, counted, key, source, replaces, paths in (
+        ("disk_nearest_hit_f64", "disk_nearest_hit.launches_f64", "disk",
+         "nearest_hit.cu", "viennaray_tpu/ops/pallas_intersect.py:166",
          ("disks_f64", "grad_f64")),
-        ("triangle_nearest_hit_f64", "triangle", "nearest_hit.cu",
+        ("triangle_nearest_hit_f64", "triangle_nearest_hit.launches_f64",
+         "triangle", "nearest_hit.cu",
          "viennaray_tpu/ops/pallas_intersect.py:359", ("triangles_f64",)),
-        ("line_nearest_hit_f64", "line", "nearest_hit.cu",
-         "viennaray_tpu/ops/intersect.py:172", ("lines_f64",)),
-        ("flux_histogram_f64", "histogram", "flux_histogram.cu",
-         "viennaray_tpu/ops/pallas_histogram.py:39",
+        ("line_nearest_hit_f64", "line_nearest_hit.launches_f64", "line",
+         "nearest_hit.cu", "viennaray_tpu/ops/intersect.py:172",
+         ("lines_f64",)),
+        ("flux_histogram_f64", "histogram_launches_f64", "histogram",
+         "flux_histogram.cu", "viennaray_tpu/ops/pallas_histogram.py:39",
          ("disks_f64", "triangles_f64", "lines_f64", "grad_f64")),
-        ("flux_histogram_grad_f64", "histogram_grad", "flux_histogram.cu",
+        ("flux_histogram_grad_f64", "flux_histogram_grad.launches_f64",
+         "histogram_grad", "flux_histogram.cu",
          "viennaray_tpu/trace/kernel.py:161", ("grad_f64",)),
     ):
         entries.append({
             "name": name, "route": "cuda",
             "source": f"viennaray_tpu_torch/csrc/{source}",
-            "replaces": replaces, **count(name, *paths),
+            "replaces": replaces, **count(counted, *paths),
             **{k: results[key][k] for k in keys},
             "narrow": {k: narrow[key][k] for k in keys},
         })
@@ -2767,19 +2702,16 @@ def launches_by_batch(module):
     """The launches of the bounce and histogram kernels in each
     ``trace_batch`` call made through ``module.trace_batch``, by batch
     index: {batch: (bounce kernel, histogram kernel)}."""
-    from viennaray_tpu_torch.ops import bounce as B
-    from viennaray_tpu_torch.ops import histogram as H
-
     real = module.trace_batch
     seen = {}
+    counts = telemetry.COUNTS
 
     def wrapper(geometry, source, particle, bbox, rng, batch_index, *args,
                 **kwargs):
-        k4, k2 = B.fused_bounce.launches, H.flux_histogram.launches
+        k4, k2 = counts[BOUNCE], counts[HIST]
         out = real(geometry, source, particle, bbox, rng, batch_index, *args,
                    **kwargs)
-        seen[int(batch_index)] = (B.fused_bounce.launches - k4,
-                                  H.flux_histogram.launches - k2)
+        seen[int(batch_index)] = (counts[BOUNCE] - k4, counts[HIST] - k2)
         return out
 
     module.trace_batch = wrapper
@@ -2828,14 +2760,14 @@ def phase_sharded_path(pts, nrm):
 
     tracer = make_tracer(pts, nrm)
     warm_want = tracer.apply()
-    reset_launches()
+    before = dict(telemetry.COUNTS)
     with launches_by_batch(tracer_module) as tracer_batches:
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         want = tracer.apply()
         torch.cuda.synchronize()
         tracer_seconds = time.perf_counter() - t0
-    tracer_launches = read_launches()
+    tracer_launches = launches_since(before)
     info = tracer.get_ray_trace_info()
     want_counters = [info.total_rays_traced, info.non_geometry_hits,
                      info.geometry_hits, info.particle_hits,
@@ -2853,7 +2785,7 @@ def phase_sharded_path(pts, nrm):
             warm, _ = ray_mesh.trace_sharded(
                 geometry, source, particle, bbox, config,
                 vrt.GeneratorRNG(SEED + 1, geometry.device), total, mesh)
-            reset_launches()
+            before = dict(telemetry.COUNTS)
             with launches_by_batch(ray_mesh) as batches:
                 torch.cuda.synchronize()
                 t0 = time.perf_counter()
@@ -2862,7 +2794,7 @@ def phase_sharded_path(pts, nrm):
                     vrt.GeneratorRNG(SEED + 2, geometry.device), total, mesh)
                 flux = flux.cpu().numpy()
                 seconds = time.perf_counter() - t0
-            launches[name] = read_launches()
+            launches[name] = launches_since(before)
             live = {b: n for b, n in batches.items() if b in tracer_batches}
             extra = {b: n for b, n in batches.items()
                      if b not in tracer_batches}
@@ -2890,7 +2822,7 @@ def phase_sharded_path(pts, nrm):
         for n in (1, 4, 1):  # the first leg warms the process's autograd up
             sticking = torch.tensor(0.1, device=geometry.device,
                                     requires_grad=True)
-            reset_launches()
+            before = dict(telemetry.COUNTS)
             torch.cuda.synchronize()
             t0 = time.perf_counter()
             flux, _ = ray_mesh.trace_sharded(
@@ -2907,7 +2839,7 @@ def phase_sharded_path(pts, nrm):
                            loss=loss.item(),
                            flux=flux.detach().cpu().numpy(),
                            grad=sticking.grad.item(),
-                           launches=read_launches())
+                           launches=launches_since(before))
     finally:
         dist.destroy_process_group()
     one, four = legs[1], legs[4]
@@ -2934,15 +2866,13 @@ def phase_sharded_path(pts, nrm):
     emit(res)
     ok = grad_leg["finite"] and grad_leg["bitwise_equal_1_4_shards"] and (
         grad_leg["launches_equal_1_4_shards"]) and only_launched(
-        four["launches"], "disk_nearest_hit", "flux_histogram",
-        "flux_histogram_grad")
+        four["launches"], DISK, HIST, HIST_GRAD)
     for run in runs.values():
         ok = ok and all(run[k] for k in (
             "warm_bitwise_equal", "bitwise_equal", "counters_equal",
             "launches_by_sub_batch_equal",
             "extra_sub_batches_launch_nothing"))
-    ok = ok and only_launched(launches["four_shards"], "fused_bounce",
-                              "flux_histogram", *SORTS)
+    ok = ok and only_launched(launches["four_shards"], BOUNCE, HIST, *SORTS)
     if not ok:
         raise RuntimeError(f"sharded path failed its checks: {res}")
     return launches["four_shards"], four["launches"]
@@ -3163,7 +3093,7 @@ def make_grid_tracer(geometry, rays_per_point, fused=True):
 def grid_apply_pair(label, geometry, rays_per_point, fused, kernels):
     """One apply of ``geometry`` with its grid (the trace walks it: at least
     ``grid_min_prims`` primitives) and one of the same geometry without
-    (the chunk search), the launch counts set to 0 just before each and read
+    (the chunk search), the registry's counts read just before each and
     just after; flux and event counters bit for bit. Returns the grid run's
     launches."""
     import dataclasses
@@ -3172,7 +3102,7 @@ def grid_apply_pair(label, geometry, rays_per_point, fused, kernels):
     for mode, geo in (("chunks", geometry.replace(grid=None)),
                       ("grid", geometry)):
         tracer = make_grid_tracer(geo, rays_per_point, fused)
-        reset_launches()
+        before = dict(telemetry.COUNTS)
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         flux = tracer.apply()
@@ -3180,7 +3110,7 @@ def grid_apply_pair(label, geometry, rays_per_point, fused, kernels):
         seconds = time.perf_counter() - t0
         info = dataclasses.asdict(tracer.get_ray_trace_info())
         runs[mode] = dict(flux=flux, info=info, seconds=seconds,
-                          launches=read_launches())
+                          launches=launches_since(before))
         del tracer
     chunks, grid = runs["chunks"], runs["grid"]
     equal = bool(np.array_equal(chunks["flux"], grid["flux"])) and all(
@@ -3202,8 +3132,7 @@ def grid_apply_pair(label, geometry, rays_per_point, fused, kernels):
     }
     finite = bool(np.isfinite(grid["flux"]).all()) and grid["flux"].max() > 0
     # every launch of the bounce kernel walked the grid
-    all_grid = (grid["launches"]["fused_bounce_grid"]
-                == grid["launches"]["fused_bounce"])
+    all_grid = grid["launches"][GRID] == grid["launches"][BOUNCE]
     emit(res)
     if not (equal and finite and all_grid
             and only_launched(grid["launches"], *kernels)):
@@ -3276,13 +3205,13 @@ def phase_grid_path():
     launches = {}
     launches["disk18k"] = grid_apply_pair(
         "disk18k", disks, GRID_RAYS_PER_POINT, True,
-        ("fused_bounce", "fused_bounce_grid", "flux_histogram", *SORTS))
+        (BOUNCE, GRID, HIST, *SORTS))
     launches["disk18k_unfused"] = grid_apply_pair(
         "disk18k_unfused", disks, GRID_RAYS_PER_POINT // 8, False,
-        ("disk_grid_nearest_hit", "flux_histogram", *SORTS))
+        ("disk_grid_nearest_hit.launches", HIST, *SORTS))
     launches["triangles_unfused"] = grid_apply_pair(
         "trench_mesh_0.1_unfused", mesh, 20, False,
-        ("triangle_grid_nearest_hit", "flux_histogram", *SORTS))
+        ("triangle_grid_nearest_hit.launches", HIST, *SORTS))
     del disks, mesh
     t0 = time.perf_counter()
     pts, nrm = fixtures.create_trench_grid_3d(**DISK1M)
@@ -3307,7 +3236,7 @@ def phase_grid_path():
         big, big_bbox, 1 << 20, "interior", 1, flagship, reps=2)
     launches["disk1m"] = grid_apply_pair(
         "disk1m", big, DISK1M_RAYS_PER_POINT, True,
-        ("fused_bounce", "fused_bounce_grid", "flux_histogram", *SORTS))
+        (BOUNCE, GRID, HIST, *SORTS))
     del big
     torch.cuda.empty_cache()
     emit({"phase": "grid_path_seconds",
@@ -3321,6 +3250,7 @@ def grid_kernel_entries(results, launches_by_path, keys):
     entries = []
     for kind in ("disk", "triangle"):
         name = f"{kind}_grid_nearest_hit"
+        counted = name + ".launches"
         res = results[(kind, torch.float32, "source")]
         res64 = results[(kind, torch.float64, "source")]
         walk = ("cells_a_ray", "pairs_a_ray", "wasted_pairs_a_ray",
@@ -3330,9 +3260,9 @@ def grid_kernel_entries(results, launches_by_path, keys):
             "name": name, "route": "cuda",
             "source": "viennaray_tpu_torch/csrc/grid_traverse.cu",
             "replaces": "viennaray_tpu/ops/grid_traverse.py:64",
-            "launches": sum(n[name] for n in launches_by_path.values()),
-            "launches_by_path": {path: n[name] for path, n in
-                                 launches_by_path.items() if n[name]},
+            "launches": sum(n[counted] for n in launches_by_path.values()),
+            "launches_by_path": {path: n[counted] for path, n in
+                                 launches_by_path.items() if n[counted]},
             **{k: res[k] for k in keys + walk},
             "f64": {k: res64[k] for k in keys + walk},
             **({"disk1m": {k: big[k] for k in keys + walk}} if big else {}),
@@ -3466,8 +3396,8 @@ def check_permute_state(geometry, bbox, dtype, n_take, with_aux):
 def resort_apply(geometry, bounce_sort, seed):
     """One apply of ``TraceDisk`` on ``geometry`` (disk18k's physics, 200
     rays per point) with the resort asked for or not, after a warm-up apply
-    (so the timed one is run number 2), the launch counts set to 0 just
-    before and read just after: (normalized flux, fields, launches)."""
+    (so the timed one is run number 2), the registry's counts read just
+    before and just after: (normalized flux, fields, launches)."""
     import dataclasses
 
     import viennaray_tpu_torch as vrt
@@ -3478,14 +3408,14 @@ def resort_apply(geometry, bounce_sort, seed):
     configure(tracer, GRID_RAYS_PER_POINT)
     tracer.set_rng_seed(seed)
     tracer.apply()
-    reset_launches()
+    before = dict(telemetry.COUNTS)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     flux = tracer.apply()
     torch.cuda.synchronize()
     seconds = time.perf_counter() - t0
     info = dataclasses.asdict(tracer.get_ray_trace_info())
-    launches = read_launches()
+    launches = launches_since(before)
     return np.asarray(tracer.normalize_flux(flux), np.float64), {
         "bounce_sort": bounce_sort, "seed": seed, "seconds": seconds,
         "search": "chunks" if grid_for(geometry, tracer._make_config())
@@ -3554,20 +3484,20 @@ def phase_resort_path(pts, nrm, verts, tris, disk_launches, tri_launches):
     _, launches["triangles_resort"], _ = run_path(
         {"geometry": "triangles", "body": "fused", "bounce_sort": True},
         functools.partial(make_tri_tracer, verts, tris, bounce_sort=True),
-        {"rel_l2_oracle": golden}, tol, ("fused_bounce", *SORTS), record,
+        {"rel_l2_oracle": golden}, tol, (BOUNCE, *SORTS), record,
         same_seed=True)
     _, launches["disks_resort"], _ = run_path(
         {"geometry": "disks", "body": "fused", "bounce_sort": True},
         functools.partial(make_tracer, pts, nrm, bounce_sort=True),
-        disk_goldens(), GOLDEN_TOL, ("fused_bounce", "flux_histogram", *SORTS))
+        disk_goldens(), GOLDEN_TOL, (BOUNCE, HIST, *SORTS))
 
     tracer64 = make_tri_tracer(verts, tris, rays_per_point=RESORT_F64_RAYS,
                                fused=False, bounce_sort=True)
     tracer64.apply()  # the areas
-    reset_launches()
+    before = dict(telemetry.COUNTS)
     flux64, counters64, seconds64 = trace_unfused(tracer64, F64,
                                                   bounce_sort=True)
-    launches["triangles_f64_resort"] = read_launches()
+    launches["triangles_f64_resort"] = launches_since(before)
     hits64 = counters64["geometry_hits"] / tracer64._make_config().total_rays(
         tracer64.geometry.num_primitives)
     f64_run = {"num_rays": tracer64._make_config().total_rays(len(tris)),
@@ -3591,15 +3521,14 @@ def phase_resort_path(pts, nrm, verts, tris, disk_launches, tri_launches):
                      / off["geometry_hits_per_ray"] - 1)
     grid_chunks_equal = bool(np.array_equal(sorted_norm, chunk_norm)
                              and on["counters"] == on_chunks["counters"])
-    def resorted(run, launch="fused_bounce"):
+    def resorted(run, launch=BOUNCE):
         """A key before every launch (the resort's) besides the
         compactions'."""
-        return run["coherence_key"] >= run[launch] > 0
+        return run["coherence_key.launches"] >= run[launch] > 0
 
     res = {
         "phase": "resort_path", "nvidia_smi": card_name(),
-        "triangle_launches": {k: {"fused_bounce": n["fused_bounce"],
-                                  "coherence_key": n["coherence_key"]}
+        "triangle_launches": {k: {BOUNCE: n[BOUNCE], SORTS[1]: n[SORTS[1]]}
                               for k, n in (("default", tri_launches), (
                                   "resort", launches["triangles_resort"]))},
         "disks_resort_launches_equal_default":
@@ -3618,11 +3547,12 @@ def phase_resort_path(pts, nrm, verts, tris, disk_launches, tri_launches):
     f64_launched = launches["triangles_f64_resort"]
     ok = (resorted(launches["triangles_resort"]) and not resorted(tri_launches)
           and launches["disks_resort"] == disk_launches
-          and f64_launched["coherence_key_f64"]
-          >= f64_launched["triangle_nearest_hit_f64"] > 0
-          and only_launched(f64_launched, "triangle_nearest_hit_f64",
-                            "flux_histogram_f64", "permute_state_f64",
-                            "coherence_key_f64")
+          and f64_launched["coherence_key.launches_f64"]
+          >= f64_launched["triangle_nearest_hit.launches_f64"] > 0
+          and only_launched(f64_launched, "triangle_nearest_hit.launches_f64",
+                            "histogram_launches_f64",
+                            "permute_state.launches_f64",
+                            "coherence_key.launches_f64")
           and np.isfinite(flux64).all() and flux64.max() > 0
           and abs(hits64 / record["geometry_hits_per_ray"] - 1) <= 0.02
           and resorted(launches["disk18k_resort"])
@@ -3656,9 +3586,10 @@ def resort_kernel_entries(results, paths, keys):
           "take_half_aux_2": results[("permute", torch.float32,
                                       RESORT_LANES // 2, True)]}),
     ):
-        by_path = {p: n[name] for p, n in paths.items() if n.get(name)}
-        by_path64 = {p: n[name + "_f64"] for p, n in paths.items()
-                     if n.get(name + "_f64")}
+        by_path = {p: n[f"{name}.launches"] for p, n in paths.items()
+                   if n.get(f"{name}.launches")}
+        by_path64 = {p: n[f"{name}.launches_f64"] for p, n in paths.items()
+                     if n.get(f"{name}.launches_f64")}
         entries.append({
             "name": name, "route": "cuda",
             "source": "viennaray_tpu_torch/csrc/permute.cu",
@@ -3692,10 +3623,11 @@ def main():
 
     pts, nrm = fixtures.create_trench_grid_3d(**FLAGSHIP)
     # no device named: the CUDA device, as a user's call would get it
-    neighborhood_launches(reset=True)
+    before = dict(telemetry.COUNTS)
     geometry = DiskGeometry.build(pts, nrm, FLAGSHIP["grid_delta"])
-    nbr_flagship = neighborhood_launches()
-    if nbr_flagship != {"neighborhood": 4, "neighborhood_f64": 0}:
+    nbr_flagship = launches_since(before)
+    if (nbr_flagship["build_neighborhood_cuda.launches"],
+            nbr_flagship["build_neighborhood_cuda.launches_f64"]) != (4, 0):
         raise RuntimeError(f"the flagship's build launched {nbr_flagship}")
     bbox = adjusted_bbox(geometry)
 
@@ -3959,26 +3891,26 @@ def main():
             "replaces": "viennaray_tpu/ops/pallas_intersect.py:166",
             # the default path is fused and never reaches it: its count is
             # the unfused paths' runs and the wdist run's
-            "launches": unfused_launches["disk_nearest_hit"]
-            + ion_unfused_launches["disk_nearest_hit"]
-            + window_unfused_launches["disk_nearest_hit"]
-            + wdist_launches["disk_nearest_hit"]
-            + disk2d_unfused_launches["disk_nearest_hit"]
-            + sum(n["disk_nearest_hit"] for n in hooks.values())
-            + sum(n["disk_nearest_hit"] for n in grad.values())
-            + sharded_grad_launches["disk_nearest_hit"],
+            "launches": unfused_launches[DISK]
+            + ion_unfused_launches[DISK]
+            + window_unfused_launches[DISK]
+            + wdist_launches[DISK]
+            + disk2d_unfused_launches[DISK]
+            + sum(n[DISK] for n in hooks.values())
+            + sum(n[DISK] for n in grad.values())
+            + sharded_grad_launches[DISK],
             "launches_by_path": {
-                "disks_unfused": unfused_launches["disk_nearest_hit"],
-                "ion_unfused": ion_unfused_launches["disk_nearest_hit"],
-                "window_unfused": window_unfused_launches["disk_nearest_hit"],
-                "wdist": wdist_launches["disk_nearest_hit"],
+                "disks_unfused": unfused_launches[DISK],
+                "ion_unfused": ion_unfused_launches[DISK],
+                "window_unfused": window_unfused_launches[DISK],
+                "wdist": wdist_launches[DISK],
                 "disk2d_unfused":
-                    disk2d_unfused_launches["disk_nearest_hit"],
-                **{name: n["disk_nearest_hit"] for name, n in hooks.items()
-                   if n["disk_nearest_hit"]},
-                **{name: n["disk_nearest_hit"] for name, n in grad.items()
-                   if n["disk_nearest_hit"]},
-                "sharded_grad": sharded_grad_launches["disk_nearest_hit"],
+                    disk2d_unfused_launches[DISK],
+                **{name: n[DISK] for name, n in hooks.items()
+                   if n[DISK]},
+                **{name: n[DISK] for name, n in grad.items()
+                   if n[DISK]},
+                "sharded_grad": sharded_grad_launches[DISK],
             },
             **{k: hit_wide[k] for k in keys},
         },
@@ -3986,26 +3918,26 @@ def main():
             "name": "flux_histogram", "route": "cuda",
             "source": "viennaray_tpu_torch/csrc/flux_histogram.cu",
             "replaces": "viennaray_tpu/ops/pallas_histogram.py:39",
-            "launches": launches["flux_histogram"],
+            "launches": launches[HIST],
             "launches_by_path": {
-                "disks": launches["flux_histogram"],
-                "disks_unfused": unfused_launches["flux_histogram"],
-                "triangles": tri_launches["flux_histogram"],
-                "triangles_unfused": tri_unfused_launches["flux_histogram"],
-                "lines": line_launches["flux_histogram"],
-                "lines_unfused": line_unfused_launches["flux_histogram"],
-                "ion": ion_launches["flux_histogram"],
-                "ion_unfused": ion_unfused_launches["flux_histogram"],
-                "window": window_launches["flux_histogram"],
-                "window_unfused": window_unfused_launches["flux_histogram"],
-                "wdist": wdist_launches["flux_histogram"],
-                "grid": grid_launches["flux_histogram"],
-                "surface": surface_launches["flux_histogram"],
-                "disk2d_unfused": disk2d_unfused_launches["flux_histogram"],
-                **{name: n["flux_histogram"] for name, n in hooks.items()},
-                **{name: n["flux_histogram"] for name, n in grad.items()},
-                "sharded": sharded_launches["flux_histogram"],
-                "sharded_grad": sharded_grad_launches["flux_histogram"],
+                "disks": launches[HIST],
+                "disks_unfused": unfused_launches[HIST],
+                "triangles": tri_launches[HIST],
+                "triangles_unfused": tri_unfused_launches[HIST],
+                "lines": line_launches[HIST],
+                "lines_unfused": line_unfused_launches[HIST],
+                "ion": ion_launches[HIST],
+                "ion_unfused": ion_unfused_launches[HIST],
+                "window": window_launches[HIST],
+                "window_unfused": window_unfused_launches[HIST],
+                "wdist": wdist_launches[HIST],
+                "grid": grid_launches[HIST],
+                "surface": surface_launches[HIST],
+                "disk2d_unfused": disk2d_unfused_launches[HIST],
+                **{name: n[HIST] for name, n in hooks.items()},
+                **{name: n[HIST] for name, n in grad.items()},
+                "sharded": sharded_launches[HIST],
+                "sharded_grad": sharded_grad_launches[HIST],
             },
             # two paths of one kernel (ops/histogram.py:path_for): one
             # cluster below the threshold of entries, the whole card above
@@ -4038,11 +3970,11 @@ def main():
             "name": "flux_histogram_grad", "route": "cuda",
             "source": "viennaray_tpu_torch/csrc/flux_histogram.cu",
             "replaces": "viennaray_tpu/trace/kernel.py:161",
-            "launches": grad["grad"]["flux_histogram_grad"],
+            "launches": grad["grad"][HIST_GRAD],
             "launches_by_path": {
-                **{name: n["flux_histogram_grad"]
+                **{name: n[HIST_GRAD]
                    for name, n in grad.items()},
-                "sharded_grad": sharded_grad_launches["flux_histogram_grad"]},
+                "sharded_grad": sharded_grad_launches[HIST_GRAD]},
             **{k: hist_grad[k] for k in keys},
         },
         *f64_kernel_entries(f64_kernels, f64_narrow, f64, keys),
@@ -4052,17 +3984,17 @@ def main():
             "replaces": "viennaray_tpu/ops/pallas_intersect.py:359",
             # as for disks: the unfused triangle path's run, and the hooked
             # triangle run's
-            "launches": tri_unfused_launches["triangle_nearest_hit"]
+            "launches": tri_unfused_launches[TRI]
             + hooks["two_channels_builtin_reimplemented_triangles"][
-                "triangle_nearest_hit"]
-            + grad["grad_triangles"]["triangle_nearest_hit"],
+                TRI]
+            + grad["grad_triangles"][TRI],
             "launches_by_path": {
-                "triangles_unfused": tri_unfused_launches["triangle_nearest_hit"],
+                "triangles_unfused": tri_unfused_launches[TRI],
                 "two_channels_builtin_reimplemented_triangles": hooks[
                     "two_channels_builtin_reimplemented_triangles"][
-                    "triangle_nearest_hit"],
+                    TRI],
                 "grad_triangles": grad["grad_triangles"][
-                    "triangle_nearest_hit"],
+                    TRI],
             },
             **{k: tri_hit_wide[k] for k in keys},
         },
@@ -4072,14 +4004,14 @@ def main():
             "name": "line_nearest_hit", "route": "cuda",
             "source": "viennaray_tpu_torch/csrc/nearest_hit.cu",
             "replaces": "viennaray_tpu/ops/intersect.py:172",
-            "launches": line_unfused_launches["line_nearest_hit"]
+            "launches": line_unfused_launches[LINE]
             + hooks["two_channels_builtin_reimplemented_lines"][
-                "line_nearest_hit"],
+                LINE],
             "launches_by_path": {
-                "lines_unfused": line_unfused_launches["line_nearest_hit"],
+                "lines_unfused": line_unfused_launches[LINE],
                 "two_channels_builtin_reimplemented_lines": hooks[
                     "two_channels_builtin_reimplemented_lines"][
-                    "line_nearest_hit"],
+                    LINE],
             },
             **{k: line_hit_wide[k] for k in keys},
         },
@@ -4091,10 +4023,13 @@ def main():
             "name": "neighborhood", "route": "cuda",
             "source": "viennaray_tpu_torch/csrc/neighborhood.cu",
             "replaces": "viennaray_tpu/geometry/neighborhood.py:16",
-            "launches": nbr["launches"]["neighborhood"]
-            + nbr_flagship["neighborhood"],
-            "launches_by_path": {"disk1m_build": nbr["launches"],
-                                 "flagship_build": nbr_flagship},
+            "launches": nbr["launches"]["build_neighborhood_cuda.launches"]
+            + nbr_flagship["build_neighborhood_cuda.launches"],
+            "launches_by_path": {
+                "disk1m_build":
+                    nbr["launches"]["build_neighborhood_cuda.launches"],
+                "flagship_build":
+                    nbr_flagship["build_neighborhood_cuda.launches"]},
             **{k: nbr[k] for k in keys},
             "plain": "the host helper (native/host_accel.cpp), host clock",
             "ops_bound_ms": nbr["ops_bound_ms"],
@@ -4107,13 +4042,13 @@ def main():
             # every instantiation: the applies of the disk, triangle, line
             # and ion configurations, the gas run, the window flagship and
             # the grid and surface sources' runs
-            "launches": launches["fused_bounce"] + tri_launches["fused_bounce"]
-            + line_launches["fused_bounce"] + ion_launches["fused_bounce"]
-            + gas_launches["fused_bounce"] + window_launches["fused_bounce"]
-            + grid_launches["fused_bounce"] + surface_launches["fused_bounce"]
-            + disk2d_launches["fused_bounce"]
-            + sum(n["fused_bounce"] for n in hooks.values())
-            + sharded_launches["fused_bounce"],
+            "launches": launches[BOUNCE] + tri_launches[BOUNCE]
+            + line_launches[BOUNCE] + ion_launches[BOUNCE]
+            + gas_launches[BOUNCE] + window_launches[BOUNCE]
+            + grid_launches[BOUNCE] + surface_launches[BOUNCE]
+            + disk2d_launches[BOUNCE]
+            + sum(n[BOUNCE] for n in hooks.values())
+            + sharded_launches[BOUNCE],
             # the threads per ray G (ops/bounce.py:group_for), and the G
             # values instantiated
             "groups": {
@@ -4122,18 +4057,18 @@ def main():
                 "1": "else"},
             "groups_instantiated": list(B.GROUPS),
             "launches_by_path": {
-                "disks": launches["fused_bounce"],
-                "triangles": tri_launches["fused_bounce"],
-                "lines": line_launches["fused_bounce"],
-                "ion": ion_launches["fused_bounce"],
-                "gas": gas_launches["fused_bounce"],
-                "window": window_launches["fused_bounce"],
-                "grid": grid_launches["fused_bounce"],
-                "surface": surface_launches["fused_bounce"],
-                "disk2d": disk2d_launches["fused_bounce"],
-                **{name: n["fused_bounce"] for name, n in hooks.items()
-                   if n["fused_bounce"]},
-                "sharded": sharded_launches["fused_bounce"],
+                "disks": launches[BOUNCE],
+                "triangles": tri_launches[BOUNCE],
+                "lines": line_launches[BOUNCE],
+                "ion": ion_launches[BOUNCE],
+                "gas": gas_launches[BOUNCE],
+                "window": window_launches[BOUNCE],
+                "grid": grid_launches[BOUNCE],
+                "surface": surface_launches[BOUNCE],
+                "disk2d": disk2d_launches[BOUNCE],
+                **{name: n[BOUNCE] for name, n in hooks.items()
+                   if n[BOUNCE]},
+                "sharded": sharded_launches[BOUNCE],
             },
             **{k: bounce_wide[k] for k in keys},
             "triangles": {k: tri_bounce_wide[k] for k in keys},
@@ -4144,12 +4079,12 @@ def main():
             # launches on the grid paths, and its times beside the chunk
             # search's on the same state
             "grid": {
-                "launches": sum(n["fused_bounce_grid"]
+                "launches": sum(n[GRID]
                                 for n in grid_launches_by_path.values()),
                 "launches_by_path": {
-                    name: n["fused_bounce_grid"]
+                    name: n[GRID]
                     for name, n in grid_launches_by_path.items()
-                    if n["fused_bounce_grid"]},
+                    if n[GRID]},
                 "ms": {f"{geo}_{r}x{k}": {
                     "grid_ms": res[True]["grid_ms"],
                     "chunk_ms": res[True]["chunk_ms"],

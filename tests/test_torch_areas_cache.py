@@ -19,7 +19,6 @@ import viennaray_tpu_torch as vrtt
 from viennaray_tpu_torch.config import get_trace_settings
 from viennaray_tpu_torch.geometry.disk_geometry import DiskGeometry
 from viennaray_tpu_torch.io import fixtures
-from viennaray_tpu_torch.trace import kernel
 from viennaray_tpu_torch.utils import telemetry
 
 torch.set_num_threads(1)
@@ -60,10 +59,10 @@ def _fresh_areas(t):
 
 
 def _computed(apply):
-    """``apply()``'s change of the always-on counter."""
-    before = kernel.counters()["areas_computed"]
+    """``apply()``'s change of the always-on count."""
+    before = telemetry.COUNTS["areas_computed"]
     apply()
-    return kernel.counters()["areas_computed"] - before
+    return telemetry.COUNTS["areas_computed"] - before
 
 
 @pytest.mark.parametrize("dim", [3, 2])

@@ -53,7 +53,7 @@ def test_sweep_cell_prints_its_json_line(cell, tmp_path, capsys):
     assert row["peak_memory_bytes"] is None  # no device memory on the CPU
     for key in ("rays_per_s", "cpu_seconds", "fixture_seconds",
                 "build_seconds", "chunks_swept",
-                "tile_bounces", "launches"):
+                "tile_bounces", "counts"):
         assert key in row, key
     if cell == "line2d":
         assert set(row["rel_l2"]) == {"line2d_trench_oracle"}

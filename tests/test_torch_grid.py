@@ -55,7 +55,7 @@ from viennaray_tpu_torch.ops import nearest_hit as NH
 from viennaray_tpu_torch.physics.source import RandomSource
 from viennaray_tpu_torch.rng import GeneratorRNG
 from viennaray_tpu_torch.trace import kernel as TK
-from viennaray_tpu_torch.utils import native
+from viennaray_tpu_torch.utils import native, telemetry
 
 from torch_port_helpers import (
     F32_DIGEST_TRACES,
@@ -630,13 +630,13 @@ def test_wrappers_run_the_plain_version_on_the_cpu():
     geo = _geometry("triangles")
     org, d = _rays(geo.bbox.numpy(), 256, 3, seed=9)
     o, dd = torch.from_numpy(org), torch.from_numpy(d)
-    before = GT.triangle_grid_nearest_hit.launches
+    before = telemetry.COUNTS["triangle_grid_nearest_hit.launches"]
     got = GT.triangle_grid_nearest_hit(o, dd, geo.prims_soa, geo.soa_perm,
                                        geo.grid, T_NEAR)
     want = GT.triangle_grid_nearest_hit_ref(o, dd, geo.prims_soa,
                                             geo.soa_perm, geo.grid, T_NEAR)
     assert all(torch.equal(a, b) for a, b in zip(got, want))
-    assert GT.triangle_grid_nearest_hit.launches == before
+    assert telemetry.COUNTS["triangle_grid_nearest_hit.launches"] == before
     with pytest.raises(TypeError, match="float64"):
         GT.triangle_grid_nearest_hit(o.double(), dd.double(), geo.prims_soa,
                                      geo.soa_perm, geo.grid, T_NEAR)

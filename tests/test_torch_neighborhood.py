@@ -421,17 +421,17 @@ def test_the_cuda_source_on_the_host(host_rows, tmp_path, name):
 # ---- the path taken, the counters and the span --------------------------------
 def test_a_cpu_build_counts_a_host_build_and_says_so():
     """On the CPU the table is the helper's (numpy), counted once in
-    ``host_builds`` per ``DiskGeometry.build``, and the span says
-    ``on_device`` 0; a CPU tensor takes the host path too."""
+    ``build_neighborhood.host_builds`` per ``DiskGeometry.build``, and the
+    span says ``on_device`` 0; a CPU tensor takes the host path too."""
     pts, nrm = fixtures.create_trench_grid_3d(grid_delta=1.0)
-    before = (neighborhood.host_builds,
-              neighborhood.device_builds)
+    before = dict(telemetry.COUNTS)
     telemetry.clear()
     with profile(activities=[ProfilerActivity.CPU]):
         with telemetry.request("set_geometry"):
             geo = DiskGeometry.build(pts, nrm, 1.0, device="cpu")
-    assert (neighborhood.host_builds - before[0],
-            neighborhood.device_builds - before[1]) == (1, 0)
+    counts = telemetry.since(before)
+    assert (counts["build_neighborhood.host_builds"],
+            counts["build_neighborhood_cuda.builds"]) == (1, 0)
     span = [s for s in telemetry.spans() if s.name == "geometry.neighborhood"]
     assert [s.attrs for s in span] == [
         {"K": geo.neighbors.shape[1], "on_device": 0}]
@@ -475,14 +475,15 @@ def test_kernel_equals_the_helper(cuda, name, widen):
     dev = torch.from_numpy(np.ascontiguousarray(points)).to(cuda)
     if widen:
         dev = dev.double()
-    counted = neighborhood.build_neighborhood_cuda
-    before = (counted.launches, counted.launches_f64)
+    before = dict(telemetry.COUNTS)
     got = neighborhood.build_neighborhood(dev, distance, dim)
     assert all(t.device == dev.device for t in got)
     assert_tables_equal(got, host_tables(points, distance, dim))
     launches = 4 if len(points) and distance > 0 else 0
     f64 = dev.dtype == torch.float64
-    assert (counted.launches - before[0], counted.launches_f64 - before[1]) \
+    counts = telemetry.since(before)
+    assert (counts["build_neighborhood_cuda.launches"],
+            counts["build_neighborhood_cuda.launches_f64"]) \
         == ((0, launches) if f64 else (launches, 0))
 
 
@@ -516,14 +517,12 @@ def test_build_on_the_card_equals_the_build_on_the_cpu(cuda, dim):
         pts, nrm = fixtures.create_trench_grid_2d(grid_delta=0.1)
         delta = 0.1
     host = DiskGeometry.build(pts, nrm, delta, dim=dim, device="cpu")
-    before = (neighborhood.host_builds,
-              neighborhood.device_builds,
-              neighborhood.build_neighborhood_cuda.launches)
+    before = dict(telemetry.COUNTS)
     card = DiskGeometry.build(pts, nrm, delta, dim=dim, device=cuda)
-    assert (neighborhood.host_builds - before[0],
-            neighborhood.device_builds - before[1],
-            neighborhood.build_neighborhood_cuda.launches - before[2]) \
-        == (0, 1, 4)
+    counts = telemetry.since(before)
+    assert (counts["build_neighborhood.host_builds"],
+            counts["build_neighborhood_cuda.builds"],
+            counts["build_neighborhood_cuda.launches"]) == (0, 1, 4)
     assert card.neighbors.device == cuda
     for name in ("points", "neighbors", "neighbor_pack"):
         assert torch.equal(getattr(card, name).cpu(), getattr(host, name))

@@ -1,7 +1,8 @@
-"""The port's spans and counters (``utils.telemetry``, ``trace.kernel
-.counters``): recorded only under a ``torch.profiler`` session, one tree a
-request on the profiler's host clock, the counters the benchmark's readers
-take, and the trace's bits unchanged by recording."""
+"""The port's spans and counts (``utils.telemetry``): the spans recorded
+only under a ``torch.profiler`` session, one tree a request on the
+profiler's host clock; the counts one registry of declared names, which an
+apply span carries and the benchmark's readers take; and the trace's bits
+unchanged by recording."""
 
 import numpy as np
 import pytest
@@ -12,7 +13,6 @@ import viennaray_tpu_torch as vrtt
 from viennaray_tpu_torch.config import ReflectionKind, adjust_bounding_box
 from viennaray_tpu_torch.geometry.disk_geometry import DiskGeometry
 from viennaray_tpu_torch.io import fixtures
-from viennaray_tpu_torch.ops.bounce import fused_bounce
 from viennaray_tpu_torch.ops.histogram import flux_histogram
 from viennaray_tpu_torch.ops.nearest_hit import pack_disk_prims
 from viennaray_tpu_torch.physics.source import RandomSource
@@ -120,6 +120,47 @@ def test_host_reads_are_launches_plus_two_a_batch_plus_one(fused):
     assert root.attrs["resorts"] == 0
 
 
+# the counts an apply span carried before the registry, under the names
+# fluxbench/program_spans.py and fluxbench/species_spans.py read
+SPAN_COUNTS = ("host_reads", "compactions", "resorts", "cone_calls",
+               "cone_rounds", "bounce_launches", "hand_outs", "full_launches",
+               "histogram_entries", "histogram_entries_f64",
+               "histogram_launches", "histogram_launches_f64",
+               "areas_computed")
+
+
+def test_the_package_declares_the_counts_an_apply_span_carries():
+    assert set(SPAN_COUNTS) <= set(telemetry.COUNTS)
+    assert all(isinstance(n, int) for n in telemetry.COUNTS.values())
+
+
+def test_an_apply_span_carries_every_count():
+    """A float32 apply on the CPU: every declared count is an attribute of
+    its span, 0 included (the float64 entries, the kernels' launches), and
+    the change of the registry over the apply."""
+    t = _tracer()
+    telemetry.clear()
+    before = dict(telemetry.COUNTS)
+    with recorded():
+        t.apply()
+    counts = telemetry.since(before)
+    root = _by_name(telemetry.spans(), "apply")[0]
+    assert {k: root.attrs[k] for k in telemetry.COUNTS} == counts
+    assert root.attrs["histogram_entries_f64"] == 0
+    assert root.attrs["bounce_launches"] == 0  # no kernel on the CPU
+    assert root.attrs["host_reads"] > 0
+
+
+def test_an_undeclared_count_raises_where_it_is_bumped_or_read():
+    with pytest.raises(KeyError):
+        telemetry.COUNTS["host_builds"] += 1
+    with pytest.raises(KeyError):
+        telemetry.COUNTS["disk_nearest_hit.launch"]
+    assert "host_builds" not in telemetry.COUNTS
+    with pytest.raises(KeyError):
+        telemetry.since({})
+
+
 def test_the_unfused_apply_counts_its_histogram_entries():
     """Every unfused bounce deposits through the histogram: the deposit
     spans' entries sum to the apply's change of the counter."""
@@ -138,16 +179,17 @@ def test_the_unfused_apply_counts_its_histogram_entries():
 def test_histogram_entries_count_what_it_is_handed(path, dtype):
     gen = torch.Generator().manual_seed(3)
     sizes = (7, 1000, 65)
-    before = (flux_histogram.entries, flux_histogram.entries_f64)
+    before = dict(telemetry.COUNTS)
     for n in sizes:
         ids = torch.randint(0, 50, (n,), generator=gen, dtype=torch.int32)
         w = torch.rand(n, generator=gen, dtype=dtype)
         flux_histogram(ids, w, 50, path=path)
+    counts = telemetry.since(before)
     f64 = dtype == torch.float64
-    total = flux_histogram.entries_f64 if f64 else flux_histogram.entries
-    assert total - before[1 if f64 else 0] == sum(sizes)
-    other = flux_histogram.entries if f64 else flux_histogram.entries_f64
-    assert other == before[0 if f64 else 1]
+    assert counts["histogram_entries_f64" if f64
+                  else "histogram_entries"] == sum(sizes)
+    assert counts["histogram_entries" if f64
+                  else "histogram_entries_f64"] == 0
 
 
 def _chunked_geometry(pad_to):
@@ -183,7 +225,7 @@ def test_the_hand_out_counter_follows_hand_out_for(pad_to, hands_out):
     rng = GeneratorRNG(21, "cpu")
     rng.begin_batch(0)
     telemetry.clear()
-    before = fused_bounce.hand_outs
+    before = telemetry.COUNTS["hand_outs"]
     with recorded(), telemetry.request("apply"):
         kernel.trace_batch(geo, source, vrtt.DiffuseParticle(0.5, "flux"),
                            bbox, rng, 0, torch.arange(R),
@@ -194,7 +236,7 @@ def test_the_hand_out_counter_follows_hand_out_for(pad_to, hands_out):
     for s in launches:
         assert s.attrs["hand_out"] == int(kernel.hand_out_for(
             "disk", chunks, ReflectionKind.DIFFUSE, s.attrs["n_sub"]))
-    handed = fused_bounce.hand_outs - before
+    handed = telemetry.COUNTS["hand_outs"] - before
     assert handed == sum(s.attrs["hand_out"] for s in launches)
     assert handed == (len(launches) if hands_out else 0)
     assert len(_by_name(telemetry.spans(), "deposit")) == handed

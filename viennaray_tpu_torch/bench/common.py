@@ -108,26 +108,3 @@ def emit(obj, out=None):
         with open(out, "a") as f:
             f.write(line + "\n")
 
-
-def launch_counts():
-    """Every kernel wrapper's launch count so far (each adds one where it
-    launches its kernel; on the CPU they run plain versions and count
-    nothing)."""
-    from ..ops import bounce, histogram, nearest_hit
-
-    wrappers = {
-        "fused_bounce": bounce.fused_bounce,
-        "disk_nearest_hit": nearest_hit.disk_nearest_hit,
-        "triangle_nearest_hit": nearest_hit.triangle_nearest_hit,
-        "line_nearest_hit": nearest_hit.line_nearest_hit,
-        "flux_histogram": histogram.flux_histogram,
-        "flux_histogram_grad": histogram.flux_histogram_grad,
-    }
-    return {name: int(w.launches) for name, w in wrappers.items()}
-
-
-def launches_since(before):
-    """The launches of each kernel since ``before`` (``launch_counts()``),
-    the kernels launched only."""
-    now = launch_counts()
-    return {k: now[k] - before[k] for k in now if now[k] != before[k]}

@@ -31,6 +31,7 @@ import statistics
 
 import numpy as np
 
+from ..utils import telemetry
 from . import common
 
 GRAD = dict(rays=10_000_000, batch=1 << 19, bounces=8, seed=13, sticking=0.1)
@@ -81,9 +82,9 @@ def main(argv=None):
     run(args.batch)  # warm: one batch builds the kernels
     walls, cpus = [], []
     for _ in range(args.reps):
-        before = common.launch_counts()
+        before = dict(telemetry.COUNTS)
         (flux, grad), wall, cpu = common.timed(lambda: run(args.rays), device)
-        launches = common.launches_since(before)
+        counts = telemetry.since(before)
         walls.append(wall)
         cpus.append(cpu)
     median = statistics.median(walls)
@@ -106,7 +107,7 @@ def main(argv=None):
         "seed": GRAD["seed"], "rays_per_s_fwd_bwd": args.rays / median,
         "median_wall_seconds": median, "wall_seconds": walls,
         "cpu_seconds": cpus, "build_seconds": build_s,
-        "peak_memory_bytes": common.peak_bytes(device), "launches": launches,
+        "peak_memory_bytes": common.peak_bytes(device), "counts": counts,
         "flux_sum": float(flux.sum()), "d_flux_d_sticking": grad,
         "flux_rel_l2_golden": flux_err, "flux_rel_l2_bound": common.GOLDEN_TOL,
         "d_flux_d_sticking_per_ray": grad_per_ray,

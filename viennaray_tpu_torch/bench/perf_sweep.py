@@ -30,9 +30,10 @@ Each cell makes its fixture on the host (``fixture_seconds``), builds its
 tracer (``build_seconds``, the geometry's build),
 runs one warm apply, then ``--reps`` timed applies that end in a
 synchronise: wall and process CPU seconds of each, rays/s of the median,
-peak device memory from before the build, the kernels' launches of one
-apply, the trace's counters (hits per ray, ``chunks_swept`` and
-``tile_bounces`` of the bounce kernel's search, their ratio the chunks
+peak device memory from before the build, the change of every count of
+``utils.telemetry.COUNTS`` over one apply (``counts``: the kernels'
+launches among them, none on the CPU), the trace's counters (hits per ray,
+``chunks_swept`` and ``tile_bounces`` of the bounce kernel's search, their ratio the chunks
 walked per search, or the cells where the trace walks the grid) and, where the repository holds a golden made for that
 very configuration, the rel-L2 of the normalized flux against it (disk3d:
 ``bench_disk3d.npy`` and ``bench_disk3d_oracle.npy``; tri3d, ion, line2d:
@@ -57,6 +58,7 @@ import time
 
 import numpy as np
 
+from ..utils import telemetry
 from . import common
 
 SEED = 42
@@ -186,9 +188,9 @@ def run_cell(name, device, device_info, reps=3, rays_per_point=None,
     _, first_s, _ = common.timed(tracer.apply, device)
     walls, cpus = [], []
     for _ in range(reps):
-        before = common.launch_counts()
+        before = dict(telemetry.COUNTS)
         flux, wall, cpu = common.timed(tracer.apply, device)
-        launches = common.launches_since(before)
+        counts = telemetry.since(before)
         walls.append(wall)
         cpus.append(cpu)
     info = tracer.get_ray_trace_info()
@@ -212,7 +214,7 @@ def run_cell(name, device, device_info, reps=3, rays_per_point=None,
         "build_seconds": build_s,
         "build_cpu_seconds": build_cpu_s, "first_apply_seconds": first_s,
         "peak_memory_bytes": common.peak_bytes(device),
-        "launches": launches,
+        "counts": counts,
         "hits_per_ray": info.geometry_hits / info.num_rays,
         "flux_sum": float(np.asarray(flux, np.float64).sum()),
         "total_rays_traced": info.total_rays_traced,

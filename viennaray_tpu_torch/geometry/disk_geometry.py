@@ -389,12 +389,12 @@ class DiskGeometry:
         the geometry's own bounding box (ref: rayGeometryDisk.hpp
         :computeDiskAreas uses ``this->getBoundingBox()``, i.e. the raw
         extents, not the source-adjusted box), in float64 numpy on the host,
-        inside the span ``areas``, and counted in ``with_areas.computed``."""
+        inside the span ``areas``, and counted in ``areas_computed``."""
         key = (int(self.dim), tuple(int(d) for d in boundary_dirs),
                tuple(int(c) for c in boundary_conds))
         if key == self.areas_key:
             return self
-        DiskGeometry.with_areas.computed += 1
+        telemetry.COUNTS["areas_computed"] += 1
         with telemetry.span("areas"):
             pts = self.points.cpu().numpy().astype(np.float64)
             nrm = self.normals.cpu().numpy().astype(np.float64)
@@ -415,7 +415,7 @@ class DiskGeometry:
             )
 
 
-DiskGeometry.with_areas.computed = 0  # areas computed, always counted
+telemetry.declare("areas_computed")  # areas computed, always counted
 
 
 def window_tables(points, prims_soa, inv_perm, radius, dim):

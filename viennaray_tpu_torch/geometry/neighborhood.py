@@ -26,12 +26,15 @@ import numpy as np
 import torch
 
 from .. import _build
-from ..utils import native
+from ..utils import native, telemetry
+from ..utils.telemetry import COUNTS
 
-# builds by path, always counted: on the card (``build_neighborhood_cuda``)
-# and on the host (the helper or the numpy path)
-device_builds = 0
-host_builds = 0
+# builds by path, always counted: on the host (the helper or the numpy path)
+# and on the card, with the card's launches by the points' type
+telemetry.declare("build_neighborhood.host_builds",
+                  "build_neighborhood_cuda.builds",
+                  "build_neighborhood_cuda.launches",
+                  "build_neighborhood_cuda.launches_f64")
 
 
 def build_neighborhood(points, distance: float, dim: int = 3):
@@ -42,19 +45,18 @@ def build_neighborhood(points, distance: float, dim: int = 3):
     the first ``dim`` coordinates only. Self is never a neighbor.
 
     ``points``: (N, >= dim). A CUDA tensor is built on its device by
-    ``build_neighborhood_cuda`` (counted in the module's ``device_builds``);
-    anything else on the host (counted in ``host_builds``) by the helper,
-    or by the numpy path where it cannot be built.
+    ``build_neighborhood_cuda``; anything else on the host (counted in
+    ``build_neighborhood.host_builds``) by the helper, or by the numpy path
+    where it cannot be built.
 
     Returns:
       neighbors: (N, K) int32 padded with -1.
       counts: (N,) int32 neighbor counts.
       Both CUDA tensors for CUDA points, else numpy arrays.
     """
-    global host_builds
     if isinstance(points, torch.Tensor) and points.device.type == "cuda":
         return build_neighborhood_cuda(points, distance, dim)
-    host_builds += 1
+    COUNTS["build_neighborhood.host_builds"] += 1
     if isinstance(points, torch.Tensor):
         points = points.detach().numpy()
     points = np.asarray(points, np.float64)[:, :dim]
@@ -74,18 +76,18 @@ def build_neighborhood_cuda(points: torch.Tensor, distance: float,
     bit for bit (``csrc/neighborhood.cu`` says how). ``points``: (N, >= dim)
     float32 or float64 on a CUDA device, read at the first ``dim`` columns
     and widened to float64 in the kernels. Reads one number back, the
-    largest count, which sizes the table. Counted in ``device_builds``; its
-    kernel launches (four a build with points and a positive distance: the
-    cells, the ids, the rows counted and filled) in ``launches`` for float32
-    points and ``launches_f64`` for float64."""
-    global device_builds
+    largest count, which sizes the table. Counted in
+    ``build_neighborhood_cuda.builds``; its kernel launches (four a build
+    with points and a positive distance: the cells, the ids, the rows counted
+    and filled) in ``build_neighborhood_cuda.launches`` for float32 points
+    and ``build_neighborhood_cuda.launches_f64`` for float64."""
     if points.device.type != "cuda":
         raise RuntimeError(f"build_neighborhood_cuda: points on {points.device}")
     if points.ndim != 2 or points.shape[1] < dim or dim not in (2, 3):
         raise ValueError(f"points must be (N, >= {dim}) with dim 2 or 3")
     if points.dtype not in (torch.float32, torch.float64):
         raise TypeError(f"points must be float32 or float64, got {points.dtype}")
-    device_builds += 1
+    COUNTS["build_neighborhood_cuda.builds"] += 1
     device = points.device
     pts = points.detach().contiguous()
     n, cols = pts.shape
@@ -100,10 +102,7 @@ def build_neighborhood_cuda(points: torch.Tensor, distance: float,
         err = getattr(lib, entry)(*args, torch.cuda.current_stream().cuda_stream)
         if err != 0:
             raise RuntimeError(f"{entry}: CUDA error {err}")
-        if f64:
-            build_neighborhood_cuda.launches_f64 += 1
-        else:
-            build_neighborhood_cuda.launches += 1
+        COUNTS["build_neighborhood_cuda.launches" + f64] += 1
 
     with torch.cuda.device(device):
         lo = pts[:, :dim].amin(dim=0).contiguous()
@@ -126,10 +125,6 @@ def build_neighborhood_cuda(points: torch.Tensor, distance: float,
         launch("vr_neighborhood_rows" + f64, *args, counts.data_ptr(),
                neighbors.data_ptr(), k)
     return neighbors, counts
-
-
-build_neighborhood_cuda.launches = 0
-build_neighborhood_cuda.launches_f64 = 0
 
 
 def build_neighborhood_numpy(points: np.ndarray, distance: float, dim: int = 3):

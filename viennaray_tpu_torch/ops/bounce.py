@@ -68,6 +68,8 @@ import torch
 from .. import _build
 from ..config import BoundaryCondition, ReflectionKind, get_trace_settings
 from ..physics import reflection
+from ..utils import telemetry
+from ..utils.telemetry import COUNTS
 from . import grid_traverse, intersect, vec
 from . import sampling
 from .nearest_hit import (
@@ -817,7 +819,7 @@ def fused_bounce(state: RayState, uniforms, geometry, walls, settings,
         grid_traverse.check_grid(grid, state.org)
         if group not in (None, GRID_GROUP):
             raise ValueError(f"the grid search runs at group {GRID_GROUP}")
-    fused_bounce.hand_outs += not deposit_in_kernel
+    COUNTS["hand_outs"] += not deposit_in_kernel
     dev = state.org.device
     if dev.type == "cpu":
         return fused_bounce_ref(
@@ -889,25 +891,25 @@ def fused_bounce(state: RayState, uniforms, geometry, walls, settings,
         )
     if err != 0:
         raise RuntimeError(f"vr_fused_bounce: CUDA error {err}")
-    fused_bounce.launches += 1
+    COUNTS["bounce_launches"] += 1
     # the instantiation csrc/bounce.cu picks for the coned-cosine
     # reflection and the scattering
-    fused_bounce.full_launches += (
+    COUNTS["full_launches"] += (
         int(s.refl_kind) == ReflectionKind.CONED_COSINE
         or s.mean_free_path > 0.0)
-    fused_bounce.launches_grid += grid is not None
-    fused_bounce.sub_bounces += n_sub
-    fused_bounce.launches_by_group[g] += 1
+    COUNTS["fused_bounce.launches_grid"] += grid is not None
+    COUNTS["fused_bounce.sub_bounces"] += n_sub
+    COUNTS[f"fused_bounce.launches_by_group.{g}"] += 1
     return BounceResult(new, scratch[n_prims + 1:], flux, hit_prim, wdep,
                         t_hit)
 
 
-fused_bounce.launches = 0  # kernel launches
-# of them, launches of the kFull instantiation (a coned-cosine particle or
-# gas scattering: csrc/bounce.cu)
-fused_bounce.full_launches = 0
-fused_bounce.launches_grid = 0  # of them, launches with the grid search
-fused_bounce.sub_bounces = 0  # bounces those launches ran, n_sub each
-fused_bounce.launches_by_group = dict.fromkeys(GROUPS, 0)  # launches by G
-# calls that hand their deposits out (deposit_in_kernel=False), on the CPU too
-fused_bounce.hand_outs = 0
+# the kernel's launches; of them, those of the kFull instantiation (a
+# coned-cosine particle or gas scattering: csrc/bounce.cu) and those with the
+# grid search; the bounces they ran (n_sub each); their launches by G; and
+# the calls that hand their deposits out (deposit_in_kernel=False), on the
+# CPU too
+telemetry.declare(
+    "bounce_launches", "full_launches", "fused_bounce.launches_grid",
+    "fused_bounce.sub_bounces",
+    *(f"fused_bounce.launches_by_group.{g}" for g in GROUPS), "hand_outs")

@@ -19,7 +19,7 @@ bit for bit, not the JAX package's DDA test within a tolerance.
   ``csrc/grid_search.cuh``, which says how the walk goes and why it finds
   what the chunk search finds): on a CUDA tensor they launch the kernel or
   raise, on a CPU tensor they run the plain version. Float64 rays launch the
-  float64 forms, counted in ``launches_f64``.
+  float64 forms, counted in ``<wrapper>.launches_f64``.
 - ``with_grid`` makes either the ``search`` of ``ops/bounce.py:bounce_step``.
 
 The plain versions repeat the kernel's float operations one tensor op each,
@@ -31,6 +31,8 @@ from __future__ import annotations
 import torch
 
 from .. import _build
+from ..utils import telemetry
+from ..utils.telemetry import COUNTS
 from .nearest_hit import (
     BIG,
     MAX_RAYS,
@@ -424,10 +426,7 @@ def _launch(wrapper, entry, org, dirn, prims, perm, grid, t_near,
         )
     if err != 0:
         raise RuntimeError(f"{entry}: CUDA error {err}")
-    if f64:
-        wrapper.launches_f64 += 1
-    else:
-        wrapper.launches += 1
+    COUNTS[wrapper + (".launches_f64" if f64 else ".launches")] += 1
     return t, prim, hit
 
 
@@ -449,7 +448,8 @@ def disk_grid_nearest_hit(org, dirn, prims, perm, grid, t_near=1e-4, *,
     tensors launches the kernel of ``csrc/grid_traverse.cu`` (or raises); on
     CPU tensors runs the plain version.
 
-    org/dirn (R, 3) f32 (or f64: the float64 form, ``launches_f64``); prims
+    org/dirn (R, 3) f32 (or f64: the float64 form, counted in
+    ``disk_grid_nearest_hit.launches_f64``); prims
     (8, Npad) and perm (Npad,) int32 of the geometry; grid its
     ``GridData``. Returns (t (R,), prim (R,) int32 in ORIGINAL numbering,
     hit (R,) bool), ``nearest_hit.disk_nearest_hit``'s bit for bit.
@@ -464,12 +464,8 @@ def disk_grid_nearest_hit(org, dirn, prims, perm, grid, t_near=1e-4, *,
     if org.device.type != "cuda":
         raise RuntimeError(
             f"disk_grid_nearest_hit: unsupported device {org.device}")
-    return _launch(disk_grid_nearest_hit, "vr_disk_grid_nearest_hit", org,
+    return _launch("disk_grid_nearest_hit", "vr_disk_grid_nearest_hit", org,
                    dirn, prims, perm, grid, t_near, walk_counts)
-
-
-disk_grid_nearest_hit.launches = 0
-disk_grid_nearest_hit.launches_f64 = 0
 
 
 def triangle_grid_nearest_hit(org, dirn, prims, perm, grid, t_near=1e-4, *,
@@ -484,12 +480,13 @@ def triangle_grid_nearest_hit(org, dirn, prims, perm, grid, t_near=1e-4, *,
     if org.device.type != "cuda":
         raise RuntimeError(
             f"triangle_grid_nearest_hit: unsupported device {org.device}")
-    return _launch(triangle_grid_nearest_hit, "vr_tri_grid_nearest_hit", org,
-                   dirn, prims, perm, grid, t_near, walk_counts)
+    return _launch("triangle_grid_nearest_hit", "vr_tri_grid_nearest_hit",
+                   org, dirn, prims, perm, grid, t_near, walk_counts)
 
 
-triangle_grid_nearest_hit.launches = 0
-triangle_grid_nearest_hit.launches_f64 = 0
+telemetry.declare(*(f"{kind}_grid_nearest_hit.{what}"
+                    for kind in ("disk", "triangle")
+                    for what in ("launches", "launches_f64")))
 
 # the grid search of each geometry kind that has a grid, its plain version
 # and the exact test it runs

@@ -27,9 +27,10 @@ it would be silently zero.
 
 Float64 weights (the float64 trace) take the kernels' float64 forms
 (``vr_flux_histogram_f64``, ``vr_flux_histogram_small_f64``,
-``vr_flux_histogram_grad_f64``; counted in ``launches_f64``). One 64-bit
-fixed-point word per weight would resolve 2^-37 of the weights' range, short
-of float64's 2^-53, so each weight becomes two words, each summed in a
+``vr_flux_histogram_grad_f64``; counted in ``histogram_launches_f64`` and
+``flux_histogram_grad.launches_f64``). One 64-bit fixed-point word per
+weight would resolve 2^-37 of the weights' range, short of float64's 2^-53,
+so each weight becomes two words, each summed in a
 64-bit integer bin of its own (``fixed_point_f64``): the high word the
 weight scaled by 2^k and rounded, the low word the remainder scaled by a
 further 2^L and rounded. A bin then resolves 2^-(k + L), about 2^-77 of the
@@ -48,6 +49,8 @@ import math
 import torch
 
 from .. import _build
+from ..utils import telemetry
+from ..utils.telemetry import COUNTS
 
 # Entries below which a call takes the small path (one launch of one
 # cluster): it beats the large path's two launches on the device alone up
@@ -190,7 +193,8 @@ def flux_histogram(ids, w, n_prims: int, path=None, branch=None):
 
     ids (E,) int32 in [0, n_prims); w (E,) f32, finite; or w f64, finite and
     of largest magnitude below 2^900, which takes the float64 form (counted
-    in ``launches_f64`` and ``launches_by_path_f64``). Two calls on the same
+    in ``histogram_launches_f64`` and
+    ``flux_histogram.launches_by_path_f64.<path>``). Two calls on the same
     inputs give bitwise the same output on either device, and so do the
     kernel's two paths and the large path's two branches. ``path`` ("small"
     or "large", default ``path_for``) forces one of the paths, ``branch``
@@ -237,10 +241,8 @@ def _histogram(ids, w, n_prims, path, branch=None):
     """The checked call of ``flux_histogram``: the plain version on the CPU,
     the kernel on a CUDA device."""
     # the entries handed in, on either device
-    if w.dtype is torch.float64:
-        flux_histogram.entries_f64 += ids.size(0)
-    else:
-        flux_histogram.entries += ids.size(0)
+    COUNTS["histogram_entries_f64" if w.dtype is torch.float64
+           else "histogram_entries"] += ids.size(0)
     if not w.is_cuda:
         if w.device.type == "cpu":
             return flux_histogram_ref(ids, w, n_prims)
@@ -280,29 +282,22 @@ def _histogram(ids, w, n_prims, path, branch=None):
     if err != 0:
         raise RuntimeError(
             f"vr_flux_histogram{suffix} ({path}): CUDA error {err}")
-    if f64:
-        flux_histogram.launches_f64 += 1
-        flux_histogram.launches_by_path_f64[path] += 1
-    else:
-        flux_histogram.launches += 1
-        flux_histogram.launches_by_path[path] += 1
+    COUNTS["histogram_launches" + suffix] += 1
+    COUNTS[f"flux_histogram.launches_by_path{suffix}.{path}"] += 1
     if path == "large":
-        (flux_histogram.launches_by_branch_f64 if f64
-         else flux_histogram.launches_by_branch)[branch] += 1
+        COUNTS[f"flux_histogram.launches_by_branch{suffix}.{branch}"] += 1
     return out
 
 
-flux_histogram.launches = 0
-flux_histogram.launches_by_path = {"small": 0, "large": 0}
-flux_histogram.launches_f64 = 0
-flux_histogram.launches_by_path_f64 = {"small": 0, "large": 0}
-# the large path's launches by branch
-flux_histogram.launches_by_branch = {"cluster": 0, "global": 0}
-flux_histogram.launches_by_branch_f64 = {"cluster": 0, "global": 0}
-# the entries of every call, on the CPU too (kernel 2's roofline counts each
-# entry's id and weight read once)
-flux_histogram.entries = 0
-flux_histogram.entries_f64 = 0
+# the launches, by path and the large path's by branch, and the entries of
+# every call, on the CPU too (kernel 2's roofline counts each entry's id and
+# weight read once); float64 weights' under the same names ending in _f64
+telemetry.declare(*(name for suffix in ("", "_f64") for name in (
+    "histogram_launches" + suffix, "histogram_entries" + suffix,
+    *(f"flux_histogram.launches_by_path{suffix}.{path}"
+      for path in ("small", "large")),
+    *(f"flux_histogram.launches_by_branch{suffix}.{branch}"
+      for branch in BRANCHES))))
 
 
 class FluxHistogramFn(torch.autograd.Function):
@@ -336,8 +331,8 @@ def flux_histogram_grad(grad_out, ids):
     grad_out (n,) f32 or f64; ids (E,) int32 in [0, n). A gather: the kernel
     and the plain version give the same bits. On a CUDA tensor this launches
     ``vr_flux_histogram_grad`` (its float64 form ``vr_flux_histogram_grad_f64``
-    for float64, counted in ``launches_f64``) or raises; on a CPU tensor it
-    runs the plain version."""
+    for float64, counted in ``flux_histogram_grad.launches_f64``) or raises;
+    on a CPU tensor it runs the plain version."""
     if grad_out.dim() != 1 or ids.dim() != 1:
         raise ValueError("grad_out must be (n,) and ids (E,)")
     if ids.dtype is not torch.int32 or grad_out.dtype not in (torch.float32,
@@ -370,12 +365,10 @@ def flux_histogram_grad(grad_out, ids):
         )
     if err != 0:
         raise RuntimeError(f"{entry}: CUDA error {err}")
-    if f64:
-        flux_histogram_grad.launches_f64 += 1
-    else:
-        flux_histogram_grad.launches += 1
+    COUNTS["flux_histogram_grad.launches_f64" if f64
+           else "flux_histogram_grad.launches"] += 1
     return out
 
 
-flux_histogram_grad.launches = 0
-flux_histogram_grad.launches_f64 = 0
+telemetry.declare("flux_histogram_grad.launches",
+                  "flux_histogram_grad.launches_f64")

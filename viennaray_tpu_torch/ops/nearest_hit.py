@@ -37,7 +37,8 @@ agree exactly.
 Float64 (the float64 trace: rays, SoA and chunk boxes all float64, the
 tables of a geometry widened by ``to(torch.float64)``): the plain versions
 run the same operations in float64, and the wrappers launch the kernels'
-float64 forms (``vr_*_nearest_hit_f64``, counted in ``launches_f64``), which
+float64 forms (``vr_*_nearest_hit_f64``, counted in
+``utils.telemetry.COUNTS`` as ``<wrapper>.launches_f64``), which
 repeat them with the float64 round-to-nearest intrinsics, bit for bit. The
 constants are the JAX package's float64 search's
 (``viennaray_tpu/ops/intersect.py:29, 122, 188``): float32 values widened,
@@ -53,6 +54,8 @@ import numpy as np
 import torch
 
 from .. import _build
+from ..utils import telemetry
+from ..utils.telemetry import COUNTS
 
 BIG = np.float32(3.4e38)
 # the triangle test's least |det|: a float32 value in both types, as the JAX
@@ -73,6 +76,9 @@ PRIM_ROWS = 8
 GROUP = 32
 # The most rays one launch takes: the kernel's ray count is a C int.
 MAX_RAYS = 2**31 - 1
+telemetry.declare(*(f"{kind}_nearest_hit.{what}"
+                    for kind in ("disk", "triangle", "line")
+                    for what in ("launches", "launches_f64")))
 
 
 def auto_pt(n_prims: int) -> int:
@@ -635,7 +641,8 @@ def triangle_reject_ref(org, dirn, prims, chunk_bbs, t_near, tmin, fma=False):
 def _launch(wrapper, entry, org, dirn, prims, perm, chunk_bbs, t_near):
     """Launch the closest-hit kernel ``entry`` of ``csrc/nearest_hit.cu``, or
     its float64 form ``entry + "_f64"`` for float64 rays, on checked CUDA
-    tensors and count it on ``wrapper``; returns (t, prim, hit)."""
+    tensors and count it as ``<wrapper>.launches`` (or ``.launches_f64``);
+    returns (t, prim, hit)."""
     f64 = org.dtype == torch.float64
     if f64:
         entry += "_f64"
@@ -655,10 +662,7 @@ def _launch(wrapper, entry, org, dirn, prims, perm, chunk_bbs, t_near):
         )
     if err != 0:
         raise RuntimeError(f"{entry}: CUDA error {err}")
-    if f64:
-        wrapper.launches_f64 += 1
-    else:
-        wrapper.launches += 1
+    COUNTS[wrapper + (".launches_f64" if f64 else ".launches")] += 1
     return t, prim, hit
 
 
@@ -669,20 +673,16 @@ def disk_nearest_hit(org, dirn, prims, perm, chunk_bbs, t_near=1e-4):
 
     org/dirn (R, 3) f32; prims (8, Npad) f32; perm (Npad,) int32; chunk_bbs
     (Npad / pt, 8) f32; or every float tensor f64, which launches the float64
-    form (``launches_f64``). Returns (t (R,) of org's type, prim (R,) int32 in
-    ORIGINAL numbering, hit (R,) bool).
+    form (counted in ``disk_nearest_hit.launches_f64``). Returns (t (R,) of
+    org's type, prim (R,) int32 in ORIGINAL numbering, hit (R,) bool).
     """
     _check_inputs(org, dirn, prims, perm, chunk_bbs)
     if org.device.type == "cpu":
         return disk_nearest_hit_ref(org, dirn, prims, perm, chunk_bbs, t_near)
     if org.device.type != "cuda":
         raise RuntimeError(f"disk_nearest_hit: unsupported device {org.device}")
-    return _launch(disk_nearest_hit, "vr_disk_nearest_hit", org, dirn,
+    return _launch("disk_nearest_hit", "vr_disk_nearest_hit", org, dirn,
                    prims, perm, chunk_bbs, t_near)
-
-
-disk_nearest_hit.launches = 0
-disk_nearest_hit.launches_f64 = 0
 
 
 def triangle_nearest_hit(org, dirn, prims, perm, chunk_bbs, t_near=1e-4):
@@ -699,12 +699,8 @@ def triangle_nearest_hit(org, dirn, prims, perm, chunk_bbs, t_near=1e-4):
         raise RuntimeError(
             f"triangle_nearest_hit: unsupported device {org.device}"
         )
-    return _launch(triangle_nearest_hit, "vr_triangle_nearest_hit", org, dirn,
-                   prims, perm, chunk_bbs, t_near)
-
-
-triangle_nearest_hit.launches = 0
-triangle_nearest_hit.launches_f64 = 0
+    return _launch("triangle_nearest_hit", "vr_triangle_nearest_hit", org,
+                   dirn, prims, perm, chunk_bbs, t_near)
 
 
 def line_nearest_hit(org, dirn, prims, perm, chunk_bbs, t_near=1e-4):
@@ -717,9 +713,5 @@ def line_nearest_hit(org, dirn, prims, perm, chunk_bbs, t_near=1e-4):
         return line_nearest_hit_ref(org, dirn, prims, perm, chunk_bbs, t_near)
     if org.device.type != "cuda":
         raise RuntimeError(f"line_nearest_hit: unsupported device {org.device}")
-    return _launch(line_nearest_hit, "vr_line_nearest_hit", org, dirn,
+    return _launch("line_nearest_hit", "vr_line_nearest_hit", org, dirn,
                    prims, perm, chunk_bbs, t_near)
-
-
-line_nearest_hit.launches = 0
-line_nearest_hit.launches_f64 = 0

@@ -31,8 +31,8 @@ bounds them).
 
 On a CUDA tensor a wrapper launches its kernel or raises; on a CPU tensor it
 runs the plain version. Float64 states launch the float64 forms, counted in
-``launches_f64``. The plain versions repeat the kernels' operations one
-tensor op each, so kernel and plain version give the same bits.
+``<wrapper>.launches_f64``. The plain versions repeat the kernels' operations
+one tensor op each, so kernel and plain version give the same bits.
 """
 
 from __future__ import annotations
@@ -40,6 +40,8 @@ from __future__ import annotations
 import torch
 
 from .. import _build
+from ..utils import telemetry
+from ..utils.telemetry import COUNTS
 from .bounce import RayState
 
 # a dead lane's key: after every live lane's (at most 16^3 64 bins)
@@ -98,10 +100,11 @@ def coherence_key(org, dirn, alive, bb_lo, bb_ext, dirbins: int):
     """The resort's key: (R,) int32, ``coherence_key_ref``'s bit for bit.
 
     org/dirn (R, 3) float32 or float64 (the float64 form, counted in
-    ``launches_f64``), alive (R,) bool, bb_lo and bb_ext (3,) of org's type:
-    the box's low corner and extent (the extent at least 1e-6). ``dirbins``:
-    the direction bins, 8, 32 or 64 (``trace/kernel.py:dirbins_for``). On
-    CUDA tensors launches ``vr_coherence_key`` or raises; on CPU tensors runs
+    ``coherence_key.launches_f64``), alive (R,) bool, bb_lo and bb_ext (3,)
+    of org's type: the box's low corner and extent (the extent at least
+    1e-6). ``dirbins``: the direction bins, 8, 32 or 64
+    (``trace/kernel.py:dirbins_for``). On CUDA tensors launches
+    ``vr_coherence_key`` or raises; on CPU tensors runs
     the plain version."""
     _check_key_inputs(org, dirn, alive, bb_lo, bb_ext)
     dirbins = int(dirbins)
@@ -124,15 +127,9 @@ def coherence_key(org, dirn, alive, bb_lo, bb_ext, dirbins: int):
         )
     if err != 0:
         raise RuntimeError(f"{entry}: CUDA error {err}")
-    if f64:
-        coherence_key.launches_f64 += 1
-    else:
-        coherence_key.launches += 1
+    COUNTS["coherence_key.launches_f64" if f64
+           else "coherence_key.launches"] += 1
     return key
-
-
-coherence_key.launches = 0
-coherence_key.launches_f64 = 0
 
 
 def permute_state_ref(take, state: RayState, aux=None):
@@ -182,8 +179,8 @@ def permute_state(take, state: RayState, aux=None):
 
     take (n,) int64 with entries in [0, R), n <= R (a compaction keeps the
     first n of its order); state a ``RayState`` of R lanes, float32 or
-    float64 (the float64 form, counted in ``launches_f64``); aux None or
-    (R, A) of the state's type. On CUDA tensors launches
+    float64 (the float64 form, counted in ``permute_state.launches_f64``);
+    aux None or (R, A) of the state's type. On CUDA tensors launches
     ``vr_permute_state`` once or raises; on CPU tensors runs the plain
     version."""
     _check_state(take, state, aux)
@@ -212,12 +209,11 @@ def permute_state(take, state: RayState, aux=None):
         )
     if err != 0:
         raise RuntimeError(f"{entry}: CUDA error {err}")
-    if f64:
-        permute_state.launches_f64 += 1
-    else:
-        permute_state.launches += 1
+    COUNTS["permute_state.launches_f64" if f64
+           else "permute_state.launches"] += 1
     return out, aux_out
 
 
-permute_state.launches = 0
-permute_state.launches_f64 = 0
+telemetry.declare(*(f"{name}.{what}"
+                    for name in ("coherence_key", "permute_state")
+                    for what in ("launches", "launches_f64")))

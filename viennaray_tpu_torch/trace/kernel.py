@@ -39,8 +39,10 @@ device once per launch to decide when to compact. Under a request of
 ``utils.telemetry`` that records, each batch's parts are spans: ``source``,
 every ``launch`` and its ``deposit``, a coned-cosine launch's rejection
 sampler (``cone_theta``, one blocking read a round), every blocking
-``read``, ``compact`` and ``resort``; ``counters`` holds the counts the
-request carries.
+``read``, ``compact`` and ``resort``. The host's side is counted in
+``utils.telemetry.COUNTS``: ``host_reads`` (every blocking read),
+``compactions`` (ladder steps), ``resorts``, and the coned-cosine
+rejection's ``cone_calls`` and ``cone_rounds``.
 
 Event semantics mirrored 1:1 from rayTraceKernel.hpp:
 - miss (escape through the source-axis faces) -> nonGeometryHits (:172-176)
@@ -113,7 +115,6 @@ import torch
 from .. import rng as rng_streams
 from ..rng import HookRNG
 from ..config import ReflectionKind, TraceConfig
-from ..geometry.disk_geometry import DiskGeometry
 from ..ops.bounce import (
     COUNT_NAMES,
     N_EVENTS,
@@ -141,6 +142,7 @@ from ..physics.source import (
     check_source,
 )
 from ..utils import telemetry
+from ..utils.telemetry import COUNTS
 
 # ray-compaction ladder: halve the width per stage, floored at MIN_STAGE
 MIN_STAGE = 512
@@ -182,6 +184,11 @@ package's gate and lane order."""
 # survivors before the ladder, a launch's survivor count, the batch's
 # counters, the apply's flux, a round's test of the coned-cosine rejection
 READ_ALIVE, READ_SURVIVORS, READ_COUNTS, READ_FLUX, READ_CONE = range(5)
+# the host's side of every trace: blocking reads from the device, ladder
+# steps (a compaction or a cut), resorts, and the coned-cosine rejection's
+# calls (``_cone_theta``) and rounds (``cone_read``)
+telemetry.declare("host_reads", "compactions", "resorts", "cone_calls",
+                  "cone_rounds")
 
 # the closest-hit kernel's wrapper of each geometry kind
 _SEARCH = {
@@ -372,44 +379,18 @@ def check_supported(config: TraceConfig, particle, source,
 
 def host_read(what: int):
     """The span of one blocking read from the device to the host (``what``:
-    ``READ_ALIVE`` ... ``READ_FLUX``), counted in ``trace_batch.host_reads``
-    (the tracers' copy of the flux too)."""
-    trace_batch.host_reads += 1
+    ``READ_ALIVE`` ... ``READ_FLUX``), counted in ``host_reads`` (the
+    tracers' copy of the flux too)."""
+    COUNTS["host_reads"] += 1
     return telemetry.span("read", what=what)
 
 
 def cone_read():
     """``host_read(READ_CONE)``: one round's blocking test of the coned-cosine
     rejection (``ops.sampling.masked_rejection``), counted in
-    ``trace_batch.cone_rounds`` too."""
-    trace_batch.cone_rounds += 1
+    ``cone_rounds`` too."""
+    COUNTS["cone_rounds"] += 1
     return host_read(READ_CONE)
-
-
-def counters() -> dict:
-    """The always-on counters of the trace's work, by the name an ``apply``
-    span carries the change of each under: the host reads, ladder steps and
-    resorts of ``trace_batch``, the coned-cosine rejection's calls and rounds
-    (each round one of the host reads), the bounce kernel's launches, of
-    them those that hand their deposits out and those of its ``kFull``
-    instantiation, the histogram's entries and launches (float32 and float64
-    weights), and the computations of a disk geometry's clipped areas
-    (``DiskGeometry.with_areas``)."""
-    return dict(
-        host_reads=trace_batch.host_reads,
-        compactions=trace_batch.compactions,
-        resorts=trace_batch.resorts,
-        cone_calls=trace_batch.cone_calls,
-        cone_rounds=trace_batch.cone_rounds,
-        bounce_launches=fused_bounce.launches,
-        hand_outs=fused_bounce.hand_outs,
-        full_launches=fused_bounce.full_launches,
-        histogram_entries=flux_histogram.entries,
-        histogram_entries_f64=flux_histogram.entries_f64,
-        histogram_launches=flux_histogram.launches,
-        histogram_launches_f64=flux_histogram.launches_f64,
-        areas_computed=DiskGeometry.with_areas.computed,
-    )
 
 
 def _flux_add(ids, weights, n_prims):
@@ -459,12 +440,12 @@ def _bounce_uniforms(rng, batch_index, it, n, n_sub, settings, dev,
 def _cone_theta(rng, batch_index, it, shape, cone_angle):
     """``rng.cone_theta`` as the span ``cone_theta`` (attributes ``lanes`` and
     ``rounds``, the rejection's rounds, each a ``cone_read``), counted in
-    ``trace_batch.cone_calls``."""
-    trace_batch.cone_calls += 1
+    ``cone_calls``."""
+    COUNTS["cone_calls"] += 1
     with telemetry.span("cone_theta", lanes=math.prod(shape)) as sp:
-        before = trace_batch.cone_rounds
+        before = COUNTS["cone_rounds"]
         theta = rng.cone_theta(batch_index, it, shape, cone_angle)
-        sp.set(rounds=trace_batch.cone_rounds - before)
+        sp.set(rounds=COUNTS["cone_rounds"] - before)
     return theta
 
 
@@ -884,7 +865,7 @@ def trace_batch(
             if resorted and it % sort_every == 0:
                 # before the launch draws its uniforms (ref: kernel.py:523-531,
                 # 1075-1082), so lanes and uniforms pair as there
-                trace_batch.resorts += 1
+                COUNTS["resorts"] += 1
                 with telemetry.span("resort"):
                     state, aux = resort(state, aux, key_lo, key_ext, dirbins)
             flux, alive_count, state, done, aux = body(it, flux, state, aux)
@@ -896,7 +877,7 @@ def trace_batch(
             sorted_since_bounce = False
         if cap == 0:
             break
-        trace_batch.compactions += 1
+        COUNTS["compactions"] += 1
         with telemetry.span("compact", before=state.org.shape[0], after=cap):
             if sorted_since_bounce:
                 # no bounce since the last compaction: the lanes are still
@@ -926,14 +907,3 @@ def trace_batch(
     if log_fn is not None:
         return flux, counters, logs
     return flux, counters
-
-
-# the host's side of every trace, always counted (``counters``): blocking
-# reads from the device, ladder steps (a compaction or a cut) and resorts
-trace_batch.host_reads = 0
-trace_batch.compactions = 0
-trace_batch.resorts = 0
-# the coned-cosine rejection's calls (``_cone_theta``) and rounds
-# (``cone_read``)
-trace_batch.cone_calls = 0
-trace_batch.cone_rounds = 0

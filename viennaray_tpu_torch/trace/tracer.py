@@ -17,8 +17,8 @@ does not (``trace.kernel.BOUNCE_SORT`` says why).
 
 ``apply``, ``set_geometry``, ``normalize_flux`` and ``smooth_flux`` are the
 requests of ``utils.telemetry``: under a ``torch.profiler`` session each
-records its spans (an apply's carry the change of
-``trace.kernel.counters``, the particle's ``refl_kind`` and, under
+records its spans (an apply's carry the change of every count of
+``utils.telemetry.COUNTS``, the particle's ``refl_kind`` and, under
 ``apply_particles``, its ``species``).
 """
 
@@ -51,8 +51,8 @@ from ..rng import GeneratorRNG
 from ..utils import telemetry
 from . import postprocess
 from .kernel import (
-    BOUNCE_SORT, READ_FLUX, BatchCounters, check_supported, counters,
-    host_read, trace_batch, with_deposit_tables,
+    BOUNCE_SORT, READ_FLUX, BatchCounters, check_supported, host_read,
+    trace_batch, with_deposit_tables,
 )
 
 
@@ -121,6 +121,13 @@ class _TraceBase:
     # -- setters (ref: rayTrace.hpp:34-121) -------------------------------
     def set_particle_type(self, particle):
         self._particle = particle
+
+    def set_material_ids(self, material_ids):
+        self.geometry = self.geometry.replace(
+            material_ids=torch.from_numpy(
+                np.asarray(material_ids, np.int32)
+            ).to(self._device)
+        )
 
     def set_boundary_conditions(self, conds: Sequence[BoundaryCondition]):
         conds = tuple(BoundaryCondition(c) for c in conds)
@@ -241,7 +248,68 @@ class _TraceBase:
     def get_data_log(self) -> DataLog:
         return self._data_log
 
+    # -- the trace and its post-processing --------------------------------
+    def apply(self):
+        """Run the trace (ref: rayTraceDisk.hpp:19-57,
+        rayTraceTriangle.hpp:19-61); returns the raw flux per primitive as a
+        float64 numpy array, (L, N) for a ``collision_fn`` and a particle of
+        L > 1 data labels."""
+        with telemetry.request("apply") as req:
+            self._check_settings()
+            before = dict(telemetry.COUNTS) if req.on else None
+            self._prepare_geometry()
+            flux = self._run_trace(self.geometry, req, before)
+            self._store_local_data(flux)
+        return flux
+
+    @_request("normalize")
+    def normalize_flux(self, flux, norm: NormalizationType = NormalizationType.SOURCE):
+        """SOURCE: flux * source area / (area * rays); MAX: the flux over
+        its largest value, divided by the area (``_normalize_max``; ref:
+        rayTraceDisk.hpp:103-142, rayTraceTriangle.hpp:92-130,
+        gpu/raygTraceLine.hpp:29-58, normKernels.cu)."""
+        flux = torch.as_tensor(
+            np.asarray(flux, np.float32), device=self._device
+        )
+        areas = self.geometry.areas
+        if NormalizationType(norm) == NormalizationType.MAX:
+            out = self._normalize_max(flux, areas)
+        else:
+            config = self._make_config()
+            total = config.total_rays(self.geometry.num_primitives)
+            out = postprocess.normalize_flux_source(
+                flux, areas, self._last_source.source_area(), total
+            )
+        return out.cpu().numpy()
+
+    @_request("smooth")
+    def smooth_flux(self, flux, num_neighbors: int = 1):
+        """No-op for element meshes and lines (ref:
+        rayTraceTriangle.hpp:134-136, raygTraceLine.hpp:26-28)."""
+        return np.asarray(flux)
+
     # -- shared internals ---------------------------------------------------
+    def _check_settings(self):
+        name = type(self).__name__
+        if self._particle is None:
+            self._info.error = True
+            raise ValueError(f"No particle was specified in {name}")
+        if self.geometry is None:
+            self._info.error = True
+            raise ValueError(f"No geometry was passed to {name}")
+        if self.geometry.device != self._device:
+            raise ValueError(
+                f"geometry is on {self.geometry.device}, the tracer on "
+                f"{self._device}"
+            )
+
+    def _prepare_geometry(self):
+        """What the geometry needs before a trace: nothing here."""
+
+    def _normalize_max(self, flux, areas):
+        """``normalize_flux``'s MAX form for elements and segments."""
+        return postprocess.normalize_flux_max_triangle(flux, areas)
+
     def _make_config(self) -> TraceConfig:
         return TraceConfig(
             dim=self._dim,
@@ -265,12 +333,11 @@ class _TraceBase:
         # (ref: rayTraceKernel.hpp:100 seed = runNumber + rngSeed)
         return (self._rng_seed + self._run_number) & 0xFFFFFFFF
 
-    def _run_trace(self, geometry, request, before=None):
+    def _run_trace(self, geometry, request, before):
         """The apply's mega-batches; ``request``: the apply's span, which
         takes the rays, the batches, the primitives and the change of every
-        counter of ``trace.kernel.counters`` as attributes, from ``before``
-        (the counters at the apply's entry, where it worked before the
-        trace) or from here."""
+        count of ``utils.telemetry.COUNTS`` since ``before`` (the counts at
+        the apply's entry, None where it records nothing) as attributes."""
         config = self._make_config()
         n_prims = geometry.num_primitives
         total_rays = config.total_rays(n_prims)
@@ -309,8 +376,6 @@ class _TraceBase:
         flux_shape = (n_chan, n_prims) if n_chan > 1 else (n_prims,)
         flux = torch.zeros(flux_shape, dtype=acc_dtype, device=dev)
         totals = np.zeros(len(BatchCounters._fields), np.int64)
-        if before is None and request.on:
-            before = counters()
 
         t0 = time.perf_counter()
         for b in range(num_batches):
@@ -340,11 +405,10 @@ class _TraceBase:
             out = flux.double().cpu().numpy()
         elapsed = time.perf_counter() - t0
         if request.on:
-            after = counters()
             request.set(rays=total_rays, batches=num_batches, prims=n_prims,
                         run=self._run_number,
                         refl_kind=int(self._particle.reflection_kind),
-                        **{k: after[k] - before[k] for k in after})
+                        **telemetry.since(before))
             if self._species is not None:
                 request.set(species=self._species)
 
@@ -415,51 +479,6 @@ class TraceDisk(_TraceBase):
                 )
             req.set(primitives=self.geometry.num_primitives)
 
-    def set_material_ids(self, material_ids):
-        self.geometry = self.geometry.replace(
-            material_ids=torch.from_numpy(
-                np.asarray(material_ids, np.int32)
-            ).to(self._device)
-        )
-
-    def apply(self):
-        """Run the trace (ref: rayTraceDisk.hpp:19-57); returns the raw flux
-        per disk as a float64 numpy array, (L, N) for a ``collision_fn`` and
-        a particle of L > 1 data labels."""
-        with telemetry.request("apply") as req:
-            self._check_settings()
-            before = counters() if req.on else None
-            settings = get_trace_settings(self._source_direction)
-            # the areas are computed on the first apply after a change of
-            # the geometry or the walls, and reused on the others
-            self.geometry = self.geometry.with_areas(
-                (settings[1], settings[2]), self._boundary_conditions
-            )
-            self.geometry = with_deposit_tables(self.geometry,
-                                                self._make_config())
-            flux = self._run_trace(self.geometry, req, before)
-            self._store_local_data(flux)
-        return flux
-
-    @_request("normalize")
-    def normalize_flux(self, flux, norm: NormalizationType = NormalizationType.SOURCE):
-        """(ref: rayTraceDisk.hpp:103-142)"""
-        flux = torch.as_tensor(
-            np.asarray(flux, np.float32), device=self._device
-        )
-        areas = self.geometry.areas
-        if NormalizationType(norm) == NormalizationType.MAX:
-            out = postprocess.normalize_flux_max_disk(
-                flux, areas, self.geometry.disk_radius
-            )
-        else:
-            config = self._make_config()
-            total = config.total_rays(self.geometry.num_primitives)
-            out = postprocess.normalize_flux_source(
-                flux, areas, self._last_source.source_area(), total
-            )
-        return out.cpu().numpy()
-
     @_request("smooth")
     def smooth_flux(self, flux, num_neighbors: int = 1):
         """(ref: rayTraceDisk.hpp:146-193)"""
@@ -482,19 +501,24 @@ class TraceDisk(_TraceBase):
         return out.cpu().numpy()
 
     def _check_settings(self):
-        if self._particle is None:
-            self._info.error = True
-            raise ValueError("No particle was specified in TraceDisk")
-        if self.geometry is None:
-            self._info.error = True
-            raise ValueError("No geometry was passed to TraceDisk")
-        if self.geometry.device != self._device:
-            raise ValueError(
-                f"geometry is on {self.geometry.device}, the tracer on "
-                f"{self._device}"
-            )
+        super()._check_settings()
         if self.geometry.disk_radius > self.geometry.grid_delta:
             self._info.warning = True
+
+    def _prepare_geometry(self):
+        settings = get_trace_settings(self._source_direction)
+        # the areas are computed on the first apply after a change of the
+        # geometry or the walls, and reused on the others
+        self.geometry = self.geometry.with_areas(
+            (settings[1], settings[2]), self._boundary_conditions
+        )
+        self.geometry = with_deposit_tables(self.geometry,
+                                            self._make_config())
+
+    def _normalize_max(self, flux, areas):
+        return postprocess.normalize_flux_max_disk(
+            flux, areas, self.geometry.disk_radius
+        )
 
 
 class TraceTriangle(_TraceBase):
@@ -519,55 +543,6 @@ class TraceTriangle(_TraceBase):
                 )
             req.set(primitives=self.geometry.num_primitives)
 
-    def set_material_ids(self, material_ids):
-        self.geometry = self.geometry.replace(
-            material_ids=torch.from_numpy(
-                np.asarray(material_ids, np.int32)
-            ).to(self._device)
-        )
-
-    def apply(self):
-        """Run the trace (ref: rayTraceTriangle.hpp:19-61); returns the raw
-        flux per triangle as a float64 numpy array, (L, N) for a
-        ``collision_fn`` and a particle of L > 1 data labels."""
-        if self._particle is None:
-            self._info.error = True
-            raise ValueError("No particle was specified in TraceTriangle")
-        if self.geometry is None:
-            self._info.error = True
-            raise ValueError("No geometry was passed to TraceTriangle")
-        if self.geometry.device != self._device:
-            raise ValueError(
-                f"geometry is on {self.geometry.device}, the tracer on "
-                f"{self._device}"
-            )
-        with telemetry.request("apply") as req:
-            flux = self._run_trace(self.geometry, req)
-            self._store_local_data(flux)
-        return flux
-
-    @_request("normalize")
-    def normalize_flux(self, flux, norm: NormalizationType = NormalizationType.SOURCE):
-        """(ref: rayTraceTriangle.hpp:92-130)"""
-        flux = torch.as_tensor(
-            np.asarray(flux, np.float32), device=self._device
-        )
-        areas = self.geometry.areas
-        if NormalizationType(norm) == NormalizationType.MAX:
-            out = postprocess.normalize_flux_max_triangle(flux, areas)
-        else:
-            config = self._make_config()
-            total = config.total_rays(self.geometry.num_primitives)
-            out = postprocess.normalize_flux_source(
-                flux, areas, self._last_source.source_area(), total
-            )
-        return out.cpu().numpy()
-
-    @_request("smooth")
-    def smooth_flux(self, flux, num_neighbors: int = 1):
-        """No-op for element meshes (ref: rayTraceTriangle.hpp:134-136)."""
-        return np.asarray(flux)
-
 
 class TraceLine(_TraceBase):
     """Native 2D line-segment tracer — parity with the GPU-only
@@ -586,53 +561,3 @@ class TraceLine(_TraceBase):
                 mesh, material_ids=material_ids, device=self._device
             )
             req.set(primitives=self.geometry.num_primitives)
-
-    def set_material_ids(self, material_ids):
-        self.geometry = self.geometry.replace(
-            material_ids=torch.from_numpy(
-                np.asarray(material_ids, np.int32)
-            ).to(self._device)
-        )
-
-    def apply(self):
-        """Run the trace; returns the raw flux per segment as a float64
-        numpy array, (L, N) for a ``collision_fn`` and a particle of L > 1
-        data labels."""
-        if self._particle is None:
-            self._info.error = True
-            raise ValueError("No particle was specified in TraceLine")
-        if self.geometry is None:
-            self._info.error = True
-            raise ValueError("No geometry was passed to TraceLine")
-        if self.geometry.device != self._device:
-            raise ValueError(
-                f"geometry is on {self.geometry.device}, the tracer on "
-                f"{self._device}"
-            )
-        with telemetry.request("apply") as req:
-            flux = self._run_trace(self.geometry, req)
-            self._store_local_data(flux)
-        return flux
-
-    @_request("normalize")
-    def normalize_flux(self, flux, norm: NormalizationType = NormalizationType.SOURCE):
-        """flux *= sourceArea/(length * numRays)
-        (ref: gpu/raygTraceLine.hpp:29-58, normKernels.cu line variant)."""
-        flux = torch.as_tensor(
-            np.asarray(flux, np.float32), device=self._device
-        )
-        areas = self.geometry.areas
-        if NormalizationType(norm) == NormalizationType.MAX:
-            out = postprocess.normalize_flux_max_triangle(flux, areas)
-        else:
-            config = self._make_config()
-            total = config.total_rays(self.geometry.num_primitives)
-            out = postprocess.normalize_flux_source(
-                flux, areas, self._last_source.source_area(), total
-            )
-        return out.cpu().numpy()
-
-    @_request("smooth")
-    def smooth_flux(self, flux, num_neighbors: int = 1):
-        """Not implemented for line geometry (ref: raygTraceLine.hpp:26-28)."""
-        return np.asarray(flux)

@@ -1,4 +1,5 @@
-"""Spans of the port's requests, kept in memory while a profiler records.
+"""Spans of the port's requests, kept in memory while a profiler records,
+and the port's always-on counts.
 
 A request (a tracer's ``apply``, ``set_geometry``, ``normalize_flux`` or
 ``smooth_flux``) asks once, at its entry, whether a ``torch.profiler``
@@ -22,6 +23,19 @@ after its last read from the device, so no sync is added, and records them
 again in its later spans. The attribute ``device_ns`` is the stream's time
 from the end of the work queued before the span to the end of the span's
 last operation.
+
+The counts (``COUNTS``): one plain dict, name -> count since the process
+started, always on. A module that counts declares its names at import
+(``declare``) and bumps them in place (``COUNTS[name] += n``); a reader
+takes a snapshot (``dict(COUNTS)``) and subtracts (``since``). An
+undeclared name raises ``KeyError`` where it is bumped or read. The counts
+an ``apply`` span carried before the registry keep their names
+(``host_reads``, ``bounce_launches``, ``histogram_entries``, ...); every
+other is ``<wrapper>.<what>``, as ``disk_nearest_hit.launches_f64`` or
+``flux_histogram.launches_by_branch.global``. A kernel's launches are
+``<wrapper>.launches`` and its float64 form's ``<wrapper>.launches_f64``,
+but for the bounce and histogram kernels' (``bounce_launches``,
+``histogram_launches``, ``histogram_launches_f64``).
 """
 
 from __future__ import annotations
@@ -45,6 +59,20 @@ _OPEN_LOCK = threading.Lock()
 # CUDA device index -> timing events read and free to record again, so that
 # a span records an event instead of creating one
 _FREE_EVENTS = collections.defaultdict(list)
+
+
+COUNTS = {}
+
+
+def declare(*names):
+    """Register the counts ``names`` at 0."""
+    for name in names:
+        COUNTS.setdefault(name, 0)
+
+
+def since(before):
+    """Every count's change since ``before``, a snapshot ``dict(COUNTS)``."""
+    return {name: n - before[name] for name, n in COUNTS.items()}
 
 
 class _Thread(threading.local):
